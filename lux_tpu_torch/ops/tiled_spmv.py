@@ -1,0 +1,760 @@
+"""Hybrid SpMV: int8 strip tiles plus a lane-select tail, on the GPU.
+
+The counterpart of ``lux_tpu/ops/tiled_spmv.py``. The pull engine's hot
+loop is ``acc[dst] = Σ vals[src]`` over a static graph (the reference's
+``pr_kernel`` gather, pagerank/pagerank_gpu.cu:49-102). The host plan is
+the JAX package's, copied so both packages build byte-identical plans:
+
+1. **Strip levels** (:class:`StripLevel`): after a degree-sort relabel,
+   dense (r, 128) blocks of the adjacency matrix are stored as int8
+   count strips (cells above the cap spill to the tail), sorted by
+   destination strip-row.
+2. **Tail**: every other edge, CSC-sorted, addressed as
+   ``(src >> 7, src & 127)`` into the (nvb, 128) value operand.
+
+The device half is rewritten for Hopper. Each destination strip-row's
+strips are a contiguous range (``row_ptr``), so the strip kernel K1
+(``csrc/strip_spmv.cu``) sums them directly, and the tail kernel K2
+(``csrc/segment_sum.cu``) is a CSR segmented gather-sum. Neither needs
+the JAX package's Z-stream cumsums, boundary tables or double-single
+prefixes, which exist to avoid scatters on the TPU. Each kernel's
+wrapper runs its plain PyTorch version for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.ops import _cuda
+from lux_tpu_torch.ops.segment import (
+    SEG_ITEM,
+    SegmentItems,
+    prefix_diff_sum,
+)
+from lux_tpu_torch.utils import flags
+
+BLOCK = 128
+# Strips per K1 work item: one warp sums at most this many strips of a
+# row, so a hub row (thousands of strips after the degree relabel) is
+# spread over many warps.
+STRIP_ITEM = 16
+# Strips per chunk of K1's plain version (a 256 MB f32 temporary at r=8).
+_PLAIN_CHUNK = 1 << 16
+
+
+# ---------------------------------------------------------------------------
+# Host-side planning (a copy of the JAX package's planner)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class StripLevel:
+    """Dense (r, 128) int8 count strips at one granularity."""
+
+    r: int
+    strips: np.ndarray       # (T, r, 128) int8
+    rows: np.ndarray         # (T,) int32 dst strip index (sorted ascending)
+    cols: np.ndarray         # (T,) int32 src 128-block index
+    # Cached Σ strips so plan validation against graph.ne does not force
+    # a full read of a (possibly mmap'd multi-GB) strip array.
+    _edges: int = -1
+
+    @property
+    def nbytes(self) -> int:
+        return self.strips.nbytes
+
+    @property
+    def edges(self) -> int:
+        if self._edges < 0:
+            self._edges = int(self.strips.sum(dtype=np.int64))
+        return self._edges
+
+
+@dataclasses.dataclass(eq=False)
+class HybridPlan:
+    """Host-side product of :func:`plan_hybrid` (numpy, internal ids).
+
+    "Internal" vertex ids are positions in the degree-sorted order:
+    ``order[p]`` is the external id at internal position p and
+    ``rank[v]`` the internal position of external vertex v.
+    """
+
+    nv: int
+    nvb: int                 # number of 128-blocks (nv padded)
+    order: np.ndarray        # (nv,) int32
+    rank: np.ndarray         # (nv,) int32
+    levels: Tuple[StripLevel, ...]
+    tail_sb: np.ndarray      # (M,) int32 src >> 7, CSC (dst-sorted) order
+    tail_lane: np.ndarray    # (M,) int8  src & 127
+    tail_row_ptr: np.ndarray  # (nv+1,) int64
+    out_degrees: np.ndarray  # (nv,) int64, internal order
+    in_degrees: np.ndarray   # (nv,) int64, internal order
+    # Per-cell count cap used at plan time (excess spilled to the tail).
+    # cap <= 15 makes every even-r level nibble-packable on device
+    # (two strip rows per int8 byte, not ported yet); legacy plans
+    # used 127 and stay unpacked.
+    cap: int = 15
+    # Planning config, kept so plan caches can detect a changed request
+    # (same r-cascade, different thresholds/budget). None/-1 on legacy
+    # caches that predate these fields — treated as "unknown, servable".
+    levels_spec: Optional[Tuple[Tuple[int, int], ...]] = None
+    budget_bytes: int = -1
+
+    @property
+    def num_strips(self) -> int:
+        return sum(lev.rows.shape[0] for lev in self.levels)
+
+    @property
+    def strip_bytes(self) -> int:
+        return sum(lev.nbytes for lev in self.levels)
+
+    @property
+    def total_edges(self) -> int:
+        return self.tail_sb.shape[0] + sum(lev.edges for lev in self.levels)
+
+    @property
+    def coverage(self) -> float:
+        return 1.0 - self.tail_sb.shape[0] / max(self.total_edges, 1)
+
+
+def _relabel(graph: Graph, reorder: str):
+    nv = graph.nv
+    if reorder == "degree":
+        deg = graph.in_degrees + graph.out_degrees
+        order = np.argsort(-deg, kind="stable").astype(np.int32)
+    elif reorder == "natural":
+        order = np.arange(nv, dtype=np.int32)
+    else:
+        raise ValueError(f"unknown reorder {reorder!r}")
+    rank = np.empty(nv, np.int32)
+    rank[order] = np.arange(nv, dtype=np.int32)
+    return order, rank
+
+
+# Edge-stream chunk for the banded planner passes (edges per chunk);
+# per-chunk temporaries are a few int64/int32 arrays of this length.
+_PLAN_CHUNK = 1 << 27
+# The banded (streamed) counting path turns on above this edge count;
+# below it the direct in-memory path is faster and simpler. Both are
+# exact and produce identical plans (tested), so the threshold is a
+# pure memory/speed trade.
+_PLAN_BANDED_MIN_NE = 1 << 28
+
+
+def _strip_counts_banded(graph: Graph, rank, r: int, nvb: int,
+                         min_count: int, chunk: int = _PLAN_CHUNK):
+    """(uniq strip ids, counts) for level 0, streamed in edge chunks.
+
+    Exactly the multiset ``np.unique((d//r)*nvb + (s>>7), counts)``
+    restricted to counts >= min_count, but without materializing any
+    global int64 per-edge array (the direct form peaks at several
+    8-byte edge arrays, too much host memory at R-MAT scale 27).
+    Strategy: bucket each edge's src-block into
+    band-grouped storage (one int32 edge array; the degree relabel
+    destroys the CSC dst order, so grouping needs an explicit
+    out-of-core pass), then run-length count per band range.
+
+    Dropping counts < min_count here is selection-equivalent to the
+    direct path's select-then-filter: strips below min_count can never
+    be chosen, and stable tie order among survivors is preserved.
+
+    Bound caveat: the counting batches take whole bands, so a single
+    band holding more than ``chunk`` edges is processed in one piece
+    (temporaries ~3x its size in int64). After the degree relabel the
+    hottest dst rows share band 0, whose edges stay well under the
+    2^27 default chunk at R-MAT scale 27, so this stays a documented
+    caveat, not a practical limit.
+    """
+    nv, ne = graph.nv, graph.ne
+    nbands = (nv + r - 1) // r
+    cs, cd = graph.col_src, graph.col_dst
+
+    band_counts = np.zeros(nbands, np.int64)
+    for lo in range(0, ne, chunk):
+        b = rank[cd[lo:lo + chunk]] // r
+        band_counts += np.bincount(b, minlength=nbands)
+    band_off = np.zeros(nbands + 1, np.int64)
+    np.cumsum(band_counts, out=band_off[1:])
+
+    sblk_by_band = np.empty(ne, np.int32)
+    fill = band_off[:-1].copy()
+    for lo in range(0, ne, chunk):
+        b = rank[cd[lo:lo + chunk]] // r
+        sb = (rank[cs[lo:lo + chunk]] >> 7).astype(np.int32)
+        idx = np.argsort(b, kind="stable")
+        bs = b[idx]
+        run_start = np.concatenate(
+            [[0], np.flatnonzero(np.diff(bs)) + 1]
+        ).astype(np.int64)
+        run_len = np.diff(np.append(run_start, len(bs)))
+        within = np.arange(len(bs), dtype=np.int64) - np.repeat(
+            run_start, run_len
+        )
+        sblk_by_band[fill[bs] + within] = sb[idx]
+        fill[bs[run_start]] += run_len
+
+    uniq_parts, count_parts = [], []
+    b_lo = 0
+    while b_lo < nbands:
+        b_hi = int(
+            np.searchsorted(band_off, band_off[b_lo] + chunk, side="right")
+        ) - 1
+        b_hi = min(max(b_hi, b_lo + 1), nbands)
+        e0, e1 = int(band_off[b_lo]), int(band_off[b_hi])
+        if e1 > e0:
+            band_of_edge = np.repeat(
+                np.arange(b_lo, b_hi, dtype=np.int64),
+                band_counts[b_lo:b_hi],
+            )
+            key = band_of_edge * nvb + sblk_by_band[e0:e1]
+            uk, kc = np.unique(key, return_counts=True)
+            if min_count > 1:
+                keep = kc >= min_count
+                uk, kc = uk[keep], kc[keep]
+            uniq_parts.append(uk)
+            count_parts.append(kc.astype(np.int64))
+        b_lo = b_hi
+    if not uniq_parts:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(uniq_parts), np.concatenate(count_parts)
+
+
+def _cover_chunk(s, d, chosen, r: int, nvb: int, strip_bytes: int):
+    """(covered cell keys, tail s, tail d) for one batch of edge ids.
+
+    The single source of truth for the slot/covered/cell coverage
+    computation — the direct plan path calls it once over all edges,
+    the banded path once per chunk.
+    """
+    sid = (d // r).astype(np.int64) * nvb + (s >> 7)
+    slot = np.searchsorted(chosen, sid)
+    covered = slot < len(chosen)
+    if len(chosen):
+        covered &= np.equal(chosen[np.minimum(slot, len(chosen) - 1)], sid)
+    cell = (d % r) * BLOCK + (s & 127)
+    key = slot[covered] * strip_bytes + cell[covered]
+    return key, s[~covered].astype(np.int32), d[~covered].astype(np.int32)
+
+
+def _cover_banded(graph: Graph, rank, chosen, r: int, nvb: int,
+                  strip_bytes: int, chunk: int = _PLAN_CHUNK):
+    """Streamed coverage pass over the whole graph, per edge chunk, so
+    only covered keys and the tail int32 ids persist."""
+    ne = graph.ne
+    cs, cd = graph.col_src, graph.col_dst
+    keys, tail_s, tail_d = [], [], []
+    for lo in range(0, ne, chunk):
+        k, ts, td = _cover_chunk(
+            rank[cs[lo:lo + chunk]], rank[cd[lo:lo + chunk]],
+            chosen, r, nvb, strip_bytes,
+        )
+        keys.append(k)
+        tail_s.append(ts)
+        tail_d.append(td)
+    return (
+        np.concatenate(keys) if keys else np.zeros(0, np.int64),
+        np.concatenate(tail_s) if tail_s else np.zeros(0, np.int32),
+        np.concatenate(tail_d) if tail_d else np.zeros(0, np.int32),
+    )
+
+
+def plan_hybrid(
+    graph: Graph,
+    levels: Sequence[Tuple[int, int]] = ((8, 2),),
+    budget_bytes: int = 8 << 30,
+    reorder: str = "degree",
+    cap: int = 15,
+) -> HybridPlan:
+    """Partition edges into strip levels + a lane-select tail. Exact.
+
+    ``levels`` is a sequence of ``(r, min_count)`` pairs, consumed in
+    order: each level takes the strips (at granularity r x 128) holding
+    at least ``min_count`` still-unassigned edges, densest first, within
+    what remains of ``budget_bytes`` (booked as unpacked int8 bytes).
+    Cells holding more than ``cap`` parallel edges spill the excess to
+    the tail; cap <= 15 keeps every even-r level nibble-packable at
+    device-build time (opt-in, see DeviceHybrid.build).
+    """
+    nv = graph.nv
+    nvb = (nv + BLOCK - 1) // BLOCK
+    order, rank = _relabel(graph, reorder)
+
+    # int32 vertex ids (nv < 2^31 per the format) keep the host arrays
+    # half the size of int64; strip ids are computed in int64 where the
+    # product can overflow. Above _PLAN_BANDED_MIN_NE
+    # edges, level 0 streams the graph through the banded passes instead
+    # of materializing s/d/strip_id at all (LUX_PLAN_BANDED=0/1
+    # overrides); later levels run on the (much reduced or at least
+    # already-paid-for) tail arrays.
+    knob = flags.tristate("LUX_PLAN_BANDED")
+    banded0 = knob is True or (
+        knob is None and graph.ne >= _PLAN_BANDED_MIN_NE
+    )
+    s = d = None
+    if not banded0:
+        s = rank[graph.col_src]
+        d = rank[graph.col_dst]
+    built = []
+    remaining = budget_bytes
+
+    for r, min_count in levels:
+        if BLOCK % r:
+            raise ValueError(f"strip height {r} must divide {BLOCK}")
+        if s is None and (graph.ne == 0 or remaining <= 0):
+            s = rank[graph.col_src]
+            d = rank[graph.col_dst]
+        if s is not None and (s.size == 0 or remaining <= 0):
+            built.append(StripLevel(
+                r=r,
+                strips=np.zeros((0, r, BLOCK), np.int8),
+                rows=np.zeros(0, np.int32),
+                cols=np.zeros(0, np.int32),
+            ))
+            continue
+        # Budget books UNPACKED int8 bytes — nibble packing is an opt-in
+        # device-build decision the planner cannot assume; packed builds
+        # simply use less device memory than budgeted.
+        strip_bytes = r * BLOCK
+        if s is None:
+            # Banded level 0: counts arrive prefiltered to >= min_count
+            # (selection-equivalent to take-then-filter below, since
+            # sub-min_count strips are never chosen and stable tie order
+            # among survivors is preserved).
+            uniq_ids, counts = _strip_counts_banded(
+                graph, rank, r, nvb, min_count
+            )
+            take = np.argsort(-counts, kind="stable")[
+                : max(remaining // strip_bytes, 0)
+            ]
+            chosen = np.sort(uniq_ids[take])
+            key, tail_s, tail_d = _cover_banded(
+                graph, rank, chosen, r, nvb, strip_bytes
+            )
+        else:
+            strip_id = (d // r).astype(np.int64) * nvb + (s >> 7)
+            uniq_ids, counts = np.unique(strip_id, return_counts=True)
+            take = np.argsort(-counts, kind="stable")[
+                : max(remaining // strip_bytes, 0)
+            ]
+            take = take[counts[take] >= min_count]
+            chosen = np.sort(uniq_ids[take])
+            del strip_id
+            key, tail_s, tail_d = _cover_chunk(
+                s, d, chosen, r, nvb, strip_bytes
+            )
+        uk, kc = np.unique(key, return_counts=True)
+        strips = np.zeros((len(chosen), strip_bytes), np.int8)
+        if len(uk):
+            strips.ravel()[uk] = np.minimum(kc, cap).astype(np.int8)
+
+        # Count overflow (> cap parallel edges in one cell): keep the excess.
+        spill_s = spill_d = np.empty(0, np.int32)
+        over = kc > cap
+        if over.any():
+            reps = (kc[over] - cap).astype(np.int64)
+            ok = uk[over]
+            sid = chosen[ok // strip_bytes]
+            c = ok % strip_bytes
+            spill_d = np.repeat(
+                (sid // nvb) * r + c // BLOCK, reps
+            ).astype(np.int32)
+            spill_s = np.repeat(
+                (sid % nvb) * BLOCK + (c & 127), reps
+            ).astype(np.int32)
+
+        built.append(StripLevel(
+            r=r,
+            strips=strips.reshape(-1, r, BLOCK),
+            rows=(chosen // nvb).astype(np.int32),
+            cols=(chosen % nvb).astype(np.int32),
+        ))
+        remaining -= len(chosen) * strip_bytes
+        s = np.concatenate([tail_s, spill_s])
+        d = np.concatenate([tail_d, spill_d])
+
+    if s is None:  # banded mode with an empty `levels` sequence
+        s = rank[graph.col_src]
+        d = rank[graph.col_dst]
+
+    # Tail CSC sort by (d, s): both ids packed into one int64 key and
+    # radix-sorted (np.sort stable on ints), much faster than
+    # np.lexsort. nv < 2^31 so both ids fit 31 bits.
+    vbits = max(int(nv - 1).bit_length(), 1)
+    packed = (d.astype(np.int64) << vbits) | s.astype(np.int64)
+    packed = np.sort(packed, kind="stable")
+    d = (packed >> vbits).astype(np.int32)
+    s = (packed & ((1 << vbits) - 1)).astype(np.int32)
+    del packed
+    tail_row_ptr = np.zeros(nv + 1, np.int64)
+    np.cumsum(np.bincount(d, minlength=nv), out=tail_row_ptr[1:])
+
+    return HybridPlan(
+        nv=nv,
+        nvb=nvb,
+        order=order,
+        rank=rank,
+        levels=tuple(built),
+        tail_sb=(s >> 7).astype(np.int32),
+        tail_lane=(s & 127).astype(np.int8),
+        tail_row_ptr=tail_row_ptr,
+        out_degrees=graph.out_degrees[order],
+        in_degrees=graph.in_degrees[order],
+        cap=cap,
+        levels_spec=tuple((int(r), int(t)) for r, t in levels),
+        budget_bytes=int(budget_bytes),
+    )
+
+
+_PLAN_ARRAY_FIELDS = (
+    "order", "rank", "tail_sb", "tail_lane", "tail_row_ptr",
+    "out_degrees", "in_degrees",
+)
+
+
+def save_plan(path: str, plan: HybridPlan) -> None:
+    """Persist a plan as a directory of raw ``.npy`` files + ``meta.json``.
+
+    Raw .npy (one array per file) loads via ``np.load(mmap_mode="r")`` —
+    effectively instant, paged in at disk bandwidth on first touch.
+    ``load_plan`` also reads the legacy single-``.npz`` format. Writes go to a temp
+    directory renamed into place so a crashed save never leaves a
+    half-written cache that a later run would trust.
+    """
+    import json
+    import os
+    import tempfile
+
+    tmp = tempfile.mkdtemp(
+        dir=os.path.dirname(os.path.abspath(path)) or ".",
+        prefix=os.path.basename(path) + ".tmp.",
+    )
+    meta = dict(
+        nv=plan.nv, nvb=plan.nvb,
+        levels=[lev.r for lev in plan.levels],
+        level_edges=[lev.edges for lev in plan.levels],
+        cap=plan.cap,
+        levels_spec=(
+            None if plan.levels_spec is None
+            else [list(rt) for rt in plan.levels_spec]
+        ),
+        budget_bytes=plan.budget_bytes,
+    )
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    for name in _PLAN_ARRAY_FIELDS:
+        np.save(os.path.join(tmp, name + ".npy"), getattr(plan, name))
+    for i, lev in enumerate(plan.levels):
+        np.save(os.path.join(tmp, f"lev{i}_strips.npy"), lev.strips)
+        np.save(os.path.join(tmp, f"lev{i}_rows.npy"), lev.rows)
+        np.save(os.path.join(tmp, f"lev{i}_cols.npy"), lev.cols)
+    if os.path.isdir(path):
+        import shutil
+
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+    os.replace(tmp, path)
+
+
+def load_plan(path: str, mmap: bool = True) -> HybridPlan:
+    """Load a plan saved by :func:`save_plan` (directory format), or a
+    legacy round-1 ``.npz`` file. With ``mmap`` (default) arrays are
+    memory-mapped read-only — the caller pays disk I/O only for the
+    bytes it actually touches, when it touches them."""
+    import json
+    import os
+
+    if os.path.isdir(path):
+        mode = "r" if mmap else None
+        ld = lambda name: np.load(
+            os.path.join(path, name + ".npy"), mmap_mode=mode
+        )
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        lev_edges = meta.get("level_edges", [-1] * len(meta["levels"]))
+        levels = tuple(
+            StripLevel(
+                r=int(r),
+                strips=ld(f"lev{i}_strips"),
+                rows=ld(f"lev{i}_rows"),
+                cols=ld(f"lev{i}_cols"),
+                _edges=int(lev_edges[i]),
+            )
+            for i, r in enumerate(meta["levels"])
+        )
+        spec = meta.get("levels_spec")
+        return HybridPlan(
+            nv=int(meta["nv"]), nvb=int(meta["nvb"]),
+            levels=levels,
+            cap=int(meta.get("cap", 127)),
+            levels_spec=(
+                None if spec is None
+                else tuple((int(r), int(t)) for r, t in spec)
+            ),
+            budget_bytes=int(meta.get("budget_bytes", -1)),
+            **{name: ld(name) for name in _PLAN_ARRAY_FIELDS},
+        )
+
+    with np.load(path) as z:
+        levels = tuple(
+            StripLevel(
+                r=int(z[f"lev{i}_r"]),
+                strips=z[f"lev{i}_strips"],
+                rows=z[f"lev{i}_rows"],
+                cols=z[f"lev{i}_cols"],
+            )
+            for i in range(int(z["nlevels"]))
+        )
+        return HybridPlan(
+            nv=int(z["nv"]), nvb=int(z["nvb"]),
+            order=z["order"], rank=z["rank"],
+            levels=levels, tail_sb=z["tail_sb"], tail_lane=z["tail_lane"],
+            tail_row_ptr=z["tail_row_ptr"],
+            out_degrees=z["out_degrees"], in_degrees=z["in_degrees"],
+            cap=127,   # legacy .npz plans predate the nibble cap
+        )
+
+
+# ---------------------------------------------------------------------------
+# Device side
+# ---------------------------------------------------------------------------
+
+
+def resolve_pack(pack, plan_cap: int):
+    """One shared gate for the nibble-packing decision: explicit ``pack``
+    wins, else the LUX_PACK_STRIPS env opt-in; packing also requires the
+    plan's count cap to fit a nibble. An explicit ``pack=True`` that the
+    plan cannot satisfy raises — only the env opt-in degrades silently."""
+    if pack is None:
+        pack = flags.get_bool("LUX_PACK_STRIPS")
+    elif pack and plan_cap > 15:
+        raise ValueError(
+            f"pack=True needs a plan with count cap <= 15 (got cap="
+            f"{plan_cap}, a legacy/unpacked plan) — replan with cap<=15"
+        )
+    return bool(pack) and plan_cap <= 15
+
+
+@dataclasses.dataclass(eq=False)
+class DeviceLevel:
+    """One strip level on the device. Strip-row ``row``'s strips are
+    ``[row_ptr[row], row_ptr[row+1])``; ``items`` cuts those ranges into
+    K1 work items of at most :data:`STRIP_ITEM` strips."""
+
+    r: int
+    strips: torch.Tensor     # (T, r, 128) int8
+    cols: torch.Tensor       # (T,) int32 src 128-block per strip
+    row_ptr: torch.Tensor    # (nrb+1,) int64
+    items: SegmentItems
+
+
+@dataclasses.dataclass(eq=False)
+class DeviceHybrid:
+    levels: Tuple[DeviceLevel, ...]
+    tail_sb: torch.Tensor        # (M,) int32 src >> 7, CSC order
+    tail_lane: torch.Tensor      # (M,) int8  src & 127
+    tail_row_ptr: torch.Tensor   # (nv+1,) int64
+    tail_items: SegmentItems     # K2 work items over tail_row_ptr
+    nvb: int
+
+    @staticmethod
+    def build(plan: HybridPlan, device, pack=None) -> "DeviceHybrid":
+        """Upload ``plan`` to ``device``. ``pack`` (or the
+        LUX_PACK_STRIPS opt-in) asks for nibble-packed strips, which the
+        port does not have yet."""
+        if resolve_pack(pack, plan.cap):
+            raise NotImplementedError(
+                "nibble-packed strips (pack=True / LUX_PACK_STRIPS=1) are "
+                "not ported yet: ROADMAP.md queue A, 'Nibble-packed strips'"
+            )
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        dlevels = []
+        for lev in plan.levels:
+            nrb = plan.nvb * (BLOCK // lev.r)
+            row_ptr = np.searchsorted(
+                lev.rows, np.arange(nrb + 1, dtype=np.int64)
+            ).astype(np.int64)
+            dlevels.append(DeviceLevel(
+                r=lev.r,
+                strips=put(lev.strips),
+                cols=put(lev.cols.astype(np.int32)),
+                row_ptr=put(row_ptr),
+                items=SegmentItems.build(row_ptr, STRIP_ITEM, device),
+            ))
+        row_ptr = np.asarray(plan.tail_row_ptr, np.int64)
+        return DeviceHybrid(
+            levels=tuple(dlevels),
+            tail_sb=put(plan.tail_sb.astype(np.int32)),
+            tail_lane=put(plan.tail_lane.astype(np.int8)),
+            tail_row_ptr=put(row_ptr),
+            tail_items=SegmentItems.build(row_ptr, SEG_ITEM, device),
+            nvb=plan.nvb,
+        )
+
+
+# -- K1: strip levels --------------------------------------------------------
+
+
+def strip_level_spmv_plain(
+    x2d: torch.Tensor,
+    strips: torch.Tensor,
+    cols: torch.Tensor,
+    row_ptr: torch.Tensor,
+) -> torch.Tensor:
+    """K1's plain version: f32 strip-times-block products, a chunk of
+    strips at a time (the f32 copy of all strips would not fit the
+    card), then per-row sums by f64 prefix differences."""
+    t, r, _ = strips.shape
+    contrib = torch.empty((t, r), dtype=torch.float32, device=x2d.device)
+    for lo in range(0, t, _PLAIN_CHUNK):
+        hi = lo + _PLAIN_CHUNK
+        s = strips[lo:hi].to(torch.float32)
+        xb = x2d[cols[lo:hi].long()]
+        contrib[lo:hi] = (s * xb[:, None, :]).sum(-1)
+    return prefix_diff_sum(contrib, row_ptr).reshape(-1)
+
+
+def strip_level_spmv(x2d: torch.Tensor, lev: DeviceLevel) -> torch.Tensor:
+    """Σ strip · x_block per destination row; (nrb*r,) f32.
+
+    ``x2d`` is the (nvb, 128) f32 operand. CPU tensors take the plain
+    version; CUDA tensors launch K1 (``csrc/strip_spmv.cu``).
+    """
+    if x2d.device.type == "cpu":
+        return strip_level_spmv_plain(x2d, lev.strips, lev.cols, lev.row_ptr)
+    dev = x2d.device
+    _cuda.check(x2d, "x2d", torch.float32, dev, ndim=2)
+    if x2d.shape[1] != BLOCK:
+        raise ValueError(f"x2d must be (nvb, {BLOCK}), got {tuple(x2d.shape)}")
+    _cuda.check(lev.strips, "strips", torch.int8, dev, ndim=3)
+    if tuple(lev.strips.shape[1:]) != (lev.r, BLOCK):
+        raise ValueError(f"strips must be (T, {lev.r}, {BLOCK})")
+    _cuda.check(lev.cols, "cols", torch.int32, dev, ndim=1)
+    _cuda.check(lev.items.item_lo, "item_lo", torch.int64, dev, ndim=1)
+    _cuda.check(lev.items.row_items, "row_items", torch.int64, dev, ndim=1)
+    nrb = lev.items.nrows
+    if lev.items.n_items == 0:
+        return torch.zeros(nrb * lev.r, dtype=torch.float32, device=dev)
+    partial = torch.empty((lev.items.n_items, lev.r), dtype=torch.float32,
+                          device=dev)
+    y = torch.empty(nrb * lev.r, dtype=torch.float32, device=dev)
+    _cuda.launch(
+        "strip_spmv", "lux_strip_spmv",
+        _cuda.ptr(lev.strips), _cuda.ptr(lev.cols), _cuda.ptr(x2d),
+        _cuda.ptr(lev.items.item_lo), lev.items.n_items,
+        _cuda.ptr(lev.items.row_items), nrb, lev.r,
+        _cuda.ptr(partial), _cuda.ptr(y), _cuda.stream(dev),
+    )
+    return y
+
+
+# -- K2: the lane-select tail ------------------------------------------------
+
+
+def lane_select_tail_sums_plain(
+    x2d: torch.Tensor,
+    tail_sb: torch.Tensor,
+    tail_lane: torch.Tensor,
+    tail_row_ptr: torch.Tensor,
+) -> torch.Tensor:
+    """K2's plain version: gather each tail edge's source value, then
+    per-destination sums by f64 prefix differences."""
+    idx = (tail_sb.long() << 7) | tail_lane.long()
+    return prefix_diff_sum(x2d.reshape(-1)[idx], tail_row_ptr)
+
+
+def lane_select_tail_sums(
+    x2d: torch.Tensor,
+    tail_sb: torch.Tensor,
+    tail_lane: torch.Tensor,
+    tail_row_ptr: torch.Tensor,
+    items: Optional[SegmentItems] = None,
+) -> torch.Tensor:
+    """Per-destination sums of tail-edge source values; (nv,) f32.
+
+    ``y[v] = Σ x2d.flat[(tail_sb[e] << 7) | tail_lane[e]]`` over
+    ``e ∈ [tail_row_ptr[v], tail_row_ptr[v+1])``. CPU tensors take the
+    plain version; CUDA tensors launch K2 (``csrc/segment_sum.cu``) over
+    ``items``, the :class:`SegmentItems` of ``tail_row_ptr``.
+    """
+    if x2d.device.type == "cpu":
+        return lane_select_tail_sums_plain(x2d, tail_sb, tail_lane,
+                                           tail_row_ptr)
+    dev = x2d.device
+    _cuda.check(x2d, "x2d", torch.float32, dev, ndim=2)
+    _cuda.check(tail_sb, "tail_sb", torch.int32, dev, ndim=1)
+    _cuda.check(tail_lane, "tail_lane", torch.int8, dev, ndim=1)
+    _cuda.check(tail_row_ptr, "tail_row_ptr", torch.int64, dev, ndim=1)
+    if tail_sb.shape != tail_lane.shape:
+        raise ValueError("tail_sb and tail_lane must have one entry per edge")
+    if items is None:
+        raise ValueError("the CUDA tail sum needs the SegmentItems of "
+                         "tail_row_ptr")
+    _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
+    _cuda.check(items.row_items, "row_items", torch.int64, dev, ndim=1)
+    nv = tail_row_ptr.shape[0] - 1
+    if items.nrows != nv:
+        raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
+    if items.n_items == 0:
+        return torch.zeros(nv, dtype=torch.float32, device=dev)
+    partial = torch.empty(items.n_items, dtype=torch.float32, device=dev)
+    y = torch.empty(nv, dtype=torch.float32, device=dev)
+    _cuda.launch(
+        "tail_gather_sum", "lux_tail_gather_sum",
+        _cuda.ptr(x2d), _cuda.ptr(tail_sb), _cuda.ptr(tail_lane),
+        _cuda.ptr(items.item_lo), items.n_items,
+        _cuda.ptr(items.row_items), nv,
+        _cuda.ptr(partial), _cuda.ptr(y), _cuda.stream(dev),
+    )
+    return y
+
+
+# -- composition -------------------------------------------------------------
+
+
+def vals_to_x2d(vals: torch.Tensor, dh: DeviceHybrid) -> torch.Tensor:
+    """(nv,) values → (nvb, 128) padded gather operand."""
+    pad = dh.nvb * BLOCK - vals.shape[0]
+    return F.pad(vals, (0, pad)).reshape(dh.nvb, BLOCK)
+
+
+def strips_sum(x2d: torch.Tensor, dh: DeviceHybrid, nv: int) -> torch.Tensor:
+    """Σ over all strip levels; (nv,) f32 (internal order)."""
+    acc = None
+    for lev in dh.levels:
+        y = strip_level_spmv(x2d, lev)
+        acc = y if acc is None else acc + y
+    if acc is None:
+        return torch.zeros(nv, dtype=torch.float32, device=x2d.device)
+    return acc[:nv]
+
+
+def tail_sum(x2d: torch.Tensor, dh: DeviceHybrid) -> torch.Tensor:
+    """Σ over the lane-select tail; (nv,) f32 (internal order)."""
+    return lane_select_tail_sums(
+        x2d, dh.tail_sb, dh.tail_lane, dh.tail_row_ptr, dh.tail_items
+    )
+
+
+def hybrid_spmv(vals: torch.Tensor, dh: DeviceHybrid,
+                gtail=None) -> torch.Tensor:
+    """Full Σ vals[src] per destination over all layouts; (nv,) f32 in,
+    (nv,) f32 out (internal vertex order).
+
+    ``gtail`` (a :class:`~lux_tpu_torch.ops.merge_tail_kernel.DeviceGroupedTail`)
+    swaps the lane-select tail for the grouped merge-network tail —
+    opt-in via LUX_GROUPED_TAIL=1 in the executor; both produce per-dst
+    sums of the same tail edge set."""
+    nv = vals.shape[0]
+    x2d = vals_to_x2d(vals, dh)
+    if gtail is not None:
+        from lux_tpu_torch.ops.merge_tail_kernel import grouped_tail_sums
+
+        return strips_sum(x2d, dh, nv) + grouped_tail_sums(x2d, gtail)
+    return strips_sum(x2d, dh, nv) + tail_sum(x2d, dh)

@@ -1,0 +1,86 @@
+"""The ``LUX_*`` environment flags this package reads.
+
+A minimal copy of ``lux_tpu/utils/flags.py``: the same names, defaults
+and accessor semantics (:func:`get_bool`, :func:`tristate`) for the
+flags the tiled executor reads. Accessors re-read ``os.environ`` on
+every call, so flags stay runtime knobs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class Flag:
+    name: str          # LUX_* env var name
+    default: object    # value returned when the env var is unset
+    doc: str           # one line: what the flag does / legal values
+    kind: str = "str"  # bool | tristate
+
+
+_REGISTRY: Dict[str, Flag] = {}
+
+
+def define(name: str, default, doc: str, kind: str = "str") -> Flag:
+    if not name.startswith("LUX_"):
+        raise ValueError(f"flag name must start with LUX_: {name!r}")
+    f = Flag(name, default, doc, kind)
+    old = _REGISTRY.get(name)
+    if old is not None and old != f:
+        raise ValueError(f"flag {name} already defined as {old}")
+    _REGISTRY[name] = f
+    return f
+
+
+def _flag(name: str) -> Flag:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"undeclared flag {name!r}: declare it in "
+            "lux_tpu_torch/utils/flags.py"
+        ) from None
+
+
+def get_bool(name: str) -> bool:
+    """Unset → declared default; '' / '0' / 'false' / 'no' / 'off'
+    (case-insensitive) → False; anything else → True."""
+    f = _flag(name)
+    v = os.environ.get(name)
+    if v is None:
+        return bool(f.default)
+    return v.strip().lower() not in ("", "0", "false", "no", "off")
+
+
+def tristate(name: str, strict: bool = True) -> Optional[bool]:
+    """Three-way override knob: unset/'' → None (auto), '0' → False
+    (force off), '1' → True (force on). Other values raise when
+    ``strict``, else behave as unset."""
+    _flag(name)
+    v = os.environ.get(name, "")
+    if v == "":
+        return None
+    if v == "0":
+        return False
+    if v == "1":
+        return True
+    if strict:
+        raise ValueError(
+            f"{name}={v!r}: use '1' (force on), '0' (force off), or unset "
+            "(auto)"
+        )
+    return None
+
+
+define("LUX_PLAN_BANDED", None,
+       "tiled planner level-0 banded passes: 1 force, 0 direct, unset "
+       "auto by edge count", kind="tristate")
+define("LUX_PACK_STRIPS", False,
+       "opt-in nibble packing of even-r strip levels (needs plan count "
+       "cap <= 15)", kind="bool")
+define("LUX_GROUPED_TAIL", False,
+       "opt-in grouped (merge-network) tail phase in the tiled executors",
+       kind="bool")

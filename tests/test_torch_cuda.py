@@ -1,0 +1,135 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs a CUDA device and skips without one. The file
+imports neither JAX nor lux_tpu, so it also runs without the suite's
+conftest (which sets JAX up), on a machine with or without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lux_tpu_torch.engine.tiled import TiledPullExecutor
+from lux_tpu_torch.graph import generate
+from lux_tpu_torch.models import PageRank
+from lux_tpu_torch.ops import _cuda
+from lux_tpu_torch.ops import merge_tail_kernel as mtk
+from lux_tpu_torch.ops import merge_tail_plan as mtp
+from lux_tpu_torch.ops import segment as seg
+from lux_tpu_torch.ops import tiled_spmv as ts
+
+pytestmark = pytest.mark.cuda
+RTOL, ATOL = 5e-5, 1e-9
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _operands(nvb, seed):
+    rng = np.random.default_rng(seed)
+    return (
+        (torch.from_numpy(rng.integers(0, 8, (nvb, 128)).astype(np.float32)),
+         True),
+        (torch.from_numpy(rng.random((nvb, 128), dtype=np.float32) + 0.5),
+         False),
+    )
+
+
+def _compare(got, want, exact):
+    got = got.cpu()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("levels", [((8, 2),), ((128, 8), (8, 2)),
+                                    ((32, 4), (2, 2)), ((8, 10 ** 9),)])
+def test_strip_and_tail_kernels_match_plain(dev, levels):
+    plan = ts.plan_hybrid(generate.rmat(10, 14, seed=3), levels=levels)
+    dh, cpu = ts.DeviceHybrid.build(plan, dev), ts.DeviceHybrid.build(plan, CPU)
+    for x, exact in _operands(plan.nvb, 1):
+        xd = x.to(dev)
+        for ld, lc in zip(dh.levels, cpu.levels):
+            _compare(ts.strip_level_spmv(xd, ld), ts.strip_level_spmv(x, lc),
+                     exact)
+        _compare(ts.tail_sum(xd, dh), ts.tail_sum(x, cpu), exact)
+
+
+@pytest.mark.parametrize("m", [15000, 0])
+def test_grouped_tail_kernels_match_plain(dev, m):
+    rng = np.random.default_rng(4)
+    sb = rng.integers(0, 48, size=m)
+    lane = rng.integers(0, 128, size=m)
+    dst = np.sort(rng.integers(0, 700, size=m))
+    plan = mtp.plan_grouped_tail(sb, lane, np.searchsorted(dst,
+                                                           np.arange(701)))
+    gd = mtk.DeviceGroupedTail.build(plan, dev)
+    gc = mtk.DeviceGroupedTail.build(plan, CPU)
+    x = torch.from_numpy(rng.standard_normal((48, 128)).astype(np.float32))
+    xd = x.to(dev)
+    for k in range(gd.n_levels + 1):
+        x = mtk.level_apply(x, gc.arow[k], gc.brow[k], gc.codes[k])
+        xd = mtk.level_apply(xd, gd.arow[k], gd.brow[k], gd.codes[k])
+        assert torch.equal(xd.cpu(), x)
+    root = torch.from_numpy(
+        rng.integers(-40, 40, size=tuple(x.shape)).astype(np.float32))
+    _compare(mtk.root_reduce(root.to(dev), gd.nvalid_root, gd.dst_row_ptr,
+                             gd.dst_items),
+             mtk.root_reduce(root, gc.nvalid_root, gc.dst_row_ptr), True)
+
+
+def test_segment_sum_without_mask(dev):
+    rng = np.random.default_rng(2)
+    lens = rng.integers(0, 9, size=300)
+    lens[5] = 5000
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    data = torch.from_numpy(rng.random(int(row_ptr[-1]), dtype=np.float32))
+    items = seg.SegmentItems.build(row_ptr, seg.SEG_ITEM, dev)
+    got = seg.segment_sum_by_rowptr(data.to(dev),
+                                    torch.from_numpy(row_ptr).to(dev), items)
+    _compare(got, seg.segment_sum_by_rowptr(data, torch.from_numpy(row_ptr)),
+             False)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_executor_on_cuda_counts_launches(dev, grouped, monkeypatch):
+    if grouped:
+        monkeypatch.setenv("LUX_GROUPED_TAIL", "1")
+    g = generate.rmat(10, 14, seed=3)
+    ex = TiledPullExecutor(g, PageRank())
+    assert ex.device.type == "cuda"
+    ref = TiledPullExecutor(g, PageRank(), plan=ex.plan, device="cpu")
+    _cuda.reset_launches()
+    got = ex.run(10)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.run(10).numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert counts["strip_spmv"] == 10 * len(ex.plan.levels)
+    if grouped:
+        assert counts["level_apply"] == 10 * (ex.gtail.n_levels + 1)
+        assert counts["segment_sum_rowptr"] == 10
+        assert counts["tail_gather_sum"] == 0
+    else:
+        assert counts["tail_gather_sum"] == 10
+        assert counts["level_apply"] == counts["segment_sum_rowptr"] == 0
+
+
+def test_wrappers_check_their_inputs(dev):
+    x = torch.zeros((4, 128), device=dev)
+    rows = torch.zeros(2, dtype=torch.int64, device=dev)  # must be int32
+    codes = torch.zeros((2, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        mtk.level_apply(x, rows, rows, codes)
+    with pytest.raises(ValueError, match="contiguous"):
+        mtk.level_apply(x.t().contiguous().t(), rows.int(), rows.int(), codes)

@@ -1,0 +1,37 @@
+"""The port never imports JAX or the JAX package."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "lux_tpu")
+FILES = sorted(
+    str(p.relative_to(ROOT))
+    for p in [*(ROOT / "lux_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+)
+
+
+def imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_files_found():
+    assert "chip_smoke.py" in FILES
+    assert "lux_tpu_torch/engine/tiled.py" in FILES
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_no_jax_or_lux_tpu_import(rel):
+    bad = [
+        m for m in imported_modules(ROOT / rel)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{rel} imports {bad}"
