@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py [--scale 22]
 
-Drives the port's main path — tiled pull PageRank on an R-MAT graph of
-the given scale (edge factor 16, seed 42: the JAX package's headline
-graph at the default scale 22) — through the entry points a user calls,
-in both tail configurations (lane-select, and the grouped merge-network
-tail of ``LUX_GROUPED_TAIL=1``). Phases:
+Drives the port's two main paths through the entry points a user calls,
+on an R-MAT graph of the given scale (edge factor 16, seed 42: the JAX
+package's headline graph at the default scale 22). First tiled pull
+PageRank in both tail configurations (lane-select, and the grouped
+merge-network tail of ``LUX_GROUPED_TAIL=1``):
 
 1. environment: the card, and its name and power limit from nvidia-smi;
 2. build: compile the CUDA kernels from ``lux_tpu_torch/csrc``;
@@ -21,6 +21,19 @@ tail of ``LUX_GROUPED_TAIL=1``). Phases:
    at rtol=5e-5, atol=1e-9, with every kernel's launch count checked;
 6. timing: ms per iteration and GTEPS for both configurations, and the
    per-phase split from ``phase_step``.
+
+Then the push engine (``PushExecutor``): SSSP from vertex 0 on the same
+graph and Connected Components on its undirected closure:
+
+3b. push graphs: the closure and both executors;
+4b. K5-K7 against their plain versions at the main path's shapes, all
+    bitwise, with the same timings;
+5b. end to end: both applications to fixpoint, bitwise against the
+    vectorised oracles, zero invariant violations, launch counts checked
+    against the branch each iteration took;
+6b. timing: median of 3 runs to fixpoint, ms per iteration, GTEPS, the
+    median phase split per branch, and the cost of the per-iteration
+    host read.
 
 Any failure exits non-zero. Without a card it exits non-zero and prints
 no result. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -75,6 +88,39 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_seconds(fn) -> float:
+    """Host seconds of ``fn()`` between two device synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def device_busy(fn, top: int = 6):
+    """(ms of device activity, [(name, ms)] of the ``top`` busiest
+    kernels) during one ``fn()`` under ``torch.profiler``, or None when
+    the profiler records no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        return None
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return sum(by_name.values()), [(n[:60], v) for n, v in ranked]
+
+
 def check_close(name: str, got, want) -> float:
     """Max abs error of ``got`` against ``want``; raises outside
     rtol=5e-5, atol=1e-9."""
@@ -92,6 +138,22 @@ def check_equal(name: str, got, want) -> None:
         raise AssertionError(f"{name}: not bitwise equal (max diff {diff})")
 
 
+def record(kernels, name, source, replaces, err, ms, plain_ms, nbytes, flops,
+           lib_ms):
+    """Append one kernel's entry of the ``kernels`` JSON line (its
+    launches are filled in after the main-path runs) and log it."""
+    b_ms, b_by = bound(nbytes, flops)
+    kernels.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms,
+    })
+    log(f"[kernel] {name}: max_abs_err={err:.3e} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+        f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -105,22 +167,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from lux_tpu_torch.engine.tiled import TiledPullExecutor
     from lux_tpu_torch.graph import generate
-    from lux_tpu_torch.models.pagerank import PageRank, reference_pagerank
     from lux_tpu_torch.ops import _cuda
-    from lux_tpu_torch.ops.merge_tail_kernel import (
-        level_apply,
-        level_apply_ref,
-        root_reduce,
-    )
-    from lux_tpu_torch.ops.segment import segment_sum_by_rowptr_plain
-    from lux_tpu_torch.ops.tiled_spmv import (
-        lane_select_tail_sums,
-        lane_select_tail_sums_plain,
-        strip_level_spmv,
-        strip_level_spmv_plain,
-    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -152,7 +200,47 @@ def main(argv=None) -> int:
     t_gen = time.perf_counter() - t
     log(f"[graph] rmat({args.scale}, 16, seed={SEED}): nv={g.nv} ne={g.ne} "
         f"in {t_gen:.1f} s")
-    from lux_tpu_torch.ops.tiled_spmv import plan_hybrid
+    kernels = []
+    totals = _pagerank_phases(g, dev, kernels)
+    torch.cuda.empty_cache()
+    for name, n in _push_phases(g, dev, kernels).items():
+        totals[name] += n
+
+    for entry in kernels:
+        entry["launches"] = totals[entry["name"]]
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{entry['name']} never ran on the main path")
+    log(f"[done] scale {args.scale} in {time.perf_counter() - t_start:.1f} s "
+        f"on {smi}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _pagerank_phases(g, dev, kernels) -> dict:
+    """Phases 3-6 on the tiled pull path; returns the launch counts of
+    its two runs, summed."""
+    import torch
+
+    from lux_tpu_torch.engine.tiled import TiledPullExecutor
+    from lux_tpu_torch.models.pagerank import PageRank, reference_pagerank
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops.merge_tail_kernel import (
+        level_apply,
+        level_apply_ref,
+        root_reduce,
+    )
+    from lux_tpu_torch.ops.segment import segment_sum_by_rowptr_plain
+    from lux_tpu_torch.ops.tiled_spmv import (
+        lane_select_tail_sums,
+        lane_select_tail_sums_plain,
+        plan_hybrid,
+        strip_level_spmv,
+        strip_level_spmv_plain,
+    )
 
     t = time.perf_counter()
     plan = plan_hybrid(g)
@@ -188,21 +276,6 @@ def main(argv=None) -> int:
     x_int = torch.from_numpy(
         rng.integers(0, 4, size=(nvb, 128)).astype(np.float32)).to(dev)
     reps = 10
-    kernels = []
-
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, flops,
-               lib_ms):
-        b_ms, b_by = bound(nbytes, flops)
-        entry = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms,
-        }
-        kernels.append(entry)
-        log(f"[kernel] {name}: max_abs_err={err:.3e} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)}")
 
     # K1 strip_spmv, every level of the plan.
     err = 0.0
@@ -234,7 +307,7 @@ def main(argv=None) -> int:
         del csr
     # One multiply-add per strip cell, as the kernel does them.
     k1_flops = sum(2 * lev.strips.numel() for lev in dh.levels)
-    record("strip_spmv", "lux_tpu_torch/csrc/strip_spmv.cu",
+    record(kernels, "strip_spmv", "lux_tpu_torch/csrc/strip_spmv.cu",
            "lux_tpu/ops/tiled_spmv.py:945", err, k1_ms, k1_plain, k1_bytes,
            k1_flops, k1_lib)
 
@@ -260,7 +333,7 @@ def main(argv=None) -> int:
     xv = x_float.reshape(-1, 1)
     k2_lib = cuda_ms(lambda: tail_csr @ xv, reps)
     del tail_csr, cols
-    record("tail_gather_sum", "lux_tpu_torch/csrc/segment_sum.cu",
+    record(kernels, "tail_gather_sum", "lux_tpu_torch/csrc/segment_sum.cu",
            "lux_tpu/ops/tiled_spmv.py:1027", err, k2_ms, k2_plain, k2_bytes,
            m, k2_lib)
 
@@ -279,7 +352,7 @@ def main(argv=None) -> int:
         k3_bytes += 4 * x.numel() + 8 * a.numel() + c.numel() \
             + 4 * want.numel()
         x = want
-    record("level_apply", "lux_tpu_torch/csrc/level_apply.cu",
+    record(kernels, "level_apply", "lux_tpu_torch/csrc/level_apply.cu",
            "lux_tpu/ops/merge_tail_kernel.py:112", 0.0, k3_ms, k3_plain,
            k3_bytes, 0, None)
 
@@ -310,7 +383,7 @@ def main(argv=None) -> int:
             offsets=gt.dst_row_ptr)
 
     k4_lib = cuda_ms(k4_library, reps)
-    record("segment_sum_rowptr", "lux_tpu_torch/csrc/segment_sum.cu",
+    record(kernels, "segment_sum_rowptr", "lux_tpu_torch/csrc/segment_sum.cu",
            "lux_tpu/ops/merge_tail_kernel.py:146", err, k4_ms, k4_plain,
            k4_bytes, root_f.numel(), k4_lib)
     del x_float, x_int, root_f, root_i, x
@@ -325,11 +398,11 @@ def main(argv=None) -> int:
     nlev = sum(1 for lev in dh.levels if lev.items.n_items > 0)
     k2_per_iter = int(dh.tail_items.n_items > 0)
     k3_per_iter = sum(1 for c in gt.codes if c.shape[0] > 0)
+    none = dict.fromkeys(_cuda.LAUNCHES, 0)
     expected = {
-        "lane-select": {"strip_spmv": nlev * ITERS,
-                        "tail_gather_sum": k2_per_iter * ITERS,
-                        "level_apply": 0, "segment_sum_rowptr": 0},
-        "grouped": {"strip_spmv": nlev * ITERS, "tail_gather_sum": 0,
+        "lane-select": {**none, "strip_spmv": nlev * ITERS,
+                        "tail_gather_sum": k2_per_iter * ITERS},
+        "grouped": {**none, "strip_spmv": nlev * ITERS,
                     "level_apply": k3_per_iter * ITERS,
                     "segment_sum_rowptr":
                         int(gt.dst_items.n_items > 0) * ITERS},
@@ -365,18 +438,271 @@ def main(argv=None) -> int:
         log(f"[time] {label} phases (ms, median of 5): " + ", ".join(
             f"{k}={v * 1e3:.3f}" for k, v in phases.items()))
 
-    for entry in kernels:
-        entry["launches"] = totals[entry["name"]]
-        if entry["launches"] <= 0:
-            raise AssertionError(f"{entry['name']} never ran on the main path")
-    log(f"[done] scale {args.scale} in {time.perf_counter() - t_start:.1f} s "
-        f"on {smi}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return totals
+
+
+def _push_phases(g, dev, kernels) -> dict:
+    """Phases 3b-6b on the push engine; returns the launch counts of its
+    two runs to fixpoint (SSSP, then CC), summed."""
+    import torch
+
+    from lux_tpu_torch.engine.check import count_violations
+    from lux_tpu_torch.engine.push import PushExecutor
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models import SSSP, ConnectedComponents
+    from lux_tpu_torch.models.components import reference_components
+    from lux_tpu_torch.models.sssp import reference_sssp
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops import frontier as fq
+    from lux_tpu_torch.ops import segment as seg
+
+    # -- 3b. push graphs ----------------------------------------------------
+    t = time.perf_counter()
+    gu = generate.undirected(g)
+    log(f"[push] undirected closure: nv={gu.nv} ne={gu.ne} in "
+        f"{time.perf_counter() - t:.1f} s")
+    apps = {}
+    for app, graph, prog, kw in (("sssp", g, SSSP(), {"start": 0}),
+                                 ("cc", gu, ConnectedComponents(), {})):
+        t = time.perf_counter()
+        ex = PushExecutor(graph, prog)
+        torch.cuda.synchronize()
+        log(f"[push] {app} executor (host CSR, work items, device copy) "
+            f"built in {time.perf_counter() - t:.1f} s: nv={graph.nv} "
+            f"ne={graph.ne} blocked_dense={ex.blocked_dense} "
+            f"sparse={ex.sparse} tiers={ex.tiers}")
+        apps[app] = (ex, kw)
+    ex_s, ex_c = apps["sssp"][0], apps["cc"][0]
+    reps = 10
+
+    # -- 4b. kernels against their plain versions ---------------------------
+    # K5 on SSSP's state after 2 iterations and CC's first iteration, in
+    # both input forms; the JSON row sums the form the main path runs.
+    st_s2, _ = ex_s.run(max_iters=2, start=0)
+    k5 = dict.fromkeys(("ms", "plain", "bytes", "ops"), 0.0)
+    for label, ex, st in (("sssp after 2 iterations", ex_s, st_s2),
+                          ("cc iteration 1", ex_c, ex_c.init_state())):
+        prog = ex.program
+        relax = seg.RELAX_OPS[prog.relax_op]
+        packed = seg.pack_words(st.values, st.frontier)
+        forms = {"packed": (packed, None),
+                 "unpacked": (st.values, st.frontier)}
+        want = seg.segment_minmax_relax_plain(
+            ex.row_ptr, ex.col_src, packed, None, prog.combiner, relax)
+        times = {}
+        for form, (table, front) in forms.items():
+            check_equal(f"K5 plain {form} {label}",
+                        seg.segment_minmax_relax_plain(
+                            ex.row_ptr, ex.col_src, table, front,
+                            prog.combiner, relax), want)
+
+            def k5_call(table=table, front=front):
+                return seg.segment_minmax_relax(
+                    ex.row_ptr, ex.col_src, table, front, prog.combiner,
+                    prog.relax_op, ex.items)
+
+            check_equal(f"K5 {form} {label}", k5_call(), want)
+            times[form] = cuda_ms(k5_call, reps)
+        main_form = "packed" if ex.blocked_dense else "unpacked"
+        table, front = forms[main_form]
+        plain_ms = cuda_ms(lambda: seg.segment_minmax_relax_plain(
+            ex.row_ptr, ex.col_src, table, front, prog.combiner, relax), 2)
+        nv, ne = ex.graph.nv, ex.graph.ne
+        nbytes = 4 * ne + 8 * (nv + 1) + 4 * nv \
+            + (4 if main_form == "packed" else 5) * nv
+        log(f"[push] K5 {label}: bitwise in both forms; packed "
+            f"{times['packed']:.4f} ms, unpacked {times['unpacked']:.4f} ms, "
+            f"plain ({main_form}) {plain_ms:.4f} ms, bytes bound "
+            f"{bound(nbytes, ne)[0]:.4f} ms")
+        k5["ms"] += times[main_form]
+        k5["plain"] += plain_ms
+        k5["bytes"] += nbytes
+        k5["ops"] += ne
+    # No one PyTorch call gathers, masks, relaxes and reduces per segment;
+    # torch.segment_reduce has no integer kernels.
+    record(kernels, "segment_minmax_relax", "lux_tpu_torch/csrc/push_dense.cu",
+           "lux_tpu/engine/push.py:150", 0.0, k5["ms"], k5["plain"],
+           k5["bytes"], k5["ops"], None)
+    del st_s2, packed, table, front, want
+    torch.cuda.empty_cache()
+
+    # K6 and K7 on the sparse-tier frontier of SSSP's run with the most
+    # out-edges, and on a synthetic frontier of exactly Q vertices.
+    ex_s.run(start=0)
+    sparse_at = [(out, i) for i, (b, _, out) in enumerate(ex_s.branch_log)
+                 if b > 0]
+    if not sparse_at:
+        raise AssertionError("SSSP's run took no sparse iteration")
+    _, at = max(sparse_at)
+    st_run, _ = ex_s.run(max_iters=at, start=0)
+    rng = np.random.default_rng(SEED)
+    q_cap = ex_s.queue_cap
+    pick = rng.choice(g.nv, size=q_cap, replace=False)
+    synth = torch.zeros(g.nv, dtype=torch.bool)
+    synth[torch.from_numpy(pick)] = True
+    st_synth = type(st_run)(st_run.values, synth.to(dev))
+    k67 = {}
+    for label, st in ((f"sssp iteration {at + 1}", st_run),
+                      (f"synthetic Q={q_cap}", st_synth)):
+        prog = ex_s.program
+        relax = seg.RELAX_OPS[prog.relax_op]
+        fr = st.frontier
+        cnt = int(fr.sum())
+        out = int(torch.where(fr, ex_s.out_degrees, 0).sum())
+        rp, col_dst = ex_s.csr_row_ptr, ex_s.csr_col_dst
+        want_q = fq.frontier_queue_plain(fr, rp)
+        got_q = fq.frontier_queue(fr, rp, cnt)
+        for part, got, want in zip(("q", "start", "deg", "offs"), got_q,
+                                   want_q):
+            check_equal(f"K6 {part} {label}", got, want)
+        q, start, _, offs = got_q
+        want = fq.queue_relax_scatter_plain(q, start, offs, col_dst,
+                                            st.values, prog.combiner, relax)
+        check_equal(f"K7 {label}", fq.queue_relax_scatter(
+            q, start, offs, col_dst, st.values, prog.combiner, prog.relax_op,
+            out), want)
+        k6_ms = cuda_ms(lambda: fq.frontier_queue(fr, rp, cnt), reps)
+        k6_plain = cuda_ms(lambda: fq.frontier_queue_plain(fr, rp), reps)
+        k6_lib = cuda_ms(lambda: torch.nonzero(fr), reps)
+        k7_ms = cuda_ms(lambda: fq.queue_relax_scatter(
+            q, start, offs, col_dst, st.values, prog.combiner,
+            prog.relax_op, out), reps)
+        k7_plain = cuda_ms(lambda: fq.queue_relax_scatter_plain(
+            q, start, offs, col_dst, st.values, prog.combiner, relax), reps)
+        # Yardstick: the scatter alone, one scatter_reduce over int64
+        # candidates and destinations built beforehand.
+        slot = torch.repeat_interleave(torch.arange(cnt, device=dev),
+                                       offs.diff())
+        edge = start[slot] + torch.arange(out, device=dev) - offs[:-1][slot]
+        dst_e = col_dst[edge].long()
+        vals64 = seg.widen_u32(st.values)
+        cand = relax(vals64[q.long()[slot]])
+        k7_lib = cuda_ms(lambda: vals64.scatter_reduce(
+            0, dst_e, cand, reduce="amin", include_self=True), reps)
+        del slot, edge, dst_e, cand
+        k6_bytes = g.nv + 16 * cnt + 28 * cnt + 8
+        k7_bytes = 8 * g.nv + 4 * out + 20 * cnt + 8
+        log(f"[push] K6/K7 {label}: cnt={cnt} out_edges={out}; bitwise; "
+            f"K6 {k6_ms:.4f} ms (plain {k6_plain:.4f}, torch.nonzero "
+            f"{k6_lib:.4f}, bound {bound(k6_bytes, 0)[0]:.4f}); K7 "
+            f"{k7_ms:.4f} ms (plain {k7_plain:.4f}, scatter_reduce "
+            f"{k7_lib:.4f}, bound {bound(k7_bytes, out)[0]:.4f})")
+        if not k67:
+            k67 = dict(k6=(k6_ms, k6_plain, k6_bytes, cnt, k6_lib),
+                       k7=(k7_ms, k7_plain, k7_bytes, out, k7_lib))
+    record(kernels, "frontier_queue", "lux_tpu_torch/csrc/frontier.cu",
+           "lux_tpu/engine/push.py:447", 0.0, *k67["k6"])
+    record(kernels, "queue_relax_scatter", "lux_tpu_torch/csrc/frontier.cu",
+           "lux_tpu/engine/push.py:460", 0.0, *k67["k7"])
+    del st_run, st_synth, synth, want, got_q, want_q, q, start, offs, vals64
+    torch.cuda.empty_cache()
+
+    # -- 5b. end to end -------------------------------------------------------
+    t = time.perf_counter()
+    oracles = {"sssp": reference_sssp(g, 0)}
+    log(f"[push] sssp oracle (numpy BFS) in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    oracles["cc"] = reference_components(gu)
+    log(f"[push] cc oracle (scipy) in {time.perf_counter() - t:.1f} s")
+    push_kernels = ("segment_minmax_relax", "frontier_queue",
+                    "queue_relax_scatter")
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    for app, (ex, kw) in apps.items():
+        _cuda.reset_launches()
+        st, iters = ex.run(**kw)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        vals = ex.values(st)
+        if vals.shape != (ex.graph.nv,) or vals.dtype != np.uint32:
+            raise AssertionError(f"{app}: bad output {vals.shape} {vals.dtype}")
+        if not np.array_equal(vals, oracles[app]):
+            raise AssertionError(
+                f"{app}: {int(np.sum(vals != oracles[app]))} values differ "
+                "from the oracle")
+        viol = count_violations(ex.graph, st.values, ex.program)
+        if viol:
+            raise AssertionError(f"{app}: {viol} invariant violations")
+        branches = ex.branch_log
+        dense = sum(1 for b, _, _ in branches if b == 0)
+        if dense + ex.sparse_iters != iters:
+            raise AssertionError(f"{app}: {dense} dense + {ex.sparse_iters} "
+                                 f"sparse != {iters} iterations")
+        want = dict.fromkeys(_cuda.LAUNCHES, 0)
+        want["segment_minmax_relax"] = dense
+        want["frontier_queue"] = sum(1 for b, c, _ in branches if b > 0 and c > 0)
+        want["queue_relax_scatter"] = sum(
+            1 for b, c, e in branches if b > 0 and c > 0 and e > 0)
+        if counts != want:
+            raise AssertionError(f"{app}: launches {counts}, expected {want}")
+        log(f"[push] {app}: fixpoint in {iters} iterations "
+            f"({ex.sparse_iters} sparse) matches the oracle bitwise, 0 "
+            f"violations; branches {[(b, c, e) for b, c, e in branches]}; "
+            f"launches { {k: counts[k] for k in push_kernels} }")
+        for name, n in counts.items():
+            totals[name] += n
+    for name in push_kernels:
+        if totals[name] <= 0:
+            raise AssertionError(f"{name} never ran on the push path")
+
+    # -- 6b. timing -----------------------------------------------------------
+    probe = torch.zeros(2, dtype=torch.int64, device=dev)
+    reads = []
+    for _ in range(100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe.tolist()
+        reads.append(time.perf_counter() - t0)
+    read_ms = float(np.median(reads)) * 1e3
+    log(f"[time] host read of the two frontier counters (16 bytes, idle "
+        f"stream): median {read_ms:.4f} ms over 100")
+    for app, (ex, kw) in apps.items():
+        ex.warmup(**kw)
+        secs = [host_seconds(lambda: ex.run(**kw)) for _ in range(3)]
+        sec = float(np.median(secs))
+        iters = len(ex.branch_log)
+        log(f"[time] push {app}: {iters} iterations ({ex.sparse_iters} "
+            f"sparse) in {sec * 1e3:.3f} ms (median of 3: "
+            f"{[round(x * 1e3, 3) for x in secs]}), "
+            f"{sec / iters * 1e3:.3f} ms/iteration, "
+            f"{ex.graph.ne * iters / sec / 1e9:.3f} GTEPS; host reads "
+            f"{iters + 1} x {read_ms:.4f} ms")
+        # The same run split: building the initial state (host arrays
+        # copied to the card), and iterating from a state on the card.
+        init = float(np.median([host_seconds(lambda: ex.init_state(**kw))
+                                for _ in range(3)]))
+        st0 = ex.init_state(**kw)
+        iter_sec = float(np.median([host_seconds(lambda: ex.run(state=st0))
+                                    for _ in range(3)]))
+        log(f"[time] push {app}: init_state {init * 1e3:.3f} ms; run from "
+            f"a device state {iter_sec * 1e3:.3f} ms, "
+            f"{iter_sec / iters * 1e3:.3f} ms/iteration "
+            f"(medians of 3)")
+        busy = device_busy(lambda: ex.run(state=st0))
+        if busy is None:
+            log(f"[time] push {app}: device busy share not measured "
+                "(the profiler saw no kernels)")
+        else:
+            busy_ms, top = busy
+            log(f"[time] push {app}: device busy {busy_ms:.3f} ms of the "
+                f"{iter_sec * 1e3:.3f} ms run from a device state "
+                f"({busy_ms / (iter_sec * 1e3):.1%}; torch.profiler); top "
+                "kernels (ms): " + ", ".join(f"{n}={v:.3f}" for n, v in top))
+        st = ex.init_state(**kw)
+        ex.warmup_phases(st)
+        split = {}
+        while True:
+            st, cnt, times = ex.phase_step(st)
+            branch = "dense" if times.pop("branch") == "dense" else "sparse"
+            split.setdefault(branch, []).append(times)
+            if cnt == 0:
+                break
+        for branch, runs in split.items():
+            med = {k: float(np.median([r[k] for r in runs])) * 1e3
+                   for k in runs[0]}
+            log(f"[time] push {app} {branch} phases (ms, median of "
+                f"{len(runs)}): " + ", ".join(
+                    f"{k}={v:.3f}" for k, v in med.items()))
+    return totals
 
 
 def _level_csr(lev, nvb: int, dev):

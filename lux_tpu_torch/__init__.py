@@ -6,8 +6,9 @@ and numpy only — never JAX and nothing of ``lux_tpu`` (its numpy-only
 host code is copied here, and tests hold the copies byte-identical).
 
 Ported so far: the tiled pull executor (``engine.tiled``) with PageRank,
-the graph core (``graph``), the hybrid strip/tail plan and the grouped
-merge-network tail. Device work runs in hand-written CUDA kernels under
+the graph core (``graph``), the hybrid strip/tail plan, the grouped
+merge-network tail, and the single-device push engine
+(``engine.push.PushExecutor``) with SSSP and Connected Components. Device work runs in hand-written CUDA kernels under
 ``csrc/`` (built at first use, see :mod:`lux_tpu_torch.ops._cuda`); each
 kernel has a plain-PyTorch version beside its wrapper, which runs only
 for tensors on the CPU.
@@ -18,8 +19,9 @@ without a card and without an explicit device they raise.
 Layout:
     lux_tpu_torch.graph   — .lux format, Graph data model, generators
     lux_tpu_torch.ops     — plans, kernel wrappers and their plain versions
-    lux_tpu_torch.engine  — vertex-program base classes, tiled executor
-    lux_tpu_torch.models  — PageRank
+    lux_tpu_torch.engine  — vertex-program base classes, tiled and push
+                            executors, result checker
+    lux_tpu_torch.models  — PageRank, SSSP, ConnectedComponents
     lux_tpu_torch.utils   — flags, device resolution
 """
 

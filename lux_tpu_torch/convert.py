@@ -5,17 +5,21 @@ other: :func:`plan_to_numpy` / :func:`grouped_plan_to_numpy` read any
 object with the plan's attributes (a ``lux_tpu`` plan or this package's),
 and :func:`plan_from_numpy` / :func:`grouped_plan_from_numpy` build this
 package's plans from the dict. With :func:`vals_from_numpy` a caller can
-run the port on exactly the plan and vertex values ``lux_tpu`` computed.
+run the port on exactly the plan and vertex values ``lux_tpu`` computed,
+and with :func:`push_state_from_numpy` it can finish a push fixpoint
+from a state ``lux_tpu`` reached.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from lux_tpu_torch.engine.push import PushState
 from lux_tpu_torch.ops.merge_tail_plan import PLAN_ARRAYS, GroupedTailPlan
+from lux_tpu_torch.ops.segment import to_u32_storage, u32_to_numpy
 from lux_tpu_torch.ops.tiled_spmv import HybridPlan, StripLevel
 
 _HYBRID_ARRAYS = (
@@ -86,3 +90,17 @@ def grouped_plan_from_numpy(d: Dict[str, np.ndarray]) -> GroupedTailPlan:
 def vals_from_numpy(a: np.ndarray, device) -> torch.Tensor:
     """(nv,) vertex values as an f32 tensor on ``device``."""
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def push_state_from_numpy(values_u32: np.ndarray, frontier_bool: np.ndarray,
+                          device) -> PushState:
+    """A :class:`PushState` on ``device`` from uint32 values and a bool
+    frontier (e.g. ``lux_tpu``'s state after some iterations)."""
+    fr = np.array(frontier_bool, dtype=bool)
+    return PushState(to_u32_storage(values_u32, device),
+                     torch.from_numpy(fr).to(device))
+
+
+def push_state_to_numpy(state: PushState) -> Tuple[np.ndarray, np.ndarray]:
+    """(uint32 values, bool frontier) of a :class:`PushState`."""
+    return u32_to_numpy(state.values), state.frontier.cpu().numpy()

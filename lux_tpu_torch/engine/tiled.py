@@ -16,7 +16,6 @@ layout and kernels.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +43,7 @@ from lux_tpu_torch.ops.tiled_spmv import (
     vals_to_x2d,
 )
 from lux_tpu_torch.utils.platform import resolve_device
+from lux_tpu_torch.utils.timing import timed as _timed
 
 
 def spmv_capable(program: PullProgram) -> bool:
@@ -150,22 +150,6 @@ def require_spmv_program(program: PullProgram, cls: str, fallback: str):
             f"edge contribution is the source value; {program.name} "
             f"is not (use {fallback})"
         )
-
-
-def _timed(fn, device: torch.device):
-    """(fn(), seconds): CUDA events on the card, the host clock on the
-    CPU. Waits for the work to finish either way."""
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end) / 1e3
-    t0 = time.perf_counter()
-    out = fn()
-    return out, time.perf_counter() - t0
 
 
 class TiledPullExecutor:

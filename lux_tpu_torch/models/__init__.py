@@ -1,3 +1,5 @@
+from lux_tpu_torch.models.components import ConnectedComponents
 from lux_tpu_torch.models.pagerank import PageRank
+from lux_tpu_torch.models.sssp import SSSP
 
-__all__ = ["PageRank"]
+__all__ = ["ConnectedComponents", "PageRank", "SSSP"]

@@ -34,7 +34,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("strip_spmv", "tail_gather_sum", "level_apply", "segment_sum_rowptr"), 0
+    ("strip_spmv", "tail_gather_sum", "level_apply", "segment_sum_rowptr",
+     "segment_minmax_relax", "frontier_queue", "queue_relax_scatter"), 0
 )
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -47,6 +48,15 @@ _SIGNATURES = {
     "lux_segment_sum_rowptr": (_P, _P, _P, _I64, _P, _I64, _P, _P, _P),
     # x, arow, brow, codes, S, out, stream
     "lux_level_apply": (_P, _P, _P, _P, _I64, _P, _P),
+    # packed, values, frontier, col_src, item_lo, item_row, n_items, comb,
+    # relax, acc, stream
+    "lux_segment_minmax_relax": (_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
+                                 _P, _P),
+    # frontier, nv, rp, scratch, cap, q, start, deg, offs, stream
+    "lux_frontier_queue": (_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P),
+    # q, start, offs, cnt, total, col_dst, old, out, comb, relax, stream
+    "lux_queue_relax_scatter": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT,
+                                _INT, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,160 @@
+"""The push engine's sparse iteration: frontier queue (K6) and queue
+expansion with scatter-combine (K7).
+
+The counterpart of the queue code in ``lux_tpu/engine/push.py``
+(``_s_load``, ``_queue_edge_slots``, ``_s_comp``, ``_s_update``). There
+the queue is static-shape: ``jnp.nonzero(frontier, size=Q)`` padded
+with ``nv``, its CSR ranges laid into ``E`` static edge slots by a
+marks cumsum, and the candidates scatter-combined with
+``.at[dst].min/max``. Here the host already knows the frontier's size
+and out-edge total (the engine reads both after every update to choose
+its branch), so the queue and the edge slots are sized exactly:
+
+- :func:`frontier_queue` (K6, ``csrc/frontier.cu``) compacts the bool
+  frontier into ascending ids ``q`` with per-slot CSR ``start``,
+  ``deg`` and the exclusive degree prefix ``offs`` (``cnt + 1`` long);
+- :func:`queue_relax_scatter` (K7) expands the queued ranges, relaxes
+  each queued vertex's pre-step value and combines it into a copy of
+  the values with ``atomicMin``/``atomicMax``.
+
+Values are int32 storage of uint32 bit patterns (see
+:mod:`lux_tpu_torch.ops.segment`). CPU tensors take the plain versions;
+CUDA tensors launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from lux_tpu_torch.ops import _cuda
+from lux_tpu_torch.ops.segment import (
+    COMBINERS,
+    Relax,
+    kernel_codes,
+    narrow_u32,
+    plain_relax,
+    widen_u32,
+)
+
+TILE = 4096   # frontier flags per K6 tile (kTile in csrc/frontier.cu)
+
+
+def frontier_queue_plain(frontier: torch.Tensor, row_ptr: torch.Tensor):
+    """K6's plain version: (q int32, start int64, deg int64, offs int64)
+    of the frontier's ascending ids, ``offs`` the exclusive prefix of
+    ``deg`` with the total last."""
+    q = torch.nonzero(frontier).reshape(-1)
+    start = row_ptr[q]
+    deg = row_ptr[q + 1] - start
+    offs = torch.zeros(q.shape[0] + 1, dtype=torch.int64, device=q.device)
+    torch.cumsum(deg, 0, out=offs[1:])
+    return q.to(torch.int32), start, deg, offs
+
+
+def frontier_queue(frontier: torch.Tensor, row_ptr: torch.Tensor, cnt: int):
+    """The frontier queue of :func:`frontier_queue_plain`. ``cnt`` is the
+    frontier's size, which the caller knows; the CUDA kernel fills
+    exactly ``cnt`` slots."""
+    if frontier.device.type == "cpu":
+        return frontier_queue_plain(frontier, row_ptr)
+    dev = frontier.device
+    _cuda.check(frontier, "frontier", torch.bool, dev, ndim=1)
+    _cuda.check(row_ptr, "row_ptr", torch.int64, dev, ndim=1)
+    nv = frontier.shape[0]
+    if row_ptr.shape[0] != nv + 1:
+        raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries, "
+                         f"frontier {nv}")
+    q = torch.empty(cnt, dtype=torch.int32, device=dev)
+    start = torch.empty(cnt, dtype=torch.int64, device=dev)
+    deg = torch.empty(cnt, dtype=torch.int64, device=dev)
+    offs = torch.zeros(cnt + 1, dtype=torch.int64, device=dev)
+    if cnt == 0:
+        return q, start, deg, offs
+    ntiles = -(-nv // TILE)
+    scratch = torch.empty(2 * (ntiles + 1), dtype=torch.int64, device=dev)
+    _cuda.launch(
+        "frontier_queue", "lux_frontier_queue",
+        _cuda.ptr(frontier), nv, _cuda.ptr(row_ptr), _cuda.ptr(scratch), cnt,
+        _cuda.ptr(q), _cuda.ptr(start), _cuda.ptr(deg), _cuda.ptr(offs),
+        _cuda.stream(dev),
+    )
+    return q, start, deg, offs
+
+
+def queue_relax_scatter_plain(
+    q: torch.Tensor,
+    start: torch.Tensor,
+    offs: torch.Tensor,
+    col_dst: torch.Tensor,
+    values: torch.Tensor,
+    kind: str,
+    relax: Relax,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K7's plain version: a copy of ``values`` into which, for every
+    out-edge (u -> d) of every queued u, ``relax(values[u], w)`` is
+    combined with ``kind`` (min or max) at d; int32 storage."""
+    deg = offs.diff()
+    slot = torch.repeat_interleave(
+        torch.arange(q.shape[0], device=q.device), deg)
+    edge = start[slot] + torch.arange(slot.shape[0], device=q.device) \
+        - offs[:-1][slot]
+    vals = widen_u32(values)
+    cand = relax(vals[q.long()[slot]],
+                 None if weights is None else weights[edge])
+    reduce = {"min": "amin", "max": "amax"}[kind]
+    new = vals.scatter_reduce(0, col_dst[edge].long(), cand, reduce=reduce,
+                              include_self=True)
+    return narrow_u32(new)
+
+
+def queue_relax_scatter(
+    q: torch.Tensor,
+    start: torch.Tensor,
+    offs: torch.Tensor,
+    col_dst: torch.Tensor,
+    values: torch.Tensor,
+    kind: str,
+    relax_op: Optional[str],
+    total: int,
+    relax: Optional[Relax] = None,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The new values of one sparse iteration (see
+    :func:`queue_relax_scatter_plain`). ``total`` is the queue's
+    out-edge count (``offs[-1]``), which the caller knows.
+
+    CPU tensors take the plain version with ``relax`` (default: the
+    plain form of ``relax_op``); CUDA tensors launch K7, which knows the
+    relax only by ``relax_op`` (``"add1"`` or ``"copy"``)."""
+    if kind not in COMBINERS:
+        raise ValueError(f"queue_relax_scatter: unsupported kind {kind!r}")
+    if values.device.type == "cpu":
+        return queue_relax_scatter_plain(q, start, offs, col_dst, values,
+                                         kind, plain_relax(relax_op, relax),
+                                         weights)
+    comb, op = kernel_codes(kind, relax_op)
+    dev = values.device
+    _cuda.check(q, "q", torch.int32, dev, ndim=1)
+    _cuda.check(start, "start", torch.int64, dev, ndim=1)
+    _cuda.check(offs, "offs", torch.int64, dev, ndim=1)
+    _cuda.check(col_dst, "col_dst", torch.int32, dev, ndim=1)
+    _cuda.check(values, "values", torch.int32, dev, ndim=1)
+    cnt = q.shape[0]
+    if start.shape[0] != cnt or offs.shape[0] != cnt + 1:
+        raise ValueError(f"queue of {cnt} slots needs start ({cnt},) and "
+                         f"offs ({cnt + 1},)")
+    if total < 0 or total > col_dst.shape[0]:
+        raise ValueError(f"total {total} outside [0, {col_dst.shape[0]}]")
+    new = values.clone()
+    if total == 0 or cnt == 0:
+        return new
+    _cuda.launch(
+        "queue_relax_scatter", "lux_queue_relax_scatter",
+        _cuda.ptr(q), _cuda.ptr(start), _cuda.ptr(offs), cnt, total,
+        _cuda.ptr(col_dst), _cuda.ptr(values), _cuda.ptr(new), comb, op,
+        _cuda.stream(dev),
+    )
+    return new

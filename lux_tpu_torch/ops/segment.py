@@ -1,22 +1,38 @@
-"""Sorted-segment sums by CSR offsets (kernel K4, ``segment_sum_rowptr``).
+"""Segment reductions: sorted-segment sums (K4) and the push engine's
+relax-and-reduce (K5, ``segment_minmax_relax``).
 
-The counterpart of ``lux_tpu/ops/segment.py::segment_sum_by_rowptr``.
-That one is a scatter-free cumsum-diff, shaped for the TPU; here the
-CUDA kernel (``csrc/segment_sum.cu``) sums each segment directly, and
-the plain version is a float64 prefix-sum diff.
+The counterpart of ``lux_tpu/ops/segment.py``. There, sums are a
+scatter-free cumsum-diff and min/max a block-min hierarchy of segmented
+scans, both shaped for the TPU. Here the CUDA kernels reduce each
+segment directly: ``csrc/segment_sum.cu`` (K2, K4) and
+``csrc/push_dense.cu`` (K5). The plain versions are a float64
+prefix-sum diff and a ``scatter_reduce`` over widened integers.
 
-Both CUDA segmented sums of this package (this one and the tail gather,
-K2) split the elements into :class:`SegmentItems`, contiguous work items
-of at most ``item_len`` elements that each lie inside one segment, so a
-long segment never serialises one thread group. Pass one sums each item;
-pass two sums each segment's items in item order. The order of every
-addition is fixed, so results are deterministic.
+Every CUDA segmented reduction of this package splits the elements into
+:class:`SegmentItems`, contiguous work items of at most ``item_len``
+elements that each lie inside one segment, so a long segment never
+serialises one thread group. The sums reduce each item, then each
+segment's items in item order, so they add in a fixed order. The min/max
+reduction (K5) combines each item's result into its segment with an
+integer atomic, which does not depend on order. Results are
+deterministic.
+
+**uint32 values.** The push programs hold uint32 values (SSSP distances,
+CC labels), but this PyTorch build implements almost no uint32
+arithmetic. So a device value is stored as a ``torch.int32`` tensor
+holding the uint32 bit pattern (:func:`to_u32_storage`); the CUDA
+kernels read it as ``unsigned int``. Plain versions widen it to int64
+in ``[0, 2**32)`` (:func:`widen_u32`) before any arithmetic or
+comparison and narrow back to the same bit pattern
+(:func:`narrow_u32`). :func:`identity_for` gives identities as values
+of that widened domain: the uint32 min identity is ``0xFFFFFFFF``, never
+−1. Results leave as numpy uint32 (:func:`u32_to_numpy`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -56,6 +72,7 @@ class SegmentItems:
 
     item_lo: torch.Tensor     # (n_items+1,) int64 element offsets
     row_items: torch.Tensor   # (nrows+1,) int64 item offsets per row
+    item_row: torch.Tensor    # (n_items,) int32 row owning each item
 
     @property
     def n_items(self) -> int:
@@ -68,9 +85,12 @@ class SegmentItems:
     @staticmethod
     def build(row_ptr: np.ndarray, item_len: int, device) -> "SegmentItems":
         lo, ri = segment_items(row_ptr, item_len)
+        rows = np.repeat(np.arange(ri.shape[0] - 1, dtype=np.int32),
+                         np.diff(ri))
         return SegmentItems(
             item_lo=torch.from_numpy(lo).to(device),
             row_items=torch.from_numpy(ri).to(device),
+            item_row=torch.from_numpy(rows).to(device),
         )
 
 
@@ -143,3 +163,212 @@ def segment_sum_by_rowptr(
         _cuda.ptr(partial), _cuda.ptr(y), _cuda.stream(dev),
     )
     return y
+
+
+# -- uint32 values (see the module docstring) -------------------------------
+
+U32_MASK = 0xFFFFFFFF
+_U32_TOP = 0x80000000
+_TOP_BIT = -(2 ** 31)  # bit 31 of an int32
+
+
+def to_u32_storage(values, device=None) -> torch.Tensor:
+    """The int32 storage tensor of uint32 ``values`` (a numpy array or
+    sequence): the same 32-bit patterns, on ``device``."""
+    a = np.ascontiguousarray(np.asarray(values, dtype=np.uint32))
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def u32_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Numpy uint32 values of an int32 storage tensor."""
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
+def widen_u32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in ``[0, 2**32)`` of an int32 storage tensor."""
+    return t.to(torch.int64) & U32_MASK
+
+
+def narrow_u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 storage of int64 values in ``[0, 2**32)``, bit for bit."""
+    return (t - ((t & _U32_TOP) << 1)).to(torch.int32)
+
+
+def identity_for(kind: str, dtype) -> Union[int, float]:
+    """Combiner identity as a Python scalar of the value domain.
+
+    The counterpart of ``lux_tpu/ops/segment.py::identity_for``. For
+    ``np.uint32`` (the push programs) ``min`` gives ``0xFFFFFFFF`` and
+    ``max`` gives 0, as widened int64 values; other integer dtypes give
+    their own limits, floats ±inf, and ``sum`` 0."""
+    if kind == "sum":
+        return 0
+    if kind not in ("min", "max"):
+        raise ValueError(f"unknown combiner {kind!r}")
+    if isinstance(dtype, torch.dtype):
+        if dtype.is_floating_point:
+            return float("inf") if kind == "min" else float("-inf")
+        info = torch.iinfo(dtype)
+    elif np.issubdtype(np.dtype(dtype), np.floating):
+        return float("inf") if kind == "min" else float("-inf")
+    else:
+        info = np.iinfo(np.dtype(dtype))
+    return int(info.max) if kind == "min" else int(info.min)
+
+
+def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int, kind: str = "sum",
+                   dtype=None) -> torch.Tensor:
+    """Reduce 1-D ``data`` into ``num_segments`` slots by
+    ``segment_ids``; empty segments get the identity of ``dtype`` (the
+    value type, default ``data.dtype``: pass ``np.uint32`` for widened
+    uint32 values). The plain sum/min/max of
+    ``lux_tpu/ops/segment.py::segment_reduce``, and K5's plain reduce."""
+    ident = identity_for(kind, data.dtype if dtype is None else dtype)
+    out = torch.full((num_segments,), ident, dtype=data.dtype,
+                     device=data.device)
+    reduce = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
+    return out.scatter_reduce_(0, segment_ids.long(), data, reduce=reduce,
+                               include_self=True)
+
+
+# -- K5: the push engine's dense relax-and-reduce ---------------------------
+
+# Plain relax of each CUDA relax op, on widened uint32 values.
+RELAX_OPS = {
+    "add1": lambda v, w=None: (v + 1) & U32_MASK,
+    "copy": lambda v, w=None: v,
+}
+COMBINERS = ("min", "max")   # code 0 and 1 of the CUDA kernels
+Relax = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+
+
+def plain_relax(relax_op: Optional[str], relax: Optional[Relax]) -> Relax:
+    """The relax a plain version runs: ``relax`` if given, else the plain
+    form of ``relax_op``."""
+    if relax is not None:
+        return relax
+    if relax_op not in RELAX_OPS:
+        raise ValueError(f"unknown relax op {relax_op!r}")
+    return RELAX_OPS[relax_op]
+
+
+def kernel_codes(kind: str, relax_op: Optional[str]):
+    """(combiner code, relax code) of the CUDA kernels; a relax op they
+    do not know raises ``NotImplementedError``."""
+    if relax_op not in RELAX_OPS:
+        raise NotImplementedError(
+            f"the CUDA relax kernels know relax ops {sorted(RELAX_OPS)}, "
+            f"not {relax_op!r}")
+    return COMBINERS.index(kind), list(RELAX_OPS).index(relax_op)
+
+
+def combine_u32(kind: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise min or max of two int32 storage tensors, compared as
+    uint32."""
+    pick = torch.minimum if kind == "min" else torch.maximum
+    return narrow_u32(pick(widen_u32(a), widen_u32(b)))
+
+
+def pack_words(values: torch.Tensor, frontier: torch.Tensor) -> torch.Tensor:
+    """The packed ``value | frontier << 31`` table (int32 storage) of
+    values below 2**31; a larger value is a program error, as in
+    ``lux_tpu``'s blocked dense path."""
+    return torch.where(frontier, values | _TOP_BIT, values)
+
+
+def unpack_words(packed: torch.Tensor):
+    """(values, active) of a packed ``value | frontier << 31`` int32
+    table: widened values below 2**31 and a bool frontier."""
+    w = widen_u32(packed)
+    return w & 0x7FFFFFFF, (w >> 31) != 0
+
+
+def segment_minmax_relax_plain(
+    row_ptr: torch.Tensor,
+    col_src: torch.Tensor,
+    values: torch.Tensor,
+    frontier: Optional[torch.Tensor],
+    kind: str,
+    relax: Relax,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K5's plain version: per CSC destination v, the ``kind`` (min or
+    max) over its in-edges of ``relax(val[src], w)`` for active sources,
+    the identity elsewhere; (nv,) int32 storage.
+
+    With ``frontier`` None, ``values`` is the packed ``value |
+    frontier << 31`` table; else it is the value storage and
+    ``frontier`` a bool mask."""
+    if frontier is None:
+        vals, active = unpack_words(values)
+    else:
+        vals, active = widen_u32(values), frontier
+    src = col_src.long()
+    cand = relax(vals[src], weights)
+    ident = identity_for(kind, np.uint32)
+    cand = torch.where(active[src], cand, ident)
+    nv = row_ptr.shape[0] - 1
+    seg = torch.repeat_interleave(
+        torch.arange(nv, device=row_ptr.device), row_ptr.diff())
+    return narrow_u32(segment_reduce(cand, seg, nv, kind, dtype=np.uint32))
+
+
+def segment_minmax_relax(
+    row_ptr: torch.Tensor,
+    col_src: torch.Tensor,
+    values: torch.Tensor,
+    frontier: Optional[torch.Tensor],
+    kind: str,
+    relax_op: Optional[str],
+    items: Optional[SegmentItems] = None,
+    relax: Optional[Relax] = None,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The push engine's dense iteration: per CSC destination, the min
+    or max of the relaxed values of its active in-neighbours (see
+    :func:`segment_minmax_relax_plain` for the two input forms).
+
+    CPU tensors take the plain version with ``relax`` (default: the
+    plain form of ``relax_op``). CUDA tensors launch K5
+    (``csrc/push_dense.cu``) over ``items`` (the :class:`SegmentItems`
+    of ``row_ptr``); the kernel knows the relax only by ``relax_op``
+    (``"add1"`` or ``"copy"``; neither reads weights)."""
+    if kind not in COMBINERS:
+        raise ValueError(f"segment_minmax_relax: unsupported kind {kind!r}")
+    if values.device.type == "cpu":
+        return segment_minmax_relax_plain(
+            row_ptr, col_src, values, frontier, kind,
+            plain_relax(relax_op, relax), weights)
+    comb, op = kernel_codes(kind, relax_op)
+    dev = values.device
+    nv = row_ptr.shape[0] - 1
+    _cuda.check(row_ptr, "row_ptr", torch.int64, dev, ndim=1)
+    _cuda.check(col_src, "col_src", torch.int32, dev, ndim=1)
+    _cuda.check(values, "values", torch.int32, dev, ndim=1)
+    if frontier is not None:
+        _cuda.check(frontier, "frontier", torch.bool, dev, ndim=1)
+        if frontier.shape != values.shape:
+            raise ValueError("frontier and values differ in shape")
+    if items is None:
+        raise ValueError("CUDA segment_minmax_relax needs the SegmentItems "
+                         "of row_ptr")
+    if items.nrows != nv:
+        raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
+    _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
+    _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
+    # The identity as int32 storage: 0xFFFFFFFF is -1, 0 is 0.
+    acc = torch.full((nv,), -1 if kind == "min" else 0, dtype=torch.int32,
+                     device=dev)
+    if items.n_items == 0:
+        return acc
+    packed = frontier is None
+    _cuda.launch(
+        "segment_minmax_relax", "lux_segment_minmax_relax",
+        _cuda.ptr(values if packed else None),
+        _cuda.ptr(None if packed else values), _cuda.ptr(frontier),
+        _cuda.ptr(col_src), _cuda.ptr(items.item_lo),
+        _cuda.ptr(items.item_row), items.n_items, comb, op, _cuda.ptr(acc),
+        _cuda.stream(dev),
+    )
+    return acc

@@ -11,10 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from lux_tpu_torch.engine.push import PushExecutor, PushProgram
 from lux_tpu_torch.engine.tiled import TiledPullExecutor
 from lux_tpu_torch.graph import generate
-from lux_tpu_torch.models import PageRank
+from lux_tpu_torch.models import SSSP, ConnectedComponents, PageRank
+from lux_tpu_torch.models.components import reference_components
+from lux_tpu_torch.models.sssp import reference_sssp
 from lux_tpu_torch.ops import _cuda
+from lux_tpu_torch.ops import frontier as fq
 from lux_tpu_torch.ops import merge_tail_kernel as mtk
 from lux_tpu_torch.ops import merge_tail_plan as mtp
 from lux_tpu_torch.ops import segment as seg
@@ -133,3 +137,95 @@ def test_wrappers_check_their_inputs(dev):
         mtk.level_apply(x, rows, rows, codes)
     with pytest.raises(ValueError, match="contiguous"):
         mtk.level_apply(x.t().contiguous().t(), rows.int(), rows.int(), codes)
+
+
+# -- push engine kernels (K5-K7): bitwise against their plain versions --
+
+
+def _push_operands(nv, seed, frac):
+    """uint32 values below 2**31 (some at the SSSP infinity nv) as int32
+    storage, and a random bool frontier."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, nv, size=nv).astype(np.uint32)
+    vals[rng.random(nv) < 0.2] = nv
+    fr = rng.random(nv) < frac
+    return seg.to_u32_storage(vals), torch.from_numpy(fr)
+
+
+@pytest.mark.parametrize("kind,relax_op", [("min", "add1"), ("max", "copy"),
+                                           ("min", "copy"), ("max", "add1")])
+@pytest.mark.parametrize("frac", [0.3, 0.0])
+def test_segment_minmax_relax_matches_plain(dev, kind, relax_op, frac):
+    g = generate.rmat(12, 12, seed=5)
+    row_ptr = torch.from_numpy(g.row_ptr)
+    col_src = torch.from_numpy(g.col_src)
+    items = seg.SegmentItems.build(g.row_ptr, seg.SEG_ITEM, dev)
+    vals, fr = _push_operands(g.nv, 3, frac)
+    want = seg.segment_minmax_relax(row_ptr, col_src, vals, fr, kind,
+                                    relax_op)
+    packed = seg.pack_words(vals, fr)
+    for table, front in ((vals, fr), (packed, None)):
+        got = seg.segment_minmax_relax(
+            row_ptr.to(dev), col_src.to(dev), table.to(dev),
+            None if front is None else front.to(dev), kind, relax_op, items)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("nv,frac", [(4096 * 3 + 5, 0.02), (1000, 1.0),
+                                     (70000, 0.0005)])
+def test_frontier_queue_and_scatter_match_plain(dev, nv, frac):
+    g = generate.gnp(nv, nv * 6, seed=7)
+    csr = g.csr()
+    rp = torch.from_numpy(csr.row_ptr)
+    col_dst = torch.from_numpy(csr.col_dst)
+    vals, fr = _push_operands(nv, 9, frac)
+    cnt = int(fr.sum())
+    want_q = fq.frontier_queue(fr, rp, cnt)
+    got_q = fq.frontier_queue(fr.to(dev), rp.to(dev), cnt)
+    for got, want in zip(got_q, want_q):
+        assert torch.equal(got.cpu(), want)
+    total = int(want_q[3][-1])
+    q, start, _, offs = got_q
+    for kind, relax_op in (("min", "add1"), ("max", "copy")):
+        want = fq.queue_relax_scatter(*want_q[:2], want_q[3], col_dst, vals,
+                                      kind, relax_op, total)
+        got = fq.queue_relax_scatter(q, start, offs, col_dst.to(dev),
+                                     vals.to(dev), kind, relax_op, total)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("app", ["sssp", "cc"])
+@pytest.mark.parametrize("blocked", [True, False])
+def test_push_executor_on_cuda_counts_launches(dev, app, blocked):
+    g = generate.rmat(12, 10, seed=1)
+    if app == "sssp":
+        prog, kw, ref = SSSP(), {"start": 0}, reference_sssp(g, 0)
+    else:
+        g = generate.undirected(g)
+        prog, kw, ref = ConnectedComponents(), {}, reference_components(g)
+    ex = PushExecutor(g, prog, blocked_dense=blocked)
+    assert ex.device.type == "cuda"
+    cpu = PushExecutor(g, prog, device="cpu", blocked_dense=blocked)
+    _cuda.reset_launches()
+    state, iters = ex.run(**kw)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    cstate, citers = cpu.run(**kw)
+    np.testing.assert_array_equal(ex.values(state), ref)
+    np.testing.assert_array_equal(ex.values(state), cpu.values(cstate))
+    assert (iters, ex.sparse_iters) == (citers, cpu.sparse_iters)
+    dense = sum(1 for b, _, _ in ex.branch_log if b == 0)
+    assert counts["segment_minmax_relax"] == dense
+    assert counts["frontier_queue"] == iters - dense
+    assert counts["queue_relax_scatter"] == sum(
+        1 for b, _, e in ex.branch_log if b > 0 and e > 0)
+
+
+def test_push_program_without_relax_op_raises_on_cuda(dev):
+    class Plain(SSSP):
+        relax_op = None
+
+    g = generate.gnp(300, 2000, seed=2)
+    with pytest.raises(NotImplementedError):
+        PushExecutor(g, Plain(), sparse=False).run(start=0)
+    assert issubclass(Plain, PushProgram)
