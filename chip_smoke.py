@@ -35,6 +35,24 @@ graph and Connected Components on its undirected closure:
     median phase split per branch, and the cost of the per-iteration
     host read.
 
+Then the flat pull engine (``PullExecutor``): flat PageRank on the same
+graph, and Collaborative Filtering on ``bench.py``'s NetFlix-shaped
+ratings graph (at scale 22: 480,000 users, 17,777 items, 50,331,648
+ratings in both directions, seed 11), which it runs edge-chunked:
+
+3c. pull executors: the ratings graph, both executors, their
+    ``edge_chunk`` (0 and ``1 << 20`` at scale 22);
+4c. K8 and K9 against their plain versions at the main path's shapes
+    (bitwise on small integers; K8 within rtol=5e-5, atol=1e-9 and K9
+    within CF's rtol=1e-4, atol=1e-7 on random floats), with the same
+    timings;
+5c. end to end: flat PageRank ``run(10)`` against phase 5's f64 oracle,
+    CF ``run(5)`` against its f64 oracle (computed on the card) at
+    rtol=1e-4, atol=1e-7 with the RMSE before and after, launch counts
+    checked;
+6c. timing: median of 3 runs after ``warmup``, ms per iteration, GTEPS
+    (``bench.py``'s definition) and the device busy share.
+
 Any failure exits non-zero. Without a card it exits non-zero and prints
 no result. The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels as JSON.
@@ -55,6 +73,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 F32_FLOPS_PER_S = 67e12    # H100 SXM published f32 rate, outside tensor cores
 ITERS = 10
 RTOL, ATOL = 5e-5, 1e-9
+CF_ITERS = 5
+CF_RTOL, CF_ATOL = 1e-4, 1e-7   # tests/test_colfilter.py
 SEED = 42
 
 
@@ -121,12 +141,12 @@ def device_busy(fn, top: int = 6):
     return sum(by_name.values()), [(n[:60], v) for n, v in ranked]
 
 
-def check_close(name: str, got, want) -> float:
+def check_close(name: str, got, want, rtol=RTOL, atol=ATOL) -> float:
     """Max abs error of ``got`` against ``want``; raises outside
-    rtol=5e-5, atol=1e-9."""
+    ``rtol``, ``atol`` (default 5e-5, 1e-9)."""
     g = got.double().cpu().numpy()
     w = want.double().cpu().numpy()
-    np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=name)
+    np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=name)
     return float(np.max(np.abs(g - w), initial=0.0))
 
 
@@ -136,6 +156,14 @@ def check_equal(name: str, got, want) -> None:
     if not torch.equal(got, want):
         diff = (got.double() - want.double()).abs().max().item()
         raise AssertionError(f"{name}: not bitwise equal (max diff {diff})")
+
+
+def check_launches(label: str, counts: dict, want: dict) -> None:
+    """Raise unless the launch counts of a main-path run are ``want``
+    (every kernel not named there at 0)."""
+    full = {**dict.fromkeys(counts, 0), **want}
+    if counts != full:
+        raise AssertionError(f"{label}: launches {counts}, expected {full}")
 
 
 def record(kernels, name, source, replaces, err, ms, plain_ms, nbytes, flops,
@@ -201,9 +229,12 @@ def main(argv=None) -> int:
     log(f"[graph] rmat({args.scale}, 16, seed={SEED}): nv={g.nv} ne={g.ne} "
         f"in {t_gen:.1f} s")
     kernels = []
-    totals = _pagerank_phases(g, dev, kernels)
+    totals, oracle = _pagerank_phases(g, dev, kernels)
     torch.cuda.empty_cache()
     for name, n in _push_phases(g, dev, kernels).items():
+        totals[name] += n
+    torch.cuda.empty_cache()
+    for name, n in _pull_phases(g, oracle, args.scale, dev, kernels).items():
         totals[name] += n
 
     for entry in kernels:
@@ -220,9 +251,9 @@ def main(argv=None) -> int:
     return 0
 
 
-def _pagerank_phases(g, dev, kernels) -> dict:
+def _pagerank_phases(g, dev, kernels):
     """Phases 3-6 on the tiled pull path; returns the launch counts of
-    its two runs, summed."""
+    its two runs, summed, and the f64 oracle of ``run(10)``."""
     import torch
 
     from lux_tpu_torch.engine.tiled import TiledPullExecutor
@@ -438,7 +469,7 @@ def _pagerank_phases(g, dev, kernels) -> dict:
         log(f"[time] {label} phases (ms, median of 5): " + ", ".join(
             f"{k}={v * 1e3:.3f}" for k, v in phases.items()))
 
-    return totals
+    return totals, oracle
 
 
 def _push_phases(g, dev, kernels) -> dict:
@@ -702,6 +733,174 @@ def _push_phases(g, dev, kernels) -> dict:
             log(f"[time] push {app} {branch} phases (ms, median of "
                 f"{len(runs)}): " + ", ".join(
                     f"{k}={v:.3f}" for k, v in med.items()))
+    return totals
+
+
+def _pull_phases(g, pr_oracle, scale, dev, kernels) -> dict:
+    """Phases 3c-6c on the flat pull engine: flat PageRank on ``g`` and
+    CF on ``bench.py``'s ratings graph of this scale; returns the launch
+    counts of their two runs, summed."""
+    import torch
+
+    from lux_tpu_torch.engine.pull import DEFAULT_EDGE_CHUNK, PullExecutor
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models import CollaborativeFiltering, PageRank
+    from lux_tpu_torch.models.colfilter import K, reference_colfilter, rmse
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops import segment as seg
+    from lux_tpu_torch.utils import flags
+
+    # -- 3c. pull executors ---------------------------------------------------
+    t = time.perf_counter()
+    ex_pr = PullExecutor(g, PageRank())
+    torch.cuda.synchronize()
+    log(f"[pull] flat PageRank executor built in "
+        f"{time.perf_counter() - t:.1f} s: edge_chunk={ex_pr.edge_chunk} "
+        f"work items={ex_pr.items.n_items}")
+    # bench.py's run_cf sizes: NetFlix-shaped at scale 22.
+    n_users = min(480_000, 1 << max(scale - 3, 1))
+    n_items = max(n_users // 27, 64)
+    n_ratings = 12 << scale
+    t = time.perf_counter()
+    gc = generate.bipartite_ratings(n_users, n_items, n_ratings, seed=11)
+    in_deg = gc.in_degrees
+    log(f"[pull] bipartite_ratings({n_users}, {n_items}, {n_ratings}, "
+        f"seed=11): nv={gc.nv} ne={gc.ne} max in-degree={int(in_deg.max())} "
+        f"mean user in-degree={in_deg[:n_users].mean():.1f} in "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ex_cf = PullExecutor(gc, CollaborativeFiltering())
+    torch.cuda.synchronize()
+    auto = gc.ne * K * 4 > flags.get_int("LUX_EDGE_CHUNK_BYTES")
+    want_chunk = DEFAULT_EDGE_CHUNK if auto else 0
+    log(f"[pull] CF executor built in {time.perf_counter() - t:.1f} s: "
+        f"edge_chunk={ex_cf.edge_chunk} (expected {want_chunk}) "
+        f"work items={ex_cf.items.n_items}")
+    if ex_pr.edge_chunk != 0 or ex_cf.edge_chunk != want_chunk:
+        raise AssertionError("the pull executors chose another edge_chunk")
+
+    # -- 4c. kernels against their plain versions -----------------------------
+    rng = np.random.default_rng(SEED)
+    reps = 10
+    nv, ne = g.nv, g.ne
+    rp, cs, items = ex_pr.row_ptr, ex_pr.col_src, ex_pr.items
+    x_f = torch.from_numpy(
+        rng.random(nv, dtype=np.float32) + np.float32(0.5)).to(dev)
+    x_i = torch.from_numpy(
+        rng.integers(0, 4, size=nv).astype(np.float32)).to(dev)
+    check_equal("K8 integral", seg.gather_segment_sum(x_i, rp, cs, items),
+                seg.gather_segment_sum_plain(x_i, rp, cs))
+    err = check_close("K8", seg.gather_segment_sum(x_f, rp, cs, items),
+                      seg.gather_segment_sum_plain(x_f, rp, cs))
+    k8_ms = cuda_ms(lambda: seg.gather_segment_sum(x_f, rp, cs, items), reps)
+    k8_plain = cuda_ms(lambda: seg.gather_segment_sum_plain(x_f, rp, cs), 2)
+    # The function's bytes: col_src, row_ptr and vals read once, the output
+    # written once (the work items are the kernel's plan, not its input).
+    k8_bytes = 4 * ne + 8 * (nv + 1) + 4 * nv + 4 * nv
+    csr = torch.sparse_csr_tensor(rp, cs.long(), torch.ones(ne, device=dev),
+                                  size=(nv, nv))
+    xv = x_f.reshape(-1, 1)
+    diff = (csr @ xv).reshape(-1) - seg.gather_segment_sum(x_f, rp, cs, items)
+    log(f"[pull] K8 sparse yardstick max diff {diff.abs().max().item():.3e}")
+    k8_lib = cuda_ms(lambda: csr @ xv, reps)
+    del csr, xv, diff
+    record(kernels, "gather_segment_sum", "lux_tpu_torch/csrc/pull_sum.cu",
+           "lux_tpu/engine/pull.py:465", err, k8_ms, k8_plain, k8_bytes, ne,
+           k8_lib)
+
+    nvc, nec = gc.nv, gc.ne
+    rpc, csc, wc, itc = (ex_cf.row_ptr, ex_cf.col_src, ex_cf.weights,
+                         ex_cf.items)
+    win = ex_cf.edge_chunk
+    v_f = torch.from_numpy(rng.random((nvc, K), dtype=np.float32)
+                           * np.float32(0.2) + np.float32(0.12)).to(dev)
+    v_i = torch.from_numpy(
+        rng.integers(0, 2, size=(nvc, K)).astype(np.float32)).to(dev)
+    check_equal("K9 integral", seg.cf_edge_sum(v_i, rpc, csc, wc, itc),
+                seg.cf_edge_sum_plain(v_i, rpc, csc, wc, window=win))
+    err = check_close("K9", seg.cf_edge_sum(v_f, rpc, csc, wc, itc),
+                      seg.cf_edge_sum_plain(v_f, rpc, csc, wc, window=win),
+                      rtol=CF_RTOL, atol=CF_ATOL)
+    k9_ms = cuda_ms(lambda: seg.cf_edge_sum(v_f, rpc, csc, wc, itc), reps)
+    k9_plain = cuda_ms(lambda: seg.cf_edge_sum_plain(v_f, rpc, csc, wc,
+                                                     window=win), 2)
+    # col_src and weights, row_ptr, the (nv, K) table and the output.
+    k9_bytes = 8 * nec + 8 * (nvc + 1) + 2 * 4 * K * nvc
+    # Per edge: a K-term dot (2K), the error (1), K scaled adds (2K).
+    k9_flops = (4 * K + 1) * nec
+    # No one PyTorch call gathers two rows per edge, dots them and sums
+    # the scaled rows per destination.
+    record(kernels, "cf_edge_sum", "lux_tpu_torch/csrc/pull_sum.cu",
+           "lux_tpu/engine/pull.py:489", err, k9_ms, k9_plain, k9_bytes,
+           k9_flops, None)
+    del x_f, x_i, v_f, v_i
+    torch.cuda.empty_cache()
+
+    # -- 5c. end to end -------------------------------------------------------
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    _cuda.reset_launches()
+    out = ex_pr.run(ITERS)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    out = out.cpu().numpy()
+    if out.shape != (nv,) or not np.all(np.isfinite(out)):
+        raise AssertionError(f"flat pagerank: bad output {out.shape}")
+    np.testing.assert_allclose(out, pr_oracle, rtol=RTOL, atol=ATOL,
+                               err_msg="flat pagerank vs f64 oracle")
+    err = float(np.max(np.abs(out.astype(np.float64) - pr_oracle)))
+    check_launches("flat pagerank", counts, {"gather_segment_sum": ITERS})
+    log(f"[pull] flat pagerank: run({ITERS}) matches the f64 oracle (max abs "
+        f"err {err:.3e}); launches {counts['gather_segment_sum']}")
+    for name, n in counts.items():
+        totals[name] += n
+
+    t = time.perf_counter()
+    cf_oracle = reference_colfilter(gc, CF_ITERS, device=dev)
+    log(f"[pull] CF f64 oracle ({CF_ITERS} iterations, on the card) in "
+        f"{time.perf_counter() - t:.1f} s")
+    v0 = ex_cf.init_values()
+    rmse0 = rmse(gc, v0.cpu().numpy(), device=dev)
+    _cuda.reset_launches()
+    out = ex_cf.run(CF_ITERS)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    out = out.cpu().numpy()
+    if out.shape != (nvc, K) or not np.all(np.isfinite(out)):
+        raise AssertionError(f"cf: bad output {out.shape}")
+    np.testing.assert_allclose(out, cf_oracle, rtol=CF_RTOL, atol=CF_ATOL,
+                               err_msg="cf vs f64 oracle")
+    err = float(np.max(np.abs(out.astype(np.float64) - cf_oracle)))
+    check_launches("cf", counts, {"cf_edge_sum": CF_ITERS})
+    log(f"[pull] cf: run({CF_ITERS}) matches the f64 oracle (max abs err "
+        f"{err:.3e}); RMSE {rmse0:.6f} before, "
+        f"{rmse(gc, out, device=dev):.6f} after; launches "
+        f"{counts['cf_edge_sum']}")
+    for name, n in counts.items():
+        totals[name] += n
+
+    # -- 6c. timing -----------------------------------------------------------
+    for label, ex, graph, iters in (("flat pagerank", ex_pr, g, ITERS),
+                                    ("cf", ex_cf, gc, CF_ITERS)):
+        ex.warmup()
+        vals = ex.init_values()
+        secs = [host_seconds(lambda: ex.run(iters, vals=vals))
+                for _ in range(3)]
+        sec = float(np.median(secs))
+        ev_ms = cuda_ms(lambda: ex.run(iters, vals=vals), 3) / iters
+        log(f"[time] pull {label}: {sec / iters * 1e3:.3f} ms/iteration, "
+            f"{graph.ne * iters / sec / 1e9:.3f} GTEPS (host clock, median "
+            f"of 3 runs of {iters}: {[round(x * 1e3, 3) for x in secs]} ms); "
+            f"{ev_ms:.3f} ms/iteration by CUDA events (mean of 3)")
+        busy = device_busy(lambda: ex.run(iters, vals=vals))
+        if busy is None:
+            log(f"[time] pull {label}: device busy share not measured (the "
+                "profiler saw no kernels)")
+        else:
+            busy_ms, top = busy
+            log(f"[time] pull {label}: device busy {busy_ms:.3f} ms of "
+                f"{sec * 1e3:.3f} ms ({busy_ms / (sec * 1e3):.1%}; "
+                "torch.profiler); top kernels (ms): "
+                + ", ".join(f"{n}={v:.3f}" for n, v in top))
     return totals
 
 

@@ -88,7 +88,8 @@ def grouped_plan_from_numpy(d: Dict[str, np.ndarray]) -> GroupedTailPlan:
 
 
 def vals_from_numpy(a: np.ndarray, device) -> torch.Tensor:
-    """(nv,) vertex values as an f32 tensor on ``device``."""
+    """(nv, *value_shape) vertex values (e.g. a CF state ``lux_tpu``
+    computed) as an f32 tensor on ``device``."""
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 

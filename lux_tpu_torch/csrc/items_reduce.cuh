@@ -1,5 +1,5 @@
 // Second pass shared by the segmented sums of this package (strip_spmv.cu,
-// segment_sum.cu).
+// segment_sum.cu, pull_sum.cu).
 //
 // The first pass of each kernel writes one partial per work item (a
 // contiguous piece of one row's elements; see ops/segment.py::segment_items)

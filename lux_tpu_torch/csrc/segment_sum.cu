@@ -20,20 +20,15 @@
 //
 // Design. Rows are skewed (R-MAT, degree-relabelled), so the host cuts the
 // elements into work items of at most SEG_ITEM elements, each inside one
-// row (ops/segment.py::segment_items). Pass 1 gives each item kGroup
-// threads, which stride over it and add their sums with shuffles in a fixed
-// order; pass 2 (items_reduce.cuh) adds each row's item partials in item
-// order. No atomics: results are deterministic.
+// row; seg_items.cuh sums each item with 8 threads, then each row's items in
+// item order. No atomics: results are deterministic.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "items_reduce.cuh"
+#include "seg_items.cuh"
 
 namespace {
-
-constexpr int kGroup = 8;       // threads per work item
-constexpr int kThreads = 256;   // a multiple of 32 and of kGroup
 
 struct TailFetch {
   const float* x;
@@ -56,41 +51,6 @@ struct MaskedFetch {
   }
 };
 
-template <class Fetch>
-__global__ void __launch_bounds__(kThreads)
-seg_items_kernel(Fetch f, const int64_t* __restrict__ item_lo,
-                 int64_t n_items, float* __restrict__ partial) {
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t item = gid / kGroup;
-  const int sub = (int)(gid % kGroup);
-  float s = 0.f;
-  if (item < n_items) {
-    const int64_t hi = item_lo[item + 1];
-    for (int64_t e = item_lo[item] + sub; e < hi; e += kGroup) s += f(e);
-  }
-  // Every thread of the warp reaches the shuffles (no early return).
-#pragma unroll
-  for (int off = kGroup / 2; off > 0; off >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (item < n_items && sub == 0) partial[item] = s;
-}
-
-template <class Fetch>
-cudaError_t run(Fetch f, const void* item_lo, int64_t n_items,
-                const void* row_items, int64_t nrows, void* partial, void* y,
-                cudaStream_t st) {
-  float* p = static_cast<float*>(partial);
-  if (n_items > 0) {
-    const int64_t blocks = (n_items * kGroup + kThreads - 1) / kThreads;
-    seg_items_kernel<Fetch><<<(unsigned)blocks, kThreads, 0, st>>>(
-        f, static_cast<const int64_t*>(item_lo), n_items, p);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return launch_items_reduce(p, static_cast<const int64_t*>(row_items), nrows,
-                             1, static_cast<float*>(y), st);
-}
-
 }  // namespace
 
 extern "C" int lux_tail_gather_sum(const void* x2d, const void* sb,
@@ -101,8 +61,8 @@ extern "C" int lux_tail_gather_sum(const void* x2d, const void* sb,
   const TailFetch f{static_cast<const float*>(x2d),
                     static_cast<const int32_t*>(sb),
                     static_cast<const int8_t*>(lane)};
-  return (int)run(f, item_lo, n_items, row_items, nrows, partial, y,
-                  static_cast<cudaStream_t>(stream));
+  return (int)seg_items::run(f, item_lo, n_items, row_items, nrows, partial,
+                             y, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lux_segment_sum_rowptr(const void* data, const void* nvalid,
@@ -111,6 +71,6 @@ extern "C" int lux_segment_sum_rowptr(const void* data, const void* nvalid,
                                       void* partial, void* y, void* stream) {
   const MaskedFetch f{static_cast<const float*>(data),
                       static_cast<const int32_t*>(nvalid)};
-  return (int)run(f, item_lo, n_items, row_items, nrows, partial, y,
-                  static_cast<cudaStream_t>(stream));
+  return (int)seg_items::run(f, item_lo, n_items, row_items, nrows, partial,
+                             y, static_cast<cudaStream_t>(stream));
 }

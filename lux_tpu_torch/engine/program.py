@@ -45,9 +45,16 @@ class PullProgram:
     value_dtype = torch.float32
     value_shape: Tuple[int, ...] = ()  # trailing per-vertex dims, e.g. (K,)
     needs_weights: bool = False
+    servable: bool = True              # a query app (lux_tpu's serving)
     # True iff edge_contrib(e) == e.src_vals (an SpMV-shaped iteration);
     # unlocks the tiled hybrid executor (engine/tiled.py).
     identity_contrib: bool = False
+    # The edge function by the name the CUDA pull kernels know it
+    # (ops/segment.py::PULL_EDGE_OPS: "copy" is K8, "cf_sgd" K9). The class
+    # that sets it must also define edge_contrib. A program without one
+    # runs its plain edge_contrib on the CPU and raises
+    # NotImplementedError in PullExecutor on the card.
+    edge_op: Optional[str] = None
 
     def init_values(self, graph) -> np.ndarray:
         """Host-side initial vertex values, shape (nv, *value_shape)."""

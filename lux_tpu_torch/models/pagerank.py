@@ -27,6 +27,7 @@ class PageRank(PullProgram):
     combiner = "sum"
     value_dtype = torch.float32
     identity_contrib = True  # gather side is plain old[src] (pre-divided)
+    edge_op = "copy"         # K8 in the flat PullExecutor
 
     def init_values(self, graph) -> np.ndarray:
         rank = np.float32(1.0) / np.float32(graph.nv)

@@ -35,7 +35,8 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("strip_spmv", "tail_gather_sum", "level_apply", "segment_sum_rowptr",
-     "segment_minmax_relax", "frontier_queue", "queue_relax_scatter"), 0
+     "segment_minmax_relax", "frontier_queue", "queue_relax_scatter",
+     "gather_segment_sum", "cf_edge_sum"), 0
 )
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -57,6 +58,11 @@ _SIGNATURES = {
     # q, start, offs, cnt, total, col_dst, old, out, comb, relax, stream
     "lux_queue_relax_scatter": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT,
                                 _INT, _P),
+    # vals, col_src, item_lo, n_items, row_items, nrows, partial, y, stream
+    "lux_gather_segment_sum": (_P, _P, _P, _I64, _P, _I64, _P, _P, _P),
+    # vals, col_src, weights, item_lo, item_row, n_items, row_items, nrows,
+    # partial, y, stream
+    "lux_cf_edge_sum": (_P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,12 +1,14 @@
-"""Segment reductions: sorted-segment sums (K4) and the push engine's
-relax-and-reduce (K5, ``segment_minmax_relax``).
+"""Segment reductions: sorted-segment sums (K4), the push engine's
+relax-and-reduce (K5, ``segment_minmax_relax``) and the flat pull
+engine's fused edge sums (K8 ``gather_segment_sum``, K9 ``cf_edge_sum``).
 
 The counterpart of ``lux_tpu/ops/segment.py``. There, sums are a
 scatter-free cumsum-diff and min/max a block-min hierarchy of segmented
 scans, both shaped for the TPU. Here the CUDA kernels reduce each
-segment directly: ``csrc/segment_sum.cu`` (K2, K4) and
-``csrc/push_dense.cu`` (K5). The plain versions are a float64
-prefix-sum diff and a ``scatter_reduce`` over widened integers.
+segment directly: ``csrc/segment_sum.cu`` (K2, K4),
+``csrc/push_dense.cu`` (K5) and ``csrc/pull_sum.cu`` (K8, K9). The plain
+versions are a float64 prefix-sum diff and a ``scatter_reduce`` over
+widened integers.
 
 Every CUDA segmented reduction of this package splits the elements into
 :class:`SegmentItems`, contiguous work items of at most ``item_len``
@@ -32,6 +34,7 @@ of that widened domain: the uint32 min identity is ``0xFFFFFFFF``, never
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -94,15 +97,25 @@ class SegmentItems:
         )
 
 
+def _prefix_diff64(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    # The prefix runs along the last axis of the (W, N) transpose: the
+    # card scans an outer axis with one thread per column, which takes
+    # seconds for N = 2^20 rows of 20 columns.
+    tail = tuple(data.shape[1:])
+    cols = data.reshape(data.shape[0], math.prod(tail)).t().to(
+        torch.float64).contiguous()
+    z = torch.zeros((cols.shape[0], data.shape[0] + 1), dtype=torch.float64,
+                    device=data.device)
+    torch.cumsum(cols, dim=1, out=z[:, 1:])
+    g = z[:, row_ptr.long()]
+    return (g[:, 1:] - g[:, :-1]).t().reshape((-1,) + tail)
+
+
 def prefix_diff_sum(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     """Plain per-segment sums of the rows of ``data`` (N, *tail) by CSR
     offsets: float64 prefix sums, then boundary differences, in f32.
     Exact for integral inputs whose prefix stays below 2^53."""
-    z = torch.zeros((data.shape[0] + 1,) + tuple(data.shape[1:]),
-                    dtype=torch.float64, device=data.device)
-    torch.cumsum(data.to(torch.float64), dim=0, out=z[1:])
-    g = z[row_ptr.long()]
-    return (g[1:] - g[:-1]).to(torch.float32)
+    return _prefix_diff64(data, row_ptr).to(torch.float32)
 
 
 def segment_sum_by_rowptr_plain(
@@ -110,13 +123,14 @@ def segment_sum_by_rowptr_plain(
     row_ptr: torch.Tensor,
     nvalid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K4's plain version: (nrows,) f32 segment sums of the flattened
-    ``data``. With ``nvalid`` (S,), ``data`` is (S, 128) and lanes
-    ``>= nvalid[row]`` count as zero."""
+    """K4's plain version: (nrows, *tail) f32 segment sums of the rows of
+    ``data`` (N, *tail). With ``nvalid`` (S,), ``data`` is an (S, 128)
+    stream summed flat, and lanes ``>= nvalid[row]`` count as zero."""
     if nvalid is not None:
         lane = torch.arange(BLOCK, device=data.device)
-        data = torch.where(lane[None, :] < nvalid[:, None], data, 0.0)
-    return prefix_diff_sum(data.reshape(-1), row_ptr)
+        data = torch.where(lane[None, :] < nvalid[:, None], data,
+                           0.0).reshape(-1)
+    return prefix_diff_sum(data, row_ptr)
 
 
 def segment_sum_by_rowptr(
@@ -128,11 +142,13 @@ def segment_sum_by_rowptr(
     """Sum sorted segments given CSR offsets; (nrows,) f32.
 
     ``row_ptr`` (nrows+1,) int64 gives segment v as
-    ``flat[row_ptr[v]:row_ptr[v+1]]`` of the flattened f32 ``data``.
-    With ``nvalid`` (S,) int32, ``data`` is (S, 128) and lanes
-    ``>= nvalid[row]`` count as zero (the grouped tail's root mask).
-    CPU tensors take the plain version; CUDA tensors launch K4 over
-    ``items`` (the :class:`SegmentItems` of ``row_ptr``).
+    ``flat[row_ptr[v]:row_ptr[v+1]]`` of the 1-D f32 ``data``.
+    With ``nvalid`` (S,) int32, ``data`` is (S, 128), summed flat, and
+    lanes ``>= nvalid[row]`` count as zero (the grouped tail's root
+    mask). CPU tensors take the plain version (which also sums (N, K)
+    rows); CUDA tensors launch K4 over ``items`` (the
+    :class:`SegmentItems` of ``row_ptr``). K-wide sums of gathered rows
+    are :func:`gather_segment_sum`'s.
     """
     if data.device.type == "cpu":
         return segment_sum_by_rowptr_plain(data, row_ptr, nvalid)
@@ -145,6 +161,9 @@ def segment_sum_by_rowptr(
             raise ValueError(
                 f"masked data must be ({nvalid.shape[0]}, {BLOCK}), "
                 f"got {tuple(data.shape)}")
+    elif data.dim() != 1:
+        raise ValueError(
+            f"unmasked data must be 1-D, got {tuple(data.shape)}")
     if items is None:
         raise ValueError("CUDA segment sums need the SegmentItems of row_ptr")
     nrows = row_ptr.shape[0] - 1
@@ -219,16 +238,17 @@ def identity_for(kind: str, dtype) -> Union[int, float]:
 def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor,
                    num_segments: int, kind: str = "sum",
                    dtype=None) -> torch.Tensor:
-    """Reduce 1-D ``data`` into ``num_segments`` slots by
-    ``segment_ids``; empty segments get the identity of ``dtype`` (the
-    value type, default ``data.dtype``: pass ``np.uint32`` for widened
-    uint32 values). The plain sum/min/max of
+    """Reduce the rows of ``data`` (N, *tail) into ``num_segments``
+    slots by ``segment_ids`` (N,); empty segments get the identity of
+    ``dtype`` (the value type, default ``data.dtype``: pass ``np.uint32``
+    for widened uint32 values). The plain sum/min/max of
     ``lux_tpu/ops/segment.py::segment_reduce``, and K5's plain reduce."""
     ident = identity_for(kind, data.dtype if dtype is None else dtype)
-    out = torch.full((num_segments,), ident, dtype=data.dtype,
-                     device=data.device)
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), ident,
+                     dtype=data.dtype, device=data.device)
+    idx = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1))
     reduce = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
-    return out.scatter_reduce_(0, segment_ids.long(), data, reduce=reduce,
+    return out.scatter_reduce_(0, idx.expand_as(data), data, reduce=reduce,
                                include_self=True)
 
 
@@ -372,3 +392,210 @@ def segment_minmax_relax(
         _cuda.stream(dev),
     )
     return acc
+
+
+# -- K8, K9: the flat pull engine's fused edge sums ---------------------------
+
+# K8 sums scalar values (K = 1) on the 8-thread items of K2/K4 (SEG_ITEM
+# edges each). K9 gives a warp one item of at most WARP_ITEM edges, four
+# per lane, and is compiled for CF's width only.
+WARP_ITEM = 128
+CF_WIDTH = 20
+SUM_STRATEGIES = ("rowptr", "segment")
+# The edge functions the kernels know, by a program's ``edge_op``:
+# "copy" is K8's, "cf_sgd" K9's.
+PULL_EDGE_OPS = ("copy", "cf_sgd")
+# An edge function: (source rows, destination rows, weights or None) of a
+# window of edges -> their contributions.
+EdgeFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
+                  torch.Tensor]
+
+
+def _copy_edge(src, dst, w):
+    return src
+
+
+def _cf_edge(src, dst, w):
+    err = w.to(torch.float32) - (src * dst).sum(-1)
+    return err[:, None] * src
+
+
+def pull_item_len(edge_op: Optional[str]) -> int:
+    """Work-item length of the kernel of ``edge_op`` (any length gives
+    the same sums; this one is fast)."""
+    return SEG_ITEM if edge_op == "copy" else WARP_ITEM
+
+
+def pull_sum_plain(
+    vals: torch.Tensor,
+    row_ptr: torch.Tensor,
+    col_src: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    edge_fn: EdgeFn,
+    window: int = 0,
+    strategy: str = "rowptr",
+) -> torch.Tensor:
+    """The plain version of K8 and K9, for any sum-combiner pull program:
+    per CSC destination v, the sum over its in-edges e of
+    ``edge_fn(vals[src_e], vals[v], w_e)``, (nv, *tail) f32.
+
+    Edges are taken ``window`` at a time (all at once when 0), so at most
+    one window of contributions exists, as ``lux_tpu``'s edge-chunked
+    path promises. ``strategy="rowptr"`` sums each window by float64
+    prefix differences and adds the windows in float64 before one cast
+    to f32; ``"segment"`` adds f32 contributions with ``index_add_``
+    (``lux_tpu``'s ``segment_reduce`` strategy)."""
+    if strategy not in SUM_STRATEGIES:
+        raise ValueError(f"unknown sum strategy {strategy!r}")
+    nv = row_ptr.shape[0] - 1
+    ne = col_src.shape[0]
+    rp = row_ptr.long()
+    wide = strategy == "rowptr"
+    acc = torch.zeros((nv,) + tuple(vals.shape[1:]),
+                      dtype=torch.float64 if wide else torch.float32,
+                      device=vals.device)
+    step = window if window > 0 else max(ne, 1)
+    for lo in range(0, ne, step):
+        hi = min(lo + step, ne)
+        # Rows r0 .. r1-1 own the window's edges.
+        bounds = torch.tensor([lo, hi - 1], device=rp.device)
+        r0, r1 = torch.searchsorted(rp, bounds, right=True).tolist()
+        r0 -= 1
+        local = rp[r0:r1 + 1].clamp(lo, hi) - lo
+        dst = torch.repeat_interleave(
+            torch.arange(r0, r1, device=rp.device), local.diff())
+        c = edge_fn(vals[col_src[lo:hi].long()], vals[dst],
+                    None if weights is None else weights[lo:hi])
+        if wide:
+            acc[r0:r1] += _prefix_diff64(c, local)
+        else:
+            acc.index_add_(0, dst, c)
+    return acc.to(torch.float32)
+
+
+def gather_segment_sum_plain(vals, row_ptr, col_src, window: int = 0):
+    """K8's plain version: :func:`pull_sum_plain` with the copy edge."""
+    return pull_sum_plain(vals, row_ptr, col_src, None, _copy_edge, window)
+
+
+def cf_edge_sum_plain(vals, row_ptr, col_src, weights, window: int = 0):
+    """K9's plain version: :func:`pull_sum_plain` with the CF edge."""
+    return pull_sum_plain(vals, row_ptr, col_src, weights, _cf_edge, window)
+
+
+def _check_pull_operands(vals, row_ptr, col_src, items, item_rows: bool):
+    """Raise unless ``vals`` has a row per destination and ``row_ptr``,
+    ``col_src`` and ``items`` (the :class:`SegmentItems` of ``row_ptr``)
+    are the device operands of a pull kernel."""
+    dev = vals.device
+    nv = row_ptr.shape[0] - 1
+    _cuda.check(vals, "vals", torch.float32, dev)
+    if vals.dim() == 0 or vals.shape[0] != nv:
+        raise ValueError(f"vals must be ({nv}, ...), got {tuple(vals.shape)}")
+    _cuda.check(row_ptr, "row_ptr", torch.int64, dev, ndim=1)
+    _cuda.check(col_src, "col_src", torch.int32, dev, ndim=1)
+    if items is None:
+        raise ValueError("CUDA pull sums need the SegmentItems of row_ptr")
+    if items.nrows != nv:
+        raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
+    _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
+    _cuda.check(items.row_items, "row_items", torch.int64, dev, ndim=1)
+    if item_rows:
+        _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
+
+
+def gather_segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
+                       col_src: torch.Tensor,
+                       items: Optional[SegmentItems] = None) -> torch.Tensor:
+    """Per CSC destination v, the sum of ``vals[src]`` over its in-edges.
+    CPU tensors take the plain version (rows of any shape); CUDA tensors
+    launch K8 (``csrc/pull_sum.cu``) over ``items``, for (nv,) f32 values
+    only."""
+    if vals.device.type == "cpu":
+        return gather_segment_sum_plain(vals, row_ptr, col_src)
+    if vals.dim() != 1:
+        raise NotImplementedError(
+            f"K8 sums scalar (nv,) values, not {tuple(vals.shape)}")
+    _check_pull_operands(vals, row_ptr, col_src, items, item_rows=False)
+    if items.n_items == 0:
+        return torch.zeros_like(vals)
+    acc = torch.empty_like(vals)
+    partial = torch.empty(items.n_items, dtype=torch.float32,
+                          device=vals.device)
+    _cuda.launch(
+        "gather_segment_sum", "lux_gather_segment_sum", _cuda.ptr(vals),
+        _cuda.ptr(col_src), _cuda.ptr(items.item_lo), items.n_items,
+        _cuda.ptr(items.row_items), items.nrows, _cuda.ptr(partial),
+        _cuda.ptr(acc), _cuda.stream(vals.device),
+    )
+    return acc
+
+
+def cf_edge_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
+                col_src: torch.Tensor, weights: torch.Tensor,
+                items: Optional[SegmentItems] = None) -> torch.Tensor:
+    """Per CSC destination v, the sum of ``(w - <vals[src], vals[v]>) *
+    vals[src]`` over its in-edges (collaborative filtering's gather), for
+    (nv, K) ``vals``. CPU tensors take the plain version (any K); CUDA
+    tensors launch K9 (``csrc/pull_sum.cu``) over ``items``, with int32
+    ``weights`` and K = ``CF_WIDTH``."""
+    if vals.device.type == "cpu":
+        return cf_edge_sum_plain(vals, row_ptr, col_src, weights)
+    if vals.dim() != 2:
+        raise ValueError("the CF edge takes (nv, K) K-vectors, got "
+                         f"{tuple(vals.shape)}")
+    if vals.shape[1] != CF_WIDTH:
+        raise NotImplementedError(
+            f"K9 is compiled for K = {CF_WIDTH}, not {vals.shape[1]}")
+    _check_pull_operands(vals, row_ptr, col_src, items, item_rows=True)
+    if vals.data_ptr() % 16:
+        raise ValueError("vals must be 16-byte aligned (rows load as float4)")
+    _cuda.check(weights, "weights", torch.int32, vals.device, ndim=1)
+    if weights.shape != col_src.shape:
+        raise ValueError("weights and col_src differ in shape")
+    if items.n_items == 0:
+        return torch.zeros_like(vals)
+    acc = torch.empty_like(vals)
+    partial = torch.empty((items.n_items, CF_WIDTH), dtype=torch.float32,
+                          device=vals.device)
+    _cuda.launch(
+        "cf_edge_sum", "lux_cf_edge_sum", _cuda.ptr(vals), _cuda.ptr(col_src),
+        _cuda.ptr(weights), _cuda.ptr(items.item_lo),
+        _cuda.ptr(items.item_row), items.n_items, _cuda.ptr(items.row_items),
+        items.nrows, _cuda.ptr(partial), _cuda.ptr(acc),
+        _cuda.stream(vals.device),
+    )
+    return acc
+
+
+def pull_sum(
+    vals: torch.Tensor,
+    row_ptr: torch.Tensor,
+    col_src: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    edge_op: Optional[str],
+    edge_fn: EdgeFn,
+    items: Optional[SegmentItems] = None,
+    window: int = 0,
+    strategy: str = "rowptr",
+) -> torch.Tensor:
+    """A sum-combiner pull program's per-destination sums.
+
+    CPU tensors take :func:`pull_sum_plain` with the program's edge
+    function ``edge_fn``, ``window`` and ``strategy``. CUDA tensors
+    launch the kernel of ``edge_op``: K8 for ``"copy"``, K9 for
+    ``"cf_sgd"``; every window and both strategies give the same launch,
+    which materialises no contributions. Another ``edge_op`` raises
+    ``NotImplementedError`` on the card."""
+    if vals.device.type == "cpu":
+        return pull_sum_plain(vals, row_ptr, col_src, weights, edge_fn,
+                              window, strategy)
+    if edge_op == "copy":
+        return gather_segment_sum(vals, row_ptr, col_src, items)
+    if edge_op == "cf_sgd":
+        if weights is None:
+            raise ValueError("the cf_sgd edge needs edge weights")
+        return cf_edge_sum(vals, row_ptr, col_src, weights, items)
+    raise NotImplementedError(
+        f"the CUDA pull kernels know edge ops {PULL_EDGE_OPS}, "
+        f"not {edge_op!r}")

@@ -1,9 +1,9 @@
 """The ``LUX_*`` environment flags this package reads.
 
 A minimal copy of ``lux_tpu/utils/flags.py``: the same names, defaults
-and accessor semantics (:func:`get_bool`, :func:`tristate`) for the
-flags the tiled executor reads. Accessors re-read ``os.environ`` on
-every call, so flags stay runtime knobs.
+and accessor semantics (:func:`get`, :func:`get_int`, :func:`get_bool`,
+:func:`tristate`) for the flags the port's executors read. Accessors
+re-read ``os.environ`` on every call, so flags stay runtime knobs.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ class Flag:
     name: str          # LUX_* env var name
     default: object    # value returned when the env var is unset
     doc: str           # one line: what the flag does / legal values
-    kind: str = "str"  # bool | tristate
+    kind: str = "str"  # str | int | bool | tristate
 
 
 _REGISTRY: Dict[str, Flag] = {}
@@ -43,6 +43,20 @@ def _flag(name: str) -> Flag:
             f"undeclared flag {name!r}: declare it in "
             "lux_tpu_torch/utils/flags.py"
         ) from None
+
+
+def get(name: str) -> Optional[str]:
+    """Raw string value: the env var if set, else the declared default
+    (coerced to str unless None)."""
+    f = _flag(name)
+    v = os.environ.get(name)
+    if v is not None:
+        return v
+    return f.default if f.default is None else str(f.default)
+
+
+def get_int(name: str) -> int:
+    return int(get(name))
 
 
 def get_bool(name: str) -> bool:
@@ -84,3 +98,6 @@ define("LUX_PACK_STRIPS", False,
 define("LUX_GROUPED_TAIL", False,
        "opt-in grouped (merge-network) tail phase in the tiled executors",
        kind="bool")
+define("LUX_EDGE_CHUNK_BYTES", 2 << 30,
+       "flat-contribution byte threshold above which the pull engine "
+       "runs edge-chunked", kind="int")

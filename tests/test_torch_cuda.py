@@ -11,10 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from lux_tpu_torch.engine.pull import PullExecutor
 from lux_tpu_torch.engine.push import PushExecutor, PushProgram
 from lux_tpu_torch.engine.tiled import TiledPullExecutor
 from lux_tpu_torch.graph import generate
-from lux_tpu_torch.models import SSSP, ConnectedComponents, PageRank
+from lux_tpu_torch.models import (
+    SSSP,
+    CollaborativeFiltering,
+    ConnectedComponents,
+    PageRank,
+)
+from lux_tpu_torch.models.colfilter import reference_colfilter
 from lux_tpu_torch.models.components import reference_components
 from lux_tpu_torch.models.sssp import reference_sssp
 from lux_tpu_torch.ops import _cuda
@@ -229,3 +236,111 @@ def test_push_program_without_relax_op_raises_on_cuda(dev):
     with pytest.raises(NotImplementedError):
         PushExecutor(g, Plain(), sparse=False).run(start=0)
     assert issubclass(Plain, PushProgram)
+
+
+# -- flat pull kernels (K8, K9) ---------------------------------------------
+
+CF_TOL = dict(rtol=1e-4, atol=1e-7)
+
+
+def _pull_operands(width, exact, nv=500, seed=6):
+    """A CSC graph with empty rows and hub rows many items long, its int32
+    weights, and (nv, width) values ((nv,) for width 1): 0/1 (exact sums)
+    or floats near CF's initial value."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 12, size=nv)
+    lens[::7] = 0
+    lens[3], lens[400] = 5000, 300
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    ne = int(row_ptr[-1])
+    col_src = rng.integers(0, nv, size=ne).astype(np.int32)
+    w = rng.integers(1, 6, size=ne).astype(np.int32)
+    shape = (nv,) if width == 1 else (nv, width)
+    if exact:
+        vals = rng.integers(0, 2, size=shape).astype(np.float32)
+    else:
+        vals = (rng.random(shape, dtype=np.float32) * np.float32(0.2)
+                + np.float32(0.12))
+    return tuple(torch.from_numpy(a) for a in (row_ptr, col_src, w, vals))
+
+
+@pytest.mark.parametrize("op,width", [("copy", 1), ("cf_sgd", 20)])
+@pytest.mark.parametrize("exact", [True, False])
+def test_pull_kernels_match_plain(dev, op, width, exact):
+    row_ptr, col_src, w, vals = _pull_operands(width, exact)
+    if op == "copy":
+        want = seg.gather_segment_sum(vals, row_ptr, col_src)
+        tol = dict(rtol=RTOL, atol=ATOL)
+    else:
+        want = seg.cf_edge_sum(vals, row_ptr, col_src, w)
+        tol = CF_TOL
+    d = [t.to(dev) for t in (row_ptr, col_src, w, vals)]
+    # The kernel's own item length, and one that cuts every row into
+    # many short items: the sums do not depend on it.
+    for item_len in (seg.pull_item_len(op), 7):
+        items = seg.SegmentItems.build(row_ptr.numpy(), item_len, dev)
+        if op == "copy":
+            got = seg.gather_segment_sum(d[3], d[0], d[1], items)
+        else:
+            got = seg.cf_edge_sum(d[3], d[0], d[1], d[2], items)
+        got = got.cpu()
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        if exact:
+            assert torch.equal(got, want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+
+
+def test_pull_wrappers_check_their_inputs(dev):
+    row_ptr, col_src, w, vals = (t.to(dev) for t in _pull_operands(20, True))
+    items = seg.SegmentItems.build(row_ptr.cpu().numpy(), seg.WARP_ITEM, dev)
+    # K8 is compiled for scalar values, K9 for K = 20 only.
+    with pytest.raises(NotImplementedError):
+        seg.gather_segment_sum(vals, row_ptr, col_src, items)
+    with pytest.raises(NotImplementedError):
+        seg.cf_edge_sum(vals[:, :4].contiguous(), row_ptr, col_src, w, items)
+    with pytest.raises(ValueError, match="int32"):
+        seg.cf_edge_sum(vals, row_ptr, col_src, w.long(), items)
+    with pytest.raises(ValueError, match="SegmentItems"):
+        seg.cf_edge_sum(vals, row_ptr, col_src, w)
+    with pytest.raises(ValueError, match="K-vectors"):
+        seg.cf_edge_sum(vals[:, 0].contiguous(), row_ptr, col_src, w, items)
+
+
+@pytest.mark.parametrize("app", ["cf", "pagerank"])
+@pytest.mark.parametrize("edge_chunk", [0, 256])
+def test_pull_executor_on_cuda_counts_launches(dev, app, edge_chunk):
+    if app == "cf":
+        g = generate.bipartite_ratings(300, 40, 6000, seed=2)
+        prog, kernel, tol = CollaborativeFiltering(), "cf_edge_sum", CF_TOL
+    else:
+        g = generate.rmat(10, 8, seed=3)
+        prog, kernel = PageRank(), "gather_segment_sum"
+        tol = dict(rtol=RTOL, atol=ATOL)
+    ex = PullExecutor(g, prog, edge_chunk=edge_chunk)
+    assert ex.device.type == "cuda" and ex.edge_chunk == edge_chunk
+    cpu = PullExecutor(g, prog, device="cpu", edge_chunk=edge_chunk)
+    _cuda.reset_launches()
+    got = ex.run(5)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.run(5).numpy(), **tol)
+    if app == "cf":
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   reference_colfilter(g, 5), **tol)
+    assert counts == {**dict.fromkeys(counts, 0), kernel: 5}
+
+
+def test_pull_program_without_edge_op_raises_on_cuda(dev):
+    class Plain(CollaborativeFiltering):
+        edge_op = None
+
+    class Other(CollaborativeFiltering):
+        # Inherits edge_op="cf_sgd" but computes another edge function.
+        def edge_contrib(self, edge):
+            return edge.src_vals
+
+    g = generate.bipartite_ratings(50, 20, 400, seed=1)
+    for prog in (Plain(), Other()):
+        with pytest.raises(NotImplementedError):
+            PullExecutor(g, prog).run(1)

@@ -26,6 +26,8 @@ def imported_modules(path: Path):
 def test_port_files_found():
     assert "chip_smoke.py" in FILES
     assert "lux_tpu_torch/engine/tiled.py" in FILES
+    assert "lux_tpu_torch/engine/pull.py" in FILES
+    assert "lux_tpu_torch/models/colfilter.py" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES)
