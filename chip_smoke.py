@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--scale 22]
 
-Drives the port's two main paths through the entry points a user calls,
-on an R-MAT graph of the given scale (edge factor 16, seed 42: the JAX
+Drives the port's main paths through the entry points a user calls, on
+an R-MAT graph of the given scale (edge factor 16, seed 42: the JAX
 package's headline graph at the default scale 22). First tiled pull
 PageRank in both tail configurations (lane-select, and the grouped
 merge-network tail of ``LUX_GROUPED_TAIL=1``):
@@ -52,6 +52,29 @@ ratings in both directions, seed 11), which it runs edge-chunked:
     checked;
 6c. timing: median of 3 runs after ``warmup``, ms per iteration, GTEPS
     (``bench.py``'s definition) and the device busy share.
+
+Then the direction-adaptive GAS engine (``AdaptiveExecutor``,
+``MultiSourceGasExecutor``) on ``bench.py``'s GAS rows: BFS from vertex 0
+and label propagation on the graph, DeltaSSSP from vertex 0 on its
+weighted twin (the same edges; the graph above is this twin without its
+weights, generated once), k-core (k = 4) on the undirected closure:
+
+3d. GAS executors (adaptive), and the multi-source BFS executor (k = 8);
+4d. K10 and K11 against their plain versions, bitwise, on states taken
+    mid-run for every (combiner, type, gather op) of the four programs,
+    and K10 with 8 columns, with the same timings;
+5d. end to end: each program to its fixpoint in the adaptive, pinned
+    pull and pinned push modes, bitwise against its oracle (BFS depths
+    and parents, DeltaSSSP distances with zero invariant violations,
+    labels and their community count, k-core's frozen degrees and core
+    size) and against each other; the multi-source lanes against the
+    single-source runs; PageRank through ``PullGasAdapter`` ``run(10)``
+    against phase 5's f64 oracle; launch counts checked against the
+    direction each iteration took;
+6d. timing by ``bench.py``'s ``bench_gas`` discipline (``warmup``, then
+    ``run`` with its ``max_iters``, median of 3): ms per iteration,
+    GTEPS, push and pull iterations and switches, the device busy share
+    and the median phase split per direction.
 
 Any failure exits non-zero. Without a card it exits non-zero and prints
 no result. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -196,6 +219,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.graph.graph import Graph
     from lux_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -223,18 +247,28 @@ def main(argv=None) -> int:
                 log(f"[build] {line.strip()}")
 
     # -- 3. graph and plans -------------------------------------------------
+    # The weighted R-MAT draws its weights from a generator of their own,
+    # so dropping them leaves exactly the unweighted graph.
     t = time.perf_counter()
-    g = generate.rmat(args.scale, 16, seed=SEED)
+    gw = generate.rmat(args.scale, 16, seed=SEED, weighted=True)
+    g = Graph(nv=gw.nv, ne=gw.ne, row_ptr=gw.row_ptr, col_src=gw.col_src)
     t_gen = time.perf_counter() - t
-    log(f"[graph] rmat({args.scale}, 16, seed={SEED}): nv={g.nv} ne={g.ne} "
-        f"in {t_gen:.1f} s")
+    log(f"[graph] rmat({args.scale}, 16, seed={SEED}, weighted=True): "
+        f"nv={g.nv} ne={g.ne} in {t_gen:.1f} s; g is it without weights")
     kernels = []
     totals, oracle = _pagerank_phases(g, dev, kernels)
     torch.cuda.empty_cache()
-    for name, n in _push_phases(g, dev, kernels).items():
+    t = time.perf_counter()
+    gu = generate.undirected(g)
+    log(f"[push] undirected closure: nv={gu.nv} ne={gu.ne} in "
+        f"{time.perf_counter() - t:.1f} s")
+    for name, n in _push_phases(g, gu, dev, kernels).items():
         totals[name] += n
     torch.cuda.empty_cache()
     for name, n in _pull_phases(g, oracle, args.scale, dev, kernels).items():
+        totals[name] += n
+    torch.cuda.empty_cache()
+    for name, n in _gas_phases(g, gw, gu, oracle, dev, kernels).items():
         totals[name] += n
 
     for entry in kernels:
@@ -472,14 +506,14 @@ def _pagerank_phases(g, dev, kernels):
     return totals, oracle
 
 
-def _push_phases(g, dev, kernels) -> dict:
-    """Phases 3b-6b on the push engine; returns the launch counts of its
-    two runs to fixpoint (SSSP, then CC), summed."""
+def _push_phases(g, gu, dev, kernels) -> dict:
+    """Phases 3b-6b on the push engine (SSSP on ``g``, CC on its closure
+    ``gu``); returns the launch counts of its two runs to fixpoint,
+    summed."""
     import torch
 
     from lux_tpu_torch.engine.check import count_violations
     from lux_tpu_torch.engine.push import PushExecutor
-    from lux_tpu_torch.graph import generate
     from lux_tpu_torch.models import SSSP, ConnectedComponents
     from lux_tpu_torch.models.components import reference_components
     from lux_tpu_torch.models.sssp import reference_sssp
@@ -487,11 +521,7 @@ def _push_phases(g, dev, kernels) -> dict:
     from lux_tpu_torch.ops import frontier as fq
     from lux_tpu_torch.ops import segment as seg
 
-    # -- 3b. push graphs ----------------------------------------------------
-    t = time.perf_counter()
-    gu = generate.undirected(g)
-    log(f"[push] undirected closure: nv={gu.nv} ne={gu.ne} in "
-        f"{time.perf_counter() - t:.1f} s")
+    # -- 3b. push executors -------------------------------------------------
     apps = {}
     for app, graph, prog, kw in (("sssp", g, SSSP(), {"start": 0}),
                                  ("cc", gu, ConnectedComponents(), {})):
@@ -901,6 +931,375 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels) -> dict:
                 f"{sec * 1e3:.3f} ms ({busy_ms / (sec * 1e3):.1%}; "
                 "torch.profiler); top kernels (ms): "
                 + ", ".join(f"{n}={v:.3f}" for n, v in top))
+    return totals
+
+
+GAS_KERNELS = ("gas_pull_acc", "frontier_queue", "gas_push_acc")
+
+
+def _gas_expected(log) -> dict:
+    """Launches of one GAS run from its direction log: K10 per pull
+    iteration; K6 per push iteration with a frontier, K11 per push
+    iteration whose frontier has out-edges (the wrappers skip empty
+    launches)."""
+    return {
+        "gas_pull_acc": sum(1 for d, _, _ in log if d == 0),
+        "frontier_queue": sum(1 for d, c, _ in log if d == 1 and c > 0),
+        "gas_push_acc": sum(1 for d, c, e in log if d == 1 and c > 0 and e > 0),
+    }
+
+
+def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
+    """Phases 3d-6d on the GAS engine: BFS and label propagation on
+    ``g``, DeltaSSSP on its weighted twin ``gw``, k-core (k = 4) on the
+    closure ``gu``; returns the launch counts of the phase 5d runs,
+    summed."""
+    import torch
+
+    from lux_tpu_torch.engine.check import count_violations
+    from lux_tpu_torch.engine.gas import (
+        AdaptiveExecutor,
+        MultiSourceGasExecutor,
+        as_gas,
+    )
+    from lux_tpu_torch.models import (
+        BFS,
+        DeltaSSSP,
+        KCore,
+        LabelPropagation,
+        PageRank,
+    )
+    from lux_tpu_torch.models.bfs import reference_bfs
+    from lux_tpu_torch.models.kcore import reference_kcore
+    from lux_tpu_torch.models.labelprop import reference_labelprop
+    from lux_tpu_torch.models.sssp_delta import reference_sssp_delta
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops import frontier as fq
+    from lux_tpu_torch.ops import segment as seg
+
+    # -- 3d. GAS executors ----------------------------------------------------
+    # name -> (graph, program maker, run kw, bench.py's max_iters)
+    apps = {
+        "bfs": (g, BFS, {"start": 0}, 32),
+        "sssp_delta": (gw, DeltaSSSP, {"start": 0}, 32),
+        "labelprop": (g, LabelPropagation, {}, 16),
+        "kcore": (gu, lambda: KCore(k=4), {}, 32),
+    }
+    exs = {}
+    for app, (graph, make, kw, _) in apps.items():
+        t = time.perf_counter()
+        ex = AdaptiveExecutor(graph, make())
+        torch.cuda.synchronize()
+        log(f"[gas] {app} executor (mode {ex.mode}) built in "
+            f"{time.perf_counter() - t:.1f} s: nv={graph.nv} ne={graph.ne} "
+            f"hi/lo counts {ex.hi_count}/{ex.lo_count} queue_cap="
+            f"{ex.queue_cap} edge_budget={ex.edge_budget}")
+        exs[app] = ex
+    k_lanes = 8
+    rng = np.random.default_rng(SEED)
+    has_out = np.flatnonzero(g.out_degrees > 0)
+    roots = [0] + sorted(int(r) for r in rng.choice(has_out, k_lanes - 1,
+                                                    replace=False))
+    t = time.perf_counter()
+    mx = MultiSourceGasExecutor(g, BFS(), k=k_lanes)
+    torch.cuda.synchronize()
+    log(f"[gas] multi-source BFS executor (k={k_lanes}, roots {roots}) "
+        f"built in {time.perf_counter() - t:.1f} s")
+
+    # -- 4d. kernels against their plain versions -----------------------------
+    reps = 10
+    k10 = dict.fromkeys(("ms", "plain", "bytes", "ops", "lib"), 0.0)
+    k11 = dict.fromkeys(("ms", "plain", "bytes", "ops", "lib"), 0.0)
+    for app, ex in exs.items():
+        graph, _, kw, _ = apps[app]
+        prog = ex.program
+        ex.run(**kw)
+        dlog = ex.direction_log
+        pulls = [(c, i) for i, (d, c, _) in enumerate(dlog) if d == 0]
+        pushes = [(e, i) for i, (d, c, e) in enumerate(dlog)
+                  if d == 1 and e > 0]
+        log(f"[gas] {app}: adaptive log (direction, count, out-edges) "
+            f"{dlog}")
+        nv, ne = graph.nv, graph.ne
+        weighted = prog.gather_op in seg.F32_GATHER_OPS
+        # K10 on the pull iteration with the largest frontier.
+        at = max(pulls)[1] if pulls else 0
+        st, _ = ex.run(max_iters=at, **kw)
+        args = (ex.row_ptr, ex.col_src, st.values, st.frontier,
+                prog.combiner)
+
+        def k10_call(args=args, prog=prog, ex=ex):
+            return seg.gas_pull_acc(*args, prog.gather_op, ex.items,
+                                    weights=ex.weights)
+
+        def k10_plain(args=args, prog=prog, ex=ex):
+            return seg.gas_pull_acc_plain(*args, prog.gather,
+                                          weights=ex.weights)
+
+        want = k10_plain()
+        check_equal(f"K10 {app} iteration {at + 1}", k10_call(), want)
+        ms = cuda_ms(k10_call, reps)
+        plain_ms = cuda_ms(k10_plain, 2)
+        # Yardstick: the reduce alone, one call over messages masked
+        # beforehand (torch.segment_reduce has float kernels only, so the
+        # uint32 programs take an int64 scatter_reduce).
+        vals, dom = seg.gas_widen(st.values)
+        src = ex.col_src.long()
+        msg = torch.where(st.frontier[src],
+                          prog.gather(vals[src], ex.weights),
+                          seg.identity_for(prog.combiner, dom))
+        if weighted:
+            lib_ms = cuda_ms(lambda: torch.segment_reduce(
+                msg, prog.combiner, offsets=ex.row_ptr, unsafe=True), reps)
+        else:
+            dst = torch.repeat_interleave(torch.arange(nv, device=dev),
+                                          ex.row_ptr.diff())
+            acc0 = torch.full((nv,), seg.identity_for(prog.combiner, dom),
+                              dtype=torch.int64, device=dev)
+            red = {"min": "amin", "max": "amax", "sum": "sum"}[prog.combiner]
+            lib_ms = cuda_ms(lambda: acc0.scatter_reduce(
+                0, dst, msg, reduce=red, include_self=True), reps)
+            del dst, acc0
+        del msg, vals, src, want
+        nbytes = 4 * ne + 8 * (nv + 1) + 5 * nv + 4 * nv \
+            + (4 * ne if weighted else 0)
+        log(f"[gas] K10 {app} ({prog.combiner}, {prog.gather_op}) on "
+            f"iteration {at + 1} (frontier {dlog[at][1]}): bitwise; "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, reduce yardstick "
+            f"{lib_ms:.4f} ms, bytes bound {bound(nbytes, ne)[0]:.4f} ms")
+        for key, v in (("ms", ms), ("plain", plain_ms), ("bytes", nbytes),
+                       ("ops", ne), ("lib", lib_ms)):
+            k10[key] += v
+        # K11 on the push iteration with the most out-edges, and on the
+        # pull state above (a large queue); the row times the former.
+        cands = [(f"iteration {max(pushes)[1] + 1}",
+                  ex.run(max_iters=max(pushes)[1], **kw)[0])] if pushes \
+            else []
+        cands.append((f"pull-state iteration {at + 1}", st))
+        for i, (label, pst) in enumerate(cands):
+            fr = pst.frontier
+            cnt = int(fr.sum())
+            out = int(torch.where(fr, ex.out_degrees, 0).sum())
+            q, start, _, offs = fq.frontier_queue(fr, ex.csr_row_ptr, cnt)
+            pargs = (q, start, offs, ex.csr_col_dst, pst.values,
+                     prog.combiner)
+
+            def k11_call(pargs=pargs, out=out, prog=prog, ex=ex):
+                return fq.gas_push_acc(*pargs, prog.gather_op, out,
+                                       weights=ex.csr_weights)
+
+            def k11_plain(pargs=pargs, prog=prog, ex=ex):
+                return fq.gas_push_acc_plain(*pargs, prog.gather,
+                                             weights=ex.csr_weights)
+
+            check_equal(f"K11 {app} {label}", k11_call(), k11_plain())
+            check_equal(f"K10 = K11 {app} {label}", k11_call(),
+                        seg.gas_pull_acc(ex.row_ptr, ex.col_src, pst.values,
+                                         fr, prog.combiner, prog.gather_op,
+                                         ex.items, weights=ex.weights))
+            ms = cuda_ms(k11_call, reps)
+            plain_ms = cuda_ms(k11_plain, 2)
+            slot, edge = fq.queue_edges(q, start, offs)
+            vals, dom = seg.gas_widen(pst.values)
+            msg = prog.gather(vals[q.long()[slot]],
+                              None if not weighted else ex.csr_weights[edge])
+            dst = ex.csr_col_dst[edge].long()
+            acc0 = torch.full((nv,), seg.identity_for(prog.combiner, dom),
+                              dtype=msg.dtype, device=dev)
+            red = {"min": "amin", "max": "amax", "sum": "sum"}[prog.combiner]
+            lib_ms = cuda_ms(lambda: acc0.scatter_reduce(
+                0, dst, msg, reduce=red, include_self=True), reps)
+            del slot, edge, vals, msg, dst, acc0
+            nbytes = 24 * cnt + 8 + 4 * out * (2 if weighted else 1) \
+                + 4 * nv
+            log(f"[gas] K11 {app} {label}: cnt={cnt} out_edges={out}; "
+                f"bitwise, equal to K10; {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, scatter_reduce {lib_ms:.4f} ms, bytes bound "
+                f"{bound(nbytes, out)[0]:.4f} ms")
+            if i == 0 and pushes:
+                for key, v in (("ms", ms), ("plain", plain_ms),
+                               ("bytes", nbytes), ("ops", out),
+                               ("lib", lib_ms)):
+                    k11[key] += v
+        del st, cands, args
+        torch.cuda.empty_cache()
+    # K10 with 8 columns, on the multi-source state with the largest
+    # frontier.
+    st = mx.init_state(roots)
+    best = (int(st.frontier.sum()), 0, st)
+    for i in range(1, 32):
+        st, cnt = mx.step(st)
+        if cnt > best[0]:
+            best = (cnt, i, st)
+        if cnt == 0:
+            break
+    cnt, at, st = best
+    margs = (mx.row_ptr, mx.col_src, st.values, st.frontier, "min")
+    check_equal(f"K10 k={k_lanes} after {at} iterations",
+                seg.gas_pull_acc(*margs, "add1", mx.items),
+                seg.gas_pull_acc_plain(*margs, BFS().gather))
+    ms = cuda_ms(lambda: seg.gas_pull_acc(*margs, "add1", mx.items), reps)
+    plain_ms = cuda_ms(lambda: seg.gas_pull_acc_plain(*margs, BFS().gather),
+                       2)
+    mbytes = 4 * g.ne + 8 * (g.nv + 1) + 9 * g.nv * k_lanes
+    log(f"[gas] K10 k={k_lanes} (multi-source BFS, {cnt} active lane "
+        f"entries after {at} iterations): bitwise; {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bytes bound {bound(mbytes, g.ne * k_lanes)[0]:.4f}"
+        " ms")
+    del st, margs, best
+    record(kernels, "gas_pull_acc", "lux_tpu_torch/csrc/gas.cu",
+           "lux_tpu/engine/gas.py:349", 0.0, k10["ms"], k10["plain"],
+           k10["bytes"], k10["ops"], k10["lib"])
+    record(kernels, "gas_push_acc", "lux_tpu_torch/csrc/gas.cu",
+           "lux_tpu/engine/gas.py:363", 0.0, k11["ms"], k11["plain"],
+           k11["bytes"], k11["ops"], k11["lib"])
+    torch.cuda.empty_cache()
+
+    # -- 5d. end to end -------------------------------------------------------
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+
+    def counted(fn):
+        _cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        for name, n in counts.items():
+            totals[name] += n
+        return out, counts
+
+    oracles = {}
+    t = time.perf_counter()
+    oracles["bfs"] = reference_bfs(g, 0)
+    log(f"[gas] bfs oracle (numpy BFS, parents) in "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    oracles["sssp_delta"] = reference_sssp_delta(gw, 0)
+    log(f"[gas] sssp_delta oracle (scipy Dijkstra) in "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    oracles["labelprop"] = reference_labelprop(g)
+    log(f"[gas] labelprop oracle (numpy) in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    oracles["kcore"] = reference_kcore(gu, 4)
+    log(f"[gas] kcore oracle (numpy peeling) in "
+        f"{time.perf_counter() - t:.1f} s")
+    for app, (graph, make, kw, _) in apps.items():
+        want = oracles[app][0] if app == "bfs" else oracles[app]
+        results = {}
+        for mode in ("adaptive", "pull", "push"):
+            ex = exs[app] if mode == "adaptive" else AdaptiveExecutor(
+                graph, make(), mode=mode)
+            (st, iters), counts = counted(lambda: ex.run(**kw))
+            vals = ex.values(st)
+            if vals.shape != (graph.nv,) or vals.dtype != want.dtype:
+                raise AssertionError(f"{app} {mode}: bad output "
+                                     f"{vals.shape} {vals.dtype}")
+            if not np.array_equal(vals, want):
+                raise AssertionError(
+                    f"{app} {mode}: {int(np.sum(vals != want))} values "
+                    "differ from the oracle")
+            fin = ex.finalize(st)
+            if app == "bfs" and not np.array_equal(fin["parent"],
+                                                   oracles["bfs"][1]):
+                raise AssertionError(f"bfs {mode}: parents differ")
+            if app == "sssp_delta":
+                viol = count_violations(graph, st.values, ex.program)
+                if viol:
+                    raise AssertionError(f"sssp_delta {mode}: {viol} "
+                                         "invariant violations")
+            ofin = ex.program.finalize_host(graph, want)
+            for key, v in ofin.items():
+                if not np.array_equal(np.asarray(fin[key]), np.asarray(v)):
+                    raise AssertionError(f"{app} {mode}: {key} differs")
+            check_launches(f"{app} {mode}", counts,
+                           _gas_expected(ex.direction_log))
+            results[mode] = (vals, iters, ex.push_iters, ex.pull_iters,
+                             ex.direction_switches)
+            extra = {k: v for k, v in ofin.items()
+                     if not isinstance(v, np.ndarray)}
+            log(f"[gas] {app} {mode}: fixpoint in {iters} iterations "
+                f"({ex.push_iters} push, {ex.pull_iters} pull, "
+                f"{ex.direction_switches} switches) matches the oracle "
+                f"bitwise {extra}; launches "
+                f"{ {k: counts[k] for k in GAS_KERNELS} }")
+            if mode != "adaptive":
+                del ex
+                torch.cuda.empty_cache()
+        for mode in ("pull", "push"):
+            if not np.array_equal(results[mode][0], results["adaptive"][0]):
+                raise AssertionError(f"{app}: {mode} differs from adaptive")
+    # Multi-source lanes against single-source runs.
+    (st, iters), counts = counted(lambda: mx.run(roots))
+    check_launches("multi-source bfs", counts, {"gas_pull_acc": iters})
+    ex = exs["bfs"]
+    for j, r in enumerate(roots):
+        single, _ = ex.run(start=r)
+        if not np.array_equal(mx.values_for(st, j), ex.values(single)):
+            raise AssertionError(f"multi-source lane {j} (root {r}) differs")
+    log(f"[gas] multi-source bfs: {k_lanes} lanes in {iters} iterations "
+        f"equal the single-source runs; launches {counts['gas_pull_acc']}")
+    del st, single
+    # PageRank through the pull adapter.
+    ex_pr = AdaptiveExecutor(g, as_gas(PageRank()))
+    (st, iters), counts = counted(lambda: ex_pr.run(max_iters=ITERS))
+    out = ex_pr.values(st)
+    if out.shape != (g.nv,) or not np.all(np.isfinite(out)):
+        raise AssertionError(f"gas pagerank: bad output {out.shape}")
+    np.testing.assert_allclose(out, pr_oracle, rtol=RTOL, atol=ATOL,
+                               err_msg="gas pagerank vs f64 oracle")
+    check_launches("gas pagerank", counts, {"gather_segment_sum": ITERS})
+    log(f"[gas] pagerank through PullGasAdapter: run({ITERS}) (mode "
+        f"{ex_pr.mode}) matches the f64 oracle (max abs err "
+        f"{float(np.max(np.abs(out.astype(np.float64) - pr_oracle))):.3e})")
+    del ex_pr, st, out
+    for name in GAS_KERNELS:
+        if totals[name] <= 0:
+            raise AssertionError(f"{name} never ran on the GAS path")
+    torch.cuda.empty_cache()
+
+    # -- 6d. timing -----------------------------------------------------------
+    for app, (graph, _, kw, max_iters) in apps.items():
+        ex = exs[app]
+        ex.warmup(**kw)
+        secs = [host_seconds(lambda: ex.run(max_iters=max_iters, **kw))
+                for _ in range(3)]
+        sec = float(np.median(secs))
+        iters = len(ex.direction_log)
+        log(f"[time] gas {app}: {iters} iterations ({ex.push_iters} push/"
+            f"{ex.pull_iters} pull, {ex.direction_switches} switches; "
+            f"max_iters {max_iters}) in {sec * 1e3:.3f} ms (median of 3: "
+            f"{[round(x * 1e3, 3) for x in secs]}), "
+            f"{sec / iters * 1e3:.3f} ms/iteration, "
+            f"{graph.ne * iters / sec / 1e9:.3f} GTEPS")
+        st0 = ex.init_state(**kw)
+        iter_sec = float(np.median([host_seconds(
+            lambda: ex.run(max_iters=max_iters, state=st0))
+            for _ in range(3)]))
+        busy = device_busy(lambda: ex.run(max_iters=max_iters, state=st0))
+        if busy is None:
+            log(f"[time] gas {app}: run from a device state "
+                f"{iter_sec * 1e3:.3f} ms; device busy share not measured "
+                "(the profiler saw no kernels)")
+        else:
+            busy_ms, top = busy
+            log(f"[time] gas {app}: run from a device state "
+                f"{iter_sec * 1e3:.3f} ms; device busy {busy_ms:.3f} ms "
+                f"({busy_ms / (iter_sec * 1e3):.1%}; torch.profiler); top "
+                "kernels (ms): " + ", ".join(f"{n}={v:.3f}" for n, v in top))
+        st = ex.init_state(**kw)
+        split = {}
+        for _ in range(max_iters):
+            st, cnt, times = ex.phase_step(st)
+            split.setdefault(times.pop("direction"), []).append(times)
+            if cnt == 0:
+                break
+        for direction, runs in sorted(split.items()):
+            med = {k: float(np.median([r[k] for r in runs])) * 1e3
+                   for k in runs[0]}
+            log(f"[time] gas {app} {direction} phases (ms, median of "
+                f"{len(runs)}): " + ", ".join(
+                    f"{k}={v:.3f}" for k, v in med.items()))
+        del st, st0
     return totals
 
 

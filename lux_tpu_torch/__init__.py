@@ -8,10 +8,12 @@ host code is copied here, and tests hold the copies byte-identical).
 Ported so far: the tiled pull executor (``engine.tiled``) with PageRank,
 the graph core (``graph``), the hybrid strip/tail plan, the grouped
 merge-network tail, the single-device push engine
-(``engine.push.PushExecutor``) with SSSP and Connected Components, and
-the flat pull engine (``engine.pull.PullExecutor``) with Collaborative
-Filtering and flat PageRank. Device work runs in hand-written CUDA
-kernels under ``csrc/`` (built at first use, see
+(``engine.push.PushExecutor``) with SSSP and Connected Components, the
+flat pull engine (``engine.pull.PullExecutor``) with Collaborative
+Filtering and flat PageRank, and the direction-adaptive GAS engine
+(``engine.gas.AdaptiveExecutor``, ``MultiSourceGasExecutor``) with BFS,
+DeltaSSSP, label propagation and k-core. Device work runs in
+hand-written CUDA kernels under ``csrc/`` (built at first use, see
 :mod:`lux_tpu_torch.ops._cuda`); each kernel has a plain-PyTorch version
 beside its wrapper, which runs only for tensors on the CPU.
 
@@ -21,10 +23,9 @@ without a card and without an explicit device they raise.
 Layout:
     lux_tpu_torch.graph   — .lux format, Graph data model, generators
     lux_tpu_torch.ops     — plans, kernel wrappers and their plain versions
-    lux_tpu_torch.engine  — vertex-program base classes, tiled, push and
-                            flat pull executors, result checker
-    lux_tpu_torch.models  — PageRank, SSSP, ConnectedComponents,
-                            CollaborativeFiltering
+    lux_tpu_torch.engine  — vertex-program base classes, tiled, push,
+                            flat pull and GAS executors, result checker
+    lux_tpu_torch.models  — the eight programs and their registry
     lux_tpu_torch.utils   — flags, device resolution
 """
 

@@ -6,8 +6,9 @@ object with the plan's attributes (a ``lux_tpu`` plan or this package's),
 and :func:`plan_from_numpy` / :func:`grouped_plan_from_numpy` build this
 package's plans from the dict. With :func:`vals_from_numpy` a caller can
 run the port on exactly the plan and vertex values ``lux_tpu`` computed,
-and with :func:`push_state_from_numpy` it can finish a push fixpoint
-from a state ``lux_tpu`` reached.
+with :func:`push_state_from_numpy` it can finish a push fixpoint from a
+state ``lux_tpu`` reached, and with :func:`gas_state_from_numpy` a GAS
+fixpoint.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from lux_tpu_torch.engine.gas import GasState
 from lux_tpu_torch.engine.push import PushState
 from lux_tpu_torch.ops.merge_tail_plan import PLAN_ARRAYS, GroupedTailPlan
 from lux_tpu_torch.ops.segment import to_u32_storage, u32_to_numpy
@@ -105,3 +107,29 @@ def push_state_from_numpy(values_u32: np.ndarray, frontier_bool: np.ndarray,
 def push_state_to_numpy(state: PushState) -> Tuple[np.ndarray, np.ndarray]:
     """(uint32 values, bool frontier) of a :class:`PushState`."""
     return u32_to_numpy(state.values), state.frontier.cpu().numpy()
+
+
+def gas_state_from_numpy(values: np.ndarray, frontier_bool: np.ndarray,
+                         direction, device) -> GasState:
+    """A :class:`GasState` on ``device`` from ``lux_tpu``'s state arrays:
+    uint32 values (stored as int32 words of the same bits) or float32,
+    of shape (nv,) or (nv, K); a bool frontier of the same shape; and the
+    previous iteration's direction (0 pull, 1 push)."""
+    vals = np.asarray(values)
+    if vals.dtype == np.uint32:
+        t = to_u32_storage(vals, device)
+    elif vals.dtype == np.float32:
+        t = torch.from_numpy(vals.copy()).to(device)
+    else:
+        raise ValueError(f"GAS values are uint32 or float32, not {vals.dtype}")
+    fr = np.array(frontier_bool, dtype=bool)
+    return GasState(t, torch.from_numpy(fr).to(device), int(direction))
+
+
+def gas_state_to_numpy(state: GasState) -> Tuple[np.ndarray, np.ndarray, int]:
+    """(values as uint32 or float32, bool frontier, direction) of a
+    :class:`GasState`."""
+    v = state.values
+    vals = (u32_to_numpy(v) if v.dtype == torch.int32
+            else v.detach().cpu().numpy())
+    return vals, state.frontier.cpu().numpy(), int(state.direction)

@@ -26,14 +26,17 @@
 // scans the per-tile counts; the tiles then place their vertices in order,
 // each thread owning kPer consecutive flags, so the ids come out ascending as
 // jnp.nonzero gives them. The expansion is load-balanced on the edge slots,
-// not the vertices: every block takes kSlots consecutive slots, finds the
-// queue range that covers them once, and each thread binary-searches its
+// not the vertices: every block takes kQueueSlots consecutive slots, finds
+// the queue range that covers them once, and each thread binary-searches its
 // slot's owner inside that range (merge-path style), so an R-MAT hub's
-// out-edges spread over many blocks. Integer min/max atomics commute, so the
-// result is bitwise that of the plain version whatever the order.
+// out-edges spread over many blocks; the kernel is queue_fold_kernel
+// (gas_ops.cuh), which K11 launches too. Integer min/max atomics commute, so
+// the result is bitwise that of the plain version whatever the order.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "gas_ops.cuh"
 
 namespace {
 
@@ -41,7 +44,6 @@ constexpr int kThreads = 256;
 constexpr int kPer = 16;                  // frontier flags per thread
 constexpr int kTile = kThreads * kPer;    // flags per tile (block)
 constexpr int kScanThreads = 1024;
-constexpr int kSlots = 1024;              // K7 edge slots per block
 
 // Bit k set iff flag base + k is set (flags past n read as unset).
 __device__ __forceinline__ unsigned load_flags(const unsigned char* f,
@@ -198,77 +200,10 @@ place_tiles_kernel(const unsigned char* __restrict__ frontier, int64_t nv,
     offs[tile_cnt[ntiles]] = tile_deg[ntiles];
 }
 
-struct MinOp {
-  __device__ __forceinline__ static void atomic(unsigned* p, unsigned v) {
-    atomicMin(p, v);
-  }
-};
-
-struct MaxOp {
-  __device__ __forceinline__ static void atomic(unsigned* p, unsigned v) {
-    atomicMax(p, v);
-  }
-};
-
-struct Add1 {
-  __device__ __forceinline__ static unsigned apply(unsigned v) {
-    return v + 1u;
-  }
-};
-
-struct Copy {
-  __device__ __forceinline__ static unsigned apply(unsigned v) { return v; }
-};
-
-// The largest i in [lo, hi) with offs[i] <= s, given offs[lo] <= s.
-__device__ __forceinline__ int64_t owner(const int64_t* offs, int64_t lo,
-                                         int64_t hi, int64_t s) {
-  while (hi - lo > 1) {
-    const int64_t mid = lo + (hi - lo) / 2;
-    if (offs[mid] <= s)
-      lo = mid;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-template <class Comb, class Relax>
-__global__ void __launch_bounds__(kThreads)
-relax_scatter_kernel(const int* __restrict__ q,
-                     const int64_t* __restrict__ start,
-                     const int64_t* __restrict__ offs, int64_t cnt,
-                     int64_t total, const int* __restrict__ col_dst,
-                     const unsigned* __restrict__ old,
-                     unsigned* __restrict__ out) {
-  __shared__ int64_t range[2];
-  const int64_t s0 = (int64_t)blockIdx.x * kSlots;
-  const int64_t s1 = s0 + kSlots < total ? s0 + kSlots : total;
-  if (threadIdx.x == 0) {
-    range[0] = owner(offs, 0, cnt, s0);
-    range[1] = owner(offs, range[0], cnt, s1 - 1) + 1;
-  }
-  __syncthreads();
-  const int64_t lo = range[0], hi = range[1];
-  for (int64_t s = s0 + threadIdx.x; s < s1; s += kThreads) {
-    const int64_t i = owner(offs, lo, hi, s);
-    const int64_t e = start[i] + (s - offs[i]);
-    Comb::atomic(out + col_dst[e], Relax::apply(__ldg(old + q[i])));
-  }
-}
-
-template <class Comb, class Relax>
-cudaError_t run_scatter(const void* q, const void* start, const void* offs,
-                        int64_t cnt, int64_t total, const void* col_dst,
-                        const void* old, void* out, cudaStream_t st) {
-  const int64_t blocks = (total + kSlots - 1) / kSlots;
-  relax_scatter_kernel<Comb, Relax><<<(unsigned)blocks, kThreads, 0, st>>>(
-      static_cast<const int*>(q), static_cast<const int64_t*>(start),
-      static_cast<const int64_t*>(offs), cnt, total,
-      static_cast<const int*>(col_dst), static_cast<const unsigned*>(old),
-      static_cast<unsigned*>(out));
-  return cudaGetLastError();
-}
+using luxk::Add1;
+using luxk::Copy;
+using MinOp = luxk::MinU32;
+using MaxOp = luxk::MaxU32;
 
 }  // namespace
 
@@ -313,14 +248,14 @@ extern "C" int lux_queue_relax_scatter(const void* q, const void* start,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (comb == 0 && relax == 0)
-    return (int)run_scatter<MinOp, Add1>(q, start, offs, cnt, total, col_dst,
-                                         old, out, st);
+    return (int)queue_fold<MinOp, Add1>(q, start, offs, cnt, total, col_dst,
+                                        nullptr, old, out, st);
   if (comb == 0)
-    return (int)run_scatter<MinOp, Copy>(q, start, offs, cnt, total, col_dst,
-                                         old, out, st);
+    return (int)queue_fold<MinOp, Copy>(q, start, offs, cnt, total, col_dst,
+                                        nullptr, old, out, st);
   if (relax == 0)
-    return (int)run_scatter<MaxOp, Add1>(q, start, offs, cnt, total, col_dst,
-                                         old, out, st);
-  return (int)run_scatter<MaxOp, Copy>(q, start, offs, cnt, total, col_dst,
-                                       old, out, st);
+    return (int)queue_fold<MaxOp, Add1>(q, start, offs, cnt, total, col_dst,
+                                        nullptr, old, out, st);
+  return (int)queue_fold<MaxOp, Copy>(q, start, offs, cnt, total, col_dst,
+                                      nullptr, old, out, st);
 }

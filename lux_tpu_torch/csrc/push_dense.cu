@@ -31,45 +31,23 @@
 // The wrapper fills acc with the identity first, so rows without edges keep
 // it. A hub's items spread over many warps and meet only in its atomics.
 // Integer min/max do not depend on order, so the result is bitwise that of
-// the plain version.
+// the plain version. The combiners and relax ops are gas_ops.cuh's, shared
+// with K7, K10 and K11.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "gas_ops.cuh"
 
 namespace {
 
 constexpr int kGroup = 8;       // threads per work item
 constexpr int kThreads = 256;   // a multiple of 32 and of kGroup
 
-struct MinOp {
-  static constexpr unsigned kIdent = 0xFFFFFFFFu;
-  __device__ __forceinline__ static unsigned apply(unsigned a, unsigned b) {
-    return a < b ? a : b;
-  }
-  __device__ __forceinline__ static void atomic(unsigned* p, unsigned v) {
-    atomicMin(p, v);
-  }
-};
-
-struct MaxOp {
-  static constexpr unsigned kIdent = 0u;
-  __device__ __forceinline__ static unsigned apply(unsigned a, unsigned b) {
-    return a > b ? a : b;
-  }
-  __device__ __forceinline__ static void atomic(unsigned* p, unsigned v) {
-    atomicMax(p, v);
-  }
-};
-
-struct Add1 {
-  __device__ __forceinline__ static unsigned apply(unsigned v) {
-    return v + 1u;
-  }
-};
-
-struct Copy {
-  __device__ __forceinline__ static unsigned apply(unsigned v) { return v; }
-};
+using luxk::Add1;
+using luxk::Copy;
+using MinOp = luxk::MinU32;
+using MaxOp = luxk::MaxU32;
 
 // One packed word per vertex: value in bits 0-30, frontier in bit 31.
 struct Packed {
@@ -101,7 +79,7 @@ relax_items_kernel(Src src, const int* __restrict__ col_src,
   const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t item = gid / kGroup;
   const int sub = (int)(gid % kGroup);
-  unsigned a = Comb::kIdent;
+  unsigned a = Comb::ident();
   if (item < n_items) {
     const int64_t hi = item_lo[item + 1];
     for (int64_t e = item_lo[item] + sub; e < hi; e += kGroup) {
@@ -114,7 +92,7 @@ relax_items_kernel(Src src, const int* __restrict__ col_src,
 #pragma unroll
   for (int off = kGroup / 2; off > 0; off >>= 1)
     a = Comb::apply(a, __shfl_xor_sync(0xffffffffu, a, off));
-  if (item < n_items && sub == 0 && a != Comb::kIdent)
+  if (item < n_items && sub == 0 && a != Comb::ident())
     Comb::atomic(acc + item_row[item], a);
 }
 

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("strip_spmv", "tail_gather_sum", "level_apply", "segment_sum_rowptr",
      "segment_minmax_relax", "frontier_queue", "queue_relax_scatter",
-     "gather_segment_sum", "cf_edge_sum"), 0
+     "gather_segment_sum", "cf_edge_sum", "gas_pull_acc", "gas_push_acc"), 0
 )
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -63,6 +63,14 @@ _SIGNATURES = {
     # vals, col_src, weights, item_lo, item_row, n_items, row_items, nrows,
     # partial, y, stream
     "lux_cf_edge_sum": (_P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P),
+    # values, frontier, col_src, weights, item_lo, item_row, n_items, k, op,
+    # acc, n_acc, stream
+    "lux_gas_pull_acc": (_P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P, _I64,
+                         _P),
+    # q, start, offs, cnt, total, col_dst, weights, values, op, acc, n_acc,
+    # stream
+    "lux_gas_push_acc": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT, _P, _I64,
+                         _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,6 @@
 """The push engine's sparse iteration: frontier queue (K6) and queue
-expansion with scatter-combine (K7).
+expansion with scatter-combine (K7); and the GAS engine's push-direction
+accumulator over the same queue (K11).
 
 The counterpart of the queue code in ``lux_tpu/engine/push.py``
 (``_s_load``, ``_queue_edge_slots``, ``_s_comp``, ``_s_update``). There
@@ -15,7 +16,11 @@ its branch), so the queue and the edge slots are sized exactly:
   ``deg`` and the exclusive degree prefix ``offs`` (``cnt + 1`` long);
 - :func:`queue_relax_scatter` (K7) expands the queued ranges, relaxes
   each queued vertex's pre-step value and combines it into a copy of
-  the values with ``atomicMin``/``atomicMax``.
+  the values with ``atomicMin``/``atomicMax``;
+- :func:`gas_push_acc` (K11, ``csrc/gas.cu``) expands the same ranges,
+  gathers with the CSR weights and combines into an identity-filled
+  accumulator (``lux_tpu/engine/gas.py::AdaptiveExecutor._push_acc``);
+  k-core's sum needs the identity fill.
 
 Values are int32 storage of uint32 bit patterns (see
 :mod:`lux_tpu_torch.ops.segment`). CPU tensors take the plain versions;
@@ -31,10 +36,19 @@ import torch
 from lux_tpu_torch.ops import _cuda
 from lux_tpu_torch.ops.segment import (
     COMBINERS,
-    Relax,
+    EdgeFn,
+    F32_GATHER_OPS,
+    GATHER_OPS,
+    gas_widen,
+    gas_narrow,
+    gas_identity_storage,
+    gas_kernel_code,
+    gas_key_storage,
+    gas_storage_dtype,
+    identity_for,
     kernel_codes,
     narrow_u32,
-    plain_relax,
+    plain_edge_fn,
     widen_u32,
 )
 
@@ -83,6 +97,15 @@ def frontier_queue(frontier: torch.Tensor, row_ptr: torch.Tensor, cnt: int):
     return q, start, deg, offs
 
 
+def queue_edges(q: torch.Tensor, start: torch.Tensor, offs: torch.Tensor):
+    """(queue slot, CSR edge position) of every out-edge of the queue."""
+    slot = torch.repeat_interleave(
+        torch.arange(q.shape[0], device=q.device), offs.diff())
+    edge = start[slot] + torch.arange(slot.shape[0], device=q.device) \
+        - offs[:-1][slot]
+    return slot, edge
+
+
 def queue_relax_scatter_plain(
     q: torch.Tensor,
     start: torch.Tensor,
@@ -90,17 +113,13 @@ def queue_relax_scatter_plain(
     col_dst: torch.Tensor,
     values: torch.Tensor,
     kind: str,
-    relax: Relax,
+    relax: EdgeFn,
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K7's plain version: a copy of ``values`` into which, for every
     out-edge (u -> d) of every queued u, ``relax(values[u], w)`` is
     combined with ``kind`` (min or max) at d; int32 storage."""
-    deg = offs.diff()
-    slot = torch.repeat_interleave(
-        torch.arange(q.shape[0], device=q.device), deg)
-    edge = start[slot] + torch.arange(slot.shape[0], device=q.device) \
-        - offs[:-1][slot]
+    slot, edge = queue_edges(q, start, offs)
     vals = widen_u32(values)
     cand = relax(vals[q.long()[slot]],
                  None if weights is None else weights[edge])
@@ -119,7 +138,7 @@ def queue_relax_scatter(
     kind: str,
     relax_op: Optional[str],
     total: int,
-    relax: Optional[Relax] = None,
+    relax: Optional[EdgeFn] = None,
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The new values of one sparse iteration (see
@@ -133,7 +152,7 @@ def queue_relax_scatter(
         raise ValueError(f"queue_relax_scatter: unsupported kind {kind!r}")
     if values.device.type == "cpu":
         return queue_relax_scatter_plain(q, start, offs, col_dst, values,
-                                         kind, plain_relax(relax_op, relax),
+                                         kind, plain_edge_fn(relax_op, relax),
                                          weights)
     comb, op = kernel_codes(kind, relax_op)
     dev = values.device
@@ -158,3 +177,87 @@ def queue_relax_scatter(
         _cuda.stream(dev),
     )
     return new
+
+
+def gas_push_acc_plain(
+    q: torch.Tensor,
+    start: torch.Tensor,
+    offs: torch.Tensor,
+    col_dst: torch.Tensor,
+    values: torch.Tensor,
+    kind: str,
+    gather: EdgeFn,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K11's plain version: an identity-filled (nv,) accumulator into
+    which, for every out-edge (u -> d) of every queued u,
+    ``gather(values[u], w)`` is combined with ``kind`` (min, max or sum)
+    at d; values' storage type (int32 words of uint32 bits, or f32)."""
+    slot, edge = queue_edges(q, start, offs)
+    vals, dom = gas_widen(values)
+    msg = gather(vals[q.long()[slot]],
+                 None if weights is None else weights[edge])
+    acc = torch.full(values.shape, identity_for(kind, dom), dtype=msg.dtype,
+                     device=values.device)
+    reduce = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
+    acc = acc.scatter_reduce(0, col_dst[edge].long(), msg, reduce=reduce,
+                             include_self=True)
+    return gas_narrow(acc, values)
+
+
+def gas_push_acc(
+    q: torch.Tensor,
+    start: torch.Tensor,
+    offs: torch.Tensor,
+    col_dst: torch.Tensor,
+    values: torch.Tensor,
+    kind: str,
+    gather_op: Optional[str],
+    total: int,
+    gather: Optional[EdgeFn] = None,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The GAS engine's push-direction accumulator (see
+    :func:`gas_push_acc_plain`) over the queue of :func:`frontier_queue`.
+    ``total`` is the queue's out-edge count (``offs[-1]``), which the
+    caller knows.
+
+    CPU tensors take the plain version with ``gather`` (default: the
+    plain form of ``gather_op``); CUDA tensors launch K11, which knows
+    the edge function only by ``gather_op`` and reads ``weights`` (the
+    CSR's) for ``"add_w"``. An empty queue or one without out-edges
+    launches nothing."""
+    if values.device.type == "cpu":
+        return gas_push_acc_plain(
+            q, start, offs, col_dst, values, kind,
+            plain_edge_fn(gather_op, gather, GATHER_OPS), weights)
+    op = gas_kernel_code(kind, gather_op)
+    dev = values.device
+    _cuda.check(q, "q", torch.int32, dev, ndim=1)
+    _cuda.check(start, "start", torch.int64, dev, ndim=1)
+    _cuda.check(offs, "offs", torch.int64, dev, ndim=1)
+    _cuda.check(col_dst, "col_dst", torch.int32, dev, ndim=1)
+    _cuda.check(values, "values", gas_storage_dtype(gather_op), dev, ndim=1)
+    cnt = q.shape[0]
+    if start.shape[0] != cnt or offs.shape[0] != cnt + 1:
+        raise ValueError(f"queue of {cnt} slots needs start ({cnt},) and "
+                         f"offs ({cnt + 1},)")
+    if total < 0 or total > col_dst.shape[0]:
+        raise ValueError(f"total {total} outside [0, {col_dst.shape[0]}]")
+    weighted = gather_op in F32_GATHER_OPS
+    if weighted:
+        if weights is None:
+            raise ValueError(f"gather op {gather_op!r} needs edge weights")
+        _cuda.check(weights, "weights", torch.int32, dev, ndim=1)
+        if weights.shape != col_dst.shape:
+            raise ValueError("weights and col_dst differ in shape")
+    if total == 0 or cnt == 0:
+        return gas_identity_storage(kind, values.shape, values.dtype, dev)
+    acc = gas_key_storage(kind, values.shape, values.dtype, dev)
+    _cuda.launch(
+        "gas_push_acc", "lux_gas_push_acc", _cuda.ptr(q), _cuda.ptr(start),
+        _cuda.ptr(offs), cnt, total, _cuda.ptr(col_dst),
+        _cuda.ptr(weights if weighted else None), _cuda.ptr(values), op,
+        _cuda.ptr(acc), acc.numel(), _cuda.stream(dev),
+    )
+    return acc.view(values.dtype)

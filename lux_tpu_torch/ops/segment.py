@@ -1,6 +1,7 @@
 """Segment reductions: sorted-segment sums (K4), the push engine's
-relax-and-reduce (K5, ``segment_minmax_relax``) and the flat pull
-engine's fused edge sums (K8 ``gather_segment_sum``, K9 ``cf_edge_sum``).
+relax-and-reduce (K5, ``segment_minmax_relax``), the flat pull
+engine's fused edge sums (K8 ``gather_segment_sum``, K9 ``cf_edge_sum``)
+and the GAS engine's pull accumulator (K10 ``gas_pull_acc``).
 
 The counterpart of ``lux_tpu/ops/segment.py``. There, sums are a
 scatter-free cumsum-diff and min/max a block-min hierarchy of segmented
@@ -8,7 +9,7 @@ scans, both shaped for the TPU. Here the CUDA kernels reduce each
 segment directly: ``csrc/segment_sum.cu`` (K2, K4),
 ``csrc/push_dense.cu`` (K5) and ``csrc/pull_sum.cu`` (K8, K9). The plain
 versions are a float64 prefix-sum diff and a ``scatter_reduce`` over
-widened integers.
+widened integers. K10 lives in ``csrc/gas.cu``.
 
 Every CUDA segmented reduction of this package splits the elements into
 :class:`SegmentItems`, contiguous work items of at most ``item_len``
@@ -260,17 +261,20 @@ RELAX_OPS = {
     "copy": lambda v, w=None: v,
 }
 COMBINERS = ("min", "max")   # code 0 and 1 of the CUDA kernels
-Relax = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+# An edge function (a push relax or a GAS gather): (source values, edge
+# weights or None) -> messages.
+EdgeFn = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
 
 
-def plain_relax(relax_op: Optional[str], relax: Optional[Relax]) -> Relax:
-    """The relax a plain version runs: ``relax`` if given, else the plain
-    form of ``relax_op``."""
-    if relax is not None:
-        return relax
-    if relax_op not in RELAX_OPS:
-        raise ValueError(f"unknown relax op {relax_op!r}")
-    return RELAX_OPS[relax_op]
+def plain_edge_fn(op: Optional[str], fn: Optional[EdgeFn],
+                  ops=RELAX_OPS) -> EdgeFn:
+    """The edge function a plain version runs: ``fn`` if given, else the
+    plain form of ``op`` in the registry ``ops``."""
+    if fn is not None:
+        return fn
+    if op not in ops:
+        raise ValueError(f"unknown edge op {op!r}")
+    return ops[op]
 
 
 def kernel_codes(kind: str, relax_op: Optional[str]):
@@ -310,7 +314,7 @@ def segment_minmax_relax_plain(
     values: torch.Tensor,
     frontier: Optional[torch.Tensor],
     kind: str,
-    relax: Relax,
+    relax: EdgeFn,
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K5's plain version: per CSC destination v, the ``kind`` (min or
@@ -342,7 +346,7 @@ def segment_minmax_relax(
     kind: str,
     relax_op: Optional[str],
     items: Optional[SegmentItems] = None,
-    relax: Optional[Relax] = None,
+    relax: Optional[EdgeFn] = None,
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The push engine's dense iteration: per CSC destination, the min
@@ -359,7 +363,7 @@ def segment_minmax_relax(
     if values.device.type == "cpu":
         return segment_minmax_relax_plain(
             row_ptr, col_src, values, frontier, kind,
-            plain_relax(relax_op, relax), weights)
+            plain_edge_fn(relax_op, relax), weights)
     comb, op = kernel_codes(kind, relax_op)
     dev = values.device
     nv = row_ptr.shape[0] - 1
@@ -599,3 +603,180 @@ def pull_sum(
     raise NotImplementedError(
         f"the CUDA pull kernels know edge ops {PULL_EDGE_OPS}, "
         f"not {edge_op!r}")
+
+
+# -- K10: the GAS engine's pull accumulator ----------------------------------
+
+# Label propagation's hop budget: the low byte of its packed word.
+DECAY_HOP_MASK = 0xFF
+
+
+def _decay(v, w=None):
+    hops = v & DECAY_HOP_MASK
+    decayed = (v & (U32_MASK ^ DECAY_HOP_MASK)) | (hops - 1)
+    # A spent budget sends 0, the max identity (hops - 1 = -1 is dropped).
+    return torch.where(hops > 0, decayed, 0)
+
+
+# The plain edge function of each GAS gather op the CUDA kernels know, by a
+# program's ``gather_op``. "add_w" takes f32 values and int32 weights; the
+# others take widened uint32 values (int64 in [0, 2**32)) and return the
+# same.
+GATHER_OPS = {
+    **RELAX_OPS,                                    # add1: BFS; copy: CC
+    "add_w": lambda v, w: v + w.to(torch.float32),  # DeltaSSSP
+    "decay": _decay,                                # label propagation
+    "one": lambda v, w=None: torch.ones_like(v),    # k-core
+}
+F32_GATHER_OPS = ("add_w",)
+# The (combiner, gather op) pairs K10 and K11 are compiled for, in the
+# order of their op code in csrc/gas.cu.
+GAS_KERNEL_OPS = (("min", "add1"), ("max", "copy"), ("min", "add_w"),
+                  ("max", "decay"), ("sum", "one"))
+
+
+def gas_kernel_code(kind: str, gather_op: Optional[str]) -> int:
+    """Op code of (combiner, gather op) in the GAS kernels; a pair they
+    are not compiled for raises ``NotImplementedError``."""
+    try:
+        return GAS_KERNEL_OPS.index((kind, gather_op))
+    except ValueError:
+        raise NotImplementedError(
+            f"the CUDA GAS kernels are compiled for (combiner, gather_op) "
+            f"in {GAS_KERNEL_OPS}, not {(kind, gather_op)}") from None
+
+
+def gas_storage_dtype(gather_op: Optional[str]) -> torch.dtype:
+    """Storage type of a gather op's values: f32, or int32 words holding
+    uint32 bits."""
+    return torch.float32 if gather_op in F32_GATHER_OPS else torch.int32
+
+
+def gas_widen(values: torch.Tensor):
+    """(widened values, identity dtype) of GAS storage: int32 words hold
+    uint32 values, f32 is itself."""
+    if values.dtype == torch.int32:
+        return widen_u32(values), np.uint32
+    return values, values.dtype
+
+
+def gas_narrow(acc: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Storage of a widened accumulator: uint32 sums wrap at 2**32."""
+    if values.dtype == torch.int32:
+        return narrow_u32(acc & U32_MASK)
+    return acc
+
+
+def gas_identity_storage(kind: str, shape, dtype: torch.dtype, device):
+    """An accumulator of GAS storage ``dtype`` holding the identity."""
+    if dtype == torch.int32:
+        # uint32 identities as int32 words: 0xFFFFFFFF is -1.
+        return torch.full(shape, -1 if kind == "min" else 0,
+                          dtype=torch.int32, device=device)
+    return torch.full(shape, identity_for(kind, dtype), dtype=dtype,
+                      device=device)
+
+
+# The order-preserving uint32 key (the sign-flip map) of +inf, the f32 min
+# identity, as the f32 kernels fold it: 0xFF800000 as an int32 word.
+F32_MIN_KEY_IDENT = -8388608
+
+
+def gas_key_storage(kind: str, shape, dtype: torch.dtype, device):
+    """The identity-filled accumulator a GAS kernel folds into, as int32
+    words: the uint32 identity, or the key of the f32 min identity (which
+    the kernel's entry point decodes back to f32 in place)."""
+    if dtype == torch.int32:
+        return gas_identity_storage(kind, shape, dtype, device)
+    return torch.full(shape, F32_MIN_KEY_IDENT, dtype=torch.int32,
+                      device=device)
+
+
+def gas_pull_acc_plain(
+    row_ptr: torch.Tensor,
+    col_src: torch.Tensor,
+    values: torch.Tensor,
+    frontier: torch.Tensor,
+    kind: str,
+    gather: EdgeFn,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K10's plain version: per CSC destination v (and per column, for
+    (nv, K) values), the ``kind`` (min, max or sum) over its in-edges of
+    ``gather(val[src], w)`` for sources in the frontier, the identity
+    elsewhere; values' storage type and shape.
+
+    ``values`` is int32 storage of uint32 bits (``gather`` then sees
+    widened values) or f32; ``frontier`` is bool of the same shape."""
+    vals, dom = gas_widen(values)
+    src = col_src.long()
+    w = weights
+    if w is not None and values.dim() == 2:
+        w = w[:, None]
+    msg = gather(vals[src], w)
+    msg = torch.where(frontier[src], msg, identity_for(kind, dom))
+    nv = row_ptr.shape[0] - 1
+    seg = torch.repeat_interleave(
+        torch.arange(nv, device=row_ptr.device), row_ptr.diff())
+    return gas_narrow(segment_reduce(msg, seg, nv, kind, dtype=dom), values)
+
+
+def gas_pull_acc(
+    row_ptr: torch.Tensor,
+    col_src: torch.Tensor,
+    values: torch.Tensor,
+    frontier: torch.Tensor,
+    kind: str,
+    gather_op: Optional[str],
+    items: Optional[SegmentItems] = None,
+    gather: Optional[EdgeFn] = None,
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The GAS engine's pull-direction accumulator (see
+    :func:`gas_pull_acc_plain`), for (nv,) or (nv, K) values.
+
+    CPU tensors take the plain version with ``gather`` (default: the
+    plain form of ``gather_op``). CUDA tensors launch K10
+    (``csrc/gas.cu``) over ``items`` (the :class:`SegmentItems` of
+    ``row_ptr``), which knows the edge function only by ``gather_op`` and
+    is compiled for the pairs of :data:`GAS_KERNEL_OPS`."""
+    if values.device.type == "cpu":
+        return gas_pull_acc_plain(
+            row_ptr, col_src, values, frontier, kind,
+            plain_edge_fn(gather_op, gather, GATHER_OPS), weights)
+    op = gas_kernel_code(kind, gather_op)
+    dev = values.device
+    nv = row_ptr.shape[0] - 1
+    _cuda.check(row_ptr, "row_ptr", torch.int64, dev, ndim=1)
+    _cuda.check(col_src, "col_src", torch.int32, dev, ndim=1)
+    _cuda.check(values, "values", gas_storage_dtype(gather_op), dev)
+    _cuda.check(frontier, "frontier", torch.bool, dev)
+    if values.dim() not in (1, 2) or values.shape[0] != nv:
+        raise ValueError(f"values must be ({nv},) or ({nv}, K), got "
+                         f"{tuple(values.shape)}")
+    if frontier.shape != values.shape:
+        raise ValueError("frontier and values differ in shape")
+    if gather_op in F32_GATHER_OPS:
+        if weights is None:
+            raise ValueError(f"gather op {gather_op!r} needs edge weights")
+        _cuda.check(weights, "weights", torch.int32, dev, ndim=1)
+        if weights.shape != col_src.shape:
+            raise ValueError("weights and col_src differ in shape")
+    if items is None:
+        raise ValueError("CUDA gas_pull_acc needs the SegmentItems of row_ptr")
+    if items.nrows != nv:
+        raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
+    _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
+    _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
+    if items.n_items == 0:
+        return gas_identity_storage(kind, values.shape, values.dtype, dev)
+    k = 1 if values.dim() == 1 else values.shape[1]
+    acc = gas_key_storage(kind, values.shape, values.dtype, dev)
+    _cuda.launch(
+        "gas_pull_acc", "lux_gas_pull_acc", _cuda.ptr(values),
+        _cuda.ptr(frontier), _cuda.ptr(col_src),
+        _cuda.ptr(weights if gather_op in F32_GATHER_OPS else None),
+        _cuda.ptr(items.item_lo), _cuda.ptr(items.item_row), items.n_items,
+        k, op, _cuda.ptr(acc), acc.numel(), _cuda.stream(dev),
+    )
+    return acc.view(values.dtype)

@@ -1,8 +1,8 @@
 """The ``LUX_*`` environment flags this package reads.
 
 A minimal copy of ``lux_tpu/utils/flags.py``: the same names, defaults
-and accessor semantics (:func:`get`, :func:`get_int`, :func:`get_bool`,
-:func:`tristate`) for the flags the port's executors read. Accessors
+and accessor semantics (:func:`get`, :func:`get_int`, :func:`get_float`,
+:func:`get_bool`, :func:`tristate`) for the flags the port's executors read. Accessors
 re-read ``os.environ`` on every call, so flags stay runtime knobs.
 """
 
@@ -18,7 +18,7 @@ class Flag:
     name: str          # LUX_* env var name
     default: object    # value returned when the env var is unset
     doc: str           # one line: what the flag does / legal values
-    kind: str = "str"  # str | int | bool | tristate
+    kind: str = "str"  # str | int | float | bool | tristate
 
 
 _REGISTRY: Dict[str, Flag] = {}
@@ -57,6 +57,10 @@ def get(name: str) -> Optional[str]:
 
 def get_int(name: str) -> int:
     return int(get(name))
+
+
+def get_float(name: str) -> float:
+    return float(get(name))
 
 
 def get_bool(name: str) -> bool:
@@ -101,3 +105,17 @@ define("LUX_GROUPED_TAIL", False,
 define("LUX_EDGE_CHUNK_BYTES", 2 << 30,
        "flat-contribution byte threshold above which the pull engine "
        "runs edge-chunked", kind="int")
+
+# GAS adaptive executor (engine/gas.py)
+define("LUX_GAS", "adaptive",
+       "GAS executor direction policy: 'adaptive' picks push vs pull per "
+       "iteration from frontier density; 'pull'/'push' pin one direction "
+       "(results are bitwise-identical across all three)")
+define("LUX_GAS_DENSITY_HI", 0.0625,
+       "adaptive GAS hysteresis: frontier density at or above this forces "
+       "the pull (dense) direction (the reference's nv/16 crossover, "
+       "sssp_gpu.cu:414)", kind="float")
+define("LUX_GAS_DENSITY_LO", 0.005,
+       "adaptive GAS hysteresis: frontier density at or below this forces "
+       "the push (sparse-queue) direction; between the two thresholds the "
+       "previous direction sticks", kind="float")

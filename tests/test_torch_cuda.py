@@ -11,16 +11,25 @@ import numpy as np
 import pytest
 import torch
 
+from lux_tpu_torch.engine import gas
 from lux_tpu_torch.engine.pull import PullExecutor
 from lux_tpu_torch.engine.push import PushExecutor, PushProgram
 from lux_tpu_torch.engine.tiled import TiledPullExecutor
 from lux_tpu_torch.graph import generate
 from lux_tpu_torch.models import (
+    BFS,
     SSSP,
     CollaborativeFiltering,
     ConnectedComponents,
+    DeltaSSSP,
+    KCore,
+    LabelPropagation,
     PageRank,
 )
+from lux_tpu_torch.models.bfs import reference_bfs
+from lux_tpu_torch.models.kcore import reference_kcore
+from lux_tpu_torch.models.labelprop import reference_labelprop
+from lux_tpu_torch.models.sssp_delta import reference_sssp_delta
 from lux_tpu_torch.models.colfilter import reference_colfilter
 from lux_tpu_torch.models.components import reference_components
 from lux_tpu_torch.models.sssp import reference_sssp
@@ -344,3 +353,167 @@ def test_pull_program_without_edge_op_raises_on_cuda(dev):
     for prog in (Plain(), Other()):
         with pytest.raises(NotImplementedError):
             PullExecutor(g, prog).run(1)
+
+
+# -- GAS kernels (K10, K11): bitwise against their plain versions -----------
+
+
+def _gas_operands(nv, gather_op, frac, k, seed):
+    """GAS storage for ``gather_op``: (nv,) or (nv, k) uint32 values over
+    the whole range (wrapping under add1, hops 0 under decay) as int32
+    words, or f32 distances with some +inf; a random bool frontier."""
+    rng = np.random.default_rng(seed)
+    shape = (nv,) if k == 1 else (nv, k)
+    if gather_op == "add_w":
+        vals = rng.integers(0, 10**6, size=shape).astype(np.float32)
+        vals[rng.random(shape) < 0.2] = np.inf
+        t = torch.from_numpy(vals)
+    else:
+        vals = rng.integers(0, 2**32, size=shape,
+                            dtype=np.uint64).astype(np.uint32)
+        vals[rng.random(shape) < 0.1] = np.uint32(0xFFFFFFFF)
+        t = seg.to_u32_storage(vals)
+    return t, torch.from_numpy(rng.random(shape) < frac)
+
+
+@pytest.mark.parametrize("kind,gather_op", seg.GAS_KERNEL_OPS)
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+@pytest.mark.parametrize("frac", [0.3, 0.0])
+def test_gas_pull_acc_matches_plain(dev, kind, gather_op, k, frac):
+    g = generate.rmat(11, 12, seed=5, weighted=True)
+    row_ptr = torch.from_numpy(g.row_ptr)
+    col_src = torch.from_numpy(g.col_src)
+    w = torch.from_numpy(g.weights)
+    vals, fr = _gas_operands(g.nv, gather_op, frac, k, seed=k)
+    want = seg.gas_pull_acc(row_ptr, col_src, vals, fr, kind, gather_op,
+                            weights=w)
+    # The kernel's item length, and one that cuts rows into short items.
+    for item_len in (seg.SEG_ITEM, 5):
+        items = seg.SegmentItems.build(g.row_ptr, item_len, dev)
+        got = seg.gas_pull_acc(row_ptr.to(dev), col_src.to(dev),
+                               vals.to(dev), fr.to(dev), kind, gather_op,
+                               items, weights=w.to(dev))
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind,gather_op", seg.GAS_KERNEL_OPS)
+@pytest.mark.parametrize("nv,frac", [(4096 * 3 + 5, 0.02), (1000, 1.0),
+                                     (5000, 0.0)])
+def test_gas_push_acc_matches_plain(dev, kind, gather_op, nv, frac):
+    g = generate.gnp(nv, nv * 6, seed=7, weighted=True)
+    csr = g.csr()
+    rp = torch.from_numpy(csr.row_ptr)
+    col_dst = torch.from_numpy(csr.col_dst)
+    cw = torch.from_numpy(csr.weights)
+    vals, fr = _gas_operands(nv, gather_op, frac, 1, seed=nv)
+    cnt = int(fr.sum())
+    q, start, _, offs = fq.frontier_queue(fr.to(dev), rp.to(dev), cnt)
+    total = int(offs[-1])
+    want = fq.gas_push_acc(q.cpu(), start.cpu(), offs.cpu(), col_dst, vals,
+                           kind, gather_op, total, weights=cw)
+    got = fq.gas_push_acc(q, start, offs, col_dst.to(dev), vals.to(dev),
+                          kind, gather_op, total, weights=cw.to(dev))
+    assert got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)
+
+
+def test_gas_wrappers_check_their_inputs(dev):
+    g = generate.rmat(8, 8, seed=1, weighted=True)
+    rp = torch.from_numpy(g.row_ptr).to(dev)
+    cs = torch.from_numpy(g.col_src).to(dev)
+    items = seg.SegmentItems.build(g.row_ptr, seg.SEG_ITEM, dev)
+    vals, fr = _gas_operands(g.nv, "add1", 0.5, 1, seed=1)
+    vals, fr = vals.to(dev), fr.to(dev)
+    with pytest.raises(NotImplementedError):
+        seg.gas_pull_acc(rp, cs, vals, fr, "min", "decay", items)
+    with pytest.raises(ValueError, match="float32"):
+        seg.gas_pull_acc(rp, cs, vals, fr, "min", "add_w", items,
+                         weights=torch.from_numpy(g.weights).to(dev))
+    with pytest.raises(ValueError, match="SegmentItems"):
+        seg.gas_pull_acc(rp, cs, vals, fr, "min", "add1")
+    with pytest.raises(ValueError, match="shape"):
+        seg.gas_pull_acc(rp, cs, vals, fr[:-1], "min", "add1", items)
+    f32 = torch.zeros(g.nv, device=dev)
+    with pytest.raises(ValueError, match="weights"):
+        seg.gas_pull_acc(rp, cs, f32, fr, "min", "add_w", items)
+
+
+def _gas_app(app):
+    g = generate.rmat(12, 10, seed=1, weighted=True)
+    gu = generate.undirected(g)
+    if app == "bfs":
+        return g, BFS(), {"start": 0}, reference_bfs(g, 0)[0]
+    if app == "sssp_delta":
+        return gu, DeltaSSSP(), {"start": 0}, reference_sssp_delta(gu, 0)
+    if app == "labelprop":
+        return g, LabelPropagation(), {}, reference_labelprop(g)
+    return gu, KCore(4), {}, reference_kcore(gu, 4)
+
+
+@pytest.mark.parametrize("mode", gas.GAS_MODES)
+@pytest.mark.parametrize("app", ["bfs", "sssp_delta", "labelprop", "kcore"])
+def test_gas_executor_on_cuda_counts_launches(dev, app, mode):
+    g, prog, kw, ref = _gas_app(app)
+    ex = gas.AdaptiveExecutor(g, prog, mode=mode)
+    assert ex.device.type == "cuda"
+    cpu = gas.AdaptiveExecutor(g, prog, device="cpu", mode=mode)
+    _cuda.reset_launches()
+    state, iters = ex.run(**kw)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    cstate, citers = cpu.run(**kw)
+    np.testing.assert_array_equal(ex.values(state), ref)
+    np.testing.assert_array_equal(ex.values(state), cpu.values(cstate))
+    assert (iters, ex.push_iters, ex.direction_switches) == (
+        citers, cpu.push_iters, cpu.direction_switches)
+    log = ex.direction_log
+    assert counts["gas_pull_acc"] == sum(1 for d, _, _ in log if d == 0)
+    assert counts["frontier_queue"] == sum(
+        1 for d, c, _ in log if d == 1 and c > 0)
+    assert counts["gas_push_acc"] == sum(
+        1 for d, c, e in log if d == 1 and c > 0 and e > 0)
+    assert counts == {**dict.fromkeys(counts, 0),
+                      **{n: counts[n] for n in ("gas_pull_acc",
+                                                "frontier_queue",
+                                                "gas_push_acc")}}
+
+
+def test_multi_source_gas_on_cuda(dev):
+    g = generate.undirected(generate.rmat(11, 8, seed=2, weighted=True))
+    roots = list(range(0, 90, 10))
+    for prog in (BFS(), DeltaSSSP()):
+        mx = gas.MultiSourceGasExecutor(g, prog, k=len(roots))
+        _cuda.reset_launches()
+        st, iters = mx.run(roots)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["gas_pull_acc"] == iters
+        ex = gas.AdaptiveExecutor(g, prog)
+        for j, r in enumerate(roots):
+            single, _ = ex.run(start=r)
+            np.testing.assert_array_equal(mx.values_for(st, j),
+                                          ex.values(single))
+
+
+def test_gas_pagerank_adapter_on_cuda(dev):
+    g = generate.rmat(10, 8, seed=3)
+    ex = gas.AdaptiveExecutor(g, gas.as_gas(PageRank()))
+    _cuda.reset_launches()
+    st, iters = ex.run(max_iters=10)
+    torch.cuda.synchronize()
+    assert iters == 10 and _cuda.LAUNCHES["gather_segment_sum"] == 10
+    cpu = PullExecutor(g, PageRank(), device="cpu")
+    np.testing.assert_allclose(ex.values(st), cpu.run(10).numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_gas_program_the_kernels_do_not_cover_raises_on_cuda(dev):
+    class Apart(BFS):
+        def gather(self, src_vals, weights):
+            return src_vals
+
+    g = generate.gnp(300, 2000, seed=2)
+    with pytest.raises(NotImplementedError):
+        gas.AdaptiveExecutor(g, Apart())
+    with pytest.raises(NotImplementedError):
+        gas.MultiSourceGasExecutor(g, Apart(), k=2)

@@ -28,6 +28,9 @@ def test_port_files_found():
     assert "lux_tpu_torch/engine/tiled.py" in FILES
     assert "lux_tpu_torch/engine/pull.py" in FILES
     assert "lux_tpu_torch/models/colfilter.py" in FILES
+    for name in ("engine/gas.py", "models/bfs.py", "models/sssp_delta.py",
+                 "models/labelprop.py", "models/kcore.py"):
+        assert f"lux_tpu_torch/{name}" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES)
