@@ -76,6 +76,25 @@ weights, generated once), k-core (k = 4) on the undirected closure:
     GTEPS, push and pull iterations and switches, the device busy share
     and the median phase split per direction.
 
+Then the sharded pull engine (``ShardedPullExecutor``) over 4 parts of
+a ``LocalMesh`` on the card: PageRank on the graph in the full and
+compact exchange modes, and CF on the ratings graph (whose compact plan
+is unprofitable, so compact resolves to full, logged):
+
+3e. shard layouts and executors: part sizes, capacities, resolved modes
+    and exchange bytes per iteration;
+4e. K8 and K9 on the largest part's slice of the flat table (its
+    destinations at ``row_base``) against their plain versions;
+5e. end to end: PageRank ``run(10)`` in both modes against phase 5's
+    f64 oracle, compact equal to full bitwise, CF ``run(5)`` against
+    phase 5c's f64 oracle, K8 and K9 launched once per part and
+    iteration; whether each equals the single-device ``PullExecutor``
+    bitwise;
+6e. timing: median of 3 runs after ``warmup``, ms per iteration, GTEPS,
+    the ``phase_step`` split (exchange, comp, update), the device busy
+    share, the exchange alone against its bytes bound, the phases' peak
+    device memory; then ``dryrun_multichip(4)`` on the card.
+
 Any failure exits non-zero. Without a card it exits non-zero and prints
 no result. The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels as JSON.
@@ -265,19 +284,26 @@ def main(argv=None) -> int:
     for name, n in _push_phases(g, gu, dev, kernels).items():
         totals[name] += n
     torch.cuda.empty_cache()
-    for name, n in _pull_phases(g, oracle, args.scale, dev, kernels).items():
+    pull_totals, gc, cf_oracle = _pull_phases(g, oracle, args.scale, dev,
+                                              kernels)
+    for name, n in pull_totals.items():
         totals[name] += n
     torch.cuda.empty_cache()
     for name, n in _gas_phases(g, gw, gu, oracle, dev, kernels).items():
         totals[name] += n
+    del gw, gu
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in _sharded_phases(g, oracle, gc, cf_oracle, dev).items():
+        totals[name] += n
+    peak = max(peak, torch.cuda.max_memory_allocated())
 
     for entry in kernels:
         entry["launches"] = totals[entry["name"]]
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} never ran on the main path")
     log(f"[done] scale {args.scale} in {time.perf_counter() - t_start:.1f} s "
-        f"on {smi}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"on {smi}; peak device memory {peak / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -766,10 +792,11 @@ def _push_phases(g, gu, dev, kernels) -> dict:
     return totals
 
 
-def _pull_phases(g, pr_oracle, scale, dev, kernels) -> dict:
+def _pull_phases(g, pr_oracle, scale, dev, kernels):
     """Phases 3c-6c on the flat pull engine: flat PageRank on ``g`` and
     CF on ``bench.py``'s ratings graph of this scale; returns the launch
-    counts of their two runs, summed."""
+    counts of their two runs, summed, the ratings graph and CF's f64
+    oracle of ``run(5)``."""
     import torch
 
     from lux_tpu_torch.engine.pull import DEFAULT_EDGE_CHUNK, PullExecutor
@@ -931,7 +958,7 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels) -> dict:
                 f"{sec * 1e3:.3f} ms ({busy_ms / (sec * 1e3):.1%}; "
                 "torch.profiler); top kernels (ms): "
                 + ", ".join(f"{n}={v:.3f}" for n, v in top))
-    return totals
+    return totals, gc, cf_oracle
 
 
 GAS_KERNELS = ("gas_pull_acc", "frontier_queue", "gas_push_acc")
@@ -1300,6 +1327,189 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
                 f"{len(runs)}): " + ", ".join(
                     f"{k}={v:.3f}" for k, v in med.items()))
         del st, st0
+    return totals
+
+
+SHARDED_PARTS = 4
+
+
+def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev) -> dict:
+    """Phases 3e-6e on the sharded pull engine: PageRank on ``g`` in the
+    full and compact exchange modes and CF on the ratings graph ``gc``,
+    each over ``SHARDED_PARTS`` parts of a ``LocalMesh`` on the card;
+    returns the launch counts of the phase 5e runs, summed."""
+    import torch
+
+    from lux_tpu_torch.engine.pull import PullExecutor
+    from lux_tpu_torch.engine.pull_sharded import ShardedPullExecutor
+    from lux_tpu_torch.entry import dryrun_multichip
+    from lux_tpu_torch.models import CollaborativeFiltering, PageRank
+    from lux_tpu_torch.models.colfilter import K
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops import segment as seg
+    from lux_tpu_torch.parallel.mesh import make_mesh
+    from lux_tpu_torch.parallel.shard import ShardedGraph, resolve_exchange
+    from lux_tpu_torch.utils.logging import get_logger
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    P = SHARDED_PARTS
+    mesh = make_mesh(P, dev)
+    flag = os.environ.get("LUX_EXCHANGE")
+
+    # -- 3e. shard layouts and executors ----------------------------------------
+    sgs = {}
+    for name, graph, width in (("rmat", g, 1), ("ratings", gc, K)):
+        t = time.perf_counter()
+        sg = ShardedGraph.build(graph, P)
+        plan = sg.exchange_plan()
+        built = time.perf_counter() - t
+        os.environ["LUX_EXCHANGE"] = "compact"
+        mode, _ = resolve_exchange(sg, get_logger("engine"))
+        full = P * (P - 1) * sg.max_nv * 4 * width
+        log(f"[sharded] {name}: nv={graph.nv} ne={graph.ne} P={P} "
+            f"max_nv={sg.max_nv} max_ne={sg.max_ne} part nv="
+            f"{sg.local_nv.tolist()} part ne="
+            f"{sg.local_row_ptr[:, -1].tolist()}; capacity {plan.capacity} "
+            f"(profitable {plan.profitable}), compact resolves to {mode}; "
+            f"exchange bytes per iteration at {4 * width} B rows: full "
+            f"{full}, compact {plan.exchange_bytes_per_iter(4 * width)}; "
+            f"built in {built:.1f} s")
+        sgs[name] = sg
+    exs = {}
+    for label, graph, prog, sg, mode in (
+            ("pagerank full", g, PageRank(), sgs["rmat"], "full"),
+            ("pagerank compact", g, PageRank(), sgs["rmat"], "compact"),
+            ("cf", gc, CollaborativeFiltering(), sgs["ratings"], "full")):
+        os.environ["LUX_EXCHANGE"] = mode
+        t = time.perf_counter()
+        ex = ShardedPullExecutor(graph, prog, mesh=mesh, sg=sg)
+        torch.cuda.synchronize()
+        log(f"[sharded] {label} executor (LUX_EXCHANGE={mode}, resolved "
+            f"{ex.exchange_mode}) built in {time.perf_counter() - t:.1f} s; "
+            f"work items per part {[p.items.n_items for p in ex._parts]}; "
+            f"exchange_bytes_per_iter {ex.exchange_bytes_per_iter()}")
+        if ex.exchange_mode != mode:
+            raise AssertionError(f"{label}: resolved {ex.exchange_mode}")
+        exs[label] = ex
+    if flag is None:
+        del os.environ["LUX_EXCHANGE"]
+    else:
+        os.environ["LUX_EXCHANGE"] = flag
+
+    # -- 4e. K8 and K9 on one part's flat table, against the plain versions ----
+    for label, q in (("pagerank compact", P - 1), ("cf", P - 1)):
+        ex = exs[label]
+        part = ex._parts[q]
+        vals = ex.init_values()
+        table = ex._table(ex._exchange(vals), q)
+        got = seg.pull_sum(table, part.row_ptr, part.col_src, part.weights,
+                           ex.program.edge_op, ex._edge_fn, part.items, 0,
+                           "rowptr", part.row_base)
+        want = seg.pull_sum_plain(table, part.row_ptr, part.col_src,
+                                  part.weights, ex._edge_fn, window=1 << 20,
+                                  row_base=part.row_base)
+        tol = (dict(rtol=CF_RTOL, atol=CF_ATOL) if label == "cf"
+               else dict(rtol=RTOL, atol=ATOL))
+        err = check_close(f"{label} part {q}", got, want, **tol)
+        log(f"[sharded] {label}: part {q}'s kernel (row_base "
+            f"{part.row_base}, {part.col_src.numel()} edges) matches its "
+            f"plain version (max abs err {err:.3e})")
+        del table, got, want
+
+    # -- 5e. end to end ---------------------------------------------------------
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    outs = {}
+    for label, iters, oracle, tol in (
+            ("pagerank full", ITERS, pr_oracle, dict(rtol=RTOL, atol=ATOL)),
+            ("pagerank compact", ITERS, pr_oracle,
+             dict(rtol=RTOL, atol=ATOL)),
+            ("cf", CF_ITERS, cf_oracle, dict(rtol=CF_RTOL, atol=CF_ATOL))):
+        ex = exs[label]
+        kernel = "cf_edge_sum" if label == "cf" else "gather_segment_sum"
+        _cuda.reset_launches()
+        out = ex.run(iters)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        got = ex.gather_values(out)
+        if got.shape != oracle.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"sharded {label}: bad output {got.shape}")
+        np.testing.assert_allclose(got, oracle, err_msg=f"sharded {label}",
+                                   **tol)
+        err = float(np.max(np.abs(got.astype(np.float64) - oracle)))
+        check_launches(f"sharded {label}", counts, {kernel: P * iters})
+        log(f"[sharded] {label}: run({iters}) matches the f64 oracle (max "
+            f"abs err {err:.3e}); launches {counts[kernel]} = {P} parts x "
+            f"{iters} iterations")
+        for name, n in counts.items():
+            totals[name] += n
+        outs[label] = (out, got)
+    check_equal("sharded pagerank compact vs full",
+                outs["pagerank compact"][0], outs["pagerank full"][0])
+    log("[sharded] pagerank: compact equals full bitwise")
+    for label, graph, prog, iters in (
+            ("pagerank full", g, PageRank(), ITERS),
+            ("cf", gc, CollaborativeFiltering(), CF_ITERS)):
+        single = PullExecutor(graph, prog).run(iters).cpu().numpy()
+        same = np.array_equal(outs[label][1], single)
+        log(f"[sharded] {label}: equals the single-device PullExecutor "
+            f"bitwise: {same} (max abs diff "
+            f"{float(np.max(np.abs(outs[label][1] - single))):.3e})")
+        del single
+    del outs
+
+    # -- 6e. timing -------------------------------------------------------------
+    for label, graph, iters in (("pagerank full", g, ITERS),
+                                ("pagerank compact", g, ITERS),
+                                ("cf", gc, CF_ITERS)):
+        ex = exs[label]
+        ex.warmup()
+        vals = ex.init_values()
+        secs = [host_seconds(lambda: ex.run(iters, vals=vals))
+                for _ in range(3)]
+        sec = float(np.median(secs))
+        ev_ms = cuda_ms(lambda: ex.run(iters, vals=vals), 3) / iters
+        runs = [ex.phase_step(vals)[1] for _ in range(5)]
+        split = {k: float(np.median([r[k] for r in runs])) * 1e3
+                 for k in runs[0]}
+        log(f"[time] sharded {label}: {sec / iters * 1e3:.3f} ms/iteration, "
+            f"{graph.ne * iters / sec / 1e9:.3f} GTEPS (host clock, median "
+            f"of 3 runs of {iters}: {[round(x * 1e3, 3) for x in secs]} ms);"
+            f" {ev_ms:.3f} ms/iteration by CUDA events (mean of 3); "
+            "phase_step split (ms, median of 5): " + ", ".join(
+                f"{k}={v:.3f}" for k, v in split.items()))
+        busy = device_busy(lambda: ex.run(iters, vals=vals))
+        if busy is None:
+            log(f"[time] sharded {label}: device busy share not measured "
+                "(the profiler saw no kernels)")
+        else:
+            busy_ms, top = busy
+            log(f"[time] sharded {label}: device busy {busy_ms:.3f} ms of "
+                f"{sec * 1e3:.3f} ms ({busy_ms / (sec * 1e3):.1%}; "
+                "torch.profiler); top kernels (ms): "
+                + ", ".join(f"{n}={v:.3f}" for n, v in top))
+        # The exchange alone: its input, the (P, max_nv, *t) values, read
+        # once, and its output, the tables the parts read, written once.
+        x_ms = cuda_ms(lambda: ex._exchange(vals), 10)
+        flat = ex._exchange(vals)
+        out_bytes = 0 if ex._xplan is None else flat.numel() * 4
+        in_bytes = 0 if ex._xplan is None else vals.numel() * 4
+        b_ms, _ = bound(in_bytes + out_bytes, 0)
+        log(f"[time] sharded {label} exchange ({ex.exchange_mode}): "
+            f"{x_ms:.4f} ms (mean of 10, CUDA events) against a bytes bound "
+            f"of {b_ms:.4f} ms ({in_bytes + out_bytes} B); "
+            f"{ex.exchange_bytes_per_iter()} B per iteration priced as "
+            "interconnect bytes")
+        del flat, vals
+    del exs
+    log(f"[sharded] peak device memory of phases 3e-6e "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    _cuda.reset_launches()
+    dryrun_multichip(P)
+    log(f"[sharded] dryrun_multichip({P}) passed on the card; launches "
+        f"{ {k: v for k, v in _cuda.LAUNCHES.items() if v} }; phases 3e-6e "
+        f"took {time.perf_counter() - t_phase:.1f} s")
     return totals
 
 

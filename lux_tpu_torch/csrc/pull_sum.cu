@@ -68,6 +68,9 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p,
 
 // One warp per work item, one lane per edge: the item's partial row of
 // sum over its edges of (w_e - <vals[src_e], vals[v]>) * vals[src_e].
+// item_row is the row of vals that holds the item's destination v: v itself
+// on one device, part * max_nv + v in a sharded graph's flat table
+// (ops/segment.py::SegmentItems). It is read for that load only.
 template <int K>
 __global__ void __launch_bounds__(kWarpThreads)
 cf_items_kernel(const float* __restrict__ vals,

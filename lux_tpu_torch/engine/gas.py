@@ -627,6 +627,16 @@ class MultiSourceGasExecutor(_GasBase):
         self.pull_iters = total
         return state, total
 
+    def warmup(self, chunk: int = 16, start: int = 0):
+        """One iteration of the multi-source fixpoint from
+        ``init_state([start])`` (builds the kernels) so timed runs exclude
+        set-up, as ``lux_tpu``'s ``warmup``; no iteration when ``chunk``
+        is 0, as in ``run``. It leaves no state behind: ``pull_iters``
+        stays as the last ``run`` left it."""
+        if chunk > 0:
+            self.step(self.init_state([start]))
+        self._sync()
+
     def values_for(self, state: GasState, j: int) -> np.ndarray:
         """Host copy of lane ``j``'s value column."""
         return self._to_numpy(state.values[:, j].contiguous())

@@ -1,0 +1,311 @@
+"""Sharded pull executor: the P parts of an edge-balanced partition, on
+one device.
+
+The counterpart of ``ShardedPullExecutor`` in
+``lux_tpu/engine/pull_sharded.py``, which runs one part per device of a
+``shard_map`` mesh. Here the parts are the leading axis of stacked
+``(P, max_nv, *value_shape)`` values on one device
+(:class:`~lux_tpu_torch.parallel.mesh.LocalMesh`), and one iteration is
+three phases:
+
+- **exchange**: the flat ``(P * max_nv, *t)`` table of every part's
+  values that the parts' edges gather from (``src_pidx``). Full mode:
+  the mesh's ``all_gather``, which on one device is a view of the
+  stacked values. Compact mode (``LUX_EXCHANGE=compact``, a profitable
+  :class:`~lux_tpu_torch.graph.partition.ExchangePlan`): each sender
+  gathers the rows its receivers read (``xch_send``, clamped to
+  ``max_nv - 1`` like ``lux_tpu``'s gather) with ``index_select``, the
+  mesh's ``all_to_all`` moves the blocks, and each receiver scatters
+  them by ``xch_recv`` into its own ``(P * max_nv + 1)``-row table with
+  ``index_copy_``; the last row takes the pad entries and is sliced off.
+  The receiver's own span of its table is written from its local shard
+  (as ``lux_tpu/engine/tiled_sharded.py:515`` does), so a local edge
+  reads through the same single gather the value ``lux_tpu``'s
+  local-first select gives it. Every row an edge reads equals the full
+  table's, so compact equals full bitwise. The exchange is plain torch
+  indexing, no hand-written kernel: it is pure data movement, which
+  ``index_select`` and ``index_copy_`` already do at the card's rate;
+- **comp**: one kernel launch per part, as ``lux_tpu`` runs one device
+  per part: K8 ``gather_segment_sum`` (PageRank) or K9 ``cf_edge_sum``
+  (CF) over the part's ``local_row_ptr`` and ``src_pidx``, with
+  :class:`~lux_tpu_torch.ops.segment.SegmentItems` per part. K9 reads
+  each destination's row from the same table as the sources; the items'
+  ``item_row`` is offset by ``part * max_nv``, the part's own span. Pad
+  edges lie past ``local_row_ptr[max_nv]``, so no item holds one;
+- **update**: ``program.apply`` over the stacked parts, then pad
+  vertices are frozen by ``vertex_mask``.
+
+Routing follows :class:`~lux_tpu_torch.engine.pull.PullExecutor`: on the
+card a program that no kernel covers raises ``NotImplementedError``
+(:func:`~lux_tpu_torch.engine.pull.check_kernel_covers`), and both
+``sum_strategy`` values are the same launch; on the CPU the kernels'
+plain versions run, and min/max combiners reduce by ``dst_local``.
+
+Not ported, by design: ``lux_tpu``'s lane padding (``_kpad``), a TPU
+gather layout that changes no result (``exchange_bytes_per_iter`` prices
+the real width, as ``lux_tpu`` does); the recorder, engobs, ``prof``
+regions, ``trace_step`` and the fused runner (``run`` is a plain loop of
+steps on device tensors).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lux_tpu_torch.engine.program import EdgeCtx, PullProgram, VertexCtx
+from lux_tpu_torch.engine.pull import check_kernel_covers
+from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.ops.segment import (
+    SUM_STRATEGIES,
+    SegmentItems,
+    pull_item_len,
+    pull_sum,
+    segment_reduce,
+)
+from lux_tpu_torch.parallel.mesh import LocalMesh, make_mesh
+from lux_tpu_torch.parallel.shard import ShardedGraph, resolve_exchange
+from lux_tpu_torch.utils.logging import get_logger
+from lux_tpu_torch.utils.timing import timed
+
+
+@dataclasses.dataclass(eq=False)
+class _Part:
+    """One part's operands on the device: its CSC offsets, its real
+    edges' flat source rows and weights (views of the stacked arrays),
+    the first row of its own span in the flat table, and its kernel work
+    items (the card only)."""
+
+    row_ptr: torch.Tensor             # (max_nv + 1,) int64
+    col_src: torch.Tensor             # (n_e,) int32, rows of the flat table
+    weights: Optional[torch.Tensor]   # (n_e,) int32 or None
+    row_base: int                     # part * max_nv
+    items: Optional[SegmentItems]
+
+
+class ShardedPullExecutor:
+    """Runs a :class:`PullProgram` over the ``num_parts`` parts of a
+    :class:`LocalMesh` (``cuda`` unless ``device`` or ``mesh`` names
+    another)."""
+
+    def __init__(
+        self,
+        graph: Graph,
+        program: PullProgram,
+        mesh: Optional[LocalMesh] = None,
+        num_parts: Optional[int] = None,
+        sum_strategy: str = "rowptr",
+        sg: Optional[ShardedGraph] = None,
+        device=None,
+    ):
+        if program.needs_weights and graph.weights is None:
+            raise ValueError(f"{program.name} requires an edge-weighted graph")
+        if sum_strategy not in SUM_STRATEGIES:
+            raise ValueError(f"unknown sum strategy {sum_strategy!r}")
+        if mesh is None:
+            mesh = make_mesh(num_parts, device)
+        elif device is not None and torch.device(device).type != \
+                mesh.device.type:
+            raise ValueError(f"device {device} differs from the mesh's "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        self.num_parts = mesh.num_parts
+        self.device = mesh.device
+        self.graph = graph
+        self.program = program
+        self.sum_strategy = sum_strategy
+        if sg is not None and sg.num_parts != self.num_parts:
+            raise ValueError(
+                f"prebuilt ShardedGraph has {sg.num_parts} parts, mesh has "
+                f"{self.num_parts}"
+            )
+        if sg is not None and sg.graph is not graph:
+            raise ValueError(
+                "prebuilt ShardedGraph was built from a different Graph "
+                "object — edge indices and partition bounds would not "
+                "match this executor's graph"
+            )
+        on_card = self.device.type != "cpu"
+        if on_card:
+            check_kernel_covers(program)
+        self.sg = sg if sg is not None else ShardedGraph.build(
+            graph, self.num_parts)
+        self.value_shape = tuple(getattr(program, "value_shape", ()) or ())
+
+        # The mode is captured here, once; a downgrade is logged.
+        self.exchange_mode, self._xplan = resolve_exchange(
+            self.sg, get_logger("engine"))
+
+        sg = self.sg
+        P, n = self.num_parts, sg.max_nv
+        put = self._put
+        self.src_pidx = put(sg.src_pidx)
+        self.local_row_ptr = put(sg.local_row_ptr.astype(np.int64))
+        self.weights = None if sg.weights is None else put(sg.weights)
+        self.vertex_mask = put(sg.vertex_mask)
+        self.dst_local = (put(sg.dst_local) if program.combiner != "sum"
+                          else None)
+        self._ctx = VertexCtx(nv=graph.nv, out_degrees=put(sg.out_degrees),
+                              in_degrees=put(sg.in_degrees))
+        item_len = pull_item_len(program.edge_op)
+        self._parts = []
+        for q in range(P):
+            n_e = int(sg.local_row_ptr[q, -1])
+            self._parts.append(_Part(
+                row_ptr=self.local_row_ptr[q],
+                col_src=self.src_pidx[q, :n_e],
+                weights=None if self.weights is None
+                else self.weights[q, :n_e],
+                row_base=q * n,
+                items=(SegmentItems.build(sg.local_row_ptr[q], item_len,
+                                          self.device, row_base=q * n)
+                       if on_card else None),
+            ))
+        if self._xplan is not None:
+            # Flat indices over the stacked arrays: sender p's gather
+            # list addresses only its own shard, receiver q's scatter
+            # list only its own table of P*n + 1 rows.
+            rows = P * n + 1
+            parts = np.arange(P, dtype=np.int64)[:, None]
+            send = np.minimum(self._xplan.send_units.astype(np.int64), n - 1)
+            self._xch_send = put((send + parts * n).reshape(-1))
+            self._xch_recv = put(
+                (self._xplan.recv_pos.astype(np.int64) + parts * rows)
+                .reshape(-1))
+            own = parts * rows + parts * n + np.arange(n, dtype=np.int64)
+            self._xch_own = put(own.reshape(-1))
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- one iteration ---------------------------------------------------
+
+    def _exchange(self, vals: torch.Tensor) -> torch.Tensor:
+        """The flat tables the parts gather from: the shared (P*max_nv,
+        *t) all-gathered table (full), or one (P*max_nv, *t) table per
+        receiver, stacked (compact)."""
+        if self._xplan is None:
+            return self.mesh.all_gather(vals)
+        P, n = self.num_parts, self.sg.max_nv
+        tail = tuple(vals.shape[2:])
+        local = vals.reshape((P * n,) + tail)
+        packed = local.index_select(0, self._xch_send)
+        got = self.mesh.all_to_all(packed.view((P, -1) + tail))
+        buf = vals.new_zeros((P * (P * n + 1),) + tail)
+        buf.index_copy_(0, self._xch_recv, got.reshape((-1,) + tail))
+        buf.index_copy_(0, self._xch_own, local)
+        return buf.view((P, P * n + 1) + tail)[:, :-1]
+
+    def _table(self, flat: torch.Tensor, q: int) -> torch.Tensor:
+        return flat if self._xplan is None else flat[q]
+
+    def _edge_fn(self, src, dst, w) -> torch.Tensor:
+        return self.program.edge_contrib(
+            EdgeCtx(src_vals=src, dst_vals=dst, weights=w))
+
+    def _comp(self, flat: torch.Tensor) -> torch.Tensor:
+        """(P, max_nv, *t) accumulators: one kernel launch per part."""
+        prog = self.program
+        accs = []
+        for q, part in enumerate(self._parts):
+            table = self._table(flat, q)
+            if prog.combiner == "sum":
+                accs.append(pull_sum(
+                    table, part.row_ptr, part.col_src, part.weights,
+                    prog.edge_op, self._edge_fn, part.items, 0,
+                    self.sum_strategy, part.row_base))
+                continue
+            # Min/max combiners: the plain scatter (the CPU only; see
+            # check_kernel_covers).
+            dst = self.dst_local[q, :part.col_src.shape[0]]
+            edge = EdgeCtx(src_vals=table[part.col_src.long()],
+                           dst_vals=table[dst.long() + part.row_base],
+                           weights=part.weights)
+            accs.append(segment_reduce(prog.edge_contrib(edge), dst,
+                                       self.sg.max_nv, kind=prog.combiner))
+        return torch.stack(accs)
+
+    def _update(self, vals: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+        new = self.program.apply(vals, acc, self._ctx)
+        mask = self.vertex_mask.view(
+            tuple(self.vertex_mask.shape) + (1,) * len(self.value_shape))
+        return torch.where(mask, new, vals)   # freeze pad vertices
+
+    def _step(self, vals: torch.Tensor) -> torch.Tensor:
+        return self._update(vals, self._comp(self._exchange(vals)))
+
+    # -- running -----------------------------------------------------------
+
+    def _values(self, a) -> torch.Tensor:
+        """(P, max_nv, *value_shape) f32 values on the device."""
+        if isinstance(a, torch.Tensor):
+            t = a.to(device=self.device, dtype=torch.float32)
+        else:
+            t = torch.from_numpy(np.array(a, dtype=np.float32)).to(
+                self.device)
+        want = (self.num_parts, self.sg.max_nv) + self.value_shape
+        if tuple(t.shape) != want:
+            raise ValueError(f"values must be {want}, got {tuple(t.shape)}")
+        return t.contiguous()
+
+    def init_values(self) -> torch.Tensor:
+        return self.host_to_device(self.program.init_values(self.graph))
+
+    def host_to_device(self, host_vals) -> torch.Tensor:
+        """Global (nv, *t) host array → the padded (P, max_nv, *t) stack
+        on the device."""
+        return self._values(self.sg.to_padded(np.asarray(host_vals)))
+
+    def step(self, vals) -> torch.Tensor:
+        """One iteration; (P, max_nv, *value_shape) in and out."""
+        return self._step(self._values(vals))
+
+    def phase_step(self, vals):
+        """One iteration as separately timed exchange, comp and update
+        phases (CUDA events on the card). Returns (new vals, {phase:
+        seconds})."""
+        vals = self._values(vals)
+        dev, times = self.device, {}
+        flat, times["exchange"] = timed(lambda: self._exchange(vals), dev)
+        acc, times["comp"] = timed(lambda: self._comp(flat), dev)
+        new, times["update"] = timed(lambda: self._update(vals, acc), dev)
+        return new, times
+
+    def warmup(self):
+        """One throwaway iteration through the run() path (builds the
+        kernels) so timed runs exclude set-up."""
+        self.run(1)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, num_iters: int, vals=None) -> torch.Tensor:
+        """``num_iters`` iterations from ``vals`` (default: the program's
+        initial values). A plain loop of steps on device tensors (no
+        host sync inside)."""
+        vals = self.init_values() if vals is None else self._values(vals)
+        for _ in range(num_iters):
+            vals = self._step(vals)
+        return vals
+
+    def _row_bytes(self) -> int:
+        width = int(np.prod(self.value_shape)) if self.value_shape else 0
+        itemsize = getattr(self.program.value_dtype, "itemsize", 4)
+        return max(width, 1) * itemsize
+
+    def exchange_bytes_per_iter(self) -> int:
+        """Interconnect bytes of one iteration's exchange, as ``lux_tpu``
+        prices them. Full: each of the P shards sends its (max_nv, *t)
+        slice to the P-1 others. Compact: the plan's packed-capacity
+        figure. On one device neither crosses an interconnect."""
+        row = self._row_bytes()
+        if self._xplan is not None:
+            return self._xplan.exchange_bytes_per_iter(row)
+        p = self.num_parts
+        return p * (p - 1) * self.sg.max_nv * row
+
+    def gather_values(self, vals) -> np.ndarray:
+        """Padded device layout → global (nv, *t) host array."""
+        return self.sg.from_padded(self._values(vals).cpu().numpy())

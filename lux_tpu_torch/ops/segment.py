@@ -72,11 +72,17 @@ def segment_items(row_ptr: np.ndarray, item_len: int):
 @dataclasses.dataclass(eq=False)
 class SegmentItems:
     """Work items of one CSR segmented sum, on the device (see
-    :func:`segment_items`); built once per plan on the host."""
+    :func:`segment_items`); built once per plan on the host.
+
+    ``item_row`` is the owning row plus ``row_base``: the row of the
+    value table that holds the item's destination. It is the row itself
+    on one device; a part of a sharded graph reads its destinations from
+    its own span of the flat table, at ``part * max_nv``."""
 
     item_lo: torch.Tensor     # (n_items+1,) int64 element offsets
     row_items: torch.Tensor   # (nrows+1,) int64 item offsets per row
-    item_row: torch.Tensor    # (n_items,) int32 row owning each item
+    item_row: torch.Tensor    # (n_items,) int32 table row of each item
+    row_base: int = 0
 
     @property
     def n_items(self) -> int:
@@ -87,14 +93,16 @@ class SegmentItems:
         return self.row_items.shape[0] - 1
 
     @staticmethod
-    def build(row_ptr: np.ndarray, item_len: int, device) -> "SegmentItems":
+    def build(row_ptr: np.ndarray, item_len: int, device,
+              row_base: int = 0) -> "SegmentItems":
         lo, ri = segment_items(row_ptr, item_len)
-        rows = np.repeat(np.arange(ri.shape[0] - 1, dtype=np.int32),
-                         np.diff(ri))
+        rows = np.repeat(np.arange(row_base, row_base + ri.shape[0] - 1,
+                                   dtype=np.int32), np.diff(ri))
         return SegmentItems(
             item_lo=torch.from_numpy(lo).to(device),
             row_items=torch.from_numpy(ri).to(device),
             item_row=torch.from_numpy(rows).to(device),
+            row_base=int(row_base),
         )
 
 
@@ -379,6 +387,9 @@ def segment_minmax_relax(
                          "of row_ptr")
     if items.nrows != nv:
         raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
+    if items.row_base:
+        # item_row is the output row here: the items of one table's rows.
+        raise ValueError("items with a row_base address another table")
     _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
     _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
     # The identity as int32 storage: 0xFFFFFFFF is -1, 0 is 0.
@@ -438,10 +449,14 @@ def pull_sum_plain(
     edge_fn: EdgeFn,
     window: int = 0,
     strategy: str = "rowptr",
+    row_base: int = 0,
 ) -> torch.Tensor:
     """The plain version of K8 and K9, for any sum-combiner pull program:
     per CSC destination v, the sum over its in-edges e of
-    ``edge_fn(vals[src_e], vals[v], w_e)``, (nv, *tail) f32.
+    ``edge_fn(vals[src_e], vals[row_base + v], w_e)``, (nv, *tail) f32,
+    where nv is ``row_ptr``'s row count. ``vals`` is the value table the
+    sources index; a part of a sharded graph passes the flat table of
+    all parts and the row of its own span as ``row_base``.
 
     Edges are taken ``window`` at a time (all at once when 0), so at most
     one window of contributions exists, as ``lux_tpu``'s edge-chunked
@@ -468,7 +483,7 @@ def pull_sum_plain(
         local = rp[r0:r1 + 1].clamp(lo, hi) - lo
         dst = torch.repeat_interleave(
             torch.arange(r0, r1, device=rp.device), local.diff())
-        c = edge_fn(vals[col_src[lo:hi].long()], vals[dst],
+        c = edge_fn(vals[col_src[lo:hi].long()], vals[dst + row_base],
                     None if weights is None else weights[lo:hi])
         if wide:
             acc[r0:r1] += _prefix_diff64(c, local)
@@ -482,26 +497,36 @@ def gather_segment_sum_plain(vals, row_ptr, col_src, window: int = 0):
     return pull_sum_plain(vals, row_ptr, col_src, None, _copy_edge, window)
 
 
-def cf_edge_sum_plain(vals, row_ptr, col_src, weights, window: int = 0):
+def cf_edge_sum_plain(vals, row_ptr, col_src, weights, window: int = 0,
+                      row_base: int = 0):
     """K9's plain version: :func:`pull_sum_plain` with the CF edge."""
-    return pull_sum_plain(vals, row_ptr, col_src, weights, _cf_edge, window)
+    return pull_sum_plain(vals, row_ptr, col_src, weights, _cf_edge, window,
+                          row_base=row_base)
 
 
-def _check_pull_operands(vals, row_ptr, col_src, items, item_rows: bool):
-    """Raise unless ``vals`` has a row per destination and ``row_ptr``,
-    ``col_src`` and ``items`` (the :class:`SegmentItems` of ``row_ptr``)
-    are the device operands of a pull kernel."""
+def _check_pull_operands(vals, row_ptr, col_src, items, item_rows: bool,
+                         row_base: int = 0):
+    """Raise unless ``vals`` holds the destination rows ``row_base ..
+    row_base + nv - 1`` and ``row_ptr``, ``col_src`` and ``items`` (the
+    :class:`SegmentItems` of ``row_ptr``, built with ``row_base``) are
+    the device operands of a pull kernel."""
     dev = vals.device
     nv = row_ptr.shape[0] - 1
     _cuda.check(vals, "vals", torch.float32, dev)
-    if vals.dim() == 0 or vals.shape[0] != nv:
-        raise ValueError(f"vals must be ({nv}, ...), got {tuple(vals.shape)}")
+    if vals.dim() == 0 or vals.shape[0] < row_base + nv:
+        raise ValueError(f"vals must hold rows {row_base}.."
+                         f"{row_base + nv - 1} (({nv}, ...) on one "
+                         f"device), got "
+                         f"{tuple(vals.shape)}")
     _cuda.check(row_ptr, "row_ptr", torch.int64, dev, ndim=1)
     _cuda.check(col_src, "col_src", torch.int32, dev, ndim=1)
     if items is None:
         raise ValueError("CUDA pull sums need the SegmentItems of row_ptr")
     if items.nrows != nv:
         raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
+    if items.row_base != row_base:
+        raise ValueError(f"items were built for row_base {items.row_base},"
+                         f" not {row_base}")
     _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
     _cuda.check(items.row_items, "row_items", torch.int64, dev, ndim=1)
     if item_rows:
@@ -511,19 +536,24 @@ def _check_pull_operands(vals, row_ptr, col_src, items, item_rows: bool):
 def gather_segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
                        col_src: torch.Tensor,
                        items: Optional[SegmentItems] = None) -> torch.Tensor:
-    """Per CSC destination v, the sum of ``vals[src]`` over its in-edges.
-    CPU tensors take the plain version (rows of any shape); CUDA tensors
-    launch K8 (``csrc/pull_sum.cu``) over ``items``, for (nv,) f32 values
-    only."""
+    """Per CSC destination v, the sum of ``vals[src]`` over its in-edges,
+    (nv,) for ``row_ptr``'s nv rows; ``vals`` is the table the sources
+    index (nv rows on one device, every part's on a sharded graph). CPU
+    tensors take the plain version (rows of any shape); CUDA tensors
+    launch K8 (``csrc/pull_sum.cu``) over ``items``, for scalar f32
+    values only."""
     if vals.device.type == "cpu":
         return gather_segment_sum_plain(vals, row_ptr, col_src)
     if vals.dim() != 1:
         raise NotImplementedError(
             f"K8 sums scalar (nv,) values, not {tuple(vals.shape)}")
-    _check_pull_operands(vals, row_ptr, col_src, items, item_rows=False)
+    row_base = 0 if items is None else items.row_base
+    _check_pull_operands(vals, row_ptr, col_src, items, item_rows=False,
+                         row_base=row_base)
+    nv = row_ptr.shape[0] - 1
     if items.n_items == 0:
-        return torch.zeros_like(vals)
-    acc = torch.empty_like(vals)
+        return vals.new_zeros(nv)
+    acc = vals.new_empty(nv)
     partial = torch.empty(items.n_items, dtype=torch.float32,
                           device=vals.device)
     _cuda.launch(
@@ -537,29 +567,35 @@ def gather_segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
 
 def cf_edge_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
                 col_src: torch.Tensor, weights: torch.Tensor,
-                items: Optional[SegmentItems] = None) -> torch.Tensor:
-    """Per CSC destination v, the sum of ``(w - <vals[src], vals[v]>) *
-    vals[src]`` over its in-edges (collaborative filtering's gather), for
-    (nv, K) ``vals``. CPU tensors take the plain version (any K); CUDA
-    tensors launch K9 (``csrc/pull_sum.cu``) over ``items``, with int32
-    ``weights`` and K = ``CF_WIDTH``."""
+                items: Optional[SegmentItems] = None,
+                row_base: int = 0) -> torch.Tensor:
+    """Per CSC destination v, the sum of ``(w - <vals[src], vals[row_base
+    + v]>) * vals[src]`` over its in-edges (collaborative filtering's
+    gather), (nv, K) for ``row_ptr``'s nv rows of a (rows, K) table
+    ``vals``. CPU tensors take the plain version (any K); CUDA tensors
+    launch K9 (``csrc/pull_sum.cu``) over ``items``, built with
+    ``row_base`` (K9 reads each item's destination row at its
+    ``item_row``), with int32 ``weights`` and K = ``CF_WIDTH``."""
     if vals.device.type == "cpu":
-        return cf_edge_sum_plain(vals, row_ptr, col_src, weights)
+        return cf_edge_sum_plain(vals, row_ptr, col_src, weights,
+                                 row_base=row_base)
     if vals.dim() != 2:
         raise ValueError("the CF edge takes (nv, K) K-vectors, got "
                          f"{tuple(vals.shape)}")
     if vals.shape[1] != CF_WIDTH:
         raise NotImplementedError(
             f"K9 is compiled for K = {CF_WIDTH}, not {vals.shape[1]}")
-    _check_pull_operands(vals, row_ptr, col_src, items, item_rows=True)
+    _check_pull_operands(vals, row_ptr, col_src, items, item_rows=True,
+                         row_base=row_base)
     if vals.data_ptr() % 16:
         raise ValueError("vals must be 16-byte aligned (rows load as float4)")
     _cuda.check(weights, "weights", torch.int32, vals.device, ndim=1)
     if weights.shape != col_src.shape:
         raise ValueError("weights and col_src differ in shape")
+    shape = (row_ptr.shape[0] - 1, CF_WIDTH)
     if items.n_items == 0:
-        return torch.zeros_like(vals)
-    acc = torch.empty_like(vals)
+        return vals.new_zeros(shape)
+    acc = vals.new_empty(shape)
     partial = torch.empty((items.n_items, CF_WIDTH), dtype=torch.float32,
                           device=vals.device)
     _cuda.launch(
@@ -582,8 +618,11 @@ def pull_sum(
     items: Optional[SegmentItems] = None,
     window: int = 0,
     strategy: str = "rowptr",
+    row_base: int = 0,
 ) -> torch.Tensor:
-    """A sum-combiner pull program's per-destination sums.
+    """A sum-combiner pull program's per-destination sums, over the rows
+    of ``row_ptr`` whose destination values lie at ``row_base`` onward
+    in the table ``vals`` (see :func:`pull_sum_plain`).
 
     CPU tensors take :func:`pull_sum_plain` with the program's edge
     function ``edge_fn``, ``window`` and ``strategy``. CUDA tensors
@@ -593,13 +632,16 @@ def pull_sum(
     ``NotImplementedError`` on the card."""
     if vals.device.type == "cpu":
         return pull_sum_plain(vals, row_ptr, col_src, weights, edge_fn,
-                              window, strategy)
+                              window, strategy, row_base)
     if edge_op == "copy":
+        if items is not None and items.row_base != row_base:
+            raise ValueError(f"items were built for row_base "
+                             f"{items.row_base}, not {row_base}")
         return gather_segment_sum(vals, row_ptr, col_src, items)
     if edge_op == "cf_sgd":
         if weights is None:
             raise ValueError("the cf_sgd edge needs edge weights")
-        return cf_edge_sum(vals, row_ptr, col_src, weights, items)
+        return cf_edge_sum(vals, row_ptr, col_src, weights, items, row_base)
     raise NotImplementedError(
         f"the CUDA pull kernels know edge ops {PULL_EDGE_OPS}, "
         f"not {edge_op!r}")
@@ -766,6 +808,9 @@ def gas_pull_acc(
         raise ValueError("CUDA gas_pull_acc needs the SegmentItems of row_ptr")
     if items.nrows != nv:
         raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
+    if items.row_base:
+        # item_row is the output row here: the items of one table's rows.
+        raise ValueError("items with a row_base address another table")
     _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
     _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
     if items.n_items == 0:

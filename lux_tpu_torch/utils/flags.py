@@ -119,3 +119,16 @@ define("LUX_GAS_DENSITY_LO", 0.005,
        "adaptive GAS hysteresis: frontier density at or below this forces "
        "the push (sparse-queue) direction; between the two thresholds the "
        "previous direction sticks", kind="float")
+
+# Sharded-engine exchange path (parallel/shard.py, engine/pull_sharded.py)
+define("LUX_EXCHANGE", "full",
+       "sharded-executor value exchange: 'full' all-gathers whole shard "
+       "tables every iteration; 'compact' sends only the rows some "
+       "receiving part actually reads (fixed-capacity all_to_all of "
+       "packed rows + receiver scatter, bitwise-equal results, "
+       "local-first overlap); 'frontier' (sharded GAS) sends only the "
+       "compact rows whose source vertex is active this iteration, "
+       "packed to a static frontier capacity, self-downgrading to the "
+       "static compact send on dense iterations — frontier-less "
+       "executors run 'compact'. Captured at executor build; P=1 and "
+       "unprofitable plans fall back to full")

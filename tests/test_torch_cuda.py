@@ -493,6 +493,10 @@ def test_multi_source_gas_on_cuda(dev):
             single, _ = ex.run(start=r)
             np.testing.assert_array_equal(mx.values_for(st, j),
                                           ex.values(single))
+        _cuda.reset_launches()
+        mx.warmup(start=roots[0])
+        assert _cuda.LAUNCHES["gas_pull_acc"] == 1
+        assert mx.pull_iters == iters
 
 
 def test_gas_pagerank_adapter_on_cuda(dev):
@@ -517,3 +521,70 @@ def test_gas_program_the_kernels_do_not_cover_raises_on_cuda(dev):
         gas.AdaptiveExecutor(g, Apart())
     with pytest.raises(NotImplementedError):
         gas.MultiSourceGasExecutor(g, Apart(), k=2)
+
+
+# -- the sharded pull engine (K8, K9 per part) -------------------------------
+
+
+@pytest.mark.parametrize("op,width", [("copy", 1), ("cf_sgd", 20)])
+def test_pull_kernels_on_a_part_of_a_flat_table(dev, op, width):
+    # The destination rows of the part lie at row_base in a table of
+    # several parts' rows; the sources anywhere in it.
+    row_ptr, col_src, w, vals = _pull_operands(width, False)
+    nv = row_ptr.shape[0] - 1
+    rng = np.random.default_rng(8)
+    table = torch.cat([vals, vals.flip(0), vals * 0.5])
+    col_src = torch.from_numpy(
+        rng.integers(0, 3 * nv, size=col_src.shape[0]).astype(np.int32))
+    for base in (0, nv, 2 * nv):
+        items = seg.SegmentItems.build(row_ptr.numpy(),
+                                       seg.pull_item_len(op), dev, base)
+        d = [t.to(dev) for t in (table, row_ptr, col_src, w)]
+        if op == "copy":
+            want = seg.gather_segment_sum(table, row_ptr, col_src)
+            got = seg.gather_segment_sum(d[0], d[1], d[2], items)
+            tol = dict(rtol=RTOL, atol=ATOL)
+        else:
+            want = seg.cf_edge_sum(table, row_ptr, col_src, w, row_base=base)
+            got = seg.cf_edge_sum(d[0], d[1], d[2], d[3], items, base)
+            tol = CF_TOL
+        assert got.shape == want.shape == (nv,) + tuple(vals.shape[1:])
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **tol)
+        if op == "cf_sgd":
+            other = nv if base == 0 else 0
+            with pytest.raises(ValueError, match="row_base"):
+                seg.cf_edge_sum(d[0], d[1], d[2], d[3], items, other)
+
+
+@pytest.mark.parametrize("parts", [1, 3, 4])
+@pytest.mark.parametrize("app", ["pagerank", "cf"])
+def test_sharded_pull_on_cuda(dev, monkeypatch, app, parts):
+    from lux_tpu_torch.engine.pull_sharded import ShardedPullExecutor
+
+    if app == "cf":
+        g = generate.bipartite_ratings(300, 40, 6000, seed=2)
+        prog, kernel, tol, iters = (CollaborativeFiltering(), "cf_edge_sum",
+                                    CF_TOL, 5)
+    else:
+        g = generate.rmat(11, 8, seed=3)
+        prog, kernel = PageRank(), "gather_segment_sum"
+        tol, iters = dict(rtol=RTOL, atol=ATOL), 10
+    single = PullExecutor(g, prog).run(iters)
+    outs = {}
+    for mode in ("full", "compact"):
+        monkeypatch.setenv("LUX_EXCHANGE", mode)
+        ex = ShardedPullExecutor(g, prog, num_parts=parts)
+        cpu = ShardedPullExecutor(g, prog, num_parts=parts, device="cpu")
+        assert ex.exchange_mode == cpu.exchange_mode
+        _cuda.reset_launches()
+        out = ex.run(iters)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        assert counts == {**dict.fromkeys(counts, 0), kernel: parts * iters}
+        got = ex.gather_values(out)
+        np.testing.assert_allclose(got, cpu.gather_values(cpu.run(iters)),
+                                   **tol)
+        # The same items in the same order as the single-device kernel.
+        np.testing.assert_array_equal(got, single.cpu().numpy())
+        outs[mode] = out
+    assert torch.equal(outs["compact"], outs["full"])

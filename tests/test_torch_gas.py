@@ -13,6 +13,8 @@ state. Values are compared bitwise (uint32 and f32), with equal
 tests/test_torch_cuda.py.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -385,6 +387,27 @@ def test_multi_source_lanes_match_singles_and_lux_tpu(case, roots, k):
         fin, jfin = mx.finalize_for(st, j), jmx.finalize_for(jst, j)
         for key, v in jfin.items():
             np.testing.assert_array_equal(fin[key], v)
+
+
+@pytest.mark.parametrize("case,chunk", [("bfs_u", 16), ("sssp_delta", 16),
+                                        ("bfs", 0)])
+def test_multi_source_warmup_matches_lux_tpu_and_leaves_no_state(case,
+                                                                 chunk):
+    want = inspect.signature(jgas.MultiSourceGasExecutor.warmup)
+    assert inspect.signature(tgas.MultiSourceGasExecutor.warmup) == want
+    gname, progs, _ = CASES[case]
+    _, tg = _graphs(gname)
+    roots = [0, 3, 5]
+    cold = tgas.MultiSourceGasExecutor(tg, progs()[1], k=4, device="cpu")
+    st, iters = cold.run(roots)
+    warm = tgas.MultiSourceGasExecutor(tg, progs()[1], k=4, device="cpu")
+    warm.warmup(chunk=chunk, start=2)
+    assert warm.pull_iters == 0
+    wst, witers = warm.run(roots)
+    warm.warmup()
+    assert witers == iters and warm.pull_iters == iters
+    assert torch.equal(wst.values, st.values)
+    assert torch.equal(wst.frontier, st.frontier)
 
 
 # -- oracles and checker ----------------------------------------------------

@@ -31,6 +31,10 @@ def test_port_files_found():
     for name in ("engine/gas.py", "models/bfs.py", "models/sssp_delta.py",
                  "models/labelprop.py", "models/kcore.py"):
         assert f"lux_tpu_torch/{name}" in FILES
+    for name in ("graph/partition.py", "parallel/shard.py",
+                 "parallel/mesh.py", "engine/pull_sharded.py",
+                 "utils/logging.py"):
+        assert f"lux_tpu_torch/{name}" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES)
