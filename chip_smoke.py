@@ -93,7 +93,39 @@ is unprofitable, so compact resolves to full, logged):
 6e. timing: median of 3 runs after ``warmup``, ms per iteration, GTEPS,
     the ``phase_step`` split (exchange, comp, update), the device busy
     share, the exchange alone against its bytes bound, the phases' peak
-    device memory; then ``dryrun_multichip(4)`` on the card.
+    device memory; then ``dryrun_multichip(4)`` on the card, which also
+    runs the sharded push steps.
+
+Then the multi-source and sharded push engines (``MultiSourcePushExecutor``,
+``ShardedPushExecutor``, ``ShardedMultiSourcePushExecutor``), over the
+same 4 parts: SSSP from vertex 0 on the graph in the full (packed K5
+input, ``blocked_dense``) and compact modes, CC on the closure in the
+default (full) mode, and 8-lane multi-source SSSP (root 0 and seven
+roots drawn with numpy seed 0 among the vertices with out-edges) on one
+device and over the parts in both modes:
+
+3f. host set-up: both shard layouts and push CSRs, the executors, their
+    modes, ``blocked_dense``, tiers and exchange bytes per iteration in
+    both modes;
+4f. the kernels at the sharded path's shapes against their plain
+    versions, bitwise: K5 for one part's ``row_ptr`` over the packed
+    ``(P * max_nv,)`` table (full) and over its receiver's compact table
+    of values and frontier; K6 on one part's frontier; K7 reading the
+    flat pre-step stack and combining into one part's row through its
+    ``push_dst_local``; and K10 with 8 columns over the ``(P * max_nv,
+    8)`` table for one part's ``row_ptr``; with the same timings;
+5f. end to end, bitwise: sharded SSSP (both modes) and CC against phase
+    5b's oracles with zero violations and phase 5b's iteration counts,
+    compact equal to full; every multi-source lane against its
+    single-source ``PushExecutor`` run; the sharded multi-source runs
+    against the single-device one; K5 once per part and dense
+    iteration, K6 and K7 once per part with a queue or queued edges, K10
+    once (single device) or once per part per iteration;
+6f. timing as in phase 6b: ``warmup``, then the median of 3 runs to
+    fixpoint on the host clock, ``init_state`` alone, the run from a
+    state on the card, the device busy share, the phase split per
+    branch, the exchange alone against its bytes bound; the single-device
+    numbers of phase 6b beside them; and the phases' peak device memory.
 
 Any failure exits non-zero. Without a card it exits non-zero and prints
 no result. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -281,7 +313,8 @@ def main(argv=None) -> int:
     gu = generate.undirected(g)
     log(f"[push] undirected closure: nv={gu.nv} ne={gu.ne} in "
         f"{time.perf_counter() - t:.1f} s")
-    for name, n in _push_phases(g, gu, dev, kernels).items():
+    push_totals, push_ctx = _push_phases(g, gu, dev, kernels)
+    for name, n in push_totals.items():
         totals[name] += n
     torch.cuda.empty_cache()
     pull_totals, gc, cf_oracle = _pull_phases(g, oracle, args.scale, dev,
@@ -291,11 +324,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     for name, n in _gas_phases(g, gw, gu, oracle, dev, kernels).items():
         totals[name] += n
-    del gw, gu
+    del gw
     torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated()
     for name, n in _sharded_phases(g, oracle, gc, cf_oracle, dev).items():
         totals[name] += n
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del gc
+    torch.cuda.empty_cache()
+    for name, n in _push_sharded_phases(g, gu, push_ctx, dev,
+                                        kernels).items():
+        totals[name] = totals.get(name, 0) + n
     peak = max(peak, torch.cuda.max_memory_allocated())
 
     for entry in kernels:
@@ -532,10 +571,12 @@ def _pagerank_phases(g, dev, kernels):
     return totals, oracle
 
 
-def _push_phases(g, gu, dev, kernels) -> dict:
+def _push_phases(g, gu, dev, kernels):
     """Phases 3b-6b on the push engine (SSSP on ``g``, CC on its closure
     ``gu``); returns the launch counts of its two runs to fixpoint,
-    summed."""
+    summed, and for phases 3f-6f per application its oracle, iterations,
+    sparse iterations and median ms to fixpoint, with the SSSP
+    executor."""
     import torch
 
     from lux_tpu_torch.engine.check import count_violations
@@ -694,6 +735,7 @@ def _push_phases(g, gu, dev, kernels) -> dict:
     push_kernels = ("segment_minmax_relax", "frontier_queue",
                     "queue_relax_scatter")
     totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    ctx = {"sssp_ex": ex_s}
     for app, (ex, kw) in apps.items():
         _cuda.reset_launches()
         st, iters = ex.run(**kw)
@@ -721,6 +763,8 @@ def _push_phases(g, gu, dev, kernels) -> dict:
             1 for b, c, e in branches if b > 0 and c > 0 and e > 0)
         if counts != want:
             raise AssertionError(f"{app}: launches {counts}, expected {want}")
+        ctx[app] = {"oracle": oracles[app], "iters": iters,
+                    "sparse_iters": ex.sparse_iters}
         log(f"[push] {app}: fixpoint in {iters} iterations "
             f"({ex.sparse_iters} sparse) matches the oracle bitwise, 0 "
             f"violations; branches {[(b, c, e) for b, c, e in branches]}; "
@@ -747,6 +791,7 @@ def _push_phases(g, gu, dev, kernels) -> dict:
         secs = [host_seconds(lambda: ex.run(**kw)) for _ in range(3)]
         sec = float(np.median(secs))
         iters = len(ex.branch_log)
+        ctx[app]["ms"] = sec * 1e3
         log(f"[time] push {app}: {iters} iterations ({ex.sparse_iters} "
             f"sparse) in {sec * 1e3:.3f} ms (median of 3: "
             f"{[round(x * 1e3, 3) for x in secs]}), "
@@ -789,7 +834,7 @@ def _push_phases(g, gu, dev, kernels) -> dict:
             log(f"[time] push {app} {branch} phases (ms, median of "
                 f"{len(runs)}): " + ", ".join(
                     f"{k}={v:.3f}" for k, v in med.items()))
-    return totals
+    return totals, ctx
 
 
 def _pull_phases(g, pr_oracle, scale, dev, kernels):
@@ -1510,6 +1555,515 @@ def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev) -> dict:
     log(f"[sharded] dryrun_multichip({P}) passed on the card; launches "
         f"{ {k: v for k, v in _cuda.LAUNCHES.items() if v} }; phases 3e-6e "
         f"took {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+MULTI_LANES = 8
+
+
+def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
+    """Phases 3f-6f on the multi-source and sharded push engines: SSSP
+    from vertex 0 on ``g`` over ``SHARDED_PARTS`` parts in the full and
+    compact exchange modes, CC on the closure ``gu``, and 8-lane
+    multi-source SSSP on one device and over the parts. ``push`` is
+    phase 5b's context (oracles, iterations, ms to fixpoint, the SSSP
+    executor). Returns the launch counts of the phase 5f runs, summed,
+    and under ``<kernel>[split]`` those of the split-table calls."""
+    import torch
+
+    from lux_tpu_torch.engine.check import count_violations
+    from lux_tpu_torch.engine.push import MultiSourcePushExecutor
+    from lux_tpu_torch.engine.push_sharded import (
+        ShardedMultiSourcePushExecutor,
+        ShardedPushExecutor,
+    )
+    from lux_tpu_torch.models import SSSP, ConnectedComponents
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops import frontier as fq
+    from lux_tpu_torch.ops import segment as seg
+    from lux_tpu_torch.parallel.mesh import make_mesh
+    from lux_tpu_torch.parallel.shard import ShardedGraph
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    P, K = SHARDED_PARTS, MULTI_LANES
+    mesh = make_mesh(P, dev)
+    flag = os.environ.get("LUX_EXCHANGE")
+    reps = 10
+
+    # -- 3f. host set-up ----------------------------------------------------
+    sgs = {}
+    for name, graph in (("rmat", g), ("closure", gu)):
+        t = time.perf_counter()
+        sg = ShardedGraph.build(graph, P)
+        t_sg = time.perf_counter() - t
+        t = time.perf_counter()
+        sg.build_push_csr()     # cached on sg: the executors share it
+        t_csr = time.perf_counter() - t
+        plan = sg.exchange_plan()
+        log(f"[push-sharded] {name}: nv={graph.nv} ne={graph.ne} P={P} "
+            f"max_nv={sg.max_nv} ({P * sg.max_nv / graph.nv:.3f} nv padded "
+            f"rows) max_ne={sg.max_ne} part nv={sg.local_nv.tolist()}; "
+            f"layout {t_sg:.1f} s, push CSR {t_csr:.1f} s; compact capacity "
+            f"{plan.capacity} (profitable {plan.profitable}); exchange bytes "
+            f"per iteration at 5 B rows: full {P * (P - 1) * sg.max_nv * 5},"
+            f" compact {plan.exchange_bytes_per_iter(5)}")
+        sgs[name] = sg
+    rng = np.random.default_rng(0)
+    has_out = np.flatnonzero(g.out_degrees > 0)
+    roots = [0] + rng.choice(has_out[has_out != 0], K - 1,
+                             replace=False).tolist()
+    exs = {}
+    for label, graph, prog, sg, mode, lanes in (
+            ("sssp full", g, SSSP(), sgs["rmat"], "full", 0),
+            ("sssp compact", g, SSSP(), sgs["rmat"], "compact", 0),
+            ("cc", gu, ConnectedComponents(), sgs["closure"], None, 0),
+            ("multi full", g, SSSP(), sgs["rmat"], "full", K),
+            ("multi compact", g, SSSP(), sgs["rmat"], "compact", K)):
+        if mode is None:
+            os.environ.pop("LUX_EXCHANGE", None)
+        else:
+            os.environ["LUX_EXCHANGE"] = mode
+        t = time.perf_counter()
+        if lanes:
+            ex = ShardedMultiSourcePushExecutor(graph, prog, lanes,
+                                                mesh=mesh, sg=sg)
+            what = f"k={lanes}"
+        else:
+            ex = ShardedPushExecutor(graph, prog, mesh=mesh, sg=sg)
+            what = (f"blocked_dense={ex.blocked_dense} sparse={ex.sparse} "
+                    f"queue_cap={ex.queue_cap} edge_budget="
+                    f"{ex.edge_budget} tiers={ex.tiers}")
+        torch.cuda.synchronize()
+        log(f"[push-sharded] {label} executor (LUX_EXCHANGE="
+            f"{mode or 'unset'}, resolved {ex.exchange_mode}) built in "
+            f"{time.perf_counter() - t:.1f} s: {what}; "
+            f"exchange_bytes_per_iter {ex.exchange_bytes_per_iter()}")
+        if ex.exchange_mode != (mode or "full"):
+            raise AssertionError(f"{label}: resolved {ex.exchange_mode}")
+        exs[label] = ex
+    if flag is None:
+        os.environ.pop("LUX_EXCHANGE", None)
+    else:
+        os.environ["LUX_EXCHANGE"] = flag
+    t = time.perf_counter()
+    mx1 = MultiSourcePushExecutor(g, SSSP(), K)
+    torch.cuda.synchronize()
+    log(f"[push-sharded] single-device multi-source executor (k={K}) built "
+        f"in {time.perf_counter() - t:.1f} s; roots {roots}")
+
+    # -- 4f. the kernels at the sharded path's shapes -----------------------
+    # K5 on the dense iteration of the full-mode SSSP run with the largest
+    # frontier, for the part with the most edges: over the packed flat
+    # table (full) and over its receiver's table of values and frontier
+    # (compact).
+    ex = exs["sssp full"]
+    ex.run(start=0)
+    branches = list(ex.branch_log)
+    relax = seg.RELAX_OPS["add1"]
+    n = ex.sg.max_nv
+    dense_at = [(e[1], i) for i, e in enumerate(branches) if e[0] == 0]
+    if not dense_at:
+        raise AssertionError("sharded SSSP took no dense iteration")
+    _, at = max(dense_at)
+    st, _ = ex.run(max_iters=at, start=0)
+    q = int(np.argmax([pt.col_src.numel() for pt in ex._parts]))
+    n_e = ex._parts[q].col_src.numel()
+    n_src = int(torch.unique(ex._parts[q].col_src).numel())
+    for form, x in (("full", ex), ("compact", exs["sssp compact"])):
+        table, front = x._dense_load(st)
+        pt = x._parts[q]
+        k5_args = (pt.row_ptr, pt.col_src, x._table(table, q),
+                   x._table(front, q), "min")
+
+        def k5_call(k5_args=k5_args, items=pt.items):
+            return seg.segment_minmax_relax(*k5_args, "add1", items)
+
+        check_equal(f"K5 sharded {form}, part {q}", k5_call(),
+                    seg.segment_minmax_relax_plain(*k5_args, relax))
+        k5_ms = cuda_ms(k5_call, reps)
+        k5_plain = cuda_ms(lambda k5_args=k5_args: (
+            seg.segment_minmax_relax_plain(*k5_args, relax)), 2)
+        # The part's edges and offsets, its sources' rows of the table
+        # (a packed word, or a value and a frontier byte), its output.
+        k5_bytes = 4 * n_e + 8 * (n + 1) + 4 * n \
+            + (4 if front is None else 5) * n_src
+        what = "packed" if front is None else "values and frontier"
+        log(f"[push-sharded] K5 {form} ({what}) on SSSP iteration "
+            f"{at + 1}, part {q} ({n_e} edges from {n_src} "
+            f"sources, a {tuple(k5_args[2].shape)} table): bitwise; "
+            f"{k5_ms:.4f} ms (plain {k5_plain:.4f}, bytes bound "
+            f"{bound(k5_bytes, n_e)[0]:.4f})")
+        record(kernels, f"segment_minmax_relax[sharded {form}]",
+               "lux_tpu_torch/csrc/push_dense.cu",
+               "lux_tpu/engine/push.py:1110", 0.0, k5_ms, k5_plain,
+               k5_bytes, n_e, None)
+        del table, front, k5_args
+    del st
+
+    # K6 and K7 on the sparse iteration of that run with the most
+    # out-edges. K6 on the part with the largest frontier, as the sparse
+    # branch calls it; K7 with the flat pre-step stack as values, the
+    # receiving part with the most queued edges, its push_dst_local, out
+    # its row.
+    sparse_at = [(e[2], i) for i, e in enumerate(branches) if e[0] > 0]
+    if not sparse_at:
+        raise AssertionError("sharded SSSP took no sparse iteration")
+    _, at = max(sparse_at)
+    st, _ = ex.run(max_iters=at, start=0)
+    stats = ex._frontier_stats(st)
+    p6 = int(np.argmax(stats[2]))
+    fr6, cnt6, rp6 = st.frontier[p6], stats[2][p6], ex._queue_row_ptr
+    for name, got, want in zip(("q", "start", "deg", "offs"),
+                               fq.frontier_queue(fr6, rp6, cnt6),
+                               fq.frontier_queue_plain(fr6, rp6)):
+        check_equal(f"K6 sharded {name}, part {p6}", got, want)
+    k6_ms = cuda_ms(lambda: fq.frontier_queue(fr6, rp6, cnt6), reps)
+    k6_plain = cuda_ms(lambda: fq.frontier_queue_plain(fr6, rp6), reps)
+    k6_lib = cuda_ms(lambda: torch.nonzero(fr6), reps)
+    k6_bytes = n + 16 * cnt6 + 28 * cnt6 + 8
+    log(f"[push-sharded] K6 on SSSP iteration {at + 1}, part {p6} "
+        f"({cnt6} of {stats[0]} queued vertices): bitwise; {k6_ms:.4f} ms "
+        f"(plain {k6_plain:.4f}, torch.nonzero {k6_lib:.4f}, bytes bound "
+        f"{bound(k6_bytes, 0)[0]:.4f})")
+    record(kernels, "frontier_queue[sharded]",
+           "lux_tpu_torch/csrc/frontier.cu", "lux_tpu/engine/push.py:1206",
+           0.0, k6_ms, k6_plain, k6_bytes, cnt6, k6_lib)
+    del fr6, rp6
+    rows, ids = ex._sparse_load(st, stats)
+    start = ex.push_row_ptr[:, ids]
+    offs = torch.nn.functional.pad(
+        (ex.push_row_ptr[:, ids + 1] - start).cumsum(1), (1, 0))
+    totals = offs[:, -1].tolist()
+    p = int(np.argmax(totals))
+    total, cnt = totals[p], rows.numel()
+    flat = st.values.view(-1)
+    k7_args = (rows, start[p].contiguous(), offs[p].contiguous(),
+               ex.push_dst_local[p], flat, "min")
+    want = fq.queue_relax_scatter_plain(*k7_args, relax,
+                                        out=st.values[p].clone())
+    check_equal(f"K7 split table, part {p}", fq.queue_relax_scatter(
+        *k7_args, "add1", total, out=st.values[p].clone()), want)
+    out_row = st.values[p].clone()
+    k7_ms = cuda_ms(lambda: fq.queue_relax_scatter(
+        *k7_args, "add1", total, out=out_row), reps)
+    k7_plain = cuda_ms(lambda: fq.queue_relax_scatter_plain(
+        *k7_args, relax, out=st.values[p].clone()), reps)
+    slot = torch.repeat_interleave(torch.arange(cnt, device=dev),
+                                   k7_args[2].diff())
+    edge = k7_args[1][slot] + torch.arange(total, device=dev) \
+        - k7_args[2][:-1][slot]
+    dst_e = ex.push_dst_local[p][edge].long()
+    cand = relax(seg.widen_u32(flat)[rows.long()[slot]])
+    row64 = seg.widen_u32(st.values[p])
+    k7_lib = cuda_ms(lambda: row64.scatter_reduce(
+        0, dst_e, cand, reduce="amin", include_self=True), reps)
+    n_dst = int(torch.unique(dst_e).numel())
+    del slot, edge, dst_e, cand, row64, want
+    # The queue's q, start and offs and its values, col_dst at the
+    # part's queued edges, and out read and written at their distinct
+    # destinations: out is the caller's row, so nothing is copied.
+    k7_bytes = 24 * cnt + 8 + 4 * total + 8 * n_dst
+    log(f"[push-sharded] K7 split table on SSSP iteration {at + 1} (queue "
+        f"{cnt} over {P} parts, part {p} receives {total} of "
+        f"{sum(totals)} edges at {n_dst} vertices): bitwise; "
+        f"{k7_ms:.4f} ms (plain {k7_plain:.4f}, scatter_reduce "
+        f"{k7_lib:.4f}, bytes bound "
+        f"{bound(k7_bytes, total)[0]:.4f})")
+    record(kernels, "queue_relax_scatter[split]",
+           "lux_tpu_torch/csrc/frontier.cu", "lux_tpu/engine/push.py:1214",
+           0.0, k7_ms, k7_plain, k7_bytes, total, k7_lib)
+    del st, rows, ids, start, offs, flat, k7_args, out_row
+    torch.cuda.empty_cache()
+
+    # K10 with K columns over the flat (P * max_nv, K) table, for the
+    # part with the most edges, on the multi-source state with the
+    # largest frontier.
+    mx = exs["multi full"]
+    st = mx.init_state(roots)
+    best = (int(st.frontier.sum()), 0, st)
+    for i in range(1, 32):
+        st, c = mx.step(st)
+        if c > best[0]:
+            best = (c, i, st)
+        if c == 0:
+            break
+    c, at, st = best
+    table, front = mx._load(st)
+    q = int(np.argmax([pt.col_src.numel() for pt in mx._parts]))
+    part = mx._parts[q]
+    n_e = part.col_src.numel()
+    k10_args = (part.row_ptr, part.col_src, table, front, "min")
+    want = seg.gas_pull_acc_plain(*k10_args, SSSP().relax)
+    check_equal(f"K10 split table k={K}, part {q}",
+                seg.gas_pull_acc(*k10_args, "add1", part.items), want)
+    k10_ms = cuda_ms(lambda: seg.gas_pull_acc(*k10_args, "add1",
+                                              part.items), reps)
+    k10_plain = cuda_ms(lambda: seg.gas_pull_acc_plain(
+        *k10_args, SSSP().relax), 2)
+    src = part.col_src.long()
+    msg = torch.where(front[src], relax(seg.widen_u32(table[src])),
+                      seg.identity_for("min", np.uint32))
+    dst = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  part.row_ptr.diff())[:, None].expand(-1, K)
+    acc0 = torch.full((n, K), seg.identity_for("min", np.uint32),
+                      dtype=torch.int64, device=dev)
+    k10_lib = cuda_ms(lambda: acc0.scatter_reduce(
+        0, dst, msg, reduce="amin", include_self=True), reps)
+    del src, msg, dst, acc0, want
+    k10_bytes = 4 * n_e + 8 * (n + 1) + 5 * g.nv * K + 4 * n * K
+    log(f"[push-sharded] K10 split table k={K} on part {q} ({n_e} edges, "
+        f"{c} active lane entries after {at} iterations, a "
+        f"({P * n}, {K}) table): bitwise; {k10_ms:.4f} ms (plain "
+        f"{k10_plain:.4f}, scatter_reduce {k10_lib:.4f}, bytes bound "
+        f"{bound(k10_bytes, n_e * K)[0]:.4f})")
+    record(kernels, "gas_pull_acc[split]", "lux_tpu_torch/csrc/gas.cu",
+           "lux_tpu/engine/push.py:1708", 0.0, k10_ms, k10_plain, k10_bytes,
+           n_e * K, k10_lib)
+    del st, best, table, front, k10_args
+    # B11: K10 with K columns on one device, on the single-device
+    # multi-source state with the largest frontier.
+    st = mx1.init_state(roots)
+    best = (int(st.frontier.sum()), 0, st)
+    for i in range(1, 32):
+        st, c = mx1.step(st)
+        if c > best[0]:
+            best = (c, i, st)
+        if c == 0:
+            break
+    c, at, st = best
+    b11_args = (mx1.row_ptr, mx1.col_src, st.values, st.frontier, "min")
+    check_equal(f"K10 k={K} one device", seg.gas_pull_acc(
+        *b11_args, "add1", mx1.items), seg.gas_pull_acc_plain(
+            *b11_args, SSSP().relax))
+    b11_ms = cuda_ms(lambda: seg.gas_pull_acc(*b11_args, "add1",
+                                              mx1.items), reps)
+    b11_plain = cuda_ms(lambda: seg.gas_pull_acc_plain(
+        *b11_args, SSSP().relax), 2)
+    b11_bytes = 4 * g.ne + 8 * (g.nv + 1) + 9 * g.nv * K
+    log(f"[push-sharded] K10 k={K} on one device (multi-source SSSP, {c} "
+        f"active lane entries after {at} iterations): bitwise; "
+        f"{b11_ms:.4f} ms (plain {b11_plain:.4f}, bytes bound "
+        f"{bound(b11_bytes, g.ne * K)[0]:.4f})")
+    del st, best, b11_args
+    torch.cuda.empty_cache()
+
+    # -- 5f. end to end -------------------------------------------------------
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    totals.update(dict.fromkeys(
+        ("segment_minmax_relax[sharded full]",
+         "segment_minmax_relax[sharded compact]", "frontier_queue[sharded]",
+         "queue_relax_scatter[split]", "gas_pull_acc[split]"), 0))
+
+    def counted(fn):
+        _cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        for name, v in counts.items():
+            totals[name] += v
+        return out, counts
+
+    finals = {}
+    for label, app, kw in (("sssp full", "sssp", {"start": 0}),
+                           ("sssp compact", "sssp", {"start": 0}),
+                           ("cc", "cc", {})):
+        ex = exs[label]
+        (st, iters), counts = counted(lambda: ex.run(**kw))
+        vals = ex.gather_values(st)
+        ref = push[app]
+        if vals.shape != (ex.graph.nv,) or vals.dtype != np.uint32:
+            raise AssertionError(f"{label}: bad output {vals.shape}")
+        if not np.array_equal(vals, ref["oracle"]):
+            raise AssertionError(
+                f"sharded {label}: {int(np.sum(vals != ref['oracle']))} "
+                "values differ from the oracle")
+        viol = count_violations(ex.graph, vals, ex.program)
+        if viol:
+            raise AssertionError(f"sharded {label}: {viol} violations")
+        if iters != ref["iters"]:
+            raise AssertionError(f"sharded {label}: {iters} iterations, "
+                                 f"single-device {ref['iters']}")
+        with_edges = sum(1 for pt in ex._parts if pt.col_src.numel())
+        dense = iters - ex.sparse_iters
+        check_launches(f"sharded {label}", counts, {
+            "segment_minmax_relax": with_edges * dense,
+            "frontier_queue": sum(k6 for k6, _ in ex.queue_log),
+            "queue_relax_scatter": sum(k7 for _, k7 in ex.queue_log)})
+        form = "compact" if ex._xch is not None else "full"
+        totals[f"segment_minmax_relax[sharded {form}]"] += \
+            counts["segment_minmax_relax"]
+        totals["frontier_queue[sharded]"] += counts["frontier_queue"]
+        totals["queue_relax_scatter[split]"] += counts["queue_relax_scatter"]
+        log(f"[push-sharded] {label}: fixpoint in {iters} iterations "
+            f"({ex.sparse_iters} sparse; single-device {ref['iters']} "
+            f"({ref['sparse_iters']} sparse)) matches the oracle and the "
+            f"single-device PushExecutor bitwise, 0 violations; branches "
+            f"{[e[:3] for e in ex.branch_log]}; queues (K6, K7 launches) "
+            f"{ex.queue_log}; launches K5 {counts['segment_minmax_relax']} "
+            f"= {with_edges} parts x {dense} dense, K6 "
+            f"{counts['frontier_queue']}, K7 {counts['queue_relax_scatter']}")
+        finals[label] = st
+    for part in ("values", "frontier"):
+        check_equal(f"sharded sssp compact vs full {part}",
+                    getattr(finals["sssp compact"], part),
+                    getattr(finals["sssp full"], part))
+    log("[push-sharded] sssp: compact equals full bitwise (values and "
+        "frontier)")
+    del finals
+
+    (mst, miters), counts = counted(lambda: mx1.run(roots))
+    check_launches("multi-source sssp", counts, {"gas_pull_acc": miters})
+    single = push["sssp_ex"]
+    longest = 0
+    for j, r in enumerate(roots):
+        sst, sn = single.run(start=r)
+        longest = max(longest, sn)
+        if not np.array_equal(mx1.values_for(mst, j), single.values(sst)):
+            raise AssertionError(f"multi-source lane {j} (root {r}) differs "
+                                 "from its single-source run")
+    if miters != longest:
+        raise AssertionError(f"multi-source: {miters} iterations, longest "
+                             f"single-source run {longest}")
+    lanes = seg.u32_to_numpy(mst.values)
+    log(f"[push-sharded] multi-source sssp k={K}: {miters} iterations; "
+        f"every lane equals its single-source PushExecutor run bitwise "
+        f"(longest {longest} iterations); launches K10 "
+        f"{counts['gas_pull_acc']}")
+    for label in ("multi full", "multi compact"):
+        mx = exs[label]
+        (st, iters), counts = counted(lambda: mx.run(roots))
+        check_launches(f"sharded {label}", counts,
+                       {"gas_pull_acc": P * iters})
+        totals["gas_pull_acc[split]"] += counts["gas_pull_acc"]
+        got = mx.gather_values(st)
+        if got.shape != (g.nv, K) or not np.array_equal(got, lanes):
+            raise AssertionError(f"sharded {label}: differs from the "
+                                 "single-device multi-source run")
+        if iters != miters:
+            raise AssertionError(f"sharded {label}: {iters} iterations")
+        log(f"[push-sharded] {label}: {iters} iterations, equal to the "
+            f"single-device multi-source run bitwise; launches K10 "
+            f"{counts['gas_pull_acc']} = {P} parts x {iters}")
+    del mst, st, lanes
+
+    # -- 6f. timing -----------------------------------------------------------
+    for label, app, kw in (("sssp full", "sssp", {"start": 0}),
+                           ("sssp compact", "sssp", {"start": 0}),
+                           ("cc", "cc", {})):
+        ex = exs[label]
+        ex.warmup(**kw)
+        secs = [host_seconds(lambda: ex.run(**kw)) for _ in range(3)]
+        sec = float(np.median(secs))
+        iters = len(ex.branch_log)
+        init = float(np.median([host_seconds(lambda: ex.init_state(**kw))
+                                for _ in range(3)]))
+        st0 = ex.init_state(**kw)
+        iter_sec = float(np.median([host_seconds(lambda: ex.run(state=st0))
+                                    for _ in range(3)]))
+        log(f"[time] sharded push {label}: {iters} iterations "
+            f"({ex.sparse_iters} sparse) in {sec * 1e3:.3f} ms (median of 3:"
+            f" {[round(x * 1e3, 3) for x in secs]}), "
+            f"{sec / iters * 1e3:.3f} ms/iteration, "
+            f"{ex.graph.ne * iters / sec / 1e9:.3f} GTEPS; init_state "
+            f"{init * 1e3:.3f} ms; run from a device state "
+            f"{iter_sec * 1e3:.3f} ms; single-device PushExecutor "
+            f"{push[app]['ms']:.3f} ms to fixpoint (phase 6b)")
+        busy = device_busy(lambda: ex.run(state=st0))
+        if busy is None:
+            log(f"[time] sharded push {label}: device busy share not "
+                "measured (the profiler saw no kernels)")
+        else:
+            busy_ms, top = busy
+            log(f"[time] sharded push {label}: device busy {busy_ms:.3f} ms "
+                f"of the {iter_sec * 1e3:.3f} ms run from a device state "
+                f"({busy_ms / (iter_sec * 1e3):.1%}; torch.profiler); top "
+                "kernels (ms): " + ", ".join(f"{n}={v:.3f}" for n, v in top))
+        st = ex.init_state(**kw)
+        ex.warmup_phases(st)
+        split = {}
+        while True:
+            st, c, times = ex.phase_step(st)
+            branch = "dense" if times.pop("branch") == "dense" else "sparse"
+            split.setdefault(branch, []).append(times)
+            if c == 0:
+                break
+        for branch, runs in split.items():
+            med = {k: float(np.median([r[k] for r in runs])) * 1e3
+                   for k in runs[0]}
+            log(f"[time] sharded push {label} {branch} phases (ms, median of"
+                f" {len(runs)}; load = the exchange): " + ", ".join(
+                    f"{k}={v:.3f}" for k, v in med.items()))
+        # The dense exchange alone: views in full mode (plus the packing
+        # under blocked_dense), the compact tables of values and frontier.
+        x_ms = cuda_ms(lambda: ex._dense_load(st0), reps)
+        rows_all = P * ex.sg.max_nv
+        if ex._xch is not None:
+            x_bytes = 5 * rows_all + 5 * P * rows_all
+        elif ex.blocked_dense:
+            x_bytes = 9 * rows_all
+        else:
+            x_bytes = 0
+        log(f"[time] sharded push {label} exchange ({ex.exchange_mode}, "
+            f"blocked_dense={ex.blocked_dense}): {x_ms:.4f} ms (mean of "
+            f"{reps}, CUDA events) against a bytes bound of "
+            f"{bound(x_bytes, 0)[0]:.4f} ms ({x_bytes} B); "
+            f"{ex.exchange_bytes_per_iter()} B per iteration priced as "
+            "interconnect bytes")
+        del st, st0
+    for label, mx in (("multi 1 device", mx1), ("multi full",
+                                                exs["multi full"]),
+                      ("multi compact", exs["multi compact"])):
+        mx.warmup(start=roots[0])
+        secs = [host_seconds(lambda: mx.run(roots)) for _ in range(3)]
+        sec = float(np.median(secs))
+        st0 = mx.init_state(roots)
+        iter_sec = float(np.median([
+            host_seconds(lambda: mx.run(roots, state=st0))
+            for _ in range(3)]))
+        runs = []
+        st = st0
+        while True:
+            st, c, times = mx.phase_step(st)
+            times.pop("branch")
+            runs.append(times)
+            if c == 0:
+                break
+        med = {k: float(np.median([r[k] for r in runs])) * 1e3
+               for k in runs[0]}
+        log(f"[time] {label} sssp k={K}: {miters} iterations in "
+            f"{sec * 1e3:.3f} ms (median of 3: "
+            f"{[round(x * 1e3, 3) for x in secs]}), "
+            f"{sec / miters * 1e3:.3f} ms/iteration, "
+            f"{g.ne * miters / sec / 1e9:.3f} GTEPS ({K} lanes each); run "
+            f"from a device state {iter_sec * 1e3:.3f} ms; phases (ms, "
+            f"median of {len(runs)}): " + ", ".join(
+                f"{k}={v:.3f}" for k, v in med.items()))
+        busy = device_busy(lambda: mx.run(roots, state=st0))
+        if busy is None:
+            log(f"[time] {label}: device busy share not measured (the "
+                "profiler saw no kernels)")
+        else:
+            busy_ms, top = busy
+            log(f"[time] {label}: device busy {busy_ms:.3f} ms of the "
+                f"{iter_sec * 1e3:.3f} ms run from a device state "
+                f"({busy_ms / (iter_sec * 1e3):.1%}; torch.profiler); top "
+                "kernels (ms): " + ", ".join(f"{n}={v:.3f}" for n, v in top))
+        if label != "multi 1 device":
+            x_ms = cuda_ms(lambda: mx._load(st0), reps)
+            rows_all = P * mx.sg.max_nv
+            x_bytes = (5 * K * rows_all * (P + 1) if mx._xch is not None
+                       else 0)
+            log(f"[time] {label} exchange ({mx.exchange_mode}): "
+                f"{x_ms:.4f} ms (mean of {reps}) against a bytes bound of "
+                f"{bound(x_bytes, 0)[0]:.4f} ms ({x_bytes} B); "
+                f"{mx.exchange_bytes_per_iter()} B per iteration priced as "
+                "interconnect bytes")
+        del st, st0
+    del exs, mx1
+    log(f"[push-sharded] peak device memory of phases 3f-6f "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases "
+        f"3f-6f took {time.perf_counter() - t_phase:.1f} s")
     return totals
 
 

@@ -12,10 +12,13 @@ merge-network tail, the single-device push engine
 flat pull engine (``engine.pull.PullExecutor``) with Collaborative
 Filtering and flat PageRank, and the direction-adaptive GAS engine
 (``engine.gas.AdaptiveExecutor``, ``MultiSourceGasExecutor``) with BFS,
-DeltaSSSP, label propagation and k-core, and the sharded pull engine
-(``engine.pull_sharded.ShardedPullExecutor``) with PageRank and CF over
-the P parts of an edge-balanced partition, on one device
-(``parallel.mesh.LocalMesh``). Device work runs in
+DeltaSSSP, label propagation and k-core, the multi-source push engine
+(``engine.push.MultiSourcePushExecutor``), and the sharded pull and push
+engines (``engine.pull_sharded.ShardedPullExecutor`` with PageRank and
+CF; ``engine.push_sharded.ShardedPushExecutor`` and
+``ShardedMultiSourcePushExecutor`` with SSSP and CC) over the P parts of
+an edge-balanced partition, on one device (``parallel.mesh.LocalMesh``).
+Device work runs in
 hand-written CUDA kernels under ``csrc/`` (built at first use, see
 :mod:`lux_tpu_torch.ops._cuda`); each kernel has a plain-PyTorch version
 beside its wrapper, which runs only for tensors on the CPU.
@@ -29,8 +32,9 @@ Layout:
     lux_tpu_torch.ops     — plans, kernel wrappers and their plain versions
     lux_tpu_torch.parallel — sharded layout, the parts axis (LocalMesh)
     lux_tpu_torch.engine  — vertex-program base classes, tiled, push,
-                            flat pull, GAS and sharded pull executors,
-                            result checker
+                            multi-source push, flat pull, GAS, sharded
+                            pull and sharded push executors, result
+                            checker
     lux_tpu_torch.models  — the eight programs and their registry
     lux_tpu_torch.utils   — flags, device resolution, loggers
 """

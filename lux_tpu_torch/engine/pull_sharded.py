@@ -12,15 +12,12 @@ three phases:
   values that the parts' edges gather from (``src_pidx``). Full mode:
   the mesh's ``all_gather``, which on one device is a view of the
   stacked values. Compact mode (``LUX_EXCHANGE=compact``, a profitable
-  :class:`~lux_tpu_torch.graph.partition.ExchangePlan`): each sender
-  gathers the rows its receivers read (``xch_send``, clamped to
-  ``max_nv - 1`` like ``lux_tpu``'s gather) with ``index_select``, the
-  mesh's ``all_to_all`` moves the blocks, and each receiver scatters
-  them by ``xch_recv`` into its own ``(P * max_nv + 1)``-row table with
-  ``index_copy_``; the last row takes the pad entries and is sliced off.
-  The receiver's own span of its table is written from its local shard
-  (as ``lux_tpu/engine/tiled_sharded.py:515`` does), so a local edge
-  reads through the same single gather the value ``lux_tpu``'s
+  :class:`~lux_tpu_torch.graph.partition.ExchangePlan`): one table per
+  receiver, of the rows its edges read
+  (:class:`~lux_tpu_torch.parallel.mesh.CompactExchange`:
+  ``index_select``, ``all_to_all``, ``index_copy_``). The receiver's
+  own span of its table is written from its local shard, so a local
+  edge reads through the same single gather the value ``lux_tpu``'s
   local-first select gives it. Every row an edge reads equals the full
   table's, so compact equals full bitwise. The exchange is plain torch
   indexing, no hand-written kernel: it is pure data movement, which
@@ -50,7 +47,6 @@ steps on device tensors).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -58,35 +54,20 @@ import torch
 
 from lux_tpu_torch.engine.program import EdgeCtx, PullProgram, VertexCtx
 from lux_tpu_torch.engine.pull import check_kernel_covers
+from lux_tpu_torch.engine.sharded import ShardedBase
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops.segment import (
     SUM_STRATEGIES,
-    SegmentItems,
     pull_item_len,
     pull_sum,
     segment_reduce,
 )
-from lux_tpu_torch.parallel.mesh import LocalMesh, make_mesh
-from lux_tpu_torch.parallel.shard import ShardedGraph, resolve_exchange
-from lux_tpu_torch.utils.logging import get_logger
+from lux_tpu_torch.parallel.mesh import LocalMesh
+from lux_tpu_torch.parallel.shard import ShardedGraph
 from lux_tpu_torch.utils.timing import timed
 
 
-@dataclasses.dataclass(eq=False)
-class _Part:
-    """One part's operands on the device: its CSC offsets, its real
-    edges' flat source rows and weights (views of the stacked arrays),
-    the first row of its own span in the flat table, and its kernel work
-    items (the card only)."""
-
-    row_ptr: torch.Tensor             # (max_nv + 1,) int64
-    col_src: torch.Tensor             # (n_e,) int32, rows of the flat table
-    weights: Optional[torch.Tensor]   # (n_e,) int32 or None
-    row_base: int                     # part * max_nv
-    items: Optional[SegmentItems]
-
-
-class ShardedPullExecutor:
+class ShardedPullExecutor(ShardedBase):
     """Runs a :class:`PullProgram` over the ``num_parts`` parts of a
     :class:`LocalMesh` (``cuda`` unless ``device`` or ``mesh`` names
     another)."""
@@ -101,106 +82,25 @@ class ShardedPullExecutor:
         sg: Optional[ShardedGraph] = None,
         device=None,
     ):
-        if program.needs_weights and graph.weights is None:
-            raise ValueError(f"{program.name} requires an edge-weighted graph")
         if sum_strategy not in SUM_STRATEGIES:
             raise ValueError(f"unknown sum strategy {sum_strategy!r}")
-        if mesh is None:
-            mesh = make_mesh(num_parts, device)
-        elif device is not None and torch.device(device).type != \
-                mesh.device.type:
-            raise ValueError(f"device {device} differs from the mesh's "
-                             f"{mesh.device}")
-        self.mesh = mesh
-        self.num_parts = mesh.num_parts
-        self.device = mesh.device
-        self.graph = graph
-        self.program = program
+        self._setup(graph, program, mesh, num_parts, sg, device)
         self.sum_strategy = sum_strategy
-        if sg is not None and sg.num_parts != self.num_parts:
-            raise ValueError(
-                f"prebuilt ShardedGraph has {sg.num_parts} parts, mesh has "
-                f"{self.num_parts}"
-            )
-        if sg is not None and sg.graph is not graph:
-            raise ValueError(
-                "prebuilt ShardedGraph was built from a different Graph "
-                "object — edge indices and partition bounds would not "
-                "match this executor's graph"
-            )
-        on_card = self.device.type != "cpu"
-        if on_card:
+        if self.device.type != "cpu":
             check_kernel_covers(program)
-        self.sg = sg if sg is not None else ShardedGraph.build(
-            graph, self.num_parts)
         self.value_shape = tuple(getattr(program, "value_shape", ()) or ())
-
-        # The mode is captured here, once; a downgrade is logged.
-        self.exchange_mode, self._xplan = resolve_exchange(
-            self.sg, get_logger("engine"))
-
+        width = int(np.prod(self.value_shape)) if self.value_shape else 0
+        self._row_bytes = max(width, 1) * getattr(program.value_dtype,
+                                                  "itemsize", 4)
         sg = self.sg
-        P, n = self.num_parts, sg.max_nv
-        put = self._put
-        self.src_pidx = put(sg.src_pidx)
-        self.local_row_ptr = put(sg.local_row_ptr.astype(np.int64))
-        self.weights = None if sg.weights is None else put(sg.weights)
-        self.vertex_mask = put(sg.vertex_mask)
-        self.dst_local = (put(sg.dst_local) if program.combiner != "sum"
+        self._build_parts(pull_item_len(program.edge_op), own_rows=True)
+        self.dst_local = (self._put(sg.dst_local) if program.combiner != "sum"
                           else None)
-        self._ctx = VertexCtx(nv=graph.nv, out_degrees=put(sg.out_degrees),
-                              in_degrees=put(sg.in_degrees))
-        item_len = pull_item_len(program.edge_op)
-        self._parts = []
-        for q in range(P):
-            n_e = int(sg.local_row_ptr[q, -1])
-            self._parts.append(_Part(
-                row_ptr=self.local_row_ptr[q],
-                col_src=self.src_pidx[q, :n_e],
-                weights=None if self.weights is None
-                else self.weights[q, :n_e],
-                row_base=q * n,
-                items=(SegmentItems.build(sg.local_row_ptr[q], item_len,
-                                          self.device, row_base=q * n)
-                       if on_card else None),
-            ))
-        if self._xplan is not None:
-            # Flat indices over the stacked arrays: sender p's gather
-            # list addresses only its own shard, receiver q's scatter
-            # list only its own table of P*n + 1 rows.
-            rows = P * n + 1
-            parts = np.arange(P, dtype=np.int64)[:, None]
-            send = np.minimum(self._xplan.send_units.astype(np.int64), n - 1)
-            self._xch_send = put((send + parts * n).reshape(-1))
-            self._xch_recv = put(
-                (self._xplan.recv_pos.astype(np.int64) + parts * rows)
-                .reshape(-1))
-            own = parts * rows + parts * n + np.arange(n, dtype=np.int64)
-            self._xch_own = put(own.reshape(-1))
-
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        self._ctx = VertexCtx(nv=graph.nv,
+                              out_degrees=self._put(sg.out_degrees),
+                              in_degrees=self._put(sg.in_degrees))
 
     # -- one iteration ---------------------------------------------------
-
-    def _exchange(self, vals: torch.Tensor) -> torch.Tensor:
-        """The flat tables the parts gather from: the shared (P*max_nv,
-        *t) all-gathered table (full), or one (P*max_nv, *t) table per
-        receiver, stacked (compact)."""
-        if self._xplan is None:
-            return self.mesh.all_gather(vals)
-        P, n = self.num_parts, self.sg.max_nv
-        tail = tuple(vals.shape[2:])
-        local = vals.reshape((P * n,) + tail)
-        packed = local.index_select(0, self._xch_send)
-        got = self.mesh.all_to_all(packed.view((P, -1) + tail))
-        buf = vals.new_zeros((P * (P * n + 1),) + tail)
-        buf.index_copy_(0, self._xch_recv, got.reshape((-1,) + tail))
-        buf.index_copy_(0, self._xch_own, local)
-        return buf.view((P, P * n + 1) + tail)[:, :-1]
-
-    def _table(self, flat: torch.Tensor, q: int) -> torch.Tensor:
-        return flat if self._xplan is None else flat[q]
 
     def _edge_fn(self, src, dst, w) -> torch.Tensor:
         return self.program.edge_contrib(
@@ -289,22 +189,6 @@ class ShardedPullExecutor:
         for _ in range(num_iters):
             vals = self._step(vals)
         return vals
-
-    def _row_bytes(self) -> int:
-        width = int(np.prod(self.value_shape)) if self.value_shape else 0
-        itemsize = getattr(self.program.value_dtype, "itemsize", 4)
-        return max(width, 1) * itemsize
-
-    def exchange_bytes_per_iter(self) -> int:
-        """Interconnect bytes of one iteration's exchange, as ``lux_tpu``
-        prices them. Full: each of the P shards sends its (max_nv, *t)
-        slice to the P-1 others. Compact: the plan's packed-capacity
-        figure. On one device neither crosses an interconnect."""
-        row = self._row_bytes()
-        if self._xplan is not None:
-            return self._xplan.exchange_bytes_per_iter(row)
-        p = self.num_parts
-        return p * (p - 1) * self.sg.max_nv * row
 
     def gather_values(self, vals) -> np.ndarray:
         """Padded device layout → global (nv, *t) host array."""

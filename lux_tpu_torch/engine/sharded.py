@@ -1,0 +1,124 @@
+"""What the sharded executors share: the mesh, the partition, the
+exchange mode and the per-part operands of P parts on one device.
+
+A sharded executor stacks its parts on the leading axis of ``(P,
+max_nv, *t)`` arrays on one :class:`~lux_tpu_torch.parallel.mesh.LocalMesh`
+and launches each kernel once per part over that part's real in-edges
+(``local_row_ptr[p]``, ``src_pidx`` rows of the flat ``(P * max_nv,
+*t)`` table). The exchange builds that table: the mesh's ``all_gather``
+(full mode, a view of the stack on one device) or, per receiver, a table
+of the rows its edges read
+(:class:`~lux_tpu_torch.parallel.mesh.CompactExchange`, compact mode).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.ops.segment import SegmentItems
+from lux_tpu_torch.parallel.mesh import CompactExchange, LocalMesh, mesh_for
+from lux_tpu_torch.parallel.shard import (
+    ShardedGraph,
+    resolve_exchange,
+    validated_sg,
+)
+from lux_tpu_torch.utils.logging import get_logger
+
+
+@dataclasses.dataclass(eq=False)
+class Part:
+    """One part's operands on the device: its CSC offsets, its real
+    edges' flat source rows and weights (views of the stacked arrays),
+    the first row of its own span in the flat table, and its kernel work
+    items (the card only)."""
+
+    row_ptr: torch.Tensor             # (max_nv + 1,) int64
+    col_src: torch.Tensor             # (n_e,) int32, rows of the flat table
+    weights: Optional[torch.Tensor]   # (n_e,) int32 or None
+    row_base: int                     # part * max_nv
+    items: Optional[SegmentItems]
+
+
+class ShardedBase:
+    """Mesh, partition, exchange and per-part operands of a sharded
+    executor. A subclass calls :meth:`_setup`, then :meth:`_build_parts`
+    once its exchange mode is final, and sets ``_row_bytes``, the
+    interconnect bytes of one exchanged row."""
+
+    _row_bytes: int
+
+    def _setup(self, graph: Graph, program, mesh: Optional[LocalMesh],
+               num_parts: Optional[int], sg: Optional[ShardedGraph],
+               device) -> None:
+        if program.needs_weights and graph.weights is None:
+            raise ValueError(f"{program.name} requires an edge-weighted graph")
+        self.mesh = mesh_for(mesh, num_parts, device)
+        self.num_parts = self.mesh.num_parts
+        self.device = self.mesh.device
+        self.graph = graph
+        self.program = program
+        self.sg = validated_sg(sg, graph, self.num_parts)
+        # The mode is captured here, once; a downgrade is logged.
+        self.exchange_mode, self._xplan = resolve_exchange(
+            self.sg, get_logger("engine"))
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _build_parts(self, item_len: int, own_rows: bool = False) -> None:
+        """The per-part operands and the compact exchange. ``item_len``
+        sizes the kernels' work items; with ``own_rows`` an item also
+        addresses its destinations' rows in the flat table (K9's
+        ``row_base``)."""
+        sg = self.sg
+        n = sg.max_nv
+        on_card = self.device.type != "cpu"
+        self.vertex_mask = self._put(sg.vertex_mask)
+        row_ptr = self._put(sg.local_row_ptr.astype(np.int64))
+        src_pidx = self._put(sg.src_pidx)
+        weights = None if sg.weights is None else self._put(sg.weights)
+        self._parts: List[Part] = []
+        for q in range(self.num_parts):
+            n_e = int(sg.local_row_ptr[q, -1])
+            items = None
+            if on_card:
+                items = SegmentItems.build(
+                    sg.local_row_ptr[q], item_len, self.device,
+                    row_base=q * n if own_rows else 0)
+            self._parts.append(Part(
+                row_ptr=row_ptr[q],
+                col_src=src_pidx[q, :n_e],
+                weights=None if weights is None else weights[q, :n_e],
+                row_base=q * n,
+                items=items,
+            ))
+        self._xch = (None if self._xplan is None
+                     else CompactExchange(self._xplan, self.mesh, n))
+
+    def _exchange(self, stacked: torch.Tensor) -> torch.Tensor:
+        """The flat table(s) the parts read: the shared (P*max_nv, *t)
+        all-gather (full), or (P, P*max_nv, *t), one per receiver
+        (compact)."""
+        if self._xch is None:
+            return self.mesh.all_gather(stacked)
+        return self._xch.tables(stacked)
+
+    def _table(self, flat: Optional[torch.Tensor], q: int):
+        """Part ``q``'s table of what :meth:`_exchange` returned."""
+        return flat if flat is None or self._xch is None else flat[q]
+
+    def exchange_bytes_per_iter(self) -> int:
+        """Interconnect bytes of one (dense) iteration's exchange, as
+        ``lux_tpu`` prices them. Full: each of the P shards sends its
+        max_nv rows of ``_row_bytes`` to the P-1 others. Compact: the
+        plan's packed-capacity figure. On one device neither crosses an
+        interconnect."""
+        if self._xplan is not None:
+            return self._xplan.exchange_bytes_per_iter(self._row_bytes)
+        p = self.num_parts
+        return p * (p - 1) * self.sg.max_nv * self._row_bytes

@@ -115,18 +115,21 @@ def queue_relax_scatter_plain(
     kind: str,
     relax: EdgeFn,
     weights: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K7's plain version: a copy of ``values`` into which, for every
-    out-edge (u -> d) of every queued u, ``relax(values[u], w)`` is
-    combined with ``kind`` (min or max) at d; int32 storage."""
+    """K7's plain version: for every out-edge (u -> d) of every queued
+    u, ``relax(values[u], w)`` combined with ``kind`` (min or max) at
+    ``out[d]``; int32 storage. ``q`` indexes ``values`` and ``col_dst``
+    indexes ``out``, a table of its own that is combined into in place
+    and returned (default: a copy of ``values``)."""
     slot, edge = queue_edges(q, start, offs)
-    vals = widen_u32(values)
-    cand = relax(vals[q.long()[slot]],
+    cand = relax(widen_u32(values)[q.long()[slot]],
                  None if weights is None else weights[edge])
     reduce = {"min": "amin", "max": "amax"}[kind]
-    new = vals.scatter_reduce(0, col_dst[edge].long(), cand, reduce=reduce,
-                              include_self=True)
-    return narrow_u32(new)
+    base = values if out is None else out
+    new = narrow_u32(widen_u32(base).scatter_reduce(
+        0, col_dst[edge].long(), cand, reduce=reduce, include_self=True))
+    return new if out is None else out.copy_(new)
 
 
 def queue_relax_scatter(
@@ -140,20 +143,26 @@ def queue_relax_scatter(
     total: int,
     relax: Optional[EdgeFn] = None,
     weights: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The new values of one sparse iteration (see
     :func:`queue_relax_scatter_plain`). ``total`` is the queue's
-    out-edge count (``offs[-1]``), which the caller knows.
+    out-edge count (``offs[-1]``), which the caller knows. ``values`` is
+    the pre-step table that ``q`` indexes; ``out`` (default: a copy of
+    ``values``) receives the combine at ``col_dst`` and is returned. A
+    part of a sharded graph passes the flat pre-step table of every part
+    as ``values`` and its own row of the new values as ``out``.
 
     CPU tensors take the plain version with ``relax`` (default: the
     plain form of ``relax_op``); CUDA tensors launch K7, which knows the
-    relax only by ``relax_op`` (``"add1"`` or ``"copy"``)."""
+    relax only by ``relax_op`` (``"add1"`` or ``"copy"``) and reads
+    ``values`` only at ``q`` and writes ``out`` only at ``col_dst``."""
     if kind not in COMBINERS:
         raise ValueError(f"queue_relax_scatter: unsupported kind {kind!r}")
     if values.device.type == "cpu":
         return queue_relax_scatter_plain(q, start, offs, col_dst, values,
                                          kind, plain_edge_fn(relax_op, relax),
-                                         weights)
+                                         weights, out)
     comb, op = kernel_codes(kind, relax_op)
     dev = values.device
     _cuda.check(q, "q", torch.int32, dev, ndim=1)
@@ -167,16 +176,29 @@ def queue_relax_scatter(
                          f"offs ({cnt + 1},)")
     if total < 0 or total > col_dst.shape[0]:
         raise ValueError(f"total {total} outside [0, {col_dst.shape[0]}]")
-    new = values.clone()
+    if out is None:
+        out = values.clone()
+    else:
+        _cuda.check(out, "out", torch.int32, dev, ndim=1)
+        if _overlap(out, values):
+            # The kernel reads values while it combines into out.
+            raise ValueError("out must not share memory with values")
     if total == 0 or cnt == 0:
-        return new
+        return out
     _cuda.launch(
         "queue_relax_scatter", "lux_queue_relax_scatter",
         _cuda.ptr(q), _cuda.ptr(start), _cuda.ptr(offs), cnt, total,
-        _cuda.ptr(col_dst), _cuda.ptr(values), _cuda.ptr(new), comb, op,
+        _cuda.ptr(col_dst), _cuda.ptr(values), _cuda.ptr(out), comb, op,
         _cuda.stream(dev),
     )
-    return new
+    return out
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous tensors share bytes."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
 
 
 def gas_push_acc_plain(

@@ -744,12 +744,15 @@ def gas_pull_acc_plain(
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K10's plain version: per CSC destination v (and per column, for
-    (nv, K) values), the ``kind`` (min, max or sum) over its in-edges of
-    ``gather(val[src], w)`` for sources in the frontier, the identity
-    elsewhere; values' storage type and shape.
+    (rows, K) values), the ``kind`` (min, max or sum) over its in-edges
+    of ``gather(val[src], w)`` for sources in the frontier, the identity
+    elsewhere; values' storage type, (nv,) or (nv, K) for ``row_ptr``'s
+    nv rows.
 
     ``values`` is int32 storage of uint32 bits (``gather`` then sees
-    widened values) or f32; ``frontier`` is bool of the same shape."""
+    widened values) or f32; ``frontier`` is bool of the same shape. They
+    are the table the sources index: nv rows on one device, every part's
+    on a sharded graph."""
     vals, dom = gas_widen(values)
     src = col_src.long()
     w = weights
@@ -775,7 +778,9 @@ def gas_pull_acc(
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The GAS engine's pull-direction accumulator (see
-    :func:`gas_pull_acc_plain`), for (nv,) or (nv, K) values.
+    :func:`gas_pull_acc_plain`), (nv,) or (nv, K) for ``row_ptr``'s nv
+    rows, over a value table of at least nv rows that ``col_src``
+    indexes.
 
     CPU tensors take the plain version with ``gather`` (default: the
     plain form of ``gather_op``). CUDA tensors launch K10
@@ -793,9 +798,9 @@ def gas_pull_acc(
     _cuda.check(col_src, "col_src", torch.int32, dev, ndim=1)
     _cuda.check(values, "values", gas_storage_dtype(gather_op), dev)
     _cuda.check(frontier, "frontier", torch.bool, dev)
-    if values.dim() not in (1, 2) or values.shape[0] != nv:
-        raise ValueError(f"values must be ({nv},) or ({nv}, K), got "
-                         f"{tuple(values.shape)}")
+    if values.dim() not in (1, 2) or values.shape[0] < nv:
+        raise ValueError(f"values must be (rows,) or (rows, K) with rows "
+                         f">= {nv}, got {tuple(values.shape)}")
     if frontier.shape != values.shape:
         raise ValueError("frontier and values differ in shape")
     if gather_op in F32_GATHER_OPS:
@@ -813,10 +818,11 @@ def gas_pull_acc(
         raise ValueError("items with a row_base address another table")
     _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
     _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
+    shape = (nv,) + tuple(values.shape[1:])
     if items.n_items == 0:
-        return gas_identity_storage(kind, values.shape, values.dtype, dev)
+        return gas_identity_storage(kind, shape, values.dtype, dev)
     k = 1 if values.dim() == 1 else values.shape[1]
-    acc = gas_key_storage(kind, values.shape, values.dtype, dev)
+    acc = gas_key_storage(kind, shape, values.dtype, dev)
     _cuda.launch(
         "gas_pull_acc", "lux_gas_pull_acc", _cuda.ptr(values),
         _cuda.ptr(frontier), _cuda.ptr(col_src),

@@ -15,6 +15,10 @@ needs over that axis. They are the only place where parts meet:
   receiver ``q`` (``jax.lax.all_to_all`` with ``split_axis=0,
   concat_axis=0, tiled=True``), one copy on one device.
 
+On top of the two, :class:`CompactExchange` is the compact
+(``LUX_EXCHANGE=compact``) exchange of the sharded engines: each
+receiver's table of the rows its edges read.
+
 One NCCL communicator cannot hold two ranks on one GPU, so P parts on one
 card cannot be P processes. A ``torch.distributed`` backend behind the
 same two methods comes with the multihost slice.
@@ -25,8 +29,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from lux_tpu_torch.graph.partition import ExchangePlan
 from lux_tpu_torch.utils.platform import resolve_device
 
 PARTS_AXIS = "parts"
@@ -80,3 +86,62 @@ def make_mesh(num_parts: Optional[int] = None, device=None) -> LocalMesh:
     if num_parts is None:
         num_parts = torch.cuda.device_count() if dev.type == "cuda" else 1
     return LocalMesh(int(num_parts), dev)
+
+
+def mesh_for(mesh: Optional[LocalMesh], num_parts: Optional[int],
+             device) -> LocalMesh:
+    """The mesh a sharded executor runs on: ``mesh`` if given (it decides
+    the parts; a ``device`` named beside it must be of its type), else
+    :func:`make_mesh` of ``num_parts`` on ``device``."""
+    if mesh is None:
+        return make_mesh(num_parts, device)
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {device} differs from the mesh's "
+                         f"{mesh.device}")
+    return mesh
+
+
+class CompactExchange:
+    """The compact exchange of an :class:`ExchangePlan` over a
+    :class:`LocalMesh`: flat index tables over the stacked ``(P, max_nv,
+    *t)`` arrays, built once.
+
+    Each sender gathers the rows its receivers read (``send_units``,
+    clamped to ``max_nv - 1`` like ``lux_tpu``'s gather) with
+    ``index_select``, the mesh's ``all_to_all`` moves the blocks, and
+    each receiver scatters them by ``recv_pos`` into its own ``(P *
+    max_nv + 1)``-row table with ``index_copy_``; the last row takes the
+    pad entries and is sliced off. The receiver's own span is written
+    from its local shard (as ``lux_tpu/engine/tiled_sharded.py:515``
+    does), so every row an edge reads equals the full all-gather's, and
+    rows no edge reads are zero (a bool frontier: False)."""
+
+    def __init__(self, plan: ExchangePlan, mesh: LocalMesh, max_nv: int):
+        P, n = mesh.num_parts, max_nv
+        self.mesh, self.max_nv = mesh, n
+        rows = P * n + 1
+        parts = np.arange(P, dtype=np.int64)[:, None]
+        send = np.minimum(plan.send_units.astype(np.int64), n - 1)
+        recv = plan.recv_pos.astype(np.int64) + parts * rows
+        own = parts * rows + parts * n + np.arange(n, dtype=np.int64)
+
+        def put(a):
+            return torch.from_numpy(a.reshape(-1)).to(mesh.device)
+
+        # Sender p's gather list addresses only its own shard, receiver
+        # q's scatter list only its own table of P * n + 1 rows.
+        self.send, self.recv, self.own = (put(send + parts * n), put(recv),
+                                          put(own))
+
+    def tables(self, stacked: torch.Tensor) -> torch.Tensor:
+        """(P, max_nv, *t) shards -> (P, P * max_nv, *t): row q is the
+        flat table receiver q's edges read."""
+        P, n = self.mesh.num_parts, self.max_nv
+        tail = tuple(stacked.shape[2:])
+        local = stacked.reshape((P * n,) + tail)
+        packed = local.index_select(0, self.send)
+        got = self.mesh.all_to_all(packed.view((P, -1) + tail))
+        buf = stacked.new_zeros((P * (P * n + 1),) + tail)
+        buf.index_copy_(0, self.recv, got.reshape((-1,) + tail))
+        buf.index_copy_(0, self.own, local)
+        return buf.view((P, P * n + 1) + tail)[:, :-1]

@@ -88,6 +88,28 @@ def resolve_exchange(sg: "ShardedGraph", log=None, frontier_ok: bool = False):
     return mode, plan
 
 
+def validated_sg(sg: Optional["ShardedGraph"], graph: Graph,
+                 num_parts: int) -> "ShardedGraph":
+    """A prebuilt partition (``lux_tpu``'s serving layer caches one per
+    graph and part count) after checking that it describes this graph
+    and mesh; a fresh one when ``sg`` is None. ``lux_tpu``'s
+    ``engine/push.py::_validated_sg``."""
+    if sg is None:
+        return ShardedGraph.build(graph, num_parts)
+    if sg.num_parts != num_parts:
+        raise ValueError(
+            f"prebuilt ShardedGraph has {sg.num_parts} parts, mesh has "
+            f"{num_parts}"
+        )
+    if sg.graph is not graph:
+        raise ValueError(
+            "prebuilt ShardedGraph was built from a different Graph "
+            "object — edge indices and partition bounds would not "
+            "match this executor's graph"
+        )
+    return sg
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -301,7 +323,12 @@ class ShardedGraph:
 
         Returns (push_row_ptr (P, nv+2) int32, push_dst_local (P, max_ne)
         int32 with pad == max_nv, push_weights (P, max_ne) int32 or None).
+        Cached on the instance (callers only read it), so executors that
+        share a partition build it once.
         """
+        cached = getattr(self, "_push_csr", None)
+        if cached is not None:
+            return cached
         P, nv = self.num_parts, self.graph.nv
         rp = np.zeros((P, nv + 2), dtype=np.int32)
         dstl = np.full((P, self.max_ne), self.max_nv, dtype=np.int32)
@@ -323,7 +350,8 @@ class ShardedGraph:
             counts = np.bincount(srcs, minlength=nv)
             rp[p, 1 : nv + 1] = np.cumsum(counts)
             rp[p, nv + 1] = n_e
-        return rp, dstl, w
+        self._push_csr = (rp, dstl, w)
+        return self._push_csr
 
     # -- host value layout conversions ----------------------------------
 

@@ -588,3 +588,140 @@ def test_sharded_pull_on_cuda(dev, monkeypatch, app, parts):
         np.testing.assert_array_equal(got, single.cpu().numpy())
         outs[mode] = out
     assert torch.equal(outs["compact"], outs["full"])
+
+
+# -- the multi-source and sharded push engines (K5-K7, K10 per part) ---------
+
+
+def test_split_table_wrappers_match_plain(dev):
+    # K7 reads a flat table of several parts' rows at q and combines into
+    # one part's row of its own; K10 reads a table of more rows than its
+    # row_ptr's, which sizes the output.
+    g = generate.gnp(5000, 30000, seed=7)
+    csr = g.csr()
+    rp, col_dst = torch.from_numpy(csr.row_ptr), torch.from_numpy(csr.col_dst)
+    vals, fr = _push_operands(3 * g.nv, 4, 0.0)
+    fr[g.nv:2 * g.nv] = torch.rand(g.nv) < 0.05
+    q, start, _, offs = fq.frontier_queue(fr[g.nv:2 * g.nv], rp,
+                                          int(fr[g.nv:2 * g.nv].sum()))
+    q = q + g.nv
+    total = int(offs[-1])
+    for kind, relax_op in (("min", "add1"), ("max", "copy")):
+        out = vals[:g.nv].clone()
+        want = fq.queue_relax_scatter(q, start, offs, col_dst, vals, kind,
+                                      relax_op, total, out=out.clone())
+        d_out = out.to(dev)
+        got = fq.queue_relax_scatter(q.to(dev), start.to(dev), offs.to(dev),
+                                     col_dst.to(dev), vals.to(dev), kind,
+                                     relax_op, total, out=d_out)
+        assert got is d_out and torch.equal(got.cpu(), want)
+    d_vals = vals.to(dev)
+    with pytest.raises(ValueError, match="share memory"):
+        fq.queue_relax_scatter(q.to(dev), start.to(dev), offs.to(dev),
+                               col_dst.to(dev), d_vals, "min", "add1", total,
+                               out=d_vals[:g.nv])
+    gk = generate.rmat(11, 12, seed=5)
+    lanes, front = _gas_operands(3 * gk.nv, "add1", 0.3, 8, seed=2)
+    col_src = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 3 * gk.nv, gk.ne)
+        .astype(np.int32))
+    row_ptr = torch.from_numpy(gk.row_ptr)
+    items = seg.SegmentItems.build(gk.row_ptr, seg.SEG_ITEM, dev)
+    for kind, op in (("min", "add1"), ("max", "copy")):
+        want = seg.gas_pull_acc(row_ptr, col_src, lanes, front, kind, op)
+        got = seg.gas_pull_acc(row_ptr.to(dev), col_src.to(dev),
+                               lanes.to(dev), front.to(dev), kind, op, items)
+        assert got.shape == want.shape == (gk.nv, 8)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("app", ["sssp", "cc"])
+def test_multi_source_push_on_cuda(dev, app):
+    from lux_tpu_torch.engine.push import MultiSourcePushExecutor
+
+    g = generate.rmat(12, 10, seed=1)
+    if app == "cc":
+        g = generate.undirected(g)
+    prog = SSSP() if app == "sssp" else ConnectedComponents()
+    roots = [0, 3, 11, 40, 77, 100, 512, 4000]
+    mx = MultiSourcePushExecutor(g, prog, k=len(roots))
+    _cuda.reset_launches()
+    st, iters = mx.run(roots)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == {**dict.fromkeys(_cuda.LAUNCHES, 0),
+                              "gas_pull_acc": iters}
+    single = PushExecutor(g, prog)
+    longest = 0
+    for j, r in enumerate(roots):
+        s, n = single.run(start=r)
+        longest = max(longest, n)
+        np.testing.assert_array_equal(mx.values_for(st, j), single.values(s))
+    assert iters == longest and mx.sparse_iters == 0
+
+
+@pytest.mark.parametrize("parts", [1, 3, 4])
+@pytest.mark.parametrize("app", ["sssp", "cc"])
+def test_sharded_push_on_cuda(dev, monkeypatch, app, parts):
+    from lux_tpu_torch.engine.push_sharded import ShardedPushExecutor
+
+    g = generate.rmat(12, 10, seed=1)
+    if app == "sssp":
+        prog, kw, ref = SSSP(), {"start": 0}, reference_sssp(g, 0)
+    else:
+        g = generate.undirected(g)
+        prog, kw, ref = ConnectedComponents(), {}, reference_components(g)
+    single = PushExecutor(g, prog)
+    sstate, siters = single.run(**kw)
+    outs = {}
+    for mode, blocked in (("full", True), ("full", False),
+                          ("compact", None)):
+        monkeypatch.setenv("LUX_EXCHANGE", mode)
+        ex = ShardedPushExecutor(g, prog, num_parts=parts, queue_frac=4,
+                                 edge_budget_frac=2, blocked_dense=blocked)
+        cpu = ShardedPushExecutor(g, prog, num_parts=parts, device="cpu",
+                                  queue_frac=4, edge_budget_frac=2,
+                                  blocked_dense=blocked)
+        _cuda.reset_launches()
+        state, iters = ex.run(**kw)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        cstate, citers = cpu.run(**kw)
+        got = ex.gather_values(state)
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got, cpu.gather_values(cstate))
+        np.testing.assert_array_equal(got, single.values(sstate))
+        assert (iters, ex.sparse_iters) == (citers, cpu.sparse_iters)
+        assert iters == siters and 0 < ex.sparse_iters < iters
+        with_edges = sum(1 for p in ex._parts if p.col_src.numel())
+        dense = iters - ex.sparse_iters
+        assert counts == {
+            **dict.fromkeys(counts, 0),
+            "segment_minmax_relax": with_edges * dense,
+            "frontier_queue": sum(k6 for k6, _ in ex.queue_log),
+            "queue_relax_scatter": sum(k7 for _, k7 in ex.queue_log)}
+        outs[mode, blocked] = state.values
+    assert torch.equal(outs["compact", None], outs["full", False])
+    assert torch.equal(outs["full", True], outs["full", False])
+
+
+@pytest.mark.parametrize("parts", [1, 4])
+def test_sharded_multi_source_push_on_cuda(dev, monkeypatch, parts):
+    from lux_tpu_torch.engine.push import MultiSourcePushExecutor
+    from lux_tpu_torch.engine.push_sharded import (
+        ShardedMultiSourcePushExecutor,
+    )
+
+    g = generate.rmat(12, 10, seed=1)
+    roots = [0, 3, 11, 40, 77]
+    want, witers = MultiSourcePushExecutor(g, SSSP(), k=8).run(roots)
+    for mode in ("full", "compact"):
+        monkeypatch.setenv("LUX_EXCHANGE", mode)
+        ex = ShardedMultiSourcePushExecutor(g, SSSP(), 8, num_parts=parts)
+        _cuda.reset_launches()
+        st, iters = ex.run(roots)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES == {**dict.fromkeys(_cuda.LAUNCHES, 0),
+                                  "gas_pull_acc": parts * iters}
+        assert iters == witers
+        np.testing.assert_array_equal(ex.gather_values(st),
+                                      seg.u32_to_numpy(want.values))

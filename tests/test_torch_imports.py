@@ -32,7 +32,8 @@ def test_port_files_found():
                  "models/labelprop.py", "models/kcore.py"):
         assert f"lux_tpu_torch/{name}" in FILES
     for name in ("graph/partition.py", "parallel/shard.py",
-                 "parallel/mesh.py", "engine/pull_sharded.py",
+                 "parallel/mesh.py", "engine/sharded.py",
+                 "engine/pull_sharded.py", "engine/push_sharded.py",
                  "utils/logging.py"):
         assert f"lux_tpu_torch/{name}" in FILES
 
