@@ -22,6 +22,32 @@ merge-network tail of ``LUX_GROUPED_TAIL=1``):
 6. timing: ms per iteration and GTEPS for both configurations, and the
    per-phase split from ``phase_step``.
 
+Right after phase 6, on phase 3's plan (planning is not repeated), the
+sharded tiled engine (``ShardedTiledExecutor``): PageRank over 4 parts
+of a ``LocalMesh`` on the card, in the full and compact exchange modes:
+
+3g. the partition (blocks, strips per part and level, tail edges per
+    part, ``max_nvb``) and which mode ``LUX_EXCHANGE=compact`` resolves
+    to;
+4g. K1 and K2 at one part's shapes against their plain versions
+    (bitwise on small integers, within rtol=5e-5, atol=1e-9 on random
+    floats), with the same timings;
+5g. end to end: ``run(10)`` in both modes against phase 5's f64 oracle
+    at rtol=5e-5, atol=1e-9, compact equal to full bitwise, K1 once per
+    part and level and K2 once per part per iteration;
+6g. timing: median of 3 runs after ``warmup``, ms per iteration, GTEPS,
+    the ``phase_step`` split (exchange, strips, tail, apply), the device
+    busy share, the exchange and the strip merge (``stack_map`` and
+    ``reduce_scatter``) alone against their bytes bounds, and the
+    phases' peak device memory.
+
+Then the gather probes P2-P7 (``lux_tpu_torch.probes``), phase 4g too:
+each probe's entry point as a user runs it, with its launches counted,
+then ``block_take`` in its four forms, ``merge4`` and P7's K3 launch
+bitwise against their plain versions at the probes' full shapes, each
+with its time, the plain version's, one ``torch.gather`` call's where
+one computes the same function, and its bytes bound.
+
 Then the push engine (``PushExecutor``): SSSP from vertex 0 on the same
 graph and Connected Components on its undirected closure:
 
@@ -307,7 +333,17 @@ def main(argv=None) -> int:
     log(f"[graph] rmat({args.scale}, 16, seed={SEED}, weighted=True): "
         f"nv={g.nv} ne={g.ne} in {t_gen:.1f} s; g is it without weights")
     kernels = []
-    totals, oracle = _pagerank_phases(g, dev, kernels)
+    totals, oracle, plan = _pagerank_phases(g, dev, kernels)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    # Phases 3g-6g reuse phase 3's plan (planning costs host minutes at
+    # scale), so they run here, before the plan is dropped.
+    totals.update(_tiled_sharded_phases(g, plan, oracle, dev, kernels))
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del plan
+    torch.cuda.empty_cache()
+    totals.update(_probe_phases(dev, kernels))
+    peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
     t = time.perf_counter()
     gu = generate.undirected(g)
@@ -326,7 +362,7 @@ def main(argv=None) -> int:
         totals[name] += n
     del gw
     torch.cuda.empty_cache()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak, torch.cuda.max_memory_allocated())
     for name, n in _sharded_phases(g, oracle, gc, cf_oracle, dev).items():
         totals[name] += n
     peak = max(peak, torch.cuda.max_memory_allocated())
@@ -352,7 +388,7 @@ def main(argv=None) -> int:
 
 def _pagerank_phases(g, dev, kernels):
     """Phases 3-6 on the tiled pull path; returns the launch counts of
-    its two runs, summed, and the f64 oracle of ``run(10)``."""
+    its two runs, summed, the f64 oracle of ``run(10)`` and the plan."""
     import torch
 
     from lux_tpu_torch.engine.tiled import TiledPullExecutor
@@ -568,7 +604,7 @@ def _pagerank_phases(g, dev, kernels):
         log(f"[time] {label} phases (ms, median of 5): " + ", ".join(
             f"{k}={v * 1e3:.3f}" for k, v in phases.items()))
 
-    return totals, oracle
+    return totals, oracle, plan
 
 
 def _push_phases(g, gu, dev, kernels):
@@ -1840,11 +1876,23 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
                                               mx1.items), reps)
     b11_plain = cuda_ms(lambda: seg.gas_pull_acc_plain(
         *b11_args, SSSP().relax), 2)
+    # The same reduce in one PyTorch call: an int64 scatter_reduce of the
+    # masked (ne, K) messages, as the split-table row above measures it.
+    src = mx1.col_src.long()
+    msg = torch.where(st.frontier[src], relax(seg.widen_u32(st.values[src])),
+                      seg.identity_for("min", np.uint32))
+    dst = torch.repeat_interleave(torch.arange(g.nv, device=dev),
+                                  mx1.row_ptr.diff())[:, None].expand(-1, K)
+    acc0 = torch.full((g.nv, K), seg.identity_for("min", np.uint32),
+                      dtype=torch.int64, device=dev)
+    b11_lib = cuda_ms(lambda: acc0.scatter_reduce(
+        0, dst, msg, reduce="amin", include_self=True), reps)
+    del src, msg, dst, acc0
     b11_bytes = 4 * g.ne + 8 * (g.nv + 1) + 9 * g.nv * K
     log(f"[push-sharded] K10 k={K} on one device (multi-source SSSP, {c} "
         f"active lane entries after {at} iterations): bitwise; "
-        f"{b11_ms:.4f} ms (plain {b11_plain:.4f}, bytes bound "
-        f"{bound(b11_bytes, g.ne * K)[0]:.4f})")
+        f"{b11_ms:.4f} ms (plain {b11_plain:.4f}, scatter_reduce "
+        f"{b11_lib:.4f}, bytes bound {bound(b11_bytes, g.ne * K)[0]:.4f})")
     del st, best, b11_args
     torch.cuda.empty_cache()
 
@@ -2066,6 +2114,344 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
         f"3f-6f took {time.perf_counter() - t_phase:.1f} s")
     return totals
 
+
+
+def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
+    """Phases 3g-6g on the sharded tiled engine: PageRank on ``g`` over
+    ``SHARDED_PARTS`` parts of a ``LocalMesh`` on the card, built on
+    phase 3's ``plan``, in the full and compact exchange modes. Returns
+    the launch counts of the phase 5g runs under ``strip_spmv[sharded]``
+    and ``tail_gather_sum[sharded]``."""
+    import torch
+
+    from lux_tpu_torch.engine.tiled_sharded import ShardedTiledExecutor
+    from lux_tpu_torch.models.pagerank import PageRank
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops.tiled_spmv import (
+        lane_select_tail_sums,
+        lane_select_tail_sums_plain,
+        strip_level_spmv,
+        strip_level_spmv_plain,
+    )
+    from lux_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    P = SHARDED_PARTS
+    mesh = make_mesh(P, dev)
+    flag = os.environ.get("LUX_EXCHANGE")
+    reps = 10
+
+    # -- 3g. the partition and both executors -------------------------------
+    exs = {}
+    for mode in ("full", "compact"):
+        os.environ["LUX_EXCHANGE"] = mode
+        t = time.perf_counter()
+        ex = ShardedTiledExecutor(g, PageRank(), mesh=mesh, plan=plan)
+        torch.cuda.synchronize()
+        log(f"[tiled-sharded] LUX_EXCHANGE={mode} resolves to "
+            f"{ex.exchange_mode}; executor built in "
+            f"{time.perf_counter() - t:.1f} s; exchange_bytes_per_iter "
+            f"{ex.exchange_bytes_per_iter()}")
+        exs[mode] = ex
+    if flag is None:
+        del os.environ["LUX_EXCHANGE"]
+    else:
+        os.environ["LUX_EXCHANGE"] = flag
+    ex = exs["full"]
+    parts = ex._parts
+    strips = [[lev.strips.shape[0] for lev in p.levels] for p in parts]
+    log(f"[tiled-sharded] P={P} nvb={plan.nvb} max_nvb={ex.part.max_nvb} "
+        f"max_nv={ex.max_nv} ({P * ex.max_nv / g.nv:.3f} x nv padded rows); "
+        f"blocks per part {[len(b) for b in ex.part.blocks]}; strips per "
+        f"part and level {strips}; tail edges per part "
+        f"{[p.tail_sb.numel() for p in parts]}; remote rows read "
+        f"{ex._remote_read_counts.tolist()}")
+
+    # -- 4g. K1 and K2 at one part's shapes ---------------------------------
+    q = 0
+    part = parts[q]
+    rng = np.random.default_rng(SEED + 7)
+    nvb = plan.nvb
+    x_float = torch.from_numpy(
+        rng.random((nvb, 128), dtype=np.float32) + np.float32(0.5)).to(dev)
+    x_int = torch.from_numpy(
+        rng.integers(0, 4, size=(nvb, 128)).astype(np.float32)).to(dev)
+    err = 0.0
+    for lev in part.levels:
+        for x, exact in ((x_int, True), (x_float, False)):
+            got = strip_level_spmv(x, lev)
+            want = strip_level_spmv_plain(x, lev.strips, lev.cols,
+                                          lev.row_ptr)
+            if exact:
+                check_equal(f"K1 part {q} r={lev.r} integral", got, want)
+            else:
+                err = max(err, check_close(f"K1 part {q} r={lev.r}", got,
+                                           want))
+    k1_ms = sum(cuda_ms(lambda: strip_level_spmv(x_float, lev), reps)
+                for lev in part.levels)
+    k1_plain = sum(cuda_ms(lambda: strip_level_spmv_plain(
+        x_float, lev.strips, lev.cols, lev.row_ptr), 2)
+        for lev in part.levels)
+    k1_bytes = sum(
+        lev.strips.numel() + 4 * lev.cols.numel() + 8 * lev.row_ptr.numel()
+        + x_float.numel() * 4 + 4 * lev.items.nrows * lev.r
+        for lev in part.levels)
+    k1_lib = 0.0
+    for lev in part.levels:
+        csr = _level_csr(lev, nvb, dev)
+        xv = x_float.reshape(-1, 1)
+        k1_lib += cuda_ms(lambda: csr @ xv, reps)
+        del csr
+    record(kernels, "strip_spmv[sharded]", "lux_tpu_torch/csrc/strip_spmv.cu",
+           "lux_tpu/engine/tiled_sharded.py:539", err, k1_ms, k1_plain,
+           k1_bytes, sum(2 * lev.strips.numel() for lev in part.levels),
+           k1_lib)
+    args2 = (part.tail_sb, part.tail_lane, part.tail_row_ptr)
+    check_equal(f"K2 part {q} integral",
+                lane_select_tail_sums(x_int, *args2, part.tail_items),
+                lane_select_tail_sums_plain(x_int, *args2))
+    err = check_close(f"K2 part {q}", lane_select_tail_sums(
+        x_float, *args2, part.tail_items),
+        lane_select_tail_sums_plain(x_float, *args2))
+    k2_ms = cuda_ms(lambda: lane_select_tail_sums(
+        x_float, *args2, part.tail_items), reps)
+    k2_plain = cuda_ms(lambda: lane_select_tail_sums_plain(x_float, *args2),
+                       reps)
+    m = part.tail_sb.numel()
+    k2_bytes = 5 * m + 8 * part.tail_row_ptr.numel() \
+        + 4 * x_float.numel() + 4 * ex.max_nv
+    cols = (part.tail_sb.long() << 7) | part.tail_lane.long()
+    tail_csr = torch.sparse_csr_tensor(
+        part.tail_row_ptr, cols, torch.ones(m, device=dev),
+        size=(ex.max_nv, nvb * 128))
+    xv = x_float.reshape(-1, 1)
+    k2_lib = cuda_ms(lambda: tail_csr @ xv, reps)
+    del tail_csr, cols
+    record(kernels, "tail_gather_sum[sharded]",
+           "lux_tpu_torch/csrc/segment_sum.cu",
+           "lux_tpu/engine/tiled_sharded.py:568", err, k2_ms, k2_plain,
+           k2_bytes, m, k2_lib)
+    log(f"[tiled-sharded] part {q}: K1 over {strips[q]} strips into "
+        f"{nvb * 128} rows, K2 over {m} tail edges into {ex.max_nv} rows")
+    del x_float, x_int
+
+    # -- 5g. end to end, both modes -------------------------------------------
+    k1_per_iter = sum(1 for p in parts for lev in p.levels
+                      if lev.items.n_items > 0)
+    k2_per_iter = sum(1 for p in parts if p.tail_items.n_items > 0)
+    totals = {"strip_spmv[sharded]": 0, "tail_gather_sum[sharded]": 0}
+    outs = {}
+    for mode, ex in exs.items():
+        _cuda.reset_launches()
+        out = ex.run(ITERS)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        got = ex.gather_values(out)
+        if got.shape != pr_oracle.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"sharded tiled {mode}: bad output "
+                                 f"{got.shape}")
+        np.testing.assert_allclose(got, pr_oracle, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"sharded tiled {mode}")
+        err = float(np.max(np.abs(got.astype(np.float64) - pr_oracle)))
+        check_launches(f"sharded tiled {mode}", counts, {
+            "strip_spmv": k1_per_iter * ITERS,
+            "tail_gather_sum": k2_per_iter * ITERS})
+        log(f"[tiled-sharded] {mode} (resolved {ex.exchange_mode}): "
+            f"run({ITERS}) matches the f64 oracle (max abs err {err:.3e}); "
+            f"launches K1 {counts['strip_spmv']} = {k1_per_iter} part-levels"
+            f" x {ITERS}, K2 {counts['tail_gather_sum']} = {k2_per_iter} "
+            f"parts x {ITERS}")
+        totals["strip_spmv[sharded]"] += counts["strip_spmv"]
+        totals["tail_gather_sum[sharded]"] += counts["tail_gather_sum"]
+        outs[mode] = out
+    check_equal("sharded tiled compact vs full", outs["compact"],
+                outs["full"])
+    log("[tiled-sharded] compact equals full bitwise"
+        + ("" if exs["compact"].exchange_mode == "compact" else
+           " (compact resolved to full at this size: the same exchange)"))
+    del outs
+
+    # -- 6g. timing ---------------------------------------------------------
+    for mode, ex in exs.items():
+        ex.warmup()
+        vals = ex.init_values()
+        secs = [host_seconds(lambda: ex.run(ITERS, vals=vals))
+                for _ in range(3)]
+        sec = float(np.median(secs))
+        ev_ms = cuda_ms(lambda: ex.run(ITERS, vals=vals), 3) / ITERS
+        runs = [ex.phase_step(vals)[1] for _ in range(5)]
+        split = {k: float(np.median([r[k] for r in runs])) * 1e3
+                 for k in runs[0]}
+        log(f"[time] sharded tiled {mode}: {sec / ITERS * 1e3:.3f} "
+            f"ms/iteration, {g.ne * ITERS / sec / 1e9:.3f} GTEPS (host "
+            f"clock, median of 3 runs of {ITERS}: "
+            f"{[round(x * 1e3, 3) for x in secs]} ms); {ev_ms:.3f} "
+            "ms/iteration by CUDA events (mean of 3); phase_step split (ms, "
+            "median of 5): " + ", ".join(f"{k}={v:.3f}"
+                                          for k, v in split.items()))
+        busy = device_busy(lambda: ex.run(ITERS, vals=vals))
+        if busy is None:
+            log(f"[time] sharded tiled {mode}: device busy share not "
+                "measured (the profiler saw no kernels)")
+        else:
+            busy_ms, top = busy
+            log(f"[time] sharded tiled {mode}: device busy {busy_ms:.3f} ms "
+                f"of {sec * 1e3:.3f} ms ({busy_ms / (sec * 1e3):.1%}; "
+                "torch.profiler); top kernels (ms): "
+                + ", ".join(f"{n}={v:.3f}" for n, v in top))
+        # The exchange alone: full reads nvb rows of the stacked values at
+        # block_map and writes the (nvb, 128) operand; compact also reads
+        # the whole stack and writes one operand per part.
+        x_ms = cuda_ms(lambda: ex._exchange(vals), reps)
+        ops = ex._exchange(vals)
+        x_bytes = (2 * nvb * 512 if ex._xch is None
+                   else vals.numel() * 4 + ops.numel() * 4)
+        # The strip merge alone: the four full-height partials in
+        # owner-stacked order, and the reduce_scatter.
+        partials = ex._partials(ops)
+        merge_ms = cuda_ms(lambda: ex._merge(partials), reps)
+        merge_bytes = partials.numel() * 4 + vals.numel() * 4
+        log(f"[time] sharded tiled {mode} exchange ({ex.exchange_mode}): "
+            f"{x_ms:.4f} ms (mean of {reps}) against a bytes bound of "
+            f"{bound(x_bytes, 0)[0]:.4f} ms ({x_bytes} B); strip merge "
+            f"(stack_map + reduce_scatter) {merge_ms:.4f} ms against "
+            f"{bound(merge_bytes, 0)[0]:.4f} ms; "
+            f"{ex.exchange_bytes_per_iter()} B per iteration priced as "
+            "interconnect bytes")
+        del vals, ops, partials
+    del exs, ex, parts, part
+    log(f"[tiled-sharded] peak device memory of phases 3g-6g "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases 3g-6g "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+# Launches of each probe kernel when the three probes run: one warm-up
+# and 10 timed calls per probe line (P2: 3 lane and 4 row lines; P3, P4,
+# P5, its int8 form and P6 one line each), and P7's tiny case plus three
+# lines of 11.
+PROBE_LAUNCHES = {
+    "block_take[axis=1 int32]": 4 * 11, "block_take[axis=1 int8]": 11,
+    "block_take[axis=0 int32]": 5 * 11, "block_take[axis=0 int8]": 11,
+    "merge4": 11, "level_apply": 1 + 3 * 11,
+}
+
+
+def _probe_phases(dev, kernels) -> dict:
+    """Phase 4g on the gather probes P2-P7: each probe's entry point as a
+    user runs it (its launches are the main path's), then ``block_take``
+    in its four forms, ``merge4`` and P7's K3 launch bitwise against
+    their plain versions at the probes' full shapes, timed. Returns the
+    probe run's launch counts under the ``kernels`` line's names."""
+    import torch
+
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.probes import dgather, dgather2, merge_kernel
+    from lux_tpu_torch.probes import gather as pg
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    for probe in (dgather, dgather2, merge_kernel):
+        log(f"[probe] python -m {probe.__name__}")
+        probe.main([])
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    check_launches("probes", counts, PROBE_LAUNCHES)
+    totals = {k: counts[k] for k in PROBE_LAUNCHES if k != "level_apply"}
+    totals["level_apply[probe P7]"] = counts["level_apply"]
+
+    reps = 10
+    rng = np.random.default_rng(SEED + 9)
+    put = lambda a: torch.from_numpy(a).to(dev)
+
+    def needed(mask_shape, index, dim):
+        """Distinct elements the gather reads: ones scattered into a
+        mask by the (int64) index along ``dim``."""
+        mask = torch.zeros(mask_shape, dtype=torch.bool, device=dev)
+        mask.scatter_(dim, index, True)
+        return int(mask.sum())
+
+    rows = dgather2.S * dgather2.NB
+    x = put(rng.standard_normal((rows, 128), dtype=np.float32))
+    forms = (("axis=1 int32", 1, dgather2.S, 128, np.int32,
+              "tools/probe_dgather2.py:62"),
+             ("axis=1 int8", 1, dgather2.S, 128, np.int8,
+              "tools/probe_dgather2.py:91"),
+             ("axis=0 int32", 0, 8, 8, np.int32,
+              "tools/probe_dgather2.py:110"),
+             ("axis=0 int8", 0, 8, 8, np.int8,
+              "tools/probe_dgather2.py:110"))
+    for label, axis, block, hi, itype, replaces in forms:
+        idx = put(rng.integers(0, hi, (rows, 128)).astype(itype))
+        got = pg.block_take(x, idx, axis, block)
+        check_equal(f"block_take[{label}]", got,
+                    pg.block_take_plain(x, idx, axis, block))
+        ms = cuda_ms(lambda: pg.block_take(x, idx, axis, block), reps)
+        plain = cuda_ms(lambda: pg.block_take_plain(x, idx, axis, block),
+                        reps)
+        idx64 = idx.long()
+        if axis == 1:
+            lib = cuda_ms(lambda: torch.gather(x, 1, idx64), reps)
+            reads = needed((rows, 128), idx64, 1)
+        else:
+            shape = (rows // block, block, 128)
+            xv, iv = x.view(shape), idx64.view(shape)
+            lib = cuda_ms(lambda: torch.gather(xv, 1, iv), reps)
+            reads = needed(shape, iv, 1)
+        nbytes = 4 * reads + idx.numel() * idx.element_size() + 4 * x.numel()
+        log(f"[probe] block_take[{label}] at ({rows}, 128), blocks of "
+            f"{block} rows: bitwise; {reads} distinct elements of x read")
+        record(kernels, f"block_take[{label}]",
+               "lux_tpu_torch/csrc/probe_gather.cu", replaces, 0.0, ms,
+               plain, nbytes, 0, lib)
+        del idx, idx64, got
+    del x
+
+    r = dgather2.R
+    cand = put(rng.standard_normal((r, 4, 128), dtype=np.float32))
+    lane = put(rng.integers(0, 128, (r, 128), dtype=np.int32))
+    sel = put(rng.integers(0, 4, (r, 128), dtype=np.int32))
+    check_equal("merge4", pg.merge4(cand, lane, sel),
+                pg.merge4_plain(cand, lane, sel))
+    ms = cuda_ms(lambda: pg.merge4(cand, lane, sel), reps)
+    plain = cuda_ms(lambda: pg.merge4_plain(cand, lane, sel), reps)
+    flat = cand.view(r, 512)
+    gidx = sel.long() * 128 + lane.long()
+    lib = cuda_ms(lambda: torch.gather(flat, 1, gidx), reps)
+    reads = needed((r, 512), gidx, 1)
+    record(kernels, "merge4", "lux_tpu_torch/csrc/probe_gather.cu",
+           "tools/probe_dgather2.py:138", 0.0, ms, plain,
+           4 * reads + 8 * lane.numel() + 4 * lane.numel(), 0, lib)
+    del cand, lane, sel, flat, gidx
+
+    g_n = merge_kernel.G_RATE
+    r_in = 8 * g_n + 8
+    stream = put(rng.standard_normal((r_in, 128), dtype=np.float32))
+    aoff = put(rng.integers(0, r_in // 8 - 1, g_n).astype(np.int32))
+    boff = put(rng.integers(0, r_in // 8 - 1, g_n).astype(np.int32))
+    idx = put(rng.integers(-128, 128, (16 * g_n, 128)).astype(np.int8))
+    check_equal("merge_level (P7 on K3)",
+                pg.merge_level(stream, aoff, boff, idx),
+                pg.merge_level_plain(stream, aoff, boff, idx))
+    ms = cuda_ms(lambda: pg.merge_level(stream, aoff, boff, idx), reps)
+    plain = cuda_ms(lambda: pg.merge_level_plain(stream, aoff, boff, idx),
+                    reps)
+    v = idx.long()
+    src = torch.where(v >= 0, pg.expand_offsets(aoff).long()[:, None],
+                      pg.expand_offsets(boff).long()[:, None]) * 128 \
+        + (v & 127)
+    reads = needed((r_in * 128,), src.view(-1), 0)
+    record(kernels, "level_apply[probe P7]",
+           "lux_tpu_torch/csrc/level_apply.cu",
+           "tools/probe_merge_kernel.py:45", 0.0, ms, plain,
+           4 * reads + 8 * g_n + idx.numel() + 4 * idx.numel(), 0, None)
+    del stream, aoff, boff, idx, v, src
+    log(f"[probe] peak device memory of phase 4g "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; it took "
+        f"{time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
 
 def _level_csr(lev, nvb: int, dev):
     """The strip level as an f32 CSR matrix (nrb*r rows, nvb*128 columns),

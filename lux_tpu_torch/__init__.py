@@ -17,7 +17,11 @@ DeltaSSSP, label propagation and k-core, the multi-source push engine
 engines (``engine.pull_sharded.ShardedPullExecutor`` with PageRank and
 CF; ``engine.push_sharded.ShardedPushExecutor`` and
 ``ShardedMultiSourcePushExecutor`` with SSSP and CC) over the P parts of
-an edge-balanced partition, on one device (``parallel.mesh.LocalMesh``).
+an edge-balanced partition, and the sharded tiled engine
+(``engine.tiled_sharded.ShardedTiledExecutor``, tiled PageRank over the
+P parts of a snake-dealt block partition), on one device
+(``parallel.mesh.LocalMesh``); and the H100 gather probes
+(``probes``), the counterparts of the TPU probes under ``tools/``.
 Device work runs in
 hand-written CUDA kernels under ``csrc/`` (built at first use, see
 :mod:`lux_tpu_torch.ops._cuda`); each kernel has a plain-PyTorch version
@@ -33,8 +37,9 @@ Layout:
     lux_tpu_torch.parallel — sharded layout, the parts axis (LocalMesh)
     lux_tpu_torch.engine  — vertex-program base classes, tiled, push,
                             multi-source push, flat pull, GAS, sharded
-                            pull and sharded push executors, result
-                            checker
+                            pull, sharded push and sharded tiled
+                            executors, result checker
+    lux_tpu_torch.probes  — the gather probes (P2-P7) and their kernels
     lux_tpu_torch.models  — the eight programs and their registry
     lux_tpu_torch.utils   — flags, device resolution, loggers
 """

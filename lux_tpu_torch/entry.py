@@ -4,8 +4,8 @@
   :class:`TiledPullExecutor` with PageRank, and ``(step_fn,
   example_args)`` where ``step_fn(*example_args)`` runs one iteration in
   internal vertex order.
-- ``dryrun_multichip(n)``: the sharded pull and push engines over ``n``
-  parts of a :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` (one
+- ``dryrun_multichip(n)``: the sharded pull, tiled and push engines over
+  ``n`` parts of a :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` (one
   device), checked against their oracles.
 """
 
@@ -17,6 +17,7 @@ from lux_tpu_torch.engine.program import VertexCtx
 from lux_tpu_torch.engine.pull_sharded import ShardedPullExecutor
 from lux_tpu_torch.engine.push_sharded import ShardedPushExecutor
 from lux_tpu_torch.engine.tiled import TiledPullExecutor
+from lux_tpu_torch.engine.tiled_sharded import ShardedTiledExecutor
 from lux_tpu_torch.graph import generate
 from lux_tpu_torch.models import SSSP, ConnectedComponents, PageRank
 from lux_tpu_torch.models.components import reference_components
@@ -42,19 +43,24 @@ def entry(device=None):
 
 
 def dryrun_multichip(n_devices: int, device=None) -> None:
-    """Run the sharded pull and push engines over ``n_devices`` parts on
-    one device (``cuda`` unless ``device`` names another), in the
-    exchange mode ``LUX_EXCHANGE`` resolves to, on a small R-MAT: two
-    pull PageRank steps held to the f64 oracle at ``__graft_entry__``'s
-    rtol=2e-4; then, on its undirected closure, push CC to fixpoint and
+    """Run the sharded pull, tiled and push engines over ``n_devices``
+    parts on one device (``cuda`` unless ``device`` names another), in
+    the exchange mode ``LUX_EXCHANGE`` resolves to, on a small R-MAT: two
+    pull PageRank steps and two tiled (strip/lane-select) PageRank steps,
+    each held to the f64 oracle at ``__graft_entry__``'s rtol=2e-4; then,
+    on its undirected closure, push CC to fixpoint and
     push SSSP from vertex 0 with ``__graft_entry__``'s small sparse
     budgets (so the queue branch runs too), each bitwise against its
     oracle."""
     mesh = make_mesh(n_devices, device)
     g = generate.rmat(10, 8, seed=0)
     pull = ShardedPullExecutor(g, PageRank(), mesh=mesh)
+    want = reference_pagerank(g, 2)
     got = pull.gather_values(pull.run(2))
-    np.testing.assert_allclose(got, reference_pagerank(g, 2), rtol=2e-4)
+    np.testing.assert_allclose(got, want, rtol=2e-4)
+    tiled = ShardedTiledExecutor(g, PageRank(), mesh=mesh)
+    got = tiled.gather_values(tiled.run(2))
+    np.testing.assert_allclose(got, want, rtol=2e-4)
     gsym = generate.undirected(g)
     cc = ShardedPushExecutor(gsym, ConnectedComponents(), mesh=mesh)
     state, _ = cc.run()
@@ -67,6 +73,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
         raise AssertionError("the sparse branch did not run")
     np.testing.assert_array_equal(sssp.gather_values(state),
                                   reference_sssp(gsym, 0))
-    print(f"dryrun_multichip({n_devices}): sharded pull PageRank and push "
-          f"CC and SSSP (dense and sparse) steps executed OK on {mesh} "
-          f"(exchange {pull.exchange_mode})")
+    print(f"dryrun_multichip({n_devices}): sharded pull and tiled PageRank "
+          f"and push CC and SSSP (dense and sparse) steps executed OK on "
+          f"{mesh} (exchange {pull.exchange_mode}; tiled exchange "
+          f"{tiled.exchange_mode})")

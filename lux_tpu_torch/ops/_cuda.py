@@ -36,7 +36,10 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("strip_spmv", "tail_gather_sum", "level_apply", "segment_sum_rowptr",
      "segment_minmax_relax", "frontier_queue", "queue_relax_scatter",
-     "gather_segment_sum", "cf_edge_sum", "gas_pull_acc", "gas_push_acc"), 0
+     "gather_segment_sum", "cf_edge_sum", "gas_pull_acc", "gas_push_acc",
+     # the gather probes (lux_tpu_torch/probes), one name per kernel form
+     "block_take[axis=0 int32]", "block_take[axis=0 int8]",
+     "block_take[axis=1 int32]", "block_take[axis=1 int8]", "merge4"), 0
 )
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -71,6 +74,10 @@ _SIGNATURES = {
     # stream
     "lux_gas_push_acc": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT, _P, _I64,
                          _P),
+    # x, idx, rows, L, S, axis, idx_bytes, out, stream
+    "lux_block_take": (_P, _P, _I64, _INT, _INT, _INT, _INT, _P, _P),
+    # cand, l, s, R, out, stream
+    "lux_merge4": (_P, _P, _P, _I64, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -5,23 +5,26 @@ sharded graph live on a 1-D ``jax.sharding.Mesh`` of P devices (on a CPU
 host, virtual devices: ``lux_tpu/utils/platform.py::virtual_cpu_flags``),
 and parts meet only in the collectives of ``shard_map``. Here every
 per-part array is stacked along a leading ``(P, ...)`` axis on ONE
-device, and :class:`LocalMesh` gives the two collectives the pull engine
-needs over that axis. They are the only place where parts meet:
+device, and :class:`LocalMesh` gives the three collectives the sharded
+engines need over that axis. They are the only place where parts meet:
 
 - :meth:`LocalMesh.all_gather`: every part sees every shard. On one
   device the stack already is the flat ``(P * max_nv, *t)`` table, so
   this is a view and moves no byte;
 - :meth:`LocalMesh.all_to_all`: block ``q`` of sender ``p`` goes to
   receiver ``q`` (``jax.lax.all_to_all`` with ``split_axis=0,
-  concat_axis=0, tiled=True``), one copy on one device.
+  concat_axis=0, tiled=True``), one copy on one device;
+- :meth:`LocalMesh.reduce_scatter`: receiver ``q`` gets the sum over
+  senders of their block ``q`` (``jax.lax.psum_scatter`` with
+  ``scatter_dimension=0, tiled=True``), summed in sender order.
 
-On top of the two, :class:`CompactExchange` is the compact
+On top of them, :class:`CompactExchange` is the compact
 (``LUX_EXCHANGE=compact``) exchange of the sharded engines: each
 receiver's table of the rows its edges read.
 
 One NCCL communicator cannot hold two ranks on one GPU, so P parts on one
 card cannot be P processes. A ``torch.distributed`` backend behind the
-same two methods comes with the multihost slice.
+same three methods comes with the multihost slice.
 """
 
 from __future__ import annotations
@@ -75,6 +78,24 @@ class LocalMesh:
         cap = blocks.shape[1] // p
         return (blocks.reshape((p, p, cap) + tail).transpose(0, 1)
                 .reshape((p, p * cap) + tail))
+
+    def reduce_scatter(self, blocks: torch.Tensor) -> torch.Tensor:
+        """(P, P * n, *t) → (P, n, *t): receiver ``q`` gets the sum over
+        senders ``p`` of row block ``q`` of sender ``p``. The senders are
+        added in order 0, 1, ..., P-1, so the result is the same from
+        run to run."""
+        self._check(blocks, "reduce_scatter")
+        p = self.num_parts
+        if blocks.shape[1] % p:
+            raise ValueError(
+                f"reduce_scatter: {blocks.shape[1]} rows per part do not "
+                f"split into {p} blocks")
+        tail = tuple(blocks.shape[2:])
+        per = blocks.reshape((p, p, blocks.shape[1] // p) + tail)
+        out = per[0].clone()
+        for sender in range(1, p):
+            out += per[sender]
+        return out
 
 
 def make_mesh(num_parts: Optional[int] = None, device=None) -> LocalMesh:

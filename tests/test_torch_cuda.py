@@ -725,3 +725,95 @@ def test_sharded_multi_source_push_on_cuda(dev, monkeypatch, parts):
         assert iters == witers
         np.testing.assert_array_equal(ex.gather_values(st),
                                       seg.u32_to_numpy(want.values))
+
+
+# -- the sharded tiled engine (K1, K2 per part) and the gather probes ---------
+
+
+@pytest.mark.parametrize("levels", [((8, 2),), ((128, 8), (8, 2)),
+                                    ((8, 10 ** 9),)])
+@pytest.mark.parametrize("parts", [1, 3, 4])
+def test_sharded_tiled_on_cuda(dev, monkeypatch, parts, levels):
+    from lux_tpu_torch.engine.tiled_sharded import ShardedTiledExecutor
+
+    g = generate.rmat(11, 8, seed=3)
+    plan = ts.plan_hybrid(g, levels=levels)
+    single = TiledPullExecutor(g, PageRank(), plan=plan).run(10)
+    monkeypatch.setenv("LUX_EXCHANGE", "full")
+    ex = ShardedTiledExecutor(g, PageRank(), num_parts=parts, plan=plan)
+    cpu = ShardedTiledExecutor(g, PageRank(), num_parts=parts, plan=plan,
+                               device="cpu")
+    _cuda.reset_launches()
+    out = ex.run(10)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    k1 = sum(1 for p in ex._parts for lev in p.levels if lev.items.n_items)
+    k2 = sum(1 for p in ex._parts if p.tail_items.n_items)
+    assert counts == {**dict.fromkeys(counts, 0), "strip_spmv": 10 * k1,
+                      "tail_gather_sum": 10 * k2}
+    got = ex.gather_values(out)
+    np.testing.assert_allclose(got, cpu.gather_values(cpu.run(10)),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, single.cpu().numpy(), rtol=RTOL,
+                               atol=ATOL)
+    new, times = ex.phase_step(out)
+    assert set(times) == {"exchange", "strips", "tail", "apply"}
+    assert torch.equal(new, ex.step(out))
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_sharded_tiled_compact_equals_full_on_cuda(dev, monkeypatch, parts):
+    from lux_tpu_torch.engine.tiled_sharded import ShardedTiledExecutor
+
+    g = generate.undirected(generate.cycle_graph(20000))
+    outs = {}
+    for mode in ("full", "compact"):
+        monkeypatch.setenv("LUX_EXCHANGE", mode)
+        ex = ShardedTiledExecutor(g, PageRank(), num_parts=parts,
+                                  levels=((8, 1),))
+        assert ex.exchange_mode == mode
+        outs[mode] = ex.run(10)
+    assert torch.equal(outs["compact"], outs["full"])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8])
+@pytest.mark.parametrize("axis,rows", [(1, 4096), (0, 8), (0, 512)])
+def test_block_take_matches_plain(dev, axis, rows, dtype):
+    from lux_tpu_torch.probes import gather as pg
+
+    rng = np.random.default_rng(axis + rows)
+    x = torch.from_numpy(rng.standard_normal((2 * rows, 128),
+                                             dtype=np.float32))
+    hi = rows if axis == 0 else 128
+    idx = torch.from_numpy(rng.integers(0, min(hi, 128), x.shape)
+                           .astype(np.int32)).to(dtype)
+    _cuda.reset_launches()
+    got = pg.block_take(x.to(dev), idx.to(dev), axis, rows)
+    assert _cuda.LAUNCHES[pg.take_kernel(axis, dtype)] == 1
+    assert torch.equal(got.cpu(), pg.block_take_plain(x, idx, axis, rows))
+
+
+def test_merge4_and_merge_level_match_plain(dev):
+    from lux_tpu_torch.probes import gather as pg
+
+    rng = np.random.default_rng(6)
+    r = 1000
+    cand = torch.from_numpy(rng.standard_normal((r, 4, 128),
+                                                dtype=np.float32))
+    lane = torch.from_numpy(rng.integers(0, 128, (r, 128), dtype=np.int32))
+    sel = torch.from_numpy(rng.integers(-1, 5, (r, 128), dtype=np.int32))
+    got = pg.merge4(cand.to(dev), lane.to(dev), sel.to(dev))
+    assert torch.equal(got.cpu(), pg.merge4_plain(cand, lane, sel))
+    g = 300
+    stream = torch.from_numpy(rng.standard_normal((8 * g + 8, 128),
+                                                  dtype=np.float32))
+    aoff = torch.from_numpy(rng.integers(0, g, g).astype(np.int32))
+    boff = torch.from_numpy(rng.integers(0, g, g).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(-128, 128, (16 * g, 128))
+                           .astype(np.int8))
+    _cuda.reset_launches()
+    got = pg.merge_level(stream.to(dev), aoff.to(dev), boff.to(dev),
+                         idx.to(dev))
+    assert _cuda.LAUNCHES["level_apply"] == 1
+    assert torch.equal(got.cpu(), pg.merge_level_plain(stream, aoff, boff,
+                                                       idx))

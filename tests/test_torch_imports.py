@@ -34,7 +34,9 @@ def test_port_files_found():
     for name in ("graph/partition.py", "parallel/shard.py",
                  "parallel/mesh.py", "engine/sharded.py",
                  "engine/pull_sharded.py", "engine/push_sharded.py",
-                 "utils/logging.py"):
+                 "engine/tiled_sharded.py", "utils/logging.py",
+                 "probes/gather.py", "probes/dgather.py",
+                 "probes/dgather2.py", "probes/merge_kernel.py"):
         assert f"lux_tpu_torch/{name}" in FILES
 
 
