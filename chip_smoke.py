@@ -11,24 +11,30 @@ merge-network tail of ``LUX_GROUPED_TAIL=1``):
 
 1. environment: the card, and its name and power limit from nvidia-smi;
 2. build: compile the CUDA kernels from ``lux_tpu_torch/csrc``;
-3. graph and plans: generate the graph, plan it, build both executors;
+3. graph and plans: generate the graph, plan it, build both executors
+   (each strip level becomes a cell stream on the card; the build's
+   seconds are logged per level);
 4. each kernel against its plain PyTorch version at the main path's
    shapes (K3 bitwise; K1, K2, K4 bitwise on small integers and within
    rtol=5e-5, atol=1e-9 on random floats), with its time, the plain
    version's, a one-call PyTorch yardstick where there is one, and the
-   least time the card needs to move the bytes;
+   least time the card needs to move the bytes; K1 also bitwise on small
+   integers against the strip-form product of the host plan's strips,
+   a chunk at a time, and beside its bound on the cells the bound the
+   strip layout had;
 5. end to end: ``run(10)`` in both configurations against the f64 oracle
    at rtol=5e-5, atol=1e-9, with every kernel's launch count checked;
-6. timing: ms per iteration and GTEPS for both configurations, and the
-   per-phase split from ``phase_step``.
+6. timing: ms per iteration and GTEPS for both configurations, the
+   per-phase split from ``phase_step``, and the phases' peak device
+   memory.
 
 Right after phase 6, on phase 3's plan (planning is not repeated), the
 sharded tiled engine (``ShardedTiledExecutor``): PageRank over 4 parts
 of a ``LocalMesh`` on the card, in the full and compact exchange modes:
 
-3g. the partition (blocks, strips per part and level, tail edges per
-    part, ``max_nvb``) and which mode ``LUX_EXCHANGE=compact`` resolves
-    to;
+3g. the partition (blocks, cells and bands of rows per part and level,
+    tail edges per part, ``max_nvb``) and which mode
+    ``LUX_EXCHANGE=compact`` resolves to;
 4g. K1 and K2 at one part's shapes against their plain versions
     (bitwise on small integers, within rtol=5e-5, atol=1e-9 on random
     floats), with the same timings;
@@ -53,7 +59,8 @@ graph and Connected Components on its undirected closure:
 
 3b. push graphs: the closure and both executors;
 4b. K5-K7 against their plain versions at the main path's shapes, all
-    bitwise, with the same timings;
+    bitwise, with the same timings; K6 also on a dense frontier (half
+    the vertices);
 5b. end to end: both applications to fixpoint, bitwise against the
     vectorised oracles, zero invariant violations, launch counts checked
     against the branch each iteration took;
@@ -401,6 +408,7 @@ def _pagerank_phases(g, dev, kernels):
     )
     from lux_tpu_torch.ops.segment import segment_sum_by_rowptr_plain
     from lux_tpu_torch.ops.tiled_spmv import (
+        build_level,
         lane_select_tail_sums,
         lane_select_tail_sums_plain,
         plan_hybrid,
@@ -414,11 +422,17 @@ def _pagerank_phases(g, dev, kernels):
     log(f"[plan] strips={plan.num_strips} strip_bytes={plan.strip_bytes} "
         f"coverage={plan.coverage:.4f} tail_edges={plan.tail_sb.shape[0]} "
         f"in {t_plan:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
     t = time.perf_counter()
     ex_lane = TiledPullExecutor(g, PageRank(), plan=plan)
     torch.cuda.synchronize()
     log(f"[plan] lane-select executor built in "
         f"{time.perf_counter() - t:.1f} s")
+    for hlev in plan.levels:
+        t = host_seconds(lambda: build_level(hlev, plan.nvb, dev))
+        log(f"[plan] cell build of level r={hlev.r} ({hlev.rows.shape[0]} "
+            f"strips, {hlev.nbytes} B on the host): {t:.2f} s")
     t = time.perf_counter()
     os.environ["LUX_GROUPED_TAIL"] = "1"
     try:
@@ -443,39 +457,32 @@ def _pagerank_phases(g, dev, kernels):
         rng.integers(0, 4, size=(nvb, 128)).astype(np.float32)).to(dev)
     reps = 10
 
-    # K1 strip_spmv, every level of the plan.
+    # K1 strip_spmv on the cell streams, every level of the plan; once on
+    # the card, each level's stream against the host plan's strips.
     err = 0.0
-    for lev in dh.levels:
+    for hlev, lev in zip(plan.levels, dh.levels):
         for x, exact in ((x_int, True), (x_float, False)):
             got = strip_level_spmv(x, lev)
-            want = strip_level_spmv_plain(x, lev.strips, lev.cols, lev.row_ptr)
+            want = strip_level_spmv_plain(x, lev)
             if exact:
                 check_equal(f"K1 r={lev.r} integral", got, want)
             else:
                 err = max(err, check_close(f"K1 r={lev.r}", got, want))
-    k1_ms = sum(cuda_ms(lambda: strip_level_spmv(x_float, lev), reps)
-                for lev in dh.levels)
-    k1_plain = sum(cuda_ms(lambda: strip_level_spmv_plain(
-        x_float, lev.strips, lev.cols, lev.row_ptr), 2) for lev in dh.levels)
-    k1_bytes = sum(
-        lev.strips.numel() + 4 * lev.cols.numel() + 8 * lev.row_ptr.numel()
-        + x_float.numel() * 4 + 4 * lev.items.nrows * lev.r
-        for lev in dh.levels)
-    # Yardstick: the same levels as one cuSPARSE CSR product each.
-    k1_lib = 0.0
-    for lev in dh.levels:
-        csr = _level_csr(lev, nvb, dev)
-        xv = x_float.reshape(-1, 1)
-        lib_y = (csr @ xv).reshape(-1)
-        log(f"[kernel] strip_spmv r={lev.r}: sparse yardstick max diff "
-            f"{(lib_y - strip_level_spmv(x_float, lev)).abs().max().item():.3e}")
-        k1_lib += cuda_ms(lambda: csr @ xv, reps)
-        del csr
-    # One multiply-add per strip cell, as the kernel does them.
-    k1_flops = sum(2 * lev.strips.numel() for lev in dh.levels)
+        t = time.perf_counter()
+        strip_form, nnz = _strip_form_product(hlev, x_int, nvb, dev)
+        check_equal(f"K1 r={lev.r} against the host strips",
+                    strip_level_spmv(x_int, lev), strip_form)
+        if nnz != lev.n_cells:
+            raise AssertionError(f"K1 r={lev.r}: {lev.n_cells} cells, the "
+                                 f"strips hold {nnz} nonzero cells")
+        log(f"[kernel] strip_spmv r={lev.r}: {lev.n_cells} cells in "
+            f"{lev.nrows} rows ({lev.items.n_items} items); equal bitwise on "
+            f"integral x to the strip-form product of the host strips "
+            f"({time.perf_counter() - t:.1f} s)")
+        del strip_form
+    k1 = _k1_yardsticks(plan.levels, dh.levels, x_float, nvb, reps, "")
     record(kernels, "strip_spmv", "lux_tpu_torch/csrc/strip_spmv.cu",
-           "lux_tpu/ops/tiled_spmv.py:945", err, k1_ms, k1_plain, k1_bytes,
-           k1_flops, k1_lib)
+           "lux_tpu/ops/tiled_spmv.py:945", err, *k1)
 
     # K2 tail_gather_sum.
     args2 = (dh.tail_sb, dh.tail_lane, dh.tail_row_ptr)
@@ -604,6 +611,9 @@ def _pagerank_phases(g, dev, kernels):
         log(f"[time] {label} phases (ms, median of 5): " + ", ".join(
             f"{k}={v * 1e3:.3f}" for k, v in phases.items()))
 
+    log(f"[time] peak device memory of phases 3-6 "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases 3-6 "
+        f"took {time.perf_counter() - t_phase:.1f} s after planning")
     return totals, oracle, plan
 
 
@@ -754,6 +764,20 @@ def _push_phases(g, gu, dev, kernels):
         if not k67:
             k67 = dict(k6=(k6_ms, k6_plain, k6_bytes, cnt, k6_lib),
                        k7=(k7_ms, k7_plain, k7_bytes, out, k7_lib))
+    # K6 also on a dense frontier: half the vertices, drawn with the seed.
+    fr = torch.from_numpy(rng.random(g.nv) < 0.5).to(dev)
+    cnt = int(fr.sum())
+    for part, got, want in zip(("q", "start", "deg", "offs"),
+                               fq.frontier_queue(fr, rp, cnt),
+                               fq.frontier_queue_plain(fr, rp)):
+        check_equal(f"K6 {part} dense", got, want)
+    k6_ms = cuda_ms(lambda: fq.frontier_queue(fr, rp, cnt), reps)
+    k6_plain = cuda_ms(lambda: fq.frontier_queue_plain(fr, rp), reps)
+    k6_lib = cuda_ms(lambda: torch.nonzero(fr), reps)
+    log(f"[push] K6 dense frontier (half the vertices, cnt={cnt}): bitwise; "
+        f"{k6_ms:.4f} ms (plain {k6_plain:.4f}, torch.nonzero "
+        f"{k6_lib:.4f}, bound {bound(g.nv + 44 * cnt + 8, 0)[0]:.4f})")
+    del fr
     record(kernels, "frontier_queue", "lux_tpu_torch/csrc/frontier.cu",
            "lux_tpu/engine/push.py:447", 0.0, *k67["k6"])
     record(kernels, "queue_relax_scatter", "lux_tpu_torch/csrc/frontier.cu",
@@ -2160,11 +2184,13 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
         os.environ["LUX_EXCHANGE"] = flag
     ex = exs["full"]
     parts = ex._parts
-    strips = [[lev.strips.shape[0] for lev in p.levels] for p in parts]
+    strips = [[lev.n_cells for lev in p.levels] for p in parts]
+    bands = [[(lev.row0, lev.nrows) for lev in p.levels] for p in parts]
     log(f"[tiled-sharded] P={P} nvb={plan.nvb} max_nvb={ex.part.max_nvb} "
         f"max_nv={ex.max_nv} ({P * ex.max_nv / g.nv:.3f} x nv padded rows); "
-        f"blocks per part {[len(b) for b in ex.part.blocks]}; strips per "
-        f"part and level {strips}; tail edges per part "
+        f"blocks per part {[len(b) for b in ex.part.blocks]}; cells per "
+        f"part and level {strips}, their bands of rows (first, count) "
+        f"{bands}; tail edges per part "
         f"{[p.tail_sb.numel() for p in parts]}; remote rows read "
         f"{ex._remote_read_counts.tolist()}")
 
@@ -2181,32 +2207,21 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
     for lev in part.levels:
         for x, exact in ((x_int, True), (x_float, False)):
             got = strip_level_spmv(x, lev)
-            want = strip_level_spmv_plain(x, lev.strips, lev.cols,
-                                          lev.row_ptr)
+            want = strip_level_spmv_plain(x, lev)
             if exact:
                 check_equal(f"K1 part {q} r={lev.r} integral", got, want)
             else:
                 err = max(err, check_close(f"K1 part {q} r={lev.r}", got,
                                            want))
-    k1_ms = sum(cuda_ms(lambda: strip_level_spmv(x_float, lev), reps)
-                for lev in part.levels)
-    k1_plain = sum(cuda_ms(lambda: strip_level_spmv_plain(
-        x_float, lev.strips, lev.cols, lev.row_ptr), 2)
-        for lev in part.levels)
-    k1_bytes = sum(
-        lev.strips.numel() + 4 * lev.cols.numel() + 8 * lev.row_ptr.numel()
-        + x_float.numel() * 4 + 4 * lev.items.nrows * lev.r
-        for lev in part.levels)
-    k1_lib = 0.0
-    for lev in part.levels:
-        csr = _level_csr(lev, nvb, dev)
-        xv = x_float.reshape(-1, 1)
-        k1_lib += cuda_ms(lambda: csr @ xv, reps)
-        del csr
+    runs = []
+    for hlev in plan.levels:
+        n = hlev.rows.shape[0]
+        cmax = -(-n // P)
+        runs.append((min(q * cmax, n), min((q + 1) * cmax, n)))
+    k1 = _k1_yardsticks(plan.levels, part.levels, x_float, nvb, reps,
+                        f" part {q}", runs)
     record(kernels, "strip_spmv[sharded]", "lux_tpu_torch/csrc/strip_spmv.cu",
-           "lux_tpu/engine/tiled_sharded.py:539", err, k1_ms, k1_plain,
-           k1_bytes, sum(2 * lev.strips.numel() for lev in part.levels),
-           k1_lib)
+           "lux_tpu/engine/tiled_sharded.py:539", err, *k1)
     args2 = (part.tail_sb, part.tail_lane, part.tail_row_ptr)
     check_equal(f"K2 part {q} integral",
                 lane_select_tail_sums(x_int, *args2, part.tail_items),
@@ -2232,8 +2247,8 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
            "lux_tpu_torch/csrc/segment_sum.cu",
            "lux_tpu/engine/tiled_sharded.py:568", err, k2_ms, k2_plain,
            k2_bytes, m, k2_lib)
-    log(f"[tiled-sharded] part {q}: K1 over {strips[q]} strips into "
-        f"{nvb * 128} rows, K2 over {m} tail edges into {ex.max_nv} rows")
+    log(f"[tiled-sharded] part {q}: K1 over {strips[q]} cells into "
+        f"{bands[q]} rows, K2 over {m} tail edges into {ex.max_nv} rows")
     del x_float, x_int
 
     # -- 5g. end to end, both modes -------------------------------------------
@@ -2409,6 +2424,25 @@ def _probe_phases(dev, kernels) -> dict:
         del idx, idx64, got
     del x
 
+    # P2's largest line, (8192, 128) blocks x 32 along axis 0, drawn as
+    # the probe draws it.
+    S, reps2 = 8192, 32
+    prng = np.random.default_rng(0)
+    x = put(prng.standard_normal((reps2 * S, 128), dtype=np.float32))
+    idx = put(prng.integers(0, S, (reps2 * S, 128), dtype=np.int32))
+    check_equal("block_take[P2 (8192, 128) x 32 axis=0]",
+                pg.block_take(x, idx, 0, S), pg.block_take_plain(x, idx, 0, S))
+    ms = cuda_ms(lambda: pg.block_take(x, idx, 0, S), reps)
+    shape = (reps2, S, 128)
+    xv, iv = x.view(shape), idx.long().view(shape)
+    lib = cuda_ms(lambda: torch.gather(xv, 1, iv), reps)
+    reads = needed(shape, iv, 1)
+    p2_bound = bound(4 * reads + 4 * idx.numel() + 4 * x.numel(), 0)[0]
+    log(f"[probe] P2's largest line, block_take (8192, 128) x 32 axis=0: "
+        f"bitwise; {ms:.4f} ms, bound {p2_bound:.4f} ms ({reads} distinct "
+        f"elements read), torch.gather {lib:.4f} ms")
+    del x, idx, xv, iv
+
     r = dgather2.R
     cand = put(rng.standard_normal((r, 4, 128), dtype=np.float32))
     lane = put(rng.integers(0, 128, (r, 128), dtype=np.int32))
@@ -2453,33 +2487,83 @@ def _probe_phases(dev, kernels) -> dict:
         f"{time.perf_counter() - t_phase:.1f} s; launches {totals}")
     return totals
 
-def _level_csr(lev, nvb: int, dev):
-    """The strip level as an f32 CSR matrix (nrb*r rows, nvb*128 columns),
-    built on the device in chunks of strips. Used only as a yardstick."""
+def _strip_form_product(hlev, x, nvb: int, dev, chunk: int = 1 << 17):
+    """K1 as the strips define it, for one host plan level: f32
+    strip-times-block products a chunk of host strips at a time, summed
+    per destination row in f64 (exact for integral ``x``); with the
+    level's count of nonzero cells."""
     import torch
 
-    r = lev.r
-    rows_of = torch.repeat_interleave(
-        torch.arange(lev.row_ptr.numel() - 1, device=dev),
-        lev.row_ptr.diff())
-    keys, vals = [], []
-    chunk = 1 << 18
-    for lo in range(0, lev.strips.shape[0], chunk):
-        s = lev.strips[lo:lo + chunk]
-        t, i, ln = s.nonzero(as_tuple=True)
-        row = rows_of[lo + t] * r + i
-        col = lev.cols[lo + t].long() * 128 + ln
-        keys.append(row * (nvb * 128) + col)
-        vals.append(s[t, i, ln].float())
-    key = torch.cat(keys)
-    val = torch.cat(vals)
-    key, perm = key.sort()
-    row, col = key // (nvb * 128), key % (nvb * 128)
-    nrows = (lev.row_ptr.numel() - 1) * r
-    crow = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.bincount(row, minlength=nrows).cumsum(0)
-    return torch.sparse_csr_tensor(crow, col, val[perm],
-                                   size=(nrows, nvb * 128))
+    r = hlev.r
+    y = torch.zeros(nvb * 128, dtype=torch.float64, device=dev)
+    lanes = torch.arange(r, device=dev)
+    nnz = 0
+    for lo in range(0, hlev.rows.shape[0], chunk):
+        s = torch.from_numpy(np.ascontiguousarray(
+            hlev.strips[lo:lo + chunk])).to(dev)
+        nnz += int(torch.count_nonzero(s))
+        cols = torch.from_numpy(
+            np.asarray(hlev.cols[lo:lo + chunk], np.int64)).to(dev)
+        rows = torch.from_numpy(
+            np.asarray(hlev.rows[lo:lo + chunk], np.int64)).to(dev)
+        contrib = (s.float() * x[cols][:, None, :]).sum(-1)
+        y.index_add_(0, (rows[:, None] * r + lanes).reshape(-1),
+                     contrib.reshape(-1).double())
+        del s, contrib
+    return y.float(), nnz
+
+
+def _k1_yardsticks(host_levels, levels, x, nvb: int, reps: int, label: str,
+                   runs=None):
+    """K1's ms, plain ms, bytes, flops and cuSPARSE ms, summed over the
+    levels of a plan (or of one part, whose strip run of each host level
+    is ``runs``). Bytes: each cell's 4-byte source and 1-byte count, the
+    8-byte row pointer and the 4-byte output of each row of the level's
+    band, and every distinct source value once. The yardstick is one
+    cuSPARSE CSR product over the same cells, with one entry per cell:
+    the count as the value, the source as the column."""
+    import torch
+
+    from lux_tpu_torch.ops.tiled_spmv import (
+        strip_level_spmv,
+        strip_level_spmv_plain,
+    )
+
+    ms = plain = lib = 0.0
+    nbytes = flops = strip_bytes = 0
+    xv = x.reshape(-1, 1)
+    for k, (hlev, lev) in enumerate(zip(host_levels, levels)):
+        if lev.n_cells == 0:
+            continue
+        n = lev.n_cells
+        # As the executors call it: a part's band adds into a zeroed
+        # full-height partial; a whole level writes a new vector.
+        out = None if lev.nrows == lev.height else torch.zeros(
+            lev.height, dtype=torch.float32, device=x.device)
+        ms += cuda_ms(lambda: strip_level_spmv(x, lev, out), reps)
+        plain += cuda_ms(lambda: strip_level_spmv_plain(x, lev, out), 2)
+        distinct = int(torch.unique(lev.src[:n]).numel())
+        nbytes += 5 * n + 8 * (lev.nrows + 1) + 4 * distinct + 4 * lev.nrows
+        flops += 2 * n
+        # The same level as the strips stored it: every strip byte, its
+        # column, the full-height row pointer, all of x and the output.
+        t0, t1 = (0, hlev.rows.shape[0]) if runs is None else runs[k]
+        strip_bytes += (t1 - t0) * (hlev.r * 128 + 4) \
+            + 8 * (nvb * 128 // hlev.r + 1) + 4 * x.numel() + 4 * lev.nrows
+        csr = torch.sparse_csr_tensor(
+            lev.row_ptr, lev.src[:n].long(), lev.cnt[:n].float(),
+            size=(lev.nrows, nvb * 128))
+        diff = (csr @ xv).reshape(-1) - strip_level_spmv(x, lev)[
+            lev.row0:lev.row0 + lev.nrows]
+        log(f"[kernel] strip_spmv{label} r={lev.r}: cuSPARSE CSR of "
+            f"{csr.values().numel()} entries ({n} cells), max diff "
+            f"{diff.abs().max().item():.3e}; {distinct} distinct sources")
+        lib += cuda_ms(lambda: csr @ xv, reps)
+        del csr, diff, out
+    log(f"[kernel] strip_spmv{label}: bound on the cell stream "
+        f"{bound(nbytes, flops)[0]:.4f} ms ({nbytes} B), on the strip "
+        f"layout {bound(strip_bytes, 0)[0]:.4f} ms ({strip_bytes} B)")
+    return ms, plain, nbytes, flops, lib
 
 
 if __name__ == "__main__":

@@ -15,23 +15,40 @@
 // atomicMin/atomicMax. Candidates read the pre-step values `old`; `new` is a
 // copy of them, so a vertex never pushes a value it got in the same step.
 //
-// Bound on the H100: bytes. K6 reads the nv-byte frontier (twice, once to
-// count and once to place) and writes 28 bytes per queue slot plus two
-// 16-byte row-pointer reads per slot. K7 reads 4 bytes of col_dst and does
-// one 4-byte atomic per live edge, plus 24 bytes and one value per queue
-// slot; the binary searches hit the offs table in L1/L2.
+// Bound on the H100: bytes. K6 reads the nv-byte frontier once and writes 28
+// bytes per queue slot plus two 8-byte row-pointer reads per slot. K7 reads 4
+// bytes of col_dst and does one 4-byte atomic per live edge, plus 24 bytes
+// and one value per queue slot; the binary searches hit the offs table in
+// L1/L2. At the main path's frontiers K6's bound is a microsecond or less, so
+// its time is launch latency: it is one launch.
 //
-// Design. The compaction is a hand-written scan: one block per tile of kTile
-// flags counts the tile's frontier vertices and their out-edges; one block
-// scans the per-tile counts; the tiles then place their vertices in order,
-// each thread owning kPer consecutive flags, so the ids come out ascending as
-// jnp.nonzero gives them. The expansion is load-balanced on the edge slots,
-// not the vertices: every block takes kQueueSlots consecutive slots, finds
-// the queue range that covers them once, and each thread binary-searches its
-// slot's owner inside that range (merge-path style), so an R-MAT hub's
-// out-edges spread over many blocks; the kernel is queue_fold_kernel
-// (gas_ops.cuh), which K11 launches too. Integer min/max atomics commute, so
-// the result is bitwise that of the plain version whatever the order.
+// K6 design: one cooperative launch of persistent blocks, as many as can be
+// resident at once (cudaLaunchCooperativeKernel guarantees it, or refuses).
+// Block b owns a contiguous span of the frontier, 32 flags to a word. It
+// reads its span once (16-byte loads where aligned), keeps it as a bitmask
+// in shared memory, counts its vertices and their out-degrees, and publishes
+// the two totals. Then one grid barrier: an arrival counter that the last
+// block resets and a generation word the others wait on, so the scratch
+// needs no zeroing between calls. Each block then adds the totals of the
+// blocks before it (one parallel read of a few hundred words) and places its
+// vertices in order from the bitmask, ids ascending as jnp.nonzero gives
+// them: each warp walks its contiguous run of words a word at a time, lane j
+// taking flag j, so a lane's slot is a popcount and its degree prefix a warp
+// scan, and the writes of a dense word are coalesced. The last block writes
+// the total into offs[cnt]. So the frontier is read once, and the time is
+// one launch, one barrier and the reads of the queued vertices' row
+// pointers. Two designs measured worse on the H100: a decoupled look-back
+// over 1,024 tiles of 4,096 flags spent its time walking back through tiles
+// that had all published at once (slower than torch.nonzero with 145 K of
+// 4.2 M vertices queued), and a thread placing its own 32 flags one by one
+// was several times slower than this on a half-full frontier.
+// The expansion is load-balanced on the edge slots, not the vertices: every
+// block takes kQueueSlots consecutive slots, finds the queue range that
+// covers them once, and each thread binary-searches its slot's owner inside
+// that range (merge-path style), so an R-MAT hub's out-edges spread over many
+// blocks; the kernel is queue_fold_kernel (gas_ops.cuh), which K11 launches
+// too. Integer min/max atomics commute, so the result is bitwise that of the
+// plain version whatever the order.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,163 +58,187 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPer = 16;                  // frontier flags per thread
-constexpr int kTile = kThreads * kPer;    // flags per tile (block)
-constexpr int kScanThreads = 1024;
+constexpr int kWarps = kThreads / 32;
 
-// Bit k set iff flag base + k is set (flags past n read as unset).
-__device__ __forceinline__ unsigned load_flags(const unsigned char* f,
-                                               int64_t base, int64_t n) {
-  unsigned m = 0;
-  if (base + kPer <= n &&
-      (reinterpret_cast<uintptr_t>(f + base) & 15) == 0) {
-    const uint4 w = *reinterpret_cast<const uint4*>(f + base);
-    const unsigned words[4] = {w.x, w.y, w.z, w.w};
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+// 32 frontier flags from f[base..), bit k for flag base + k (flags past n
+// read as unset).
+__device__ __forceinline__ unsigned load_word(const unsigned char* f,
+                                              int64_t base, int64_t n) {
+  if (base + 32 <= n && (reinterpret_cast<uintptr_t>(f + base) & 15) == 0) {
+    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(f + base));
+    const uint4 b = __ldcs(reinterpret_cast<const uint4*>(f + base) + 1);
+    const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    unsigned m = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int k = 0; k < 8; ++k)
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if ((words[k] >> (8 * b)) & 0xFFu) m |= 1u << (4 * k + b);
-  } else {
-    for (int k = 0; k < kPer; ++k)
-      if (base + k < n && f[base + k] != 0) m |= 1u << k;
+      for (int j = 0; j < 4; ++j)
+        if ((w[k] >> (8 * j)) & 0xFFu) m |= 1u << (4 * k + j);
+    return m;
   }
+  unsigned m = 0;
+  for (int k = 0; k < 32; ++k)
+    if (base + k < n && f[base + k] != 0) m |= 1u << k;
   return m;
 }
 
-// Sum of the out-degrees of the flagged vertices base + k.
-__device__ __forceinline__ int64_t degree_sum(unsigned m, int64_t base,
-                                              const int64_t* rp) {
-  int64_t d = 0;
-  while (m) {
-    const int k = __ffs(m) - 1;
-    m &= m - 1;
-    d += rp[base + k + 1] - rp[base + k];
-  }
-  return d;
-}
-
-// Exclusive block-wide scan of (a, b) over kThreads threads; returns the
-// thread's exclusive prefixes. `sh` holds 2 * (kThreads / 32) values.
-__device__ __forceinline__ void block_scan2(int64_t a, int64_t b,
-                                            int64_t* ea, int64_t* eb,
-                                            int64_t* sh) {
+// Block-wide sum of (a, b); every thread gets the totals. `sh` holds
+// 2 * kWarps values.
+__device__ __forceinline__ void block_sum2(int64_t* a, int64_t* b,
+                                           int64_t* sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int kWarps = kThreads / 32;
-  int64_t sa = a, sb = b;
+  int64_t sa = *a, sb = *b;
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int64_t ya = __shfl_up_sync(0xffffffffu, sa, off);
-    const int64_t yb = __shfl_up_sync(0xffffffffu, sb, off);
-    if (lane >= off) {
-      sa += ya;
-      sb += yb;
-    }
+  for (int off = 16; off > 0; off >>= 1) {
+    sa += __shfl_xor_sync(0xffffffffu, sa, off);
+    sb += __shfl_xor_sync(0xffffffffu, sb, off);
   }
-  if (lane == 31) {
+  __syncthreads();
+  if (lane == 0) {
     sh[warp] = sa;
     sh[kWarps + warp] = sb;
   }
   __syncthreads();
-  int64_t wa = 0, wb = 0;
-  for (int w = 0; w < warp; ++w) {
-    wa += sh[w];
-    wb += sh[kWarps + w];
+  sa = sb = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    sa += sh[w];
+    sb += sh[kWarps + w];
   }
-  *ea = wa + sa - a;
-  *eb = wb + sb - b;
+  *a = sa;
+  *b = sb;
 }
 
-// Per tile: the number of frontier vertices and the sum of their degrees.
-__global__ void __launch_bounds__(kThreads)
-count_tiles_kernel(const unsigned char* __restrict__ frontier, int64_t nv,
-                   const int64_t* __restrict__ rp,
-                   int64_t* __restrict__ tile_cnt,
-                   int64_t* __restrict__ tile_deg) {
-  __shared__ int64_t sh[2 * (kThreads / 32)];
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kPer;
-  const unsigned m = load_flags(frontier, base, nv);
-  const int64_t c = __popc(m), d = degree_sum(m, base, rp);
-  int64_t ea, eb;
-  block_scan2(c, d, &ea, &eb, sh);
-  if (threadIdx.x == kThreads - 1) {
-    tile_cnt[blockIdx.x] = ea + c;
-    tile_deg[blockIdx.x] = eb + d;
-  }
-}
+// The scratch of K6, in int64 words: [0] arrivals at the grid barrier, [1]
+// its generation, then the per-block count and degree totals.
+struct Scratch {
+  unsigned long long* arrived;
+  unsigned long long* generation;
+  long long* tot_c;
+  long long* tot_d;
+};
 
-// In place: data[0..n) becomes its exclusive prefix and data[n] the total.
-// One block; it walks the array in chunks of kScanThreads with a carry.
-__global__ void __launch_bounds__(kScanThreads)
-scan_small_kernel(int64_t* __restrict__ data, int64_t n) {
-  __shared__ int64_t warp_sums[kScanThreads / 32];
-  __shared__ int64_t carry;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
+// Every block of the (co-resident) grid waits here for all the others; what
+// a block wrote before it is visible to every block after it.
+__device__ __forceinline__ void grid_barrier(const Scratch& sc) {
   __syncthreads();
-  for (int64_t base = 0; base < n; base += kScanThreads) {
-    const int64_t i = base + threadIdx.x;
-    const int64_t x = i < n ? data[i] : 0;
-    int64_t s = x;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int64_t y = __shfl_up_sync(0xffffffffu, s, off);
-      if (lane >= off) s += y;
-    }
-    if (lane == 31) warp_sums[warp] = s;
-    __syncthreads();
-    if (warp == 0) {
-      int64_t w = warp_sums[lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int64_t y = __shfl_up_sync(0xffffffffu, w, off);
-        if (lane >= off) w += y;
+  if (threadIdx.x == 0) {
+    volatile unsigned long long* gen = sc.generation;
+    const unsigned long long g0 = *gen;
+    __threadfence();
+    if (atomicAdd(sc.arrived, 1ull) == gridDim.x - 1) {
+      *sc.arrived = 0;
+      __threadfence();
+      atomicAdd(sc.generation, 1ull);
+    } else {
+      while (*gen == g0) {
       }
-      warp_sums[lane] = w;
     }
-    __syncthreads();
-    const int64_t incl = carry + s + (warp > 0 ? warp_sums[warp - 1] : 0);
-    if (i < n) data[i] = incl - x;
-    __syncthreads();
-    if (threadIdx.x == kScanThreads - 1) carry = incl;
-    __syncthreads();
+    __threadfence();
   }
-  if (threadIdx.x == 0) data[n] = carry;
+  __syncthreads();
 }
 
-// Per tile: place the tile's frontier ids in ascending order, with their
-// CSR start, degree and exclusive degree prefix. Writes stop at `cap` slots.
+// One cooperative launch: the frontier's ascending ids with their CSR
+// start, degree and exclusive degree prefix, and offs[cnt] = the total.
+// Block b owns the words [b * span, (b + 1) * span) of the frontier (32
+// flags each), which it keeps in `masks` (dynamic shared memory); warp w of
+// the block owns a contiguous run of those words and walks it a word at a
+// time, lane j taking flag j. Writes stop at `cap` slots.
 __global__ void __launch_bounds__(kThreads)
-place_tiles_kernel(const unsigned char* __restrict__ frontier, int64_t nv,
-                   const int64_t* __restrict__ rp,
-                   const int64_t* __restrict__ tile_cnt,
-                   const int64_t* __restrict__ tile_deg, int64_t ntiles,
-                   int64_t cap, int* __restrict__ q,
-                   int64_t* __restrict__ start, int64_t* __restrict__ deg,
-                   int64_t* __restrict__ offs) {
-  __shared__ int64_t sh[2 * (kThreads / 32)];
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kPer;
-  unsigned m = load_flags(frontier, base, nv);
-  int64_t slot, off;
-  block_scan2(__popc(m), degree_sum(m, base, rp), &slot, &off, sh);
-  slot += tile_cnt[blockIdx.x];
-  off += tile_deg[blockIdx.x];
-  while (m) {
-    const int k = __ffs(m) - 1;
-    m &= m - 1;
-    const int64_t v = base + k;
-    const int64_t s = rp[v], d = rp[v + 1] - s;
-    if (slot < cap) {
-      q[slot] = (int)v;
-      start[slot] = s;
-      deg[slot] = d;
-      offs[slot] = off;
+frontier_queue_kernel(const unsigned char* __restrict__ frontier, int64_t nv,
+                      const int64_t* __restrict__ rp, int64_t span,
+                      Scratch sc, int64_t cap, int* __restrict__ q,
+                      int64_t* __restrict__ start, int64_t* __restrict__ deg,
+                      int64_t* __restrict__ offs) {
+  extern __shared__ unsigned masks[];
+  __shared__ int64_t sh[2 * kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t words = (nv + 31) / 32;
+  const int64_t w0 = min64((int64_t)blockIdx.x * span, words);
+  const int64_t nw = min64(span, words - w0);
+  for (int64_t k = threadIdx.x; k < nw; k += kThreads)
+    masks[k] = load_word(frontier, (w0 + k) * 32, nv);
+  __syncthreads();
+  const int64_t per = (nw + kWarps - 1) / kWarps;
+  const int64_t k0 = min64(warp * per, nw), k1 = min64(k0 + per, nw);
+  // Count this warp's vertices (c, the same in every lane) and out-degrees
+  // (d, summed over the lanes).
+  int64_t c = 0, d = 0;
+  for (int64_t k = k0; k < k1; ++k) {
+    const unsigned m = masks[k];
+    if (m == 0) continue;
+    c += __popc(m);
+    if ((m >> lane) & 1u) {
+      const int64_t v = (w0 + k) * 32 + lane;
+      d += rp[v + 1] - rp[v];
     }
-    ++slot;
-    off += d;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0 && tile_cnt[ntiles] <= cap)
-    offs[tile_cnt[ntiles]] = tile_deg[ntiles];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    d += __shfl_xor_sync(0xffffffffu, d, off);
+  if (lane == 0) {
+    sh[warp] = c;
+    sh[kWarps + warp] = d;
+  }
+  __syncthreads();
+  // The block's totals, and this warp's prefix inside the block.
+  int64_t bc = 0, bd = 0, xc = 0, xd = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w == warp) {
+      xc = bc;
+      xd = bd;
+    }
+    bc += sh[w];
+    bd += sh[kWarps + w];
+  }
+  if (threadIdx.x == 0) {
+    __stcg(sc.tot_c + blockIdx.x, (long long)bc);
+    __stcg(sc.tot_d + blockIdx.x, (long long)bd);
+  }
+  grid_barrier(sc);
+  // The totals of the blocks before this one.
+  int64_t pc = 0, pd = 0;
+  for (int64_t j = threadIdx.x; j < blockIdx.x; j += kThreads) {
+    pc += __ldcg(sc.tot_c + j);
+    pd += __ldcg(sc.tot_d + j);
+  }
+  block_sum2(&pc, &pd, sh);
+  // Place, a word at a time: lane j's slot is the count of set flags below
+  // it, its degree prefix a warp scan, so the writes are coalesced.
+  int64_t slot = pc + xc, off = pd + xd;
+  const unsigned below = (1u << lane) - 1u;
+  for (int64_t k = k0; k < k1; ++k) {
+    const unsigned m = masks[k];
+    if (m == 0) continue;
+    const bool set = (m >> lane) & 1u;
+    const int64_t v = (w0 + k) * 32 + lane;
+    int64_t s = 0, dv = 0;
+    if (set) {
+      s = rp[v];
+      dv = rp[v + 1] - s;
+    }
+    int64_t inc = dv;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int64_t y = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += y;
+    }
+    const int64_t my = slot + __popc(m & below);
+    if (set && my < cap) {
+      q[my] = (int)v;
+      start[my] = s;
+      deg[my] = dv;
+      offs[my] = off + inc - dv;
+    }
+    slot += __popc(m);
+    off += __shfl_sync(0xffffffffu, inc, 31);
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0 && pc + bc <= cap)
+    offs[pc + bc] = pd + bd;
 }
 
 using luxk::Add1;
@@ -207,32 +248,64 @@ using MaxOp = luxk::MaxU32;
 
 }  // namespace
 
-// frontier: (nv,) bool; rp: (nv+1,) int64 CSR row pointer. scratch: 2 *
-// (ntiles + 1) int64 with ntiles = ceil(nv / kTile). Outputs, `cap` slots
-// each: q int32, start and deg int64; offs int64 with cap + 1 slots.
+// frontier: (nv,) bool; rp: (nv+1,) int64 CSR row pointer. scratch: 2 +
+// 2 * scratch_blocks int64 words, zeroed when allocated; one call at a time
+// on it. Outputs, `cap` slots each: q int32, start and deg int64; offs int64
+// with cap + 1 slots.
 extern "C" int lux_frontier_queue(const void* frontier, int64_t nv,
-                                  const void* rp, void* scratch, int64_t cap,
-                                  void* q, void* start, void* deg,
-                                  void* offs, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t ntiles = (nv + kTile - 1) / kTile;
-  int64_t* tile_cnt = static_cast<int64_t*>(scratch);
-  int64_t* tile_deg = tile_cnt + ntiles + 1;
+                                  const void* rp, void* scratch,
+                                  int64_t scratch_blocks, int64_t cap,
+                                  void* q, void* start, void* deg, void* offs,
+                                  void* stream) {
+  if (nv <= 0) return (int)cudaSuccess;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // Blocks: one per 256 words, at most as many as are resident at once.
+  const int64_t words = (nv + 31) / 32;
+  int64_t grid = min64((words + kThreads - 1) / kThreads, scratch_blocks);
+  int64_t span = 0;
+  size_t smem = 0;
+  // Resident blocks per SM for the last shared-memory size asked about.
+  static size_t known_smem = ~(size_t)0;
+  static int known_per_sm = 0;
+  for (int it = 0;; ++it) {
+    span = (words + grid - 1) / grid;
+    smem = span * sizeof(unsigned);
+    if (smem != known_smem) {
+      cudaError_t e = cudaFuncSetAttribute(
+          frontier_queue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)min64((int64_t)smem, 227 * 1024));
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &known_per_sm, frontier_queue_kernel, kThreads, smem);
+      if (e != cudaSuccess) return (int)e;
+      known_smem = smem;
+    }
+    const int64_t resident = (int64_t)sms * known_per_sm;
+    if (grid <= resident) break;
+    if (resident == 0 || it == 3) return (int)cudaErrorInvalidConfiguration;
+    grid = resident;
+  }
+  long long* w = static_cast<long long*>(scratch);
+  Scratch sc{reinterpret_cast<unsigned long long*>(w),
+             reinterpret_cast<unsigned long long*>(w + 1), w + 2,
+             w + 2 + scratch_blocks};
   const unsigned char* f = static_cast<const unsigned char*>(frontier);
   const int64_t* r = static_cast<const int64_t*>(rp);
-  count_tiles_kernel<<<(unsigned)ntiles, kThreads, 0, st>>>(f, nv, r,
-                                                            tile_cnt, tile_deg);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  scan_small_kernel<<<1, kScanThreads, 0, st>>>(tile_cnt, ntiles);
-  scan_small_kernel<<<1, kScanThreads, 0, st>>>(tile_deg, ntiles);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  place_tiles_kernel<<<(unsigned)ntiles, kThreads, 0, st>>>(
-      f, nv, r, tile_cnt, tile_deg, ntiles, cap, static_cast<int*>(q),
-      static_cast<int64_t*>(start), static_cast<int64_t*>(deg),
-      static_cast<int64_t*>(offs));
-  return (int)cudaGetLastError();
+  int* qp = static_cast<int*>(q);
+  int64_t* sp = static_cast<int64_t*>(start);
+  int64_t* dp = static_cast<int64_t*>(deg);
+  int64_t* op = static_cast<int64_t*>(offs);
+  void* args[] = {&f, &nv, &r, &span, &sc, &cap, &qp, &sp, &dp, &op};
+  return (int)cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(frontier_queue_kernel), dim3((unsigned)grid),
+      dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
 }
 
 // q, start: (cnt,) queue; offs: (cnt+1,) exclusive degree prefix with

@@ -15,13 +15,15 @@ the hybrid plan are distributed separately, as there:
   ranges, with a local row pointer of ``max_nv + 1`` entries; K2
   (``csrc/segment_sum.cu``) runs once per part.
 - **Strips** are cut by strip index into P equal contiguous runs of
-  each level's sorted strip list. Each level's strips are uploaded once
-  and each part's run is a view of them. Each part runs K1
-  (``csrc/strip_spmv.cu``) once per level over a full-height row
-  pointer, into a partial sum over the whole vertex space. The partials
-  are rearranged into owner-stacked block layout (``stack_map``; pad
-  slots read a zero row) and the mesh's ``reduce_scatter`` hands every
-  part the sum of its own blocks.
+  each level's sorted strip list. Each part holds the cell stream of its
+  own run (``ops/tiled_spmv.py::build_level``), whose row pointer covers
+  only the band of destination rows the run reaches; the runs partition
+  the strips, so the card holds one copy of the cells. Each part runs K1
+  (``csrc/strip_spmv.cu``) once per level, adding its band into a
+  zeroed partial sum over the whole vertex space. The partials are
+  rearranged into owner-stacked block layout (``stack_map``; pad slots
+  read a zero row) and the mesh's ``reduce_scatter`` hands every part
+  the sum of its own blocks.
 - **The exchange** builds each part's ``(nvb, 128)`` gather operand.
   Full mode: the mesh's ``all_gather`` of the ``(P, max_nvb, 128)``
   stack (a view on one device), reordered by ``block_map``; all parts
@@ -60,12 +62,12 @@ from lux_tpu_torch.graph.partition import ExchangePlan
 from lux_tpu_torch.ops.segment import SEG_ITEM, SegmentItems
 from lux_tpu_torch.ops.tiled_spmv import (
     BLOCK,
-    STRIP_ITEM,
     DeviceHybrid,
     DeviceLevel,
     HybridPlan,
+    build_level,
     plan_hybrid,
-    resolve_pack,
+    refuse_pack,
     strips_sum,
     tail_sum,
 )
@@ -176,10 +178,7 @@ class ShardedTiledExecutor:
         self.device = self.mesh.device
         self.plan = plan if plan is not None else plan_hybrid(
             graph, levels=levels, budget_bytes=budget_bytes)
-        if resolve_pack(pack, self.plan.cap):
-            raise NotImplementedError(
-                "nibble-packed strips (pack=True / LUX_PACK_STRIPS=1) are "
-                "not ported yet: ROADMAP.md queue A, 'Nibble-packed strips'")
+        refuse_pack(pack, self.plan.cap)
         self.part = partition_plan(self.plan, self.num_parts)
         self._build()
 
@@ -198,25 +197,16 @@ class ShardedTiledExecutor:
 
         part_levels: List[List[DeviceLevel]] = [[] for _ in range(P)]
         for lev in plan.levels:
-            nrb = plan.nvb * (BLOCK // lev.r)
             n = lev.rows.shape[0]
             cmax = -(-n // P) if n else 0
-            strips = put(lev.strips)   # one copy; each part takes a view
-            cols = put(lev.cols.astype(np.int32))
             for p in range(P):
-                i0, i1 = p * cmax, min((p + 1) * cmax, n)
-                k = max(i1 - i0, 0)
-                if k:
+                i0 = min(p * cmax, n)
+                i1 = max(min((p + 1) * cmax, n), i0)
+                if i1 > i0:
                     read_blocks[p].update(
                         np.unique(lev.cols[i0:i1]).tolist())
-                row_ptr = np.searchsorted(
-                    lev.rows[i0:i1], np.arange(nrb + 1, dtype=np.int64)
-                ).astype(np.int64)
-                part_levels[p].append(DeviceLevel(
-                    r=lev.r, strips=strips[i0:i0 + k],
-                    cols=cols[i0:i0 + k], row_ptr=put(row_ptr),
-                    items=SegmentItems.build(row_ptr, STRIP_ITEM,
-                                             self.device)))
+                part_levels[p].append(build_level(
+                    lev, plan.nvb, self.device, i0, i1, band=True))
 
         # Each part's local vertex space is the ascending concatenation of
         # its owned blocks' vertices, and its tail edges the matching
@@ -333,14 +323,14 @@ class ShardedTiledExecutor:
 
     def _partials(self, ops: torch.Tensor) -> torch.Tensor:
         """(P, nvb + 1, 128): each part's full-height strip sum, K1 once
-        per part and level, and a zero row for stack_map's pad slots."""
+        per part and level adding the part's band into zeros, and a zero
+        row for stack_map's pad slots."""
         nvb = self.plan.nvb
-        buf = torch.empty((self.num_parts, nvb + 1, BLOCK),
+        buf = torch.zeros((self.num_parts, nvb + 1, BLOCK),
                           dtype=torch.float32, device=self.device)
-        buf[:, nvb] = 0.0
         for q, part in enumerate(self._parts):
-            buf[q, :nvb] = strips_sum(self._x2d(ops, q), part,
-                                      nvb * BLOCK).view(nvb, BLOCK)
+            strips_sum(self._x2d(ops, q), part, nvb * BLOCK,
+                       out=buf[q, :nvb].view(-1))
         return buf
 
     def _merge(self, partials: torch.Tensor) -> torch.Tensor:

@@ -44,8 +44,10 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
-    # strips, cols, x2d, item_lo, n_items, row_items, nrows, r, partial, y, stream
-    "lux_strip_spmv": (_P, _P, _P, _P, _I64, _P, _I64, _INT, _P, _P, _P),
+    # src, cnt, x2d, item_lo, n_items, row_items, nrows, row0, accumulate,
+    # partial, y, stream
+    "lux_strip_spmv": (_P, _P, _P, _P, _I64, _P, _I64, _I64, _INT, _P, _P,
+                       _P),
     # x2d, sb, lane, item_lo, n_items, row_items, nrows, partial, y, stream
     "lux_tail_gather_sum": (_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P),
     # data, nvalid (nullable), item_lo, n_items, row_items, nrows, partial, y, stream
@@ -56,8 +58,10 @@ _SIGNATURES = {
     # relax, acc, stream
     "lux_segment_minmax_relax": (_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
                                  _P, _P),
-    # frontier, nv, rp, scratch, cap, q, start, deg, offs, stream
-    "lux_frontier_queue": (_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P),
+    # frontier, nv, rp, scratch, scratch_blocks, cap, q, start, deg, offs,
+    # stream
+    "lux_frontier_queue": (_P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P,
+                           _P),
     # q, start, offs, cnt, total, col_dst, old, out, comb, relax, stream
     "lux_queue_relax_scatter": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT,
                                 _INT, _P),

@@ -29,7 +29,7 @@ CUDA tensors launch the kernels or raise.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -52,7 +52,19 @@ from lux_tpu_torch.ops.segment import (
     widen_u32,
 )
 
-TILE = 4096   # frontier flags per K6 tile (kTile in csrc/frontier.cu)
+# K6's scratch, one per (device, stream): a zeroed int64 tensor holding
+# the grid barrier's two words and two totals per block (see
+# csrc/frontier.cu); the barrier leaves it ready for the next call.
+SCRATCH_BLOCKS = 4096
+_SCRATCH: Dict[Tuple[int, Optional[int]], torch.Tensor] = {}
+
+
+def _queue_scratch(dev: torch.device, stream: Optional[int]) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(2 + 2 * SCRATCH_BLOCKS,
+                                    dtype=torch.int64, device=dev)
+    return _SCRATCH[key]
 
 
 def frontier_queue_plain(frontier: torch.Tensor, row_ptr: torch.Tensor):
@@ -70,7 +82,8 @@ def frontier_queue_plain(frontier: torch.Tensor, row_ptr: torch.Tensor):
 def frontier_queue(frontier: torch.Tensor, row_ptr: torch.Tensor, cnt: int):
     """The frontier queue of :func:`frontier_queue_plain`. ``cnt`` is the
     frontier's size, which the caller knows; the CUDA kernel fills
-    exactly ``cnt`` slots."""
+    exactly ``cnt`` slots and ``offs[cnt]``, in one cooperative launch
+    that reads the frontier once."""
     if frontier.device.type == "cpu":
         return frontier_queue_plain(frontier, row_ptr)
     dev = frontier.device
@@ -83,16 +96,16 @@ def frontier_queue(frontier: torch.Tensor, row_ptr: torch.Tensor, cnt: int):
     q = torch.empty(cnt, dtype=torch.int32, device=dev)
     start = torch.empty(cnt, dtype=torch.int64, device=dev)
     deg = torch.empty(cnt, dtype=torch.int64, device=dev)
-    offs = torch.zeros(cnt + 1, dtype=torch.int64, device=dev)
+    offs = torch.empty(cnt + 1, dtype=torch.int64, device=dev)
     if cnt == 0:
-        return q, start, deg, offs
-    ntiles = -(-nv // TILE)
-    scratch = torch.empty(2 * (ntiles + 1), dtype=torch.int64, device=dev)
+        return q, start, deg, offs.zero_()
+    stream = _cuda.stream(dev)
     _cuda.launch(
         "frontier_queue", "lux_frontier_queue",
-        _cuda.ptr(frontier), nv, _cuda.ptr(row_ptr), _cuda.ptr(scratch), cnt,
+        _cuda.ptr(frontier), nv, _cuda.ptr(row_ptr),
+        _cuda.ptr(_queue_scratch(dev, stream.value)), SCRATCH_BLOCKS, cnt,
         _cuda.ptr(q), _cuda.ptr(start), _cuda.ptr(deg), _cuda.ptr(offs),
-        _cuda.stream(dev),
+        stream,
     )
     return q, start, deg, offs
 

@@ -12,13 +12,19 @@ the JAX package's, copied so both packages build byte-identical plans:
 2. **Tail**: every other edge, CSC-sorted, addressed as
    ``(src >> 7, src & 127)`` into the (nvb, 128) value operand.
 
-The device half is rewritten for Hopper. Each destination strip-row's
-strips are a contiguous range (``row_ptr``), so the strip kernel K1
-(``csrc/strip_spmv.cu``) sums them directly, and the tail kernel K2
-(``csrc/segment_sum.cu``) is a CSR segmented gather-sum. Neither needs
-the JAX package's Z-stream cumsums, boundary tables or double-single
-prefixes, which exist to avoid scatters on the TPU. Each kernel's
-wrapper runs its plain PyTorch version for CPU tensors only.
+The device half is rewritten for Hopper. The card holds no strips: at
+R-MAT 22 they average 5.6 nonzero cells (5.9 edges) per 1,024-byte
+strip, so a dense strip layout moves 174 bytes per edge. :meth:`DeviceHybrid.build` turns
+each level into a destination-major **cell stream** instead: per
+destination row ``row * r + i``, its nonzero cells as the source vertex
+``cols[t] * 128 + lane`` (int32) and the count (int8), in strip then
+lane order, under a CSR row pointer. The strip kernel K1
+(``csrc/strip_spmv.cu``) is a count-weighted segmented gather-sum over
+that stream, and the tail kernel K2 (``csrc/segment_sum.cu``) a CSR
+segmented gather-sum. Neither needs the JAX package's Z-stream cumsums,
+boundary tables or double-single prefixes, which exist to avoid scatters
+on the TPU. Each kernel's wrapper runs its plain PyTorch version for CPU
+tensors only.
 """
 
 from __future__ import annotations
@@ -40,12 +46,15 @@ from lux_tpu_torch.ops.segment import (
 from lux_tpu_torch.utils import flags
 
 BLOCK = 128
-# Strips per K1 work item: one warp sums at most this many strips of a
-# row, so a hub row (thousands of strips after the degree relabel) is
-# spread over many warps.
-STRIP_ITEM = 16
-# Strips per chunk of K1's plain version (a 256 MB f32 temporary at r=8).
-_PLAIN_CHUNK = 1 << 16
+# Cells per K1 work item: a hub row (tens of thousands of cells at R-MAT 22
+# after the degree relabel) spreads over many items. CELL_GROUP threads share an
+# item (kGroup in csrc/strip_spmv.cu, which reads 4 cells per 16-byte
+# load).
+CELL_ITEM = 1024
+CELL_GROUP = 4
+# Strips uploaded per step of the cell build (256 MB of int8 at r=8);
+# a step is extended to the end of its last strip-row.
+_BUILD_CHUNK = 1 << 18
 
 
 # ---------------------------------------------------------------------------
@@ -96,9 +105,9 @@ class HybridPlan:
     out_degrees: np.ndarray  # (nv,) int64, internal order
     in_degrees: np.ndarray   # (nv,) int64, internal order
     # Per-cell count cap used at plan time (excess spilled to the tail).
-    # cap <= 15 makes every even-r level nibble-packable on device
-    # (two strip rows per int8 byte, not ported yet); legacy plans
-    # used 127 and stay unpacked.
+    # cap <= 15 makes every even-r level nibble-packable on the TPU (two
+    # strip rows per int8 byte); the card here holds cell streams, so
+    # nothing is packed (ROADMAP.md A17). Legacy plans used 127.
     cap: int = 15
     # Planning config, kept so plan caches can detect a changed request
     # (same r-cascade, different thresholds/budget). None/-1 on legacy
@@ -541,17 +550,106 @@ def resolve_pack(pack, plan_cap: int):
     return bool(pack) and plan_cap <= 15
 
 
+def refuse_pack(pack, plan_cap: int) -> None:
+    """Raise if nibble packing is asked for: the card holds cell streams,
+    not strips, so there is nothing to pack (ROADMAP.md A17)."""
+    if resolve_pack(pack, plan_cap):
+        raise NotImplementedError(
+            "nibble-packed strips (pack=True / LUX_PACK_STRIPS=1) have no "
+            "meaning here: the card holds cell streams, not strips "
+            "(ROADMAP.md A17)")
+
+
 @dataclasses.dataclass(eq=False)
 class DeviceLevel:
-    """One strip level on the device. Strip-row ``row``'s strips are
-    ``[row_ptr[row], row_ptr[row+1])``; ``items`` cuts those ranges into
-    K1 work items of at most :data:`STRIP_ITEM` strips."""
+    """One strip level on the device, as a destination-major cell stream.
+
+    The stream covers the destination rows ``[row0, row0 + nrows)`` of
+    the level's ``height`` rows (``nvb * 128``). Row ``row0 + k``'s cells
+    are ``[row_ptr[k], row_ptr[k+1])``: the flat ``x2d`` index ``src``
+    of each cell's source vertex and its count ``cnt``. Both streams are
+    padded with zero cells to a multiple of 4, which K1 reads 4 at a
+    time. ``items`` cuts the rows into K1 work items of at most
+    :data:`CELL_ITEM` cells."""
 
     r: int
-    strips: torch.Tensor     # (T, r, 128) int8
-    cols: torch.Tensor       # (T,) int32 src 128-block per strip
-    row_ptr: torch.Tensor    # (nrb+1,) int64
+    src: torch.Tensor        # (C4,) int32 cols[t] * 128 + lane
+    cnt: torch.Tensor        # (C4,) int8 count (at most the plan's cap)
+    row_ptr: torch.Tensor    # (nrows+1,) int64 cell offsets
     items: SegmentItems
+    row0: int
+    height: int
+    n_cells: int
+
+    @property
+    def nrows(self) -> int:
+        return self.row_ptr.shape[0] - 1
+
+
+def _strip_row_end(rows, t: int, hi: int) -> int:
+    """The first strip index past ``t`` that starts a new strip-row (or
+    ``hi``), so a build step never splits a strip-row."""
+    if t >= hi:
+        return hi
+    return min(int(np.searchsorted(rows, rows[t - 1], side="right")), hi)
+
+
+def build_level(lev: StripLevel, nvb: int, device, lo: int = 0,
+                hi: Optional[int] = None, band: bool = False) -> DeviceLevel:
+    """The cell stream of strips ``[lo, hi)`` of ``lev`` on ``device``.
+
+    Built on ``device`` a step of about :data:`_BUILD_CHUNK` strips at a
+    time (whole strip-rows): upload the host strips, take their nonzero
+    cells, order them by destination row (a stable sort keeps strip then
+    lane order inside a row). ``band`` cuts the row pointer to the rows
+    the strips reach (a part of the sharded engine); otherwise it covers
+    all ``nvb * 128`` rows."""
+    r = lev.r
+    n = lev.rows.shape[0]
+    hi = n if hi is None else hi
+    height = nvb * BLOCK
+    rows = lev.rows
+    if not band:
+        row0, nrows = 0, height
+    elif hi > lo:
+        row0 = int(rows[lo]) * r
+        nrows = (int(rows[hi - 1]) + 1) * r - row0
+    else:
+        row0, nrows = 0, 0
+    counts = torch.zeros(nrows, dtype=torch.int64, device=device)
+    srcs, cnts = [], []
+    t = lo
+    while t < hi:
+        e = _strip_row_end(rows, min(t + _BUILD_CHUNK, hi), hi)
+        s = torch.from_numpy(np.ascontiguousarray(lev.strips[t:e])).to(device)
+        flat = s.view(-1)
+        idx = flat.nonzero().squeeze(1)
+        strip = idx // (r * BLOCK)
+        row_of = torch.from_numpy(
+            np.asarray(rows[t:e], np.int64)).to(device)[strip]
+        key = row_of * r + (idx // BLOCK) % r - row0
+        key, perm = torch.sort(key, stable=True)
+        idx, strip = idx[perm], strip[perm]
+        col_of = torch.from_numpy(
+            np.asarray(lev.cols[t:e], np.int64)).to(device)[strip]
+        srcs.append((col_of * BLOCK + idx % BLOCK).to(torch.int32))
+        cnts.append(flat[idx])
+        counts += torch.bincount(key, minlength=nrows)
+        del s, flat, idx, strip, row_of, key, perm, col_of
+        t = e
+    n_cells = int(sum(c.shape[0] for c in srcs))
+    pad = -n_cells % 4
+    src = torch.cat(srcs + [torch.zeros(pad, dtype=torch.int32,
+                                        device=device)])
+    cnt = torch.cat(cnts + [torch.zeros(pad, dtype=torch.int8,
+                                        device=device)])
+    row_ptr = torch.zeros(nrows + 1, dtype=torch.int64, device=device)
+    torch.cumsum(counts, 0, out=row_ptr[1:])
+    return DeviceLevel(
+        r=r, src=src, cnt=cnt, row_ptr=row_ptr,
+        items=SegmentItems.build(row_ptr.cpu().numpy(), CELL_ITEM, device),
+        row0=row0, height=height, n_cells=n_cells,
+    )
 
 
 @dataclasses.dataclass(eq=False)
@@ -565,31 +663,15 @@ class DeviceHybrid:
 
     @staticmethod
     def build(plan: HybridPlan, device, pack=None) -> "DeviceHybrid":
-        """Upload ``plan`` to ``device``. ``pack`` (or the
-        LUX_PACK_STRIPS opt-in) asks for nibble-packed strips, which the
-        port does not have yet."""
-        if resolve_pack(pack, plan.cap):
-            raise NotImplementedError(
-                "nibble-packed strips (pack=True / LUX_PACK_STRIPS=1) are "
-                "not ported yet: ROADMAP.md queue A, 'Nibble-packed strips'"
-            )
+        """Upload ``plan`` to ``device``: each strip level as its cell
+        stream (:func:`build_level`), the tail as it is. ``pack`` (or
+        the LUX_PACK_STRIPS opt-in) is refused (:func:`refuse_pack`)."""
+        refuse_pack(pack, plan.cap)
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        dlevels = []
-        for lev in plan.levels:
-            nrb = plan.nvb * (BLOCK // lev.r)
-            row_ptr = np.searchsorted(
-                lev.rows, np.arange(nrb + 1, dtype=np.int64)
-            ).astype(np.int64)
-            dlevels.append(DeviceLevel(
-                r=lev.r,
-                strips=put(lev.strips),
-                cols=put(lev.cols.astype(np.int32)),
-                row_ptr=put(row_ptr),
-                items=SegmentItems.build(row_ptr, STRIP_ITEM, device),
-            ))
         row_ptr = np.asarray(plan.tail_row_ptr, np.int64)
         return DeviceHybrid(
-            levels=tuple(dlevels),
+            levels=tuple(build_level(lev, plan.nvb, device)
+                         for lev in plan.levels),
             tail_sb=put(plan.tail_sb.astype(np.int32)),
             tail_lane=put(plan.tail_lane.astype(np.int8)),
             tail_row_ptr=put(row_ptr),
@@ -601,57 +683,76 @@ class DeviceHybrid:
 # -- K1: strip levels --------------------------------------------------------
 
 
-def strip_level_spmv_plain(
-    x2d: torch.Tensor,
-    strips: torch.Tensor,
-    cols: torch.Tensor,
-    row_ptr: torch.Tensor,
-) -> torch.Tensor:
-    """K1's plain version: f32 strip-times-block products, a chunk of
-    strips at a time (the f32 copy of all strips would not fit the
-    card), then per-row sums by f64 prefix differences."""
-    t, r, _ = strips.shape
-    contrib = torch.empty((t, r), dtype=torch.float32, device=x2d.device)
-    for lo in range(0, t, _PLAIN_CHUNK):
-        hi = lo + _PLAIN_CHUNK
-        s = strips[lo:hi].to(torch.float32)
-        xb = x2d[cols[lo:hi].long()]
-        contrib[lo:hi] = (s * xb[:, None, :]).sum(-1)
-    return prefix_diff_sum(contrib, row_ptr).reshape(-1)
+def strip_level_spmv_plain(x2d: torch.Tensor, lev: DeviceLevel,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """K1's plain version: each cell's count times its source value,
+    then per-row sums by f64 prefix differences, placed at the level's
+    rows of a zero ``(height,)`` vector or added into ``out``."""
+    n = lev.n_cells
+    contrib = lev.cnt[:n].to(torch.float32) \
+        * x2d.reshape(-1)[lev.src[:n].long()]
+    sums = prefix_diff_sum(contrib, lev.row_ptr)
+    rows = slice(lev.row0, lev.row0 + lev.nrows)
+    if out is None:
+        out = torch.zeros(lev.height, dtype=torch.float32, device=x2d.device)
+        out[rows] = sums
+    else:
+        out[rows] += sums
+    return out
 
 
-def strip_level_spmv(x2d: torch.Tensor, lev: DeviceLevel) -> torch.Tensor:
-    """Σ strip · x_block per destination row; (nrb*r,) f32.
+def strip_level_spmv(x2d: torch.Tensor, lev: DeviceLevel,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Σ count · x over each destination row's cells; (height,) f32.
 
-    ``x2d`` is the (nvb, 128) f32 operand. CPU tensors take the plain
-    version; CUDA tensors launch K1 (``csrc/strip_spmv.cu``).
+    ``x2d`` is the (nvb, 128) f32 operand. Rows outside the level's
+    ``[row0, row0 + nrows)`` are 0; with ``out`` (a (height,) f32
+    vector) the level's sums are added into it instead, and ``out`` is
+    returned. CPU tensors take the plain version; CUDA tensors launch
+    K1 (``csrc/strip_spmv.cu``).
     """
     if x2d.device.type == "cpu":
-        return strip_level_spmv_plain(x2d, lev.strips, lev.cols, lev.row_ptr)
+        return strip_level_spmv_plain(x2d, lev, out)
     dev = x2d.device
     _cuda.check(x2d, "x2d", torch.float32, dev, ndim=2)
-    if x2d.shape[1] != BLOCK:
-        raise ValueError(f"x2d must be (nvb, {BLOCK}), got {tuple(x2d.shape)}")
-    _cuda.check(lev.strips, "strips", torch.int8, dev, ndim=3)
-    if tuple(lev.strips.shape[1:]) != (lev.r, BLOCK):
-        raise ValueError(f"strips must be (T, {lev.r}, {BLOCK})")
-    _cuda.check(lev.cols, "cols", torch.int32, dev, ndim=1)
+    if x2d.shape[1] != BLOCK or x2d.shape[0] * BLOCK != lev.height:
+        raise ValueError(f"x2d must be ({lev.height // BLOCK}, {BLOCK}), "
+                         f"got {tuple(x2d.shape)}")
+    _cuda.check(lev.src, "src", torch.int32, dev, ndim=1)
+    _cuda.check(lev.cnt, "cnt", torch.int8, dev, ndim=1)
+    if lev.src.shape != lev.cnt.shape or lev.src.shape[0] % 4 \
+            or lev.src.data_ptr() % 16 or lev.cnt.data_ptr() % 4:
+        raise ValueError("src and cnt must be aligned streams of one "
+                         "length, a multiple of 4")
     _cuda.check(lev.items.item_lo, "item_lo", torch.int64, dev, ndim=1)
     _cuda.check(lev.items.row_items, "row_items", torch.int64, dev, ndim=1)
-    nrb = lev.items.nrows
+    if lev.items.nrows != lev.nrows:
+        raise ValueError(f"items cover {lev.items.nrows} rows, the level "
+                         f"{lev.nrows}")
+    if out is not None:
+        _cuda.check(out, "out", torch.float32, dev, ndim=1)
+        if out.shape[0] != lev.height:
+            raise ValueError(f"out must be ({lev.height},), got "
+                             f"{tuple(out.shape)}")
+    full = lev.row0 == 0 and lev.nrows == lev.height
+    if out is None:
+        out = (torch.empty if full and lev.items.n_items else torch.zeros)(
+            lev.height, dtype=torch.float32, device=dev)
+        accumulate = 0
+    else:
+        accumulate = 1
     if lev.items.n_items == 0:
-        return torch.zeros(nrb * lev.r, dtype=torch.float32, device=dev)
-    partial = torch.empty((lev.items.n_items, lev.r), dtype=torch.float32,
-                          device=dev)
-    y = torch.empty(nrb * lev.r, dtype=torch.float32, device=dev)
+        return out
+    partial = torch.empty(lev.items.n_items, dtype=torch.float32, device=dev)
     _cuda.launch(
         "strip_spmv", "lux_strip_spmv",
-        _cuda.ptr(lev.strips), _cuda.ptr(lev.cols), _cuda.ptr(x2d),
+        _cuda.ptr(lev.src), _cuda.ptr(lev.cnt), _cuda.ptr(x2d),
         _cuda.ptr(lev.items.item_lo), lev.items.n_items,
-        _cuda.ptr(lev.items.row_items), nrb, lev.r,
-        _cuda.ptr(partial), _cuda.ptr(y), _cuda.stream(dev),
+        _cuda.ptr(lev.items.row_items), lev.nrows, lev.row0, accumulate,
+        _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream(dev),
     )
-    return y
+    return out
 
 
 # -- K2: the lane-select tail ------------------------------------------------
@@ -724,12 +825,14 @@ def vals_to_x2d(vals: torch.Tensor, dh: DeviceHybrid) -> torch.Tensor:
     return F.pad(vals, (0, pad)).reshape(dh.nvb, BLOCK)
 
 
-def strips_sum(x2d: torch.Tensor, dh: DeviceHybrid, nv: int) -> torch.Tensor:
-    """Σ over all strip levels; (nv,) f32 (internal order)."""
-    acc = None
+def strips_sum(x2d: torch.Tensor, dh: DeviceHybrid, nv: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Σ over all strip levels; (nv,) f32 (internal order). The levels
+    add into ``out`` (a (nvb * 128,) f32 vector) when it is given, else
+    into the first level's result."""
+    acc = out
     for lev in dh.levels:
-        y = strip_level_spmv(x2d, lev)
-        acc = y if acc is None else acc + y
+        acc = strip_level_spmv(x2d, lev, acc)
     if acc is None:
         return torch.zeros(nv, dtype=torch.float32, device=x2d.device)
     return acc[:nv]

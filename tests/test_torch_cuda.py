@@ -85,6 +85,59 @@ def test_strip_and_tail_kernels_match_plain(dev, levels):
         _compare(ts.tail_sum(xd, dh), ts.tail_sum(x, cpu), exact)
 
 
+def test_strip_kernel_on_a_legacy_plan(dev):
+    # Counts up to 127 in a cell (cap=127), every edge repeated 1-40 times.
+    g = generate.rmat(9, 8, seed=2)
+    reps = np.random.default_rng(0).integers(1, 41, size=g.ne)
+    dst = np.repeat(np.repeat(np.arange(g.nv), np.diff(g.row_ptr)), reps)
+    row_ptr = np.zeros(g.nv + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=g.nv), out=row_ptr[1:])
+    g = type(g)(nv=g.nv, ne=int(reps.sum()), row_ptr=row_ptr,
+                col_src=np.repeat(g.col_src, reps))
+    plan = ts.plan_hybrid(g, levels=((8, 1),), cap=127)
+    dh, cpu = ts.DeviceHybrid.build(plan, dev), ts.DeviceHybrid.build(plan, CPU)
+    assert int(cpu.levels[0].cnt.max()) > 15
+    for x, exact in _operands(plan.nvb, 2):
+        _compare(ts.strip_level_spmv(x.to(dev), dh.levels[0]),
+                 ts.strip_level_spmv(x, cpu.levels[0]), exact)
+
+
+def test_strip_kernel_bands(dev):
+    # Bands of rows, alone and added into a full-height vector (the parts
+    # of the sharded engine), and an empty band.
+    plan = ts.plan_hybrid(generate.rmat(11, 8, seed=3), levels=((8, 2),))
+    lev = plan.levels[0]
+    n = lev.rows.shape[0]
+    for x, exact in _operands(plan.nvb, 4):
+        xd = x.to(dev)
+        out_d = torch.full((plan.nvb * 128,), 3.0, device=dev)
+        out_c = torch.full((plan.nvb * 128,), 3.0)
+        for lo, hi in ((0, n // 4), (n // 4, n), (n, n)):
+            bd = ts.build_level(lev, plan.nvb, dev, lo, hi, band=True)
+            bc = ts.build_level(lev, plan.nvb, CPU, lo, hi, band=True)
+            _compare(ts.strip_level_spmv(xd, bd), ts.strip_level_spmv(x, bc),
+                     exact)
+            ts.strip_level_spmv(xd, bd, out_d)
+            ts.strip_level_spmv(x, bc, out_c)
+        _compare(out_d, out_c, exact)
+
+
+@pytest.mark.parametrize("item", [3, 16, 1024])
+def test_strip_kernel_rows_of_many_items(dev, item, monkeypatch):
+    # Short items put many items in a row, so K1's second pass takes both
+    # its one-thread and its whole-warp path for a row's partials.
+    monkeypatch.setattr(ts, "CELL_ITEM", item)
+    plan = ts.plan_hybrid(generate.rmat(10, 14, seed=3),
+                          levels=((128, 8), (8, 2)))
+    dh, cpu = ts.DeviceHybrid.build(plan, dev), ts.DeviceHybrid.build(plan, CPU)
+    per_row = cpu.levels[0].items.row_items.diff()
+    assert item > 100 or int(per_row.max()) > 4
+    for x, exact in _operands(plan.nvb, 3):
+        for ld, lc in zip(dh.levels, cpu.levels):
+            _compare(ts.strip_level_spmv(x.to(dev), ld),
+                     ts.strip_level_spmv(x, lc), exact)
+
+
 @pytest.mark.parametrize("m", [15000, 0])
 def test_grouped_tail_kernels_match_plain(dev, m):
     rng = np.random.default_rng(4)
@@ -208,6 +261,63 @@ def test_frontier_queue_and_scatter_match_plain(dev, nv, frac):
         got = fq.queue_relax_scatter(q, start, offs, col_dst.to(dev),
                                      vals.to(dev), kind, relax_op, total)
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("frac", [0.0, "one", 0.01, 0.5, 1.0])
+@pytest.mark.parametrize("nv", [4096 * 7, 4096 * 300 + 77])
+def test_frontier_queue_one_launch_matches_plain(dev, nv, frac):
+    # Bitwise on empty, one-vertex, 1%, half and full frontiers, with nv a
+    # multiple of a 32-flag word or not; repeated calls reuse one scratch
+    # (its grid barrier resets itself, nothing is zeroed), and each call is
+    # one launch.
+    g = generate.gnp(nv, nv * 4, seed=11)
+    rp = torch.from_numpy(g.csr().row_ptr)
+    rng = np.random.default_rng(nv)
+    if frac == "one":
+        fr = np.zeros(nv, bool)
+        fr[nv - 3] = True
+    else:
+        fr = rng.random(nv) < frac
+    fr = torch.from_numpy(fr)
+    cnt = int(fr.sum())
+    want = fq.frontier_queue(fr, rp, cnt)
+    rpd, frd = rp.to(dev), fr.to(dev)
+    for _ in range(3):
+        _cuda.reset_launches()
+        got = fq.frontier_queue(frd, rpd, cnt)
+        assert _cuda.LAUNCHES["frontier_queue"] == (1 if cnt else 0)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    # Smaller and larger frontiers in turn on the same stream.
+    small = frd[:5000]
+    for _ in range(2):
+        for f, r in ((small, rpd[:5001]), (frd, rpd)):
+            c = int(f.sum())
+            for a, b in zip(fq.frontier_queue(f, r, c),
+                            fq.frontier_queue(f.cpu(), r.cpu(), c)):
+                assert torch.equal(a.cpu(), b)
+
+
+def test_frontier_queue_on_a_part_row_pointer(dev, monkeypatch):
+    # K6 as the sharded push engine calls it: one part's frontier row of
+    # the (P, max_nv) state over the shared _queue_row_ptr.
+    from lux_tpu_torch.engine.push_sharded import ShardedPushExecutor
+
+    monkeypatch.setenv("LUX_EXCHANGE", "full")
+    g = generate.rmat(12, 10, seed=1)
+    ex = ShardedPushExecutor(g, SSSP(), num_parts=4)
+    st, _ = ex.run(max_iters=2, start=0)
+    rp = ex._queue_row_ptr
+    n = st.frontier.shape[1]
+    assert rp.shape[0] == n + 1
+    rng = np.random.default_rng(1)
+    for p in range(4):
+        for fr in (st.frontier[p],
+                   torch.from_numpy(rng.random(n) < 0.3).to(dev)):
+            cnt = int(fr.sum())
+            for a, b in zip(fq.frontier_queue(fr, rp, cnt),
+                            fq.frontier_queue(fr.cpu(), rp.cpu(), cnt)):
+                assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("app", ["sssp", "cc"])

@@ -4,10 +4,13 @@ On the CPU each kernel wrapper runs its plain PyTorch version; these
 tests hold those against the JAX package's functions on the same plans
 (bitwise on integral values, whose per-row totals stay below 2^24 so
 every f32 sum is exact in any order; rtol=5e-5, atol=1e-9 on floats;
-the grouped-tail level always bitwise). They also check, in numpy, the
-work-item tables the CUDA kernels walk. The kernels themselves are
-tested on the card by tests/test_torch_cuda.py.
+the grouped-tail level always bitwise). They also check that K1's cell
+streams give back the plan's strips, and, in numpy, the work items the
+CUDA kernels walk. The kernels themselves are tested on the card by
+tests/test_torch_cuda.py.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,12 +39,26 @@ PLANS = {
     "r2_r32": (lambda: jgen.rmat(9, 8, seed=1), ((32, 4), (2, 2))),
     "empty_level": (lambda: jgen.rmat(9, 8, seed=5), ((8, 10 ** 9),)),
     "zero_tail": (lambda: jgen.cycle_graph(100), ((8, 1),)),
+    # A legacy plan: counts up to 127 in a cell (parallel edges below).
+    "legacy_cap": (lambda: _multigraph(), ((8, 1),), 127),
 }
 
 
+def _multigraph():
+    """An R-MAT with every edge repeated up to 40 times, so cells hold
+    counts above the default cap of 15."""
+    g = jgen.rmat(8, 8, seed=2)
+    reps = np.random.default_rng(0).integers(1, 41, size=g.ne)
+    dst = np.repeat(np.repeat(np.arange(g.nv), np.diff(g.row_ptr)), reps)
+    row_ptr = np.zeros(g.nv + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=g.nv), out=row_ptr[1:])
+    return type(g)(nv=g.nv, ne=int(reps.sum()), row_ptr=row_ptr,
+                   col_src=np.repeat(g.col_src, reps))
+
+
 def _plans(name):
-    make, levels = PLANS[name]
-    jplan = jts.plan_hybrid(make(), levels=levels)
+    make, levels, *cap = PLANS[name]
+    jplan = jts.plan_hybrid(make(), levels=levels, cap=(cap or [15])[0])
     tplan = convert.plan_from_numpy(convert.plan_to_numpy(jplan))
     jdh = jts.DeviceHybrid.build(jplan, chunk_strips=16, chunk_tail=64)
     tdh = tts.DeviceHybrid.build(tplan, CPU)
@@ -209,21 +226,127 @@ def test_segment_items_tile_rows(item_len, kind):
     np.testing.assert_array_equal(got, want)
 
 
+def _emulate_cells(lev, x, item_len):
+    """K1's two passes over a level's cell stream, in numpy, as
+    csrc/strip_spmv.cu runs them: G threads per item, each taking the
+    stream-aligned quads q0 + sub, q0 + sub + G, ... of its item and
+    masking the cells outside it; then each row's items in order. Also
+    checks that every cell is read exactly once (float64, so any order
+    is exact for the integers used here)."""
+    group = tts.CELL_GROUP
+    src, cnt = lev.src.numpy(), lev.cnt.numpy().astype(np.float64)
+    xf = x.reshape(-1).astype(np.float64)
+    item_lo = lev.items.item_lo.numpy()
+    row_items = lev.items.row_items.numpy()
+    seen = np.zeros(src.shape[0], np.int64)
+    partial = np.zeros(item_lo.shape[0] - 1)
+    for j in range(partial.shape[0]):
+        lo, hi = item_lo[j], item_lo[j + 1]
+        assert 1 <= hi - lo <= item_len
+        for sub in range(group):
+            for q in range((lo >> 2) + sub, -(-hi // 4), group):
+                e = np.arange(4 * q, 4 * q + 4)
+                e = e[(e >= lo) & (e < hi)]
+                partial[j] += (cnt[e] * xf[src[e]]).sum()
+                seen[e] += 1
+    assert np.all(seen[:lev.n_cells] == 1) and not seen[lev.n_cells:].any()
+    return np.array([partial[a:b].sum() for a, b in
+                     zip(row_items[:-1], row_items[1:])])
+
+
 def test_strip_items_follow_the_strip_row_pointer():
-    # The K1 work items of a real level, emulated in numpy, give the plain
-    # version's per-row sums.
+    # The K1 work items of a real level's cell stream, emulated in numpy,
+    # give the plain version's per-row sums: at the kernel's item length,
+    # and at a short one that cuts rows into many items.
     jplan, _, tdh = _plans("cascade")
     x = _operands(jplan.nvb, 5)[0]
     for lev in tdh.levels:
-        contrib = (lev.strips.numpy().astype(np.float64)
-                   * x[lev.cols.numpy()][:, None, :]).sum(-1)
         row_ptr = lev.row_ptr.numpy()
-        got = _emulate_items(contrib, row_ptr, tts.STRIP_ITEM).reshape(-1)
-        np.testing.assert_array_equal(
-            got, tts.strip_level_spmv(torch.from_numpy(x), lev).numpy())
+        want = tts.strip_level_spmv(torch.from_numpy(x), lev).numpy()
         np.testing.assert_array_equal(lev.items.item_lo.numpy(),
                                       tseg.segment_items(
-                                          row_ptr, tts.STRIP_ITEM)[0])
+                                          row_ptr, tts.CELL_ITEM)[0])
+        for item in (tts.CELL_ITEM, 5):
+            cut = dataclasses.replace(lev, items=tseg.SegmentItems.build(
+                row_ptr, item, CPU))
+            np.testing.assert_array_equal(_emulate_cells(cut, x, item), want)
+
+
+def _level_strips(lev, strip_rows, strip_cols):
+    """The (T, r, 128) int8 strips whose cells ``lev`` holds, given the
+    strips' destination strip-rows and source blocks: the cell build
+    inverted."""
+    r, n = lev.r, lev.n_cells
+    row = torch.repeat_interleave(torch.arange(lev.nrows),
+                                  lev.row_ptr.diff()) + lev.row0
+    src = lev.src[:n].long()
+    nvb = lev.height // 128
+    sid = torch.from_numpy(np.asarray(strip_rows, np.int64) * nvb
+                           + np.asarray(strip_cols, np.int64))
+    t = torch.searchsorted(sid, (row // r) * nvb + src // 128)
+    strips = torch.zeros((sid.shape[0], r, 128), dtype=torch.int8)
+    strips[t, row % r, src % 128] = lev.cnt[:n]
+    return strips
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_cell_stream_round_trips_to_the_plan_strips(name):
+    jplan, _, tdh = _plans(name)
+    assert len(tdh.levels) == len(jplan.levels)
+    for jl, tl in zip(jplan.levels, tdh.levels):
+        n = tl.n_cells
+        assert n == np.count_nonzero(jl.strips)
+        assert tl.src.dtype == torch.int32 and tl.cnt.dtype == torch.int8
+        assert tl.src.shape[0] == tl.cnt.shape[0] == n + (-n % 4)
+        assert not tl.src[n:].any() and not tl.cnt[n:].any()
+        assert (tl.row0, tl.nrows, tl.height) == (0, jplan.nvb * 128,
+                                                  jplan.nvb * 128)
+        assert int(tl.row_ptr[-1]) == n
+        assert bool((tl.cnt[:n] > 0).all())
+        assert int(tl.cnt[:n].numpy().max(initial=0)) <= jplan.cap
+        # Destination-major, and strip then lane order inside a row.
+        row = np.repeat(np.arange(tl.nrows), np.diff(tl.row_ptr.numpy()))
+        key = row.astype(np.int64) * (jplan.nvb * 128) + tl.src[:n].numpy()
+        assert np.all(np.diff(key) > 0)
+        strips = _level_strips(tl, jl.rows, jl.cols)
+        np.testing.assert_array_equal(strips.numpy(), jl.strips)
+    if name == "legacy_cap":
+        assert jplan.cap == 127
+        assert int(tdh.levels[0].cnt.max()) > 15
+
+
+def test_cell_build_in_steps_equals_one_step(monkeypatch):
+    # Steps of a few strips, each extended to the end of its strip-row,
+    # give the same stream as one step.
+    jplan, _, whole = _plans("cascade")
+    tplan = convert.plan_from_numpy(convert.plan_to_numpy(jplan))
+    monkeypatch.setattr(tts, "_BUILD_CHUNK", 3)
+    for lev, want in zip(tplan.levels, whole.levels):
+        got = tts.build_level(lev, tplan.nvb, CPU)
+        for field in ("src", "cnt", "row_ptr"):
+            assert torch.equal(getattr(got, field), getattr(want, field))
+        assert got.n_cells == want.n_cells
+
+
+def test_level_band_adds_into_out():
+    # A run of strips as a band of rows, added into a full-height vector,
+    # equals the whole level's rows of that band.
+    jplan, _, tdh = _plans("r8")
+    tplan = convert.plan_from_numpy(convert.plan_to_numpy(jplan))
+    lev = tplan.levels[0]
+    n = lev.rows.shape[0]
+    x = torch.from_numpy(_operands(jplan.nvb, 8)[0])
+    whole = tts.strip_level_spmv(x, tdh.levels[0])
+    out = torch.full((jplan.nvb * 128,), 2.0)
+    for lo, hi in ((0, n // 3), (n // 3, n)):
+        band = tts.build_level(lev, tplan.nvb, CPU, lo, hi, band=True)
+        assert band.row0 == int(lev.rows[lo]) * 8
+        assert band.nrows == (int(lev.rows[hi - 1]) + 1) * 8 - band.row0
+        assert tts.strip_level_spmv(x, band, out) is out
+        alone = tts.strip_level_spmv(x, band)
+        assert not alone[:band.row0].any()
+        assert not alone[band.row0 + band.nrows:].any()
+    np.testing.assert_array_equal(out.numpy(), whole.numpy() + 2.0)
 
 
 def test_wrappers_refuse_other_devices():

@@ -2,7 +2,9 @@
 against lux_tpu's.
 
 On the CPU the port's ``ShardedTiledExecutor`` runs the plain versions of
-K1 and K2 per part. These tests hold its host layout byte-identical to
+K1 and K2 per part. Each part's K1 reads the cell stream of its own run
+of strips, and together they are the single-device stream. These tests
+hold its host layout byte-identical to
 ``lux_tpu``'s ``ShardedTiledExecutor`` (partition, ``block_map``,
 ``stack_map``, local vertex lists, remote-read counts, the compact plan
 and ``exchange_bytes_per_iter``) for P in {1, 2, 4, 8}, and its
@@ -161,6 +163,43 @@ def test_pagerank_matches_lux_tpu(name, parts, monkeypatch):
     single = TiledPullExecutor(tg, PageRank(), levels=GRAPHS[name][1],
                                device=CPU)
     np.testing.assert_allclose(got, single.run(ITERS).numpy(), **TOL)
+
+
+def _cells(lev):
+    """(global destination row, src, cnt) of a level's cells."""
+    n = lev.n_cells
+    row = torch.repeat_interleave(torch.arange(lev.nrows),
+                                  lev.row_ptr.diff()) + lev.row0
+    return row, lev.src[:n], lev.cnt[:n]
+
+
+@pytest.mark.parametrize("parts", PARTS)
+@pytest.mark.parametrize("name", ["rmat_8_1", "rmat_128_8", "gnp_tiny"])
+def test_part_cell_streams_concatenate_to_the_single_device_one(
+        name, parts, monkeypatch):
+    # The parts' strip runs partition the strips, so their cell streams,
+    # concatenated in part order and then stably ordered by row, are the
+    # single-device stream: one copy of the cells on the card. Each part's
+    # row pointer covers only its band of rows.
+    ex = _port(name, parts, "full", monkeypatch)
+    whole = tts.DeviceHybrid.build(ex.plan, CPU)
+    for k, (lev, want) in enumerate(zip(ex.plan.levels, whole.levels)):
+        got = [_cells(p.levels[k]) for p in ex._parts]
+        row = torch.cat([g[0] for g in got])
+        order = torch.sort(row, stable=True).indices
+        for i, w in enumerate(_cells(want)):
+            assert torch.equal(torch.cat([g[i] for g in got])[order], w)
+        n = lev.rows.shape[0]
+        cmax = -(-n // parts)
+        for p, part in enumerate(ex._parts):
+            pl = part.levels[k]
+            i0, i1 = min(p * cmax, n), min((p + 1) * cmax, n)
+            if i1 > i0:
+                assert pl.row0 == int(lev.rows[i0]) * lev.r
+                assert pl.row0 + pl.nrows == (int(lev.rows[i1 - 1]) + 1) \
+                    * lev.r
+            else:
+                assert pl.nrows == 0 and pl.n_cells == 0
 
 
 @pytest.mark.parametrize("parts", [2, 4, 8])
