@@ -21,7 +21,9 @@ merge-network tail of ``LUX_GROUPED_TAIL=1``):
    least time the card needs to move the bytes; K1 also bitwise on small
    integers against the strip-form product of the host plan's strips,
    a chunk at a time, and beside its bound on the cells the bound the
-   strip layout had;
+   strip layout had; K2 as the main path calls it, from the (nv,)
+   values and adding into a vector, bitwise on small integers with and
+   without the add, beside cuSPARSE;
 5. end to end: ``run(10)`` in both configurations against the f64 oracle
    at rtol=5e-5, atol=1e-9, with every kernel's launch count checked;
 6. timing: ms per iteration and GTEPS for both configurations, the
@@ -37,7 +39,7 @@ of a ``LocalMesh`` on the card, in the full and compact exchange modes:
     ``LUX_EXCHANGE=compact`` resolves to;
 4g. K1 and K2 at one part's shapes against their plain versions
     (bitwise on small integers, within rtol=5e-5, atol=1e-9 on random
-    floats), with the same timings;
+    floats), with the same timings; K2 also on the last part;
 5g. end to end: ``run(10)`` in both modes against phase 5's f64 oracle
     at rtol=5e-5, atol=1e-9, compact equal to full bitwise, K1 once per
     part and level and K2 once per part per iteration;
@@ -60,7 +62,11 @@ graph and Connected Components on its undirected closure:
 3b. push graphs: the closure and both executors;
 4b. K5-K7 against their plain versions at the main path's shapes, all
     bitwise, with the same timings; K6 also on a dense frontier (half
-    the vertices);
+    the vertices) and at nv = 2^28 on a row pointer made on the card
+    (the last vertex alone, and a seeded sparse frontier) beside
+    ``torch.nonzero``; K6 and K7 at the sparse branch's cap (nv // 16 +
+    128 vertices) and K7 on SSSP's first frontier, medians of 100
+    calls, beside ``torch.nonzero`` and one ``scatter_reduce``;
 5b. end to end: both applications to fixpoint, bitwise against the
     vectorised oracles, zero invariant violations, launch counts checked
     against the branch each iteration took;
@@ -160,8 +166,8 @@ device and over the parts in both modes:
     branch, the exchange alone against its bytes bound; the single-device
     numbers of phase 6b beside them; and the phases' peak device memory.
 
-Any failure exits non-zero. Without a card it exits non-zero and prints
-no result. The last line is ``{"ok": true, "device": {...}}``; the line
+Each phase group's seconds are logged. Any failure exits non-zero.
+Without a card it exits non-zero and prints no result. The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels as JSON.
 """
 
@@ -340,45 +346,61 @@ def main(argv=None) -> int:
     log(f"[graph] rmat({args.scale}, 16, seed={SEED}, weighted=True): "
         f"nv={g.nv} ne={g.ne} in {t_gen:.1f} s; g is it without weights")
     kernels = []
-    totals, oracle, plan = _pagerank_phases(g, dev, kernels)
+    group_s = {}
+
+    def group(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        group_s[name] = time.perf_counter() - t0
+        log(f"[time] phase group {name} took {group_s[name]:.1f} s")
+        return out
+
+    totals, oracle, plan = group("3-6 tiled", _pagerank_phases, g, dev,
+                                 kernels)
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     # Phases 3g-6g reuse phase 3's plan (planning costs host minutes at
     # scale), so they run here, before the plan is dropped.
-    totals.update(_tiled_sharded_phases(g, plan, oracle, dev, kernels))
+    totals.update(group("3g-6g sharded tiled", _tiled_sharded_phases, g,
+                        plan, oracle, dev, kernels))
     peak = max(peak, torch.cuda.max_memory_allocated())
     del plan
     torch.cuda.empty_cache()
-    totals.update(_probe_phases(dev, kernels))
+    totals.update(group("4g probes", _probe_phases, dev, kernels))
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
     t = time.perf_counter()
     gu = generate.undirected(g)
     log(f"[push] undirected closure: nv={gu.nv} ne={gu.ne} in "
         f"{time.perf_counter() - t:.1f} s")
-    push_totals, push_ctx = _push_phases(g, gu, dev, kernels)
+    push_totals, push_ctx = group("3b-6b push", _push_phases, g, gu, dev,
+                                  kernels)
     for name, n in push_totals.items():
         totals[name] += n
     torch.cuda.empty_cache()
-    pull_totals, gc, cf_oracle = _pull_phases(g, oracle, args.scale, dev,
-                                              kernels)
+    pull_totals, gc, cf_oracle = group("3c-6c pull", _pull_phases, g, oracle,
+                                       args.scale, dev, kernels)
     for name, n in pull_totals.items():
         totals[name] += n
     torch.cuda.empty_cache()
-    for name, n in _gas_phases(g, gw, gu, oracle, dev, kernels).items():
+    for name, n in group("3d-6d gas", _gas_phases, g, gw, gu, oracle, dev,
+                         kernels).items():
         totals[name] += n
     del gw
     torch.cuda.empty_cache()
     peak = max(peak, torch.cuda.max_memory_allocated())
-    for name, n in _sharded_phases(g, oracle, gc, cf_oracle, dev).items():
+    for name, n in group("3e-6e sharded pull", _sharded_phases, g, oracle,
+                         gc, cf_oracle, dev).items():
         totals[name] += n
     peak = max(peak, torch.cuda.max_memory_allocated())
     del gc
     torch.cuda.empty_cache()
-    for name, n in _push_sharded_phases(g, gu, push_ctx, dev,
-                                        kernels).items():
+    for name, n in group("3f-6f sharded push", _push_sharded_phases, g, gu,
+                         push_ctx, dev, kernels).items():
         totals[name] = totals.get(name, 0) + n
     peak = max(peak, torch.cuda.max_memory_allocated())
+    log("[time] phase groups (s): " + ", ".join(
+        f"{k}={v:.1f}" for k, v in group_s.items()))
 
     for entry in kernels:
         entry["launches"] = totals[entry["name"]]
@@ -409,8 +431,6 @@ def _pagerank_phases(g, dev, kernels):
     from lux_tpu_torch.ops.segment import segment_sum_by_rowptr_plain
     from lux_tpu_torch.ops.tiled_spmv import (
         build_level,
-        lane_select_tail_sums,
-        lane_select_tail_sums_plain,
         plan_hybrid,
         strip_level_spmv,
         strip_level_spmv_plain,
@@ -484,31 +504,11 @@ def _pagerank_phases(g, dev, kernels):
     record(kernels, "strip_spmv", "lux_tpu_torch/csrc/strip_spmv.cu",
            "lux_tpu/ops/tiled_spmv.py:945", err, *k1)
 
-    # K2 tail_gather_sum.
-    args2 = (dh.tail_sb, dh.tail_lane, dh.tail_row_ptr)
-    check_equal("K2 integral",
-                lane_select_tail_sums(x_int, *args2, dh.tail_items),
-                lane_select_tail_sums_plain(x_int, *args2))
-    err = check_close("K2", lane_select_tail_sums(x_float, *args2,
-                                                  dh.tail_items),
-                      lane_select_tail_sums_plain(x_float, *args2))
-    k2_ms = cuda_ms(lambda: lane_select_tail_sums(
-        x_float, *args2, dh.tail_items), reps)
-    k2_plain = cuda_ms(lambda: lane_select_tail_sums_plain(x_float, *args2),
-                       reps)
-    m = dh.tail_sb.numel()
-    k2_bytes = 5 * m + 8 * dh.tail_row_ptr.numel() + 4 * x_float.numel() \
-        + 4 * g.nv
-    cols = (dh.tail_sb.long() << 7) | dh.tail_lane.long()
-    tail_csr = torch.sparse_csr_tensor(
-        dh.tail_row_ptr, cols, torch.ones(m, device=dev),
-        size=(g.nv, nvb * 128))
-    xv = x_float.reshape(-1, 1)
-    k2_lib = cuda_ms(lambda: tail_csr @ xv, reps)
-    del tail_csr, cols
+    # K2 tail_gather_sum, as the main path runs it: straight from the
+    # (nv,) values, adding into the strips' sums.
+    k2 = _k2_check("K2", dh.tail_src, dh.tail_row_ptr, g.nv, rng, reps, dev)
     record(kernels, "tail_gather_sum", "lux_tpu_torch/csrc/segment_sum.cu",
-           "lux_tpu/ops/tiled_spmv.py:1027", err, k2_ms, k2_plain, k2_bytes,
-           m, k2_lib)
+           "lux_tpu/ops/tiled_spmv.py:1027", *k2)
 
     # K3 level_apply, every level; each level's input is the plain chain's.
     x = x_float
@@ -569,7 +569,7 @@ def _pagerank_phases(g, dev, kernels):
         f"{time.perf_counter() - t:.1f} s")
     # Wrappers skip empty launches: count the levels and tails with work.
     nlev = sum(1 for lev in dh.levels if lev.items.n_items > 0)
-    k2_per_iter = int(dh.tail_items.n_items > 0)
+    k2_per_iter = 1
     k3_per_iter = sum(1 for c in gt.codes if c.shape[0] > 0)
     none = dict.fromkeys(_cuda.LAUNCHES, 0)
     expected = {
@@ -778,6 +778,7 @@ def _push_phases(g, gu, dev, kernels):
         f"{k6_ms:.4f} ms (plain {k6_plain:.4f}, torch.nonzero "
         f"{k6_lib:.4f}, bound {bound(g.nv + 44 * cnt + 8, 0)[0]:.4f})")
     del fr
+    _k6_k7_rows(ex_s, st_synth, q_cap, rng, dev)
     record(kernels, "frontier_queue", "lux_tpu_torch/csrc/frontier.cu",
            "lux_tpu/engine/push.py:447", 0.0, *k67["k6"])
     record(kernels, "queue_relax_scatter", "lux_tpu_torch/csrc/frontier.cu",
@@ -895,6 +896,88 @@ def _push_phases(g, gu, dev, kernels):
                 f"{len(runs)}): " + ", ".join(
                     f"{k}={v:.3f}" for k, v in med.items()))
     return totals, ctx
+
+
+def cuda_median_ms(fn, reps: int) -> float:
+    """Median ms of ``reps`` calls of ``fn()``, each between its own two
+    CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _k6_k7_rows(ex, st_cap, q_cap: int, rng, dev) -> None:
+    """Phase 4b's rows beside the main path's: K6 at nv = 2^28 on a
+    synthetic row pointer made on the card (the last vertex alone, then a
+    seeded sparse frontier), bitwise against its plain version and timed
+    beside ``torch.nonzero``; K6 and K7 at the push sparse branch's cap
+    (``st_cap``, ``q_cap`` = nv // 16 + 128 vertices) and K7 on SSSP's
+    first frontier, medians of 100 calls, K7 beside one ``scatter_reduce``
+    over the same candidates."""
+    import torch
+
+    from lux_tpu_torch.ops import frontier as fq
+    from lux_tpu_torch.ops import segment as seg
+
+    t = time.perf_counter()
+    nv = 1 << 28
+    rp = torch.arange(nv + 1, dtype=torch.int64, device=dev) * 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    one = torch.zeros(nv, dtype=torch.bool, device=dev)
+    one[-1] = True
+    sparse = torch.rand(nv, generator=gen, device=dev) < 1e-4
+    for label, fr in (("the last vertex", one), ("sparse", sparse)):
+        cnt = int(fr.sum())
+        for part, got, want in zip(("q", "start", "deg", "offs"),
+                                   fq.frontier_queue(fr, rp, cnt),
+                                   fq.frontier_queue_plain(fr, rp)):
+            check_equal(f"K6 nv=2^28 {label} {part}", got, want)
+        ms = cuda_ms(lambda: fq.frontier_queue(fr, rp, cnt), 10)
+        lib = cuda_ms(lambda: torch.nonzero(fr), 10)
+        log(f"[push] K6 at nv=2^28, {label} (cnt={cnt}): bitwise; "
+            f"{ms:.4f} ms, torch.nonzero {lib:.4f} ms, bytes bound "
+            f"{bound(nv + 44 * cnt + 8, 0)[0]:.4f} ms")
+    del rp, one, sparse
+    torch.cuda.empty_cache()
+    prog = ex.program
+    relax = seg.RELAX_OPS[prog.relax_op]
+    rp, col_dst = ex.csr_row_ptr, ex.csr_col_dst
+    for label, st in (("SSSP's first frontier", ex.init_state(start=0)),
+                      (f"the cap, {q_cap} vertices", st_cap)):
+        fr = st.frontier
+        cnt = int(fr.sum())
+        q, start, _, offs = fq.frontier_queue(fr, rp, cnt)
+        out = int(offs[-1])
+        k6 = cuda_median_ms(lambda: fq.frontier_queue(fr, rp, cnt), 100)
+        k6_lib = cuda_median_ms(lambda: torch.nonzero(fr), 100)
+        k7 = cuda_median_ms(lambda: fq.queue_relax_scatter(
+            q, start, offs, col_dst, st.values, prog.combiner,
+            prog.relax_op, out), 100)
+        slot = torch.repeat_interleave(torch.arange(cnt, device=dev),
+                                       offs.diff())
+        edge = start[slot] + torch.arange(out, device=dev) - offs[:-1][slot]
+        dst_e = col_dst[edge].long()
+        vals64 = seg.widen_u32(st.values)
+        cand = relax(vals64[q.long()[slot]])
+        k7_lib = cuda_median_ms(lambda: vals64.scatter_reduce(
+            0, dst_e, cand, reduce="amin", include_self=True), 100)
+        log(f"[push] at {label} (cnt={cnt}, out_edges={out}), medians of "
+            f"100 calls: K6 {k6:.4f} ms, torch.nonzero {k6_lib:.4f} ms; K7 "
+            f"{k7:.4f} ms, one scatter_reduce {k7_lib:.4f} ms")
+        del slot, edge, dst_e, vals64, cand
+    log(f"[push] phase 4b's extra rows took {time.perf_counter() - t:.1f} s")
 
 
 def _pull_phases(g, pr_oracle, scale, dev, kernels):
@@ -1161,7 +1244,7 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
                 prog.combiner)
 
         def k10_call(args=args, prog=prog, ex=ex):
-            return seg.gas_pull_acc(*args, prog.gather_op, ex.items,
+            return seg.gas_pull_acc(*args, prog.gather_op, ex.tasks,
                                     weights=ex.weights)
 
         def k10_plain(args=args, prog=prog, ex=ex):
@@ -1228,7 +1311,7 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
             check_equal(f"K10 = K11 {app} {label}", k11_call(),
                         seg.gas_pull_acc(ex.row_ptr, ex.col_src, pst.values,
                                          fr, prog.combiner, prog.gather_op,
-                                         ex.items, weights=ex.weights))
+                                         ex.tasks, weights=ex.weights))
             ms = cuda_ms(k11_call, reps)
             plain_ms = cuda_ms(k11_plain, 2)
             slot, edge = fq.queue_edges(q, start, offs)
@@ -1268,9 +1351,9 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
     cnt, at, st = best
     margs = (mx.row_ptr, mx.col_src, st.values, st.frontier, "min")
     check_equal(f"K10 k={k_lanes} after {at} iterations",
-                seg.gas_pull_acc(*margs, "add1", mx.items),
+                seg.gas_pull_acc(*margs, "add1", mx.tasks),
                 seg.gas_pull_acc_plain(*margs, BFS().gather))
-    ms = cuda_ms(lambda: seg.gas_pull_acc(*margs, "add1", mx.items), reps)
+    ms = cuda_ms(lambda: seg.gas_pull_acc(*margs, "add1", mx.tasks), reps)
     plain_ms = cuda_ms(lambda: seg.gas_pull_acc_plain(*margs, BFS().gather),
                        2)
     mbytes = 4 * g.ne + 8 * (g.nv + 1) + 9 * g.nv * k_lanes
@@ -1856,9 +1939,9 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
     k10_args = (part.row_ptr, part.col_src, table, front, "min")
     want = seg.gas_pull_acc_plain(*k10_args, SSSP().relax)
     check_equal(f"K10 split table k={K}, part {q}",
-                seg.gas_pull_acc(*k10_args, "add1", part.items), want)
+                seg.gas_pull_acc(*k10_args, "add1", part.tasks), want)
     k10_ms = cuda_ms(lambda: seg.gas_pull_acc(*k10_args, "add1",
-                                              part.items), reps)
+                                              part.tasks), reps)
     k10_plain = cuda_ms(lambda: seg.gas_pull_acc_plain(
         *k10_args, SSSP().relax), 2)
     src = part.col_src.long()
@@ -1894,10 +1977,10 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
     c, at, st = best
     b11_args = (mx1.row_ptr, mx1.col_src, st.values, st.frontier, "min")
     check_equal(f"K10 k={K} one device", seg.gas_pull_acc(
-        *b11_args, "add1", mx1.items), seg.gas_pull_acc_plain(
+        *b11_args, "add1", mx1.tasks), seg.gas_pull_acc_plain(
             *b11_args, SSSP().relax))
     b11_ms = cuda_ms(lambda: seg.gas_pull_acc(*b11_args, "add1",
-                                              mx1.items), reps)
+                                              mx1.tasks), reps)
     b11_plain = cuda_ms(lambda: seg.gas_pull_acc_plain(
         *b11_args, SSSP().relax), 2)
     # The same reduce in one PyTorch call: an int64 scatter_reduce of the
@@ -2152,8 +2235,6 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
     from lux_tpu_torch.models.pagerank import PageRank
     from lux_tpu_torch.ops import _cuda
     from lux_tpu_torch.ops.tiled_spmv import (
-        lane_select_tail_sums,
-        lane_select_tail_sums_plain,
         strip_level_spmv,
         strip_level_spmv_plain,
     )
@@ -2191,7 +2272,7 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
         f"blocks per part {[len(b) for b in ex.part.blocks]}; cells per "
         f"part and level {strips}, their bands of rows (first, count) "
         f"{bands}; tail edges per part "
-        f"{[p.tail_sb.numel() for p in parts]}; remote rows read "
+        f"{[int(p.tail_row_ptr[-1]) for p in parts]}; remote rows read "
         f"{ex._remote_read_counts.tolist()}")
 
     # -- 4g. K1 and K2 at one part's shapes ---------------------------------
@@ -2222,31 +2303,17 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
                         f" part {q}", runs)
     record(kernels, "strip_spmv[sharded]", "lux_tpu_torch/csrc/strip_spmv.cu",
            "lux_tpu/engine/tiled_sharded.py:539", err, *k1)
-    args2 = (part.tail_sb, part.tail_lane, part.tail_row_ptr)
-    check_equal(f"K2 part {q} integral",
-                lane_select_tail_sums(x_int, *args2, part.tail_items),
-                lane_select_tail_sums_plain(x_int, *args2))
-    err = check_close(f"K2 part {q}", lane_select_tail_sums(
-        x_float, *args2, part.tail_items),
-        lane_select_tail_sums_plain(x_float, *args2))
-    k2_ms = cuda_ms(lambda: lane_select_tail_sums(
-        x_float, *args2, part.tail_items), reps)
-    k2_plain = cuda_ms(lambda: lane_select_tail_sums_plain(x_float, *args2),
-                       reps)
-    m = part.tail_sb.numel()
-    k2_bytes = 5 * m + 8 * part.tail_row_ptr.numel() \
-        + 4 * x_float.numel() + 4 * ex.max_nv
-    cols = (part.tail_sb.long() << 7) | part.tail_lane.long()
-    tail_csr = torch.sparse_csr_tensor(
-        part.tail_row_ptr, cols, torch.ones(m, device=dev),
-        size=(ex.max_nv, nvb * 128))
-    xv = x_float.reshape(-1, 1)
-    k2_lib = cuda_ms(lambda: tail_csr @ xv, reps)
-    del tail_csr, cols
+    # K2 on part 0 (the hub rows' blocks) and on the last part, over the
+    # exchanged (nvb, 128) table, adding into the part's strip sums.
+    k2 = _k2_check(f"K2 part {q}", part.tail_src, part.tail_row_ptr,
+                   nvb * 128, rng, reps, dev)
     record(kernels, "tail_gather_sum[sharded]",
            "lux_tpu_torch/csrc/segment_sum.cu",
-           "lux_tpu/engine/tiled_sharded.py:568", err, k2_ms, k2_plain,
-           k2_bytes, m, k2_lib)
+           "lux_tpu/engine/tiled_sharded.py:568", *k2)
+    last = parts[-1]
+    _k2_check(f"K2 part {P - 1}", last.tail_src, last.tail_row_ptr,
+              nvb * 128, rng, reps, dev)
+    m = int(part.tail_row_ptr[-1])
     log(f"[tiled-sharded] part {q}: K1 over {strips[q]} cells into "
         f"{bands[q]} rows, K2 over {m} tail edges into {ex.max_nv} rows")
     del x_float, x_int
@@ -2254,7 +2321,7 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
     # -- 5g. end to end, both modes -------------------------------------------
     k1_per_iter = sum(1 for p in parts for lev in p.levels
                       if lev.items.n_items > 0)
-    k2_per_iter = sum(1 for p in parts if p.tail_items.n_items > 0)
+    k2_per_iter = len(parts)
     totals = {"strip_spmv[sharded]": 0, "tail_gather_sum[sharded]": 0}
     outs = {}
     for mode, ex in exs.items():
@@ -2486,6 +2553,59 @@ def _probe_phases(dev, kernels) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; it took "
         f"{time.perf_counter() - t_phase:.1f} s; launches {totals}")
     return totals
+
+def _k2_check(label, tail_src, row_ptr, n_x: int, rng, reps: int, dev):
+    """K2 over one tail stream and row pointer, as the main path calls it
+    (adding into a row vector, x of ``n_x`` values): bitwise against its
+    plain version on integral x with accumulate off and on, within
+    rtol=5e-5, atol=1e-9 on random floats; then its time, the plain
+    version's, cuSPARSE's (``torch.sparse`` CSR @ x) and its bytes.
+    Returns (max_abs_err, ms, plain_ms, bytes, adds, library_ms)."""
+    import torch
+
+    from lux_tpu_torch.ops.tiled_spmv import (
+        lane_select_tail_sums,
+        lane_select_tail_sums_plain,
+    )
+
+    rows = row_ptr.shape[0] - 1
+    x_int = torch.from_numpy(
+        rng.integers(0, 4, size=n_x).astype(np.float32)).to(dev)
+    x_float = torch.from_numpy(
+        rng.random(n_x, dtype=np.float32) + np.float32(0.5)).to(dev)
+    y_int = torch.from_numpy(
+        rng.integers(0, 4, size=rows).astype(np.float32)).to(dev)
+    y_float = torch.from_numpy(rng.random(rows, dtype=np.float32)).to(dev)
+    args = (tail_src, row_ptr)
+    check_equal(f"{label} integral", lane_select_tail_sums(x_int, *args),
+                lane_select_tail_sums_plain(x_int, *args))
+    check_equal(f"{label} integral, accumulate",
+                lane_select_tail_sums(x_int, *args, out=y_int.clone()),
+                lane_select_tail_sums_plain(x_int, *args, out=y_int.clone()))
+    err = check_close(label, lane_select_tail_sums(
+        x_float, *args, out=y_float.clone()), lane_select_tail_sums_plain(
+            x_float, *args, out=y_float.clone()))
+    y = y_float.clone()
+    ms = cuda_ms(lambda: lane_select_tail_sums(x_float, *args, out=y), reps)
+    plain_ms = cuda_ms(lambda: lane_select_tail_sums_plain(
+        x_float, *args, out=y), reps)
+    m = int(row_ptr[-1])
+    csr = torch.sparse_csr_tensor(row_ptr, tail_src[:m].long(),
+                                  torch.ones(m, device=dev),
+                                  size=(rows, n_x))
+    xv = x_float.reshape(-1, 1)
+    lib_ms = cuda_ms(lambda: csr @ xv, reps)
+    del csr
+    # The stream, the row pointer, y read and written, x's distinct
+    # sources once.
+    n_src = int(torch.unique(tail_src[:m]).numel())
+    nbytes = 4 * m + 8 * (rows + 1) + 8 * rows + 4 * n_src
+    log(f"[kernel] {label}: {m} edges into {rows} rows, bitwise on integral "
+        f"x (accumulate off and on); {ms:.4f} ms, plain {plain_ms:.4f}, "
+        f"cuSPARSE {lib_ms:.4f}, bytes bound {bound(nbytes, m)[0]:.4f} ms "
+        f"(each gather reads a 32-byte L2 sector: {32 * m / 1e9:.3f} GB)")
+    return err, ms, plain_ms, nbytes, m, lib_ms
+
 
 def _strip_form_product(hlev, x, nvb: int, dev, chunk: int = 1 << 17):
     """K1 as the strips define it, for one host plan level: f32

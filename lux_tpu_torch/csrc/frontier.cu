@@ -15,7 +15,8 @@
 // atomicMin/atomicMax. Candidates read the pre-step values `old`; `new` is a
 // copy of them, so a vertex never pushes a value it got in the same step.
 //
-// Bound on the H100: bytes. K6 reads the nv-byte frontier once and writes 28
+// Bound on the H100: bytes. K6 reads the nv-byte frontier once (twice where
+// a block's span outgrows its shared memory) and writes 28
 // bytes per queue slot plus two 8-byte row-pointer reads per slot. K7 reads 4
 // bytes of col_dst and does one 4-byte atomic per live edge, plus 24 bytes
 // and one value per queue slot; the binary searches hit the offs table in
@@ -24,24 +25,32 @@
 //
 // K6 design: one cooperative launch of persistent blocks, as many as can be
 // resident at once (cudaLaunchCooperativeKernel guarantees it, or refuses).
-// Block b owns a contiguous span of the frontier, 32 flags to a word. It
-// reads its span once (16-byte loads where aligned), keeps it as a bitmask
-// in shared memory, counts its vertices and their out-degrees, and publishes
-// the two totals. Then one grid barrier: an arrival counter that the last
-// block resets and a generation word the others wait on, so the scratch
+// Block b owns a contiguous span of the frontier, 32 flags to a word, and
+// warp w of the block a contiguous run of the span's words. Each warp walks
+// its run a window of kWindow words (32,768 flags) at a time, in shared
+// memory of a fixed size, so the grid does not depend on nv and any frontier
+// with int32 ids fits. The count pass reads each window (16-byte loads where
+// aligned) and adds up the warp's vertices and their out-degrees; each block
+// publishes its totals. Then one grid barrier: an arrival counter that the
+// last block resets and a generation word the others wait on, so the scratch
 // needs no zeroing between calls. Each block then adds the totals of the
-// blocks before it (one parallel read of a few hundred words) and places its
-// vertices in order from the bitmask, ids ascending as jnp.nonzero gives
-// them: each warp walks its contiguous run of words a word at a time, lane j
-// taking flag j, so a lane's slot is a popcount and its degree prefix a warp
-// scan, and the writes of a dense word are coalesced. The last block writes
-// the total into offs[cnt]. So the frontier is read once, and the time is
-// one launch, one barrier and the reads of the queued vertices' row
-// pointers. Two designs measured worse on the H100: a decoupled look-back
-// over 1,024 tiles of 4,096 flags spent its time walking back through tiles
-// that had all published at once (slower than torch.nonzero with 145 K of
-// 4.2 M vertices queued), and a thread placing its own 32 flags one by one
-// was several times slower than this on a half-full frontier.
+// blocks before it (one parallel read of a few hundred words), and each warp
+// places its vertices in order, ids ascending as jnp.nonzero gives them: it
+// walks its run a word at a time, lane j taking flag j, so a lane's slot is
+// a popcount and its degree prefix a warp scan, and the writes of a dense
+// word are coalesced. The place pass keeps the count pass's window where one
+// window holds the warp's whole run, that is up to 262,144 flags a block
+// (every frontier of the main path), so the frontier is read once; a longer
+// run re-reads its windows from the frontier. The last block writes
+// the total into offs[cnt]. The grid is computed once per device, from the
+// kernel's occupancy at its fixed shared memory; the cache is lock-free.
+// Two designs measured worse on the H100: a decoupled look-back over 1,024
+// tiles of 4,096 flags spent its time walking back through tiles that had
+// all published at once (slower than torch.nonzero with 145 K of 4.2 M
+// vertices queued), and a thread placing its own 32 flags one by one was
+// several times slower than this on a half-full frontier. An earlier form
+// kept a block's whole span in shared memory, so it refused frontiers above
+// about 2.4e8 vertices, where the span outgrew the 227 KB a block may have.
 // The expansion is load-balanced on the edge slots, not the vertices: every
 // block takes kQueueSlots consecutive slots, finds the queue range that
 // covers them once, and each thread binary-searches its slot's owner inside
@@ -50,6 +59,8 @@
 // too. Integer min/max atomics commute, so the result is bitwise that of the
 // plain version whatever the order.
 
+#include <atomic>
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -59,6 +70,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kWindow = 1024;   // frontier words a warp holds: 32 KB a block
 
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -142,40 +154,54 @@ __device__ __forceinline__ void grid_barrier(const Scratch& sc) {
   __syncthreads();
 }
 
+// Loads words [b, e) of the frontier (32 flags each, word k of the block's
+// span at (w0 + k) * 32) into this warp's window, one word a lane.
+__device__ __forceinline__ void load_window(unsigned* win,
+                                            const unsigned char* frontier,
+                                            int64_t nv, int64_t w0, int64_t b,
+                                            int64_t e, int lane) {
+  for (int64_t k = b + lane; k < e; k += 32)
+    win[k - b] = load_word(frontier, (w0 + k) * 32, nv);
+  __syncwarp();
+}
+
 // One cooperative launch: the frontier's ascending ids with their CSR
 // start, degree and exclusive degree prefix, and offs[cnt] = the total.
 // Block b owns the words [b * span, (b + 1) * span) of the frontier (32
-// flags each), which it keeps in `masks` (dynamic shared memory); warp w of
-// the block owns a contiguous run of those words and walks it a word at a
-// time, lane j taking flag j. Writes stop at `cap` slots.
+// flags each); warp w of the block owns a contiguous run of those words and
+// walks it a window of kWindow words at a time, then a word at a time, lane
+// j taking flag j. Writes stop at `cap` slots.
 __global__ void __launch_bounds__(kThreads)
 frontier_queue_kernel(const unsigned char* __restrict__ frontier, int64_t nv,
                       const int64_t* __restrict__ rp, int64_t span,
                       Scratch sc, int64_t cap, int* __restrict__ q,
                       int64_t* __restrict__ start, int64_t* __restrict__ deg,
                       int64_t* __restrict__ offs) {
-  extern __shared__ unsigned masks[];
+  __shared__ unsigned masks[kWarps][kWindow];
   __shared__ int64_t sh[2 * kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t words = (nv + 31) / 32;
   const int64_t w0 = min64((int64_t)blockIdx.x * span, words);
   const int64_t nw = min64(span, words - w0);
-  for (int64_t k = threadIdx.x; k < nw; k += kThreads)
-    masks[k] = load_word(frontier, (w0 + k) * 32, nv);
-  __syncthreads();
   const int64_t per = (nw + kWarps - 1) / kWarps;
   const int64_t k0 = min64(warp * per, nw), k1 = min64(k0 + per, nw);
+  unsigned* win = masks[warp];
   // Count this warp's vertices (c, the same in every lane) and out-degrees
-  // (d, summed over the lanes).
+  // (d, summed over the lanes), a window at a time.
   int64_t c = 0, d = 0;
-  for (int64_t k = k0; k < k1; ++k) {
-    const unsigned m = masks[k];
-    if (m == 0) continue;
-    c += __popc(m);
-    if ((m >> lane) & 1u) {
-      const int64_t v = (w0 + k) * 32 + lane;
-      d += rp[v + 1] - rp[v];
+  for (int64_t b = k0; b < k1; b += kWindow) {
+    const int64_t e = min64(b + kWindow, k1);
+    load_window(win, frontier, nv, w0, b, e, lane);
+    for (int64_t k = b; k < e; ++k) {
+      const unsigned m = win[k - b];
+      if (m == 0) continue;
+      c += __popc(m);
+      if ((m >> lane) & 1u) {
+        const int64_t v = (w0 + k) * 32 + lane;
+        d += rp[v + 1] - rp[v];
+      }
     }
+    __syncwarp();
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -208,37 +234,70 @@ frontier_queue_kernel(const unsigned char* __restrict__ frontier, int64_t nv,
   }
   block_sum2(&pc, &pd, sh);
   // Place, a word at a time: lane j's slot is the count of set flags below
-  // it, its degree prefix a warp scan, so the writes are coalesced.
+  // it, its degree prefix a warp scan, so the writes are coalesced. A run
+  // of one window still has it; a longer run reads its windows again.
+  const bool kept = k1 - k0 <= kWindow;
   int64_t slot = pc + xc, off = pd + xd;
   const unsigned below = (1u << lane) - 1u;
-  for (int64_t k = k0; k < k1; ++k) {
-    const unsigned m = masks[k];
-    if (m == 0) continue;
-    const bool set = (m >> lane) & 1u;
-    const int64_t v = (w0 + k) * 32 + lane;
-    int64_t s = 0, dv = 0;
-    if (set) {
-      s = rp[v];
-      dv = rp[v + 1] - s;
-    }
-    int64_t inc = dv;
+  for (int64_t b = k0; b < k1; b += kWindow) {
+    const int64_t e = min64(b + kWindow, k1);
+    if (!kept) load_window(win, frontier, nv, w0, b, e, lane);
+    for (int64_t k = b; k < e; ++k) {
+      const unsigned m = win[k - b];
+      if (m == 0) continue;
+      const bool set = (m >> lane) & 1u;
+      const int64_t v = (w0 + k) * 32 + lane;
+      int64_t s = 0, dv = 0;
+      if (set) {
+        s = rp[v];
+        dv = rp[v + 1] - s;
+      }
+      int64_t inc = dv;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int64_t y = __shfl_up_sync(0xffffffffu, inc, o);
-      if (lane >= o) inc += y;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int64_t y = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += y;
+      }
+      const int64_t my = slot + __popc(m & below);
+      if (set && my < cap) {
+        q[my] = (int)v;
+        start[my] = s;
+        deg[my] = dv;
+        offs[my] = off + inc - dv;
+      }
+      slot += __popc(m);
+      off += __shfl_sync(0xffffffffu, inc, 31);
     }
-    const int64_t my = slot + __popc(m & below);
-    if (set && my < cap) {
-      q[my] = (int)v;
-      start[my] = s;
-      deg[my] = dv;
-      offs[my] = off + inc - dv;
-    }
-    slot += __popc(m);
-    off += __shfl_sync(0xffffffffu, inc, 31);
+    if (!kept) __syncwarp();
   }
   if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0 && pc + bc <= cap)
     offs[pc + bc] = pd + bd;
+}
+
+// Resident blocks of frontier_queue_kernel on each device, 0 until asked.
+// Two threads that ask at once compute the same number.
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_resident[kMaxDevices];
+
+cudaError_t resident_blocks(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int r = g_resident[dev].load(std::memory_order_relaxed);
+  if (r == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, frontier_queue_kernel, kThreads, 0);
+    if (e != cudaSuccess) return e;
+    r = sms * per_sm;
+    if (r <= 0) return cudaErrorInvalidConfiguration;
+    g_resident[dev].store(r, std::memory_order_relaxed);
+  }
+  *out = r;
+  return cudaSuccess;
 }
 
 using luxk::Add1;
@@ -258,40 +317,15 @@ extern "C" int lux_frontier_queue(const void* frontier, int64_t nv,
                                   void* q, void* start, void* deg, void* offs,
                                   void* stream) {
   if (nv <= 0) return (int)cudaSuccess;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (nv > INT32_MAX) return (int)cudaErrorInvalidValue;  // int32 ids
+  int resident = 0;
+  const cudaError_t e = resident_blocks(&resident);
+  if (e != cudaSuccess) return (int)e;
   // Blocks: one per 256 words, at most as many as are resident at once.
   const int64_t words = (nv + 31) / 32;
-  int64_t grid = min64((words + kThreads - 1) / kThreads, scratch_blocks);
-  int64_t span = 0;
-  size_t smem = 0;
-  // Resident blocks per SM for the last shared-memory size asked about.
-  static size_t known_smem = ~(size_t)0;
-  static int known_per_sm = 0;
-  for (int it = 0;; ++it) {
-    span = (words + grid - 1) / grid;
-    smem = span * sizeof(unsigned);
-    if (smem != known_smem) {
-      cudaError_t e = cudaFuncSetAttribute(
-          frontier_queue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)min64((int64_t)smem, 227 * 1024));
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &known_per_sm, frontier_queue_kernel, kThreads, smem);
-      if (e != cudaSuccess) return (int)e;
-      known_smem = smem;
-    }
-    const int64_t resident = (int64_t)sms * known_per_sm;
-    if (grid <= resident) break;
-    if (resident == 0 || it == 3) return (int)cudaErrorInvalidConfiguration;
-    grid = resident;
-  }
+  const int64_t grid = min64(min64((words + kThreads - 1) / kThreads,
+                                   (int64_t)resident), scratch_blocks);
+  int64_t span = (words + grid - 1) / grid;
   long long* w = static_cast<long long*>(scratch);
   Scratch sc{reinterpret_cast<unsigned long long*>(w),
              reinterpret_cast<unsigned long long*>(w + 1), w + 2,
@@ -305,7 +339,7 @@ extern "C" int lux_frontier_queue(const void* frontier, int64_t nv,
   void* args[] = {&f, &nv, &r, &span, &sc, &cap, &qp, &sp, &dp, &op};
   return (int)cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(frontier_queue_kernel), dim3((unsigned)grid),
-      dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
 }
 
 // q, start: (cnt,) queue; offs: (cnt+1,) exclusive degree prefix with

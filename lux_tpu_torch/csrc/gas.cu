@@ -23,26 +23,47 @@
 // add_w) DeltaSSSP, (max, u32, decay) label propagation, (sum, u32, one)
 // k-core; op codes 0-4 in that order (ops/segment.py::GAS_KERNEL_OPS).
 //
-// Bound on the H100: bytes. K10 reads per edge 4 bytes of col_src and one
-// frontier byte per column, and per active edge a random value (4 bytes a
-// column) and, for add_w, a 4-byte weight; the value and frontier tables are
-// nv * k * 5 bytes (21 MB at R-MAT scale 22 and k = 1), so their random
-// reads mostly hit the 50 MB L2. K11 reads 20 bytes per queue slot, per
-// out-edge 4 bytes of col_dst (and a weight) and does one 4-byte atomic; the
-// accumulator it folds into is nv words.
+// Bound on the H100: bytes. K10 reads per edge 4 bytes of col_src and, per
+// active edge, a random value (4 bytes a column) and for add_w a 4-byte
+// weight; it reads the row pointer and the (n_tab, k) frontier once (to pack
+// it) and writes the (nv, k) accumulator once. But every edge also tests
+// its source's frontier bit, one random read of a 32-byte L2 sector, and
+// every active edge gathers a sector of values: those reads, served by the
+// 50 MB L2, are what the kernel waits on. K11 reads 20 bytes per queue slot,
+// per out-edge 4 bytes of col_dst (and a weight) and does one 4-byte atomic;
+// the accumulator it folds into is nv words.
 //
-// Design. K10 walks the CSC's work items as K5 does (push_dense.cu): rows cut
-// into items of at most SEG_ITEM edges inside one row, kGroup threads per
-// item striding over it and combining in registers, then with shuffles; one
-// thread folds each item's result into acc[row] with one atomic, skipped for
-// the identity. A hub's items spread over many warps and meet only in their
-// atomics. Columns are processed kChunk at a time (k = 1 runs one column;
-// any k > 1 runs ceil(k / 8) chunks of 8), each chunk walking the item again.
+// K10 design. One call, two launches: a pack of the bool frontier into bits
+// (k = 1: 32 vertices a word, 0.5 MB at R-MAT 22 against 4.2 MB of bools,
+// so many more of the sources' tests hit in L1; k > 1: a byte per vertex
+// and chunk of 8 columns), then the pull over a row schedule built once per
+// graph (ops/segment.py::row_tasks). A warp task is up to 32 consecutive
+// rows, one a lane, whose edges are at most 2 * TASK_EDGES: a lane sums a
+// row of up to kLaneMax edges itself, its source indices loaded four at a
+// time before their tests and gathers; the warp sums each longer row of
+// its task, the lanes striding its 16-byte quads of col_src (any head and
+// tail that do not fill an aligned quad are read singly), two quads loaded
+// before their eight tests. A hub row (more than HUB_EDGES edges) is a
+// block's task, summed by the 256 threads the same way. Each row is written
+// once, by the lane that owns it or by thread 0 of its block: the identity
+// where no source was active, so no fill launch and no atomics. Sums are
+// taken in registers, then by shuffles and (hub rows) shared memory; min,
+// max and wrapping uint32 sums do not depend on order, and f32 min folds the
+// order-preserving keys of gas_ops.cuh and decodes them in the same store,
+// so the results are bitwise those of the plain version. Columns run
+// kChunk at a time (k = 1 runs one column; any k > 1 runs ceil(k / 8) chunks
+// of 8, each walking the rows again). Hub rows take the first blocks, so
+// they start first. The thresholds and occupancy are measured (python -m
+// lux_tpu_torch.probes.shapes, R-MAT 22): kLaneMax 32 (16 up to 9%
+// slower), TASK_EDGES 1,024 (512 within 2%, 2,048 up to 6% slower),
+// HUB_EDGES 4,096 (8,192 up to 4% slower) and 8 resident blocks for one
+// column, 6 for K (no bound: up to twice as slow). The bit tests are one
+// random read an edge whatever the density: at density 0.01 they take most
+// of the time.
 // K11 is K7's kernel (queue_fold_kernel, gas_ops.cuh), balanced on edge
-// slots, over an identity-filled accumulator with the GAS gather ops. f32
-// min folds order-preserving keys (gas_ops.cuh); the entry points then decode
-// the accumulator back to f32 in place. The wrappers fill the accumulator
-// with the identity (or its key) first.
+// slots, over an identity-filled accumulator with the GAS gather ops; f32
+// min folds keys, decoded in place afterwards. Its wrapper fills the
+// accumulator with the identity (or its key) first.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,52 +74,299 @@ namespace {
 
 using namespace luxk;
 
-constexpr int kGroup = 8;       // K10 threads per work item
-constexpr int kThreads = 256;   // a multiple of 32 and of kGroup
+constexpr int kThreads = 256;   // K10: 8 warp tasks, or one hub row
+constexpr int kMinBlocks = 8;   // K10's resident blocks asked of ptxas,
+constexpr int kMinBlocksK = 6;  // with one column and with K
+constexpr int kWarps = kThreads / 32;
+constexpr int kLaneMax = 32;    // edges a row may have to take one lane
 
-template <class C, class G, int kChunk>
-__global__ void __launch_bounds__(kThreads)
-pull_acc_kernel(const typename C::T* __restrict__ val,
-                const unsigned char* __restrict__ front,
-                const int* __restrict__ col_src,
-                const int* __restrict__ weights,
-                const int64_t* __restrict__ item_lo,
-                const int* __restrict__ item_row, int64_t n_items, int k,
-                unsigned* __restrict__ acc) {
+// What K10 folds: the message itself, or the order-preserving key of an f32
+// message; `out` is what the accumulator word stores.
+template <class C>
+struct Fold {
   using T = typename C::T;
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t item = gid / kGroup;
-  const int sub = (int)(gid % kGroup);
-  const bool live = item < n_items;
-  const int64_t lo = live ? item_lo[item] : 0;
-  const int64_t hi = live ? item_lo[item + 1] : 0;
-  // c0 and k are the same in every thread, so every thread of the warp
-  // reaches the shuffles (no early return).
-  for (int c0 = 0; c0 < k; c0 += kChunk) {
-    T a[kChunk];
+  __device__ __forceinline__ static unsigned ident() {
+    if constexpr (C::kKeyed)
+      return f32_key(C::ident());
+    else
+      return C::ident();
+  }
+  __device__ __forceinline__ static unsigned key(T v) {
+    if constexpr (C::kKeyed)
+      return f32_key(v);
+    else
+      return v;
+  }
+  __device__ __forceinline__ static unsigned comb(unsigned a, unsigned b) {
+    if constexpr (C::kKeyed)
+      return a < b ? a : b;
+    else
+      return C::apply(a, b);
+  }
+  __device__ __forceinline__ static unsigned out(unsigned a) {
+    if constexpr (C::kKeyed)
+      return f32_unkey(a);
+    else
+      return a;
+  }
+};
+
+// 32 frontier flags from f[base..), bit j for flag base + j (flags past n
+// read as unset).
+__device__ __forceinline__ unsigned load_word(const unsigned char* f,
+                                              int64_t base, int64_t n) {
+  if (base + 32 <= n && (reinterpret_cast<uintptr_t>(f + base) & 15) == 0) {
+    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(f + base));
+    const uint4 b = __ldcs(reinterpret_cast<const uint4*>(f + base) + 1);
+    const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    unsigned m = 0;
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) a[j] = C::ident();
-    for (int64_t e = lo + sub; e < hi; e += kGroup) {
-      const int64_t base = (int64_t)__ldg(col_src + e) * k + c0;
-      const int w = G::kWeighted ? __ldg(weights + e) : 0;
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if ((w[k] >> (8 * j)) & 0xFFu) m |= 1u << (4 * k + j);
+    return m;
+  }
+  unsigned m = 0;
+  for (int k = 0; k < 32; ++k)
+    if (base + k < n && f[base + k] != 0) m |= 1u << k;
+  return m;
+}
+
+// The frontier's bits (ops/segment.py::frontier_bits_plain): k = 1, word i
+// holds vertices 32 i .. 32 i + 31; k > 1, byte v * nch + c holds columns
+// 8 c .. 8 c + 7 of vertex v.
+__global__ void __launch_bounds__(kThreads)
+pack_bits_kernel(const unsigned char* __restrict__ front, int64_t n, int k,
+                 unsigned* __restrict__ bits) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (k == 1) {
+    if (i < (n + 31) / 32) bits[i] = load_word(front, 32 * i, n);
+    return;
+  }
+  const int nch = (k + 7) / 8;
+  if (i >= n * nch) return;
+  const int64_t v = i / nch;
+  const int c0 = 8 * (int)(i - v * nch);
+  const unsigned char* f = front + v * k + c0;
+  const int nc = k - c0 < 8 ? k - c0 : 8;
+  unsigned m = 0;
+  for (int j = 0; j < nc; ++j)
+    if (f[j]) m |= 1u << j;
+  reinterpret_cast<unsigned char*>(bits)[i] = (unsigned char)m;
+}
+
+cudaError_t pack_bits(const void* front, int64_t n, int k, void* bits,
+                      cudaStream_t st) {
+  const int64_t m = k == 1 ? (n + 31) / 32 : n * ((k + 7) / 8);
+  if (m == 0) return cudaSuccess;
+  pack_bits_kernel<<<(unsigned)((m + kThreads - 1) / kThreads), kThreads, 0,
+                     st>>>(static_cast<const unsigned char*>(front), n, k,
+                           static_cast<unsigned*>(bits));
+  return cudaGetLastError();
+}
+
+// The operands of one K10 call, for columns [c0, c0 + kChunk) of chunk c.
+template <class C, class G, int kChunk>
+struct Pull {
+  using T = typename C::T;
+  using F = Fold<C>;
+  const T* val;
+  const unsigned* bits;
+  const int* col_src;
+  const int* weights;
+  int k, nch, c;
+
+  // Folds edge e (source s) into a[].
+  __device__ __forceinline__ void take(unsigned (&a)[kChunk], int64_t e,
+                                       int s) const {
+    const int w = G::kWeighted ? __ldg(weights + e) : 0;
+    if constexpr (kChunk == 1) {
+      if ((__ldg(bits + (s >> 5)) >> (s & 31)) & 1u)
+        a[0] = F::comb(a[0], F::key(G::apply(__ldg(val + s), w)));
+    } else {
+      const unsigned m = __ldg(reinterpret_cast<const unsigned char*>(bits) +
+                               (int64_t)s * nch + c);
+      if (m == 0) return;
+      const T* vs = val + (int64_t)s * k + 8 * c;
 #pragma unroll
       for (int j = 0; j < kChunk; ++j)
-        if ((kChunk == 1 || c0 + j < k) && __ldg(front + base + j))
-          a[j] = C::apply(a[j], G::apply(__ldg(val + base + j), w));
-    }
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-#pragma unroll
-      for (int off = kGroup / 2; off > 0; off >>= 1)
-        a[j] = C::apply(a[j], __shfl_xor_sync(0xffffffffu, a[j], off));
-    if (live && sub == 0) {
-      unsigned* out = acc + (int64_t)item_row[item] * k + c0;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j)
-        if ((kChunk == 1 || c0 + j < k) && a[j] != C::ident())
-          C::atomic(out + j, a[j]);
+        if ((m >> j) & 1u)
+          a[j] = F::comb(a[j], F::key(G::apply(__ldg(vs + j), w)));
     }
   }
+
+  // A row's fold by one thread: edges in order, four loaded at a time.
+  __device__ __forceinline__ void lane_row(unsigned (&a)[kChunk], int64_t lo,
+                                           int64_t hi) const {
+    int64_t e = lo;
+    for (; e + 4 <= hi; e += 4) {
+      const int s0 = __ldg(col_src + e), s1 = __ldg(col_src + e + 1);
+      const int s2 = __ldg(col_src + e + 2), s3 = __ldg(col_src + e + 3);
+      take(a, e, s0);
+      take(a, e + 1, s1);
+      take(a, e + 2, s2);
+      take(a, e + 3, s3);
+    }
+    for (; e < hi; ++e) take(a, e, __ldg(col_src + e));
+  }
+
+  // Thread t's share of row [lo, hi) when kStride threads share it: the
+  // aligned quads of col_src inside the row, strided, two loaded before
+  // their tests; the head and tail edges outside whole quads, one a thread.
+  template <int kStride>
+  __device__ __forceinline__ void strided_row(unsigned (&a)[kChunk],
+                                              int64_t lo, int64_t hi,
+                                              int t) const {
+    const int mis = (int)((reinterpret_cast<uintptr_t>(col_src) >> 2) & 3);
+    const int4* q4 = reinterpret_cast<const int4*>(col_src - mis);
+    const int64_t qlo = (lo + mis + 3) >> 2, qhi = (hi + mis) >> 2;
+    int64_t head = hi, tail = hi;   // edges [lo, head) and [tail, hi)
+    if (qlo < qhi) {
+      head = 4 * qlo - mis;
+      tail = 4 * qhi - mis;
+    }
+    if (lo + t < head) take(a, lo + t, __ldg(col_src + lo + t));
+    if (tail + t < hi && qlo < qhi) take(a, tail + t, __ldg(col_src + tail + t));
+    // With no whole quad, head == hi covers the row: strided singles.
+    if (qlo >= qhi)
+      for (int64_t e = lo + t + kStride; e < hi; e += kStride)
+        take(a, e, __ldg(col_src + e));
+    int64_t q = qlo + t;
+    for (; q + kStride < qhi; q += 2 * kStride) {
+      const int4 va = __ldcs(q4 + q), vb = __ldcs(q4 + q + kStride);
+      const int64_t ea = 4 * q - mis, eb = 4 * (q + kStride) - mis;
+      take(a, ea, va.x);
+      take(a, ea + 1, va.y);
+      take(a, ea + 2, va.z);
+      take(a, ea + 3, va.w);
+      take(a, eb, vb.x);
+      take(a, eb + 1, vb.y);
+      take(a, eb + 2, vb.z);
+      take(a, eb + 3, vb.w);
+    }
+    if (q < qhi) {
+      const int4 va = __ldcs(q4 + q);
+      const int64_t ea = 4 * q - mis;
+      take(a, ea, va.x);
+      take(a, ea + 1, va.y);
+      take(a, ea + 2, va.z);
+      take(a, ea + 3, va.w);
+    }
+  }
+};
+
+template <class C, int kChunk>
+__device__ __forceinline__ void warp_fold(unsigned (&a)[kChunk]) {
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      a[j] = Fold<C>::comb(a[j], __shfl_xor_sync(0xffffffffu, a[j], off));
+}
+
+// K10: block b < n_hub sums hub row tasks[b]; every other block runs
+// kWarps warp tasks, warp w task n_hub + (b - n_hub) * kWarps + w.
+template <class C, class G, int kChunk>
+__global__ void __launch_bounds__(kThreads,
+                                  kChunk == 1 ? kMinBlocks : kMinBlocksK)
+pull_acc_kernel(const typename C::T* __restrict__ val,
+                const unsigned* __restrict__ bits,
+                const int* __restrict__ col_src,
+                const int* __restrict__ weights,
+                const int64_t* __restrict__ rp,
+                const int* __restrict__ tasks, int64_t n_tasks,
+                int64_t n_hub, int k, unsigned* __restrict__ out) {
+  using F = Fold<C>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nch = kChunk == 1 ? 1 : (k + 7) / 8;
+  Pull<C, G, kChunk> p{val, bits, col_src, weights, k, nch, 0};
+  if ((int64_t)blockIdx.x < n_hub) {
+    __shared__ unsigned red[kWarps][kChunk];
+    const int64_t r = tasks[2 * blockIdx.x];
+    const int64_t lo = rp[r], hi = rp[r + 1];
+    for (int c = 0; c < nch; ++c) {
+      p.c = c;
+      unsigned a[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) a[j] = F::ident();
+      p.template strided_row<kThreads>(a, lo, hi, threadIdx.x);
+      warp_fold<C>(a);
+      if (lane == 0)
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) red[warp][j] = a[j];
+      __syncthreads();
+      const int j = threadIdx.x;
+      if (j < kChunk && 8 * c + j < k) {
+        unsigned u = F::ident();
+        for (int w = 0; w < kWarps; ++w) u = F::comb(u, red[w][j]);
+        out[r * k + 8 * c + j] = F::out(u);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  const int64_t task = n_hub + ((int64_t)blockIdx.x - n_hub) * kWarps + warp;
+  if (task >= n_tasks) return;   // the whole warp
+  const int64_t r0 = tasks[2 * task], r1 = tasks[2 * task + 1];
+  const int64_t r = r0 + lane;
+  int64_t lo = 0, hi = 0;
+  if (r < r1) {
+    lo = rp[r];
+    hi = rp[r + 1];
+  }
+  const bool own = hi - lo <= kLaneMax;
+  const unsigned long_rows = __ballot_sync(0xffffffffu, !own);
+  for (int c = 0; c < nch; ++c) {
+    p.c = c;
+    unsigned a[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) a[j] = F::ident();
+    if (own) p.lane_row(a, lo, hi);
+    for (unsigned m = long_rows; m; m &= m - 1) {
+      const int l = __ffs(m) - 1;
+      const int64_t la = __shfl_sync(0xffffffffu, lo, l);
+      const int64_t lb = __shfl_sync(0xffffffffu, hi, l);
+      unsigned t[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) t[j] = F::ident();
+      p.template strided_row<32>(t, la, lb, lane);
+      warp_fold<C>(t);
+      if (lane == l)
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) a[j] = t[j];
+    }
+    if (r < r1)
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        if (kChunk == 1 || 8 * c + j < k) out[r * k + 8 * c + j] = F::out(a[j]);
+  }
+}
+
+template <class C, class G>
+cudaError_t run_pull(const void* val, const void* front, int64_t n_tab,
+                     const void* col_src, const void* weights,
+                     const void* row_ptr, const void* tasks, int64_t n_tasks,
+                     int64_t n_hub, int k, void* bits, void* acc,
+                     cudaStream_t st) {
+  using T = typename C::T;
+  cudaError_t e = pack_bits(front, n_tab, k, bits, st);
+  if (e != cudaSuccess || n_tasks == 0) return e;
+  const int64_t blocks = n_hub + (n_tasks - n_hub + kWarps - 1) / kWarps;
+  const auto* v = static_cast<const T*>(val);
+  const auto* b = static_cast<const unsigned*>(bits);
+  const auto* cs = static_cast<const int*>(col_src);
+  const auto* w = static_cast<const int*>(weights);
+  const auto* rp = static_cast<const int64_t*>(row_ptr);
+  const auto* tk = static_cast<const int*>(tasks);
+  auto* a = static_cast<unsigned*>(acc);
+  if (k == 1)
+    pull_acc_kernel<C, G, 1><<<(unsigned)blocks, kThreads, 0, st>>>(
+        v, b, cs, w, rp, tk, n_tasks, n_hub, k, a);
+  else
+    pull_acc_kernel<C, G, 8><<<(unsigned)blocks, kThreads, 0, st>>>(
+        v, b, cs, w, rp, tk, n_tasks, n_hub, k, a);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -107,87 +375,62 @@ decode_f32_keys(unsigned* __restrict__ a, int64_t n) {
   if (i < n) a[i] = f32_unkey(a[i]);
 }
 
-// After the fold: decode the accumulator's f32 keys in place.
-template <class C>
-cudaError_t finish(unsigned* acc, int64_t n, cudaStream_t st) {
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !C::kKeyed || n == 0) return e;
-  decode_f32_keys<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                    st>>>(acc, n);
-  return cudaGetLastError();
-}
-
-template <class C, class G>
-cudaError_t run_pull(const void* val, const void* front, const void* col_src,
-                     const void* weights, const void* item_lo,
-                     const void* item_row, int64_t n_items, int k, void* acc,
-                     int64_t n_acc, cudaStream_t st) {
-  using T = typename C::T;
-  const int64_t blocks = (n_items * kGroup + kThreads - 1) / kThreads;
-  const auto* v = static_cast<const T*>(val);
-  const auto* f = static_cast<const unsigned char*>(front);
-  const auto* cs = static_cast<const int*>(col_src);
-  const auto* w = static_cast<const int*>(weights);
-  const auto* il = static_cast<const int64_t*>(item_lo);
-  const auto* ir = static_cast<const int*>(item_row);
-  auto* a = static_cast<unsigned*>(acc);
-  if (k == 1)
-    pull_acc_kernel<C, G, 1><<<(unsigned)blocks, kThreads, 0, st>>>(
-        v, f, cs, w, il, ir, n_items, k, a);
-  else
-    pull_acc_kernel<C, G, 8><<<(unsigned)blocks, kThreads, 0, st>>>(
-        v, f, cs, w, il, ir, n_items, k, a);
-  return finish<C>(a, n_acc, st);
-}
-
 template <class C, class G>
 cudaError_t run_push(const void* q, const void* start, const void* offs,
                      int64_t cnt, int64_t total, const void* col_dst,
                      const void* weights, const void* val, void* acc,
                      int64_t n_acc, cudaStream_t st) {
-  const cudaError_t e = queue_fold<C, G>(q, start, offs, cnt, total, col_dst,
-                                         weights, val, acc, st);
-  if (e != cudaSuccess) return e;
-  return finish<C>(static_cast<unsigned*>(acc), n_acc, st);
+  cudaError_t e = queue_fold<C, G>(q, start, offs, cnt, total, col_dst,
+                                   weights, val, acc, st);
+  if (e != cudaSuccess || !C::kKeyed || n_acc == 0) return e;
+  // Decode the accumulator's f32 keys in place.
+  decode_f32_keys<<<(unsigned)((n_acc + kThreads - 1) / kThreads), kThreads,
+                    0, st>>>(static_cast<unsigned*>(acc), n_acc);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// values: (nv, k) uint32 or f32 by op; frontier: (nv, k) bool; col_src:
-// (ne,) int32; weights: (ne,) int32 for add_w, else unused; item_lo:
-// (n_items+1,) int64 edge offsets; item_row: (n_items,) int32 rows;
-// n_items > 0; k >= 1. op: 0-4 (see above). acc: n_acc = nv * k words filled
-// with the identity (the key of the identity for f32), combined into in place
-// and left as f32 for f32 ops.
+// values: (n_tab, k) uint32 or f32 by op; frontier: (n_tab, k) bool;
+// col_src: (ne,) int32 rows of the table; weights: (ne,) int32 for add_w,
+// else unused; row_ptr: (nrows+1,) int64; tasks: (n_tasks, 2) int32 row
+// ranges, the n_hub hub rows first (ops/segment.py::row_tasks), covering
+// the rows; k >= 1. op: 0-4 (see above). bits: scratch of (n_tab + 31) / 32
+// words (k = 1) or n_tab * ceil(k / 8) bytes. acc: (nrows, k) words,
+// written (as f32 for f32 ops).
 extern "C" int lux_gas_pull_acc(const void* values, const void* frontier,
-                                const void* col_src, const void* weights,
-                                const void* item_lo, const void* item_row,
-                                int64_t n_items, int k, int op, void* acc,
-                                int64_t n_acc, void* stream) {
-  if (k < 1 || op < 0 || op > 4) return (int)cudaErrorInvalidValue;
+                                int64_t n_tab, const void* col_src,
+                                const void* weights, const void* row_ptr,
+                                const void* tasks, int64_t n_tasks,
+                                int64_t n_hub, int k, int op, void* bits,
+                                void* acc, void* stream) {
+  if (k < 1 || op < 0 || op > 4 || n_hub < 0 || n_hub > n_tasks)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LUX_PULL(C, G)                                                      \
+  run_pull<C, G>(values, frontier, n_tab, col_src, weights, row_ptr, tasks, \
+                 n_tasks, n_hub, k, bits, acc, st)
   switch (op) {
     case 0:
-      return (int)run_pull<MinU32, Add1>(values, frontier, col_src, weights,
-                                         item_lo, item_row, n_items, k, acc,
-                                         n_acc, st);
+      return (int)LUX_PULL(MinU32, Add1);
     case 1:
-      return (int)run_pull<MaxU32, Copy>(values, frontier, col_src, weights,
-                                         item_lo, item_row, n_items, k, acc,
-                                         n_acc, st);
+      return (int)LUX_PULL(MaxU32, Copy);
     case 2:
-      return (int)run_pull<MinF32, AddW>(values, frontier, col_src, weights,
-                                         item_lo, item_row, n_items, k, acc,
-                                         n_acc, st);
+      return (int)LUX_PULL(MinF32, AddW);
     case 3:
-      return (int)run_pull<MaxU32, Decay>(values, frontier, col_src, weights,
-                                          item_lo, item_row, n_items, k, acc,
-                                          n_acc, st);
+      return (int)LUX_PULL(MaxU32, Decay);
     default:
-      return (int)run_pull<SumU32, One>(values, frontier, col_src, weights,
-                                        item_lo, item_row, n_items, k, acc,
-                                        n_acc, st);
+      return (int)LUX_PULL(SumU32, One);
   }
+#undef LUX_PULL
+}
+
+// frontier: (n, k) bool; bits: its pack, as K10 reads it.
+extern "C" int lux_frontier_bits(const void* frontier, int64_t n, int k,
+                                 void* bits, void* stream) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  return (int)pack_bits(frontier, n, k, bits,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // q, start: (cnt,) queue of K6; offs: (cnt+1,) exclusive degree prefix with

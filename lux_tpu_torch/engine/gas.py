@@ -64,8 +64,7 @@ from lux_tpu_torch.engine.push import PushProgram, _sparse_budgets
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops.frontier import frontier_queue, gas_push_acc
 from lux_tpu_torch.ops.segment import (
-    SEG_ITEM,
-    SegmentItems,
+    RowTasks,
     gas_kernel_code,
     gas_narrow,
     gas_pull_acc,
@@ -364,8 +363,7 @@ class AdaptiveExecutor(_GasBase):
             self.col_src = self._put(graph.col_src.astype(np.int32))
             self.weights = (None if graph.weights is None
                             else self._put(graph.weights))
-            self.items = (SegmentItems.build(graph.row_ptr, SEG_ITEM,
-                                             self.device)
+            self.tasks = (RowTasks.build(graph.row_ptr, self.device)
                           if on_card else None)
             if self.mode != "pull":
                 # Budgets sized so every frontier the policy can route to
@@ -392,7 +390,7 @@ class AdaptiveExecutor(_GasBase):
         prog = self.program
         return gas_pull_acc(
             self.row_ptr, self.col_src, state.values, state.frontier,
-            prog.combiner, prog.gather_op, self.items, gather=prog.gather,
+            prog.combiner, prog.gather_op, self.tasks, gather=prog.gather,
             weights=self.weights)
 
     def _queue(self, state: GasState, cnt: int):
@@ -579,7 +577,7 @@ class MultiSourceGasExecutor(_GasBase):
         self.col_src = self._put(graph.col_src.astype(np.int32))
         self.weights = (None if graph.weights is None
                         else self._put(graph.weights))
-        self.items = (SegmentItems.build(graph.row_ptr, SEG_ITEM, self.device)
+        self.tasks = (RowTasks.build(graph.row_ptr, self.device)
                       if on_card else None)
         self.push_iters = 0          # pull-only: always 0
         self.pull_iters = 0
@@ -606,7 +604,7 @@ class MultiSourceGasExecutor(_GasBase):
         prog = self.program
         acc = gas_pull_acc(
             self.row_ptr, self.col_src, state.values, state.frontier,
-            prog.combiner, prog.gather_op, self.items, gather=prog.gather,
+            prog.combiner, prog.gather_op, self.tasks, gather=prog.gather,
             weights=self.weights)
         new, frontier = self._update(state.values, acc)
         return GasState(new, frontier, 0), int(frontier.sum())

@@ -54,6 +54,7 @@ from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops.frontier import frontier_queue, queue_relax_scatter
 from lux_tpu_torch.ops.segment import (
     SEG_ITEM,
+    RowTasks,
     SegmentItems,
     combine_u32,
     gas_kernel_code,
@@ -515,7 +516,7 @@ class MultiSourcePushExecutor(LanesLoop):
         self.row_ptr = put(graph.row_ptr.astype(np.int64))
         self.col_src = put(graph.col_src.astype(np.int32))
         self.weights = None if graph.weights is None else put(graph.weights)
-        self.items = (SegmentItems.build(graph.row_ptr, SEG_ITEM, self.device)
+        self.tasks = (RowTasks.build(graph.row_ptr, self.device)
                       if on_card else None)
         self.sparse_iters = 0   # API parity with PushExecutor (always 0)
 
@@ -531,7 +532,7 @@ class MultiSourcePushExecutor(LanesLoop):
         table, front = loaded
         return gas_pull_acc(
             self.row_ptr, self.col_src, table, front, prog.combiner,
-            prog.relax_op, self.items, gather=prog.relax,
+            prog.relax_op, self.tasks, gather=prog.relax,
             weights=self.weights)
 
     def _update(self, values: torch.Tensor, acc: torch.Tensor):

@@ -322,7 +322,7 @@ class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
         self._row_bytes = 5 * self.k
         if self.device.type != "cpu":
             gas_kernel_code(program.combiner, program.relax_op)
-        self._build_parts(SEG_ITEM)
+        self._build_parts(tasks=True)
         self.sparse_iters = 0   # API parity with the sharded push engine
 
     def _lanes_storage(self, vals: np.ndarray, fr: np.ndarray) -> PushState:
@@ -339,7 +339,7 @@ class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
         return torch.stack([
             gas_pull_acc(part.row_ptr, part.col_src, self._table(table, q),
                          self._table(front, q), prog.combiner,
-                         prog.relax_op, part.items, gather=prog.relax,
+                         prog.relax_op, part.tasks, gather=prog.relax,
                          weights=part.weights)
             for q, part in enumerate(self._parts)])
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.graph.graph import Graph
-from lux_tpu_torch.ops.segment import SegmentItems
+from lux_tpu_torch.ops.segment import RowTasks, SegmentItems
 from lux_tpu_torch.parallel.mesh import CompactExchange, LocalMesh, mesh_for
 from lux_tpu_torch.parallel.shard import (
     ShardedGraph,
@@ -35,13 +35,14 @@ class Part:
     """One part's operands on the device: its CSC offsets, its real
     edges' flat source rows and weights (views of the stacked arrays),
     the first row of its own span in the flat table, and its kernel work
-    items (the card only)."""
+    items or K10 row tasks (the card only)."""
 
     row_ptr: torch.Tensor             # (max_nv + 1,) int64
     col_src: torch.Tensor             # (n_e,) int32, rows of the flat table
     weights: Optional[torch.Tensor]   # (n_e,) int32 or None
     row_base: int                     # part * max_nv
     items: Optional[SegmentItems]
+    tasks: Optional[RowTasks] = None
 
 
 class ShardedBase:
@@ -70,11 +71,12 @@ class ShardedBase:
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _build_parts(self, item_len: int, own_rows: bool = False) -> None:
+    def _build_parts(self, item_len: Optional[int] = None,
+                     own_rows: bool = False, tasks: bool = False) -> None:
         """The per-part operands and the compact exchange. ``item_len``
         sizes the kernels' work items; with ``own_rows`` an item also
         addresses its destinations' rows in the flat table (K9's
-        ``row_base``)."""
+        ``row_base``). ``tasks`` builds K10's row tasks instead."""
         sg = self.sg
         n = sg.max_nv
         on_card = self.device.type != "cpu"
@@ -85,17 +87,20 @@ class ShardedBase:
         self._parts: List[Part] = []
         for q in range(self.num_parts):
             n_e = int(sg.local_row_ptr[q, -1])
-            items = None
-            if on_card:
+            items = row_tasks = None
+            if on_card and item_len is not None:
                 items = SegmentItems.build(
                     sg.local_row_ptr[q], item_len, self.device,
                     row_base=q * n if own_rows else 0)
+            if on_card and tasks:
+                row_tasks = RowTasks.build(sg.local_row_ptr[q], self.device)
             self._parts.append(Part(
                 row_ptr=row_ptr[q],
                 col_src=src_pidx[q, :n_e],
                 weights=None if weights is None else weights[q, :n_e],
                 row_base=q * n,
                 items=items,
+                tasks=row_tasks,
             ))
         self._xch = (None if self._xplan is None
                      else CompactExchange(self._xplan, self.mesh, n))

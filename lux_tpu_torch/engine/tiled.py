@@ -226,31 +226,40 @@ class TiledPullExecutor:
         (new external vals, {phase: seconds}); phases are timed with
         CUDA events on the card.
 
-        With the grouped tail active the tail phase runs one network
+        The lane-select tail adds into the strips' sums, so ``strips``
+        and ``tail`` time K1 and K2 apart and ``apply`` is the program's
+        update alone. With the grouped tail active, ``x2d`` times the
+        padded operand it reads, and the tail phase runs one network
         level at a time: ``times["tail_level<k>"]`` per level (level 0
         is the x2d gather level), ``times["tail_root"]`` for the masked
-        per-destination reduction, and ``times["tail"]`` the total."""
+        per-destination reduction, and ``times["tail"]`` the total; its
+        ``apply`` also adds the two sums."""
         dev = self.device
         nv = self.graph.nv
         dh = self.dhybrid
         times = {}
         internal = self._values(vals)[self.order]
+        if self.gtail is None:
+            acc, times["strips"] = _timed(
+                lambda: strips_sum(internal, dh, nv), dev)
+            acc, times["tail"] = _timed(
+                lambda: tail_sum(internal, dh, out=acc), dev)
+            new, times["apply"] = _timed(
+                lambda: self.program.apply(internal, acc, self._ctx), dev)
+            return new[self.rank], times
         x2d, times["x2d"] = _timed(lambda: vals_to_x2d(internal, dh), dev)
         acc_s, times["strips"] = _timed(lambda: strips_sum(x2d, dh, nv), dev)
-        if self.gtail is not None:
-            gt = self.gtail
-            x, total = x2d, 0.0
-            for k in range(gt.n_levels + 1):
-                x, t = _timed(lambda: level_apply(
-                    x, gt.arow[k], gt.brow[k], gt.codes[k]), dev)
-                times[f"tail_level{k}"] = t
-                total += t
-            acc_t, t = _timed(lambda: root_reduce(
-                x, gt.nvalid_root, gt.dst_row_ptr, gt.dst_items), dev)
-            times["tail_root"] = t
-            times["tail"] = total + t
-        else:
-            acc_t, times["tail"] = _timed(lambda: tail_sum(x2d, dh), dev)
+        gt = self.gtail
+        x, total = x2d, 0.0
+        for k in range(gt.n_levels + 1):
+            x, t = _timed(lambda: level_apply(
+                x, gt.arow[k], gt.brow[k], gt.codes[k]), dev)
+            times[f"tail_level{k}"] = t
+            total += t
+        acc_t, t = _timed(lambda: root_reduce(
+            x, gt.nvalid_root, gt.dst_row_ptr, gt.dst_items), dev)
+        times["tail_root"] = t
+        times["tail"] = total + t
         new, times["apply"] = _timed(
             lambda: self.program.apply(internal, acc_s + acc_t, self._ctx),
             dev)

@@ -12,8 +12,10 @@ the hybrid plan are distributed separately, as there:
   parts by descending tail cost, which balances both the block counts
   (every padded array is ``max_nvb`` blocks) and the tail bytes. A
   part's tail edges are the concatenation of its owned blocks' CSC
-  ranges, with a local row pointer of ``max_nv + 1`` entries; K2
-  (``csrc/segment_sum.cu``) runs once per part.
+  ranges, with a local row pointer of ``max_nv + 1`` entries, held on
+  the card as one stream of flat source indices
+  (``ops/tiled_spmv.py::tail_stream``); K2 (``csrc/segment_sum.cu``)
+  runs once per part and adds into the part's row of the strip sums.
 - **Strips** are cut by strip index into P equal contiguous runs of
   each level's sorted strip list. Each part holds the cell stream of its
   own run (``ops/tiled_spmv.py::build_level``), whose row pointer covers
@@ -59,7 +61,6 @@ from lux_tpu_torch.engine.program import PullProgram, VertexCtx
 from lux_tpu_torch.engine.tiled import require_spmv_program
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.graph.partition import ExchangePlan
-from lux_tpu_torch.ops.segment import SEG_ITEM, SegmentItems
 from lux_tpu_torch.ops.tiled_spmv import (
     BLOCK,
     DeviceHybrid,
@@ -69,6 +70,7 @@ from lux_tpu_torch.ops.tiled_spmv import (
     plan_hybrid,
     refuse_pack,
     strips_sum,
+    tail_stream,
     tail_sum,
 )
 from lux_tpu_torch.parallel.mesh import CompactExchange, LocalMesh, mesh_for
@@ -236,13 +238,14 @@ class ShardedTiledExecutor:
             deg_out[p, :nvloc] = plan.out_degrees[vidx]
             deg_in[p, :nvloc] = plan.in_degrees[vidx]
             vmask[p, :nvloc] = True
+            lane = plan.tail_lane[eidx]
             self._parts.append(DeviceHybrid(
                 levels=tuple(part_levels[p]),
-                tail_sb=put(sb.astype(np.int32)),
-                tail_lane=put(plan.tail_lane[eidx].astype(np.int8)),
+                tail_src=tail_stream(sb, lane, self.device),
                 tail_row_ptr=put(rp),
-                tail_items=SegmentItems.build(rp, SEG_ITEM, self.device),
                 nvb=plan.nvb,
+                src_end=max([(int(sb.max()) << 7) + BLOCK if m else 0]
+                            + [lev.src_end for lev in part_levels[p]]),
             ))
 
         # (P, P) rows-read matrix in value rows (lux_tpu's engobs ledger).
@@ -343,11 +346,13 @@ class ShardedTiledExecutor:
     def _strips(self, ops: torch.Tensor) -> torch.Tensor:
         return self._merge(self._partials(ops))
 
-    def _tail(self, ops: torch.Tensor) -> torch.Tensor:
-        """(P, max_nv) tail sums over each part's owned destinations: K2
-        once per part."""
-        return torch.stack([tail_sum(self._x2d(ops, q), part)
-                            for q, part in enumerate(self._parts)])
+    def _tail(self, ops: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+        """Adds each part's tail sums over its owned destinations into
+        its row of ``acc`` (P, max_nv), the strips' sums: K2 once per
+        part. Returns ``acc``."""
+        for q, part in enumerate(self._parts):
+            tail_sum(self._x2d(ops, q), part, out=acc[q])
+        return acc
 
     def _apply(self, vals: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
         new = self.program.apply(vals, acc, self._ctx)
@@ -355,7 +360,7 @@ class ShardedTiledExecutor:
 
     def _step(self, vals: torch.Tensor) -> torch.Tensor:
         ops = self._exchange(vals)
-        return self._apply(vals, self._strips(ops) + self._tail(ops))
+        return self._apply(vals, self._tail(ops, self._strips(ops)))
 
     # -- running -----------------------------------------------------------
 
@@ -393,14 +398,14 @@ class ShardedTiledExecutor:
     def phase_step(self, vals):
         """One iteration as separately timed exchange, strips, tail and
         apply phases (CUDA events on the card; the strips phase includes
-        the reduce_scatter). Returns (new vals, {phase: seconds})."""
+        the reduce_scatter, and the tail adds into its result). Returns
+        (new vals, {phase: seconds})."""
         vals = self._values(vals)
         dev, times = self.device, {}
         ops, times["exchange"] = timed(lambda: self._exchange(vals), dev)
-        acc_s, times["strips"] = timed(lambda: self._strips(ops), dev)
-        acc_t, times["tail"] = timed(lambda: self._tail(ops), dev)
-        new, times["apply"] = timed(
-            lambda: self._apply(vals, acc_s + acc_t), dev)
+        acc, times["strips"] = timed(lambda: self._strips(ops), dev)
+        acc, times["tail"] = timed(lambda: self._tail(ops, acc), dev)
+        new, times["apply"] = timed(lambda: self._apply(vals, acc), dev)
         return new, times
 
     def warmup(self):

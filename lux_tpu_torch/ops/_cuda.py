@@ -37,6 +37,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("strip_spmv", "tail_gather_sum", "level_apply", "segment_sum_rowptr",
      "segment_minmax_relax", "frontier_queue", "queue_relax_scatter",
      "gather_segment_sum", "cf_edge_sum", "gas_pull_acc", "gas_push_acc",
+     # K10's frontier pack launched alone (K10 runs it inside its call)
+     "frontier_bits",
      # the gather probes (lux_tpu_torch/probes), one name per kernel form
      "block_take[axis=0 int32]", "block_take[axis=0 int8]",
      "block_take[axis=1 int32]", "block_take[axis=1 int8]", "merge4"), 0
@@ -48,8 +50,8 @@ _SIGNATURES = {
     # partial, y, stream
     "lux_strip_spmv": (_P, _P, _P, _P, _I64, _P, _I64, _I64, _INT, _P, _P,
                        _P),
-    # x2d, sb, lane, item_lo, n_items, row_items, nrows, partial, y, stream
-    "lux_tail_gather_sum": (_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P),
+    # x, src, m4, row_ptr, nrows, accumulate, y, stream
+    "lux_tail_gather_sum": (_P, _P, _I64, _P, _I64, _INT, _P, _P),
     # data, nvalid (nullable), item_lo, n_items, row_items, nrows, partial, y, stream
     "lux_segment_sum_rowptr": (_P, _P, _P, _I64, _P, _I64, _P, _P, _P),
     # x, arow, brow, codes, S, out, stream
@@ -70,10 +72,12 @@ _SIGNATURES = {
     # vals, col_src, weights, item_lo, item_row, n_items, row_items, nrows,
     # partial, y, stream
     "lux_cf_edge_sum": (_P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P),
-    # values, frontier, col_src, weights, item_lo, item_row, n_items, k, op,
-    # acc, n_acc, stream
-    "lux_gas_pull_acc": (_P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P, _I64,
-                         _P),
+    # values, frontier, n_tab, col_src, weights, row_ptr, tasks, n_tasks,
+    # n_hub, k, op, bits, acc, stream
+    "lux_gas_pull_acc": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _INT,
+                         _INT, _P, _P, _P),
+    # frontier, n, k, bits, stream
+    "lux_frontier_bits": (_P, _I64, _INT, _P, _P),
     # q, start, offs, cnt, total, col_dst, weights, values, op, acc, n_acc,
     # stream
     "lux_gas_push_acc": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT, _P, _I64,

@@ -59,12 +59,18 @@ SCRATCH_BLOCKS = 4096
 _SCRATCH: Dict[Tuple[int, Optional[int]], torch.Tensor] = {}
 
 
+# The queue holds int32 ids, as lux_tpu's vertex ids are.
+MAX_QUEUE_NV = 2**31 - 1
+
+
 def _queue_scratch(dev: torch.device, stream: Optional[int]) -> torch.Tensor:
     key = (dev.index, stream)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = torch.zeros(2 + 2 * SCRATCH_BLOCKS,
-                                    dtype=torch.int64, device=dev)
-    return _SCRATCH[key]
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        # setdefault keeps one scratch per key when two threads race here.
+        scratch = _SCRATCH.setdefault(key, torch.zeros(
+            2 + 2 * SCRATCH_BLOCKS, dtype=torch.int64, device=dev))
+    return scratch
 
 
 def frontier_queue_plain(frontier: torch.Tensor, row_ptr: torch.Tensor):
@@ -82,14 +88,19 @@ def frontier_queue_plain(frontier: torch.Tensor, row_ptr: torch.Tensor):
 def frontier_queue(frontier: torch.Tensor, row_ptr: torch.Tensor, cnt: int):
     """The frontier queue of :func:`frontier_queue_plain`. ``cnt`` is the
     frontier's size, which the caller knows; the CUDA kernel fills
-    exactly ``cnt`` slots and ``offs[cnt]``, in one cooperative launch
-    that reads the frontier once."""
+    exactly ``cnt`` slots and ``offs[cnt]``, in one cooperative launch.
+    A frontier of more than ``2**31 - 1`` vertices raises ``ValueError``:
+    the queue's int32 ids cannot hold them. Calls on different streams
+    may run at once; each stream has its own scratch."""
+    nv = frontier.shape[0]
+    if nv > MAX_QUEUE_NV:
+        raise ValueError(f"a frontier of {nv} vertices: the queue's int32 "
+                         f"ids hold at most {MAX_QUEUE_NV}")
     if frontier.device.type == "cpu":
         return frontier_queue_plain(frontier, row_ptr)
     dev = frontier.device
     _cuda.check(frontier, "frontier", torch.bool, dev, ndim=1)
     _cuda.check(row_ptr, "row_ptr", torch.int64, dev, ndim=1)
-    nv = frontier.shape[0]
     if row_ptr.shape[0] != nv + 1:
         raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries, "
                          f"frontier {nv}")

@@ -1,7 +1,8 @@
 """Segment reductions: sorted-segment sums (K4), the push engine's
 relax-and-reduce (K5, ``segment_minmax_relax``), the flat pull
 engine's fused edge sums (K8 ``gather_segment_sum``, K9 ``cf_edge_sum``)
-and the GAS engine's pull accumulator (K10 ``gas_pull_acc``).
+and the GAS engine's pull accumulator (K10 ``gas_pull_acc``, over the
+row tasks of :class:`RowTasks` and a frontier bitmask).
 
 The counterpart of ``lux_tpu/ops/segment.py``. There, sums are a
 scatter-free cumsum-diff and min/max a block-min hierarchy of segmented
@@ -40,6 +41,7 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lux_tpu_torch.ops import _cuda
 
@@ -766,6 +768,115 @@ def gas_pull_acc_plain(
     return gas_narrow(segment_reduce(msg, seg, nv, kind, dtype=dom), values)
 
 
+# -- K10's schedule and its frontier bitmask ----------------------------------
+
+# A K10 warp task: at most TASK_ROWS consecutive rows (one a lane) whose
+# edges start inside one window of TASK_EDGES, so it gathers at most twice
+# that; a row of more than TASK_EDGES edges is a task alone, and one of more
+# than HUB_EDGES takes a whole block (csrc/gas.cu).
+TASK_ROWS = 32
+TASK_EDGES = 1024
+HUB_EDGES = 4096
+
+
+def row_tasks(row_ptr: np.ndarray):
+    """(tasks (n_tasks, 2) int32 [first row, end row), n_hub) for CSR
+    offsets: the rows cut into K10 tasks, the ``n_hub`` single hub rows
+    first, then the warp tasks in row order. The tasks partition the
+    rows."""
+    rp = np.asarray(row_ptr, np.int64)
+    n = rp.shape[0] - 1
+    if n <= 0:
+        return np.zeros((0, 2), np.int32), 0
+    lens = np.diff(rp)
+    alone = lens > TASK_EDGES
+    win = (rp[:-1] - rp[0]) // TASK_EDGES
+    idx = np.arange(n, dtype=np.int64)
+    cut = np.ones(n, bool)
+    cut[1:] = (win[1:] != win[:-1]) | alone[1:] | alone[:-1]
+    first = np.maximum.accumulate(np.where(cut, idx, 0))
+    cut |= (idx - first) % TASK_ROWS == 0
+    lo = np.flatnonzero(cut)
+    hi = np.append(lo[1:], n)
+    hub = (hi - lo == 1) & (lens[lo] > HUB_EDGES)
+    order = np.concatenate([np.flatnonzero(hub), np.flatnonzero(~hub)])
+    tasks = np.stack([lo[order], hi[order]], axis=1).astype(np.int32)
+    return tasks, int(hub.sum())
+
+
+@dataclasses.dataclass(eq=False)
+class RowTasks:
+    """K10's schedule over one CSC row pointer (see :func:`row_tasks`),
+    on the device; built once per graph on the host. Block ``b <
+    n_hub`` sums hub row ``tasks[b]``; the other blocks run a warp task
+    a warp, in order."""
+
+    tasks: torch.Tensor   # (n_tasks, 2) int32 [first row, end row)
+    n_hub: int
+    nrows: int
+
+    @property
+    def n_tasks(self) -> int:
+        return self.tasks.shape[0]
+
+    @staticmethod
+    def build(row_ptr: np.ndarray, device) -> "RowTasks":
+        tasks, n_hub = row_tasks(row_ptr)
+        return RowTasks(tasks=torch.from_numpy(tasks).to(device),
+                        n_hub=n_hub, nrows=np.asarray(row_ptr).shape[0] - 1)
+
+
+def frontier_bits_plain(frontier: torch.Tensor) -> torch.Tensor:
+    """The frontier as K10 reads it. (n,) or (n, 1) bool: int32 words,
+    bit j of word i the flag of vertex 32 i + j (uint32 bits). (n, K)
+    bool, K > 1: (n, ceil(K / 8)) uint8, bit j of byte c of row v the
+    flag of column 8 c + j."""
+    n = frontier.shape[0]
+    if frontier.dim() == 1 or frontier.shape[1] == 1:
+        bit = torch.arange(32, device=frontier.device)
+        f = F.pad(frontier.reshape(-1).to(torch.int64), (0, -n % 32))
+        return narrow_u32((f.view(-1, 32) << bit).sum(1))
+    bit = torch.arange(8, device=frontier.device)
+    nch = -(-frontier.shape[1] // 8)
+    f = F.pad(frontier.to(torch.int64), (0, 8 * nch - frontier.shape[1]))
+    return (f.view(n, nch, 8) << bit).sum(2).to(torch.uint8)
+
+
+def frontier_from_bits_plain(bits: torch.Tensor, shape) -> torch.Tensor:
+    """The bool frontier of ``shape`` that :func:`frontier_bits_plain`
+    packed into ``bits``."""
+    n = shape[0]
+    if len(shape) == 1 or shape[1] == 1:
+        bit = torch.arange(32, device=bits.device)
+        f = (widen_u32(bits)[:, None] >> bit) & 1
+        return f.reshape(-1)[:n].reshape(shape).bool()
+    bit = torch.arange(8, device=bits.device)
+    f = (bits.to(torch.int64)[:, :, None] >> bit) & 1
+    return f.reshape(n, 8 * bits.shape[1])[:, :shape[1]].bool()
+
+
+def frontier_bits(frontier: torch.Tensor) -> torch.Tensor:
+    """:func:`frontier_bits_plain` by K10's pack kernel (``csrc/gas.cu``)
+    on the card; K10 runs the same kernel inside its own call."""
+    if frontier.device.type == "cpu":
+        return frontier_bits_plain(frontier)
+    dev = frontier.device
+    _cuda.check(frontier, "frontier", torch.bool, dev)
+    if frontier.dim() not in (1, 2):
+        raise ValueError(f"frontier must be (n,) or (n, K), got "
+                         f"{tuple(frontier.shape)}")
+    n = frontier.shape[0]
+    k = 1 if frontier.dim() == 1 else frontier.shape[1]
+    out = torch.empty(((n + 31) // 32,) if k == 1 else (n, -(-k // 8)),
+                      dtype=torch.int32 if k == 1 else torch.uint8,
+                      device=dev)
+    if n:
+        _cuda.launch("frontier_bits", "lux_frontier_bits",
+                     _cuda.ptr(frontier), n, k, _cuda.ptr(out),
+                     _cuda.stream(dev))
+    return out
+
+
 def gas_pull_acc(
     row_ptr: torch.Tensor,
     col_src: torch.Tensor,
@@ -773,7 +884,7 @@ def gas_pull_acc(
     frontier: torch.Tensor,
     kind: str,
     gather_op: Optional[str],
-    items: Optional[SegmentItems] = None,
+    tasks: Optional[RowTasks] = None,
     gather: Optional[EdgeFn] = None,
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -784,9 +895,11 @@ def gas_pull_acc(
 
     CPU tensors take the plain version with ``gather`` (default: the
     plain form of ``gather_op``). CUDA tensors launch K10
-    (``csrc/gas.cu``) over ``items`` (the :class:`SegmentItems` of
-    ``row_ptr``), which knows the edge function only by ``gather_op`` and
-    is compiled for the pairs of :data:`GAS_KERNEL_OPS`."""
+    (``csrc/gas.cu``) over ``tasks`` (the :class:`RowTasks` of
+    ``row_ptr``): one call that packs the frontier into bits, then sums
+    every row in one pass, writing each row once (the identity where no
+    source is active). It knows the edge function only by ``gather_op``
+    and is compiled for the pairs of :data:`GAS_KERNEL_OPS`."""
     if values.device.type == "cpu":
         return gas_pull_acc_plain(
             row_ptr, col_src, values, frontier, kind,
@@ -809,25 +922,26 @@ def gas_pull_acc(
         _cuda.check(weights, "weights", torch.int32, dev, ndim=1)
         if weights.shape != col_src.shape:
             raise ValueError("weights and col_src differ in shape")
-    if items is None:
-        raise ValueError("CUDA gas_pull_acc needs the SegmentItems of row_ptr")
-    if items.nrows != nv:
-        raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
-    if items.row_base:
-        # item_row is the output row here: the items of one table's rows.
-        raise ValueError("items with a row_base address another table")
-    _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
-    _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
-    shape = (nv,) + tuple(values.shape[1:])
-    if items.n_items == 0:
-        return gas_identity_storage(kind, shape, values.dtype, dev)
+    if tasks is None:
+        raise ValueError("CUDA gas_pull_acc needs the RowTasks of row_ptr")
+    if tasks.nrows != nv:
+        raise ValueError(f"tasks cover {tasks.nrows} rows, row_ptr {nv}")
+    _cuda.check(tasks.tasks, "tasks", torch.int32, dev, ndim=2)
+    acc = torch.empty((nv,) + tuple(values.shape[1:]), dtype=values.dtype,
+                      device=dev)
+    if nv == 0:
+        return acc
+    n_tab = values.shape[0]
     k = 1 if values.dim() == 1 else values.shape[1]
-    acc = gas_key_storage(kind, shape, values.dtype, dev)
+    bits = torch.empty((n_tab + 31) // 32 if k == 1
+                       else (n_tab * -(-k // 8) + 3) // 4,
+                       dtype=torch.int32, device=dev)
     _cuda.launch(
         "gas_pull_acc", "lux_gas_pull_acc", _cuda.ptr(values),
-        _cuda.ptr(frontier), _cuda.ptr(col_src),
+        _cuda.ptr(frontier), n_tab, _cuda.ptr(col_src),
         _cuda.ptr(weights if gather_op in F32_GATHER_OPS else None),
-        _cuda.ptr(items.item_lo), _cuda.ptr(items.item_row), items.n_items,
-        k, op, _cuda.ptr(acc), acc.numel(), _cuda.stream(dev),
+        _cuda.ptr(row_ptr), _cuda.ptr(tasks.tasks), tasks.n_tasks,
+        tasks.n_hub, k, op, _cuda.ptr(bits), _cuda.ptr(acc),
+        _cuda.stream(dev),
     )
-    return acc.view(values.dtype)
+    return acc

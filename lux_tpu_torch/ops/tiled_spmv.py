@@ -18,12 +18,16 @@ strip, so a dense strip layout moves 174 bytes per edge. :meth:`DeviceHybrid.bui
 each level into a destination-major **cell stream** instead: per
 destination row ``row * r + i``, its nonzero cells as the source vertex
 ``cols[t] * 128 + lane`` (int32) and the count (int8), in strip then
-lane order, under a CSR row pointer. The strip kernel K1
-(``csrc/strip_spmv.cu``) is a count-weighted segmented gather-sum over
-that stream, and the tail kernel K2 (``csrc/segment_sum.cu``) a CSR
-segmented gather-sum. Neither needs the JAX package's Z-stream cumsums,
-boundary tables or double-single prefixes, which exist to avoid scatters
-on the TPU. Each kernel's wrapper runs its plain PyTorch version for CPU
+lane order, under a CSR row pointer. The tail becomes one int32 stream
+of flat source indices, ``(tail_sb << 7) | tail_lane``. The strip kernel
+K1 (``csrc/strip_spmv.cu``) is a count-weighted segmented gather-sum
+over the cell stream, and the tail kernel K2 (``csrc/segment_sum.cu``) a
+CSR segmented gather-sum over the tail stream that adds into K1's
+output. Every source index is below nv, so on one device both gather
+straight from the ``(nv,)`` values, with no padded ``(nvb, 128)``
+operand. Neither needs the JAX package's Z-stream cumsums, boundary
+tables or double-single prefixes, which exist to avoid scatters on the
+TPU. Each kernel's wrapper runs its plain PyTorch version for CPU
 tensors only.
 """
 
@@ -38,11 +42,7 @@ import torch.nn.functional as F
 
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops import _cuda
-from lux_tpu_torch.ops.segment import (
-    SEG_ITEM,
-    SegmentItems,
-    prefix_diff_sum,
-)
+from lux_tpu_torch.ops.segment import SegmentItems, prefix_diff_sum
 from lux_tpu_torch.utils import flags
 
 BLOCK = 128
@@ -570,7 +570,8 @@ class DeviceLevel:
     of each cell's source vertex and its count ``cnt``. Both streams are
     padded with zero cells to a multiple of 4, which K1 reads 4 at a
     time. ``items`` cuts the rows into K1 work items of at most
-    :data:`CELL_ITEM` cells."""
+    :data:`CELL_ITEM` cells. ``src_end`` bounds the sources: every
+    ``src`` of a cell is below it (0 without cells)."""
 
     r: int
     src: torch.Tensor        # (C4,) int32 cols[t] * 128 + lane
@@ -580,6 +581,7 @@ class DeviceLevel:
     row0: int
     height: int
     n_cells: int
+    src_end: int = 0
 
     @property
     def nrows(self) -> int:
@@ -649,41 +651,66 @@ def build_level(lev: StripLevel, nvb: int, device, lo: int = 0,
         r=r, src=src, cnt=cnt, row_ptr=row_ptr,
         items=SegmentItems.build(row_ptr.cpu().numpy(), CELL_ITEM, device),
         row0=row0, height=height, n_cells=n_cells,
+        src_end=int(src[:n_cells].max()) + 1 if n_cells else 0,
     )
+
+
+def tail_stream(tail_sb: np.ndarray, tail_lane: np.ndarray, device
+                ) -> torch.Tensor:
+    """The tail as K2 reads it: ``(tail_sb << 7) | tail_lane`` per edge,
+    int32, padded with zeros to a multiple of 4 entries (never summed)."""
+    m = tail_sb.shape[0]
+    src = np.zeros(m + (-m % 4), np.int32)
+    src[:m] = (np.asarray(tail_sb, np.int32) << 7) \
+        | np.asarray(tail_lane, np.int32)
+    return torch.from_numpy(src).to(device)
 
 
 @dataclasses.dataclass(eq=False)
 class DeviceHybrid:
+    """A plan on the device: the strip levels as cell streams and the
+    tail as one stream of flat source indices (:func:`tail_stream`) in
+    CSC order under ``tail_row_ptr``. Every source index of the levels
+    and the tail is below ``src_end``."""
+
     levels: Tuple[DeviceLevel, ...]
-    tail_sb: torch.Tensor        # (M,) int32 src >> 7, CSC order
-    tail_lane: torch.Tensor      # (M,) int8  src & 127
-    tail_row_ptr: torch.Tensor   # (nv+1,) int64
-    tail_items: SegmentItems     # K2 work items over tail_row_ptr
+    tail_src: torch.Tensor       # (M4,) int32 (sb << 7) | lane, CSC order
+    tail_row_ptr: torch.Tensor   # (rows+1,) int64
     nvb: int
+    src_end: int
 
     @staticmethod
     def build(plan: HybridPlan, device, pack=None) -> "DeviceHybrid":
         """Upload ``plan`` to ``device``: each strip level as its cell
-        stream (:func:`build_level`), the tail as it is. ``pack`` (or
-        the LUX_PACK_STRIPS opt-in) is refused (:func:`refuse_pack`)."""
+        stream (:func:`build_level`), the tail as its source stream.
+        ``pack`` (or the LUX_PACK_STRIPS opt-in) is refused
+        (:func:`refuse_pack`). Raises if a source index is not below
+        ``plan.nv``: the kernels gather straight from the (nv,)
+        values."""
         refuse_pack(pack, plan.cap)
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        row_ptr = np.asarray(plan.tail_row_ptr, np.int64)
+        levels = tuple(build_level(lev, plan.nvb, device)
+                       for lev in plan.levels)
+        m = plan.tail_sb.shape[0]
+        tail_end = int(((plan.tail_sb.astype(np.int64) << 7)
+                        | plan.tail_lane).max()) + 1 if m else 0
+        src_end = max([tail_end] + [lev.src_end for lev in levels])
+        if src_end > plan.nv:
+            raise ValueError(f"plan reads source {src_end - 1} of "
+                             f"{plan.nv} vertices")
         return DeviceHybrid(
-            levels=tuple(build_level(lev, plan.nvb, device)
-                         for lev in plan.levels),
-            tail_sb=put(plan.tail_sb.astype(np.int32)),
-            tail_lane=put(plan.tail_lane.astype(np.int8)),
-            tail_row_ptr=put(row_ptr),
-            tail_items=SegmentItems.build(row_ptr, SEG_ITEM, device),
+            levels=levels,
+            tail_src=tail_stream(plan.tail_sb, plan.tail_lane, device),
+            tail_row_ptr=torch.from_numpy(np.asarray(
+                plan.tail_row_ptr, np.int64)).to(device),
             nvb=plan.nvb,
+            src_end=src_end,
         )
 
 
 # -- K1: strip levels --------------------------------------------------------
 
 
-def strip_level_spmv_plain(x2d: torch.Tensor, lev: DeviceLevel,
+def strip_level_spmv_plain(x: torch.Tensor, lev: DeviceLevel,
                            out: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """K1's plain version: each cell's count times its source value,
@@ -691,34 +718,35 @@ def strip_level_spmv_plain(x2d: torch.Tensor, lev: DeviceLevel,
     rows of a zero ``(height,)`` vector or added into ``out``."""
     n = lev.n_cells
     contrib = lev.cnt[:n].to(torch.float32) \
-        * x2d.reshape(-1)[lev.src[:n].long()]
+        * x.reshape(-1)[lev.src[:n].long()]
     sums = prefix_diff_sum(contrib, lev.row_ptr)
     rows = slice(lev.row0, lev.row0 + lev.nrows)
     if out is None:
-        out = torch.zeros(lev.height, dtype=torch.float32, device=x2d.device)
+        out = torch.zeros(lev.height, dtype=torch.float32, device=x.device)
         out[rows] = sums
     else:
         out[rows] += sums
     return out
 
 
-def strip_level_spmv(x2d: torch.Tensor, lev: DeviceLevel,
+def strip_level_spmv(x: torch.Tensor, lev: DeviceLevel,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Σ count · x over each destination row's cells; (height,) f32.
 
-    ``x2d`` is the (nvb, 128) f32 operand. Rows outside the level's
-    ``[row0, row0 + nrows)`` are 0; with ``out`` (a (height,) f32
-    vector) the level's sums are added into it instead, and ``out`` is
-    returned. CPU tensors take the plain version; CUDA tensors launch
-    K1 (``csrc/strip_spmv.cu``).
+    ``x`` holds the source values, indexed flat: the (nv,) values or the
+    (nvb, 128) operand. Rows outside the level's ``[row0, row0 +
+    nrows)`` are 0; with ``out`` (a (height,) f32 vector) the level's
+    sums are added into it instead, and ``out`` is returned. CPU tensors
+    take the plain version; CUDA tensors launch K1
+    (``csrc/strip_spmv.cu``).
     """
-    if x2d.device.type == "cpu":
-        return strip_level_spmv_plain(x2d, lev, out)
-    dev = x2d.device
-    _cuda.check(x2d, "x2d", torch.float32, dev, ndim=2)
-    if x2d.shape[1] != BLOCK or x2d.shape[0] * BLOCK != lev.height:
-        raise ValueError(f"x2d must be ({lev.height // BLOCK}, {BLOCK}), "
-                         f"got {tuple(x2d.shape)}")
+    if x.device.type == "cpu":
+        return strip_level_spmv_plain(x, lev, out)
+    dev = x.device
+    _cuda.check(x, "x", torch.float32, dev)
+    if x.numel() < lev.src_end:
+        raise ValueError(f"x has {x.numel()} values; the level reads "
+                         f"sources up to {lev.src_end - 1}")
     _cuda.check(lev.src, "src", torch.int32, dev, ndim=1)
     _cuda.check(lev.cnt, "cnt", torch.int8, dev, ndim=1)
     if lev.src.shape != lev.cnt.shape or lev.src.shape[0] % 4 \
@@ -747,7 +775,7 @@ def strip_level_spmv(x2d: torch.Tensor, lev: DeviceLevel,
     partial = torch.empty(lev.items.n_items, dtype=torch.float32, device=dev)
     _cuda.launch(
         "strip_spmv", "lux_strip_spmv",
-        _cuda.ptr(lev.src), _cuda.ptr(lev.cnt), _cuda.ptr(x2d),
+        _cuda.ptr(lev.src), _cuda.ptr(lev.cnt), _cuda.ptr(x),
         _cuda.ptr(lev.items.item_lo), lev.items.n_items,
         _cuda.ptr(lev.items.row_items), lev.nrows, lev.row0, accumulate,
         _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream(dev),
@@ -759,105 +787,113 @@ def strip_level_spmv(x2d: torch.Tensor, lev: DeviceLevel,
 
 
 def lane_select_tail_sums_plain(
-    x2d: torch.Tensor,
-    tail_sb: torch.Tensor,
-    tail_lane: torch.Tensor,
+    x: torch.Tensor,
+    tail_src: torch.Tensor,
     tail_row_ptr: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2's plain version: gather each tail edge's source value, then
-    per-destination sums by f64 prefix differences."""
-    idx = (tail_sb.long() << 7) | tail_lane.long()
-    return prefix_diff_sum(x2d.reshape(-1)[idx], tail_row_ptr)
+    per-destination sums by f64 prefix differences; added into ``out``
+    when it is given."""
+    sums = prefix_diff_sum(x.reshape(-1)[tail_src.long()], tail_row_ptr)
+    return sums if out is None else out.add_(sums)
 
 
 def lane_select_tail_sums(
-    x2d: torch.Tensor,
-    tail_sb: torch.Tensor,
-    tail_lane: torch.Tensor,
+    x: torch.Tensor,
+    tail_src: torch.Tensor,
     tail_row_ptr: torch.Tensor,
-    items: Optional[SegmentItems] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-destination sums of tail-edge source values; (nv,) f32.
+    """Per-destination sums of tail-edge source values; (rows,) f32.
 
-    ``y[v] = Σ x2d.flat[(tail_sb[e] << 7) | tail_lane[e]]`` over
-    ``e ∈ [tail_row_ptr[v], tail_row_ptr[v+1])``. CPU tensors take the
-    plain version; CUDA tensors launch K2 (``csrc/segment_sum.cu``) over
-    ``items``, the :class:`SegmentItems` of ``tail_row_ptr``.
+    ``y[v] = Σ x.flat[tail_src[e]]`` over ``e ∈ [tail_row_ptr[v],
+    tail_row_ptr[v+1])``, where ``tail_src`` is the stream of
+    :func:`tail_stream` (``(tail_sb << 7) | tail_lane``, padded to a
+    multiple of 4) and every index lies inside ``x``. With ``out`` (a
+    (rows,) f32 vector) the sums are added into it and ``out`` is
+    returned. CPU tensors take the plain version; CUDA tensors launch K2
+    (``csrc/segment_sum.cu``), one launch straight over the row pointer.
     """
-    if x2d.device.type == "cpu":
-        return lane_select_tail_sums_plain(x2d, tail_sb, tail_lane,
-                                           tail_row_ptr)
-    dev = x2d.device
-    _cuda.check(x2d, "x2d", torch.float32, dev, ndim=2)
-    _cuda.check(tail_sb, "tail_sb", torch.int32, dev, ndim=1)
-    _cuda.check(tail_lane, "tail_lane", torch.int8, dev, ndim=1)
+    if x.device.type == "cpu":
+        return lane_select_tail_sums_plain(x, tail_src, tail_row_ptr, out)
+    dev = x.device
+    _cuda.check(x, "x", torch.float32, dev)
+    _cuda.check(tail_src, "tail_src", torch.int32, dev, ndim=1)
     _cuda.check(tail_row_ptr, "tail_row_ptr", torch.int64, dev, ndim=1)
-    if tail_sb.shape != tail_lane.shape:
-        raise ValueError("tail_sb and tail_lane must have one entry per edge")
-    if items is None:
-        raise ValueError("the CUDA tail sum needs the SegmentItems of "
-                         "tail_row_ptr")
-    _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
-    _cuda.check(items.row_items, "row_items", torch.int64, dev, ndim=1)
-    nv = tail_row_ptr.shape[0] - 1
-    if items.nrows != nv:
-        raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
-    if items.n_items == 0:
-        return torch.zeros(nv, dtype=torch.float32, device=dev)
-    partial = torch.empty(items.n_items, dtype=torch.float32, device=dev)
-    y = torch.empty(nv, dtype=torch.float32, device=dev)
+    if tail_src.shape[0] % 4 or tail_src.data_ptr() % 16:
+        raise ValueError("tail_src must be a 16-byte aligned stream of a "
+                         "multiple of 4 entries")
+    nrows = tail_row_ptr.shape[0] - 1
+    if out is None:
+        out = torch.empty(nrows, dtype=torch.float32, device=dev)
+        accumulate = 0
+    else:
+        _cuda.check(out, "out", torch.float32, dev, ndim=1)
+        if out.shape[0] != nrows:
+            raise ValueError(f"out must be ({nrows},), got "
+                             f"{tuple(out.shape)}")
+        accumulate = 1
+    if nrows == 0:
+        return out
     _cuda.launch(
         "tail_gather_sum", "lux_tail_gather_sum",
-        _cuda.ptr(x2d), _cuda.ptr(tail_sb), _cuda.ptr(tail_lane),
-        _cuda.ptr(items.item_lo), items.n_items,
-        _cuda.ptr(items.row_items), nv,
-        _cuda.ptr(partial), _cuda.ptr(y), _cuda.stream(dev),
+        _cuda.ptr(x), _cuda.ptr(tail_src), tail_src.shape[0],
+        _cuda.ptr(tail_row_ptr), nrows, accumulate, _cuda.ptr(out),
+        _cuda.stream(dev),
     )
-    return y
+    return out
 
 
 # -- composition -------------------------------------------------------------
 
 
 def vals_to_x2d(vals: torch.Tensor, dh: DeviceHybrid) -> torch.Tensor:
-    """(nv,) values → (nvb, 128) padded gather operand."""
+    """(nv,) values → (nvb, 128) padded gather operand (the grouped
+    tail's; K1 and K2 read the values as they are)."""
     pad = dh.nvb * BLOCK - vals.shape[0]
     return F.pad(vals, (0, pad)).reshape(dh.nvb, BLOCK)
 
 
-def strips_sum(x2d: torch.Tensor, dh: DeviceHybrid, nv: int,
+def strips_sum(x: torch.Tensor, dh: DeviceHybrid, nv: int,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Σ over all strip levels; (nv,) f32 (internal order). The levels
-    add into ``out`` (a (nvb * 128,) f32 vector) when it is given, else
-    into the first level's result."""
+    """Σ over all strip levels; (nv,) f32 (internal order). ``x`` is
+    the (nv,) values or the (nvb, 128) operand. The levels add into
+    ``out`` (a (nvb * 128,) f32 vector) when it is given, else into the
+    first level's result."""
     acc = out
     for lev in dh.levels:
-        acc = strip_level_spmv(x2d, lev, acc)
+        acc = strip_level_spmv(x, lev, acc)
     if acc is None:
-        return torch.zeros(nv, dtype=torch.float32, device=x2d.device)
+        return torch.zeros(nv, dtype=torch.float32, device=x.device)
     return acc[:nv]
 
 
-def tail_sum(x2d: torch.Tensor, dh: DeviceHybrid) -> torch.Tensor:
-    """Σ over the lane-select tail; (nv,) f32 (internal order)."""
-    return lane_select_tail_sums(
-        x2d, dh.tail_sb, dh.tail_lane, dh.tail_row_ptr, dh.tail_items
-    )
+def tail_sum(x: torch.Tensor, dh: DeviceHybrid,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Σ over the lane-select tail; (rows,) f32 (internal order), added
+    into ``out`` when it is given. ``x`` is the (nv,) values or the
+    (nvb, 128) operand."""
+    if x.numel() < dh.src_end:
+        raise ValueError(f"x has {x.numel()} values; the tail reads "
+                         f"sources up to {dh.src_end - 1}")
+    return lane_select_tail_sums(x, dh.tail_src, dh.tail_row_ptr, out)
 
 
 def hybrid_spmv(vals: torch.Tensor, dh: DeviceHybrid,
                 gtail=None) -> torch.Tensor:
     """Full Σ vals[src] per destination over all layouts; (nv,) f32 in,
-    (nv,) f32 out (internal vertex order).
+    (nv,) f32 out (internal vertex order). K1 and K2 read ``vals`` as
+    they are, and K2 adds the tail's sums into the strips'.
 
     ``gtail`` (a :class:`~lux_tpu_torch.ops.merge_tail_kernel.DeviceGroupedTail`)
     swaps the lane-select tail for the grouped merge-network tail —
     opt-in via LUX_GROUPED_TAIL=1 in the executor; both produce per-dst
     sums of the same tail edge set."""
     nv = vals.shape[0]
-    x2d = vals_to_x2d(vals, dh)
     if gtail is not None:
         from lux_tpu_torch.ops.merge_tail_kernel import grouped_tail_sums
 
+        x2d = vals_to_x2d(vals, dh)
         return strips_sum(x2d, dh, nv) + grouped_tail_sums(x2d, gtail)
-    return strips_sum(x2d, dh, nv) + tail_sum(x2d, dh)
+    return tail_sum(vals, dh, out=strips_sum(vals, dh, nv))

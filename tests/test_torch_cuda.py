@@ -85,6 +85,64 @@ def test_strip_and_tail_kernels_match_plain(dev, levels):
         _compare(ts.tail_sum(xd, dh), ts.tail_sum(x, cpu), exact)
 
 
+def _tail_operands(lens, seed):
+    """A tail stream (padded to a multiple of 4) with rows of ``lens``
+    edges over ``4 * len(lens)`` source values."""
+    rng = np.random.default_rng(seed)
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    m = int(row_ptr[-1])
+    n_x = 4 * len(lens)
+    src = np.zeros(m + (-m % 4), np.int32)
+    src[:m] = rng.integers(0, n_x, m)
+    return torch.from_numpy(src), torch.from_numpy(row_ptr), n_x, rng
+
+
+@pytest.mark.parametrize("shape", ["skewed", "hub", "empty"])
+def test_tail_kernel_matches_plain(dev, shape):
+    # Rows of every tier: short rows and empty ones (a thread), rows of
+    # 33-2,048 edges (a warp), and a hub row of more than 10^5 edges (the
+    # block); bitwise on integral x, with accumulate off and on.
+    rng = np.random.default_rng(5)
+    if shape == "empty":
+        lens = np.zeros(1000, np.int64)
+    else:
+        lens = rng.integers(0, 9, 5000)
+        lens[rng.random(5000) < 0.3] = 0
+        lens[7], lens[300], lens[301] = 40, 2048, 2049
+        if shape == "hub":
+            lens[1234] = 150_000
+    src, row_ptr, n_x, rng = _tail_operands(lens, 3)
+    rows = len(lens)
+    for exact in (True, False):
+        x = torch.from_numpy(rng.integers(0, 8, n_x).astype(np.float32)
+                             if exact else
+                             rng.random(n_x, dtype=np.float32) + 0.5)
+        y0 = torch.from_numpy(rng.integers(0, 8, rows).astype(np.float32))
+        d = [t.to(dev) for t in (x, src, row_ptr)]
+        _compare(ts.lane_select_tail_sums(*d),
+                 ts.lane_select_tail_sums(x, src, row_ptr), exact)
+        out = y0.to(dev)
+        got = ts.lane_select_tail_sums(*d, out=out)
+        assert got is out
+        _compare(got, ts.lane_select_tail_sums(x, src, row_ptr,
+                                               out=y0.clone()), exact)
+
+
+def test_tail_kernel_reads_the_values_flat(dev):
+    # The executor hands K2 (and K1) the (nv,) values; the sharded parts
+    # the (nvb, 128) table. Both index the same flat values.
+    plan = ts.plan_hybrid(generate.rmat(10, 14, seed=3))
+    dh = ts.DeviceHybrid.build(plan, dev)
+    x = _operands(plan.nvb, 7)[0][0]
+    flat = x.reshape(-1)[:plan.nv].contiguous().to(dev)
+    _compare(ts.tail_sum(flat, dh), ts.tail_sum(x.to(dev), dh).cpu(), True)
+    for lev in dh.levels:
+        _compare(ts.strip_level_spmv(flat, lev),
+                 ts.strip_level_spmv(x.to(dev), lev).cpu(), True)
+    with pytest.raises(ValueError, match="sources"):
+        ts.tail_sum(flat[:dh.src_end - 1], dh)
+
+
 def test_strip_kernel_on_a_legacy_plan(dev):
     # Counts up to 127 in a cell (cap=127), every edge repeated 1-40 times.
     g = generate.rmat(9, 8, seed=2)
@@ -320,6 +378,65 @@ def test_frontier_queue_on_a_part_row_pointer(dev, monkeypatch):
                 assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.parametrize("which", ["last", "sparse"])
+def test_frontier_queue_at_two_to_the_28(dev, which):
+    # nv = 2^28: a block's span outgrows its window of shared memory, so
+    # its warps walk their runs a window at a time and read them twice.
+    nv = 1 << 28
+    rp = torch.arange(nv + 1, dtype=torch.int64, device=dev) * 3
+    if which == "last":
+        fr = torch.zeros(nv, dtype=torch.bool, device=dev)
+        fr[-1] = True
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(28)
+        fr = torch.rand(nv, generator=gen, device=dev) < 1e-4
+    cnt = int(fr.sum())
+    _cuda.reset_launches()
+    got = fq.frontier_queue(fr, rp, cnt)
+    assert _cuda.LAUNCHES["frontier_queue"] == 1
+    for a, b in zip(got, fq.frontier_queue_plain(fr, rp)):
+        assert torch.equal(a, b)
+
+
+def test_frontier_queue_on_two_streams_at_once(dev):
+    # Two threads, each on its own stream, call K6 at once: each stream
+    # has its own scratch, and the launch shape is cached per device
+    # without a lock.
+    import threading
+
+    nv = 4096 * 300 + 77
+    rp = torch.from_numpy(generate.gnp(nv, nv * 4, seed=11).csr().row_ptr)
+    rng = np.random.default_rng(2)
+    frs = [torch.from_numpy(rng.random(nv) < f) for f in (0.01, 0.3)]
+    wants = [fq.frontier_queue(f, rp, int(f.sum())) for f in frs]
+    rpd = rp.to(dev)
+    results, errors = [None, None], []
+
+    def work(i):
+        try:
+            stream = torch.cuda.Stream(device=dev)
+            with torch.cuda.stream(stream):
+                f = frs[i].to(dev)
+                cnt = int(frs[i].sum())
+                outs = [fq.frontier_queue(f, rpd, cnt) for _ in range(20)]
+            stream.synchronize()
+            results[i] = outs
+        except Exception as e:   # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for outs, want in zip(results, wants):
+        for got in outs:
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("app", ["sssp", "cc"])
 @pytest.mark.parametrize("blocked", [True, False])
 def test_push_executor_on_cuda_counts_launches(dev, app, blocked):
@@ -486,24 +603,78 @@ def _gas_operands(nv, gather_op, frac, k, seed):
     return t, torch.from_numpy(rng.random(shape) < frac)
 
 
+def _gas_csc(seed):
+    """A CSC with rows of every K10 tier: short and empty rows (a lane),
+    rows of 33-2,048 edges (the warp), a row alone above 1,024 and hub
+    rows above HUB_EDGES edges (a block)."""
+    rng = np.random.default_rng(seed)
+    nv = 3000
+    lens = rng.integers(0, 20, nv)
+    lens[rng.random(nv) < 0.2] = 0
+    lens[[5, 6, 7]] = [33, 500, 1500]
+    lens[[100, 2999]] = [9000, 20000]
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    w = rng.integers(1, 100, int(row_ptr[-1])).astype(np.int32)
+    return nv, row_ptr, w, rng
+
+
 @pytest.mark.parametrize("kind,gather_op", seg.GAS_KERNEL_OPS)
 @pytest.mark.parametrize("k", [1, 3, 8, 9])
-@pytest.mark.parametrize("frac", [0.3, 0.0])
-def test_gas_pull_acc_matches_plain(dev, kind, gather_op, k, frac):
+def test_gas_pull_acc_matches_plain(dev, kind, gather_op, k):
+    # Frontier densities from empty to full, on one table and on a split
+    # table (three times the rows, col_src a view that is not 16-byte
+    # aligned); bitwise.
+    nv, row_ptr, w, rng = _gas_csc(k)
+    ne = int(row_ptr[-1])
+    tasks = seg.RowTasks.build(row_ptr, dev)
+    assert tasks.n_hub == 2
+    rp = torch.from_numpy(row_ptr)
+    wt = torch.from_numpy(w)
+    for split in (False, True):
+        n_tab = 3 * nv if split else nv
+        buf = torch.from_numpy(rng.integers(0, n_tab, ne + 1)
+                               .astype(np.int32))
+        col_src = buf[1:] if split else buf[:ne]
+        for frac in (0.0, 1e-4, 0.06, 0.5, 1.0):
+            vals, fr = _gas_operands(n_tab, gather_op, frac, k,
+                                     seed=int(frac * 1e4) + k)
+            want = seg.gas_pull_acc(rp, col_src, vals, fr, kind, gather_op,
+                                    weights=wt)
+            got = seg.gas_pull_acc(rp.to(dev), col_src.to(dev) if not split
+                                   else buf.to(dev)[1:], vals.to(dev),
+                                   fr.to(dev), kind, gather_op, tasks,
+                                   weights=wt.to(dev))
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert torch.equal(got.cpu(), want), (split, frac)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+def test_frontier_bits_match_plain(dev, k):
+    rng = np.random.default_rng(k)
+    for n in (1, 31, 1000, 4097):
+        shape = (n,) if k == 1 else (n, k)
+        fr = torch.from_numpy(rng.random(shape) < 0.4)
+        got = seg.frontier_bits(fr.to(dev))
+        assert torch.equal(got.cpu(), seg.frontier_bits_plain(fr))
+
+
+def test_gas_pull_acc_on_an_rmat(dev):
+    # The item lengths of the old schedule no longer matter: one RowTasks
+    # per graph, on an R-MAT's skewed rows.
     g = generate.rmat(11, 12, seed=5, weighted=True)
+    tasks = seg.RowTasks.build(g.row_ptr, dev)
     row_ptr = torch.from_numpy(g.row_ptr)
     col_src = torch.from_numpy(g.col_src)
     w = torch.from_numpy(g.weights)
-    vals, fr = _gas_operands(g.nv, gather_op, frac, k, seed=k)
-    want = seg.gas_pull_acc(row_ptr, col_src, vals, fr, kind, gather_op,
-                            weights=w)
-    # The kernel's item length, and one that cuts rows into short items.
-    for item_len in (seg.SEG_ITEM, 5):
-        items = seg.SegmentItems.build(g.row_ptr, item_len, dev)
+    for kind, gather_op in seg.GAS_KERNEL_OPS:
+        vals, fr = _gas_operands(g.nv, gather_op, 0.3, 1, seed=1)
+        want = seg.gas_pull_acc(row_ptr, col_src, vals, fr, kind, gather_op,
+                                weights=w)
+        _cuda.reset_launches()
         got = seg.gas_pull_acc(row_ptr.to(dev), col_src.to(dev),
                                vals.to(dev), fr.to(dev), kind, gather_op,
-                               items, weights=w.to(dev))
-        assert got.dtype == want.dtype and got.shape == want.shape
+                               tasks, weights=w.to(dev))
+        assert _cuda.LAUNCHES["gas_pull_acc"] == 1
         assert torch.equal(got.cpu(), want)
 
 
@@ -532,21 +703,21 @@ def test_gas_wrappers_check_their_inputs(dev):
     g = generate.rmat(8, 8, seed=1, weighted=True)
     rp = torch.from_numpy(g.row_ptr).to(dev)
     cs = torch.from_numpy(g.col_src).to(dev)
-    items = seg.SegmentItems.build(g.row_ptr, seg.SEG_ITEM, dev)
+    tasks = seg.RowTasks.build(g.row_ptr, dev)
     vals, fr = _gas_operands(g.nv, "add1", 0.5, 1, seed=1)
     vals, fr = vals.to(dev), fr.to(dev)
     with pytest.raises(NotImplementedError):
-        seg.gas_pull_acc(rp, cs, vals, fr, "min", "decay", items)
+        seg.gas_pull_acc(rp, cs, vals, fr, "min", "decay", tasks)
     with pytest.raises(ValueError, match="float32"):
-        seg.gas_pull_acc(rp, cs, vals, fr, "min", "add_w", items,
+        seg.gas_pull_acc(rp, cs, vals, fr, "min", "add_w", tasks,
                          weights=torch.from_numpy(g.weights).to(dev))
-    with pytest.raises(ValueError, match="SegmentItems"):
+    with pytest.raises(ValueError, match="RowTasks"):
         seg.gas_pull_acc(rp, cs, vals, fr, "min", "add1")
     with pytest.raises(ValueError, match="shape"):
-        seg.gas_pull_acc(rp, cs, vals, fr[:-1], "min", "add1", items)
+        seg.gas_pull_acc(rp, cs, vals, fr[:-1], "min", "add1", tasks)
     f32 = torch.zeros(g.nv, device=dev)
     with pytest.raises(ValueError, match="weights"):
-        seg.gas_pull_acc(rp, cs, f32, fr, "min", "add_w", items)
+        seg.gas_pull_acc(rp, cs, f32, fr, "min", "add_w", tasks)
 
 
 def _gas_app(app):
@@ -736,11 +907,11 @@ def test_split_table_wrappers_match_plain(dev):
         np.random.default_rng(3).integers(0, 3 * gk.nv, gk.ne)
         .astype(np.int32))
     row_ptr = torch.from_numpy(gk.row_ptr)
-    items = seg.SegmentItems.build(gk.row_ptr, seg.SEG_ITEM, dev)
+    tasks = seg.RowTasks.build(gk.row_ptr, dev)
     for kind, op in (("min", "add1"), ("max", "copy")):
         want = seg.gas_pull_acc(row_ptr, col_src, lanes, front, kind, op)
         got = seg.gas_pull_acc(row_ptr.to(dev), col_src.to(dev),
-                               lanes.to(dev), front.to(dev), kind, op, items)
+                               lanes.to(dev), front.to(dev), kind, op, tasks)
         assert got.shape == want.shape == (gk.nv, 8)
         assert torch.equal(got.cpu(), want)
 
@@ -858,7 +1029,7 @@ def test_sharded_tiled_on_cuda(dev, monkeypatch, parts, levels):
     torch.cuda.synchronize()
     counts = dict(_cuda.LAUNCHES)
     k1 = sum(1 for p in ex._parts for lev in p.levels if lev.items.n_items)
-    k2 = sum(1 for p in ex._parts if p.tail_items.n_items)
+    k2 = len(ex._parts)   # K2 launches for every part with rows
     assert counts == {**dict.fromkeys(counts, 0), "strip_spmv": 10 * k1,
                       "tail_gather_sum": 10 * k2}
     got = ex.gather_values(out)

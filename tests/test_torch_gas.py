@@ -294,6 +294,128 @@ def test_plain_accumulators_match_pull_acc_and_push_acc(case):
         np.testing.assert_array_equal(want_push, want_pull)
 
 
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+def test_frontier_bits_round_trip(k):
+    # K10 reads the frontier as bits: 32 vertices a word for one column,
+    # a byte per vertex and chunk of 8 columns for K of them. The plain
+    # pack gives back every bool frontier, and the pull accumulator over
+    # the frontier read back from the bits is lux_tpu's.
+    rng = np.random.default_rng(k)
+    for n in (0, 1, 31, 32, 33, 1000):
+        for frac in (0.0, 0.3, 1.0):
+            shape = (n,) if k == 1 else (n, k)
+            fr = torch.from_numpy(rng.random(shape) < frac)
+            bits = tseg.frontier_bits_plain(fr)
+            if k == 1:
+                assert bits.dtype == torch.int32
+                assert tuple(bits.shape) == ((n + 31) // 32,)
+            else:
+                assert bits.dtype == torch.uint8
+                assert tuple(bits.shape) == (n, -(-k // 8))
+            assert torch.equal(tseg.frontier_bits(fr), bits)
+            assert torch.equal(tseg.frontier_from_bits_plain(bits, shape),
+                               fr)
+    gname, progs, _ = CASES["bfs"]
+    jg, tg = _graphs(gname)
+    jprog, tprog = progs()
+    jex = jgas.AdaptiveExecutor(jg, jprog, mode="pull")
+    tex = tgas.AdaptiveExecutor(tg, tprog, device="cpu", mode="pull")
+    for label, vals, fr in _acc_states(jg, jprog, seed=k):
+        jst = jgas.GasState(jnp.asarray(vals), jnp.asarray(fr), jnp.int32(0))
+        st = convert.gas_state_from_numpy(vals, fr, 0, CPU)
+        back = tseg.frontier_from_bits_plain(
+            tseg.frontier_bits_plain(st.frontier), tuple(fr.shape))
+        got = tseg.gas_pull_acc_plain(tex.row_ptr, tex.col_src, st.values,
+                                      back, tprog.combiner, tprog.gather)
+        np.testing.assert_array_equal(
+            convert.gas_state_to_numpy(st._replace(values=got))[0],
+            np.asarray(jex._pull_acc(jst, jex._dg)), err_msg=label)
+
+
+def _row_ptrs():
+    rng = np.random.default_rng(3)
+    yield "rmat", tgen.rmat(12, 16, seed=1).row_ptr
+    lens = rng.integers(0, 40, 5000)
+    lens[[3, 4, 900, 4999]] = [20000, 9000, 1500, 8193]
+    lens[rng.random(5000) < 0.2] = 0
+    yield "hubs", np.concatenate([[0], np.cumsum(lens)])
+    yield "empty rows", np.zeros(70, np.int64)
+    yield "no rows", np.zeros(1, np.int64)
+    yield "one hub", np.array([0, 10 ** 5])
+
+
+def _strided_edges(lo, hi, mis, stride):
+    """The edges each of ``stride`` threads folds in csrc/gas.cu's
+    ``strided_row``: head and tail edges outside whole aligned quads (col_src
+    starting ``mis`` words past a 16-byte boundary), one a thread, then the
+    quads, strided, two a step."""
+    qlo, qhi = (lo + mis + 3) >> 2, (hi + mis) >> 2
+    head = tail = hi
+    if qlo < qhi:
+        head, tail = 4 * qlo - mis, 4 * qhi - mis
+    out = [[] for _ in range(stride)]
+    for t in range(stride):
+        if lo + t < head:
+            out[t].append(lo + t)
+        if tail + t < hi and qlo < qhi:
+            out[t].append(tail + t)
+        if qlo >= qhi:
+            out[t] += list(range(lo + t + stride, hi, stride))
+        q = qlo + t
+        while q + stride < qhi:
+            out[t] += [4 * q - mis + j for j in range(4)]
+            out[t] += [4 * (q + stride) - mis + j for j in range(4)]
+            q += 2 * stride
+        if q < qhi:
+            out[t] += [4 * q - mis + j for j in range(4)]
+    return out
+
+
+@pytest.mark.parametrize("name", ["rmat", "hubs", "empty rows", "no rows",
+                                  "one hub"])
+def test_row_tasks_partition_the_rows(name):
+    # K10's schedule: hub rows (one a block) first, then warp tasks of at
+    # most 32 consecutive rows in row order; together they cover every
+    # row once. A warp task gathers at most 2 * TASK_EDGES edges unless it
+    # is one row; no row above HUB_EDGES is left to a warp.
+    rp = dict(_row_ptrs())[name]
+    n = rp.shape[0] - 1
+    lens = np.diff(rp)
+    tasks, n_hub = tseg.row_tasks(rp)
+    assert tasks.dtype == np.int32 and tasks.shape == (tasks.shape[0], 2)
+    seen = np.zeros(n, np.int64)
+    for lo, hi in tasks:
+        seen[lo:hi] += 1
+    assert np.all(seen == 1)
+    hubs, warps = tasks[:n_hub], tasks[n_hub:]
+    assert np.all(hubs[:, 1] - hubs[:, 0] == 1)
+    assert np.all(lens[hubs[:, 0]] > tseg.HUB_EDGES)
+    assert n_hub == int((lens > tseg.HUB_EDGES).sum())
+    assert np.all(np.diff(warps[:, 0]) > 0)
+    size = warps[:, 1] - warps[:, 0]
+    assert np.all((size >= 1) & (size <= tseg.TASK_ROWS))
+    edges = rp[warps[:, 1]] - rp[warps[:, 0]]
+    assert np.all((edges <= 2 * tseg.TASK_EDGES) | (size == 1))
+    t = tseg.RowTasks.build(rp, "cpu")
+    assert (t.n_tasks, t.n_hub, t.nrows) == (tasks.shape[0], n_hub, n)
+    assert torch.equal(t.tasks, torch.from_numpy(tasks))
+
+
+@pytest.mark.parametrize("stride", [32, 256])
+def test_strided_rows_fold_every_edge_once(stride):
+    # The index arithmetic of K10's warp and block tiers, for rows of 0 to
+    # a few thousand edges at every offset and misalignment of col_src.
+    rng = np.random.default_rng(stride)
+    cases = [(lo, lo + m) for lo in range(8) for m in range(0, 40)]
+    cases += [(int(a), int(a) + int(m)) for a, m in
+              zip(rng.integers(0, 10 ** 6, 60), rng.integers(40, 5000, 60))]
+    for lo, hi in cases:
+        for mis in range(4):
+            got = sorted(e for es in _strided_edges(lo, hi, mis, stride)
+                         for e in es)
+            assert got == list(range(lo, hi)), (lo, hi, mis)
+
+
 def test_gather_ops_match_lux_tpu_programs():
     rng = np.random.default_rng(5)
     u = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)

@@ -116,6 +116,104 @@ def test_strip_and_tail_plain_match_jax(name):
             _compare(got, np.asarray(want, np.float32), True)
 
 
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_tail_stream_is_the_plan_tail(name):
+    # The card holds the tail as one int32 stream, (sb << 7) | lane of
+    # lux_tpu's plan, padded with zeros to a multiple of 4; every source
+    # of the stream and of the cells is below src_end <= nv.
+    jplan, _, tdh = _plans(name)
+    m = jplan.tail_sb.shape[0]
+    src = tdh.tail_src.numpy()
+    assert src.dtype == np.int32 and src.shape[0] == m + (-m % 4)
+    want = (np.asarray(jplan.tail_sb, np.int32) << 7) \
+        | np.asarray(jplan.tail_lane, np.int32)
+    np.testing.assert_array_equal(src[:m], want)
+    assert not src[m:].any()
+    np.testing.assert_array_equal(tdh.tail_row_ptr.numpy(),
+                                  np.asarray(jplan.tail_row_ptr))
+    ends = [int(src[:m].max(initial=-1)) + 1] + [
+        int(lev.src[:lev.n_cells].max()) + 1 if lev.n_cells else 0
+        for lev in tdh.levels]
+    assert tdh.src_end == max(ends) <= jplan.nv
+    assert [lev.src_end for lev in tdh.levels] == ends[1:]
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_tail_plain_from_flat_values_adds_into_the_strips(name):
+    # K2's plain version over the tail stream, reading the (nv,) values
+    # as the executor hands them and adding into the strips' sums, equals
+    # lux_tpu's strip and tail sums of the zero-padded operand.
+    jplan, jdh, tdh = _plans(name)
+    x = _operands(jplan.nvb, 6)[0]
+    vals = x.reshape(-1)[: jplan.nv].copy()
+    x0 = np.zeros_like(x).reshape(-1)
+    x0[: jplan.nv] = vals
+    jlevels, jtail = _jax_hybrid(jplan, jdh, x0.reshape(x.shape))
+    tv = torch.from_numpy(vals)
+    _compare(tts.tail_sum(tv, tdh), jtail, True)
+    strips = sum(np.asarray(w) for w in jlevels) if jlevels else \
+        np.zeros(jplan.nvb * 128, np.float32)
+    acc = tts.strips_sum(tv, tdh, jplan.nv)
+    _compare(acc, np.asarray(strips)[: jplan.nv], True)
+    got = tts.tail_sum(tv, tdh, out=acc)
+    assert got is acc
+    _compare(got, np.asarray(strips)[: jplan.nv] + np.asarray(jtail), True)
+    with pytest.raises(ValueError, match="sources"):
+        tts.tail_sum(tv[: tdh.src_end - 1], tdh)
+
+
+def _lower_bound_warp(rp, n, target):
+    """csrc/segment_sum.cu's lower_bound_warp in numpy: the first row i in
+    [0, n] at merge-path position rp[i] + i >= target, narrowed by 32
+    probes a step as the warp does."""
+    pos = lambda i: int(rp[i]) + i
+    lo, hi = 0, n
+    while hi - lo > 32:
+        probes = [lo + (hi - lo) * (lane + 1) // 33 for lane in range(32)]
+        k = sum(pos(p) < target for p in probes)
+        if k > 0:
+            lo = probes[k - 1] + 1
+        if k < 32:
+            hi = probes[k]
+    return lo + sum(1 for p in range(lo, lo + 32) if p < hi
+                    and pos(p) < target)
+
+
+@pytest.mark.parametrize("shape", ["skewed", "hub", "trailing_empty",
+                                   "no_edges"])
+def test_tail_kernel_blocks_own_every_row_once(shape):
+    # K2's blocks own the rows at merge-path positions rp[r] + r in
+    # [b * P, (b + 1) * P), each found by the warp-wide search; with the
+    # launch's (m4 + rows) // P + 1 blocks every row has one owner, and a
+    # block owns at most P rows whose edges start in its stretch.
+    rng = np.random.default_rng(len(shape))
+    lens = rng.integers(0, 9, 3000)
+    if shape == "hub":
+        lens[5] = 100_000
+    elif shape == "trailing_empty":
+        lens[1000:] = 0
+    elif shape == "no_edges":
+        lens[:] = 0
+    rp = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    n, m = rp.shape[0] - 1, int(rp[-1])
+    pos = rp[:-1] + np.arange(n)
+    for target in list(range(0, 200)) + list(rng.integers(0, m + n + 50, 300)):
+        assert _lower_bound_warp(rp, n, int(target)) == \
+            np.searchsorted(pos, target, side="left")
+    m4 = m + (-m % 4)
+    p_items = 256
+    owner = np.full(n, -1)
+    for b in range((m4 + n) // p_items + 1):
+        r0 = _lower_bound_warp(rp, n, b * p_items)
+        r1 = _lower_bound_warp(rp, n, (b + 1) * p_items)
+        assert np.all(owner[r0:r1] == -1)
+        owner[r0:r1] = b
+        assert r1 - r0 <= p_items
+        if r1 > r0:
+            assert b * p_items <= pos[r0] <= pos[r1 - 1] < (b + 1) * p_items
+    assert np.all(owner >= 0)
+
+
 def _grouped(seed, nsb=48, nv=700, m=15000):
     rng = np.random.default_rng(seed)
     sb = rng.integers(0, nsb, size=m)

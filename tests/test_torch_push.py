@@ -409,6 +409,20 @@ def test_needs_weights_value_error():
                            device="cpu")
 
 
+def test_frontier_queue_refuses_more_vertices_than_int32_ids():
+    # The queue holds int32 ids; a frontier past 2^31 - 1 vertices raises
+    # before anything is read (an expanded view: no memory is touched).
+    fr = torch.zeros(1, dtype=torch.bool).expand(2 ** 31)
+    rp = torch.zeros(1, dtype=torch.int64).expand(2 ** 31 + 1)
+    with pytest.raises(ValueError, match="int32"):
+        tfq.frontier_queue(fr, rp, 0)
+    small = torch.zeros(2 ** 10, dtype=torch.bool)
+    small[-1] = True
+    q, start, deg, offs = tfq.frontier_queue(
+        small, torch.arange(2 ** 10 + 1, dtype=torch.int64), 1)
+    assert q.tolist() == [2 ** 10 - 1] and offs.tolist() == [0, 1]
+
+
 def test_executor_without_device_or_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

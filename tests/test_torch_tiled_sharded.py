@@ -202,6 +202,28 @@ def test_part_cell_streams_concatenate_to_the_single_device_one(
                 assert pl.nrows == 0 and pl.n_cells == 0
 
 
+@pytest.mark.parametrize("parts", [1, 4])
+@pytest.mark.parametrize("name", ["rmat_8_1", "rmat_128_8", "gnp_tiny"])
+def test_part_tail_streams_match_lux_tpu(name, parts, monkeypatch):
+    # Each part's tail on the card is one int32 stream, (sb << 7) | lane
+    # of lux_tpu's part tail, padded with zeros to a multiple of 4, under
+    # the same local row pointer; its sources lie below src_end.
+    monkeypatch.setenv("LUX_EXCHANGE", "full")
+    jx = _jax_ex(name, parts)
+    ex = _port(name, parts, "full", monkeypatch)
+    for p, part in enumerate(ex._parts):
+        m = int(part.tail_row_ptr[-1])
+        sb = np.asarray(jx.shybrid.tail_sb[p]).reshape(-1)[:m]
+        lane = np.asarray(jx.shybrid.tail_lane[p]).reshape(-1)[:m]
+        src = part.tail_src.numpy()
+        assert src.dtype == np.int32 and src.shape[0] == m + (-m % 4)
+        _same(src[:m], (sb.astype(np.int32) << 7) | lane)
+        assert not src[m:].any()
+        assert part.tail_row_ptr.shape[0] == ex.max_nv + 1
+        assert int(src[:m].max(initial=-1)) < part.src_end \
+            <= ex.plan.nvb * 128
+
+
 @pytest.mark.parametrize("parts", [2, 4, 8])
 @pytest.mark.parametrize("name", ["cycle", "path"])
 def test_compact_equals_full_bitwise(name, parts, monkeypatch):
