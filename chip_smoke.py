@@ -83,8 +83,10 @@ ratings in both directions, seed 11), which it runs edge-chunked:
     ``edge_chunk`` (0 and ``1 << 20`` at scale 22);
 4c. K8 and K9 against their plain versions at the main path's shapes
     (bitwise on small integers; K8 within rtol=5e-5, atol=1e-9 and K9
-    within CF's rtol=1e-4, atol=1e-7 on random floats), with the same
-    timings;
+    within CF's rtol=1e-4, atol=1e-7 on random floats), two calls bitwise
+    equal, with the same timings, each time also beside the kernel's time
+    before its redesign, and the L2 sector bytes of its random gathers
+    as an achieved rate;
 5c. end to end: flat PageRank ``run(10)`` against phase 5's f64 oracle,
     CF ``run(5)`` against its f64 oracle (computed on the card) at
     rtol=1e-4, atol=1e-7 with the RMSE before and after, launch counts
@@ -122,8 +124,10 @@ is unprofitable, so compact resolves to full, logged):
 
 3e. shard layouts and executors: part sizes, capacities, resolved modes
     and exchange bytes per iteration;
-4e. K8 and K9 on the largest part's slice of the flat table (its
-    destinations at ``row_base``) against their plain versions;
+4e. K8 and K9 on the last part's slice of its table (its destinations
+    at ``row_base``; compact's receiver table for PageRank) against their
+    plain versions (bitwise on small integers, within the tolerances on
+    floats), two calls bitwise equal, each with its time and bound;
 5e. end to end: PageRank ``run(10)`` in both modes against phase 5's
     f64 oracle, compact equal to full bitwise, CF ``run(5)`` against
     phase 5c's f64 oracle, K8 and K9 launched once per part and
@@ -1001,7 +1005,7 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
     torch.cuda.synchronize()
     log(f"[pull] flat PageRank executor built in "
         f"{time.perf_counter() - t:.1f} s: edge_chunk={ex_pr.edge_chunk} "
-        f"work items={ex_pr.items.n_items}")
+        f"row tasks={ex_pr.tasks.n_tasks} ({ex_pr.tasks.n_hub} hub rows)")
     # bench.py's run_cf sizes: NetFlix-shaped at scale 22.
     n_users = min(480_000, 1 << max(scale - 3, 1))
     n_items = max(n_users // 27, 64)
@@ -1020,7 +1024,7 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
     want_chunk = DEFAULT_EDGE_CHUNK if auto else 0
     log(f"[pull] CF executor built in {time.perf_counter() - t:.1f} s: "
         f"edge_chunk={ex_cf.edge_chunk} (expected {want_chunk}) "
-        f"work items={ex_cf.items.n_items}")
+        f"row tasks={ex_cf.tasks.n_tasks} ({ex_cf.tasks.n_hub} hub rows)")
     if ex_pr.edge_chunk != 0 or ex_cf.edge_chunk != want_chunk:
         raise AssertionError("the pull executors chose another edge_chunk")
 
@@ -1028,34 +1032,37 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
     rng = np.random.default_rng(SEED)
     reps = 10
     nv, ne = g.nv, g.ne
-    rp, cs, items = ex_pr.row_ptr, ex_pr.col_src, ex_pr.items
+    rp, cs, tasks = ex_pr.row_ptr, ex_pr.col_src, ex_pr.tasks
     x_f = torch.from_numpy(
         rng.random(nv, dtype=np.float32) + np.float32(0.5)).to(dev)
     x_i = torch.from_numpy(
         rng.integers(0, 4, size=nv).astype(np.float32)).to(dev)
-    check_equal("K8 integral", seg.gather_segment_sum(x_i, rp, cs, items),
+    check_equal("K8 integral", seg.gather_segment_sum(x_i, rp, cs, tasks),
                 seg.gather_segment_sum_plain(x_i, rp, cs))
-    err = check_close("K8", seg.gather_segment_sum(x_f, rp, cs, items),
-                      seg.gather_segment_sum_plain(x_f, rp, cs))
-    k8_ms = cuda_ms(lambda: seg.gather_segment_sum(x_f, rp, cs, items), reps)
+    got = seg.gather_segment_sum(x_f, rp, cs, tasks)
+    err = check_close("K8", got, seg.gather_segment_sum_plain(x_f, rp, cs))
+    check_equal("K8 twice", seg.gather_segment_sum(x_f, rp, cs, tasks), got)
+    k8_ms = cuda_ms(lambda: seg.gather_segment_sum(x_f, rp, cs, tasks), reps)
     k8_plain = cuda_ms(lambda: seg.gather_segment_sum_plain(x_f, rp, cs), 2)
     # The function's bytes: col_src, row_ptr and vals read once, the output
-    # written once (the work items are the kernel's plan, not its input).
+    # written once (the row tasks are the kernel's plan, not its input).
     k8_bytes = 4 * ne + 8 * (nv + 1) + 4 * nv + 4 * nv
     csr = torch.sparse_csr_tensor(rp, cs.long(), torch.ones(ne, device=dev),
                                   size=(nv, nv))
     xv = x_f.reshape(-1, 1)
-    diff = (csr @ xv).reshape(-1) - seg.gather_segment_sum(x_f, rp, cs, items)
+    diff = (csr @ xv).reshape(-1) - got
     log(f"[pull] K8 sparse yardstick max diff {diff.abs().max().item():.3e}")
     k8_lib = cuda_ms(lambda: csr @ xv, reps)
-    del csr, xv, diff
+    del csr, xv, diff, got
     record(kernels, "gather_segment_sum", "lux_tpu_torch/csrc/pull_sum.cu",
            "lux_tpu/engine/pull.py:465", err, k8_ms, k8_plain, k8_bytes, ne,
            k8_lib)
+    log_gathers("K8", k8_ms, K8_WAS_MS, bound(k8_bytes, ne)[0],
+                32 * ne, "one 32-byte sector an edge")
 
     nvc, nec = gc.nv, gc.ne
     rpc, csc, wc, itc = (ex_cf.row_ptr, ex_cf.col_src, ex_cf.weights,
-                         ex_cf.items)
+                         ex_cf.tasks)
     win = ex_cf.edge_chunk
     v_f = torch.from_numpy(rng.random((nvc, K), dtype=np.float32)
                            * np.float32(0.2) + np.float32(0.12)).to(dev)
@@ -1063,9 +1070,12 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
         rng.integers(0, 2, size=(nvc, K)).astype(np.float32)).to(dev)
     check_equal("K9 integral", seg.cf_edge_sum(v_i, rpc, csc, wc, itc),
                 seg.cf_edge_sum_plain(v_i, rpc, csc, wc, window=win))
-    err = check_close("K9", seg.cf_edge_sum(v_f, rpc, csc, wc, itc),
+    got = seg.cf_edge_sum(v_f, rpc, csc, wc, itc)
+    err = check_close("K9", got,
                       seg.cf_edge_sum_plain(v_f, rpc, csc, wc, window=win),
                       rtol=CF_RTOL, atol=CF_ATOL)
+    check_equal("K9 twice", seg.cf_edge_sum(v_f, rpc, csc, wc, itc), got)
+    del got
     k9_ms = cuda_ms(lambda: seg.cf_edge_sum(v_f, rpc, csc, wc, itc), reps)
     k9_plain = cuda_ms(lambda: seg.cf_edge_sum_plain(v_f, rpc, csc, wc,
                                                      window=win), 2)
@@ -1078,6 +1088,12 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
     record(kernels, "cf_edge_sum", "lux_tpu_torch/csrc/pull_sum.cu",
            "lux_tpu/engine/pull.py:489", err, k9_ms, k9_plain, k9_bytes,
            k9_flops, None)
+    # A K-float row at a multiple of 4K bytes: 80 bytes at 0 or 16 past a
+    # sector boundary span three 32-byte sectors.
+    k9_sectors = (4 * K + 16 + 31) // 32
+    log_gathers("K9", k9_ms, K9_WAS_MS, bound(k9_bytes, k9_flops)[0],
+                32 * k9_sectors * nec,
+                f"the {k9_sectors} sectors of a {4 * K}-byte row, an edge")
     del x_f, x_i, v_f, v_i
     torch.cuda.empty_cache()
 
@@ -1147,6 +1163,21 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
                 "torch.profiler); top kernels (ms): "
                 + ", ".join(f"{n}={v:.3f}" for n, v in top))
     return totals, gc, cf_oracle
+
+
+# K8's and K9's times at scale 22 before their redesign (the two-pass
+# kernels of commit 18867e9, this script's run on an NVIDIA H100 80GB HBM3
+# at 700 W, means of 10 calls), logged beside the new ones.
+K8_WAS_MS, K9_WAS_MS = 0.585, 2.904
+
+
+def log_gathers(name, ms, was_ms, bound_ms, sector_bytes, what) -> None:
+    """Log a pull kernel's time beside its earlier time and bound, and
+    the L2 sector bytes of its random gathers as an achieved rate."""
+    log(f"[pull] {name}: {ms:.4f} ms (was {was_ms:.3f} before the "
+        f"redesign; bound {bound_ms:.4f} ms, {ms / bound_ms:.1f}x); its "
+        f"gathers read {sector_bytes / 1e9:.2f} GB of L2 sectors ({what}), "
+        f"{sector_bytes / ms / 1e9:.2f} TB/s")
 
 
 GAS_KERNELS = ("gas_pull_acc", "frontier_queue", "gas_push_acc")
@@ -1575,7 +1606,8 @@ def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev) -> dict:
         torch.cuda.synchronize()
         log(f"[sharded] {label} executor (LUX_EXCHANGE={mode}, resolved "
             f"{ex.exchange_mode}) built in {time.perf_counter() - t:.1f} s; "
-            f"work items per part {[p.items.n_items for p in ex._parts]}; "
+            f"row tasks (hub rows) per part "
+            f"{[(p.tasks.n_tasks, p.tasks.n_hub) for p in ex._parts]}; "
             f"exchange_bytes_per_iter {ex.exchange_bytes_per_iter()}")
         if ex.exchange_mode != mode:
             raise AssertionError(f"{label}: resolved {ex.exchange_mode}")
@@ -1586,24 +1618,44 @@ def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev) -> dict:
         os.environ["LUX_EXCHANGE"] = flag
 
     # -- 4e. K8 and K9 on one part's flat table, against the plain versions ----
+    rng = np.random.default_rng(SEED)
     for label, q in (("pagerank compact", P - 1), ("cf", P - 1)):
         ex = exs[label]
         part = ex._parts[q]
         vals = ex.init_values()
         table = ex._table(ex._exchange(vals), q)
-        got = seg.pull_sum(table, part.row_ptr, part.col_src, part.weights,
-                           ex.program.edge_op, ex._edge_fn, part.items, 0,
-                           "rowptr", part.row_base)
-        want = seg.pull_sum_plain(table, part.row_ptr, part.col_src,
-                                  part.weights, ex._edge_fn, window=1 << 20,
-                                  row_base=part.row_base)
+        args = (part.row_ptr, part.col_src, part.weights, ex.program.edge_op,
+                ex._edge_fn, part.tasks, 0, "rowptr", part.row_base)
+        plain = (part.row_ptr, part.col_src, part.weights, ex._edge_fn)
+        pkw = dict(window=1 << 20, row_base=part.row_base)
+        ints = torch.from_numpy(rng.integers(0, 2, size=tuple(table.shape))
+                                .astype(np.float32)).to(dev)
+        check_equal(f"{label} part {q} integral", seg.pull_sum(ints, *args),
+                    seg.pull_sum_plain(ints, *plain, **pkw))
+        got = seg.pull_sum(table, *args)
+        want = seg.pull_sum_plain(table, *plain, **pkw)
         tol = (dict(rtol=CF_RTOL, atol=CF_ATOL) if label == "cf"
                else dict(rtol=RTOL, atol=ATOL))
         err = check_close(f"{label} part {q}", got, want, **tol)
+        check_equal(f"{label} part {q} twice", seg.pull_sum(table, *args),
+                    got)
+        ms = cuda_ms(lambda: seg.pull_sum(table, *args), 10)
+        n_e, rows = part.col_src.numel(), part.row_ptr.numel() - 1
+        width = 1 if table.dim() == 1 else table.shape[1]
+        # col_src (and weights), row_ptr, the table's rows read once (the
+        # whole table: the sources are spread over it) and the output.
+        nbytes = (4 * n_e * (1 if width == 1 else 2) + 8 * (rows + 1)
+                  + 4 * width * (table.shape[0] + rows))
+        flops = n_e * (1 if width == 1 else 4 * width + 1)
+        b_ms = bound(nbytes, flops)[0]
         log(f"[sharded] {label}: part {q}'s kernel (row_base "
-            f"{part.row_base}, {part.col_src.numel()} edges) matches its "
-            f"plain version (max abs err {err:.3e})")
-        del table, got, want
+            f"{part.row_base}, {n_e} edges, {part.tasks.n_hub} hub rows) "
+            f"matches its plain version bitwise on small integers and within "
+            f"the tolerance on floats (max abs err {err:.3e}); two calls "
+            f"bitwise equal; {ms:.4f} ms (mean of 10) against a bound of "
+            f"{b_ms:.4f} ms (no time of a part was taken before the "
+            "redesign)")
+        del table, got, want, ints
 
     # -- 5e. end to end ---------------------------------------------------------
     totals = dict.fromkeys(_cuda.LAUNCHES, 0)

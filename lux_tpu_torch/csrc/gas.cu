@@ -37,9 +37,10 @@
 // (k = 1: 32 vertices a word, 0.5 MB at R-MAT 22 against 4.2 MB of bools,
 // so many more of the sources' tests hit in L1; k > 1: a byte per vertex
 // and chunk of 8 columns), then the pull over a row schedule built once per
-// graph (ops/segment.py::row_tasks). A warp task is up to 32 consecutive
-// rows, one a lane, whose edges are at most 2 * TASK_EDGES: a lane sums a
-// row of up to kLaneMax edges itself, its source indices loaded four at a
+// graph (ops/segment.py::row_tasks; the pass over it is row_pass.cuh,
+// shared with K8 and K9). A warp task is up to 32 consecutive rows, one a
+// lane, whose edges are at most 2 * TASK_EDGES: a lane sums a row of up
+// to kLaneMax edges itself, its source indices loaded four at a
 // time before their tests and gathers; the warp sums each longer row of
 // its task, the lanes striding its 16-byte quads of col_src (any head and
 // tail that do not fill an aligned quad are read singly), two quads loaded
@@ -69,6 +70,7 @@
 #include <cuda_runtime.h>
 
 #include "gas_ops.cuh"
+#include "row_pass.cuh"
 
 namespace {
 
@@ -281,9 +283,9 @@ pull_acc_kernel(const typename C::T* __restrict__ val,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nch = kChunk == 1 ? 1 : (k + 7) / 8;
   Pull<C, G, kChunk> p{val, bits, col_src, weights, k, nch, 0};
-  if ((int64_t)blockIdx.x < n_hub) {
+  const int64_t r = row_pass::hub_row(tasks, n_hub);
+  if (r >= 0) {
     __shared__ unsigned red[kWarps][kChunk];
-    const int64_t r = tasks[2 * blockIdx.x];
     const int64_t lo = rp[r], hi = rp[r + 1];
     for (int c = 0; c < nch; ++c) {
       p.c = c;
@@ -306,27 +308,20 @@ pull_acc_kernel(const typename C::T* __restrict__ val,
     }
     return;
   }
-  const int64_t task = n_hub + ((int64_t)blockIdx.x - n_hub) * kWarps + warp;
-  if (task >= n_tasks) return;   // the whole warp
-  const int64_t r0 = tasks[2 * task], r1 = tasks[2 * task + 1];
-  const int64_t r = r0 + lane;
-  int64_t lo = 0, hi = 0;
-  if (r < r1) {
-    lo = rp[r];
-    hi = rp[r + 1];
-  }
+  int64_t r0, r1, lo, hi;
+  if (!row_pass::warp_task<kWarps>(tasks, n_tasks, n_hub, rp, r0, r1, lo, hi))
+    return;   // the whole warp
+  const int64_t row = r0 + lane;
   const bool own = hi - lo <= kLaneMax;
-  const unsigned long_rows = __ballot_sync(0xffffffffu, !own);
+  const unsigned long_rows = __ballot_sync(row_pass::kFull, !own);
   for (int c = 0; c < nch; ++c) {
     p.c = c;
     unsigned a[kChunk];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) a[j] = F::ident();
     if (own) p.lane_row(a, lo, hi);
-    for (unsigned m = long_rows; m; m &= m - 1) {
-      const int l = __ffs(m) - 1;
-      const int64_t la = __shfl_sync(0xffffffffu, lo, l);
-      const int64_t lb = __shfl_sync(0xffffffffu, hi, l);
+    row_pass::each_long_row(long_rows, lo, hi,
+                            [&](int l, int64_t la, int64_t lb) {
       unsigned t[kChunk];
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) t[j] = F::ident();
@@ -335,11 +330,12 @@ pull_acc_kernel(const typename C::T* __restrict__ val,
       if (lane == l)
 #pragma unroll
         for (int j = 0; j < kChunk; ++j) a[j] = t[j];
-    }
-    if (r < r1)
+    });
+    if (row < r1)
 #pragma unroll
       for (int j = 0; j < kChunk; ++j)
-        if (kChunk == 1 || 8 * c + j < k) out[r * k + 8 * c + j] = F::out(a[j]);
+        if (kChunk == 1 || 8 * c + j < k)
+          out[row * k + 8 * c + j] = F::out(a[j]);
   }
 }
 
@@ -352,7 +348,7 @@ cudaError_t run_pull(const void* val, const void* front, int64_t n_tab,
   using T = typename C::T;
   cudaError_t e = pack_bits(front, n_tab, k, bits, st);
   if (e != cudaSuccess || n_tasks == 0) return e;
-  const int64_t blocks = n_hub + (n_tasks - n_hub + kWarps - 1) / kWarps;
+  const int64_t blocks = row_pass::grid(n_tasks, n_hub, kWarps);
   const auto* v = static_cast<const T*>(val);
   const auto* b = static_cast<const unsigned*>(bits);
   const auto* cs = static_cast<const int*>(col_src);

@@ -1,5 +1,4 @@
-// Scalar CSR segmented sums over work items, shared by segment_sum.cu (K2,
-// K4) and pull_sum.cu (K8 at K = 1).
+// Scalar CSR segmented sums over work items, for segment_sum.cu (K4).
 //
 // The host cuts each row's elements into work items of at most a few dozen
 // elements inside one row (ops/segment.py::segment_items). Pass 1 gives each
@@ -52,7 +51,7 @@ cudaError_t run(Fetch f, const void* item_lo, int64_t n_items,
     if (e != cudaSuccess) return e;
   }
   return launch_items_reduce(p, static_cast<const int64_t*>(row_items), nrows,
-                             1, static_cast<float*>(y), st);
+                             static_cast<float*>(y), st);
 }
 
 }  // namespace seg_items

@@ -17,7 +17,9 @@ the windows, then falls back to flat with a warning, or raises the
 On the card a step launches one kernel for the program's ``edge_op``
 (:func:`lux_tpu_torch.ops.segment.pull_sum`): K8 ``gather_segment_sum``
 for ``"copy"`` (PageRank), K9 ``cf_edge_sum`` for ``"cf_sgd"``
-(collaborative filtering). Neither materialises contributions, so the
+(collaborative filtering), over the graph's row schedule
+(:func:`~lux_tpu_torch.ops.segment.pull_row_tasks`, built once with the
+executor). Neither materialises contributions, so the
 flat and chunked steps and both ``sum_strategy`` values are the same
 launch there, and a boundary plan that does not compress refuses
 nothing: ``edge_chunk`` is still reported as ``lux_tpu`` routes it. A
@@ -52,8 +54,7 @@ from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops.segment import (
     PULL_EDGE_OPS,
     SUM_STRATEGIES,
-    SegmentItems,
-    pull_item_len,
+    pull_row_tasks,
     pull_sum,
     segment_reduce,
 )
@@ -233,10 +234,9 @@ class PullExecutor:
         self.row_ptr = put(graph.row_ptr.astype(np.int64))
         self.col_src = put(graph.col_src.astype(np.int32))
         self.weights = None if graph.weights is None else put(graph.weights)
-        # The kernels' work items; the CPU's plain version needs none.
-        self.items = (SegmentItems.build(graph.row_ptr,
-                                         pull_item_len(program.edge_op),
-                                         self.device) if on_card else None)
+        # The kernel's row schedule; the CPU's plain version needs none.
+        self.tasks = (pull_row_tasks(graph.row_ptr, program.edge_op,
+                                     self.device) if on_card else None)
         self.col_dst = (put(graph.col_dst) if program.combiner != "sum"
                         else None)
         self._ctx = VertexCtx(
@@ -256,7 +256,7 @@ class PullExecutor:
         if prog.combiner == "sum":
             return pull_sum(
                 vals, self.row_ptr, self.col_src, self.weights, prog.edge_op,
-                self._edge_fn, self.items, self.edge_chunk,
+                self._edge_fn, self.tasks, self.edge_chunk,
                 self.sum_strategy)
         # Min/max combiners: the plain scatter (the CPU only; see
         # check_kernel_covers).

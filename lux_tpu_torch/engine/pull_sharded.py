@@ -24,11 +24,13 @@ three phases:
   ``index_select`` and ``index_copy_`` already do at the card's rate;
 - **comp**: one kernel launch per part, as ``lux_tpu`` runs one device
   per part: K8 ``gather_segment_sum`` (PageRank) or K9 ``cf_edge_sum``
-  (CF) over the part's ``local_row_ptr`` and ``src_pidx``, with
-  :class:`~lux_tpu_torch.ops.segment.SegmentItems` per part. K9 reads
-  each destination's row from the same table as the sources; the items'
-  ``item_row`` is offset by ``part * max_nv``, the part's own span. Pad
-  edges lie past ``local_row_ptr[max_nv]``, so no item holds one;
+  (CF) over the part's ``local_row_ptr`` and ``src_pidx``, with the
+  part's :class:`~lux_tpu_torch.ops.segment.RowTasks`. K9 reads each
+  destination's row from the same table as the sources, at ``row_base =
+  part * max_nv``, the part's own span. Pad edges lie past
+  ``local_row_ptr[max_nv]``, so no row holds one. A row's sum is taken
+  in the order one device takes it, so the parts' sums equal the
+  single-device run's bitwise;
 - **update**: ``program.apply`` over the stacked parts, then pad
   vertices are frozen by ``vertex_mask``.
 
@@ -58,7 +60,6 @@ from lux_tpu_torch.engine.sharded import ShardedBase
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops.segment import (
     SUM_STRATEGIES,
-    pull_item_len,
     pull_sum,
     segment_reduce,
 )
@@ -93,7 +94,7 @@ class ShardedPullExecutor(ShardedBase):
         self._row_bytes = max(width, 1) * getattr(program.value_dtype,
                                                   "itemsize", 4)
         sg = self.sg
-        self._build_parts(pull_item_len(program.edge_op), own_rows=True)
+        self._build_parts(tasks=True, edge_op=program.edge_op)
         self.dst_local = (self._put(sg.dst_local) if program.combiner != "sum"
                           else None)
         self._ctx = VertexCtx(nv=graph.nv,
@@ -115,7 +116,7 @@ class ShardedPullExecutor(ShardedBase):
             if prog.combiner == "sum":
                 accs.append(pull_sum(
                     table, part.row_ptr, part.col_src, part.weights,
-                    prog.edge_op, self._edge_fn, part.items, 0,
+                    prog.edge_op, self._edge_fn, part.tasks, 0,
                     self.sum_strategy, part.row_base))
                 continue
             # Min/max combiners: the plain scatter (the CPU only; see

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.graph.graph import Graph
-from lux_tpu_torch.ops.segment import RowTasks, SegmentItems
+from lux_tpu_torch.ops.segment import RowTasks, SegmentItems, pull_row_tasks
 from lux_tpu_torch.parallel.mesh import CompactExchange, LocalMesh, mesh_for
 from lux_tpu_torch.parallel.shard import (
     ShardedGraph,
@@ -35,7 +35,7 @@ class Part:
     """One part's operands on the device: its CSC offsets, its real
     edges' flat source rows and weights (views of the stacked arrays),
     the first row of its own span in the flat table, and its kernel work
-    items or K10 row tasks (the card only)."""
+    items or row tasks (the card only)."""
 
     row_ptr: torch.Tensor             # (max_nv + 1,) int64
     col_src: torch.Tensor             # (n_e,) int32, rows of the flat table
@@ -72,11 +72,12 @@ class ShardedBase:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _build_parts(self, item_len: Optional[int] = None,
-                     own_rows: bool = False, tasks: bool = False) -> None:
+                     tasks: bool = False,
+                     edge_op: Optional[str] = None) -> None:
         """The per-part operands and the compact exchange. ``item_len``
-        sizes the kernels' work items; with ``own_rows`` an item also
-        addresses its destinations' rows in the flat table (K9's
-        ``row_base``). ``tasks`` builds K10's row tasks instead."""
+        sizes the kernels' work items (K5); ``tasks`` builds row tasks
+        instead, K10's, or with ``edge_op`` those of that pull kernel
+        (K8, K9)."""
         sg = self.sg
         n = sg.max_nv
         on_card = self.device.type != "cpu"
@@ -89,11 +90,14 @@ class ShardedBase:
             n_e = int(sg.local_row_ptr[q, -1])
             items = row_tasks = None
             if on_card and item_len is not None:
-                items = SegmentItems.build(
-                    sg.local_row_ptr[q], item_len, self.device,
-                    row_base=q * n if own_rows else 0)
+                items = SegmentItems.build(sg.local_row_ptr[q], item_len,
+                                           self.device)
             if on_card and tasks:
-                row_tasks = RowTasks.build(sg.local_row_ptr[q], self.device)
+                row_tasks = (
+                    RowTasks.build(sg.local_row_ptr[q], self.device)
+                    if edge_op is None else
+                    pull_row_tasks(sg.local_row_ptr[q], edge_op,
+                                   self.device))
             self._parts.append(Part(
                 row_ptr=row_ptr[q],
                 col_src=src_pidx[q, :n_e],

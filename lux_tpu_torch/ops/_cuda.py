@@ -67,11 +67,11 @@ _SIGNATURES = {
     # q, start, offs, cnt, total, col_dst, old, out, comb, relax, stream
     "lux_queue_relax_scatter": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT,
                                 _INT, _P),
-    # vals, col_src, item_lo, n_items, row_items, nrows, partial, y, stream
-    "lux_gather_segment_sum": (_P, _P, _P, _I64, _P, _I64, _P, _P, _P),
-    # vals, col_src, weights, item_lo, item_row, n_items, row_items, nrows,
-    # partial, y, stream
-    "lux_cf_edge_sum": (_P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P),
+    # vals, col_src, row_ptr, tasks, n_tasks, n_hub, y, stream
+    "lux_gather_segment_sum": (_P, _P, _P, _P, _I64, _I64, _P, _P),
+    # vals, col_src, weights, row_ptr, tasks, n_tasks, n_hub, row_base, y,
+    # stream
+    "lux_cf_edge_sum": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P),
     # values, frontier, n_tab, col_src, weights, row_ptr, tasks, n_tasks,
     # n_hub, k, op, bits, acc, stream
     "lux_gas_pull_acc": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _INT,

@@ -1,24 +1,26 @@
 """Segment reductions: sorted-segment sums (K4), the push engine's
 relax-and-reduce (K5, ``segment_minmax_relax``), the flat pull
 engine's fused edge sums (K8 ``gather_segment_sum``, K9 ``cf_edge_sum``)
-and the GAS engine's pull accumulator (K10 ``gas_pull_acc``, over the
-row tasks of :class:`RowTasks` and a frontier bitmask).
+and the GAS engine's pull accumulator (K10 ``gas_pull_acc``, over a
+frontier bitmask).
 
 The counterpart of ``lux_tpu/ops/segment.py``. There, sums are a
 scatter-free cumsum-diff and min/max a block-min hierarchy of segmented
 scans, both shaped for the TPU. Here the CUDA kernels reduce each
 segment directly: ``csrc/segment_sum.cu`` (K2, K4),
-``csrc/push_dense.cu`` (K5) and ``csrc/pull_sum.cu`` (K8, K9). The plain
-versions are a float64 prefix-sum diff and a ``scatter_reduce`` over
-widened integers. K10 lives in ``csrc/gas.cu``.
+``csrc/push_dense.cu`` (K5), ``csrc/pull_sum.cu`` (K8, K9) and
+``csrc/gas.cu`` (K10). The plain versions are a float64 prefix-sum diff
+and a ``scatter_reduce`` over widened integers.
 
-Every CUDA segmented reduction of this package splits the elements into
-:class:`SegmentItems`, contiguous work items of at most ``item_len``
-elements that each lie inside one segment, so a long segment never
-serialises one thread group. The sums reduce each item, then each
-segment's items in item order, so they add in a fixed order. The min/max
-reduction (K5) combines each item's result into its segment with an
-integer atomic, which does not depend on order. Results are
+Long segments must not serialise one thread group. K4 and K5 split the
+elements into :class:`SegmentItems`, contiguous work items of at most
+``item_len`` elements that each lie inside one segment; K4 sums each
+item, then each segment's items in item order, and K5 combines each
+item's result into its segment with an integer atomic, which does not
+depend on order. K8, K9 and K10 write each row once over the
+:class:`RowTasks` schedule: a hub row a block (K9: a cluster of
+blocks), the other rows a lane or a warp of a warp task, each summed in
+an order fixed by the row's length (``csrc/row_pass.cuh``). Results are
 deterministic.
 
 **uint32 values.** The push programs hold uint32 values (SSSP distances,
@@ -74,17 +76,11 @@ def segment_items(row_ptr: np.ndarray, item_len: int):
 @dataclasses.dataclass(eq=False)
 class SegmentItems:
     """Work items of one CSR segmented sum, on the device (see
-    :func:`segment_items`); built once per plan on the host.
-
-    ``item_row`` is the owning row plus ``row_base``: the row of the
-    value table that holds the item's destination. It is the row itself
-    on one device; a part of a sharded graph reads its destinations from
-    its own span of the flat table, at ``part * max_nv``."""
+    :func:`segment_items`); built once per plan on the host."""
 
     item_lo: torch.Tensor     # (n_items+1,) int64 element offsets
     row_items: torch.Tensor   # (nrows+1,) int64 item offsets per row
-    item_row: torch.Tensor    # (n_items,) int32 table row of each item
-    row_base: int = 0
+    item_row: torch.Tensor    # (n_items,) int32 owning row of each item
 
     @property
     def n_items(self) -> int:
@@ -95,16 +91,14 @@ class SegmentItems:
         return self.row_items.shape[0] - 1
 
     @staticmethod
-    def build(row_ptr: np.ndarray, item_len: int, device,
-              row_base: int = 0) -> "SegmentItems":
+    def build(row_ptr: np.ndarray, item_len: int, device) -> "SegmentItems":
         lo, ri = segment_items(row_ptr, item_len)
-        rows = np.repeat(np.arange(row_base, row_base + ri.shape[0] - 1,
-                                   dtype=np.int32), np.diff(ri))
+        rows = np.repeat(np.arange(ri.shape[0] - 1, dtype=np.int32),
+                         np.diff(ri))
         return SegmentItems(
             item_lo=torch.from_numpy(lo).to(device),
             row_items=torch.from_numpy(ri).to(device),
             item_row=torch.from_numpy(rows).to(device),
-            row_base=int(row_base),
         )
 
 
@@ -389,9 +383,6 @@ def segment_minmax_relax(
                          "of row_ptr")
     if items.nrows != nv:
         raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
-    if items.row_base:
-        # item_row is the output row here: the items of one table's rows.
-        raise ValueError("items with a row_base address another table")
     _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
     _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
     # The identity as int32 storage: 0xFFFFFFFF is -1, 0 is 0.
@@ -411,17 +402,85 @@ def segment_minmax_relax(
     return acc
 
 
+# -- the row schedule of K8, K9 and K10 ---------------------------------------
+
+# A warp task: at most TASK_ROWS consecutive rows (one a lane) whose edges
+# start inside one window of TASK_EDGES, so it gathers at most twice that;
+# a row of more than TASK_EDGES edges is a task alone, and one of more than
+# HUB_EDGES takes a whole block (csrc/row_pass.cuh). These are K10's.
+TASK_ROWS = 32
+TASK_EDGES = 1024
+HUB_EDGES = 4096
+
+
+def row_tasks(row_ptr: np.ndarray, task_edges: int = TASK_EDGES,
+              hub_edges: int = HUB_EDGES, task_rows: int = TASK_ROWS):
+    """(tasks (n_tasks, 2) int32 [first row, end row), n_hub) for CSR
+    offsets: the rows cut into tasks of at most ``task_rows`` rows (at
+    most 32, a lane each) whose edges start in one window of
+    ``task_edges``, the ``n_hub`` hub rows (more than ``hub_edges``
+    edges, each a task alone) first, then the warp tasks in row order.
+    A row of more than ``task_edges`` edges is a task alone. The tasks
+    partition the rows."""
+    if not 1 <= task_rows <= 32:
+        raise ValueError(f"task_rows must be 1..32 (a lane a row), "
+                         f"got {task_rows}")
+    rp = np.asarray(row_ptr, np.int64)
+    n = rp.shape[0] - 1
+    if n <= 0:
+        return np.zeros((0, 2), np.int32), 0
+    lens = np.diff(rp)
+    alone = lens > min(task_edges, hub_edges)
+    win = (rp[:-1] - rp[0]) // task_edges
+    idx = np.arange(n, dtype=np.int64)
+    cut = np.ones(n, bool)
+    cut[1:] = (win[1:] != win[:-1]) | alone[1:] | alone[:-1]
+    first = np.maximum.accumulate(np.where(cut, idx, 0))
+    cut |= (idx - first) % task_rows == 0
+    lo = np.flatnonzero(cut)
+    hi = np.append(lo[1:], n)
+    hub = (hi - lo == 1) & (lens[lo] > hub_edges)
+    order = np.concatenate([np.flatnonzero(hub), np.flatnonzero(~hub)])
+    tasks = np.stack([lo[order], hi[order]], axis=1).astype(np.int32)
+    return tasks, int(hub.sum())
+
+
+@dataclasses.dataclass(eq=False)
+class RowTasks:
+    """The schedule of K8, K9 and K10 over one CSC row pointer (see
+    :func:`row_tasks`), on the device; built once per graph on the host.
+    Block ``b < n_hub`` sums hub row ``tasks[b]``; the other blocks run
+    a warp task a warp, in order."""
+
+    tasks: torch.Tensor   # (n_tasks, 2) int32 [first row, end row)
+    n_hub: int
+    nrows: int
+
+    @property
+    def n_tasks(self) -> int:
+        return self.tasks.shape[0]
+
+    @staticmethod
+    def build(row_ptr: np.ndarray, device, task_edges: int = TASK_EDGES,
+              hub_edges: int = HUB_EDGES) -> "RowTasks":
+        tasks, n_hub = row_tasks(row_ptr, task_edges, hub_edges)
+        return RowTasks(tasks=torch.from_numpy(tasks).to(device),
+                        n_hub=n_hub, nrows=np.asarray(row_ptr).shape[0] - 1)
+
+
 # -- K8, K9: the flat pull engine's fused edge sums ---------------------------
 
-# K8 sums scalar values (K = 1) on the 8-thread items of K2/K4 (SEG_ITEM
-# edges each). K9 gives a warp one item of at most WARP_ITEM edges, four
-# per lane, and is compiled for CF's width only.
-WARP_ITEM = 128
-CF_WIDTH = 20
+CF_WIDTH = 20   # K9 is compiled for CF's width only
 SUM_STRATEGIES = ("rowptr", "segment")
 # The edge functions the kernels know, by a program's ``edge_op``:
 # "copy" is K8's, "cf_sgd" K9's.
 PULL_EDGE_OPS = ("copy", "cf_sgd")
+# Each kernel's RowTasks thresholds (task_edges, hub_edges), from the
+# shape sweep (python -m lux_tpu_torch.probes.shapes). Any thresholds give
+# a right sum; they fix which rows a block, a warp or a lane sums, and so
+# the order of each sum.
+PULL_TASK_EDGES = {"copy": (512, HUB_EDGES),
+                   "cf_sgd": (TASK_EDGES, HUB_EDGES)}
 # An edge function: (source rows, destination rows, weights or None) of a
 # window of edges -> their contributions.
 EdgeFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
@@ -437,10 +496,15 @@ def _cf_edge(src, dst, w):
     return err[:, None] * src
 
 
-def pull_item_len(edge_op: Optional[str]) -> int:
-    """Work-item length of the kernel of ``edge_op`` (any length gives
-    the same sums; this one is fast)."""
-    return SEG_ITEM if edge_op == "copy" else WARP_ITEM
+def pull_row_tasks(row_ptr: np.ndarray, edge_op: Optional[str],
+                   device) -> RowTasks:
+    """The :class:`RowTasks` of ``row_ptr`` that the kernel of
+    ``edge_op`` runs over, with that kernel's thresholds."""
+    if edge_op not in PULL_TASK_EDGES:
+        raise NotImplementedError(
+            f"the CUDA pull kernels know edge ops {PULL_EDGE_OPS}, "
+            f"not {edge_op!r}")
+    return RowTasks.build(row_ptr, device, *PULL_TASK_EDGES[edge_op])
 
 
 def pull_sum_plain(
@@ -506,78 +570,66 @@ def cf_edge_sum_plain(vals, row_ptr, col_src, weights, window: int = 0,
                           row_base=row_base)
 
 
-def _check_pull_operands(vals, row_ptr, col_src, items, item_rows: bool,
-                         row_base: int = 0):
+def _check_pull_operands(vals, row_ptr, col_src, tasks, row_base: int = 0):
     """Raise unless ``vals`` holds the destination rows ``row_base ..
-    row_base + nv - 1`` and ``row_ptr``, ``col_src`` and ``items`` (the
-    :class:`SegmentItems` of ``row_ptr``, built with ``row_base``) are
-    the device operands of a pull kernel."""
+    row_base + nv - 1`` and ``row_ptr``, ``col_src`` and ``tasks`` (the
+    :class:`RowTasks` of ``row_ptr``) are the device operands of a pull
+    kernel."""
     dev = vals.device
     nv = row_ptr.shape[0] - 1
     _cuda.check(vals, "vals", torch.float32, dev)
-    if vals.dim() == 0 or vals.shape[0] < row_base + nv:
+    if vals.dim() == 0 or vals.shape[0] < row_base + nv or row_base < 0:
         raise ValueError(f"vals must hold rows {row_base}.."
                          f"{row_base + nv - 1} (({nv}, ...) on one "
                          f"device), got "
                          f"{tuple(vals.shape)}")
     _cuda.check(row_ptr, "row_ptr", torch.int64, dev, ndim=1)
     _cuda.check(col_src, "col_src", torch.int32, dev, ndim=1)
-    if items is None:
-        raise ValueError("CUDA pull sums need the SegmentItems of row_ptr")
-    if items.nrows != nv:
-        raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
-    if items.row_base != row_base:
-        raise ValueError(f"items were built for row_base {items.row_base},"
-                         f" not {row_base}")
-    _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
-    _cuda.check(items.row_items, "row_items", torch.int64, dev, ndim=1)
-    if item_rows:
-        _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
+    if tasks is None:
+        raise ValueError("CUDA pull sums need the RowTasks of row_ptr")
+    if tasks.nrows != nv:
+        raise ValueError(f"tasks cover {tasks.nrows} rows, row_ptr {nv}")
+    _cuda.check(tasks.tasks, "tasks", torch.int32, dev, ndim=2)
 
 
 def gather_segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
                        col_src: torch.Tensor,
-                       items: Optional[SegmentItems] = None) -> torch.Tensor:
+                       tasks: Optional[RowTasks] = None) -> torch.Tensor:
     """Per CSC destination v, the sum of ``vals[src]`` over its in-edges,
     (nv,) for ``row_ptr``'s nv rows; ``vals`` is the table the sources
     index (nv rows on one device, every part's on a sharded graph). CPU
     tensors take the plain version (rows of any shape); CUDA tensors
-    launch K8 (``csrc/pull_sum.cu``) over ``items``, for scalar f32
-    values only."""
+    launch K8 (``csrc/pull_sum.cu``) over ``tasks`` (see
+    :func:`pull_row_tasks`), for scalar f32 values only."""
     if vals.device.type == "cpu":
         return gather_segment_sum_plain(vals, row_ptr, col_src)
     if vals.dim() != 1:
         raise NotImplementedError(
             f"K8 sums scalar (nv,) values, not {tuple(vals.shape)}")
-    row_base = 0 if items is None else items.row_base
-    _check_pull_operands(vals, row_ptr, col_src, items, item_rows=False,
-                         row_base=row_base)
-    nv = row_ptr.shape[0] - 1
-    if items.n_items == 0:
-        return vals.new_zeros(nv)
-    acc = vals.new_empty(nv)
-    partial = torch.empty(items.n_items, dtype=torch.float32,
-                          device=vals.device)
+    _check_pull_operands(vals, row_ptr, col_src, tasks)
+    acc = vals.new_empty(row_ptr.shape[0] - 1)
+    if tasks.n_tasks == 0:
+        return acc
     _cuda.launch(
         "gather_segment_sum", "lux_gather_segment_sum", _cuda.ptr(vals),
-        _cuda.ptr(col_src), _cuda.ptr(items.item_lo), items.n_items,
-        _cuda.ptr(items.row_items), items.nrows, _cuda.ptr(partial),
-        _cuda.ptr(acc), _cuda.stream(vals.device),
+        _cuda.ptr(col_src), _cuda.ptr(row_ptr), _cuda.ptr(tasks.tasks),
+        tasks.n_tasks, tasks.n_hub, _cuda.ptr(acc),
+        _cuda.stream(vals.device),
     )
     return acc
 
 
 def cf_edge_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
                 col_src: torch.Tensor, weights: torch.Tensor,
-                items: Optional[SegmentItems] = None,
+                tasks: Optional[RowTasks] = None,
                 row_base: int = 0) -> torch.Tensor:
     """Per CSC destination v, the sum of ``(w - <vals[src], vals[row_base
     + v]>) * vals[src]`` over its in-edges (collaborative filtering's
     gather), (nv, K) for ``row_ptr``'s nv rows of a (rows, K) table
     ``vals``. CPU tensors take the plain version (any K); CUDA tensors
-    launch K9 (``csrc/pull_sum.cu``) over ``items``, built with
-    ``row_base`` (K9 reads each item's destination row at its
-    ``item_row``), with int32 ``weights`` and K = ``CF_WIDTH``."""
+    launch K9 (``csrc/pull_sum.cu``) over ``tasks`` (see
+    :func:`pull_row_tasks`), with int32 ``weights`` and K =
+    ``CF_WIDTH``."""
     if vals.device.type == "cpu":
         return cf_edge_sum_plain(vals, row_ptr, col_src, weights,
                                  row_base=row_base)
@@ -587,24 +639,19 @@ def cf_edge_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
     if vals.shape[1] != CF_WIDTH:
         raise NotImplementedError(
             f"K9 is compiled for K = {CF_WIDTH}, not {vals.shape[1]}")
-    _check_pull_operands(vals, row_ptr, col_src, items, item_rows=True,
-                         row_base=row_base)
+    _check_pull_operands(vals, row_ptr, col_src, tasks, row_base)
     if vals.data_ptr() % 16:
         raise ValueError("vals must be 16-byte aligned (rows load as float4)")
     _cuda.check(weights, "weights", torch.int32, vals.device, ndim=1)
     if weights.shape != col_src.shape:
         raise ValueError("weights and col_src differ in shape")
-    shape = (row_ptr.shape[0] - 1, CF_WIDTH)
-    if items.n_items == 0:
-        return vals.new_zeros(shape)
-    acc = vals.new_empty(shape)
-    partial = torch.empty((items.n_items, CF_WIDTH), dtype=torch.float32,
-                          device=vals.device)
+    acc = vals.new_empty((row_ptr.shape[0] - 1, CF_WIDTH))
+    if tasks.n_tasks == 0:
+        return acc
     _cuda.launch(
         "cf_edge_sum", "lux_cf_edge_sum", _cuda.ptr(vals), _cuda.ptr(col_src),
-        _cuda.ptr(weights), _cuda.ptr(items.item_lo),
-        _cuda.ptr(items.item_row), items.n_items, _cuda.ptr(items.row_items),
-        items.nrows, _cuda.ptr(partial), _cuda.ptr(acc),
+        _cuda.ptr(weights), _cuda.ptr(row_ptr), _cuda.ptr(tasks.tasks),
+        tasks.n_tasks, tasks.n_hub, row_base, _cuda.ptr(acc),
         _cuda.stream(vals.device),
     )
     return acc
@@ -617,7 +664,7 @@ def pull_sum(
     weights: Optional[torch.Tensor],
     edge_op: Optional[str],
     edge_fn: EdgeFn,
-    items: Optional[SegmentItems] = None,
+    tasks: Optional[RowTasks] = None,
     window: int = 0,
     strategy: str = "rowptr",
     row_base: int = 0,
@@ -628,22 +675,19 @@ def pull_sum(
 
     CPU tensors take :func:`pull_sum_plain` with the program's edge
     function ``edge_fn``, ``window`` and ``strategy``. CUDA tensors
-    launch the kernel of ``edge_op``: K8 for ``"copy"``, K9 for
-    ``"cf_sgd"``; every window and both strategies give the same launch,
-    which materialises no contributions. Another ``edge_op`` raises
-    ``NotImplementedError`` on the card."""
+    launch the kernel of ``edge_op`` over ``tasks``: K8 for ``"copy"``,
+    K9 for ``"cf_sgd"``; every window and both strategies give the same
+    launch, which materialises no contributions. Another ``edge_op``
+    raises ``NotImplementedError`` on the card."""
     if vals.device.type == "cpu":
         return pull_sum_plain(vals, row_ptr, col_src, weights, edge_fn,
                               window, strategy, row_base)
     if edge_op == "copy":
-        if items is not None and items.row_base != row_base:
-            raise ValueError(f"items were built for row_base "
-                             f"{items.row_base}, not {row_base}")
-        return gather_segment_sum(vals, row_ptr, col_src, items)
+        return gather_segment_sum(vals, row_ptr, col_src, tasks)
     if edge_op == "cf_sgd":
         if weights is None:
             raise ValueError("the cf_sgd edge needs edge weights")
-        return cf_edge_sum(vals, row_ptr, col_src, weights, items, row_base)
+        return cf_edge_sum(vals, row_ptr, col_src, weights, tasks, row_base)
     raise NotImplementedError(
         f"the CUDA pull kernels know edge ops {PULL_EDGE_OPS}, "
         f"not {edge_op!r}")
@@ -768,63 +812,7 @@ def gas_pull_acc_plain(
     return gas_narrow(segment_reduce(msg, seg, nv, kind, dtype=dom), values)
 
 
-# -- K10's schedule and its frontier bitmask ----------------------------------
-
-# A K10 warp task: at most TASK_ROWS consecutive rows (one a lane) whose
-# edges start inside one window of TASK_EDGES, so it gathers at most twice
-# that; a row of more than TASK_EDGES edges is a task alone, and one of more
-# than HUB_EDGES takes a whole block (csrc/gas.cu).
-TASK_ROWS = 32
-TASK_EDGES = 1024
-HUB_EDGES = 4096
-
-
-def row_tasks(row_ptr: np.ndarray):
-    """(tasks (n_tasks, 2) int32 [first row, end row), n_hub) for CSR
-    offsets: the rows cut into K10 tasks, the ``n_hub`` single hub rows
-    first, then the warp tasks in row order. The tasks partition the
-    rows."""
-    rp = np.asarray(row_ptr, np.int64)
-    n = rp.shape[0] - 1
-    if n <= 0:
-        return np.zeros((0, 2), np.int32), 0
-    lens = np.diff(rp)
-    alone = lens > TASK_EDGES
-    win = (rp[:-1] - rp[0]) // TASK_EDGES
-    idx = np.arange(n, dtype=np.int64)
-    cut = np.ones(n, bool)
-    cut[1:] = (win[1:] != win[:-1]) | alone[1:] | alone[:-1]
-    first = np.maximum.accumulate(np.where(cut, idx, 0))
-    cut |= (idx - first) % TASK_ROWS == 0
-    lo = np.flatnonzero(cut)
-    hi = np.append(lo[1:], n)
-    hub = (hi - lo == 1) & (lens[lo] > HUB_EDGES)
-    order = np.concatenate([np.flatnonzero(hub), np.flatnonzero(~hub)])
-    tasks = np.stack([lo[order], hi[order]], axis=1).astype(np.int32)
-    return tasks, int(hub.sum())
-
-
-@dataclasses.dataclass(eq=False)
-class RowTasks:
-    """K10's schedule over one CSC row pointer (see :func:`row_tasks`),
-    on the device; built once per graph on the host. Block ``b <
-    n_hub`` sums hub row ``tasks[b]``; the other blocks run a warp task
-    a warp, in order."""
-
-    tasks: torch.Tensor   # (n_tasks, 2) int32 [first row, end row)
-    n_hub: int
-    nrows: int
-
-    @property
-    def n_tasks(self) -> int:
-        return self.tasks.shape[0]
-
-    @staticmethod
-    def build(row_ptr: np.ndarray, device) -> "RowTasks":
-        tasks, n_hub = row_tasks(row_ptr)
-        return RowTasks(tasks=torch.from_numpy(tasks).to(device),
-                        n_hub=n_hub, nrows=np.asarray(row_ptr).shape[0] - 1)
-
+# -- K10's frontier bitmask --------------------------------------------------
 
 def frontier_bits_plain(frontier: torch.Tensor) -> torch.Tensor:
     """The frontier as K10 reads it. (n,) or (n, 1) bool: int32 words,

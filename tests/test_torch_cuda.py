@@ -39,6 +39,7 @@ from lux_tpu_torch.ops import merge_tail_kernel as mtk
 from lux_tpu_torch.ops import merge_tail_plan as mtp
 from lux_tpu_torch.ops import segment as seg
 from lux_tpu_torch.ops import tiled_spmv as ts
+from torch_pull_order import ordered_pull_sum
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 5e-5, 1e-9
@@ -500,9 +501,33 @@ def _pull_operands(width, exact, nv=500, seed=6):
     return tuple(torch.from_numpy(a) for a in (row_ptr, col_src, w, vals))
 
 
+# The kernels' own thresholds, and ones that cut the rows of
+# _pull_operands into blocks, warps and lanes otherwise.
+PULL_SCHEDULES = [None, (64, 200), (8, 16)]
+
+
+def _pull_call(op, d, tasks, row_base=0):
+    """K8 or K9 on the device operands d = (row_ptr, col_src, w, vals)."""
+    if op == "copy":
+        return seg.gather_segment_sum(d[3], d[0], d[1], tasks)
+    return seg.cf_edge_sum(d[3], d[0], d[1], d[2], tasks, row_base)
+
+
+def _ordered(op, row_ptr, col_src, w, vals, tasks, row_base=0):
+    """The kernel's summation order on the CPU (tests/torch_pull_order.py)."""
+    hubs = tasks.tasks[:tasks.n_hub, 0].cpu().numpy()
+    return ordered_pull_sum(vals, row_ptr.numpy(), col_src, hubs,
+                            weights=None if op == "copy" else w,
+                            row_base=row_base)
+
+
 @pytest.mark.parametrize("op,width", [("copy", 1), ("cf_sgd", 20)])
 @pytest.mark.parametrize("exact", [True, False])
-def test_pull_kernels_match_plain(dev, op, width, exact):
+@pytest.mark.parametrize("thresholds", PULL_SCHEDULES)
+def test_pull_kernels_match_plain(dev, op, width, exact, thresholds):
+    # Bitwise on small integers, within the tolerances on floats; and
+    # bitwise on both against the kernel's order emulated on the CPU.
+    # The rows are empty, a lane's, a warp's and a hub block's.
     row_ptr, col_src, w, vals = _pull_operands(width, exact)
     if op == "copy":
         want = seg.gather_segment_sum(vals, row_ptr, col_src)
@@ -511,36 +536,61 @@ def test_pull_kernels_match_plain(dev, op, width, exact):
         want = seg.cf_edge_sum(vals, row_ptr, col_src, w)
         tol = CF_TOL
     d = [t.to(dev) for t in (row_ptr, col_src, w, vals)]
-    # The kernel's own item length, and one that cuts every row into
-    # many short items: the sums do not depend on it.
-    for item_len in (seg.pull_item_len(op), 7):
-        items = seg.SegmentItems.build(row_ptr.numpy(), item_len, dev)
-        if op == "copy":
-            got = seg.gather_segment_sum(d[3], d[0], d[1], items)
-        else:
-            got = seg.cf_edge_sum(d[3], d[0], d[1], d[2], items)
-        got = got.cpu()
-        assert got.dtype == torch.float32 and got.shape == want.shape
-        if exact:
-            assert torch.equal(got, want)
-        else:
-            np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+    tasks = (seg.pull_row_tasks(row_ptr.numpy(), op, dev)
+             if thresholds is None else
+             seg.RowTasks.build(row_ptr.numpy(), dev, *thresholds))
+    assert tasks.n_hub >= 1
+    _cuda.reset_launches()
+    got = _pull_call(op, d, tasks)
+    assert _cuda.LAUNCHES[("gather_segment_sum" if op == "copy"
+                           else "cf_edge_sum")] == 1
+    got = got.cpu()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+    assert torch.equal(got, _ordered(op, row_ptr, col_src, w, vals, tasks))
+
+
+@pytest.mark.parametrize("op,width", [("copy", 1), ("cf_sgd", 20)])
+def test_pull_kernels_are_deterministic(dev, op, width):
+    # No atomics: two calls are bitwise equal, on an R-MAT's skewed rows
+    # as on a ratings graph's hub items.
+    g = (generate.rmat(12, 16, seed=4) if op == "copy"
+         else generate.bipartite_ratings(2000, 60, 60000, seed=4))
+    rng = np.random.default_rng(9)
+    shape = (g.nv,) if width == 1 else (g.nv, width)
+    vals = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    w = None if g.weights is None else torch.from_numpy(g.weights).to(dev)
+    d = (torch.from_numpy(g.row_ptr).to(dev),
+         torch.from_numpy(g.col_src).to(dev), w, vals)
+    tasks = seg.pull_row_tasks(g.row_ptr, op, dev)
+    first = _pull_call(op, d, tasks)
+    assert torch.equal(_pull_call(op, d, tasks), first)
 
 
 def test_pull_wrappers_check_their_inputs(dev):
     row_ptr, col_src, w, vals = (t.to(dev) for t in _pull_operands(20, True))
-    items = seg.SegmentItems.build(row_ptr.cpu().numpy(), seg.WARP_ITEM, dev)
+    tasks = seg.pull_row_tasks(row_ptr.cpu().numpy(), "cf_sgd", dev)
     # K8 is compiled for scalar values, K9 for K = 20 only.
     with pytest.raises(NotImplementedError):
-        seg.gather_segment_sum(vals, row_ptr, col_src, items)
+        seg.gather_segment_sum(vals, row_ptr, col_src, tasks)
     with pytest.raises(NotImplementedError):
-        seg.cf_edge_sum(vals[:, :4].contiguous(), row_ptr, col_src, w, items)
+        seg.cf_edge_sum(vals[:, :4].contiguous(), row_ptr, col_src, w, tasks)
     with pytest.raises(ValueError, match="int32"):
-        seg.cf_edge_sum(vals, row_ptr, col_src, w.long(), items)
-    with pytest.raises(ValueError, match="SegmentItems"):
+        seg.cf_edge_sum(vals, row_ptr, col_src, w.long(), tasks)
+    with pytest.raises(ValueError, match="RowTasks"):
         seg.cf_edge_sum(vals, row_ptr, col_src, w)
+    with pytest.raises(ValueError, match="RowTasks"):
+        seg.gather_segment_sum(vals[:, 0].contiguous(), row_ptr, col_src)
     with pytest.raises(ValueError, match="K-vectors"):
-        seg.cf_edge_sum(vals[:, 0].contiguous(), row_ptr, col_src, w, items)
+        seg.cf_edge_sum(vals[:, 0].contiguous(), row_ptr, col_src, w, tasks)
+    other = seg.pull_row_tasks(row_ptr.cpu().numpy()[:-1], "cf_sgd", dev)
+    with pytest.raises(ValueError, match="tasks cover"):
+        seg.cf_edge_sum(vals, row_ptr, col_src, w, other)
+    with pytest.raises(ValueError, match="must hold rows"):
+        seg.cf_edge_sum(vals, row_ptr, col_src, w, tasks, row_base=1)
 
 
 @pytest.mark.parametrize("app", ["cf", "pagerank"])
@@ -808,33 +858,57 @@ def test_gas_program_the_kernels_do_not_cover_raises_on_cuda(dev):
 
 
 @pytest.mark.parametrize("op,width", [("copy", 1), ("cf_sgd", 20)])
-def test_pull_kernels_on_a_part_of_a_flat_table(dev, op, width):
+@pytest.mark.parametrize("exact", [True, False])
+def test_pull_kernels_on_a_part_of_a_flat_table(dev, op, width, exact):
     # The destination rows of the part lie at row_base in a table of
-    # several parts' rows; the sources anywhere in it.
-    row_ptr, col_src, w, vals = _pull_operands(width, False)
+    # several parts' rows; the sources anywhere in it. Its col_src is a
+    # view that starts at an odd word (not 16-byte aligned), as a part's
+    # view of the stacked src_pidx may. Bitwise against the kernel's
+    # order, and against the plain version on small integers.
+    row_ptr, col_src, w, vals = _pull_operands(width, exact)
     nv = row_ptr.shape[0] - 1
     rng = np.random.default_rng(8)
     table = torch.cat([vals, vals.flip(0), vals * 0.5])
-    col_src = torch.from_numpy(
-        rng.integers(0, 3 * nv, size=col_src.shape[0]).astype(np.int32))
+    buf = torch.from_numpy(
+        rng.integers(0, 3 * nv, size=col_src.shape[0] + 1).astype(np.int32))
+    col_src = buf[1:]
+    tasks = seg.pull_row_tasks(row_ptr.numpy(), op, dev)
+    d_buf = buf.to(dev)
+    d = (row_ptr.to(dev), d_buf[1:], w.to(dev), table.to(dev))
+    assert d[1].data_ptr() % 16
     for base in (0, nv, 2 * nv):
-        items = seg.SegmentItems.build(row_ptr.numpy(),
-                                       seg.pull_item_len(op), dev, base)
-        d = [t.to(dev) for t in (table, row_ptr, col_src, w)]
         if op == "copy":
             want = seg.gather_segment_sum(table, row_ptr, col_src)
-            got = seg.gather_segment_sum(d[0], d[1], d[2], items)
             tol = dict(rtol=RTOL, atol=ATOL)
         else:
             want = seg.cf_edge_sum(table, row_ptr, col_src, w, row_base=base)
-            got = seg.cf_edge_sum(d[0], d[1], d[2], d[3], items, base)
             tol = CF_TOL
+        got = _pull_call(op, d, tasks, base).cpu()
         assert got.shape == want.shape == (nv,) + tuple(vals.shape[1:])
-        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **tol)
-        if op == "cf_sgd":
-            other = nv if base == 0 else 0
-            with pytest.raises(ValueError, match="row_base"):
-                seg.cf_edge_sum(d[0], d[1], d[2], d[3], items, other)
+        if exact:
+            assert torch.equal(got, want)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+        assert torch.equal(got, _ordered(op, row_ptr, col_src, w, table,
+                                         tasks, base))
+
+
+def test_cf_edge_sum_on_compact_tables(dev):
+    # Each part's K9 launch on its receiver table of the compact exchange
+    # (its own span written from its shard, the rows its edges read from
+    # the others) equals its launch on the full flat table bitwise.
+    from lux_tpu_torch.engine.pull_sharded import ShardedPullExecutor
+    from lux_tpu_torch.parallel.mesh import CompactExchange
+
+    g = generate.bipartite_ratings(400, 30, 8000, seed=3)
+    ex = ShardedPullExecutor(g, CollaborativeFiltering(), num_parts=3)
+    xch = CompactExchange(ex.sg.exchange_plan(), ex.mesh, ex.sg.max_nv)
+    vals = ex.init_values()
+    full, tables = ex.mesh.all_gather(vals), xch.tables(vals)
+    for q, part in enumerate(ex._parts):
+        args = (part.row_ptr, part.col_src, part.weights, part.tasks,
+                part.row_base)
+        assert torch.equal(seg.cf_edge_sum(tables[q], *args),
+                           seg.cf_edge_sum(full, *args))
 
 
 @pytest.mark.parametrize("parts", [1, 3, 4])
@@ -865,7 +939,7 @@ def test_sharded_pull_on_cuda(dev, monkeypatch, app, parts):
         got = ex.gather_values(out)
         np.testing.assert_allclose(got, cpu.gather_values(cpu.run(iters)),
                                    **tol)
-        # The same items in the same order as the single-device kernel.
+        # Each row summed in the order the single-device kernel takes.
         np.testing.assert_array_equal(got, single.cpu().numpy())
         outs[mode] = out
     assert torch.equal(outs["compact"], outs["full"])

@@ -33,6 +33,8 @@ from lux_tpu_torch.models import CollaborativeFiltering, PageRank
 from lux_tpu_torch.models.colfilter import reference_colfilter, rmse
 from lux_tpu_torch.models.pagerank import reference_pagerank
 from lux_tpu_torch.ops import segment as tseg
+from lux_tpu_torch.parallel.shard import ShardedGraph
+from torch_pull_order import ordered_pull_sum
 
 CPU = "cpu"
 CF_TOL = dict(rtol=1e-4, atol=1e-7)        # tests/test_colfilter.py
@@ -166,6 +168,141 @@ def test_k_wide_segment_reduce_matches_lux_tpu(kind):
         got = tseg.segment_sum_by_rowptr_plain(torch.from_numpy(data),
                                                torch.from_numpy(g.row_ptr))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- K8's and K9's row schedule and summation order ------------------------
+
+
+def _schedule_graph(name):
+    """(row_ptr, col_src, weights, nv of the table, row_base) of one of the
+    schedule tests' graphs; "part" is part 1 of a 3-part sharded ratings
+    graph, whose destinations lie at row_base = max_nv of the flat
+    table."""
+    if name == "ratings":
+        g = tgen.bipartite_ratings(300, 40, 6000, seed=2)
+    elif name == "rmat":
+        g = tgen.rmat(10, 8, seed=3, weighted=True)
+    elif name == "empty rows":
+        rng = np.random.default_rng(4)
+        lens = rng.integers(0, 60, 500)
+        lens[rng.random(500) < 0.4] = 0
+        lens[-30:] = 0
+        rp = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        src = rng.integers(0, 500, int(rp[-1]))
+        g = Graph.from_edges(src, np.repeat(np.arange(500), lens), nv=500,
+                             weights=rng.integers(1, 6, int(rp[-1]))
+                             .astype(np.int32))
+    elif name == "one hub":
+        rng = np.random.default_rng(5)
+        ne = 6000
+        dst = np.where(rng.random(ne) < 0.8, 7, rng.integers(0, 100, ne))
+        g = Graph.from_edges(rng.integers(0, 100, ne), dst, nv=100,
+                             weights=rng.integers(1, 6, ne).astype(np.int32))
+    else:   # "part"
+        g = tgen.bipartite_ratings(300, 40, 6000, seed=2)
+        sg = ShardedGraph.build(g, 3)
+        n_e = int(sg.local_row_ptr[1, -1])
+        return (sg.local_row_ptr[1].astype(np.int64), sg.src_pidx[1, :n_e],
+                sg.weights[1, :n_e], 3 * sg.max_nv, sg.max_nv)
+    return g.row_ptr, g.col_src, g.weights, g.nv, 0
+
+
+SCHEDULE_GRAPHS = ["ratings", "rmat", "empty rows", "one hub", "part"]
+# Each kernel's thresholds, and small ones that give these graphs rows of
+# every kind (a lane, a warp, a block).
+SCHEDULES = [("copy", None), ("cf_sgd", None), ("copy", (64, 200)),
+             ("cf_sgd", (64, 200))]
+
+
+def _schedule(rp, op, thresholds):
+    task_edges, hub_edges = thresholds or tseg.PULL_TASK_EDGES[op]
+    tasks, n_hub = tseg.row_tasks(rp, task_edges, hub_edges)
+    return tasks, n_hub, task_edges, hub_edges
+
+
+@pytest.mark.parametrize("op,thresholds", SCHEDULES)
+@pytest.mark.parametrize("name", SCHEDULE_GRAPHS)
+def test_pull_row_tasks_partition_the_rows(name, op, thresholds):
+    # Hub rows (more than hub_edges edges, one a block) first, then warp
+    # tasks of at most 32 consecutive rows in row order, gathering at
+    # most 2 * task_edges unless alone; together every row once.
+    rp = _schedule_graph(name)[0]
+    n, lens = rp.shape[0] - 1, np.diff(rp)
+    tasks, n_hub, task_edges, hub_edges = _schedule(rp, op, thresholds)
+    seen = np.zeros(n, np.int64)
+    for lo, hi in tasks:
+        seen[lo:hi] += 1
+    assert np.all(seen == 1)
+    hubs, warps = tasks[:n_hub], tasks[n_hub:]
+    assert np.all(hubs[:, 1] - hubs[:, 0] == 1)
+    assert np.array_equal(np.sort(hubs[:, 0]),
+                          np.flatnonzero(lens > hub_edges))
+    assert np.all(np.diff(warps[:, 0]) > 0)
+    size = warps[:, 1] - warps[:, 0]
+    assert np.all((size >= 1) & (size <= tseg.TASK_ROWS))
+    edges = rp[warps[:, 1]] - rp[warps[:, 0]]
+    assert np.all((edges <= 2 * task_edges) | (size == 1))
+    if thresholds is None:
+        t = tseg.pull_row_tasks(rp, op, CPU)
+        assert (t.n_tasks, t.n_hub, t.nrows) == (tasks.shape[0], n_hub, n)
+        assert torch.equal(t.tasks, torch.from_numpy(tasks))
+    if name == "one hub":
+        assert n_hub == 1 and hubs[0, 0] == 7
+
+
+@pytest.mark.parametrize("op,thresholds", SCHEDULES)
+@pytest.mark.parametrize("name", SCHEDULE_GRAPHS)
+@pytest.mark.parametrize("exact", [True, False])
+def test_kernel_order_matches_plain(name, op, thresholds, exact):
+    # The kernels' summation order: bitwise on small integers (every
+    # partial sum exact), within the reference tolerances on floats.
+    rp, col_src, w, n_tab, base = _schedule_graph(name)
+    tasks, n_hub, _, _ = _schedule(rp, op, thresholds)
+    rng = np.random.default_rng(len(rp))
+    shape = (n_tab,) if op == "copy" else (n_tab, tseg.CF_WIDTH)
+    vals = (rng.integers(0, 2, size=shape).astype(np.float32) if exact
+            else rng.random(shape, dtype=np.float32) * np.float32(0.2)
+            + np.float32(0.12))
+    t = torch.from_numpy
+    args = (t(vals), t(rp), t(col_src.astype(np.int32)))
+    if op == "copy":
+        got = ordered_pull_sum(*args, tasks[:n_hub, 0])
+        want = tseg.gather_segment_sum_plain(*args)
+        tol = PR_TOL
+    else:
+        got = ordered_pull_sum(*args, tasks[:n_hub, 0], weights=t(w),
+                               row_base=base)
+        want = tseg.cf_edge_sum_plain(*args, t(w), row_base=base)
+        tol = CF_TOL
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+
+
+@pytest.mark.parametrize("app", ["cf", "pagerank"])
+@pytest.mark.parametrize("thresholds", [None, (64, 200)])
+def test_kernel_order_step_matches_lux_tpu(app, thresholds):
+    # One iteration with the sums taken in the kernels' order, against
+    # lux_tpu's PullExecutor step from the same state.
+    if app == "cf":
+        jg = jgen.bipartite_ratings(300, 40, 6000, seed=2)
+        g = tgen.bipartite_ratings(300, 40, 6000, seed=2)
+        prog, jprog, op, tol = CollaborativeFiltering(), JCF(), "cf_sgd", \
+            CF_TOL
+    else:
+        (jg, g), prog, jprog, op, tol = rmat_graphs(), PageRank(), \
+            JPageRank(), "copy", PR_TOL
+    ex = tpull.PullExecutor(g, prog, device=CPU)
+    tasks, n_hub, _, _ = _schedule(g.row_ptr, op, thresholds)
+    vals = ex.init_values()
+    acc = ordered_pull_sum(vals, g.row_ptr, ex.col_src, tasks[:n_hub, 0],
+                           weights=ex.weights if app == "cf" else None)
+    got = prog.apply(vals, acc, ex._ctx).numpy()
+    want = np.asarray(jpull.PullExecutor(jg, jprog).step(vals.numpy()))
+    np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_allclose(got, ex.step(vals).numpy(), **tol)
 
 
 # -- routing: edge_chunk equals lux_tpu's -----------------------------------
