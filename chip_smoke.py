@@ -54,14 +54,20 @@ each probe's entry point as a user runs it, with its launches counted,
 then ``block_take`` in its four forms, ``merge4`` and P7's K3 launch
 bitwise against their plain versions at the probes' full shapes, each
 with its time, the plain version's, one ``torch.gather`` call's where
-one computes the same function, and its bytes bound.
+one computes the same function, and its bytes bound; ``merge4`` also
+twice bitwise, by medians of 100 calls beside ``torch.gather``'s, and
+beside its time before its redesign and its bytes floors (distinct
+elements, touched 32-byte sectors, all candidates streamed).
 
 Then the push engine (``PushExecutor``): SSSP from vertex 0 on the same
 graph and Connected Components on its undirected closure:
 
 3b. push graphs: the closure and both executors;
 4b. K5-K7 against their plain versions at the main path's shapes, all
-    bitwise, with the same timings; K6 also on a dense frontier (half
+    bitwise, with the same timings; K5 in both input forms (the packed
+    table, and values with the frontier's bits), two calls bitwise
+    equal, beside its time before its redesign and its L2 sector bytes
+    as an achieved rate; K6 also on a dense frontier (half
     the vertices) and at nv = 2^28 on a row pointer made on the card
     (the last vertex alone, and a seeded sparse frontier) beside
     ``torch.nonzero``; K6 and K7 at the sparse branch's cap (nv // 16 +
@@ -153,7 +159,8 @@ device and over the parts in both modes:
 4f. the kernels at the sharded path's shapes against their plain
     versions, bitwise: K5 for one part's ``row_ptr`` over the packed
     ``(P * max_nv,)`` table (full) and over its receiver's compact table
-    of values and frontier; K6 on one part's frontier; K7 reading the
+    of values and frontier, two calls bitwise equal, beside its time
+    before its redesign; K6 on one part's frontier; K7 reading the
     flat pre-step stack and combining into one part's row through its
     ``push_dst_local``; and K10 with 8 columns over the ``(P * max_nv,
     8)`` table for one part's ``row_ptr``; with the same timings;
@@ -645,7 +652,7 @@ def _push_phases(g, gu, dev, kernels):
         t = time.perf_counter()
         ex = PushExecutor(graph, prog)
         torch.cuda.synchronize()
-        log(f"[push] {app} executor (host CSR, work items, device copy) "
+        log(f"[push] {app} executor (host CSR, row tasks, device copy) "
             f"built in {time.perf_counter() - t:.1f} s: nv={graph.nv} "
             f"ne={graph.ne} blocked_dense={ex.blocked_dense} "
             f"sparse={ex.sparse} tiers={ex.tiers}")
@@ -655,9 +662,10 @@ def _push_phases(g, gu, dev, kernels):
 
     # -- 4b. kernels against their plain versions ---------------------------
     # K5 on SSSP's state after 2 iterations and CC's first iteration, in
-    # both input forms; the JSON row sums the form the main path runs.
+    # both input forms, two calls bitwise equal; the JSON row sums the
+    # form the main path runs.
     st_s2, _ = ex_s.run(max_iters=2, start=0)
-    k5 = dict.fromkeys(("ms", "plain", "bytes", "ops"), 0.0)
+    k5 = dict.fromkeys(("ms", "plain", "bytes", "ops", "sectors"), 0.0)
     for label, ex, st in (("sssp after 2 iterations", ex_s, st_s2),
                           ("cc iteration 1", ex_c, ex_c.init_state())):
         prog = ex.program
@@ -677,9 +685,11 @@ def _push_phases(g, gu, dev, kernels):
             def k5_call(table=table, front=front):
                 return seg.segment_minmax_relax(
                     ex.row_ptr, ex.col_src, table, front, prog.combiner,
-                    prog.relax_op, ex.items)
+                    prog.relax_op, ex.tasks)
 
-            check_equal(f"K5 {form} {label}", k5_call(), want)
+            got = k5_call()
+            check_equal(f"K5 {form} {label}", got, want)
+            check_equal(f"K5 {form} {label} twice", k5_call(), got)
             times[form] = cuda_ms(k5_call, reps)
         main_form = "packed" if ex.blocked_dense else "unpacked"
         table, front = forms[main_form]
@@ -688,20 +698,25 @@ def _push_phases(g, gu, dev, kernels):
         nv, ne = ex.graph.nv, ex.graph.ne
         nbytes = 4 * ne + 8 * (nv + 1) + 4 * nv \
             + (4 if main_form == "packed" else 5) * nv
-        log(f"[push] K5 {label}: bitwise in both forms; packed "
-            f"{times['packed']:.4f} ms, unpacked {times['unpacked']:.4f} ms, "
-            f"plain ({main_form}) {plain_ms:.4f} ms, bytes bound "
-            f"{bound(nbytes, ne)[0]:.4f} ms")
+        active = int(st.frontier.sum())
+        log(f"[push] K5 {label} ({active} of {nv} vertices active): bitwise "
+            f"in both forms, two calls equal; packed {times['packed']:.4f} "
+            f"ms, bits {times['unpacked']:.4f} ms, plain ({main_form}) "
+            f"{plain_ms:.4f} ms, bytes bound {bound(nbytes, ne)[0]:.4f} ms")
         k5["ms"] += times[main_form]
         k5["plain"] += plain_ms
         k5["bytes"] += nbytes
         k5["ops"] += ne
+        k5["sectors"] += 32 * ne
     # No one PyTorch call gathers, masks, relaxes and reduces per segment;
     # torch.segment_reduce has no integer kernels.
-    record(kernels, "segment_minmax_relax", "lux_tpu_torch/csrc/push_dense.cu",
+    record(kernels, "segment_minmax_relax", "lux_tpu_torch/csrc/gas.cu",
            "lux_tpu/engine/push.py:150", 0.0, k5["ms"], k5["plain"],
            k5["bytes"], k5["ops"], None)
-    del st_s2, packed, table, front, want
+    log_gathers("K5 (two calls)", k5["ms"], K5_WAS_MS,
+                bound(k5["bytes"], k5["ops"])[0], k5["sectors"],
+                "one 32-byte sector an edge", tag="push")
+    del st_s2, packed, table, front, want, got
     torch.cuda.empty_cache()
 
     # K6 and K7 on the sparse-tier frontier of SSSP's run with the most
@@ -902,25 +917,6 @@ def _push_phases(g, gu, dev, kernels):
     return totals, ctx
 
 
-def cuda_median_ms(fn, reps: int) -> float:
-    """Median ms of ``reps`` calls of ``fn()``, each between its own two
-    CUDA events, after one warm-up call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def _k6_k7_rows(ex, st_cap, q_cap: int, rng, dev) -> None:
     """Phase 4b's rows beside the main path's: K6 at nv = 2^28 on a
     synthetic row pointer made on the card (the last vertex alone, then a
@@ -933,6 +929,7 @@ def _k6_k7_rows(ex, st_cap, q_cap: int, rng, dev) -> None:
 
     from lux_tpu_torch.ops import frontier as fq
     from lux_tpu_torch.ops import segment as seg
+    from lux_tpu_torch.probes.gather import median_ms
 
     t = time.perf_counter()
     nv = 1 << 28
@@ -964,19 +961,19 @@ def _k6_k7_rows(ex, st_cap, q_cap: int, rng, dev) -> None:
         cnt = int(fr.sum())
         q, start, _, offs = fq.frontier_queue(fr, rp, cnt)
         out = int(offs[-1])
-        k6 = cuda_median_ms(lambda: fq.frontier_queue(fr, rp, cnt), 100)
-        k6_lib = cuda_median_ms(lambda: torch.nonzero(fr), 100)
-        k7 = cuda_median_ms(lambda: fq.queue_relax_scatter(
+        k6 = median_ms(lambda: fq.frontier_queue(fr, rp, cnt), dev)
+        k6_lib = median_ms(lambda: torch.nonzero(fr), dev)
+        k7 = median_ms(lambda: fq.queue_relax_scatter(
             q, start, offs, col_dst, st.values, prog.combiner,
-            prog.relax_op, out), 100)
+            prog.relax_op, out), dev)
         slot = torch.repeat_interleave(torch.arange(cnt, device=dev),
                                        offs.diff())
         edge = start[slot] + torch.arange(out, device=dev) - offs[:-1][slot]
         dst_e = col_dst[edge].long()
         vals64 = seg.widen_u32(st.values)
         cand = relax(vals64[q.long()[slot]])
-        k7_lib = cuda_median_ms(lambda: vals64.scatter_reduce(
-            0, dst_e, cand, reduce="amin", include_self=True), 100)
+        k7_lib = median_ms(lambda: vals64.scatter_reduce(
+            0, dst_e, cand, reduce="amin", include_self=True), dev)
         log(f"[push] at {label} (cnt={cnt}, out_edges={out}), medians of "
             f"100 calls: K6 {k6:.4f} ms, torch.nonzero {k6_lib:.4f} ms; K7 "
             f"{k7:.4f} ms, one scatter_reduce {k7_lib:.4f} ms")
@@ -1169,12 +1166,19 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
 # kernels of commit 18867e9, this script's run on an NVIDIA H100 80GB HBM3
 # at 700 W, means of 10 calls), logged beside the new ones.
 K8_WAS_MS, K9_WAS_MS = 0.585, 2.904
+# The same for K5 (its two calls of phase 4b; one part, full and compact,
+# of phase 4f) and P6 (merge4) before their redesign: the kernels of
+# commit a047839, this script's run on the same card.
+K5_WAS_MS = 1.618
+K5_PART_WAS_MS = {"full": 0.141, "compact": 0.189}
+MERGE4_WAS_MS = 0.084
 
 
-def log_gathers(name, ms, was_ms, bound_ms, sector_bytes, what) -> None:
-    """Log a pull kernel's time beside its earlier time and bound, and
-    the L2 sector bytes of its random gathers as an achieved rate."""
-    log(f"[pull] {name}: {ms:.4f} ms (was {was_ms:.3f} before the "
+def log_gathers(name, ms, was_ms, bound_ms, sector_bytes, what,
+                tag="pull") -> None:
+    """Log a kernel's time beside its earlier time and bound, and the L2
+    sector bytes of its random gathers as an achieved rate."""
+    log(f"[{tag}] {name}: {ms:.4f} ms (was {was_ms:.3f} before the "
         f"redesign; bound {bound_ms:.4f} ms, {ms / bound_ms:.1f}x); its "
         f"gathers read {sector_bytes / 1e9:.2f} GB of L2 sectors ({what}), "
         f"{sector_bytes / ms / 1e9:.2f} TB/s")
@@ -1871,11 +1875,14 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
         k5_args = (pt.row_ptr, pt.col_src, x._table(table, q),
                    x._table(front, q), "min")
 
-        def k5_call(k5_args=k5_args, items=pt.items):
-            return seg.segment_minmax_relax(*k5_args, "add1", items)
+        def k5_call(k5_args=k5_args, tasks=pt.tasks):
+            return seg.segment_minmax_relax(*k5_args, "add1", tasks)
 
-        check_equal(f"K5 sharded {form}, part {q}", k5_call(),
+        got = k5_call()
+        check_equal(f"K5 sharded {form}, part {q}", got,
                     seg.segment_minmax_relax_plain(*k5_args, relax))
+        check_equal(f"K5 sharded {form}, part {q}, twice", k5_call(), got)
+        del got
         k5_ms = cuda_ms(k5_call, reps)
         k5_plain = cuda_ms(lambda k5_args=k5_args: (
             seg.segment_minmax_relax_plain(*k5_args, relax)), 2)
@@ -1886,13 +1893,17 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
         what = "packed" if front is None else "values and frontier"
         log(f"[push-sharded] K5 {form} ({what}) on SSSP iteration "
             f"{at + 1}, part {q} ({n_e} edges from {n_src} "
-            f"sources, a {tuple(k5_args[2].shape)} table): bitwise; "
+            f"sources, a {tuple(k5_args[2].shape)} table): bitwise, two "
+            f"calls equal; "
             f"{k5_ms:.4f} ms (plain {k5_plain:.4f}, bytes bound "
             f"{bound(k5_bytes, n_e)[0]:.4f})")
         record(kernels, f"segment_minmax_relax[sharded {form}]",
-               "lux_tpu_torch/csrc/push_dense.cu",
+               "lux_tpu_torch/csrc/gas.cu",
                "lux_tpu/engine/push.py:1110", 0.0, k5_ms, k5_plain,
                k5_bytes, n_e, None)
+        log_gathers(f"K5 sharded {form}, part {q}", k5_ms,
+                    K5_PART_WAS_MS[form], bound(k5_bytes, n_e)[0], 32 * n_e,
+                    "one 32-byte sector an edge", tag="push-sharded")
         del table, front, k5_args
     del st
 
@@ -2566,17 +2577,40 @@ def _probe_phases(dev, kernels) -> dict:
     cand = put(rng.standard_normal((r, 4, 128), dtype=np.float32))
     lane = put(rng.integers(0, 128, (r, 128), dtype=np.int32))
     sel = put(rng.integers(0, 4, (r, 128), dtype=np.int32))
-    check_equal("merge4", pg.merge4(cand, lane, sel),
-                pg.merge4_plain(cand, lane, sel))
+    got = pg.merge4(cand, lane, sel)
+    check_equal("merge4", got, pg.merge4_plain(cand, lane, sel))
+    check_equal("merge4 twice", pg.merge4(cand, lane, sel), got)
+    del got
     ms = cuda_ms(lambda: pg.merge4(cand, lane, sel), reps)
     plain = cuda_ms(lambda: pg.merge4_plain(cand, lane, sel), reps)
     flat = cand.view(r, 512)
     gidx = sel.long() * 128 + lane.long()
     lib = cuda_ms(lambda: torch.gather(flat, 1, gidx), reps)
+    med = {hold: (pg.median_ms(lambda: pg.merge4(cand, lane, sel), dev,
+                               hold=hold),
+                  pg.median_ms(lambda: torch.gather(flat, 1, gidx), dev,
+                               hold=hold))
+           for hold in (False, True)}
     reads = needed((r, 512), gidx, 1)
+    # l, s and out, then cand three ways: its distinct elements (the
+    # table's bound), the 32-byte sectors the picks touch, all of it.
+    io = 8 * lane.numel() + 4 * lane.numel()
+    sectors = needed((r, 64), gidx // 8, 1)
+    floors = {"distinct elements": 4 * reads + io,
+              "touched sectors": 32 * sectors + io,
+              "all of cand streamed": 4 * cand.numel() + io}
+    log(f"[probe] merge4 at R={r}: bitwise, two calls equal; mean of "
+        f"{reps} {ms:.4f} ms (was {MERGE4_WAS_MS:.3f} before the "
+        f"redesign), torch.gather {lib:.4f} ms; medians of 100 with the "
+        f"enqueue: merge4 {med[False][0]:.4f} ms, torch.gather "
+        f"{med[False][1]:.4f} ms; medians of 100 on a held card: merge4 "
+        f"{med[True][0]:.4f} ms, torch.gather {med[True][1]:.4f} ms; bytes "
+        f"floors: "
+        + ", ".join(f"{k} {bound(b, 0)[0]:.4f} ms ({b} B)"
+                    for k, b in floors.items()))
     record(kernels, "merge4", "lux_tpu_torch/csrc/probe_gather.cu",
            "tools/probe_dgather2.py:138", 0.0, ms, plain,
-           4 * reads + 8 * lane.numel() + 4 * lane.numel(), 0, lib)
+           floors["distinct elements"], 0, lib)
     del cand, lane, sel, flat, gidx
 
     g_n = merge_kernel.G_RATE

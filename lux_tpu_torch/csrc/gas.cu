@@ -1,5 +1,6 @@
 // K10 gas_pull_acc and K11 gas_push_acc: the GAS engine's accumulator, built
-// from either direction.
+// from either direction; and K5 segment_minmax_relax, the push engine's
+// dense (pull-direction) step, on K10's row pass.
 //
 // K10 replaces lux_tpu/engine/gas.py::AdaptiveExecutor._pull_acc (and
 // MultiSourceGasExecutor._one_iter's reduce) over
@@ -18,10 +19,21 @@
 // message multiset with an order-free combine, so their results are equal
 // bit for bit.
 //
-// The (combiner, value type, gather op) triples are those of the registered
-// programs: (min, u32, add1) BFS and SSSP, (max, u32, copy) CC, (min, f32,
-// add_w) DeltaSSSP, (max, u32, decay) label propagation, (sum, u32, one)
-// k-core; op codes 0-4 in that order (ops/segment.py::GAS_KERNEL_OPS).
+// K5 replaces lux_tpu/engine/push.py::_blocked_candidates (jnp/lax: per edge
+// a 128-lane row gather from the packed value | frontier << 31 table, a
+// one-hot lane select, unpack, relax, identity mask) together with
+// lux_tpu/ops/segment.py::segment_minmax_blockmin (a 128-block reduce, a
+// block-level segmented min/max scan, masked head/tail row gathers), the
+// plain dense _d_load/_d_comp over segment_reduce, and per part push.py's
+// _dense_comp. It is K10's function with one column, a uint32 min or max and
+// the relax add1 or copy (all four pairs), read from either the packed
+// table (blocked_dense) or values and a bool frontier.
+//
+// The (combiner, value type, gather op) triples of K10 and K11 are those of
+// the registered programs: (min, u32, add1) BFS and SSSP, (max, u32, copy)
+// CC, (min, f32, add_w) DeltaSSSP, (max, u32, decay) label propagation,
+// (sum, u32, one) k-core; op codes 0-4 in that order
+// (ops/segment.py::GAS_KERNEL_OPS).
 //
 // Bound on the H100: bytes. K10 reads per edge 4 bytes of col_src and, per
 // active edge, a random value (4 bytes a column) and for add_w a 4-byte
@@ -29,15 +41,19 @@
 // it) and writes the (nv, k) accumulator once. But every edge also tests
 // its source's frontier bit, one random read of a 32-byte L2 sector, and
 // every active edge gathers a sector of values: those reads, served by the
-// 50 MB L2, are what the kernel waits on. K11 reads 20 bytes per queue slot,
-// per out-edge 4 bytes of col_dst (and a weight) and does one 4-byte atomic;
-// the accumulator it folds into is nv words.
+// 50 MB L2, are what the kernel waits on. K5 on the packed table reads per
+// edge 4 bytes of col_src and one random 4-byte word of an nv-word table
+// (16.8 MB at R-MAT 22, so it stays in L2), which costs a whole 32-byte
+// sector: its two calls of chip_smoke.py (SSSP after 2 iterations, 67.1 M
+// edges; CC's first iteration on the closure, 134.2 M) read 6.44 GB of
+// sectors, the floor left once col_src streams. On values and a bool
+// frontier it reads the bits as K10 does, then a sector of values per
+// active edge only. K11 reads 20 bytes per queue slot, per out-edge 4 bytes
+// of col_dst (and a weight) and does one 4-byte atomic; the accumulator it
+// folds into is nv words.
 //
-// K10 design. One call, two launches: a pack of the bool frontier into bits
-// (k = 1: 32 vertices a word, 0.5 MB at R-MAT 22 against 4.2 MB of bools,
-// so many more of the sources' tests hit in L1; k > 1: a byte per vertex
-// and chunk of 8 columns), then the pull over a row schedule built once per
-// graph (ops/segment.py::row_tasks; the pass over it is row_pass.cuh,
+// Design of the pull (K10 and K5). One pass over a row schedule built once
+// per graph (ops/segment.py::row_tasks; the pass over it is row_pass.cuh,
 // shared with K8 and K9). A warp task is up to 32 consecutive rows, one a
 // lane, whose edges are at most 2 * TASK_EDGES: a lane sums a row of up
 // to kLaneMax edges itself, its source indices loaded four at a
@@ -51,16 +67,28 @@
 // taken in registers, then by shuffles and (hub rows) shared memory; min,
 // max and wrapping uint32 sums do not depend on order, and f32 min folds the
 // order-preserving keys of gas_ops.cuh and decodes them in the same store,
-// so the results are bitwise those of the plain version. Columns run
-// kChunk at a time (k = 1 runs one column; any k > 1 runs ceil(k / 8) chunks
-// of 8, each walking the rows again). Hub rows take the first blocks, so
-// they start first. The thresholds and occupancy are measured (python -m
-// lux_tpu_torch.probes.shapes, R-MAT 22): kLaneMax 32 (16 up to 9%
-// slower), TASK_EDGES 1,024 (512 within 2%, 2,048 up to 6% slower),
-// HUB_EDGES 4,096 (8,192 up to 4% slower) and 8 resident blocks for one
-// column, 6 for K (no bound: up to twice as slow). The bit tests are one
-// random read an edge whatever the density: at density 0.01 they take most
-// of the time.
+// so the results are bitwise those of the plain version. What a source
+// contributes is read by the pull's fetch policy: Bits (K10, and K5 on
+// values and a bool frontier) packs the frontier into bits in a first
+// launch of the same call (k = 1: 32 vertices a word, 0.5 MB at R-MAT 22
+// against 4.2 MB of bools, so many more of the sources' tests hit in L1;
+// k > 1: a byte per vertex and chunk of 8 columns), tests a source's bit
+// and loads its value only when it is set; Packed (K5 on blocked_dense's
+// table) loads one word and tests its bit 31, one random sector an edge
+// and no pack. Columns run kChunk at a time (k = 1 runs one column; any
+// k > 1 runs ceil(k / 8) chunks of 8, each walking the rows again). Hub
+// rows take the first blocks, so they start first. K10's thresholds and
+// occupancy are measured (python -m lux_tpu_torch.probes.shapes, R-MAT
+// 22): kLaneMax 32 (16 up to 9% slower), TASK_EDGES 1,024 (512 within 2%,
+// 2,048 up to 6% slower), HUB_EDGES 4,096 (8,192 up to 4% slower) and 8
+// resident blocks for one column, 6 for K (no bound: up to twice as slow).
+// The bit tests are one random read an edge whatever the density: at
+// density 0.01 they take most of the time. K5 keeps its own kLaneMax5,
+// kMinBlocks5 and schedule thresholds (ops/segment.py::PUSH_TASK_EDGES),
+// the --only k5 sweep's on SSSP's, CC's and a sharded part's dense states:
+// 6 resident blocks (40 registers, no spill) up to 3% faster than 8 on the
+// packed table; lane rows up to 32 edges; tasks of 256 edges 1-6% faster
+// than K10's 1,024.
 // K11 is K7's kernel (queue_fold_kernel, gas_ops.cuh), balanced on edge
 // slots, over an identity-filled accumulator with the GAS gather ops; f32
 // min folds keys, decoded in place afterwards. Its wrapper fills the
@@ -76,14 +104,16 @@ namespace {
 
 using namespace luxk;
 
-constexpr int kThreads = 256;   // K10: 8 warp tasks, or one hub row
+constexpr int kThreads = 256;   // the pull: 8 warp tasks, or one hub row
 constexpr int kMinBlocks = 8;   // K10's resident blocks asked of ptxas,
 constexpr int kMinBlocksK = 6;  // with one column and with K
 constexpr int kWarps = kThreads / 32;
 constexpr int kLaneMax = 32;    // edges a row may have to take one lane
+constexpr int kMinBlocks5 = 6;  // K5's, in both forms
+constexpr int kLaneMax5 = 32;
 
-// What K10 folds: the message itself, or the order-preserving key of an f32
-// message; `out` is what the accumulator word stores.
+// What the pull folds: the message itself, or the order-preserving key of an
+// f32 message; `out` is what the accumulator word stores.
 template <class C>
 struct Fold {
   using T = typename C::T;
@@ -168,24 +198,21 @@ cudaError_t pack_bits(const void* front, int64_t n, int k, void* bits,
   return cudaGetLastError();
 }
 
-// The operands of one K10 call, for columns [c0, c0 + kChunk) of chunk c.
-template <class C, class G, int kChunk>
-struct Pull {
-  using T = typename C::T;
-  using F = Fold<C>;
+// The fetch policies of the pull: for source s in column chunk c, f(j, v)
+// for each column j < kChunk in which s is active, with its value v.
+//
+// Bits: the frontier's bits (frontier_bits_plain's layout), then a value
+// load for an active column only.
+template <class T, int kChunk>
+struct Bits {
   const T* val;
   const unsigned* bits;
-  const int* col_src;
-  const int* weights;
-  int k, nch, c;
+  int k, nch;
 
-  // Folds edge e (source s) into a[].
-  __device__ __forceinline__ void take(unsigned (&a)[kChunk], int64_t e,
-                                       int s) const {
-    const int w = G::kWeighted ? __ldg(weights + e) : 0;
+  template <class F>
+  __device__ __forceinline__ void operator()(int s, int c, F&& f) const {
     if constexpr (kChunk == 1) {
-      if ((__ldg(bits + (s >> 5)) >> (s & 31)) & 1u)
-        a[0] = F::comb(a[0], F::key(G::apply(__ldg(val + s), w)));
+      if ((__ldg(bits + (s >> 5)) >> (s & 31)) & 1u) f(0, __ldg(val + s));
     } else {
       const unsigned m = __ldg(reinterpret_cast<const unsigned char*>(bits) +
                                (int64_t)s * nch + c);
@@ -193,9 +220,39 @@ struct Pull {
       const T* vs = val + (int64_t)s * k + 8 * c;
 #pragma unroll
       for (int j = 0; j < kChunk; ++j)
-        if ((m >> j) & 1u)
-          a[j] = F::comb(a[j], F::key(G::apply(__ldg(vs + j), w)));
+        if ((m >> j) & 1u) f(j, __ldg(vs + j));
     }
+  }
+};
+
+// Packed: one word a vertex, the value in bits 0-30 and the frontier in
+// bit 31 (one column).
+struct Packed {
+  const unsigned* word;
+
+  template <class F>
+  __device__ __forceinline__ void operator()(int s, int, F&& f) const {
+    const unsigned w = __ldg(word + s);
+    if (w >> 31) f(0, w & 0x7FFFFFFFu);
+  }
+};
+
+// The operands of one pull, for columns [8 c, 8 c + kChunk) of chunk c.
+template <class C, class G, int kChunk, class Src>
+struct Pull {
+  using F = Fold<C>;
+  Src src;
+  const int* col_src;
+  const int* weights;
+  int c;
+
+  // Folds edge e (source s) into a[].
+  __device__ __forceinline__ void take(unsigned (&a)[kChunk], int64_t e,
+                                       int s) const {
+    const int w = G::kWeighted ? __ldg(weights + e) : 0;
+    src(s, c, [&](int j, typename C::T v) {
+      a[j] = F::comb(a[j], F::key(G::apply(v, w)));
+    });
   }
 
   // A row's fold by one thread: edges in order, four loaded at a time.
@@ -267,14 +324,11 @@ __device__ __forceinline__ void warp_fold(unsigned (&a)[kChunk]) {
       a[j] = Fold<C>::comb(a[j], __shfl_xor_sync(0xffffffffu, a[j], off));
 }
 
-// K10: block b < n_hub sums hub row tasks[b]; every other block runs
-// kWarps warp tasks, warp w task n_hub + (b - n_hub) * kWarps + w.
-template <class C, class G, int kChunk>
-__global__ void __launch_bounds__(kThreads,
-                                  kChunk == 1 ? kMinBlocks : kMinBlocksK)
-pull_acc_kernel(const typename C::T* __restrict__ val,
-                const unsigned* __restrict__ bits,
-                const int* __restrict__ col_src,
+// The pull of K10 and K5: block b < n_hub sums hub row tasks[b]; every other
+// block runs kWarps warp tasks, warp w task n_hub + (b - n_hub) * kWarps + w.
+template <class C, class G, int kChunk, class Src, int kMin, int kLane>
+__global__ void __launch_bounds__(kThreads, kMin)
+pull_acc_kernel(Src src, const int* __restrict__ col_src,
                 const int* __restrict__ weights,
                 const int64_t* __restrict__ rp,
                 const int* __restrict__ tasks, int64_t n_tasks,
@@ -282,7 +336,7 @@ pull_acc_kernel(const typename C::T* __restrict__ val,
   using F = Fold<C>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nch = kChunk == 1 ? 1 : (k + 7) / 8;
-  Pull<C, G, kChunk> p{val, bits, col_src, weights, k, nch, 0};
+  Pull<C, G, kChunk, Src> p{src, col_src, weights, 0};
   const int64_t r = row_pass::hub_row(tasks, n_hub);
   if (r >= 0) {
     __shared__ unsigned red[kWarps][kChunk];
@@ -312,7 +366,7 @@ pull_acc_kernel(const typename C::T* __restrict__ val,
   if (!row_pass::warp_task<kWarps>(tasks, n_tasks, n_hub, rp, r0, r1, lo, hi))
     return;   // the whole warp
   const int64_t row = r0 + lane;
-  const bool own = hi - lo <= kLaneMax;
+  const bool own = hi - lo <= kLane;
   const unsigned long_rows = __ballot_sync(row_pass::kFull, !own);
   for (int c = 0; c < nch; ++c) {
     p.c = c;
@@ -339,6 +393,24 @@ pull_acc_kernel(const typename C::T* __restrict__ val,
   }
 }
 
+// Launches the pull over n_tasks tasks (none when there are none).
+template <class C, class G, int kChunk, int kMin, int kLane, class Src>
+cudaError_t launch_pull(Src src, const void* col_src, const void* weights,
+                        const void* row_ptr, const void* tasks,
+                        int64_t n_tasks, int64_t n_hub, int k, void* acc,
+                        cudaStream_t st) {
+  if (n_tasks == 0) return cudaSuccess;
+  const int64_t blocks = row_pass::grid(n_tasks, n_hub, kWarps);
+  pull_acc_kernel<C, G, kChunk, Src, kMin, kLane>
+      <<<(unsigned)blocks, kThreads, 0, st>>>(
+          src, static_cast<const int*>(col_src),
+          static_cast<const int*>(weights),
+          static_cast<const int64_t*>(row_ptr),
+          static_cast<const int*>(tasks), n_tasks, n_hub, k,
+          static_cast<unsigned*>(acc));
+  return cudaGetLastError();
+}
+
 template <class C, class G>
 cudaError_t run_pull(const void* val, const void* front, int64_t n_tab,
                      const void* col_src, const void* weights,
@@ -346,23 +418,37 @@ cudaError_t run_pull(const void* val, const void* front, int64_t n_tab,
                      int64_t n_hub, int k, void* bits, void* acc,
                      cudaStream_t st) {
   using T = typename C::T;
-  cudaError_t e = pack_bits(front, n_tab, k, bits, st);
-  if (e != cudaSuccess || n_tasks == 0) return e;
-  const int64_t blocks = row_pass::grid(n_tasks, n_hub, kWarps);
+  const cudaError_t e = pack_bits(front, n_tab, k, bits, st);
+  if (e != cudaSuccess) return e;
   const auto* v = static_cast<const T*>(val);
   const auto* b = static_cast<const unsigned*>(bits);
-  const auto* cs = static_cast<const int*>(col_src);
-  const auto* w = static_cast<const int*>(weights);
-  const auto* rp = static_cast<const int64_t*>(row_ptr);
-  const auto* tk = static_cast<const int*>(tasks);
-  auto* a = static_cast<unsigned*>(acc);
   if (k == 1)
-    pull_acc_kernel<C, G, 1><<<(unsigned)blocks, kThreads, 0, st>>>(
-        v, b, cs, w, rp, tk, n_tasks, n_hub, k, a);
-  else
-    pull_acc_kernel<C, G, 8><<<(unsigned)blocks, kThreads, 0, st>>>(
-        v, b, cs, w, rp, tk, n_tasks, n_hub, k, a);
-  return cudaGetLastError();
+    return launch_pull<C, G, 1, kMinBlocks, kLaneMax>(
+        Bits<T, 1>{v, b, 1, 1}, col_src, weights, row_ptr, tasks, n_tasks,
+        n_hub, k, acc, st);
+  return launch_pull<C, G, 8, kMinBlocksK, kLaneMax>(
+      Bits<T, 8>{v, b, k, (k + 7) / 8}, col_src, weights, row_ptr, tasks,
+      n_tasks, n_hub, k, acc, st);
+}
+
+// K5 in either form: the packed table alone, or the bits of the frontier
+// (packed first) and the values.
+template <class C, class G>
+cudaError_t run_relax(const void* packed, const void* values,
+                      const void* frontier, int64_t n_tab,
+                      const void* col_src, const void* row_ptr,
+                      const void* tasks, int64_t n_tasks, int64_t n_hub,
+                      void* bits, void* acc, cudaStream_t st) {
+  if (packed != nullptr)
+    return launch_pull<C, G, 1, kMinBlocks5, kLaneMax5>(
+        Packed{static_cast<const unsigned*>(packed)}, col_src, nullptr,
+        row_ptr, tasks, n_tasks, n_hub, 1, acc, st);
+  const cudaError_t e = pack_bits(frontier, n_tab, 1, bits, st);
+  if (e != cudaSuccess) return e;
+  return launch_pull<C, G, 1, kMinBlocks5, kLaneMax5>(
+      Bits<unsigned, 1>{static_cast<const unsigned*>(values),
+                        static_cast<const unsigned*>(bits), 1, 1},
+      col_src, nullptr, row_ptr, tasks, n_tasks, n_hub, 1, acc, st);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -419,6 +505,31 @@ extern "C" int lux_gas_pull_acc(const void* values, const void* frontier,
       return (int)LUX_PULL(SumU32, One);
   }
 #undef LUX_PULL
+}
+
+// packed: (n_tab,) words value | frontier << 31, or null; then values
+// (n_tab,) uint32 and frontier (n_tab,) bool are read instead, through
+// bits, scratch of (n_tab + 31) / 32 words. col_src: (ne,) int32 rows of
+// the table; row_ptr: (nrows+1,) int64; tasks: (n_tasks, 2) int32 row
+// ranges, the n_hub hub rows first, covering the rows. comb: 0 min, 1 max;
+// relax: 0 add1, 1 copy. acc: (nrows,) words, written.
+extern "C" int lux_segment_minmax_relax(
+    const void* packed, const void* values, const void* frontier,
+    int64_t n_tab, const void* col_src, const void* row_ptr,
+    const void* tasks, int64_t n_tasks, int64_t n_hub, int comb, int relax,
+    void* bits, void* acc, void* stream) {
+  if (comb < 0 || comb > 1 || relax < 0 || relax > 1 || n_hub < 0 ||
+      n_hub > n_tasks)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LUX_RELAX(C, G)                                                    \
+  run_relax<C, G>(packed, values, frontier, n_tab, col_src, row_ptr, tasks, \
+                  n_tasks, n_hub, bits, acc, st)
+  if (comb == 0)
+    return (int)(relax == 0 ? LUX_RELAX(MinU32, Add1)
+                            : LUX_RELAX(MinU32, Copy));
+  return (int)(relax == 0 ? LUX_RELAX(MaxU32, Add1) : LUX_RELAX(MaxU32, Copy));
+#undef LUX_RELAX
 }
 
 // frontier: (n, k) bool; bits: its pack, as K10 reads it.

@@ -1,6 +1,6 @@
-// Functors and helpers shared by the frontier kernels: K5 (push_dense.cu),
-// K7 (frontier.cu), K10 and K11 (gas.cu); and the queue expansion kernel
-// K7 and K11 both launch.
+// Functors and helpers shared by the frontier kernels: K7 (frontier.cu), K5,
+// K10 and K11 (gas.cu); and the queue expansion kernel K7 and K11 both
+// launch.
 //
 // A combiner names its value type T, its identity, the combine of two values
 // and the atomic fold of a value into an accumulator word. uint32 values fold

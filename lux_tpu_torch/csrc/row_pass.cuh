@@ -1,5 +1,5 @@
 // The row pass over a RowTasks schedule (ops/segment.py::row_tasks), shared
-// by K8 and K9 (pull_sum.cu) and K10 (gas.cu).
+// by K8 and K9 (pull_sum.cu) and K10 and K5 (gas.cu).
 //
 // The host cuts the rows of a CSR row pointer into tasks once per graph,
 // the n_hub hub rows first. A hub row takes kHubBlocks blocks (a cluster of

@@ -60,6 +60,7 @@ from lux_tpu_torch.engine.sharded import ShardedBase
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops.segment import (
     SUM_STRATEGIES,
+    pull_row_tasks,
     pull_sum,
     segment_reduce,
 )
@@ -94,7 +95,8 @@ class ShardedPullExecutor(ShardedBase):
         self._row_bytes = max(width, 1) * getattr(program.value_dtype,
                                                   "itemsize", 4)
         sg = self.sg
-        self._build_parts(tasks=True, edge_op=program.edge_op)
+        self._build_parts(
+            lambda rp, dev: pull_row_tasks(rp, program.edge_op, dev))
         self.dst_local = (self._put(sg.dst_local) if program.combiner != "sum"
                           else None)
         self._ctx = VertexCtx(nv=graph.nv,

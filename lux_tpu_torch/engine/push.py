@@ -14,9 +14,11 @@ size and out-edge total exactly as ``lux_tpu`` chooses them
 (:func:`_tier_index`):
 
 - **dense** (pull direction): kernel K5 (``ops/segment.py::
-  segment_minmax_relax``) over every CSC in-edge, reading each source
-  either from the packed ``value | frontier << 31`` table
-  (``blocked_dense``) or from the values and the bool frontier;
+  segment_minmax_relax``) over every CSC in-edge, each row written once
+  over the graph's :class:`~lux_tpu_torch.ops.segment.RowTasks` (K5's
+  thresholds, built on the card only), reading each source either from
+  the packed ``value | frontier << 31`` table (``blocked_dense``) or
+  from the values and the bool frontier;
 - **sparse** (push direction): K6 (``ops/frontier.py::frontier_queue``)
   compacts the frontier into a queue, K7 (``queue_relax_scatter``)
   expands the queued out-edges and combines into a copy of the values.
@@ -53,13 +55,12 @@ import torch
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops.frontier import frontier_queue, queue_relax_scatter
 from lux_tpu_torch.ops.segment import (
-    SEG_ITEM,
     RowTasks,
-    SegmentItems,
     combine_u32,
     gas_kernel_code,
     gas_pull_acc,
     pack_words,
+    push_row_tasks,
     segment_minmax_relax,
     to_u32_storage,
     u32_to_numpy,
@@ -319,7 +320,8 @@ class PushExecutor(FixpointLoop):
         self.row_ptr = put(graph.row_ptr.astype(np.int64))
         self.col_src = put(graph.col_src.astype(np.int32))
         self.weights = None if graph.weights is None else put(graph.weights)
-        self.items = SegmentItems.build(graph.row_ptr, SEG_ITEM, self.device)
+        self.tasks = (push_row_tasks(graph.row_ptr, self.device)
+                      if self.device.type != "cpu" else None)
         self.sparse = sparse and graph.ne >= 1024
         self.tiers: List[Tuple[int, int]] = []
         if self.sparse:
@@ -352,7 +354,7 @@ class PushExecutor(FixpointLoop):
         table, front = loaded
         return segment_minmax_relax(
             self.row_ptr, self.col_src, table, front, prog.combiner,
-            prog.relax_op, self.items, relax=prog.relax, weights=self.weights,
+            prog.relax_op, self.tasks, relax=prog.relax, weights=self.weights,
         )
 
     def _sparse_load(self, state: PushState, stats):

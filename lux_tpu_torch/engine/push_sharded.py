@@ -18,8 +18,9 @@ read is also the halt check.
 
 - **dense**: the exchange, then one K5 launch
   (``ops/segment.py::segment_minmax_relax``) per part over its real
-  in-edges (``local_row_ptr[p]``, ``src_pidx`` rows of the flat table)
-  into its row of the accumulator; then the merge and the pad mask.
+  in-edges (``local_row_ptr[p]``, ``src_pidx`` rows of the flat table),
+  each row written once over the part's ``RowTasks``, into its row of
+  the accumulator; then the merge and the pad mask.
   Full exchange: the mesh's ``all_gather``, a view of the stack: of the
   packed ``value | frontier << 31`` words under ``blocked_dense``, else
   of the values and of the frontier. Compact
@@ -71,12 +72,13 @@ from lux_tpu_torch.engine.sharded import ShardedBase
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops.frontier import frontier_queue, queue_relax_scatter
 from lux_tpu_torch.ops.segment import (
-    SEG_ITEM,
+    RowTasks,
     combine_u32,
     gas_kernel_code,
     gas_pull_acc,
     kernel_codes,
     pack_words,
+    push_row_tasks,
     segment_minmax_relax,
     to_u32_storage,
     u32_to_numpy,
@@ -168,7 +170,7 @@ class ShardedPushExecutor(_ShardedPush, FixpointLoop):
                     f"(got {flat_nv}, {sg.max_ne})"
                 )
         self.blocked_dense = bool(blocked_dense)
-        self._build_parts(SEG_ITEM)
+        self._build_parts(push_row_tasks)
         self.sparse = sparse and graph.ne >= 1024
         self.tiers = []
         if self.sparse:
@@ -209,7 +211,7 @@ class ShardedPushExecutor(_ShardedPush, FixpointLoop):
             segment_minmax_relax(
                 part.row_ptr, part.col_src, self._table(table, q),
                 self._table(front, q), prog.combiner, prog.relax_op,
-                part.items, relax=prog.relax, weights=part.weights)
+                part.tasks, relax=prog.relax, weights=part.weights)
             for q, part in enumerate(self._parts)])
 
     # -- the sparse branch -------------------------------------------------
@@ -322,7 +324,7 @@ class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
         self._row_bytes = 5 * self.k
         if self.device.type != "cpu":
             gas_kernel_code(program.combiner, program.relax_op)
-        self._build_parts(tasks=True)
+        self._build_parts(RowTasks.build)
         self.sparse_iters = 0   # API parity with the sharded push engine
 
     def _lanes_storage(self, vals: np.ndarray, fr: np.ndarray) -> PushState:

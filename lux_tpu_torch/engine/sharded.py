@@ -14,13 +14,13 @@ of the rows its edges read
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from lux_tpu_torch.graph.graph import Graph
-from lux_tpu_torch.ops.segment import RowTasks, SegmentItems, pull_row_tasks
+from lux_tpu_torch.ops.segment import RowTasks
 from lux_tpu_torch.parallel.mesh import CompactExchange, LocalMesh, mesh_for
 from lux_tpu_torch.parallel.shard import (
     ShardedGraph,
@@ -34,14 +34,13 @@ from lux_tpu_torch.utils.logging import get_logger
 class Part:
     """One part's operands on the device: its CSC offsets, its real
     edges' flat source rows and weights (views of the stacked arrays),
-    the first row of its own span in the flat table, and its kernel work
-    items or row tasks (the card only)."""
+    the first row of its own span in the flat table, and its kernels' row
+    tasks (the card only)."""
 
     row_ptr: torch.Tensor             # (max_nv + 1,) int64
     col_src: torch.Tensor             # (n_e,) int32, rows of the flat table
     weights: Optional[torch.Tensor]   # (n_e,) int32 or None
     row_base: int                     # part * max_nv
-    items: Optional[SegmentItems]
     tasks: Optional[RowTasks] = None
 
 
@@ -71,13 +70,12 @@ class ShardedBase:
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _build_parts(self, item_len: Optional[int] = None,
-                     tasks: bool = False,
-                     edge_op: Optional[str] = None) -> None:
-        """The per-part operands and the compact exchange. ``item_len``
-        sizes the kernels' work items (K5); ``tasks`` builds row tasks
-        instead, K10's, or with ``edge_op`` those of that pull kernel
-        (K8, K9)."""
+    def _build_parts(self, schedule: Callable[[np.ndarray, torch.device],
+                                              RowTasks]) -> None:
+        """The per-part operands and the compact exchange; on the card,
+        each part's row tasks by ``schedule(local_row_ptr, device)``, the
+        :class:`RowTasks` builder of the kernel the executor runs per
+        part."""
         sg = self.sg
         n = sg.max_nv
         on_card = self.device.type != "cpu"
@@ -88,22 +86,13 @@ class ShardedBase:
         self._parts: List[Part] = []
         for q in range(self.num_parts):
             n_e = int(sg.local_row_ptr[q, -1])
-            items = row_tasks = None
-            if on_card and item_len is not None:
-                items = SegmentItems.build(sg.local_row_ptr[q], item_len,
-                                           self.device)
-            if on_card and tasks:
-                row_tasks = (
-                    RowTasks.build(sg.local_row_ptr[q], self.device)
-                    if edge_op is None else
-                    pull_row_tasks(sg.local_row_ptr[q], edge_op,
-                                   self.device))
+            row_tasks = (schedule(sg.local_row_ptr[q], self.device)
+                         if on_card else None)
             self._parts.append(Part(
                 row_ptr=row_ptr[q],
                 col_src=src_pidx[q, :n_e],
                 weights=None if weights is None else weights[q, :n_e],
                 row_base=q * n,
-                items=items,
                 tasks=row_tasks,
             ))
         self._xch = (None if self._xplan is None

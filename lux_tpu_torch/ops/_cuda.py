@@ -56,10 +56,10 @@ _SIGNATURES = {
     "lux_segment_sum_rowptr": (_P, _P, _P, _I64, _P, _I64, _P, _P, _P),
     # x, arow, brow, codes, S, out, stream
     "lux_level_apply": (_P, _P, _P, _P, _I64, _P, _P),
-    # packed, values, frontier, col_src, item_lo, item_row, n_items, comb,
-    # relax, acc, stream
-    "lux_segment_minmax_relax": (_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
-                                 _P, _P),
+    # packed, values, frontier, n_tab, col_src, row_ptr, tasks, n_tasks,
+    # n_hub, comb, relax, bits, acc, stream
+    "lux_segment_minmax_relax": (_P, _P, _P, _I64, _P, _P, _P, _I64, _I64,
+                                 _INT, _INT, _P, _P, _P),
     # frontier, nv, rp, scratch, scratch_blocks, cap, q, start, deg, offs,
     # stream
     "lux_frontier_queue": (_P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P,

@@ -7,21 +7,19 @@ frontier bitmask).
 The counterpart of ``lux_tpu/ops/segment.py``. There, sums are a
 scatter-free cumsum-diff and min/max a block-min hierarchy of segmented
 scans, both shaped for the TPU. Here the CUDA kernels reduce each
-segment directly: ``csrc/segment_sum.cu`` (K2, K4),
-``csrc/push_dense.cu`` (K5), ``csrc/pull_sum.cu`` (K8, K9) and
-``csrc/gas.cu`` (K10). The plain versions are a float64 prefix-sum diff
-and a ``scatter_reduce`` over widened integers.
+segment directly: ``csrc/segment_sum.cu`` (K2, K4), ``csrc/pull_sum.cu``
+(K8, K9) and ``csrc/gas.cu`` (K10, and K5 on K10's pull). The plain
+versions are a float64 prefix-sum diff and a ``scatter_reduce`` over
+widened integers.
 
-Long segments must not serialise one thread group. K4 and K5 split the
+Long segments must not serialise one thread group. K4 splits the
 elements into :class:`SegmentItems`, contiguous work items of at most
-``item_len`` elements that each lie inside one segment; K4 sums each
-item, then each segment's items in item order, and K5 combines each
-item's result into its segment with an integer atomic, which does not
-depend on order. K8, K9 and K10 write each row once over the
-:class:`RowTasks` schedule: a hub row a block (K9: a cluster of
-blocks), the other rows a lane or a warp of a warp task, each summed in
-an order fixed by the row's length (``csrc/row_pass.cuh``). Results are
-deterministic.
+``item_len`` elements that each lie inside one segment, sums each item,
+then each segment's items in item order. K5, K8, K9 and K10 write each
+row once over the :class:`RowTasks` schedule: a hub row a block (K9: a
+cluster of blocks), the other rows a lane or a warp of a warp task, each
+summed in an order fixed by the row's length (``csrc/row_pass.cuh``).
+Results are deterministic.
 
 **uint32 values.** The push programs hold uint32 values (SSSP distances,
 CC labels), but this PyTorch build implements almost no uint32
@@ -80,7 +78,6 @@ class SegmentItems:
 
     item_lo: torch.Tensor     # (n_items+1,) int64 element offsets
     row_items: torch.Tensor   # (nrows+1,) int64 item offsets per row
-    item_row: torch.Tensor    # (n_items,) int32 owning row of each item
 
     @property
     def n_items(self) -> int:
@@ -93,13 +90,8 @@ class SegmentItems:
     @staticmethod
     def build(row_ptr: np.ndarray, item_len: int, device) -> "SegmentItems":
         lo, ri = segment_items(row_ptr, item_len)
-        rows = np.repeat(np.arange(ri.shape[0] - 1, dtype=np.int32),
-                         np.diff(ri))
-        return SegmentItems(
-            item_lo=torch.from_numpy(lo).to(device),
-            row_items=torch.from_numpy(ri).to(device),
-            item_row=torch.from_numpy(rows).to(device),
-        )
+        return SegmentItems(item_lo=torch.from_numpy(lo).to(device),
+                            row_items=torch.from_numpy(ri).to(device))
 
 
 def _prefix_diff64(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
@@ -349,19 +341,25 @@ def segment_minmax_relax(
     frontier: Optional[torch.Tensor],
     kind: str,
     relax_op: Optional[str],
-    items: Optional[SegmentItems] = None,
+    tasks: Optional[RowTasks] = None,
     relax: Optional[EdgeFn] = None,
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The push engine's dense iteration: per CSC destination, the min
     or max of the relaxed values of its active in-neighbours (see
-    :func:`segment_minmax_relax_plain` for the two input forms).
+    :func:`segment_minmax_relax_plain` for the two input forms), (nv,)
+    for ``row_ptr``'s nv rows over a table of at least nv rows that
+    ``col_src`` indexes.
 
     CPU tensors take the plain version with ``relax`` (default: the
-    plain form of ``relax_op``). CUDA tensors launch K5
-    (``csrc/push_dense.cu``) over ``items`` (the :class:`SegmentItems`
-    of ``row_ptr``); the kernel knows the relax only by ``relax_op``
-    (``"add1"`` or ``"copy"``; neither reads weights)."""
+    plain form of ``relax_op``). CUDA tensors launch K5 (``csrc/gas.cu``,
+    on K10's pull) over ``tasks`` (the :class:`RowTasks` of ``row_ptr``
+    by any thresholds; :func:`push_row_tasks` gives K5's own): one call
+    that writes every row once (the identity where no source is active),
+    reading the packed table directly or, for values and a frontier,
+    packing the frontier into bits first. The kernel knows the relax
+    only by ``relax_op`` (``"add1"`` or ``"copy"``; neither reads
+    weights)."""
     if kind not in COMBINERS:
         raise ValueError(f"segment_minmax_relax: unsupported kind {kind!r}")
     if values.device.type == "cpu":
@@ -374,35 +372,38 @@ def segment_minmax_relax(
     _cuda.check(row_ptr, "row_ptr", torch.int64, dev, ndim=1)
     _cuda.check(col_src, "col_src", torch.int32, dev, ndim=1)
     _cuda.check(values, "values", torch.int32, dev, ndim=1)
+    if values.shape[0] < nv:
+        raise ValueError(f"values must hold at least {nv} rows, got "
+                         f"{values.shape[0]}")
     if frontier is not None:
         _cuda.check(frontier, "frontier", torch.bool, dev, ndim=1)
         if frontier.shape != values.shape:
             raise ValueError("frontier and values differ in shape")
-    if items is None:
-        raise ValueError("CUDA segment_minmax_relax needs the SegmentItems "
-                         "of row_ptr")
-    if items.nrows != nv:
-        raise ValueError(f"items cover {items.nrows} rows, row_ptr {nv}")
-    _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
-    _cuda.check(items.item_row, "item_row", torch.int32, dev, ndim=1)
-    # The identity as int32 storage: 0xFFFFFFFF is -1, 0 is 0.
-    acc = torch.full((nv,), -1 if kind == "min" else 0, dtype=torch.int32,
-                     device=dev)
-    if items.n_items == 0:
+    if tasks is None:
+        raise ValueError("CUDA segment_minmax_relax needs the RowTasks of "
+                         "row_ptr")
+    if tasks.nrows != nv:
+        raise ValueError(f"tasks cover {tasks.nrows} rows, row_ptr {nv}")
+    _cuda.check(tasks.tasks, "tasks", torch.int32, dev, ndim=2)
+    acc = torch.empty(nv, dtype=torch.int32, device=dev)
+    if nv == 0:
         return acc
     packed = frontier is None
+    n_tab = values.shape[0]
+    bits = None if packed else torch.empty((n_tab + 31) // 32,
+                                           dtype=torch.int32, device=dev)
     _cuda.launch(
         "segment_minmax_relax", "lux_segment_minmax_relax",
         _cuda.ptr(values if packed else None),
-        _cuda.ptr(None if packed else values), _cuda.ptr(frontier),
-        _cuda.ptr(col_src), _cuda.ptr(items.item_lo),
-        _cuda.ptr(items.item_row), items.n_items, comb, op, _cuda.ptr(acc),
-        _cuda.stream(dev),
+        _cuda.ptr(None if packed else values), _cuda.ptr(frontier), n_tab,
+        _cuda.ptr(col_src), _cuda.ptr(row_ptr), _cuda.ptr(tasks.tasks),
+        tasks.n_tasks, tasks.n_hub, comb, op, _cuda.ptr(bits),
+        _cuda.ptr(acc), _cuda.stream(dev),
     )
     return acc
 
 
-# -- the row schedule of K8, K9 and K10 ---------------------------------------
+# -- the row schedule of K5, K8, K9 and K10 ----------------------------------
 
 # A warp task: at most TASK_ROWS consecutive rows (one a lane) whose edges
 # start inside one window of TASK_EDGES, so it gathers at most twice that;
@@ -447,7 +448,7 @@ def row_tasks(row_ptr: np.ndarray, task_edges: int = TASK_EDGES,
 
 @dataclasses.dataclass(eq=False)
 class RowTasks:
-    """The schedule of K8, K9 and K10 over one CSC row pointer (see
+    """The schedule of K5, K8, K9 and K10 over one CSC row pointer (see
     :func:`row_tasks`), on the device; built once per graph on the host.
     Block ``b < n_hub`` sums hub row ``tasks[b]``; the other blocks run
     a warp task a warp, in order."""
@@ -466,6 +467,18 @@ class RowTasks:
         tasks, n_hub = row_tasks(row_ptr, task_edges, hub_edges)
         return RowTasks(tasks=torch.from_numpy(tasks).to(device),
                         n_hub=n_hub, nrows=np.asarray(row_ptr).shape[0] - 1)
+
+
+# K5's RowTasks thresholds (task_edges, hub_edges), from the shape sweep
+# (python -m lux_tpu_torch.probes.shapes --only k5): tasks of 256 edges are
+# 1-6% faster than K10's 1,024 on one device and on a sharded part.
+PUSH_TASK_EDGES = (256, HUB_EDGES)
+
+
+def push_row_tasks(row_ptr: np.ndarray, device) -> RowTasks:
+    """The :class:`RowTasks` of ``row_ptr`` that K5 runs over, with its
+    thresholds."""
+    return RowTasks.build(row_ptr, device, *PUSH_TASK_EDGES)
 
 
 # -- K8, K9: the flat pull engine's fused edge sums ---------------------------

@@ -10,7 +10,8 @@ The counterparts of the Pallas kernels of ``tools/probe_dgather.py``,
   ``csrc/probe_gather.cu``.
 - :func:`merge4` (P6): ``out[i, j] = cand[i, s[i, j], l[i, j]]`` as
   ``k_merge``'s masked sum over four candidates; kernel ``merge4`` in the
-  same source.
+  same source, which streams each row's 2 KB of candidates through
+  shared memory.
 - :func:`merge_level` (P7): a 2-candidate merge level whose A and B
   inputs are 8-row windows of one stream at per-block offsets, each row
   repeated twice. That is K3 (``csrc/level_apply.cu``) with the input
@@ -26,6 +27,7 @@ draw them.
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
@@ -128,6 +130,9 @@ def merge4(cand, lane, sel):
     _cuda.check(cand, "cand", torch.float32, dev, ndim=3)
     _cuda.check(lane, "l", torch.int32, dev, ndim=2)
     _cuda.check(sel, "s", torch.int32, dev, ndim=2)
+    if any(t.data_ptr() % 16 for t in (cand, lane, sel)):
+        raise ValueError("cand, l and s must be 16-byte aligned (the "
+                         "kernel streams them 16 bytes a thread)")
     out = torch.empty(lane.shape, dtype=torch.float32, device=dev)
     _cuda.launch("merge4", "lux_merge4", _cuda.ptr(cand), _cuda.ptr(lane),
                  _cuda.ptr(sel), cand.shape[0], _cuda.ptr(out),
@@ -204,6 +209,41 @@ def mean_ms(fn, device: torch.device, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Cycles of the spin kernel that holds the card in median_ms: about 0.5 ms
+# at the H100's boost clock, longer than the host takes to enqueue a call.
+HOLD_CYCLES = 1_000_000
+
+
+def median_ms(fn, device: torch.device, reps: int = 100,
+              hold: bool = False) -> float:
+    """Median ms of ``reps`` calls of ``fn()``, each timed alone after one
+    warm-up call: between its own two CUDA events on the card, by the
+    host clock on the CPU. With ``hold``, a spin kernel keeps the card
+    busy while the host records the first event and enqueues the call,
+    so the time is the device's alone; without, the host's enqueue of
+    the call counts too."""
+    fn()
+    times = []
+    if device.type != "cuda":
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    torch.cuda.synchronize(device)
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def report(name: str, ms: float, per: int, width: int = 46) -> None:

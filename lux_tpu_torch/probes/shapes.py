@@ -1,7 +1,8 @@
 """Shape sweep of K2 (``tail_gather_sum``), K10 (``gas_pull_acc``), K8
-(``gather_segment_sum``) and K9 (``cf_edge_sum``) on the card.
+(``gather_segment_sum``), K9 (``cf_edge_sum``) and K5
+(``segment_minmax_relax``) on the card.
 
-    python -m lux_tpu_torch.probes.shapes [--scale 22] [--only k8 k9 ...]
+    python -m lux_tpu_torch.probes.shapes [--scale 22] [--only k5 k8 ...]
                                           [--old-csrc DIR]
 
 Each variant is a copy of ``csrc/segment_sum.cu``, ``csrc/gas.cu`` or
@@ -34,14 +35,28 @@ that scale:
   ``bench.py``'s sizes), over every row, the user rows alone and the item
   rows alone: ``kMinBlocks9``, ``kCluster9``, ``kUnroll9`` (the edges a
   lane group keeps in flight) and K9's schedule thresholds.
+- K5 on the push engine's dense states, as ``chip_smoke.py``'s phases
+  4b and 4f take them: SSSP from vertex 0 after 2 iterations on the
+  graph, CC's first iteration on its undirected closure, and the part
+  with the most edges of the 4-part sharded SSSP's dense iteration with
+  the largest frontier, over the flat table of every part; in both input
+  forms (the packed table, and values with the frontier's bits), over
+  ``kThreads``, ``kMinBlocks5``, ``kLaneMax5`` of ``gas.cu`` and the
+  schedule's ``TASK_EDGES`` and ``HUB_EDGES``.
 
-With ``--old-csrc DIR``, a directory holding the two-pass
-``pull_sum.cu`` and its headers (``lux_tpu_torch/csrc`` of a checkout of
-commit 18867e9), that source's K8 and K9 are built and timed first,
-at the same shapes: both passes, the item pass alone and the item-sum
-pass alone, and K9 over the user and the item rows alone.
+- P6 (``merge4``) at the probe's shape, R = 65,536 rows of 4 x 128
+  candidates, uniform lanes and selectors: the kernel against one
+  ``torch.gather`` over the same candidates, by means of 20 calls and by
+  medians of 100 on a held card (``probes/gather.py::median_ms``).
 
-``--only`` names the sweeps to run (default: all four). It prints one
+With ``--old-csrc DIR``, a directory holding ``push_dense.cu``,
+``probe_gather.cu`` and their header (``lux_tpu_torch/csrc`` of a
+checkout of commit a047839), that source's K5 (work items of 64 edges
+folded into an identity-filled accumulator with atomics) is built and
+timed first, on the same states in both forms, with and without its
+fill; and its P6 (four scattered loads a thread) beside the new one.
+
+``--only`` names the sweeps to run (default: all six). It prints one
 line per variant and shape, and the card's name and power limit first.
 """
 
@@ -92,22 +107,33 @@ K9_CASES = [(dict(kMinBlocks9=a, kCluster9=b, kUnroll9=c), sched)
                 (3, 2, 6, (1024, 4096)), (5, 2, 6, (1024, 4096)),
                 (4, 2, 6, (512, 4096)), (4, 2, 6, (2048, 8192)),
                 (4, 2, 6, (1024, 2048)))]
+# (kernel constants, (TASK_EDGES, HUB_EDGES)); the first are the built-in.
+K5_CASES = [(dict(kThreads=t, kMinBlocks5=b, kLaneMax5=a), sched)
+            for t, b, a, sched in (
+                (256, 6, 32, (256, 4096)), (256, 8, 32, (256, 4096)),
+                (256, 4, 32, (256, 4096)), (128, 12, 32, (256, 4096)),
+                (256, 6, 64, (256, 4096)), (256, 6, 16, (256, 4096)),
+                (256, 6, 32, (128, 4096)), (256, 6, 32, (512, 4096)),
+                (256, 6, 32, (1024, 4096)), (256, 6, 32, (256, 8192)),
+                (256, 6, 32, (256, 2048)))]
 CF_TOL = dict(rtol=1e-4, atol=1e-7)   # tests/test_colfilter.py
 PR_TOL = dict(rtol=5e-5, atol=1e-9)   # tests/test_tiled.py
-# The two-pass K8 and K9 of commit 18867e9 (--old-csrc): their item
-# lengths and C signatures.
-OLD_ITEM = {"copy": 64, "cf_sgd": 128}
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+# K5 and P6 of commit a047839 (--old-csrc): K5's work items and the C
+# signatures.
+OLD_ITEM = 64
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 OLD_SIGNATURES = {
-    # vals, col_src, item_lo, n_items, row_items, nrows, partial, y, stream
-    "lux_gather_segment_sum": (_P, _P, _P, _I64, _P, _I64, _P, _P, _P),
-    # vals, col_src, weights, item_lo, item_row, n_items, row_items, nrows,
-    # partial, y, stream
-    "lux_cf_edge_sum": (_P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P),
+    # packed, values, frontier, col_src, item_lo, item_row, n_items, comb,
+    # relax, acc, stream
+    "lux_segment_minmax_relax": (_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
+                                 _P, _P),
+    # cand, l, s, R, out, stream: the signature it has now
+    "lux_merge4": _cuda._SIGNATURES["lux_merge4"],
 }
+OLD_SOURCES = {"k5": "push_dense.cu", "p6": "probe_gather.cu"}
 REPS = 20
 OUT = _cuda.BUILD_DIR / "shapes"
-SWEEPS = ("k2", "k10", "k8", "k9")
+SWEEPS = ("k2", "k10", "k8", "k9", "k5", "p6")
 
 
 def _ms(fn) -> float:
@@ -133,9 +159,9 @@ def _variant_source(name: str, shape: dict) -> str:
     return text
 
 
-def build_variants(variants, old_csrc=None):
+def build_variants(variants, old_csrc=None, old_sources=()):
     """{(source, tag): ctypes library} for (source name, tag, shape), and
-    ("old", "pull_sum.cu") for ``old_csrc``'s pull_sum.cu."""
+    ("old", name) for each of ``old_sources`` in ``old_csrc``."""
     if OUT.exists():
         shutil.rmtree(OUT)
     OUT.mkdir(parents=True)
@@ -145,9 +171,9 @@ def build_variants(variants, old_csrc=None):
         src = OUT / f"{tag}_{name}"
         src.write_text(_variant_source(name, shape))
         jobs.append(((name, tag), src, _cuda.CSRC, _cuda._SIGNATURES))
-    if old_csrc is not None:
-        jobs.append((("old", "pull_sum.cu"), old_csrc / "pull_sum.cu",
-                     old_csrc, OLD_SIGNATURES))
+    for name in old_sources:
+        jobs.append((("old", name), old_csrc / name, old_csrc,
+                     OLD_SIGNATURES))
     procs = []
     for key, src, inc, sigs in jobs:
         lib = OUT / f"lib{'_'.join(key)}.so"
@@ -345,47 +371,159 @@ def sweep_pull(libs, g, op, n_users, dev) -> None:
                   f"{_ms(lambda: _call(fn, *args)):.4f} ms", flush=True)
 
 
-def time_old_pull(lib, g, op, n_users, dev) -> None:
-    """The two-pass K8 or K9 (``--old-csrc``) at the same shapes: both
-    passes, the item pass alone (no rows to sum) and the item-sum pass
-    alone (no items), over each slice of rows."""
-    name = "K8" if op == "copy" else "K9"
-    (rp, cs, w), vals = _pull_operands(g, op, dev, np.random.default_rng(3))
-    exact, v = vals[0]
-    want = _plain(op, v, rp, cs, w)
-    for label, a, b in _pull_slices(g, n_users):
-        lo, ri = seg.segment_items(g.row_ptr[a:b + 1], OLD_ITEM[op])
-        n_items, nrows = lo.shape[0] - 1, b - a
-        put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-        item_lo, row_items = put(lo), put(ri)
-        item_row = put(np.repeat(np.arange(a, b, dtype=np.int32),
+def _k5_states(g, dev):
+    """(label, row_ptr numpy, device row_ptr, col_src, values, frontier,
+    comb, relax, program) of K5 on chip_smoke.py's states: SSSP from
+    vertex 0 after 2 iterations on ``g``, CC's first iteration on its
+    undirected closure (built here), and the part with the most edges of
+    sharded SSSP's dense iteration with the largest frontier (4 parts,
+    full exchange), over the flat table of every part."""
+    from lux_tpu_torch.engine.push import PushExecutor
+    from lux_tpu_torch.engine.push_sharded import ShardedPushExecutor
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models import SSSP, ConnectedComponents
+
+    out = []
+    for label, graph, prog in (("sssp after 2 iterations", g, SSSP()),
+                               ("cc iteration 1", None,
+                                ConnectedComponents())):
+        if graph is None:
+            t = time.perf_counter()
+            graph = generate.undirected(g)
+            print(f"[shapes] undirected closure in "
+                  f"{time.perf_counter() - t:.1f} s", flush=True)
+        ex = PushExecutor(graph, prog, sparse=False)
+        st = (ex.run(max_iters=2, start=0)[0] if prog.rooted
+              else ex.init_state())
+        out.append((label, graph.row_ptr, ex.row_ptr, ex.col_src, st.values,
+                    st.frontier, seg.COMBINERS.index(prog.combiner),
+                    list(seg.RELAX_OPS).index(prog.relax_op), prog))
+        del ex
+    t = time.perf_counter()
+    prog = SSSP()
+    ex = ShardedPushExecutor(g, prog, num_parts=4)
+    ex.run(start=0)
+    _, at = max((b[1], i) for i, b in enumerate(ex.branch_log) if b[0] == 0)
+    st, _ = ex.run(max_iters=at, start=0)
+    q = int(np.argmax([pt.col_src.numel() for pt in ex._parts]))
+    pt = ex._parts[q]
+    out.append((f"sharded sssp iteration {at + 1}, part {q} of 4",
+                ex.sg.local_row_ptr[q], pt.row_ptr, pt.col_src,
+                ex._exchange(st.values), ex._exchange(st.frontier), 0, 0,
+                prog))
+    print(f"[shapes] sharded state in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return out
+
+
+def _k5_want(rp, cs, vals, front, prog):
+    return seg.segment_minmax_relax_plain(rp, cs, vals, front,
+                                          prog.combiner,
+                                          seg.RELAX_OPS[prog.relax_op])
+
+
+def sweep_k5(libs, states, dev) -> None:
+    """Each case of K5_CASES, in both forms, on each state, held bitwise
+    against the plain version."""
+    for label, rp_np, rp, cs, vals, front, comb, op, prog in states:
+        want = _k5_want(rp, cs, vals, front, prog)
+        packed = seg.pack_words(vals, front)
+        n_tab = vals.shape[0]
+        bits = torch.empty((n_tab + 31) // 32, dtype=torch.int32, device=dev)
+        active = int(front.sum())
+        for shape, (task_edges, hub) in K5_CASES:
+            tasks = seg.RowTasks.build(rp_np, dev, task_edges, hub)
+            fn = libs["gas.cu", _tag("k5", shape)].lux_segment_minmax_relax
+            for form in ("packed", "bits"):
+                acc = torch.empty_like(want)
+                args = (_cuda.ptr(packed if form == "packed" else None),
+                        _cuda.ptr(None if form == "packed" else vals),
+                        _cuda.ptr(None if form == "packed" else front),
+                        n_tab, _cuda.ptr(cs), _cuda.ptr(rp),
+                        _cuda.ptr(tasks.tasks), tasks.n_tasks, tasks.n_hub,
+                        comb, op, _cuda.ptr(bits), _cuda.ptr(acc),
+                        _cuda.stream(dev))
+                _call(fn, *args)
+                if not torch.equal(acc, want):
+                    raise AssertionError(f"K5 {shape} {form} {label}: "
+                                         "not bitwise")
+                print(f"[shapes] K5 {label} ({cs.shape[0]} edges, {active} "
+                      f"of {n_tab} active) {form} task_edges={task_edges} "
+                      f"hub_edges={hub} ({tasks.n_hub} hub rows, "
+                      f"{tasks.n_tasks} tasks) {shape}: "
+                      f"{_ms(lambda: _call(fn, *args)):.4f} ms", flush=True)
+
+
+def time_old_k5(lib, states, dev) -> None:
+    """K5 of ``--old-csrc`` on the same states, in both forms: its
+    identity fill and kernel, as its wrapper ran them, and the kernel
+    alone."""
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    for label, rp_np, rp, cs, vals, front, comb, op, prog in states:
+        want = _k5_want(rp, cs, vals, front, prog)
+        lo, ri = seg.segment_items(rp_np, OLD_ITEM)
+        item_lo = put(lo)
+        item_row = put(np.repeat(np.arange(ri.shape[0] - 1, dtype=np.int32),
                                  np.diff(ri)))
-        width = 1 if op == "copy" else seg.CF_WIDTH
-        partial = torch.empty(n_items * width, device=dev)
-        acc = torch.empty((nrows,) + tuple(v.shape[1:]), device=dev)
+        n_items = lo.shape[0] - 1
+        packed = seg.pack_words(vals, front)
+        acc = torch.empty_like(want)
+        ident = -1 if comb == 0 else 0
+        for form in ("packed", "values and a bool frontier"):
+            args = (_cuda.ptr(packed if form == "packed" else None),
+                    _cuda.ptr(None if form == "packed" else vals),
+                    _cuda.ptr(None if form == "packed" else front),
+                    _cuda.ptr(cs), _cuda.ptr(item_lo), _cuda.ptr(item_row),
+                    n_items, comb, op, _cuda.ptr(acc), _cuda.stream(dev))
 
-        def call(items, rows):
-            if op == "copy":
-                _call(lib.lux_gather_segment_sum, _cuda.ptr(v), _cuda.ptr(cs),
-                      _cuda.ptr(item_lo), items, _cuda.ptr(row_items), rows,
-                      _cuda.ptr(partial), _cuda.ptr(acc), _cuda.stream(dev))
-            else:
-                _call(lib.lux_cf_edge_sum, _cuda.ptr(v), _cuda.ptr(cs),
-                      _cuda.ptr(w), _cuda.ptr(item_lo), _cuda.ptr(item_row),
-                      items, _cuda.ptr(row_items), rows, _cuda.ptr(partial),
-                      _cuda.ptr(acc), _cuda.stream(dev))
+            def kernel():
+                _call(lib.lux_segment_minmax_relax, *args)
 
-        call(n_items, nrows)
-        _check(f"old {name} {label}", acc, want[a:b], exact, {})
-        times = {part: _ms(lambda: call(*args)) for part, args in (
-            ("both passes", (n_items, nrows)),
-            ("item pass alone", (n_items, 0)),
-            ("item-sum pass alone", (0, nrows)))}
-        top = int(np.diff(ri).max(initial=0))
-        print(f"[shapes] old {name} {label} ({int(lo[-1] - lo[0])} edges, "
-              f"{nrows} rows, {n_items} items of {OLD_ITEM[op]}, at most "
-              f"{top} a row): " + ", ".join(
-                  f"{k} {t:.4f} ms" for k, t in times.items()), flush=True)
+            def both():
+                acc.fill_(ident)
+                kernel()
+
+            both()
+            if not torch.equal(acc, want):
+                raise AssertionError(f"old K5 {form} {label}: not bitwise")
+            print(f"[shapes] old K5 {label} ({cs.shape[0]} edges, {n_items} "
+                  f"items of {OLD_ITEM}) {form}: fill and kernel "
+                  f"{_ms(both):.4f} ms, kernel alone "
+                  f"{_ms(kernel):.4f} ms", flush=True)
+
+
+def time_p6(old, dev) -> None:
+    """P6 at the probe's shape: the kernel, ``old``'s (None: not timed)
+    and one ``torch.gather``, each held bitwise to the plain version."""
+    from lux_tpu_torch.probes import dgather2
+    from lux_tpu_torch.probes import gather as pg
+
+    r = dgather2.R
+    rng = np.random.default_rng(6)
+    put = lambda a: torch.from_numpy(a).to(dev)
+    cand = put(rng.standard_normal((r, 4, 128), dtype=np.float32))
+    lane = put(rng.integers(0, 128, (r, 128), dtype=np.int32))
+    sel = put(rng.integers(0, 4, (r, 128), dtype=np.int32))
+    want = pg.merge4_plain(cand, lane, sel)
+    flat, gidx = cand.view(r, 512), sel.long() * 128 + lane.long()
+    out = torch.empty_like(want)
+    args = (_cuda.ptr(cand), _cuda.ptr(lane), _cuda.ptr(sel), r,
+            _cuda.ptr(out), _cuda.stream(dev))
+    calls = {"merge4": lambda: _call(_cuda.library().lux_merge4, *args)}
+    if old is not None:
+        calls["old merge4"] = lambda: _call(old.lux_merge4, *args)
+    calls["torch.gather"] = lambda: torch.gather(flat, 1, gidx)
+    for name, fn in calls.items():
+        if name != "torch.gather":
+            out.zero_()
+            fn()
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name}: not bitwise")
+    for rnd in range(2):
+        print(f"[shapes] P6 R={r} round {rnd}: " + ", ".join(
+            f"{name} {_ms(fn):.4f} ms (mean of {REPS}), "
+            f"{pg.median_ms(fn, dev, 100, hold=True):.4f} ms (median of "
+            f"100, held)" for name, fn in calls.items()), flush=True)
 
 
 def _tag(kernel: str, shape: dict) -> str:
@@ -402,8 +540,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="+", choices=SWEEPS, default=SWEEPS,
                     help="the sweeps to run")
     ap.add_argument("--old-csrc", type=Path, default=None,
-                    help="time the two-pass K8 and K9 of this "
-                         "directory's pull_sum.cu first")
+                    help="time the K5 and P6 of this directory's "
+                         "push_dense.cu and probe_gather.cu too")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("shapes: needs a CUDA device")
@@ -429,16 +567,26 @@ def main(argv=None) -> int:
     if "k9" in only:
         variants += [("pull_sum.cu", _tag("k9", s), s)
                      for s in _kernel_shapes(K9_CASES)]
-    libs = build_variants(variants, args.old_csrc)
+    if "k5" in only:
+        variants += [("gas.cu", _tag("k5", s), s)
+                     for s in _kernel_shapes(K5_CASES)]
+    olds = () if args.old_csrc is None else [
+        OLD_SOURCES[k] for k in OLD_SOURCES if k in only]
+    libs = build_variants(variants, args.old_csrc, olds)
     print(f"[shapes] {len(libs)} variants built in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    if only & {"k2", "k8", "k10"}:
+    if only & {"k2", "k8", "k10", "k5"}:
         t = time.perf_counter()
         g = generate.rmat(args.scale, 16, seed=42)
         print(f"[shapes] rmat({args.scale}, 16) in "
               f"{time.perf_counter() - t:.1f} s", flush=True)
-        if args.old_csrc is not None and "k8" in only:
-            time_old_pull(libs["old", "pull_sum.cu"], g, "copy", 0, dev)
+        if "k5" in only:
+            states = _k5_states(g, dev)
+            if args.old_csrc is not None:
+                time_old_k5(libs["old", "push_dense.cu"], states, dev)
+            sweep_k5(libs, states, dev)
+            del states
+            torch.cuda.empty_cache()
         if "k8" in only:
             sweep_pull(libs, g, "copy", 0, dev)
         if "k10" in only:
@@ -462,10 +610,9 @@ def main(argv=None) -> int:
               f"{12 << args.scale}, seed=11) in "
               f"{time.perf_counter() - t:.1f} s; max in-degree "
               f"{int(gc.in_degrees.max())}", flush=True)
-        if args.old_csrc is not None:
-            time_old_pull(libs["old", "pull_sum.cu"], gc, "cf_sgd", n_users,
-                          dev)
         sweep_pull(libs, gc, "cf_sgd", n_users, dev)
+    if "p6" in only:
+        time_p6(libs.get(("old", "probe_gather.cu")), dev)
     return 0
 
 

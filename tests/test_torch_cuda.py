@@ -280,23 +280,86 @@ def _push_operands(nv, seed, frac):
     return seg.to_u32_storage(vals), torch.from_numpy(fr)
 
 
-@pytest.mark.parametrize("kind,relax_op", [("min", "add1"), ("max", "copy"),
-                                           ("min", "copy"), ("max", "add1")])
-@pytest.mark.parametrize("frac", [0.3, 0.0])
+K5_PAIRS = [("min", "add1"), ("max", "copy"), ("min", "copy"),
+            ("max", "add1")]
+
+
+def _k5_forms(vals, fr, dev):
+    """K5's two input forms on the card: (values, bool frontier) and the
+    packed table."""
+    return ((vals.to(dev), fr.to(dev)),
+            (seg.pack_words(vals, fr).to(dev), None))
+
+
+@pytest.mark.parametrize("kind,relax_op", K5_PAIRS)
+@pytest.mark.parametrize("frac", [0.3, 0.0, 1.0])
 def test_segment_minmax_relax_matches_plain(dev, kind, relax_op, frac):
     g = generate.rmat(12, 12, seed=5)
     row_ptr = torch.from_numpy(g.row_ptr)
     col_src = torch.from_numpy(g.col_src)
-    items = seg.SegmentItems.build(g.row_ptr, seg.SEG_ITEM, dev)
+    tasks = seg.push_row_tasks(g.row_ptr, dev)
     vals, fr = _push_operands(g.nv, 3, frac)
     want = seg.segment_minmax_relax(row_ptr, col_src, vals, fr, kind,
                                     relax_op)
-    packed = seg.pack_words(vals, fr)
-    for table, front in ((vals, fr), (packed, None)):
-        got = seg.segment_minmax_relax(
-            row_ptr.to(dev), col_src.to(dev), table.to(dev),
-            None if front is None else front.to(dev), kind, relax_op, items)
+    for table, front in _k5_forms(vals, fr, dev):
+        call = lambda: seg.segment_minmax_relax(
+            row_ptr.to(dev), col_src.to(dev), table, front, kind, relax_op,
+            tasks)
+        _cuda.reset_launches()
+        got = call()
+        assert _cuda.LAUNCHES["segment_minmax_relax"] == 1
         assert torch.equal(got.cpu(), want)
+        assert torch.equal(call(), got)   # two calls, bitwise
+
+
+@pytest.mark.parametrize("kind,relax_op", K5_PAIRS)
+def test_segment_minmax_relax_hub_empty_rows_and_a_part(dev, kind,
+                                                        relax_op):
+    # Rows of every tier (empty, a lane, a warp, two hubs above
+    # HUB_EDGES) over a table of more rows than row_ptr, read through a
+    # col_src view 4 bytes past a 16-byte boundary, as a part reads its
+    # slice of src_pidx.
+    rng = np.random.default_rng(8)
+    lens = rng.choice([0, 0, 1, 5, 31, 33, 700], 3000)
+    lens[[17, 2900]] = [seg.HUB_EDGES + 3, 3 * seg.HUB_EDGES]
+    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)]))
+    n_tab, ne = 5000, int(lens.sum())
+    store = torch.from_numpy(rng.integers(0, n_tab, ne + 5, dtype=np.int32))
+    col_src = store.to(dev)[1:ne + 1]
+    assert col_src.data_ptr() % 16 == 4
+    tasks = seg.push_row_tasks(row_ptr.numpy(), dev)
+    assert tasks.n_hub == 2
+    for frac in (0.0, 0.3, 1.0):
+        vals, fr = _push_operands(n_tab, 11, frac)
+        want = seg.segment_minmax_relax(row_ptr, store[1:ne + 1], vals, fr,
+                                        kind, relax_op)
+        ident = -1 if kind == "min" else 0
+        assert torch.all(want[torch.from_numpy(lens == 0)] == ident)
+        for table, front in _k5_forms(vals, fr, dev):
+            got = seg.segment_minmax_relax(row_ptr.to(dev), col_src, table,
+                                           front, kind, relax_op, tasks)
+            assert torch.equal(got.cpu(), want)
+
+
+def test_segment_minmax_relax_checks_its_inputs(dev):
+    g = generate.rmat(8, 8, seed=2)
+    row_ptr = torch.from_numpy(g.row_ptr).to(dev)
+    col_src = torch.from_numpy(g.col_src).to(dev)
+    vals, fr = _push_operands(g.nv, 1, 0.5)
+    vals, fr = vals.to(dev), fr.to(dev)
+    with pytest.raises(ValueError, match="RowTasks"):
+        seg.segment_minmax_relax(row_ptr, col_src, vals, fr, "min", "add1")
+    other = seg.RowTasks.build(g.row_ptr[:-1], dev)
+    with pytest.raises(ValueError, match="tasks cover"):
+        seg.segment_minmax_relax(row_ptr, col_src, vals, fr, "min", "add1",
+                                 other)
+    tasks = seg.RowTasks.build(g.row_ptr, dev)
+    with pytest.raises(ValueError, match="at least"):
+        seg.segment_minmax_relax(row_ptr, col_src, vals[:-1], fr[:-1],
+                                 "min", "add1", tasks)
+    with pytest.raises(NotImplementedError):
+        seg.segment_minmax_relax(row_ptr, col_src, vals, fr, "min", "decay",
+                                 tasks)
 
 
 @pytest.mark.parametrize("nv,frac", [(4096 * 3 + 5, 0.02), (1000, 1.0),
@@ -1146,6 +1209,33 @@ def test_block_take_matches_plain(dev, axis, rows, dtype):
     got = pg.block_take(x.to(dev), idx.to(dev), axis, rows)
     assert _cuda.LAUNCHES[pg.take_kernel(axis, dtype)] == 1
     assert torch.equal(got.cpu(), pg.block_take_plain(x, idx, axis, rows))
+
+
+@pytest.mark.parametrize("r", [1, 7, 13, 1001, 20003])
+def test_merge4_edge_cases_match_plain(dev, r):
+    # Rows not a multiple of a stage's 8 and more stages than the grid
+    # holds at once; selectors outside [0, 4) give +0, and so do -0.0
+    # candidates; lanes out of range are clamped into the row.
+    from lux_tpu_torch.probes import gather as pg
+
+    rng = np.random.default_rng(r)
+    cand = rng.standard_normal((r, 4, 128), dtype=np.float32)
+    cand[rng.random(cand.shape) < 0.2] = -0.0
+    cand = torch.from_numpy(cand)
+    lane = torch.from_numpy(rng.integers(0, 128, (r, 128), dtype=np.int32))
+    sel = torch.from_numpy(rng.integers(-3, 7, (r, 128), dtype=np.int32))
+    _cuda.reset_launches()
+    got = pg.merge4(cand.to(dev), lane.to(dev), sel.to(dev)).cpu()
+    assert _cuda.LAUNCHES["merge4"] == 1
+    want = pg.merge4_plain(cand, lane, sel)
+    assert torch.equal(got, want)
+    assert not torch.signbit(got[got == 0]).any()
+    assert torch.equal(got[(sel < 0) | (sel > 3)],
+                       torch.zeros(int(((sel < 0) | (sel > 3)).sum())))
+    wild = torch.from_numpy(rng.integers(-500, 500, (r, 128),
+                                         dtype=np.int32))
+    got = pg.merge4(cand.to(dev), wild.to(dev), sel.to(dev)).cpu()
+    assert torch.equal(got, pg.merge4_plain(cand, wild.clamp(0, 127), sel))
 
 
 def test_merge4_and_merge_level_match_plain(dev):

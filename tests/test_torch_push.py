@@ -236,14 +236,103 @@ def test_segment_reduce_matches_lux_tpu(kind):
 
 
 def test_segment_item_rows_own_their_items():
-    # K5 folds each work item into the row recorded here.
+    # The work items of K1 and K4 (segment_items): each lies inside the
+    # row that owns it, and the rows own them in order.
     g = tgen.rmat(10, 8, seed=0)
     items = tseg.SegmentItems.build(g.row_ptr, tseg.SEG_ITEM, CPU)
-    lo, rows = items.item_lo.numpy(), items.item_row.numpy()
-    assert rows.dtype == np.int32 and rows.shape == (items.n_items,)
+    lo, ri = items.item_lo.numpy(), items.row_items.numpy()
+    rows = np.repeat(np.arange(g.nv), np.diff(ri))
+    assert rows.shape == (items.n_items,) and items.nrows == g.nv
     assert np.all(g.row_ptr[rows] <= lo[:-1])
     assert np.all(lo[1:] <= g.row_ptr[rows + 1])
     assert np.all(np.diff(lo) >= 1)
+
+
+def _push_row_ptr(name):
+    """A CSC row pointer K5 runs over: the push executors' graphs, rows
+    with no edges, one row above HUB_EDGES, a sharded part's."""
+    g = tgen.rmat(10, 8, seed=0)
+    if name == "rmat":
+        return g.row_ptr
+    if name == "closure":
+        return tgen.undirected(g).row_ptr
+    if name == "empty rows":
+        lens = np.random.default_rng(5).choice([0, 0, 0, 3, 40, 5000], 3000)
+        return np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    if name == "one row":
+        return np.array([0, tseg.HUB_EDGES + 5], np.int64)
+    from lux_tpu_torch.parallel.shard import ShardedGraph
+    return ShardedGraph.build(g, 4).local_row_ptr[1].astype(np.int64)
+
+
+@pytest.mark.parametrize("name", ["rmat", "closure", "empty rows",
+                                  "one row", "part"])
+def test_push_row_tasks_cover_each_row_once(name):
+    # K5's schedule: every row in exactly one task, the hub rows (more
+    # than hub_edges edges, each alone) first, then warp tasks of at most
+    # 32 consecutive rows in row order, gathering at most 2 * task_edges
+    # unless alone.
+    rp = _push_row_ptr(name)
+    n, lens = rp.shape[0] - 1, np.diff(rp)
+    task_edges, hub_edges = tseg.PUSH_TASK_EDGES
+    t = tseg.push_row_tasks(rp, CPU)
+    tasks = t.tasks.numpy()
+    assert t.nrows == n and tasks.shape == (t.n_tasks, 2)
+    seen = np.zeros(n, np.int64)
+    for lo, hi in tasks:
+        seen[lo:hi] += 1
+    assert np.all(seen == 1)
+    hubs, warps = tasks[:t.n_hub], tasks[t.n_hub:]
+    assert np.all(hubs[:, 1] - hubs[:, 0] == 1)
+    assert np.array_equal(np.sort(hubs[:, 0]),
+                          np.flatnonzero(lens > hub_edges))
+    assert np.all(np.diff(warps[:, 0]) > 0)
+    size = warps[:, 1] - warps[:, 0]
+    assert np.all((size >= 1) & (size <= tseg.TASK_ROWS))
+    edges = rp[warps[:, 1]] - rp[warps[:, 0]]
+    assert np.all((edges <= 2 * task_edges) | (size == 1))
+    if name == "one row":
+        assert (t.n_hub, t.n_tasks) == (1, 1)
+    if name == "empty rows":
+        assert np.any(lens == 0) and t.n_hub > 0
+
+
+def test_push_executors_build_row_tasks_and_no_items(monkeypatch):
+    # On the card the push executors give K5 the RowTasks of each CSC
+    # they run it over, with K5's thresholds (built here on the CPU from
+    # the device the executor names), and no work items; on the CPU,
+    # none.
+    from lux_tpu_torch.engine import sharded
+    from lux_tpu_torch.engine.push_sharded import ShardedPushExecutor
+
+    built = []
+    real = tseg.RowTasks.build
+
+    def spy(row_ptr, device, *a):
+        built.append(torch.device(device).type)
+        return real(row_ptr, CPU, *a)
+
+    monkeypatch.setattr(tseg.RowTasks, "build", staticmethod(spy))
+    g = tgen.rmat(10, 8, seed=0)
+    for blocked in (True, False):
+        ex = tpush.PushExecutor(g, SSSP(), device="meta",
+                                blocked_dense=blocked)
+        assert not hasattr(ex, "items")
+        want = real(g.row_ptr, CPU, *tseg.PUSH_TASK_EDGES)
+        assert torch.equal(ex.tasks.tasks, want.tasks)
+        sx = ShardedPushExecutor(g, SSSP(), num_parts=4, device="meta",
+                                 blocked_dense=blocked)
+        for q, part in enumerate(sx._parts):
+            want = real(sx.sg.local_row_ptr[q], CPU,
+                        *tseg.PUSH_TASK_EDGES)
+            assert torch.equal(part.tasks.tasks, want.tasks)
+            assert part.tasks.n_hub == want.n_hub
+    assert built and set(built) == {"meta"}
+    assert "items" not in {f.name for f in
+                           sharded.dataclasses.fields(sharded.Part)}
+    assert tpush.PushExecutor(g, SSSP(), device="cpu").tasks is None
+    cpu = ShardedPushExecutor(g, SSSP(), num_parts=4, device="cpu")
+    assert all(part.tasks is None for part in cpu._parts)
 
 
 # -- plain versions of K5-K7 against the lux_tpu code they replace ----------
