@@ -23,7 +23,8 @@ merge-network tail of ``LUX_GROUPED_TAIL=1``):
    a chunk at a time, and beside its bound on the cells the bound the
    strip layout had; K2 as the main path calls it, from the (nv,)
    values and adding into a vector, bitwise on small integers with and
-   without the add, beside cuSPARSE;
+   without the add, beside cuSPARSE; K4 as the main path calls it too,
+   adding into a vector, bitwise on small integers;
 5. end to end: ``run(10)`` in both configurations against the f64 oracle
    at rtol=5e-5, atol=1e-9, with every kernel's launch count checked;
 6. timing: ms per iteration and GTEPS for both configurations, the
@@ -160,10 +161,13 @@ device and over the parts in both modes:
     versions, bitwise: K5 for one part's ``row_ptr`` over the packed
     ``(P * max_nv,)`` table (full) and over its receiver's compact table
     of values and frontier, two calls bitwise equal, beside its time
-    before its redesign; K6 on one part's frontier; K7 reading the
-    flat pre-step stack and combining into one part's row through its
-    ``push_dst_local``; and K10 with 8 columns over the ``(P * max_nv,
-    8)`` table for one part's ``row_ptr``; with the same timings;
+    before its redesign; K6 on one part's frontier; K7 in one launch
+    over the four parts, reading the flat pre-step stack and combining
+    into each part's row of a copy through its ``push_dst_local``, two
+    calls bitwise equal, beside the plain version's four scatters and
+    one ``scatter_reduce`` over the flat table; and K10 with 8 columns
+    over the ``(P * max_nv, 8)`` table for one part's ``row_ptr``; with
+    the same timings;
 5f. end to end, bitwise: sharded SSSP (both modes) and CC against phase
     5b's oracles with zero violations and phase 5b's iteration counts,
     compact equal to full; every multi-source lane against its
@@ -547,18 +551,40 @@ def _pagerank_phases(g, dev, kernels):
     root_i = torch.from_numpy(
         rng.integers(0, 4, size=(s_root, 128)).astype(np.float32)).to(dev)
     rr = (gt.nvalid_root, gt.dst_row_ptr)
-    check_equal("K4 integral", root_reduce(root_i, *rr, gt.dst_items),
+    check_equal("K4 integral", root_reduce(root_i, *rr),
                 segment_sum_by_rowptr_plain(root_i, gt.dst_row_ptr,
                                             gt.nvalid_root))
-    err = check_close("K4", root_reduce(root_f, *rr, gt.dst_items),
+    # As the main path calls it: adding into the strips' sums.
+    y_i = torch.from_numpy(
+        rng.integers(0, 4, size=g.nv).astype(np.float32)).to(dev)
+    y_f = torch.from_numpy(
+        rng.random(g.nv, dtype=np.float32) + np.float32(0.5)).to(dev)
+    check_equal("K4 integral, adding into a vector",
+                root_reduce(root_i, *rr, y_i.clone()),
+                segment_sum_by_rowptr_plain(root_i, gt.dst_row_ptr,
+                                            gt.nvalid_root, y_i.clone()))
+    err = check_close("K4", root_reduce(root_f, *rr, y_f.clone()),
                       segment_sum_by_rowptr_plain(root_f, gt.dst_row_ptr,
-                                                  gt.nvalid_root))
-    k4_ms = cuda_ms(lambda: root_reduce(root_f, *rr, gt.dst_items), reps)
+                                                  gt.nvalid_root,
+                                                  y_f.clone()))
+    k4_ms = cuda_ms(lambda: root_reduce(root_f, *rr, y_f), reps)
     k4_plain = cuda_ms(lambda: segment_sum_by_rowptr_plain(
-        root_f, gt.dst_row_ptr, gt.nvalid_root), reps)
-    k4_bytes = 4 * root_f.numel() + 4 * s_root \
-        + 8 * gt.dst_row_ptr.numel() + 4 * g.nv
+        root_f, gt.dst_row_ptr, gt.nvalid_root, y_f), reps)
+    # What the function needs: the live elements of the rows' stream
+    # (lane < nvalid), nvalid, the row pointer, y read and written; an add
+    # a live element and a row.
     lane = torch.arange(128, device=dev)
+    lo, hi = (int(v) for v in gt.dst_row_ptr[[0, -1]].tolist())
+    k4_live = int((lane[None, :] < gt.nvalid_root[:, None])
+                  .reshape(-1)[lo:hi].sum())
+    k4_bytes = 4 * k4_live + 4 * s_root \
+        + 8 * gt.dst_row_ptr.numel() + 8 * g.nv
+    k4_ops = k4_live + g.nv
+    log(f"[kernel] K4 (one launch, adding into a vector): {k4_ms:.4f} ms, "
+        f"was {K4_WAS_MS} ms (two passes over work items, then an add "
+        f"pass); live elements {k4_live} of {root_f.numel()} "
+        f"({k4_live / root_f.numel():.3f}); bound "
+        f"{bound(k4_bytes, k4_ops)[0]:.4f} ms")
 
     def k4_library():
         live = lane[None, :] < gt.nvalid_root[:, None]
@@ -569,8 +595,8 @@ def _pagerank_phases(g, dev, kernels):
     k4_lib = cuda_ms(k4_library, reps)
     record(kernels, "segment_sum_rowptr", "lux_tpu_torch/csrc/segment_sum.cu",
            "lux_tpu/ops/merge_tail_kernel.py:146", err, k4_ms, k4_plain,
-           k4_bytes, root_f.numel(), k4_lib)
-    del x_float, x_int, root_f, root_i, x
+           k4_bytes, k4_ops, k4_lib)
+    del x_float, x_int, root_f, root_i, x, y_i, y_f
     torch.cuda.empty_cache()
 
     # -- 5. end to end, both configurations ---------------------------------
@@ -588,8 +614,7 @@ def _pagerank_phases(g, dev, kernels):
                         "tail_gather_sum": k2_per_iter * ITERS},
         "grouped": {**none, "strip_spmv": nlev * ITERS,
                     "level_apply": k3_per_iter * ITERS,
-                    "segment_sum_rowptr":
-                        int(gt.dst_items.n_items > 0) * ITERS},
+                    "segment_sum_rowptr": ITERS},
     }
     totals = dict.fromkeys(_cuda.LAUNCHES, 0)
     for label, ex in (("lane-select", ex_lane), ("grouped", ex_grp)):
@@ -802,6 +827,9 @@ def _push_phases(g, gu, dev, kernels):
            "lux_tpu/engine/push.py:447", 0.0, *k67["k6"])
     record(kernels, "queue_relax_scatter", "lux_tpu_torch/csrc/frontier.cu",
            "lux_tpu/engine/push.py:460", 0.0, *k67["k7"])
+    log(f"[push] K7 on SSSP's first frontier (copy and fold, one launch): "
+        f"{k67['k7'][0]:.4f} ms, was {K7_WAS_MS} ms (a clone, then the "
+        f"fold)")
     del st_run, st_synth, synth, want, got_q, want_q, q, start, offs, vals64
     torch.cuda.empty_cache()
 
@@ -974,9 +1002,10 @@ def _k6_k7_rows(ex, st_cap, q_cap: int, rng, dev) -> None:
         cand = relax(vals64[q.long()[slot]])
         k7_lib = median_ms(lambda: vals64.scatter_reduce(
             0, dst_e, cand, reduce="amin", include_self=True), dev)
+        was = K7_MEDIAN_WAS_MS["first" if cnt == 1 else "cap"]
         log(f"[push] at {label} (cnt={cnt}, out_edges={out}), medians of "
             f"100 calls: K6 {k6:.4f} ms, torch.nonzero {k6_lib:.4f} ms; K7 "
-            f"{k7:.4f} ms, one scatter_reduce {k7_lib:.4f} ms")
+            f"{k7:.4f} ms (was {was}), one scatter_reduce {k7_lib:.4f} ms")
         del slot, edge, dst_e, vals64, cand
     log(f"[push] phase 4b's extra rows took {time.perf_counter() - t:.1f} s")
 
@@ -1172,6 +1201,14 @@ K8_WAS_MS, K9_WAS_MS = 0.585, 2.904
 K5_WAS_MS = 1.618
 K5_PART_WAS_MS = {"full": 0.141, "compact": 0.189}
 MERGE4_WAS_MS = 0.084
+# The same for K4, K7 and K11 (the two-pass K4 and the one-pass queue
+# expansion of commit 77017f1, this script's run on the same card): K4 on
+# the root stream, K7 on SSSP's first frontier, a part's split-table K7
+# (one launch of the four, and a host read, per sparse iteration), K11's
+# four first-push calls; and K7 at the cap and on the first frontier,
+# medians of 100.
+K4_WAS_MS, K7_WAS_MS, K7_SPLIT_WAS_MS, K11_WAS_MS = 0.249, 0.045, 0.032, 0.168
+K7_MEDIAN_WAS_MS = {"first": 0.061, "cap": 0.139}
 
 
 def log_gathers(name, ms, was_ms, bound_ms, sector_bytes, what,
@@ -1403,6 +1440,8 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
     record(kernels, "gas_push_acc", "lux_tpu_torch/csrc/gas.cu",
            "lux_tpu/engine/gas.py:363", 0.0, k11["ms"], k11["plain"],
            k11["bytes"], k11["ops"], k11["lib"])
+    log(f"[gas] K11's four first-push calls (fill, fold and decode in one "
+        f"launch each): {k11['ms']:.4f} ms, was {K11_WAS_MS} ms")
     torch.cuda.empty_cache()
 
     # -- 5d. end to end -------------------------------------------------------
@@ -1941,45 +1980,49 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
     offs = torch.nn.functional.pad(
         (ex.push_row_ptr[:, ids + 1] - start).cumsum(1), (1, 0))
     totals = offs[:, -1].tolist()
-    p = int(np.argmax(totals))
-    total, cnt = totals[p], rows.numel()
-    flat = st.values.view(-1)
-    k7_args = (rows, start[p].contiguous(), offs[p].contiguous(),
-               ex.push_dst_local[p], flat, "min")
-    want = fq.queue_relax_scatter_plain(*k7_args, relax,
-                                        out=st.values[p].clone())
-    check_equal(f"K7 split table, part {p}", fq.queue_relax_scatter(
-        *k7_args, "add1", total, out=st.values[p].clone()), want)
-    out_row = st.values[p].clone()
-    k7_ms = cuda_ms(lambda: fq.queue_relax_scatter(
-        *k7_args, "add1", total, out=out_row), reps)
-    k7_plain = cuda_ms(lambda: fq.queue_relax_scatter_plain(
-        *k7_args, relax, out=st.values[p].clone()), reps)
-    slot = torch.repeat_interleave(torch.arange(cnt, device=dev),
-                                   k7_args[2].diff())
-    edge = k7_args[1][slot] + torch.arange(total, device=dev) \
-        - k7_args[2][:-1][slot]
-    dst_e = ex.push_dst_local[p][edge].long()
-    cand = relax(seg.widen_u32(flat)[rows.long()[slot]])
-    row64 = seg.widen_u32(st.values[p])
-    k7_lib = cuda_ms(lambda: row64.scatter_reduce(
+    total, cnt = stats[1], rows.numel()
+    if sum(totals) != total:
+        raise AssertionError(f"K7 split table: receivers' totals {totals} "
+                             f"against the frontier's {total} out-edges")
+    k7_args = (rows, start, offs, ex.push_dst_local, st.values, "min")
+    want = fq.queue_relax_scatter_plain(*k7_args, relax)
+    check_equal(f"K7 split table, {P} parts in one launch",
+                fq.queue_relax_scatter(*k7_args, "add1", total), want)
+    check_equal(f"K7 split table, {P} parts in one launch, twice",
+                fq.queue_relax_scatter(*k7_args, "add1", total), want)
+    k7_ms = cuda_ms(lambda: fq.queue_relax_scatter(*k7_args, "add1", total),
+                    reps)
+    # The plain version is four scatters, one per part.
+    k7_plain = cuda_ms(lambda: fq.queue_relax_scatter_plain(*k7_args, relax),
+                       reps)
+    # Yardstick: one scatter_reduce over the flat table, every part's
+    # candidates and destinations built beforehand.
+    flat64 = seg.widen_u32(st.values).reshape(-1)
+    dsts, cands = [], []
+    for q_ in range(P):
+        slot, edge = fq.queue_edges(rows, start[q_], offs[q_])
+        dsts.append(ex.push_dst_local[q_][edge].long() + q_ * n)
+        cands.append(relax(flat64[rows.long()[slot]]))
+    dst_e, cand = torch.cat(dsts), torch.cat(cands)
+    k7_lib = cuda_ms(lambda: flat64.scatter_reduce(
         0, dst_e, cand, reduce="amin", include_self=True), reps)
-    n_dst = int(torch.unique(dst_e).numel())
-    del slot, edge, dst_e, cand, row64, want
-    # The queue's q, start and offs and its values, col_dst at the
-    # part's queued edges, and out read and written at their distinct
-    # destinations: out is the caller's row, so nothing is copied.
-    k7_bytes = 24 * cnt + 8 + 4 * total + 8 * n_dst
-    log(f"[push-sharded] K7 split table on SSSP iteration {at + 1} (queue "
-        f"{cnt} over {P} parts, part {p} receives {total} of "
-        f"{sum(totals)} edges at {n_dst} vertices): bitwise; "
-        f"{k7_ms:.4f} ms (plain {k7_plain:.4f}, scatter_reduce "
-        f"{k7_lib:.4f}, bytes bound "
+    del dsts, cands, dst_e, cand, flat64, want, slot, edge
+    # The stack copied (read and written), the queue's rows and values,
+    # each part's start and offs at the queue, col_dst at the queued edges.
+    k7_bytes = 8 * st.values.numel() + 8 * cnt + 16 * P * cnt + 8 * P \
+        + 4 * total
+    log(f"[push-sharded] K7 split table on SSSP iteration {at + 1}: one "
+        f"launch over {P} parts (queue {cnt}, {total} edges, the parts "
+        f"receiving {totals}): bitwise, two calls equal; {k7_ms:.4f} ms, "
+        f"where one of the {P} launches it replaces (the largest part's) "
+        f"took {K7_SPLIT_WAS_MS} ms after a clone and a host read (plain, "
+        f"{P} scatters, {k7_plain:.4f}; one "
+        f"scatter_reduce {k7_lib:.4f}; bytes bound "
         f"{bound(k7_bytes, total)[0]:.4f})")
     record(kernels, "queue_relax_scatter[split]",
            "lux_tpu_torch/csrc/frontier.cu", "lux_tpu/engine/push.py:1214",
            0.0, k7_ms, k7_plain, k7_bytes, total, k7_lib)
-    del st, rows, ids, start, offs, flat, k7_args, out_row
+    del st, rows, ids, start, offs, k7_args
     torch.cuda.empty_cache()
 
     # K10 with K columns over the flat (P * max_nv, K) table, for the

@@ -9,19 +9,20 @@
 // = the frontier's out-edge total).
 // K7 replaces _queue_edge_slots (static-shape expansion of the queued CSR
 // ranges into E edge slots by a marks cumsum), _s_comp (relax) and the
-// .at[dst].min/max scatter of _s_update. For every live edge slot s < total
-// it finds the queue slot i that owns it (offs[i] <= s < offs[i + 1]) and
-// combines relax(old[q[i]]) into new[col_dst[start[i] + s - offs[i]]] with
-// atomicMin/atomicMax. Candidates read the pre-step values `old`; `new` is a
-// copy of them, so a vertex never pushes a value it got in the same step.
+// .at[dst].min/max scatter of _s_update; per receiving part, the same of
+// _sparse_comp and _sparse_update, all P parts in one launch. For every
+// out-edge e of every queued vertex it combines relax(old[q[i]]) into
+// new[col_dst[e]] with atomicMin/atomicMax. Candidates read the pre-step
+// values `old`; `new` starts as a copy of them, made in the same launch, so a
+// vertex never pushes a value it got in the same step.
 //
 // Bound on the H100: bytes. K6 reads the nv-byte frontier once (twice where
 // a block's span outgrows its shared memory) and writes 28
-// bytes per queue slot plus two 8-byte row-pointer reads per slot. K7 reads 4
-// bytes of col_dst and does one 4-byte atomic per live edge, plus 24 bytes
-// and one value per queue slot; the binary searches hit the offs table in
-// L1/L2. At the main path's frontiers K6's bound is a microsecond or less, so
-// its time is launch latency: it is one launch.
+// bytes per queue slot plus two 8-byte row-pointer reads per slot. K7 copies
+// the nv (P * max_nv) words of the values, reads 4 bytes of col_dst and does
+// one 4-byte atomic per live edge, plus 20 bytes and one value per queue slot
+// and receiver. At the main path's frontiers K6's bound is a microsecond or
+// less, so its time is launch latency: it is one launch.
 //
 // K6 design: one cooperative launch of persistent blocks, as many as can be
 // resident at once (cudaLaunchCooperativeKernel guarantees it, or refuses).
@@ -51,13 +52,12 @@
 // several times slower than this on a half-full frontier. An earlier form
 // kept a block's whole span in shared memory, so it refused frontiers above
 // about 2.4e8 vertices, where the span outgrew the 227 KB a block may have.
-// The expansion is load-balanced on the edge slots, not the vertices: every
-// block takes kQueueSlots consecutive slots, finds the queue range that
-// covers them once, and each thread binary-searches its slot's owner inside
-// that range (merge-path style), so an R-MAT hub's out-edges spread over many
-// blocks; the kernel is queue_fold_kernel (gas_ops.cuh), which K11 launches
-// too. Integer min/max atomics commute, so the result is bitwise that of the
-// plain version whatever the order.
+// K7 is the queue expansion queue_fold_kernel (gas_ops.cuh), which K11
+// launches too: one cooperative launch that copies the values, waits at a
+// grid barrier on K6's scratch and folds the edges, balanced on edge slots
+// (a hub's out-edges spread over many blocks) over a stage of the queue in
+// shared memory. Integer min/max atomics commute, so the result is bitwise
+// that of the plain version whatever the order.
 
 #include <atomic>
 #include <climits>
@@ -127,32 +127,10 @@ __device__ __forceinline__ void block_sum2(int64_t* a, int64_t* b,
 // The scratch of K6, in int64 words: [0] arrivals at the grid barrier, [1]
 // its generation, then the per-block count and degree totals.
 struct Scratch {
-  unsigned long long* arrived;
-  unsigned long long* generation;
+  luxk::Barrier bar;
   long long* tot_c;
   long long* tot_d;
 };
-
-// Every block of the (co-resident) grid waits here for all the others; what
-// a block wrote before it is visible to every block after it.
-__device__ __forceinline__ void grid_barrier(const Scratch& sc) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned long long* gen = sc.generation;
-    const unsigned long long g0 = *gen;
-    __threadfence();
-    if (atomicAdd(sc.arrived, 1ull) == gridDim.x - 1) {
-      *sc.arrived = 0;
-      __threadfence();
-      atomicAdd(sc.generation, 1ull);
-    } else {
-      while (*gen == g0) {
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 // Loads words [b, e) of the frontier (32 flags each, word k of the block's
 // span at (w0 + k) * 32) into this warp's window, one word a lane.
@@ -225,7 +203,7 @@ frontier_queue_kernel(const unsigned char* __restrict__ frontier, int64_t nv,
     __stcg(sc.tot_c + blockIdx.x, (long long)bc);
     __stcg(sc.tot_d + blockIdx.x, (long long)bd);
   }
-  grid_barrier(sc);
+  luxk::grid_barrier(sc.bar);
   // The totals of the blocks before this one.
   int64_t pc = 0, pd = 0;
   for (int64_t j = threadIdx.x; j < blockIdx.x; j += kThreads) {
@@ -275,30 +253,7 @@ frontier_queue_kernel(const unsigned char* __restrict__ frontier, int64_t nv,
 }
 
 // Resident blocks of frontier_queue_kernel on each device, 0 until asked.
-// Two threads that ask at once compute the same number.
-constexpr int kMaxDevices = 64;
-std::atomic<int> g_resident[kMaxDevices];
-
-cudaError_t resident_blocks(int* out) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int r = g_resident[dev].load(std::memory_order_relaxed);
-  if (r == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, frontier_queue_kernel, kThreads, 0);
-    if (e != cudaSuccess) return e;
-    r = sms * per_sm;
-    if (r <= 0) return cudaErrorInvalidConfiguration;
-    g_resident[dev].store(r, std::memory_order_relaxed);
-  }
-  *out = r;
-  return cudaSuccess;
-}
+std::atomic<int> g_resident[luxk::kMaxDevices];
 
 using luxk::Add1;
 using luxk::Copy;
@@ -319,7 +274,8 @@ extern "C" int lux_frontier_queue(const void* frontier, int64_t nv,
   if (nv <= 0) return (int)cudaSuccess;
   if (nv > INT32_MAX) return (int)cudaErrorInvalidValue;  // int32 ids
   int resident = 0;
-  const cudaError_t e = resident_blocks(&resident);
+  const cudaError_t e = luxk::resident_blocks(frontier_queue_kernel, kThreads,
+                                              g_resident, &resident);
   if (e != cudaSuccess) return (int)e;
   // Blocks: one per 256 words, at most as many as are resident at once.
   const int64_t words = (nv + 31) / 32;
@@ -327,9 +283,9 @@ extern "C" int lux_frontier_queue(const void* frontier, int64_t nv,
                                    (int64_t)resident), scratch_blocks);
   int64_t span = (words + grid - 1) / grid;
   long long* w = static_cast<long long*>(scratch);
-  Scratch sc{reinterpret_cast<unsigned long long*>(w),
-             reinterpret_cast<unsigned long long*>(w + 1), w + 2,
-             w + 2 + scratch_blocks};
+  Scratch sc{{reinterpret_cast<unsigned long long*>(w),
+              reinterpret_cast<unsigned long long*>(w + 1)},
+             w + 2, w + 2 + scratch_blocks};
   const unsigned char* f = static_cast<const unsigned char*>(frontier);
   const int64_t* r = static_cast<const int64_t*>(rp);
   int* qp = static_cast<int*>(q);
@@ -342,27 +298,34 @@ extern "C" int lux_frontier_queue(const void* frontier, int64_t nv,
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
 }
 
-// q, start: (cnt,) queue; offs: (cnt+1,) exclusive degree prefix with
-// offs[cnt] == total > 0; col_dst: CSR destinations; old: (nv,) uint32
-// pre-step values; out: (nv,) a copy of old, combined into in place.
-// comb: 0 min, 1 max. relax: 0 add1, 1 copy.
+// q: (cnt,) queue of rows of `old`, cnt >= 1; per receiver p < parts (1 to
+// kQueueMaxParts, more is refused): start (parts, cnt) and offs (parts,
+// cnt + 1) its CSR ranges at the queue and their exclusive prefix
+// (offs[p][cnt] its edge total), col_dst (parts, dst_stride) its CSR
+// destinations, rows of its own row of out. old: (parts * n,) uint32
+// pre-step values; out: (parts * n,) written, a copy of old with receiver
+// p's candidates combined into words [p * n, (p + 1) * n). total: the
+// receivers' edges together (sizes the grid only). scratch: K6's, whose
+// first two words are the grid barrier's. comb: 0 min, 1 max. relax: 0
+// add1, 1 copy.
 extern "C" int lux_queue_relax_scatter(const void* q, const void* start,
                                        const void* offs, int64_t cnt,
-                                       int64_t total, const void* col_dst,
-                                       const void* old, void* out, int comb,
-                                       int relax, void* stream) {
+                                       int parts, const void* col_dst,
+                                       int64_t dst_stride, const void* old,
+                                       void* out, int64_t n, int64_t total,
+                                       void* scratch, int comb, int relax,
+                                       void* stream) {
   if (comb < 0 || comb > 1 || relax < 0 || relax > 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (comb == 0 && relax == 0)
-    return (int)queue_fold<MinOp, Add1>(q, start, offs, cnt, total, col_dst,
-                                        nullptr, old, out, st);
+  const Receivers r{static_cast<const int64_t*>(start),
+                    static_cast<const int64_t*>(offs),
+                    static_cast<const int*>(col_dst), nullptr, cnt,
+                    dst_stride, n, parts};
+#define LUX_K7(C, G) \
+  queue_fold<C, G, kInitCopy>(q, r, old, out, parts * n, total, scratch, st)
   if (comb == 0)
-    return (int)queue_fold<MinOp, Copy>(q, start, offs, cnt, total, col_dst,
-                                        nullptr, old, out, st);
-  if (relax == 0)
-    return (int)queue_fold<MaxOp, Add1>(q, start, offs, cnt, total, col_dst,
-                                        nullptr, old, out, st);
-  return (int)queue_fold<MaxOp, Copy>(q, start, offs, cnt, total, col_dst,
-                                      nullptr, old, out, st);
+    return (int)(relax == 0 ? LUX_K7(MinOp, Add1) : LUX_K7(MinOp, Copy));
+  return (int)(relax == 0 ? LUX_K7(MaxOp, Add1) : LUX_K7(MaxOp, Copy));
+#undef LUX_K7
 }

@@ -48,9 +48,9 @@
 // edges; CC's first iteration on the closure, 134.2 M) read 6.44 GB of
 // sectors, the floor left once col_src streams. On values and a bool
 // frontier it reads the bits as K10 does, then a sector of values per
-// active edge only. K11 reads 20 bytes per queue slot, per out-edge 4 bytes
-// of col_dst (and a weight) and does one 4-byte atomic; the accumulator it
-// folds into is nv words.
+// active edge only. K11 reads 24 bytes per queue slot, per out-edge 4 bytes
+// of col_dst (and a weight) and does one 4-byte atomic; it writes the nv
+// words of the accumulator (and, for f32, reads and writes them again).
 //
 // Design of the pull (K10 and K5). One pass over a row schedule built once
 // per graph (ops/segment.py::row_tasks; the pass over it is row_pass.cuh,
@@ -89,10 +89,11 @@
 // 6 resident blocks (40 registers, no spill) up to 3% faster than 8 on the
 // packed table; lane rows up to 32 edges; tasks of 256 edges 1-6% faster
 // than K10's 1,024.
-// K11 is K7's kernel (queue_fold_kernel, gas_ops.cuh), balanced on edge
-// slots, over an identity-filled accumulator with the GAS gather ops; f32
-// min folds keys, decoded in place afterwards. Its wrapper fills the
-// accumulator with the identity (or its key) first.
+// K11 is K7's kernel (queue_fold_kernel, gas_ops.cuh) with the GAS gather
+// ops, in one cooperative launch: it fills the accumulator with the
+// identity (its key for f32 min), waits at a grid barrier, folds the edges
+// over a stage of the queue in shared memory and, for f32 min, decodes the
+// keys after a second barrier.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -451,24 +452,17 @@ cudaError_t run_relax(const void* packed, const void* values,
       col_src, nullptr, row_ptr, tasks, n_tasks, n_hub, 1, acc, st);
 }
 
-__global__ void __launch_bounds__(kThreads)
-decode_f32_keys(unsigned* __restrict__ a, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) a[i] = f32_unkey(a[i]);
-}
-
 template <class C, class G>
 cudaError_t run_push(const void* q, const void* start, const void* offs,
                      int64_t cnt, int64_t total, const void* col_dst,
                      const void* weights, const void* val, void* acc,
-                     int64_t n_acc, cudaStream_t st) {
-  cudaError_t e = queue_fold<C, G>(q, start, offs, cnt, total, col_dst,
-                                   weights, val, acc, st);
-  if (e != cudaSuccess || !C::kKeyed || n_acc == 0) return e;
-  // Decode the accumulator's f32 keys in place.
-  decode_f32_keys<<<(unsigned)((n_acc + kThreads - 1) / kThreads), kThreads,
-                    0, st>>>(static_cast<unsigned*>(acc), n_acc);
-  return cudaGetLastError();
+                     int64_t n_acc, void* scratch, cudaStream_t st) {
+  const Receivers r{static_cast<const int64_t*>(start),
+                    static_cast<const int64_t*>(offs),
+                    static_cast<const int*>(col_dst),
+                    static_cast<const int*>(weights), cnt, 0, 0, 1};
+  return queue_fold<C, G, kInitFill>(q, r, val, acc, n_acc, total, scratch,
+                                     st);
 }
 
 }  // namespace
@@ -540,34 +534,32 @@ extern "C" int lux_frontier_bits(const void* frontier, int64_t n, int k,
                         static_cast<cudaStream_t>(stream));
 }
 
-// q, start: (cnt,) queue of K6; offs: (cnt+1,) exclusive degree prefix with
-// offs[cnt] == total > 0; col_dst, weights: the CSR's (weights read for add_w
-// only); values: (nv,) uint32 or f32 by op. acc: n_acc = nv words filled with
-// the identity (its key for f32), combined into in place and left as f32 for
-// f32 ops.
+// q, start: (cnt,) queue of K6, cnt >= 1; offs: (cnt+1,) exclusive degree
+// prefix, offs[cnt] == total; col_dst, weights: the CSR's (weights read for
+// add_w only); values: (nv,) uint32 or f32 by op. acc: n_acc = nv words,
+// written: the identity combined with the messages, as f32 for f32 ops.
+// scratch: K6's, whose first two words are the grid barrier's.
 extern "C" int lux_gas_push_acc(const void* q, const void* start,
                                 const void* offs, int64_t cnt, int64_t total,
                                 const void* col_dst, const void* weights,
                                 const void* values, int op, void* acc,
-                                int64_t n_acc, void* stream) {
+                                int64_t n_acc, void* scratch, void* stream) {
   if (op < 0 || op > 4) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LUX_PUSH(C, G)                                                    \
+  run_push<C, G>(q, start, offs, cnt, total, col_dst, weights, values, acc, \
+                 n_acc, scratch, st)
   switch (op) {
     case 0:
-      return (int)run_push<MinU32, Add1>(q, start, offs, cnt, total, col_dst,
-                                         weights, values, acc, n_acc, st);
+      return (int)LUX_PUSH(MinU32, Add1);
     case 1:
-      return (int)run_push<MaxU32, Copy>(q, start, offs, cnt, total, col_dst,
-                                         weights, values, acc, n_acc, st);
+      return (int)LUX_PUSH(MaxU32, Copy);
     case 2:
-      return (int)run_push<MinF32, AddW>(q, start, offs, cnt, total, col_dst,
-                                         weights, values, acc, n_acc, st);
+      return (int)LUX_PUSH(MinF32, AddW);
     case 3:
-      return (int)run_push<MaxU32, Decay>(q, start, offs, cnt, total,
-                                          col_dst, weights, values, acc,
-                                          n_acc, st);
+      return (int)LUX_PUSH(MaxU32, Decay);
     default:
-      return (int)run_push<SumU32, One>(q, start, offs, cnt, total, col_dst,
-                                        weights, values, acc, n_acc, st);
+      return (int)LUX_PUSH(SumU32, One);
   }
+#undef LUX_PUSH
 }

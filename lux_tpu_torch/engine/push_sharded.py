@@ -7,7 +7,7 @@ run one part per device of a ``shard_map`` mesh. Here the parts are the
 leading axis of stacked ``(P, max_nv)`` values and frontier on one
 device (:class:`~lux_tpu_torch.parallel.mesh.LocalMesh`), and each
 kernel is launched once per part, as ``lux_tpu`` runs one device per
-part.
+part, except the sparse branch's K7: one launch for every part.
 
 :class:`ShardedPushExecutor` chooses a branch per iteration exactly as
 ``lux_tpu`` does: from the largest part's frontier count (``pmax``
@@ -33,13 +33,13 @@ read is also the halt check.
   are the all-gathered queue, as flat rows and global ids, and the flat
   pre-step stack holds their values. For each receiving part, ``start``
   and ``deg`` come from its push CSR (``build_push_csr``, keyed by
-  global source) at the global ids, ``offs`` is their prefix, and one K7
-  launch (``queue_relax_scatter``) reads the pre-step stack at the
-  queued rows and combines into the part's row of the new values through
-  its ``push_dst_local``. K7 sizes its launch by the receiver's edge
-  count, so a sparse iteration reads those P counts on the host once
-  more. Every launch reads pre-step values only, so the P launches give
-  ``lux_tpu``'s one scatter.
+  global source) at the global ids and ``offs`` is their prefix, (P,
+  cnt) and (P, cnt + 1) tensors; one K7 launch
+  (``queue_relax_scatter``) copies the pre-step stack, reads it at the
+  queued rows and combines into every part's row of the copy through
+  its ``push_dst_local``. It reads the P receivers' edge totals on the
+  card, so the host reads nothing more than the iteration's stats. It
+  reads pre-step values only, so it gives ``lux_tpu``'s one scatter.
 
 :class:`ShardedMultiSourcePushExecutor` is dense only over ``(P,
 max_nv, K)`` lanes: the K-lane exchange, then per part one K10 launch
@@ -112,14 +112,14 @@ class ShardedPushExecutor(_ShardedPush, FixpointLoop):
     single-device engine's two branches chosen per iteration from
     counters over all parts (see the module docstring). ``phase_step``'s
     load is the exchange in the dense branch (packing included) and the
-    K6 launches with the queue all-gather in the sparse one; the sparse
-    comp includes the read of the receivers' edge counts.
+    K6 launches with the queue all-gather in the sparse one.
 
     ``branch_log`` holds, per iteration of the last ``run()``, (branch,
     frontier count, frontier out-edges, per-part counts) before the
     step; ``queue_log``, per sparse iteration since the last ``run()``,
-    (parts that compacted a queue, receivers that scattered): K6's and
-    K7's launches on the card."""
+    (parts that compacted a queue, 1 if the queue has out-edges else 0):
+    K6's and K7's launches on the card, from the counts the iteration
+    already read."""
 
     BLOCKED_DENSE_MIN_NE = PushExecutor.BLOCKED_DENSE_MIN_NE
 
@@ -229,26 +229,21 @@ class ShardedPushExecutor(_ShardedPush, FixpointLoop):
         return torch.cat(rows), torch.cat(ids)
 
     def _sparse_new(self, state: PushState, queue, stats) -> torch.Tensor:
-        """(P, max_nv) new values: per receiving part, one K7 launch over
-        the queue's out-edges in its push CSR, combining into its row of
-        a copy of the values."""
+        """(P, max_nv) new values: one K7 launch over the queue's
+        out-edges in every part's push CSR, each part combining into its
+        row of a copy of the values. ``stats[1]``, the frontier's
+        out-edges over all parts, is the receivers' edge total."""
         prog = self.program
         rows, ids = queue
         start = self.push_row_ptr[:, ids]
         deg = self.push_row_ptr[:, ids + 1] - start
         offs = torch.nn.functional.pad(deg.cumsum(1), (1, 0))
-        totals = offs[:, -1].tolist()
-        old = state.values.view(-1)
-        new = state.values.clone()
-        for p, total in enumerate(totals):
-            queue_relax_scatter(
-                rows, start[p], offs[p], self.push_dst_local[p], old,
-                prog.combiner, prog.relax_op, total, relax=prog.relax,
-                weights=(None if self.push_weights is None
-                         else self.push_weights[p]),
-                out=new[p])
+        new = queue_relax_scatter(
+            rows, start, offs, self.push_dst_local, state.values,
+            prog.combiner, prog.relax_op, stats[1], relax=prog.relax,
+            weights=self.push_weights)
         self.queue_log.append((sum(1 for c in stats[2] if c),
-                               sum(1 for t in totals if t)))
+                               int(rows.numel() > 0 and stats[1] > 0)))
         return new
 
     # -- update and the host read ----------------------------------------

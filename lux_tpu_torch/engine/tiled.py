@@ -226,14 +226,14 @@ class TiledPullExecutor:
         (new external vals, {phase: seconds}); phases are timed with
         CUDA events on the card.
 
-        The lane-select tail adds into the strips' sums, so ``strips``
-        and ``tail`` time K1 and K2 apart and ``apply`` is the program's
-        update alone. With the grouped tail active, ``x2d`` times the
-        padded operand it reads, and the tail phase runs one network
-        level at a time: ``times["tail_level<k>"]`` per level (level 0
-        is the x2d gather level), ``times["tail_root"]`` for the masked
-        per-destination reduction, and ``times["tail"]`` the total; its
-        ``apply`` also adds the two sums."""
+        Either tail adds into the strips' sums, so ``strips`` and
+        ``tail`` time K1 and the tail apart and ``apply`` is the
+        program's update alone. With the grouped tail active, ``x2d``
+        times the padded operand it reads, and the tail phase runs one
+        network level at a time: ``times["tail_level<k>"]`` per level
+        (level 0 is the x2d gather level), ``times["tail_root"]`` for the
+        masked per-destination reduction (K4, adding into the strips'
+        sums), and ``times["tail"]`` the total."""
         dev = self.device
         nv = self.graph.nv
         dh = self.dhybrid
@@ -256,13 +256,12 @@ class TiledPullExecutor:
                 x, gt.arow[k], gt.brow[k], gt.codes[k]), dev)
             times[f"tail_level{k}"] = t
             total += t
-        acc_t, t = _timed(lambda: root_reduce(
-            x, gt.nvalid_root, gt.dst_row_ptr, gt.dst_items), dev)
+        acc, t = _timed(lambda: root_reduce(
+            x, gt.nvalid_root, gt.dst_row_ptr, out=acc_s), dev)
         times["tail_root"] = t
         times["tail"] = total + t
         new, times["apply"] = _timed(
-            lambda: self.program.apply(internal, acc_s + acc_t, self._ctx),
-            dev)
+            lambda: self.program.apply(internal, acc, self._ctx), dev)
         return new[self.rank], times
 
     def warmup(self):

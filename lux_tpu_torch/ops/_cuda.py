@@ -52,8 +52,8 @@ _SIGNATURES = {
                        _P),
     # x, src, m4, row_ptr, nrows, accumulate, y, stream
     "lux_tail_gather_sum": (_P, _P, _I64, _P, _I64, _INT, _P, _P),
-    # data, nvalid (nullable), item_lo, n_items, row_items, nrows, partial, y, stream
-    "lux_segment_sum_rowptr": (_P, _P, _P, _I64, _P, _I64, _P, _P, _P),
+    # data, nvalid (nullable), n, row_ptr, nrows, accumulate, y, stream
+    "lux_segment_sum_rowptr": (_P, _P, _I64, _P, _I64, _INT, _P, _P),
     # x, arow, brow, codes, S, out, stream
     "lux_level_apply": (_P, _P, _P, _P, _I64, _P, _P),
     # packed, values, frontier, n_tab, col_src, row_ptr, tasks, n_tasks,
@@ -64,9 +64,10 @@ _SIGNATURES = {
     # stream
     "lux_frontier_queue": (_P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P,
                            _P),
-    # q, start, offs, cnt, total, col_dst, old, out, comb, relax, stream
-    "lux_queue_relax_scatter": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT,
-                                _INT, _P),
+    # q, start, offs, cnt, parts, col_dst, dst_stride, old, out, n, total,
+    # scratch, comb, relax, stream
+    "lux_queue_relax_scatter": (_P, _P, _P, _I64, _INT, _P, _I64, _P, _P,
+                                _I64, _I64, _P, _INT, _INT, _P),
     # vals, col_src, row_ptr, tasks, n_tasks, n_hub, y, stream
     "lux_gather_segment_sum": (_P, _P, _P, _P, _I64, _I64, _P, _P),
     # vals, col_src, weights, row_ptr, tasks, n_tasks, n_hub, row_base, y,
@@ -79,9 +80,9 @@ _SIGNATURES = {
     # frontier, n, k, bits, stream
     "lux_frontier_bits": (_P, _I64, _INT, _P, _P),
     # q, start, offs, cnt, total, col_dst, weights, values, op, acc, n_acc,
-    # stream
+    # scratch, stream
     "lux_gas_push_acc": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT, _P, _I64,
-                         _P),
+                         _P, _P),
     # x, idx, rows, L, S, axis, idx_bytes, out, stream
     "lux_block_take": (_P, _P, _I64, _INT, _INT, _INT, _INT, _P, _P),
     # cand, l, s, R, out, stream

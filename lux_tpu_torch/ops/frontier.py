@@ -16,11 +16,16 @@ its branch), so the queue and the edge slots are sized exactly:
   ``deg`` and the exclusive degree prefix ``offs`` (``cnt + 1`` long);
 - :func:`queue_relax_scatter` (K7) expands the queued ranges, relaxes
   each queued vertex's pre-step value and combines it into a copy of
-  the values with ``atomicMin``/``atomicMax``;
+  the values with ``atomicMin``/``atomicMax``, for one receiver or for
+  the P receiving parts of a sharded graph at once;
 - :func:`gas_push_acc` (K11, ``csrc/gas.cu``) expands the same ranges,
   gathers with the CSR weights and combines into an identity-filled
   accumulator (``lux_tpu/engine/gas.py::AdaptiveExecutor._push_acc``);
   k-core's sum needs the identity fill.
+
+K7 and K11 are one cooperative launch each (``csrc/gas_ops.cuh``): the
+copy or the identity fill, the fold and (f32) the decode, split by grid
+barriers on K6's scratch for the stream.
 
 Values are int32 storage of uint32 bit patterns (see
 :mod:`lux_tpu_torch.ops.segment`). CPU tensors take the plain versions;
@@ -43,7 +48,6 @@ from lux_tpu_torch.ops.segment import (
     gas_narrow,
     gas_identity_storage,
     gas_kernel_code,
-    gas_key_storage,
     gas_storage_dtype,
     identity_for,
     kernel_codes,
@@ -54,7 +58,8 @@ from lux_tpu_torch.ops.segment import (
 
 # K6's scratch, one per (device, stream): a zeroed int64 tensor holding
 # the grid barrier's two words and two totals per block (see
-# csrc/frontier.cu); the barrier leaves it ready for the next call.
+# csrc/frontier.cu); the barrier leaves it ready for the next call. K7 and
+# K11 wait at the same barrier words: calls on one stream run in turn.
 SCRATCH_BLOCKS = 4096
 _SCRATCH: Dict[Tuple[int, Optional[int]], torch.Tensor] = {}
 
@@ -130,6 +135,18 @@ def queue_edges(q: torch.Tensor, start: torch.Tensor, offs: torch.Tensor):
     return slot, edge
 
 
+def _receivers(start, offs, col_dst, weights, values):
+    """Per receiver (start, offs, col_dst, weights or None) and the
+    (P, n) view of ``values`` their rows are: one receiver for 1-D
+    ranges, P for (P, ...) ones."""
+    if start.dim() == 1:
+        return ([(start, offs, col_dst, weights)], values.reshape(1, -1))
+    return ([(start[p], offs[p], col_dst[p],
+              None if weights is None else weights[p])
+             for p in range(start.shape[0])],
+            values.reshape(start.shape[0], -1))
+
+
 def queue_relax_scatter_plain(
     q: torch.Tensor,
     start: torch.Tensor,
@@ -139,21 +156,24 @@ def queue_relax_scatter_plain(
     kind: str,
     relax: EdgeFn,
     weights: Optional[torch.Tensor] = None,
-    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K7's plain version: for every out-edge (u -> d) of every queued
-    u, ``relax(values[u], w)`` combined with ``kind`` (min or max) at
-    ``out[d]``; int32 storage. ``q`` indexes ``values`` and ``col_dst``
-    indexes ``out``, a table of its own that is combined into in place
-    and returned (default: a copy of ``values``)."""
-    slot, edge = queue_edges(q, start, offs)
-    cand = relax(widen_u32(values)[q.long()[slot]],
-                 None if weights is None else weights[edge])
+    """K7's plain version: a copy of ``values`` (int32 storage) into
+    which, for every out-edge (u -> d) of every queued u,
+    ``relax(values.flat[u], w)`` is combined with ``kind`` (min or max)
+    at d. ``q`` indexes the flat values. With 1-D ``start``, ``offs``
+    and ``col_dst`` (one receiver), d indexes the values; with (P, ...)
+    ones (P receivers), receiver p's d index row p of ``values`` as
+    (P, n) and its edges are ``col_dst[p]`` (and ``weights[p]``)."""
+    recv, rows = _receivers(start, offs, col_dst, weights, values)
+    flat = widen_u32(values).reshape(-1)
+    new = widen_u32(rows)
     reduce = {"min": "amin", "max": "amax"}[kind]
-    base = values if out is None else out
-    new = narrow_u32(widen_u32(base).scatter_reduce(
-        0, col_dst[edge].long(), cand, reduce=reduce, include_self=True))
-    return new if out is None else out.copy_(new)
+    for p, (st, of, cd, w) in enumerate(recv):
+        slot, edge = queue_edges(q, st, of)
+        cand = relax(flat[q.long()[slot]], None if w is None else w[edge])
+        new[p] = new[p].scatter_reduce(0, cd[edge].long(), cand,
+                                       reduce=reduce, include_self=True)
+    return narrow_u32(new).reshape(values.shape)
 
 
 def queue_relax_scatter(
@@ -167,62 +187,59 @@ def queue_relax_scatter(
     total: int,
     relax: Optional[EdgeFn] = None,
     weights: Optional[torch.Tensor] = None,
-    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The new values of one sparse iteration (see
-    :func:`queue_relax_scatter_plain`). ``total`` is the queue's
-    out-edge count (``offs[-1]``), which the caller knows. ``values`` is
-    the pre-step table that ``q`` indexes; ``out`` (default: a copy of
-    ``values``) receives the combine at ``col_dst`` and is returned. A
-    part of a sharded graph passes the flat pre-step table of every part
-    as ``values`` and its own row of the new values as ``out``.
+    :func:`queue_relax_scatter_plain`): a new table of ``values``' shape.
+    ``total`` is the queue's out-edge count over all receivers (the sum
+    of ``offs[..., -1]``), which the caller knows. A sharded graph's P
+    receiving parts go in one call: (P, cnt) ``start``, (P, cnt + 1)
+    ``offs``, (P, ne) ``col_dst`` and the (P, max_nv) pre-step values,
+    whose flat rows ``q`` holds.
 
     CPU tensors take the plain version with ``relax`` (default: the
-    plain form of ``relax_op``); CUDA tensors launch K7, which knows the
-    relax only by ``relax_op`` (``"add1"`` or ``"copy"``) and reads
-    ``values`` only at ``q`` and writes ``out`` only at ``col_dst``."""
+    plain form of ``relax_op``); CUDA tensors launch K7 once, which
+    knows the relax only by ``relax_op`` (``"add1"`` or ``"copy"``),
+    copies the values into the new table and reads the receivers'
+    totals on the card. An empty queue, or one without out-edges,
+    launches nothing."""
     if kind not in COMBINERS:
         raise ValueError(f"queue_relax_scatter: unsupported kind {kind!r}")
     if values.device.type == "cpu":
         return queue_relax_scatter_plain(q, start, offs, col_dst, values,
                                          kind, plain_edge_fn(relax_op, relax),
-                                         weights, out)
+                                         weights)
     comb, op = kernel_codes(kind, relax_op)
     dev = values.device
     _cuda.check(q, "q", torch.int32, dev, ndim=1)
-    _cuda.check(start, "start", torch.int64, dev, ndim=1)
-    _cuda.check(offs, "offs", torch.int64, dev, ndim=1)
-    _cuda.check(col_dst, "col_dst", torch.int32, dev, ndim=1)
-    _cuda.check(values, "values", torch.int32, dev, ndim=1)
+    ranks = 1 if start.dim() == 1 else 2
+    parts = 1 if ranks == 1 else start.shape[0]
+    _cuda.check(start, "start", torch.int64, dev, ndim=ranks)
+    _cuda.check(offs, "offs", torch.int64, dev, ndim=ranks)
+    _cuda.check(col_dst, "col_dst", torch.int32, dev, ndim=ranks)
+    _cuda.check(values, "values", torch.int32, dev, ndim=ranks)
     cnt = q.shape[0]
-    if start.shape[0] != cnt or offs.shape[0] != cnt + 1:
-        raise ValueError(f"queue of {cnt} slots needs start ({cnt},) and "
-                         f"offs ({cnt + 1},)")
-    if total < 0 or total > col_dst.shape[0]:
-        raise ValueError(f"total {total} outside [0, {col_dst.shape[0]}]")
-    if out is None:
-        out = values.clone()
-    else:
-        _cuda.check(out, "out", torch.int32, dev, ndim=1)
-        if _overlap(out, values):
-            # The kernel reads values while it combines into out.
-            raise ValueError("out must not share memory with values")
+    if start.shape[-1] != cnt or offs.shape[-1] != cnt + 1:
+        raise ValueError(f"queue of {cnt} slots needs start (..., {cnt}) "
+                         f"and offs (..., {cnt + 1})")
+    if ranks == 2 and not (offs.shape[0] == col_dst.shape[0]
+                           == values.shape[0] == parts):
+        raise ValueError(f"{parts} receivers need {parts} rows of offs, "
+                         "col_dst and values")
+    if total < 0 or total > parts * col_dst.shape[-1]:
+        raise ValueError(f"total {total} outside [0, "
+                         f"{parts * col_dst.shape[-1]}]")
     if total == 0 or cnt == 0:
-        return out
+        return values.clone()
+    out = torch.empty_like(values)
+    stream = _cuda.stream(dev)
     _cuda.launch(
         "queue_relax_scatter", "lux_queue_relax_scatter",
-        _cuda.ptr(q), _cuda.ptr(start), _cuda.ptr(offs), cnt, total,
-        _cuda.ptr(col_dst), _cuda.ptr(values), _cuda.ptr(out), comb, op,
-        _cuda.stream(dev),
+        _cuda.ptr(q), _cuda.ptr(start), _cuda.ptr(offs), cnt, parts,
+        _cuda.ptr(col_dst), col_dst.shape[-1], _cuda.ptr(values),
+        _cuda.ptr(out), values.numel() // parts, total,
+        _cuda.ptr(_queue_scratch(dev, stream.value)), comb, op, stream,
     )
     return out
-
-
-def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether two contiguous tensors share bytes."""
-    a0, b0 = a.data_ptr(), b.data_ptr()
-    return (a0 < b0 + b.numel() * b.element_size()
-            and b0 < a0 + a.numel() * a.element_size())
 
 
 def gas_push_acc_plain(
@@ -269,8 +286,9 @@ def gas_push_acc(
     caller knows.
 
     CPU tensors take the plain version with ``gather`` (default: the
-    plain form of ``gather_op``); CUDA tensors launch K11, which knows
-    the edge function only by ``gather_op`` and reads ``weights`` (the
+    plain form of ``gather_op``); CUDA tensors launch K11 once (the
+    identity fill, the fold and, for f32, the decode), which knows the
+    edge function only by ``gather_op`` and reads ``weights`` (the
     CSR's) for ``"add_w"``. An empty queue or one without out-edges
     launches nothing."""
     if values.device.type == "cpu":
@@ -299,11 +317,13 @@ def gas_push_acc(
             raise ValueError("weights and col_dst differ in shape")
     if total == 0 or cnt == 0:
         return gas_identity_storage(kind, values.shape, values.dtype, dev)
-    acc = gas_key_storage(kind, values.shape, values.dtype, dev)
+    acc = torch.empty_like(values)
+    stream = _cuda.stream(dev)
     _cuda.launch(
         "gas_push_acc", "lux_gas_push_acc", _cuda.ptr(q), _cuda.ptr(start),
         _cuda.ptr(offs), cnt, total, _cuda.ptr(col_dst),
         _cuda.ptr(weights if weighted else None), _cuda.ptr(values), op,
-        _cuda.ptr(acc), acc.numel(), _cuda.stream(dev),
+        _cuda.ptr(acc), acc.numel(),
+        _cuda.ptr(_queue_scratch(dev, stream.value)), stream,
     )
-    return acc.view(values.dtype)
+    return acc

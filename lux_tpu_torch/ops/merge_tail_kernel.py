@@ -25,11 +25,7 @@ import torch
 
 from lux_tpu_torch.ops import _cuda
 from lux_tpu_torch.ops.merge_tail_plan import GroupedTailPlan
-from lux_tpu_torch.ops.segment import (
-    SEG_ITEM,
-    SegmentItems,
-    segment_sum_by_rowptr,
-)
+from lux_tpu_torch.ops.segment import segment_sum_by_rowptr
 from lux_tpu_torch.utils import flags
 
 BLOCK = 128
@@ -47,8 +43,7 @@ class DeviceGroupedTail:
     ``arow``/``brow``/``codes`` are per-level tuples — level 0 first
     (the x2d gather level), root last. Only the root stream carries a
     validity mask; ``dst_row_ptr`` are final-slot segment boundaries
-    for the per-destination reduction, and ``dst_items`` their K4 work
-    items.
+    for the per-destination reduction (K4).
     """
 
     arow: Tuple[torch.Tensor, ...]    # (S_k,) int32 per level
@@ -56,7 +51,6 @@ class DeviceGroupedTail:
     codes: Tuple[torch.Tensor, ...]   # (S_k, 128) int8
     nvalid_root: torch.Tensor         # (S_root,) int32
     dst_row_ptr: torch.Tensor         # (nv+1,) int64 final-slot offsets
-    dst_items: SegmentItems
     n_levels: int                     # merge levels (excl. level 0)
 
     @staticmethod
@@ -69,12 +63,10 @@ class DeviceGroupedTail:
             arow.append(put(a.astype(np.int32)))
             brow.append(put(b.astype(np.int32)))
             codes.append(put(c.astype(np.int8)))
-        dst_row_ptr = np.asarray(plan.dst_row_ptr, np.int64)
         return DeviceGroupedTail(
             arow=tuple(arow), brow=tuple(brow), codes=tuple(codes),
             nvalid_root=put(nv_.astype(np.int32)),
-            dst_row_ptr=put(dst_row_ptr),
-            dst_items=SegmentItems.build(dst_row_ptr, SEG_ITEM, device),
+            dst_row_ptr=put(np.asarray(plan.dst_row_ptr, np.int64)),
             n_levels=nlev,
         )
 
@@ -113,17 +105,18 @@ def level_apply(x, arow, brow, codes):
     return out
 
 
-def root_reduce(x, nvalid_root, dst_row_ptr, items=None):
+def root_reduce(x, nvalid_root, dst_row_ptr, out=None):
     """Mask the root stream's pad lanes (the one masking point in the
-    network) and reduce to per-destination sums (K4)."""
-    return segment_sum_by_rowptr(x, dst_row_ptr, items, nvalid=nvalid_root)
+    network) and reduce to per-destination sums (K4), added into ``out``
+    (the strips' sums) when it is given."""
+    return segment_sum_by_rowptr(x, dst_row_ptr, nvalid=nvalid_root, out=out)
 
 
-def grouped_tail_sums(x2d, gt: DeviceGroupedTail):
+def grouped_tail_sums(x2d, gt: DeviceGroupedTail, out=None):
     """Per-destination sums of tail-edge source values via the merge
-    network; (nv,) f32. Drop-in for
+    network; (nv,) f32, added into ``out`` when it is given. Drop-in for
     :func:`~lux_tpu_torch.ops.tiled_spmv.lane_select_tail_sums`."""
     x = x2d.to(torch.float32)
     for k in range(gt.n_levels + 1):
         x = level_apply(x, gt.arow[k], gt.brow[k], gt.codes[k])
-    return root_reduce(x, gt.nvalid_root, gt.dst_row_ptr, gt.dst_items)
+    return root_reduce(x, gt.nvalid_root, gt.dst_row_ptr, out)

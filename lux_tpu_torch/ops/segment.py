@@ -12,14 +12,14 @@ segment directly: ``csrc/segment_sum.cu`` (K2, K4), ``csrc/pull_sum.cu``
 versions are a float64 prefix-sum diff and a ``scatter_reduce`` over
 widened integers.
 
-Long segments must not serialise one thread group. K4 splits the
-elements into :class:`SegmentItems`, contiguous work items of at most
-``item_len`` elements that each lie inside one segment, sums each item,
-then each segment's items in item order. K5, K8, K9 and K10 write each
-row once over the :class:`RowTasks` schedule: a hub row a block (K9: a
-cluster of blocks), the other rows a lane or a warp of a warp task, each
-summed in an order fixed by the row's length (``csrc/row_pass.cuh``).
-Results are deterministic.
+Long segments must not serialise one thread group. K4 owns rows at
+merge-path positions of the row pointer, as K2 does, and sums each from
+a stage of the stream in shared memory (a hub row by its whole block).
+K5, K8, K9 and K10 write each row once over the :class:`RowTasks`
+schedule: a hub row a block (K9: a cluster of blocks), the other rows a
+lane or a warp of a warp task, each summed in an order fixed by the
+row's length (``csrc/row_pass.cuh``). K1 cuts its cells into
+:class:`SegmentItems`. Results are deterministic.
 
 **uint32 values.** The push programs hold uint32 values (SSSP distances,
 CC labels), but this PyTorch build implements almost no uint32
@@ -46,9 +46,6 @@ import torch.nn.functional as F
 from lux_tpu_torch.ops import _cuda
 
 BLOCK = 128
-# Elements per work item of the gather/segment sums (K2, K4): 8 threads
-# take 8 elements each.
-SEG_ITEM = 64
 
 
 def segment_items(row_ptr: np.ndarray, item_len: int):
@@ -119,22 +116,25 @@ def segment_sum_by_rowptr_plain(
     data: torch.Tensor,
     row_ptr: torch.Tensor,
     nvalid: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K4's plain version: (nrows, *tail) f32 segment sums of the rows of
-    ``data`` (N, *tail). With ``nvalid`` (S,), ``data`` is an (S, 128)
-    stream summed flat, and lanes ``>= nvalid[row]`` count as zero."""
+    ``data`` (N, *tail), added into ``out`` when it is given. With
+    ``nvalid`` (S,), ``data`` is an (S, 128) stream summed flat, and
+    lanes ``>= nvalid[row]`` count as zero."""
     if nvalid is not None:
         lane = torch.arange(BLOCK, device=data.device)
         data = torch.where(lane[None, :] < nvalid[:, None], data,
                            0.0).reshape(-1)
-    return prefix_diff_sum(data, row_ptr)
+    sums = prefix_diff_sum(data, row_ptr)
+    return sums if out is None else out.add_(sums)
 
 
 def segment_sum_by_rowptr(
     data: torch.Tensor,
     row_ptr: torch.Tensor,
-    items: Optional[SegmentItems] = None,
     nvalid: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sum sorted segments given CSR offsets; (nrows,) f32.
 
@@ -142,13 +142,14 @@ def segment_sum_by_rowptr(
     ``flat[row_ptr[v]:row_ptr[v+1]]`` of the 1-D f32 ``data``.
     With ``nvalid`` (S,) int32, ``data`` is (S, 128), summed flat, and
     lanes ``>= nvalid[row]`` count as zero (the grouped tail's root
-    mask). CPU tensors take the plain version (which also sums (N, K)
-    rows); CUDA tensors launch K4 over ``items`` (the
-    :class:`SegmentItems` of ``row_ptr``). K-wide sums of gathered rows
-    are :func:`gather_segment_sum`'s.
+    mask). With ``out`` (a (nrows,) f32 vector) the sums are added into
+    it and ``out`` is returned. CPU tensors take the plain version
+    (which also sums (N, K) rows); CUDA tensors launch K4 once, straight
+    over the row pointer. K-wide sums of gathered rows are
+    :func:`gather_segment_sum`'s.
     """
     if data.device.type == "cpu":
-        return segment_sum_by_rowptr_plain(data, row_ptr, nvalid)
+        return segment_sum_by_rowptr_plain(data, row_ptr, nvalid, out)
     dev = data.device
     _cuda.check(data, "data", torch.float32, dev)
     _cuda.check(row_ptr, "row_ptr", torch.int64, dev, ndim=1)
@@ -161,24 +162,26 @@ def segment_sum_by_rowptr(
     elif data.dim() != 1:
         raise ValueError(
             f"unmasked data must be 1-D, got {tuple(data.shape)}")
-    if items is None:
-        raise ValueError("CUDA segment sums need the SegmentItems of row_ptr")
+    if data.data_ptr() % 16:
+        raise ValueError("data must be 16-byte aligned")
     nrows = row_ptr.shape[0] - 1
-    if items.nrows != nrows:
-        raise ValueError(f"items cover {items.nrows} rows, row_ptr {nrows}")
-    _cuda.check(items.item_lo, "item_lo", torch.int64, dev, ndim=1)
-    _cuda.check(items.row_items, "row_items", torch.int64, dev, ndim=1)
-    if items.n_items == 0:
-        return torch.zeros(nrows, dtype=torch.float32, device=dev)
-    partial = torch.empty(items.n_items, dtype=torch.float32, device=dev)
-    y = torch.empty(nrows, dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty(nrows, dtype=torch.float32, device=dev)
+        accumulate = 0
+    else:
+        _cuda.check(out, "out", torch.float32, dev, ndim=1)
+        if out.shape[0] != nrows:
+            raise ValueError(f"out must be ({nrows},), got "
+                             f"{tuple(out.shape)}")
+        accumulate = 1
+    if nrows == 0:
+        return out
     _cuda.launch(
         "segment_sum_rowptr", "lux_segment_sum_rowptr",
-        _cuda.ptr(data), _cuda.ptr(nvalid), _cuda.ptr(items.item_lo),
-        items.n_items, _cuda.ptr(items.row_items), nrows,
-        _cuda.ptr(partial), _cuda.ptr(y), _cuda.stream(dev),
+        _cuda.ptr(data), _cuda.ptr(nvalid), data.numel(), _cuda.ptr(row_ptr),
+        nrows, accumulate, _cuda.ptr(out), _cuda.stream(dev),
     )
-    return y
+    return out
 
 
 # -- uint32 values (see the module docstring) -------------------------------
@@ -775,21 +778,6 @@ def gas_identity_storage(kind: str, shape, dtype: torch.dtype, device):
         return torch.full(shape, -1 if kind == "min" else 0,
                           dtype=torch.int32, device=device)
     return torch.full(shape, identity_for(kind, dtype), dtype=dtype,
-                      device=device)
-
-
-# The order-preserving uint32 key (the sign-flip map) of +inf, the f32 min
-# identity, as the f32 kernels fold it: 0xFF800000 as an int32 word.
-F32_MIN_KEY_IDENT = -8388608
-
-
-def gas_key_storage(kind: str, shape, dtype: torch.dtype, device):
-    """The identity-filled accumulator a GAS kernel folds into, as int32
-    words: the uint32 identity, or the key of the f32 min identity (which
-    the kernel's entry point decodes back to f32 in place)."""
-    if dtype == torch.int32:
-        return gas_identity_storage(kind, shape, dtype, device)
-    return torch.full(shape, F32_MIN_KEY_IDENT, dtype=torch.int32,
                       device=device)
 
 

@@ -884,7 +884,8 @@ def hybrid_spmv(vals: torch.Tensor, dh: DeviceHybrid,
                 gtail=None) -> torch.Tensor:
     """Full Σ vals[src] per destination over all layouts; (nv,) f32 in,
     (nv,) f32 out (internal vertex order). K1 and K2 read ``vals`` as
-    they are, and K2 adds the tail's sums into the strips'.
+    they are, and the tail (K2, or the grouped tail's K4) adds its sums
+    into the strips'.
 
     ``gtail`` (a :class:`~lux_tpu_torch.ops.merge_tail_kernel.DeviceGroupedTail`)
     swaps the lane-select tail for the grouped merge-network tail —
@@ -895,5 +896,5 @@ def hybrid_spmv(vals: torch.Tensor, dh: DeviceHybrid,
         from lux_tpu_torch.ops.merge_tail_kernel import grouped_tail_sums
 
         x2d = vals_to_x2d(vals, dh)
-        return strips_sum(x2d, dh, nv) + grouped_tail_sums(x2d, gtail)
+        return grouped_tail_sums(x2d, gtail, out=strips_sum(x2d, dh, nv))
     return tail_sum(vals, dh, out=strips_sum(vals, dh, nv))

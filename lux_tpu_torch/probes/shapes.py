@@ -1,20 +1,22 @@
-"""Shape sweep of K2 (``tail_gather_sum``), K10 (``gas_pull_acc``), K8
-(``gather_segment_sum``), K9 (``cf_edge_sum``) and K5
-(``segment_minmax_relax``) on the card.
+"""Shape sweep of K2 (``tail_gather_sum``), K4 (``segment_sum_rowptr``),
+K10 (``gas_pull_acc``), K8 (``gather_segment_sum``), K9
+(``cf_edge_sum``), K5 (``segment_minmax_relax``), and K7 and K11
+(``queue_relax_scatter``, ``gas_push_acc``: the queue expansion) on the
+card.
 
-    python -m lux_tpu_torch.probes.shapes [--scale 22] [--only k5 k8 ...]
+    python -m lux_tpu_torch.probes.shapes [--scale 22] [--only k4 k7 ...]
                                           [--old-csrc DIR]
 
-Each variant is a copy of ``csrc/segment_sum.cu``, ``csrc/gas.cu`` or
-``csrc/pull_sum.cu`` with other tier thresholds (the ``constexpr`` lines
-named below), compiled by its own ``nvcc`` (all started together) into
-its own library under ``build/lux_tpu_torch/shapes/`` and called through
-ctypes as the package's wrappers call the built-in kernels. Every variant
-is first held against the plain version (bitwise, or on floats within
-the reference tolerances), then timed by CUDA events (mean of 20 calls
-after one warm-up), on the R-MAT graph of ``--scale`` (edge factor 16,
-seed 42, as ``chip_smoke.py``) or on ``bench.py``'s ratings graph of
-that scale:
+Each variant is a copy of ``csrc/`` with other constants in one source
+or header (the ``constexpr`` lines named below), its ``.cu`` compiled
+by its own ``nvcc`` (all started together) into its own library under
+``build/lux_tpu_torch/shapes/`` and called through ctypes as the
+package's wrappers call the built-in kernels. Every variant is first
+held against the plain version (bitwise, or on floats within the
+reference tolerances), then timed by CUDA events (mean of 20 calls after
+one warm-up), on the R-MAT graph of ``--scale`` (edge factor 16, seed
+42, as ``chip_smoke.py``) or on ``bench.py``'s ratings graph of that
+scale:
 
 - K2 over the hybrid plan's tail on one device (x the (nv,) values) and
   over parts 0 and 3 of the P = 4 sharded tiled layout (x the (nvb, 128)
@@ -22,6 +24,10 @@ that scale:
   ``kBlockItems`` (the rows and edges a block owns), ``kStage`` and
   ``kMinBlocks`` (the resident blocks ``__launch_bounds__`` asks of
   ptxas).
+- K4 over the grouped tail's root stream of the same plan (random f32
+  values under the plan's lane mask and ``dst_row_ptr``), adding into a
+  vector as the executor does: ``kThreads4``, ``kBlockItems4``,
+  ``kStage4`` and ``kMinBlocks4`` of ``segment_sum.cu``.
 - K10 (min, add1) on the graph's CSC at frontier densities 0.01, 0.1 and
   0.5 with one column, and at 0.1 with 8 columns; ``kThreads``,
   ``kLaneMax``, ``kMinBlocks`` and ``kMinBlocksK`` (one column and K) of
@@ -43,20 +49,34 @@ that scale:
   forms (the packed table, and values with the frontier's bits), over
   ``kThreads``, ``kMinBlocks5``, ``kLaneMax5`` of ``gas.cu`` and the
   schedule's ``TASK_EDGES`` and ``HUB_EDGES``.
-
+- K7 on SSSP's queues, as phase 4b takes them: the first frontier
+  (vertex 0), the sparse iteration with the most out-edges and a
+  random frontier of the sparse branch's cap (nv // 16 + 128 vertices);
+  and the one launch over the four parts of the sharded SSSP's sparse
+  iteration with the most out-edges (phase 4f). K11 on the weighted
+  graph's CSR with random values, over the frontiers {0}, 5% and 40% of
+  the vertices, for (min, add1), DeltaSSSP's f32 (min, add_w) and
+  k-core's (sum, one). Both over ``kQueueSlots`` (edge slots a chunk),
+  ``kQueueStage`` (queue slots a chunk stages) and ``kQueueMinBlocks`` of
+  ``gas_ops.cuh``. On each one-receiver queue the built-in kernel is
+  also timed folding into an accumulator prepared beforehand (no copy or
+  fill, no decode): what a kept accumulator, reset only where the last
+  push touched it, would cost at least.
 - P6 (``merge4``) at the probe's shape, R = 65,536 rows of 4 x 128
   candidates, uniform lanes and selectors: the kernel against one
   ``torch.gather`` over the same candidates, by means of 20 calls and by
   medians of 100 on a held card (``probes/gather.py::median_ms``).
 
-With ``--old-csrc DIR``, a directory holding ``push_dense.cu``,
-``probe_gather.cu`` and their header (``lux_tpu_torch/csrc`` of a
-checkout of commit a047839), that source's K5 (work items of 64 edges
-folded into an identity-filled accumulator with atomics) is built and
-timed first, on the same states in both forms, with and without its
-fill; and its P6 (four scattered loads a thread) beside the new one.
+With ``--old-csrc DIR``, a directory holding ``segment_sum.cu``,
+``frontier.cu``, ``gas.cu`` and their headers (``lux_tpu_torch/csrc``
+of a checkout of commit 77017f1), that source's K4 (work items and
+partials in two launches, then the add into the strips' sums), K7 (a
+clone of the values, then the fold; for the parts, a host read of their
+totals and one launch a part) and K11 (an identity fill, then the fold
+and, for f32, a decode launch) are built and timed first on the same
+inputs, with and without their passes over every word.
 
-``--only`` names the sweeps to run (default: all six). It prints one
+``--only`` names the sweeps to run (default: all nine). It prints one
 line per variant and shape, and the card's name and power limit first.
 """
 
@@ -74,6 +94,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops import _cuda
 from lux_tpu_torch.ops import segment as seg
 
@@ -116,24 +137,41 @@ K5_CASES = [(dict(kThreads=t, kMinBlocks5=b, kLaneMax5=a), sched)
                 (256, 6, 32, (128, 4096)), (256, 6, 32, (512, 4096)),
                 (256, 6, 32, (1024, 4096)), (256, 6, 32, (256, 8192)),
                 (256, 6, 32, (256, 2048)))]
+K4_SHAPES = [dict(kThreads4=t, kBlockItems4=a, kStage4=b, kMinBlocks4=c)
+             for t, a, b, c in ((128, 1024, 1536, 12), (256, 1024, 1536, 8),
+                                (256, 2048, 3072, 6), (256, 2048, 2560, 6),
+                                (256, 2048, 2048, 8), (256, 1536, 2304, 6),
+                                (256, 4096, 5120, 4), (512, 4096, 6144, 4),
+                                (512, 2048, 3072, 4), (128, 512, 768, 16))]
+# (kQueueSlots, kQueueStage, kQueueMinBlocks); the first are the built-in.
+# K11 takes the first four.
+QUEUE_SHAPES = [dict(kQueueSlots=a, kQueueStage=b, kQueueMinBlocks=c)
+                for a, b, c in (
+                    (1024, 512, 4), (2048, 512, 4), (1024, 512, 6),
+                    (512, 512, 4), (1024, 256, 4), (1024, 1024, 4),
+                    (1024, 512, 8), (2048, 512, 2))]
+K11_SHAPES = QUEUE_SHAPES[:4]
+K11_OPS = (("min", "add1"), ("min", "add_w"), ("sum", "one"))
 CF_TOL = dict(rtol=1e-4, atol=1e-7)   # tests/test_colfilter.py
 PR_TOL = dict(rtol=5e-5, atol=1e-9)   # tests/test_tiled.py
-# K5 and P6 of commit a047839 (--old-csrc): K5's work items and the C
-# signatures.
-OLD_ITEM = 64
+# K4, K7 and K11 of commit 77017f1 (--old-csrc): their C signatures then.
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+OLD_ITEM = 64   # K4's work items then
 OLD_SIGNATURES = {
-    # packed, values, frontier, col_src, item_lo, item_row, n_items, comb,
-    # relax, acc, stream
-    "lux_segment_minmax_relax": (_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
-                                 _P, _P),
-    # cand, l, s, R, out, stream: the signature it has now
-    "lux_merge4": _cuda._SIGNATURES["lux_merge4"],
+    # data, nvalid, item_lo, n_items, row_items, nrows, partial, y, stream
+    "lux_segment_sum_rowptr": (_P, _P, _P, _I64, _P, _I64, _P, _P, _P),
+    # q, start, offs, cnt, total, col_dst, old, out, comb, relax, stream
+    "lux_queue_relax_scatter": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT,
+                                _INT, _P),
+    # q, start, offs, cnt, total, col_dst, weights, values, op, acc, n_acc,
+    # stream
+    "lux_gas_push_acc": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT, _P, _I64,
+                         _P),
 }
-OLD_SOURCES = {"k5": "push_dense.cu", "p6": "probe_gather.cu"}
+OLD_SOURCES = {"k4": "segment_sum.cu", "k7": "frontier.cu", "k11": "gas.cu"}
 REPS = 20
 OUT = _cuda.BUILD_DIR / "shapes"
-SWEEPS = ("k2", "k10", "k8", "k9", "k5", "p6")
+SWEEPS = ("k2", "k4", "k10", "k8", "k9", "k5", "k7", "k11", "p6")
 
 
 def _ms(fn) -> float:
@@ -149,14 +187,26 @@ def _ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def _variant_source(name: str, shape: dict) -> str:
-    text = (_cuda.CSRC / name).read_text()
+def _variant_dir(name: str, tag: str, shape: dict) -> Path:
+    """OUT/tag: a copy of csrc/ with each constant of ``shape`` set where
+    it is declared: in source ``name``, else in the one header that
+    declares it."""
+    d = OUT / tag
+    d.mkdir(parents=True)
+    texts = {f.name: f.read_text() for f in _cuda.CSRC.glob("*.cu*")}
+    headers = sorted(f for f in texts if f.endswith(".cuh"))
     for key, value in shape.items():
-        text, n = re.subn(rf"(constexpr int {key} = )\d+;",
-                          rf"\g<1>{value};", text)
+        pat = rf"(constexpr int {key} = )\d+;"
+        where = [f for f in [name] + headers if re.search(pat, texts[f])]
+        if not where:
+            raise ValueError(f"csrc: no constexpr {key}")
+        texts[where[0]], n = re.subn(pat, rf"\g<1>{value};",
+                                     texts[where[0]])
         if n != 1:
-            raise ValueError(f"{name}: no single constexpr {key}")
-    return text
+            raise ValueError(f"{where[0]}: no single constexpr {key}")
+    for f, text in texts.items():
+        (d / f).write_text(text)
+    return d
 
 
 def build_variants(variants, old_csrc=None, old_sources=()):
@@ -168,9 +218,8 @@ def build_variants(variants, old_csrc=None, old_sources=()):
     nvcc = _cuda._nvcc()
     jobs = []
     for name, tag, shape in variants:
-        src = OUT / f"{tag}_{name}"
-        src.write_text(_variant_source(name, shape))
-        jobs.append(((name, tag), src, _cuda.CSRC, _cuda._SIGNATURES))
+        d = _variant_dir(name, f"{tag}_{name}", shape)
+        jobs.append(((name, tag), d / name, d, _cuda._SIGNATURES))
     for name in old_sources:
         jobs.append((("old", name), old_csrc / name, old_csrc,
                      OLD_SIGNATURES))
@@ -454,47 +503,9 @@ def sweep_k5(libs, states, dev) -> None:
                       f"{_ms(lambda: _call(fn, *args)):.4f} ms", flush=True)
 
 
-def time_old_k5(lib, states, dev) -> None:
-    """K5 of ``--old-csrc`` on the same states, in both forms: its
-    identity fill and kernel, as its wrapper ran them, and the kernel
-    alone."""
-    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    for label, rp_np, rp, cs, vals, front, comb, op, prog in states:
-        want = _k5_want(rp, cs, vals, front, prog)
-        lo, ri = seg.segment_items(rp_np, OLD_ITEM)
-        item_lo = put(lo)
-        item_row = put(np.repeat(np.arange(ri.shape[0] - 1, dtype=np.int32),
-                                 np.diff(ri)))
-        n_items = lo.shape[0] - 1
-        packed = seg.pack_words(vals, front)
-        acc = torch.empty_like(want)
-        ident = -1 if comb == 0 else 0
-        for form in ("packed", "values and a bool frontier"):
-            args = (_cuda.ptr(packed if form == "packed" else None),
-                    _cuda.ptr(None if form == "packed" else vals),
-                    _cuda.ptr(None if form == "packed" else front),
-                    _cuda.ptr(cs), _cuda.ptr(item_lo), _cuda.ptr(item_row),
-                    n_items, comb, op, _cuda.ptr(acc), _cuda.stream(dev))
-
-            def kernel():
-                _call(lib.lux_segment_minmax_relax, *args)
-
-            def both():
-                acc.fill_(ident)
-                kernel()
-
-            both()
-            if not torch.equal(acc, want):
-                raise AssertionError(f"old K5 {form} {label}: not bitwise")
-            print(f"[shapes] old K5 {label} ({cs.shape[0]} edges, {n_items} "
-                  f"items of {OLD_ITEM}) {form}: fill and kernel "
-                  f"{_ms(both):.4f} ms, kernel alone "
-                  f"{_ms(kernel):.4f} ms", flush=True)
-
-
-def time_p6(old, dev) -> None:
-    """P6 at the probe's shape: the kernel, ``old``'s (None: not timed)
-    and one ``torch.gather``, each held bitwise to the plain version."""
+def time_p6(dev) -> None:
+    """P6 at the probe's shape: the kernel and one ``torch.gather``, the
+    kernel held bitwise to the plain version."""
     from lux_tpu_torch.probes import dgather2
     from lux_tpu_torch.probes import gather as pg
 
@@ -509,21 +520,298 @@ def time_p6(old, dev) -> None:
     out = torch.empty_like(want)
     args = (_cuda.ptr(cand), _cuda.ptr(lane), _cuda.ptr(sel), r,
             _cuda.ptr(out), _cuda.stream(dev))
-    calls = {"merge4": lambda: _call(_cuda.library().lux_merge4, *args)}
-    if old is not None:
-        calls["old merge4"] = lambda: _call(old.lux_merge4, *args)
-    calls["torch.gather"] = lambda: torch.gather(flat, 1, gidx)
-    for name, fn in calls.items():
-        if name != "torch.gather":
-            out.zero_()
-            fn()
-            if not torch.equal(out, want):
-                raise AssertionError(f"{name}: not bitwise")
+    calls = {"merge4": lambda: _call(_cuda.library().lux_merge4, *args),
+             "torch.gather": lambda: torch.gather(flat, 1, gidx)}
+    calls["merge4"]()
+    if not torch.equal(out, want):
+        raise AssertionError("merge4: not bitwise")
     for rnd in range(2):
         print(f"[shapes] P6 R={r} round {rnd}: " + ", ".join(
             f"{name} {_ms(fn):.4f} ms (mean of {REPS}), "
             f"{pg.median_ms(fn, dev, 100, hold=True):.4f} ms (median of "
             f"100, held)" for name, fn in calls.items()), flush=True)
+
+
+# -- K4 ----------------------------------------------------------------------
+
+
+def _root_stream(plan, dev):
+    """(root stream, nvalid, dst_row_ptr, integral stream): the grouped
+    tail's root level of ``plan`` with random f32 values (its sums' work
+    does not depend on them) and small integers."""
+    from lux_tpu_torch.ops.merge_tail_kernel import DeviceGroupedTail
+    from lux_tpu_torch.ops.merge_tail_plan import plan_grouped_tail
+
+    t = time.perf_counter()
+    gt = DeviceGroupedTail.build(
+        plan_grouped_tail(plan.tail_sb, plan.tail_lane, plan.tail_row_ptr),
+        dev)
+    s = gt.nvalid_root.shape[0]
+    print(f"[shapes] grouped plan in {time.perf_counter() - t:.1f} s: root "
+          f"stream ({s}, 128), {gt.dst_row_ptr.shape[0] - 1} rows",
+          flush=True)
+    rng = np.random.default_rng(7)
+    return (torch.from_numpy(rng.random((s, 128), dtype=np.float32)).to(dev),
+            gt.nvalid_root, gt.dst_row_ptr,
+            torch.from_numpy(rng.integers(0, 4, (s, 128)).astype(np.float32)
+                             ).to(dev))
+
+
+def sweep_k4(libs, root, dev, old=None) -> None:
+    """Each of K4_SHAPES adding into a vector, held bitwise against the
+    plain version on the integral stream; ``old`` (77017f1's library)
+    first, with and without the add pass the engine then ran."""
+    data, nvalid, rp, ints = root
+    rows = rp.shape[0] - 1
+    y0 = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 4, rows).astype(np.float32)).to(dev)
+    want = seg.segment_sum_by_rowptr_plain(ints, rp, nvalid, y0.clone())
+    label = f"K4 root stream {tuple(data.shape)}, {rows} rows"
+    if old is not None:
+        lo, ri = seg.segment_items(rp.cpu().numpy(), OLD_ITEM)
+        item_lo, row_items = (torch.from_numpy(a).to(dev) for a in (lo, ri))
+        n_items = lo.shape[0] - 1
+        partial = torch.empty(n_items, dtype=torch.float32, device=dev)
+        part = torch.empty(rows, dtype=torch.float32, device=dev)
+
+        def kernel(x):
+            _call(old.lux_segment_sum_rowptr, _cuda.ptr(x), _cuda.ptr(nvalid),
+                  _cuda.ptr(item_lo), n_items, _cuda.ptr(row_items), rows,
+                  _cuda.ptr(partial), _cuda.ptr(part), _cuda.stream(dev))
+
+        def with_add(x):
+            kernel(x)
+            return y0 + part
+
+        if not torch.equal(with_add(ints), want):
+            raise AssertionError("old K4: not bitwise")
+        print(f"[shapes] old {label} ({n_items} items of {OLD_ITEM}): "
+              f"both passes {_ms(lambda: kernel(data)):.4f} ms, with the "
+              f"add into the strips' sums {_ms(lambda: with_add(data)):.4f}"
+              " ms", flush=True)
+    for shape in K4_SHAPES:
+        fn = libs["segment_sum.cu", _tag("k4", shape)].lux_segment_sum_rowptr
+        y = y0.clone()
+
+        def call(x, y=y, fn=fn):
+            _call(fn, _cuda.ptr(x), _cuda.ptr(nvalid), x.numel(),
+                  _cuda.ptr(rp), rows, 1, _cuda.ptr(y), _cuda.stream(dev))
+
+        call(ints)
+        if not torch.equal(y, want):
+            raise AssertionError(f"K4 {shape}: not bitwise")
+        print(f"[shapes] {label} {shape}: {_ms(lambda: call(data)):.4f} ms",
+              flush=True)
+
+
+# -- K7 and K11: the queue expansion ----------------------------------------
+
+
+def _k7_states(g, dev):
+    """(label, values, q, start, offs, col_dst, total) of K7 on SSSP's
+    queues: the first frontier, the sparse iteration with the most
+    out-edges, a random frontier of the cap (one receiver each); and the
+    four receivers of the sharded SSSP's sparse iteration with the most
+    out-edges ((P, cnt) start, (P, cnt + 1) offs, (P, ne) col_dst, (P,
+    max_nv) values)."""
+    from lux_tpu_torch.engine.push import PushExecutor
+    from lux_tpu_torch.engine.push_sharded import ShardedPushExecutor
+    from lux_tpu_torch.models import SSSP
+    from lux_tpu_torch.ops import frontier as fq
+
+    ex = PushExecutor(g, SSSP())
+    ex.run(start=0)
+    _, at = max((b[2], i) for i, b in enumerate(ex.branch_log) if b[0] > 0)
+    st, _ = ex.run(max_iters=at, start=0)
+    pick = np.random.default_rng(42).choice(g.nv, size=ex.queue_cap,
+                                            replace=False)
+    cap = torch.zeros(g.nv, dtype=torch.bool)
+    cap[torch.from_numpy(pick)] = True
+    out = []
+    for label, vals, fr in (
+            ("SSSP's first frontier", *ex.init_state(start=0)),
+            (f"SSSP iteration {at + 1}", st.values, st.frontier),
+            (f"the cap, {ex.queue_cap} vertices", st.values, cap.to(dev))):
+        cnt = int(fr.sum())
+        q, start, _, offs = fq.frontier_queue(fr, ex.csr_row_ptr, cnt)
+        out.append((label, vals, q, start, offs, ex.csr_col_dst,
+                    int(offs[-1])))
+    sx = ShardedPushExecutor(g, SSSP(), num_parts=4)
+    sx.run(start=0)
+    _, at = max((b[2], i) for i, b in enumerate(sx.branch_log) if b[0] > 0)
+    st, _ = sx.run(max_iters=at, start=0)
+    stats = sx._frontier_stats(st)
+    rows, ids = sx._sparse_load(st, stats)
+    start = sx.push_row_ptr[:, ids]
+    offs = torch.nn.functional.pad(
+        (sx.push_row_ptr[:, ids + 1] - start).cumsum(1), (1, 0))
+    out.append((f"sharded SSSP iteration {at + 1}, 4 parts", st.values,
+                rows, start, offs, sx.push_dst_local, stats[1]))
+    return out
+
+
+def _fold_args(values, q, start, offs, col_dst, total, out, scratch, dev,
+               fold_only=False):
+    """The C arguments of the new K7 over one or P receivers; with
+    ``fold_only`` no word is copied (n = 0: the fold alone, one receiver
+    only)."""
+    parts = 1 if start.dim() == 1 else start.shape[0]
+    n = 0 if fold_only else values.numel() // parts
+    return (_cuda.ptr(q), _cuda.ptr(start), _cuda.ptr(offs), q.shape[0],
+            parts, _cuda.ptr(col_dst), col_dst.shape[-1], _cuda.ptr(values),
+            _cuda.ptr(out), n, total, _cuda.ptr(scratch), 0, 0,
+            _cuda.stream(dev))
+
+
+def sweep_k7(libs, states, dev, old=None) -> None:
+    """Each of QUEUE_SHAPES on each state, bitwise against the plain
+    version; the built-in kernel also folding alone into a copy made
+    beforehand; ``old`` (77017f1's library) first, with its clone (and,
+    over the parts, its host read and a launch a part) and without."""
+    from lux_tpu_torch.ops import frontier as fq
+
+    scratch = fq._queue_scratch(dev, _cuda.stream(dev).value)
+    relax = seg.RELAX_OPS["add1"]
+    for label, vals, q, start, offs, col, total in states:
+        want = fq.queue_relax_scatter_plain(q, start, offs, col, vals, "min",
+                                            relax)
+        head = f"K7 {label} (cnt={q.shape[0]}, {total} edges)"
+        if old is not None:
+            flat = vals.reshape(-1)
+            k = old.lux_queue_relax_scatter
+            if start.dim() == 1:
+                def step(out=None):
+                    out = vals.clone() if out is None else out
+                    _call(k, _cuda.ptr(q), _cuda.ptr(start), _cuda.ptr(offs),
+                          q.shape[0], total, _cuda.ptr(col), _cuda.ptr(vals),
+                          _cuda.ptr(out), 0, 0, _cuda.stream(dev))
+                    return out
+            else:
+                def step(out=None):
+                    totals = offs[:, -1].tolist()
+                    out = vals.clone() if out is None else out
+                    for p, tp in enumerate(totals):
+                        if tp:
+                            _call(k, _cuda.ptr(q), _cuda.ptr(start[p]),
+                                  _cuda.ptr(offs[p]), q.shape[0], tp,
+                                  _cuda.ptr(col[p]), _cuda.ptr(flat),
+                                  _cuda.ptr(out[p]), 0, 0, _cuda.stream(dev))
+                    return out
+            if not torch.equal(step(), want):
+                raise AssertionError(f"old {head}: not bitwise")
+            pre = vals.clone()
+            print(f"[shapes] old {head}: with its clone"
+                  f"{' and host read' if start.dim() > 1 else ''} "
+                  f"{_ms(step):.4f} ms, the fold alone "
+                  f"{_ms(lambda: step(pre)):.4f} ms", flush=True)
+        for i, shape in enumerate(QUEUE_SHAPES):
+            fn = libs["frontier.cu", _tag("k7", shape)].lux_queue_relax_scatter
+            out = torch.empty_like(vals)
+            args = _fold_args(vals, q, start, offs, col, total, out, scratch,
+                              dev)
+            _call(fn, *args)
+            if not torch.equal(out, want):
+                raise AssertionError(f"{head} {shape}: not bitwise")
+            line = f"{_ms(lambda: _call(fn, *args)):.4f} ms"
+            if i == 0 and start.dim() == 1:
+                pre = vals.clone()
+                alone = _fold_args(vals, q, start, offs, col, total, pre,
+                                   scratch, dev, fold_only=True)
+                _call(fn, *alone)
+                if not torch.equal(pre, want):
+                    raise AssertionError(f"{head}: the fold alone differs")
+                line += (f"; folding alone into a copy made beforehand "
+                         f"{_ms(lambda: _call(fn, *alone)):.4f} ms")
+            print(f"[shapes] {head} {shape}: {line}", flush=True)
+
+
+def _k11_states(gw, dev):
+    """(label, q, start, offs, total) of K11 on the weighted graph's CSR,
+    and the CSR (col_dst, weights): the frontiers {0}, 5% and 40% of the
+    vertices (numpy seed 9)."""
+    from lux_tpu_torch.ops import frontier as fq
+
+    csr = gw.csr()
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rp, col, w = put(csr.row_ptr), put(csr.col_dst), put(csr.weights)
+    rng = np.random.default_rng(9)
+    out = []
+    for label, fr in (("frontier {0}", np.arange(gw.nv) == 0),
+                      ("5% frontier", rng.random(gw.nv) < 0.05),
+                      ("40% frontier", rng.random(gw.nv) < 0.4)):
+        cnt = int(fr.sum())
+        q, start, _, offs = fq.frontier_queue(put(fr), rp, cnt)
+        out.append((label, q, start, offs, int(offs[-1])))
+    return out, col, w
+
+
+def _gas_values(nv, gather_op, dev):
+    rng = np.random.default_rng(10)
+    if gather_op == "add_w":
+        v = rng.integers(0, 10**6, nv).astype(np.float32)
+        v[rng.random(nv) < 0.2] = np.inf
+        return torch.from_numpy(v).to(dev)
+    return seg.to_u32_storage(rng.integers(0, 2**32, nv, dtype=np.uint64)
+                              .astype(np.uint32), dev)
+
+
+def sweep_k11(libs, states, col, w, nv, dev, old=None) -> None:
+    """Each of K11_SHAPES on each state for K11_OPS, bitwise against the
+    plain version; the built-in kernel also folding alone into an
+    accumulator filled beforehand (no fill, no decode); ``old`` first,
+    with its fill and without."""
+    from lux_tpu_torch.ops import frontier as fq
+
+    scratch = fq._queue_scratch(dev, _cuda.stream(dev).value)
+    for label, q, start, offs, total in states:
+        for kind, gop in K11_OPS:
+            vals = _gas_values(nv, gop, dev)
+            op = seg.gas_kernel_code(kind, gop)
+            want = fq.gas_push_acc_plain(q, start, offs, col, vals, kind,
+                                         seg.GATHER_OPS[gop], w)
+            # The accumulator's first words: the identity, or for f32 min
+            # the key of +inf (0xFF800000) that the kernels fold into.
+            key = seg.gas_identity_storage(kind, vals.shape, vals.dtype,
+                                           dev).view(torch.int32).clone()
+            if gop == "add_w":
+                key.fill_(-8388608)
+            head = (f"K11 ({kind}, {gop}) {label} (cnt={q.shape[0]}, "
+                    f"{total} edges)")
+            base = (_cuda.ptr(q), _cuda.ptr(start), _cuda.ptr(offs),
+                    q.shape[0], total, _cuda.ptr(col), _cuda.ptr(w),
+                    _cuda.ptr(vals), op)
+            if old is not None:
+                acc = torch.empty_like(key)
+
+                def step(fill=True):
+                    if fill:
+                        acc.copy_(key)
+                    _call(old.lux_gas_push_acc, *base, _cuda.ptr(acc),
+                          acc.numel(), _cuda.stream(dev))
+
+                step()
+                if not torch.equal(acc.view(vals.dtype), want):
+                    raise AssertionError(f"old {head}: not bitwise")
+                print(f"[shapes] old {head}: with its fill "
+                      f"{_ms(step):.4f} ms, without "
+                      f"{_ms(lambda: step(False)):.4f} ms", flush=True)
+            for i, shape in enumerate(K11_SHAPES):
+                fn = libs["gas.cu", _tag("k11", shape)].lux_gas_push_acc
+                acc = torch.empty_like(vals)
+                args = (*base, _cuda.ptr(acc), acc.numel(),
+                        _cuda.ptr(scratch), _cuda.stream(dev))
+                _call(fn, *args)
+                if not torch.equal(acc, want):
+                    raise AssertionError(f"{head} {shape}: not bitwise")
+                line = f"{_ms(lambda: _call(fn, *args)):.4f} ms"
+                if i == 0:
+                    pre = key.clone()
+                    alone = (*base, _cuda.ptr(pre), 0, _cuda.ptr(scratch),
+                             _cuda.stream(dev))
+                    line += (f"; folding alone into an accumulator filled "
+                             f"beforehand {_ms(lambda: _call(fn, *alone)):.4f}"
+                             " ms")
+                print(f"[shapes] {head} {shape}: {line}", flush=True)
 
 
 def _tag(kernel: str, shape: dict) -> str:
@@ -540,8 +828,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="+", choices=SWEEPS, default=SWEEPS,
                     help="the sweeps to run")
     ap.add_argument("--old-csrc", type=Path, default=None,
-                    help="time the K5 and P6 of this directory's "
-                         "push_dense.cu and probe_gather.cu too")
+                    help="time the K4, K7 and K11 of this directory's "
+                         "segment_sum.cu, frontier.cu and gas.cu too")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("shapes: needs a CUDA device")
@@ -556,34 +844,43 @@ def main(argv=None) -> int:
     only = set(args.only)
     t = time.perf_counter()
     variants = []
-    if "k2" in only:
-        variants += [("segment_sum.cu", _tag("k2", s), s) for s in K2_SHAPES]
-    if "k10" in only:
-        variants += [("gas.cu", _tag("k10", s), s)
-                     for s in K10_KERNEL_SHAPES]
-    if "k8" in only:
-        variants += [("pull_sum.cu", _tag("k8", s), s)
-                     for s in _kernel_shapes(K8_CASES)]
-    if "k9" in only:
-        variants += [("pull_sum.cu", _tag("k9", s), s)
-                     for s in _kernel_shapes(K9_CASES)]
-    if "k5" in only:
-        variants += [("gas.cu", _tag("k5", s), s)
-                     for s in _kernel_shapes(K5_CASES)]
+    for key, source, shapes in (
+            ("k2", "segment_sum.cu", K2_SHAPES),
+            ("k4", "segment_sum.cu", K4_SHAPES),
+            ("k10", "gas.cu", K10_KERNEL_SHAPES),
+            ("k8", "pull_sum.cu", _kernel_shapes(K8_CASES)),
+            ("k9", "pull_sum.cu", _kernel_shapes(K9_CASES)),
+            ("k5", "gas.cu", _kernel_shapes(K5_CASES)),
+            ("k7", "frontier.cu", QUEUE_SHAPES),
+            ("k11", "gas.cu", K11_SHAPES)):
+        if key in only:
+            variants += [(source, _tag(key, s), s) for s in shapes]
     olds = () if args.old_csrc is None else [
         OLD_SOURCES[k] for k in OLD_SOURCES if k in only]
     libs = build_variants(variants, args.old_csrc, olds)
+    old = lambda k: libs.get(("old", OLD_SOURCES[k]))
     print(f"[shapes] {len(libs)} variants built in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    if only & {"k2", "k8", "k10", "k5"}:
+    if only & {"k2", "k4", "k8", "k10", "k5", "k7", "k11"}:
         t = time.perf_counter()
-        g = generate.rmat(args.scale, 16, seed=42)
-        print(f"[shapes] rmat({args.scale}, 16) in "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
+        gw = generate.rmat(args.scale, 16, seed=42, weighted=True)
+        g = Graph(nv=gw.nv, ne=gw.ne, row_ptr=gw.row_ptr,
+                  col_src=gw.col_src)
+        print(f"[shapes] rmat({args.scale}, 16, weighted=True) in "
+              f"{time.perf_counter() - t:.1f} s; g is it without weights",
+              flush=True)
+        if "k7" in only:
+            states = _k7_states(g, dev)
+            sweep_k7(libs, states, dev, old("k7"))
+            del states
+            torch.cuda.empty_cache()
+        if "k11" in only:
+            states, col, w = _k11_states(gw, dev)
+            sweep_k11(libs, states, col, w, gw.nv, dev, old("k11"))
+            del states, col, w
+            torch.cuda.empty_cache()
         if "k5" in only:
             states = _k5_states(g, dev)
-            if args.old_csrc is not None:
-                time_old_k5(libs["old", "push_dense.cu"], states, dev)
             sweep_k5(libs, states, dev)
             del states
             torch.cuda.empty_cache()
@@ -591,14 +888,17 @@ def main(argv=None) -> int:
             sweep_pull(libs, g, "copy", 0, dev)
         if "k10" in only:
             sweep_k10(libs, g, dev)
-        if "k2" in only:
+        if only & {"k2", "k4"}:
             t = time.perf_counter()
             plan = plan_hybrid(g)
             print(f"[shapes] plan in {time.perf_counter() - t:.1f} s",
                   flush=True)
-            sweep_k2(libs, plan, dev)
+            if "k2" in only:
+                sweep_k2(libs, plan, dev)
+            if "k4" in only:
+                sweep_k4(libs, _root_stream(plan, dev), dev, old("k4"))
             del plan
-        del g
+        del g, gw
     if "k9" in only:
         # bench.py's run_cf sizes, as chip_smoke.py's phase 3c.
         n_users = min(480_000, 1 << max(args.scale - 3, 1))
@@ -612,7 +912,7 @@ def main(argv=None) -> int:
               f"{int(gc.in_degrees.max())}", flush=True)
         sweep_pull(libs, gc, "cf_sgd", n_users, dev)
     if "p6" in only:
-        time_p6(libs.get(("old", "probe_gather.cu")), dev)
+        time_p6(dev)
     return 0
 
 

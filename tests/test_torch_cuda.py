@@ -122,7 +122,7 @@ def test_tail_kernel_matches_plain(dev, shape):
         d = [t.to(dev) for t in (x, src, row_ptr)]
         _compare(ts.lane_select_tail_sums(*d),
                  ts.lane_select_tail_sums(x, src, row_ptr), exact)
-        out = y0.to(dev)
+        out = y0.to(dev, copy=True)
         got = ts.lane_select_tail_sums(*d, out=out)
         assert got is out
         _compare(got, ts.lane_select_tail_sums(x, src, row_ptr,
@@ -215,9 +215,14 @@ def test_grouped_tail_kernels_match_plain(dev, m):
         assert torch.equal(xd.cpu(), x)
     root = torch.from_numpy(
         rng.integers(-40, 40, size=tuple(x.shape)).astype(np.float32))
-    _compare(mtk.root_reduce(root.to(dev), gd.nvalid_root, gd.dst_row_ptr,
-                             gd.dst_items),
+    _compare(mtk.root_reduce(root.to(dev), gd.nvalid_root, gd.dst_row_ptr),
              mtk.root_reduce(root, gc.nvalid_root, gc.dst_row_ptr), True)
+    y0 = torch.from_numpy(rng.integers(0, 8, 700).astype(np.float32))
+    out = y0.to(dev, copy=True)
+    got = mtk.root_reduce(root.to(dev), gd.nvalid_root, gd.dst_row_ptr, out)
+    assert got is out
+    _compare(got, mtk.root_reduce(root, gc.nvalid_root, gc.dst_row_ptr,
+                                  y0.clone()), True)
 
 
 def test_segment_sum_without_mask(dev):
@@ -226,11 +231,58 @@ def test_segment_sum_without_mask(dev):
     lens[5] = 5000
     row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
     data = torch.from_numpy(rng.random(int(row_ptr[-1]), dtype=np.float32))
-    items = seg.SegmentItems.build(row_ptr, seg.SEG_ITEM, dev)
     got = seg.segment_sum_by_rowptr(data.to(dev),
-                                    torch.from_numpy(row_ptr).to(dev), items)
+                                    torch.from_numpy(row_ptr).to(dev))
     _compare(got, seg.segment_sum_by_rowptr(data, torch.from_numpy(row_ptr)),
              False)
+
+
+@pytest.mark.parametrize("shape", ["skewed", "hub", "empty"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_segment_sum_one_launch_matches_plain(dev, shape, masked):
+    # K4 in one launch: rows of every tier (empty and short rows a
+    # thread, 33-2,048 elements a warp, a row of 150,000 that outgrows
+    # any block's stage the whole block), bitwise on integral streams
+    # and within the tolerance on floats, written or added into a
+    # vector; the (S, 128) stream with its lane mask, or 1-D (of a
+    # length not a multiple of 4) without.
+    rng = np.random.default_rng(8)
+    if shape == "empty":
+        lens = np.zeros(1000, np.int64)
+    else:
+        lens = rng.integers(0, 9, 5000)
+        lens[rng.random(5000) < 0.3] = 0
+        lens[7], lens[300], lens[301] = 40, 2048, 2049
+        if shape == "hub":
+            lens[1234] = 150_000
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    n = int(row_ptr[-1])
+    rows = len(lens)
+    nvalid = None
+    if masked:
+        s = -(-n // 128) + 1
+        row_ptr[-1] = s * 128 if shape == "empty" else row_ptr[-1]
+        nvalid = torch.from_numpy(rng.integers(0, 129, s).astype(np.int32))
+        shp = (s, 128)
+    else:
+        shp = (n + 3,)
+    rpc = torch.from_numpy(row_ptr)
+    for exact in (True, False):
+        data = torch.from_numpy(
+            rng.integers(-8, 8, shp).astype(np.float32) if exact
+            else rng.random(shp, dtype=np.float32) + 0.5)
+        y0 = torch.from_numpy(rng.integers(0, 8, rows).astype(np.float32))
+        d = (data.to(dev), rpc.to(dev),
+             None if nvalid is None else nvalid.to(dev))
+        _cuda.reset_launches()
+        _compare(seg.segment_sum_by_rowptr(*d),
+                 seg.segment_sum_by_rowptr(data, rpc, nvalid), exact)
+        out = y0.to(dev, copy=True)
+        got = seg.segment_sum_by_rowptr(*d, out=out)
+        assert got is out
+        assert _cuda.LAUNCHES["segment_sum_rowptr"] == 2
+        _compare(got, seg.segment_sum_by_rowptr(data, rpc, nvalid,
+                                                out=y0.clone()), exact)
 
 
 @pytest.mark.parametrize("grouped", [False, True])
@@ -282,6 +334,126 @@ def _push_operands(nv, seed, frac):
 
 K5_PAIRS = [("min", "add1"), ("max", "copy"), ("min", "copy"),
             ("max", "add1")]
+
+
+def _k7_per_part(rows, starts, offss, cols, values, kind, relax_op):
+    """K7 over P receivers as P scatters: receiver p's candidates, read
+    from the flat values at ``rows``, into row p of a copy of the (P, n)
+    values."""
+    flat = seg.widen_u32(values).reshape(-1)
+    relax = seg.RELAX_OPS[relax_op]
+    red = {"min": "amin", "max": "amax"}[kind]
+    out = []
+    for p in range(starts.shape[0]):
+        slot, edge = fq.queue_edges(rows, starts[p], offss[p])
+        out.append(seg.widen_u32(values[p]).scatter_reduce(
+            0, cols[p][edge].long(), relax(flat[rows.long()[slot]]),
+            reduce=red, include_self=True))
+    return seg.narrow_u32(torch.stack(out))
+
+
+def _queue_graph(seed):
+    """A CSR of 200,000 vertices for the queue expansion: vertex 0 a hub
+    of 150,000 out-edges, vertices 1-20,000 one edge each, 20,001-80,000
+    none (so a chunk's queue range outgrows the stage) and the rest 0-8
+    edges; with int32 weights."""
+    rng = np.random.default_rng(seed)
+    nv = 200_000
+    deg = rng.integers(0, 9, nv)
+    deg[0] = 150_000
+    deg[1:20_001] = 1
+    deg[20_001:80_001] = 0
+    rp = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    col = rng.integers(0, nv, int(rp[-1])).astype(np.int32)
+    w = rng.integers(1, 100, int(rp[-1])).astype(np.int32)
+    return nv, torch.from_numpy(rp), torch.from_numpy(col), \
+        torch.from_numpy(w)
+
+
+QUEUES = ["hub", "one-edge", "outgrows", "empty", "random"]
+
+
+def _queue_frontier(nv, which, rng):
+    fr = np.zeros(nv, bool)
+    if which == "hub":
+        fr[0] = True
+    elif which == "one-edge":
+        fr[1:20_001] = True
+    elif which == "outgrows":
+        fr[10_000:100_000] = True
+    elif which == "random":
+        fr = rng.random(nv) < 0.3
+    return torch.from_numpy(fr)
+
+
+@pytest.mark.parametrize("which", QUEUES)
+def test_queue_fold_shapes_match_plain(dev, which):
+    # K7's four pairs and K11's five ops on queues of one hub of 150,000
+    # out-edges, 20,000 one-edge vertices, a range of 60,000 vertices
+    # without out-edges inside one chunk, no vertex, and 30% of the
+    # vertices: bitwise against the plain versions, one launch a call
+    # (none for the empty queue).
+    nv, rp, col, w = _queue_graph(3)
+    rng = np.random.default_rng(4)
+    fr = _queue_frontier(nv, which, rng)
+    cnt = int(fr.sum())
+    q, start, _, offs = fq.frontier_queue(fr.to(dev), rp.to(dev), cnt)
+    total = int(offs[-1])
+    qc, sc, oc = q.cpu(), start.cpu(), offs.cpu()
+    cold, wd = col.to(dev), w.to(dev)
+    vals, _ = _push_operands(nv, 5, 0.0)
+    vd = vals.to(dev)
+    for kind, relax_op in K5_PAIRS:
+        _cuda.reset_launches()
+        got = fq.queue_relax_scatter(q, start, offs, cold, vd, kind,
+                                     relax_op, total)
+        assert _cuda.LAUNCHES["queue_relax_scatter"] == int(total > 0)
+        assert torch.equal(got.cpu(), fq.queue_relax_scatter(
+            qc, sc, oc, col, vals, kind, relax_op, total))
+    for kind, gather_op in seg.GAS_KERNEL_OPS:
+        gv, _ = _gas_operands(nv, gather_op, 0.0, 1, seed=6)
+        _cuda.reset_launches()
+        got = fq.gas_push_acc(q, start, offs, cold, gv.to(dev), kind,
+                              gather_op, total, weights=wd)
+        assert _cuda.LAUNCHES["gas_push_acc"] == int(total > 0)
+        want = fq.gas_push_acc(qc, sc, oc, col, gv, kind, gather_op, total,
+                               weights=w)
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_queue_fold_over_receivers_matches_per_part(dev, parts,
+                                                    monkeypatch):
+    # The sharded sparse step's K7: one launch over the P receivers at
+    # every sparse iteration of sharded SSSP and CC, bitwise against P
+    # scatters of the plain fold.
+    from lux_tpu_torch.engine.push_sharded import ShardedPushExecutor
+
+    monkeypatch.setenv("LUX_EXCHANGE", "full")
+    g = generate.rmat(12, 10, seed=1)
+    for prog, kw, graph in ((SSSP(), {"start": 0}, g),
+                            (ConnectedComponents(), {},
+                             generate.undirected(g))):
+        ex = ShardedPushExecutor(graph, prog, num_parts=parts, queue_frac=4,
+                                 edge_budget_frac=2)
+        ex.run(**kw)
+        sparse = [i for i, b in enumerate(ex.branch_log) if b[0] > 0]
+        assert sparse
+        for at in sparse:
+            st, _ = ex.run(max_iters=at, **kw)
+            stats = ex._frontier_stats(st)
+            rows, ids = ex._sparse_load(st, stats)
+            start = ex.push_row_ptr[:, ids]
+            offs = torch.nn.functional.pad(
+                (ex.push_row_ptr[:, ids + 1] - start).cumsum(1), (1, 0))
+            assert int(offs[:, -1].sum()) == stats[1]
+            got = fq.queue_relax_scatter(
+                rows, start, offs, ex.push_dst_local, st.values,
+                prog.combiner, prog.relax_op, stats[1])
+            want = _k7_per_part(*(x.cpu() for x in (
+                rows, start, offs, ex.push_dst_local, st.values)),
+                prog.combiner, prog.relax_op)
+            assert torch.equal(got.cpu(), want)
 
 
 def _k5_forms(vals, fr, dev):
@@ -464,17 +636,33 @@ def test_frontier_queue_at_two_to_the_28(dev, which):
 
 
 def test_frontier_queue_on_two_streams_at_once(dev):
-    # Two threads, each on its own stream, call K6 at once: each stream
-    # has its own scratch, and the launch shape is cached per device
-    # without a lock.
+    # Two threads, each on its own stream, call K6, K7 and K11 at once:
+    # each stream has its own scratch, whose grid barrier the three
+    # cooperative launches share in turn, and the launch shapes are
+    # cached per device without a lock.
     import threading
 
     nv = 4096 * 300 + 77
-    rp = torch.from_numpy(generate.gnp(nv, nv * 4, seed=11).csr().row_ptr)
+    csr = generate.gnp(nv, nv * 4, seed=11).csr()
+    rp, col = torch.from_numpy(csr.row_ptr), torch.from_numpy(csr.col_dst)
     rng = np.random.default_rng(2)
     frs = [torch.from_numpy(rng.random(nv) < f) for f in (0.01, 0.3)]
-    wants = [fq.frontier_queue(f, rp, int(f.sum())) for f in frs]
-    rpd = rp.to(dev)
+    vals, _ = _push_operands(nv, 3, 0.0)
+    gv, _ = _gas_operands(nv, "one", 0.0, 1, seed=3)
+
+    cnts = [int(f.sum()) for f in frs]
+    totals = [int(torch.where(f, rp.diff(), 0).sum()) for f in frs]
+
+    def calls(i, f, r, c, v, g):
+        q, start, deg, offs = fq.frontier_queue(f, r, cnts[i])
+        return (q, start, deg, offs,
+                fq.queue_relax_scatter(q, start, offs, c, v, "min", "add1",
+                                       totals[i]),
+                fq.gas_push_acc(q, start, offs, c, g, "sum", "one",
+                                totals[i]))
+
+    wants = [calls(i, f, rp, col, vals, gv) for i, f in enumerate(frs)]
+    rpd, cold, vd, gvd = rp.to(dev), col.to(dev), vals.to(dev), gv.to(dev)
     results, errors = [None, None], []
 
     def work(i):
@@ -482,8 +670,7 @@ def test_frontier_queue_on_two_streams_at_once(dev):
             stream = torch.cuda.Stream(device=dev)
             with torch.cuda.stream(stream):
                 f = frs[i].to(dev)
-                cnt = int(frs[i].sum())
-                outs = [fq.frontier_queue(f, rpd, cnt) for _ in range(20)]
+                outs = [calls(i, f, rpd, cold, vd, gvd) for _ in range(20)]
             stream.synchronize()
             results[i] = outs
         except Exception as e:   # noqa: BLE001 - reported below
@@ -1012,9 +1199,10 @@ def test_sharded_pull_on_cuda(dev, monkeypatch, app, parts):
 
 
 def test_split_table_wrappers_match_plain(dev):
-    # K7 reads a flat table of several parts' rows at q and combines into
-    # one part's row of its own; K10 reads a table of more rows than its
-    # row_ptr's, which sizes the output.
+    # K7 over P receivers in one launch: each reads the flat (P * n)
+    # table at q and combines into its own row of a copy of it; K10
+    # reads a table of more rows than its row_ptr's, which sizes the
+    # output.
     g = generate.gnp(5000, 30000, seed=7)
     csr = g.csr()
     rp, col_dst = torch.from_numpy(csr.row_ptr), torch.from_numpy(csr.col_dst)
@@ -1022,22 +1210,18 @@ def test_split_table_wrappers_match_plain(dev):
     fr[g.nv:2 * g.nv] = torch.rand(g.nv) < 0.05
     q, start, _, offs = fq.frontier_queue(fr[g.nv:2 * g.nv], rp,
                                           int(fr[g.nv:2 * g.nv].sum()))
-    q = q + g.nv
-    total = int(offs[-1])
+    rows = q + g.nv
+    table = vals.reshape(3, g.nv)
+    starts, offss = torch.stack([start] * 3), torch.stack([offs] * 3)
+    cols = torch.stack([col_dst, g.nv - 1 - col_dst, col_dst.flip(0)])
+    total = 3 * int(offs[-1])
     for kind, relax_op in (("min", "add1"), ("max", "copy")):
-        out = vals[:g.nv].clone()
-        want = fq.queue_relax_scatter(q, start, offs, col_dst, vals, kind,
-                                      relax_op, total, out=out.clone())
-        d_out = out.to(dev)
-        got = fq.queue_relax_scatter(q.to(dev), start.to(dev), offs.to(dev),
-                                     col_dst.to(dev), vals.to(dev), kind,
-                                     relax_op, total, out=d_out)
-        assert got is d_out and torch.equal(got.cpu(), want)
-    d_vals = vals.to(dev)
-    with pytest.raises(ValueError, match="share memory"):
-        fq.queue_relax_scatter(q.to(dev), start.to(dev), offs.to(dev),
-                               col_dst.to(dev), d_vals, "min", "add1", total,
-                               out=d_vals[:g.nv])
+        want = _k7_per_part(rows, starts, offss, cols, table, kind, relax_op)
+        _cuda.reset_launches()
+        got = fq.queue_relax_scatter(*(x.to(dev) for x in (
+            rows, starts, offss, cols, table)), kind, relax_op, total)
+        assert _cuda.LAUNCHES["queue_relax_scatter"] == 1
+        assert torch.equal(got.cpu(), want)
     gk = generate.rmat(11, 12, seed=5)
     lanes, front = _gas_operands(3 * gk.nv, "add1", 0.3, 8, seed=2)
     col_src = torch.from_numpy(

@@ -243,11 +243,11 @@ def test_level_apply_ref_bitwise_matches_jax(m):
     want = jmtk.root_reduce(jnp.asarray(root_i), jgt.nvalid_root,
                             jgt.dst_row_ptr)
     got = tmtk.root_reduce(torch.from_numpy(root_i), tgt.nvalid_root,
-                           tgt.dst_row_ptr, tgt.dst_items)
+                           tgt.dst_row_ptr)
     _compare(got, want, True)
     root_f = rng.random(tx.shape, dtype=np.float32)
     got = tmtk.root_reduce(torch.from_numpy(root_f), tgt.nvalid_root,
-                           tgt.dst_row_ptr, tgt.dst_items)
+                           tgt.dst_row_ptr)
     _compare(got, _root_oracle(root_f, tg), False)
 
 
@@ -282,6 +282,32 @@ def test_grouped_tail_sums_match_jax_and_lane_select(name):
         got = tmtk.grouped_tail_sums(torch.from_numpy(x), tgt)
         _compare(got, jmtk.grouped_tail_sums(jnp.asarray(x), jgt), exact)
         _compare(got, tts.tail_sum(torch.from_numpy(x), tdh), exact)
+
+
+@pytest.mark.parametrize("name", ["r8", "cascade"])
+def test_grouped_tail_adds_into_the_strips_sums(name):
+    # K4 adds its row sums into the strips' sums (``out``): the same f32
+    # add per row as lux_tpu's ``strips_sum + grouped_tail_sums``, so
+    # equal bitwise to the sum of the two, and hybrid_spmv equals
+    # lux_tpu's on integral values.
+    jplan, jdh, tdh = _plans(name)
+    tail = (jplan.tail_sb, jplan.tail_lane, jplan.tail_row_ptr)
+    jgt = jmtk.DeviceGroupedTail.build(jmtp.plan_grouped_tail(*tail))
+    tgt = tmtk.DeviceGroupedTail.build(tmtp.plan_grouped_tail(*tail), CPU)
+    x_int, x_float = _operands(jplan.nvb, 5)
+    nv = jplan.nv
+    for x, exact in ((x_int, True), (x_float, False)):
+        tx = torch.from_numpy(x)
+        acc_s = tts.strips_sum(tx, tdh, nv)
+        want = acc_s + tmtk.grouped_tail_sums(tx, tgt)
+        out = acc_s.clone()
+        got = tmtk.grouped_tail_sums(tx, tgt, out=out)
+        assert got is out
+        assert torch.equal(got, want)
+        vals = tx.reshape(-1)[:nv].contiguous()
+        _compare(tts.hybrid_spmv(vals, tdh, tgt),
+                 jts.hybrid_spmv(jnp.asarray(vals.numpy()), jdh, jgt),
+                 exact)
 
 
 def _emulate_items(values, row_ptr, item_len):

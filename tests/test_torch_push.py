@@ -236,10 +236,10 @@ def test_segment_reduce_matches_lux_tpu(kind):
 
 
 def test_segment_item_rows_own_their_items():
-    # The work items of K1 and K4 (segment_items): each lies inside the
-    # row that owns it, and the rows own them in order.
+    # The work items of K1 (segment_items): each lies inside the row that
+    # owns it, and the rows own them in order; here items of 64 elements.
     g = tgen.rmat(10, 8, seed=0)
-    items = tseg.SegmentItems.build(g.row_ptr, tseg.SEG_ITEM, CPU)
+    items = tseg.SegmentItems.build(g.row_ptr, 64, CPU)
     lo, ri = items.item_lo.numpy(), items.row_items.numpy()
     rows = np.repeat(np.arange(g.nv), np.diff(ri))
     assert rows.shape == (items.n_items,) and items.nrows == g.nv

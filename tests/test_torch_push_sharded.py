@@ -144,14 +144,29 @@ def test_sharded_push_matches_lux_tpu(name, parts, mode, blocked, sparse,
 def test_all_sparse_path_matches_lux_tpu(parts, mode, monkeypatch):
     ex, rkw = _port("path", parts, mode, monkeypatch)
     assert ex.sparse
+    calls = []
+    real = tps.queue_relax_scatter
+
+    def spy(q, start, offs, *args, **kw):
+        # (receivers, whether the call would launch K7 on the card)
+        calls.append((start.shape[0] if start.dim() == 2 else 1,
+                      q.numel() > 0 and int(offs[..., -1].sum()) > 0))
+        return real(q, start, offs, *args, **kw)
+
+    monkeypatch.setattr(tps, "queue_relax_scatter", spy)
     state, iters = ex.run(**rkw)
     want, jiters, jsparse = _jax_run("path", parts, True)
     np.testing.assert_array_equal(ex.gather_values(state), want)
     np.testing.assert_array_equal(want, np.arange(1100, dtype=np.uint32))
     assert iters == ex.sparse_iters == jiters == jsparse == 1100
-    # One vertex a step: one part compacts a queue, at most two receive.
-    assert len(ex.queue_log) == 1100
-    assert all(k6 == 1 and 1 <= k7 <= 2 for k6, k7 in ex.queue_log[:-1])
+    # One vertex a step: one part compacts a queue, and one K7 call takes
+    # every receiving part; it launches while the queue has out-edges, as
+    # queue_log's K7 entry says.
+    assert len(ex.queue_log) == len(calls) == 1100
+    assert all(k6 == 1 for k6, _ in ex.queue_log[:-1])
+    assert all(p == parts for p, _ in calls)
+    assert all(launch for _, launch in calls[:-1])
+    assert [k7 for _, k7 in ex.queue_log] == [int(x) for _, x in calls]
 
 
 @pytest.mark.parametrize("parts", [2, 4, 8])
@@ -241,8 +256,9 @@ def test_per_part_kernels_match_lux_tpu_phases(name, mode, monkeypatch):
 
 
 def test_split_table_wrappers():
-    """K7's ``out``: the combine lands in a table of its own, read from
-    ``values`` at ``q``; K10 reads a table of more rows than its output."""
+    """K7 over P receivers: each combines into its own row of a copy of
+    the (P, n) values, its candidates read from the flat table at ``q``;
+    K10 reads a table of more rows than its output."""
     g = tgen.gnp(300, 2400, seed=5)
     csr = g.csr()
     rp = torch.from_numpy(csr.row_ptr)
@@ -252,25 +268,41 @@ def test_split_table_wrappers():
     fr = torch.zeros(300, dtype=torch.bool)
     fr[::7] = True
     q, start, _, offs = tfq.frontier_queue(fr, rp, int(fr.sum()))
-    total = int(offs[-1])
-    # The values of the queued rows sit in the second half of a table.
-    table = vals.clone()
-    want = tfq.queue_relax_scatter(q, start, offs, col_dst, table[300:],
-                                   "min", "add1", total)
-    out = vals[:300].clone()
-    before = out.clone()
-    got = tfq.queue_relax_scatter(q + 300, start, offs, col_dst, table,
-                                  "min", "add1", total, out=out)
-    assert got is out and torch.equal(table, vals)
-    # Combined into out's own values, not into the table's.
-    ref = tseg.combine_u32("min", before, torch.full_like(before, -1))
-    dst = tfq.queue_relax_scatter(q, start, offs, col_dst, table[300:],
-                                  "min", "add1", total,
-                                  out=torch.full_like(before, -1))
-    np.testing.assert_array_equal(
-        tseg.u32_to_numpy(got),
-        np.minimum(tseg.u32_to_numpy(before), tseg.u32_to_numpy(dst)))
-    assert not torch.equal(ref, want)
+    # The queued rows sit in the second row of a (2, 300) table; the two
+    # receivers take the same ranges into other destinations.
+    table = vals.clone().reshape(2, 300)
+    rows = q + 300
+    starts, offss = torch.stack([start, start]), torch.stack([offs, offs])
+    cols = torch.stack([col_dst, 299 - col_dst])
+    total = 2 * int(offs[-1])
+    for kind, relax_op, red in (("min", "add1", "amin"),
+                                ("max", "copy", "amax")):
+        got = tfq.queue_relax_scatter(rows, starts, offss, cols, table,
+                                      kind, relax_op, total)
+        assert got.shape == (2, 300)
+        assert torch.equal(table, vals.reshape(2, 300))
+        # The per-part loop: receiver p's candidates into row p alone.
+        flat = tseg.widen_u32(table).reshape(-1)
+        relax = tseg.RELAX_OPS[relax_op]
+        for p in range(2):
+            slot, edge = tfq.queue_edges(rows, starts[p], offss[p])
+            want = tseg.widen_u32(table[p]).scatter_reduce(
+                0, cols[p][edge].long(), relax(flat[rows.long()[slot]]),
+                reduce=red, include_self=True)
+            np.testing.assert_array_equal(tseg.u32_to_numpy(got[p]),
+                                          want.numpy().astype(np.uint32))
+        # One receiver over its own (n,) values is the single-device form.
+        one = tfq.queue_relax_scatter(q, start, offs, col_dst, table[1],
+                                      kind, relax_op, int(offs[-1]))
+        slot, edge = tfq.queue_edges(q, start, offs)
+        own = tseg.widen_u32(table[1])
+        want = own.scatter_reduce(0, col_dst[edge].long(),
+                                  relax(own[q.long()[slot]]), reduce=red,
+                                  include_self=True)
+        assert one.shape == (300,)
+        np.testing.assert_array_equal(tseg.u32_to_numpy(one),
+                                      want.numpy().astype(np.uint32))
+        assert not torch.equal(one, table[1])
     # K10 over the first 300 rows' CSC, reading a (600, 3) table.
     lanes = torch.stack([vals, vals.flip(0), vals.roll(5)], 1)
     front = torch.rand(600, 3, generator=torch.Generator().manual_seed(1)) < .3
