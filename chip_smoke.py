@@ -181,6 +181,37 @@ device and over the parts in both modes:
     branch, the exchange alone against its bytes bound; the single-device
     numbers of phase 6b beside them; and the phases' peak device memory.
 
+Then the sharded GAS engines (``ShardedAdaptiveExecutor``,
+``ShardedMultiSourceGasExecutor``) over the same 4 parts, on phase 3f's
+layouts of the graph and the closure and a layout of the weighted twin:
+adaptive BFS from vertex 0 in the full, compact and frontier exchange
+modes, DeltaSSSP from 0 on the weighted twin (full, frontier), label
+propagation on the graph and k-core (k = 4) on the closure (frontier,
+where the dense start downgrades to the compact send), 8-lane BFS
+(compact; root 0 and seven roots drawn with numpy seed 0) and PageRank
+through ``PullGasAdapter``:
+
+3h. the weighted twin's layout, the executors, their resolved modes,
+    budgets, ``frontier_cap``, ``frontier_evidence`` and exchange bytes
+    per iteration;
+4h. K11 in one launch over the 4 receiving parts, bitwise against its
+    plain version (two calls equal) on BFS's first frontier and at the
+    per-part queue cap on BFS's and DeltaSSSP's states after 2
+    iterations, with its time, the plain version's, one
+    ``scatter_reduce`` over the flat accumulator and its bound;
+5h. end to end: every run to its fixpoint bitwise equal to phase 5d's
+    single-device result with equal iterations (BFS parents too,
+    DeltaSSSP with zero violations), label propagation and k-core with
+    at least one downgrade, the direction ledgers logged, K10, K6 and
+    K11 launch counts checked against them; every lane of the 8-lane
+    run equal to a single-root run; PageRank ``run(10)`` against phase
+    5's f64 oracle with K8 once per part and iteration;
+6h. timing by ``bench_gas``'s discipline (``warmup``, then the median of
+    3 host-clock runs): ms to fixpoint and GTEPS, the run from a state
+    on the card, the ``phase_step`` split per branch (CUDA events), the
+    compact and frontier exchanges alone against their bytes bound, and
+    the 8-lane run with its K-lane compact exchange alone.
+
 Each phase group's seconds are logged. Any failure exits non-zero.
 Without a card it exits non-zero and prints no result. The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels as JSON.
@@ -398,10 +429,10 @@ def main(argv=None) -> int:
     for name, n in pull_totals.items():
         totals[name] += n
     torch.cuda.empty_cache()
-    for name, n in group("3d-6d gas", _gas_phases, g, gw, gu, oracle, dev,
-                         kernels).items():
+    gas_totals, gas_ctx = group("3d-6d gas", _gas_phases, g, gw, gu,
+                                oracle, dev, kernels)
+    for name, n in gas_totals.items():
         totals[name] += n
-    del gw
     torch.cuda.empty_cache()
     peak = max(peak, torch.cuda.max_memory_allocated())
     for name, n in group("3e-6e sharded pull", _sharded_phases, g, oracle,
@@ -410,9 +441,17 @@ def main(argv=None) -> int:
     peak = max(peak, torch.cuda.max_memory_allocated())
     del gc
     torch.cuda.empty_cache()
-    for name, n in group("3f-6f sharded push", _push_sharded_phases, g, gu,
-                         push_ctx, dev, kernels).items():
+    push_sharded_totals, sgs = group("3f-6f sharded push",
+                                     _push_sharded_phases, g, gu, push_ctx,
+                                     dev, kernels)
+    for name, n in push_sharded_totals.items():
         totals[name] = totals.get(name, 0) + n
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    for name, n in group("3h-6h sharded gas", _gas_sharded_phases, g, gw,
+                         gu, sgs, gas_ctx, oracle, dev, kernels).items():
+        totals[name] = totals.get(name, 0) + n
+    del gw, sgs
     peak = max(peak, torch.cuda.max_memory_allocated())
     log("[time] phase groups (s): " + ", ".join(
         f"{k}={v:.1f}" for k, v in group_s.items()))
@@ -1236,11 +1275,13 @@ def _gas_expected(log) -> dict:
     }
 
 
-def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
+def _gas_phases(g, gw, gu, pr_oracle, dev, kernels):
     """Phases 3d-6d on the GAS engine: BFS and label propagation on
     ``g``, DeltaSSSP on its weighted twin ``gw``, k-core (k = 4) on the
     closure ``gu``; returns the launch counts of the phase 5d runs,
-    summed."""
+    summed, and a context for the sharded GAS phases: each program's
+    oracle (which the phase 5d runs equal bitwise) and its adaptive
+    iteration count."""
     import torch
 
     from lux_tpu_torch.engine.check import count_violations
@@ -1456,7 +1497,7 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
             totals[name] += n
         return out, counts
 
-    oracles = {}
+    oracles, gas_ctx = {}, {}
     t = time.perf_counter()
     oracles["bfs"] = reference_bfs(g, 0)
     log(f"[gas] bfs oracle (numpy BFS, parents) in "
@@ -1504,6 +1545,8 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
                            _gas_expected(ex.direction_log))
             results[mode] = (vals, iters, ex.push_iters, ex.pull_iters,
                              ex.direction_switches)
+            if mode == "adaptive":
+                gas_ctx[app] = {"oracle": want, "iters": iters}
             extra = {k: v for k, v in ofin.items()
                      if not isinstance(v, np.ndarray)}
             log(f"[gas] {app} {mode}: fixpoint in {iters} iterations "
@@ -1588,8 +1631,10 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels) -> dict:
             log(f"[time] gas {app} {direction} phases (ms, median of "
                 f"{len(runs)}): " + ", ".join(
                     f"{k}={v:.3f}" for k, v in med.items()))
+        gas_ctx[app]["ms"] = sec * 1e3
         del st, st0
-    return totals
+    gas_ctx["bfs"]["parent"] = oracles["bfs"][1]
+    return totals, gas_ctx
 
 
 SHARDED_PARTS = 4
@@ -1806,7 +1851,9 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
     multi-source SSSP on one device and over the parts. ``push`` is
     phase 5b's context (oracles, iterations, ms to fixpoint, the SSSP
     executor). Returns the launch counts of the phase 5f runs, summed,
-    and under ``<kernel>[split]`` those of the split-table calls."""
+    and under ``<kernel>[split]`` those of the split-table calls; and the
+    two shard layouts (``rmat``, ``closure``) for the sharded GAS
+    phases."""
     import torch
 
     from lux_tpu_torch.engine.check import count_violations
@@ -2325,8 +2372,401 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
     log(f"[push-sharded] peak device memory of phases 3f-6f "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases "
         f"3f-6f took {time.perf_counter() - t_phase:.1f} s")
-    return totals
+    return totals, sgs
 
+
+
+GAS_SHARDED_APPS = {
+    # label -> (graph key, program maker, LUX_EXCHANGE, run kw, 5d app,
+    # bench.py's max_iters)
+    "bfs full": ("rmat", "bfs", "full"),
+    "bfs compact": ("rmat", "bfs", "compact"),
+    "bfs frontier": ("rmat", "bfs", "frontier"),
+    "sssp_delta full": ("weighted", "sssp_delta", "full"),
+    "sssp_delta frontier": ("weighted", "sssp_delta", "frontier"),
+    "labelprop frontier": ("rmat", "labelprop", "frontier"),
+    "kcore frontier": ("closure", "kcore", "frontier"),
+}
+
+
+def _gas_sharded_expected(ex) -> dict:
+    """Launches of one sharded GAS run from its direction log: K10 per
+    part and pull iteration; K6 per part with a frontier and push
+    iteration; K11 once per push iteration with out-edges."""
+    log = ex.direction_log
+    return {
+        "gas_pull_acc": ex.num_parts * sum(1 for e in log if e[0] == 0),
+        "frontier_queue": sum(sum(1 for c in e[4] if c)
+                              for e in log if e[0] == 1),
+        "gas_push_acc": sum(1 for e in log
+                            if e[0] == 1 and e[1] > 0 and e[2] > 0),
+    }
+
+
+def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
+                        kernels) -> dict:
+    """Phases 3h-6h on the sharded GAS engines over ``SHARDED_PARTS``
+    parts: adaptive BFS from 0 on ``g`` in the full, compact and frontier
+    exchange modes, DeltaSSSP from 0 on the weighted twin ``gw`` (full,
+    frontier), label propagation on ``g`` and k-core (k = 4) on the
+    closure ``gu`` (frontier, whose dense starts downgrade), 8-lane BFS
+    (compact) and PageRank through ``PullGasAdapter``. ``sgs`` holds
+    phase 3f's layouts of ``g`` and ``gu``; ``gas`` is phase 5d's context
+    (oracles, iterations, ms to fixpoint). Returns the launch counts of
+    the phase 5h runs, summed, and under ``gas_push_acc[sharded]`` K11's
+    launches over the parts."""
+    import torch
+
+    from lux_tpu_torch.engine.check import count_violations
+    from lux_tpu_torch.engine.gas import as_gas
+    from lux_tpu_torch.engine.gas_sharded import (
+        ShardedAdaptiveExecutor,
+        ShardedMultiSourceGasExecutor,
+    )
+    from lux_tpu_torch.models import (
+        BFS,
+        DeltaSSSP,
+        KCore,
+        LabelPropagation,
+        PageRank,
+    )
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops import frontier as fq
+    from lux_tpu_torch.ops import segment as seg
+    from lux_tpu_torch.parallel.mesh import make_mesh
+    from lux_tpu_torch.parallel.shard import ShardedGraph
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    P, K = SHARDED_PARTS, MULTI_LANES
+    mesh = make_mesh(P, dev)
+    flag = os.environ.get("LUX_EXCHANGE")
+    reps = 10
+
+    # -- 3h. the weighted twin's layout and the executors --------------------
+    t = time.perf_counter()
+    sgw = ShardedGraph.build(gw, P)
+    sgw.build_push_csr()
+    sgw.exchange_plan()
+    log(f"[gas-sharded] weighted twin: layout, push CSR and compact plan in "
+        f"{time.perf_counter() - t:.1f} s (the rmat and closure layouts are "
+        "phase 3f's)")
+    layouts = {"rmat": (g, sgs["rmat"]), "closure": (gu, sgs["closure"]),
+               "weighted": (gw, sgw)}
+    makers = {"bfs": BFS, "sssp_delta": DeltaSSSP,
+              "labelprop": LabelPropagation, "kcore": lambda: KCore(k=4)}
+    kws = {"bfs": {"start": 0}, "sssp_delta": {"start": 0},
+           "labelprop": {}, "kcore": {}}
+    max_iters = {"bfs": 32, "sssp_delta": 32, "labelprop": 16, "kcore": 32}
+    exs = {}
+
+    def build(label, mode, make):
+        if mode is None:
+            os.environ.pop("LUX_EXCHANGE", None)
+        else:
+            os.environ["LUX_EXCHANGE"] = mode
+        t = time.perf_counter()
+        ex = make()
+        torch.cuda.synchronize()
+        log(f"[gas-sharded] {label} executor (LUX_EXCHANGE={mode or 'unset'}"
+            f", resolved {ex.exchange_mode}) built in "
+            f"{time.perf_counter() - t:.1f} s; exchange_bytes_per_iter "
+            f"{ex.exchange_bytes_per_iter()}")
+        if ex.exchange_mode != (mode or "full"):
+            raise AssertionError(f"{label}: resolved {ex.exchange_mode}")
+        exs[label] = ex
+        return ex
+
+    for label, (key, app, mode) in GAS_SHARDED_APPS.items():
+        graph, sg = layouts[key]
+        ex = build(label, mode, lambda: ShardedAdaptiveExecutor(
+            graph, makers[app](), mesh=mesh, sg=sg))
+        log(f"[gas-sharded] {label}: P={P} max_nv={sg.max_nv} "
+            f"max_ne={sg.max_ne} hi/lo counts {ex.hi_count}/{ex.lo_count} "
+            f"queue_cap={ex.queue_cap} edge_budget={ex.edge_budget} "
+            f"frontier_cap={ex.frontier_cap} frontier_evidence="
+            f"{ex.frontier_evidence()}")
+    rng = np.random.default_rng(0)
+    has_out = np.flatnonzero(g.out_degrees > 0)
+    roots = [0] + rng.choice(has_out[has_out != 0], K - 1,
+                             replace=False).tolist()
+    mx = build("multi compact", "compact",
+               lambda: ShardedMultiSourceGasExecutor(
+                   g, BFS(), K, mesh=mesh, sg=sgs["rmat"]))
+    pr = build("pagerank", None, lambda: ShardedAdaptiveExecutor(
+        g, as_gas(PageRank()), mesh=mesh, sg=sgs["rmat"]))
+    if flag is None:
+        os.environ.pop("LUX_EXCHANGE", None)
+    else:
+        os.environ["LUX_EXCHANGE"] = flag
+    log(f"[gas-sharded] multi-source roots {roots}")
+
+    # -- 4h. K11 over the P receivers in one launch --------------------------
+    # BFS's first frontier (vertex 0) and a synthetic frontier of
+    # queue_cap vertices a part (drawn with the seed) on BFS's state after
+    # 2 iterations; DeltaSSSP (the f32 decode over all P rows) at the cap
+    # on its state after 2 iterations. Each bitwise against the plain
+    # version, which folds receiver by receiver.
+    row = None
+    for label, app in (("bfs full", "bfs"), ("sssp_delta full",
+                                            "sssp_delta")):
+        ex = exs[label]
+        prog = ex.program
+        weighted = prog.gather_op in seg.F32_GATHER_OPS
+        n = ex.sg.max_nv
+        mid, _ = ex.run(max_iters=2, **kws[app])
+        cap_fr = torch.zeros((P, n), dtype=torch.bool)
+        for p in range(P):
+            nv_p = int(ex.sg.local_nv[p])
+            cap_fr[p, torch.from_numpy(rng.choice(
+                nv_p, min(nv_p, ex.queue_cap), replace=False))] = True
+        cands = [("cap", mid._replace(frontier=cap_fr.to(dev)))]
+        if app == "bfs":
+            cands.insert(0, ("first frontier", ex.init_state(**kws[app])))
+        for what, st in cands:
+            stats = ex._frontier_stats(st)
+            rows, ids = ex._push_load(st, stats)
+            start, offs = ex._ranges(ids)
+            cnt, total = rows.numel(), stats.out_edges
+            if int(offs[:, -1].sum()) != total:
+                raise AssertionError(f"K11 {label} {what}: receivers' "
+                                     "totals differ from the out-edges")
+            args = (rows, start, offs, ex.push_dst_local, st.values,
+                    prog.combiner)
+
+            def call(args=args, prog=prog, ex=ex, total=total):
+                return fq.gas_push_acc(*args, prog.gather_op, total,
+                                       weights=ex.push_weights)
+
+            def plain(args=args, prog=prog, ex=ex):
+                return fq.gas_push_acc_plain(*args, prog.gather,
+                                             weights=ex.push_weights)
+
+            want = plain()
+            check_equal(f"K11 {P} receivers {label} {what}", call(), want)
+            check_equal(f"K11 {P} receivers {label} {what}, twice", call(),
+                        want)
+            ms = cuda_ms(call, reps)
+            plain_ms = cuda_ms(plain, 2)
+            # Yardstick: one scatter_reduce over the flat (P * max_nv)
+            # accumulator, every receiver's messages and destinations
+            # built beforehand.
+            vals, dom = seg.gas_widen(st.values.reshape(-1))
+            dsts, msgs = [], []
+            for p in range(P):
+                slot, edge = fq.queue_edges(rows, start[p], offs[p])
+                dsts.append(ex.push_dst_local[p][edge].long() + p * n)
+                msgs.append(prog.gather(
+                    vals[rows.long()[slot]],
+                    ex.push_weights[p][edge] if weighted else None))
+            dst, msg = torch.cat(dsts), torch.cat(msgs)
+            acc0 = torch.full((P * n,), seg.identity_for(prog.combiner, dom),
+                              dtype=msg.dtype, device=dev)
+            red = {"min": "amin", "max": "amax", "sum": "sum"}[prog.combiner]
+            lib_ms = cuda_ms(lambda: acc0.scatter_reduce(
+                0, dst, msg, reduce=red, include_self=True), reps)
+            del dsts, msgs, dst, msg, acc0, vals, want
+            # The queue's rows and values, each receiver's start and offs,
+            # the edges read (destination, and weight for add_w) and the
+            # (P, max_nv) accumulator written.
+            nbytes = 8 * cnt + 16 * P * cnt + 8 * P \
+                + 4 * total * (2 if weighted else 1) + 4 * P * n
+            log(f"[gas-sharded] K11 over {P} receivers, {label} {what}: "
+                f"queue {cnt}, {total} edges (receivers "
+                f"{offs[:, -1].tolist()}): bitwise, two calls equal; "
+                f"{ms:.4f} ms (plain {plain_ms:.4f}, one scatter_reduce "
+                f"{lib_ms:.4f}, bound {bound(nbytes, total)[0]:.4f})")
+            if row is None:
+                row = (ms, plain_ms, nbytes, total, lib_ms)
+        del mid, cands, st, args
+    record(kernels, "gas_push_acc[sharded]", "lux_tpu_torch/csrc/gas.cu",
+           "lux_tpu/engine/gas_sharded.py:362", 0.0, row[0], row[1], row[2],
+           row[3], row[4])
+    torch.cuda.empty_cache()
+
+    # -- 5h. end to end -------------------------------------------------------
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    totals["gas_push_acc[sharded]"] = 0
+
+    def counted(fn):
+        _cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        for name, v in counts.items():
+            totals[name] += v
+        return out, counts
+
+    finals = {}
+    for label, (key, app, mode) in GAS_SHARDED_APPS.items():
+        ex = exs[label]
+        graph = layouts[key][0]
+        (st, iters), counts = counted(lambda: ex.run(**kws[app]))
+        vals = ex.gather_values(st)
+        ref = gas[app]
+        if vals.shape != (graph.nv,) or vals.dtype != ref["oracle"].dtype:
+            raise AssertionError(f"sharded {label}: bad output {vals.shape} "
+                                 f"{vals.dtype}")
+        if not np.array_equal(vals, ref["oracle"]):
+            raise AssertionError(
+                f"sharded {label}: {int(np.sum(vals != ref['oracle']))} "
+                "values differ from phase 5d's")
+        if iters != ref["iters"]:
+            raise AssertionError(f"sharded {label}: {iters} iterations, "
+                                 f"phase 5d {ref['iters']}")
+        if app == "bfs" and not np.array_equal(ex.finalize(st)["parent"],
+                                               ref["parent"]):
+            raise AssertionError(f"sharded {label}: parents differ")
+        if app == "sssp_delta":
+            viol = count_violations(graph, vals, ex.program)
+            if viol:
+                raise AssertionError(f"sharded {label}: {viol} violations")
+        if app in ("labelprop", "kcore") and ex.exchange_downgrades < 1:
+            raise AssertionError(f"sharded {label}: the dense start did not "
+                                 "downgrade")
+        check_launches(f"sharded {label}", counts, _gas_sharded_expected(ex))
+        totals["gas_push_acc[sharded]"] += counts["gas_push_acc"]
+        log(f"[gas-sharded] {label}: fixpoint in {iters} iterations "
+            f"({ex.push_iters} push, {ex.pull_iters} pull, "
+            f"{ex.direction_switches} switches, {ex.exchange_downgrades} "
+            f"downgrades) equals phase 5d's single-device run bitwise; "
+            f"ledger (direction, count, out-edges, branch) "
+            f"{[e[:4] for e in ex.direction_log]}; launches "
+            f"{ {k: counts[k] for k in GAS_KERNELS} }")
+        finals[label] = vals
+    for a, b in (("bfs compact", "bfs full"), ("bfs frontier", "bfs full"),
+                 ("sssp_delta frontier", "sssp_delta full")):
+        if not np.array_equal(finals[a], finals[b]):
+            raise AssertionError(f"sharded {a} differs from {b}")
+    del finals
+    # 8 lanes against single-root runs of the sharded BFS.
+    (st, iters), counts = counted(lambda: mx.run(roots))
+    check_launches("sharded multi compact", counts,
+                   {"gas_pull_acc": P * iters})
+    single = exs["bfs full"]
+    longest = 0
+    for j, r in enumerate(roots):
+        sst, sn = single.run(start=r)
+        longest = max(longest, sn)
+        if not np.array_equal(mx.values_for(st, j),
+                              single.gather_values(sst)):
+            raise AssertionError(f"sharded multi-source lane {j} (root {r}) "
+                                 "differs from its single-root run")
+    if iters != longest:
+        raise AssertionError(f"sharded multi-source: {iters} iterations, "
+                             f"longest single-root run {longest}")
+    log(f"[gas-sharded] multi compact bfs k={K}: {iters} iterations; every "
+        f"lane equals its single-root run bitwise; launches K10 "
+        f"{counts['gas_pull_acc']} = {P} parts x {iters}")
+    del st, sst
+    # PageRank through the pull adapter: K8 once per part and iteration.
+    (st, iters), counts = counted(lambda: pr.run(max_iters=ITERS))
+    out = pr.gather_values(st)
+    if out.shape != (g.nv,) or not np.all(np.isfinite(out)):
+        raise AssertionError(f"sharded gas pagerank: bad output {out.shape}")
+    np.testing.assert_allclose(out, pr_oracle, rtol=RTOL, atol=ATOL,
+                               err_msg="sharded gas pagerank vs f64 oracle")
+    check_launches("sharded gas pagerank", counts,
+                   {"gather_segment_sum": P * ITERS})
+    log(f"[gas-sharded] pagerank through PullGasAdapter: run({ITERS}) "
+        f"matches the f64 oracle (max abs err "
+        f"{float(np.max(np.abs(out.astype(np.float64) - pr_oracle))):.3e});"
+        f" launches K8 {counts['gather_segment_sum']}")
+    del st, out
+    torch.cuda.empty_cache()
+
+    # -- 6h. timing -----------------------------------------------------------
+    for label, (key, app, mode) in GAS_SHARDED_APPS.items():
+        ex = exs[label]
+        graph = layouts[key][0]
+        kw, mi = kws[app], max_iters[app]
+        ex.warmup(**kw)
+        secs = [host_seconds(lambda: ex.run(max_iters=mi, **kw))
+                for _ in range(3)]
+        sec = float(np.median(secs))
+        iters = len(ex.direction_log)
+        st0 = ex.init_state(**kw)
+        iter_sec = float(np.median([host_seconds(
+            lambda: ex.run(max_iters=mi, state=st0)) for _ in range(3)]))
+        log(f"[time] sharded gas {label}: {iters} iterations "
+            f"({ex.push_iters} push/{ex.pull_iters} pull, "
+            f"{ex.exchange_downgrades} downgrades) in {sec * 1e3:.3f} ms "
+            f"(median of 3: {[round(x * 1e3, 3) for x in secs]}), "
+            f"{sec / iters * 1e3:.3f} ms/iteration, "
+            f"{graph.ne * iters / sec / 1e9:.3f} GTEPS; run from a device "
+            f"state {iter_sec * 1e3:.3f} ms; single-device "
+            f"{gas[app]['ms']:.3f} ms (phase 6d)")
+        st = ex.init_state(**kw)
+        ex.warmup_phases(st)
+        split, pull_state = {}, None
+        for _ in range(mi):
+            before = st
+            st, c, times = ex.phase_step(st)
+            branch = times.pop("branch")
+            times.pop("downgraded")
+            split.setdefault(branch, []).append(times)
+            if branch.startswith("pull") and pull_state is None:
+                pull_state = before
+            if c == 0:
+                break
+        for branch, runs in sorted(split.items()):
+            med = {k: float(np.median([r[k] for r in runs])) * 1e3
+                   for k in runs[0]}
+            log(f"[time] sharded gas {label} {branch} phases (ms, median of "
+                f"{len(runs)}; CUDA events): " + ", ".join(
+                    f"{k}={v:.3f}" for k, v in med.items()))
+        if ex._xch is not None and pull_state is not None:
+            stats = ex._frontier_stats(pull_state)
+            rows_all = P * ex.sg.max_nv
+            # The stacks of values and frontier read once, every
+            # receiver's tables of both written once.
+            x_bytes = 5 * rows_all + 5 * P * rows_all
+            sends = [("compact", lambda: (ex._xch.tables(pull_state.values),
+                                          ex._xch.tables(
+                                              pull_state.frontier)))]
+            if ex._fx is not None and stats.widest <= ex.frontier_cap:
+                sends.append(("frontier", lambda: ex._fx.tables(
+                    pull_state.values, pull_state.frontier)))
+            widest = (f", widest pair {stats.widest} of frontier_cap "
+                      f"{ex.frontier_cap}" if ex._fx is not None else "")
+            for what, fn in sends:
+                x_ms = cuda_ms(fn, reps)
+                log(f"[time] sharded gas {label} {what} exchange alone (a "
+                    f"pull state of {stats.count} active{widest}): "
+                    f"{x_ms:.4f} ms (mean of {reps}, CUDA events) against a "
+                    f"bytes bound of {bound(x_bytes, 0)[0]:.4f} ms "
+                    f"({x_bytes} B); {ex.exchange_bytes_per_iter()} B per "
+                    "iteration priced as interconnect bytes")
+        del st, st0, pull_state
+    mx.warmup(start=roots[0])
+    secs = [host_seconds(lambda: mx.run(roots)) for _ in range(3)]
+    sec = float(np.median(secs))
+    st0 = mx.init_state(roots)
+    x_ms = cuda_ms(lambda: mx._load(st0), reps)
+    rows_all = P * mx.sg.max_nv
+    x_bytes = 5 * K * rows_all * (P + 1)
+    log(f"[time] sharded gas multi compact bfs k={K}: {mx.pull_iters} "
+        f"iterations in {sec * 1e3:.3f} ms (median of 3: "
+        f"{[round(x * 1e3, 3) for x in secs]}), "
+        f"{sec / mx.pull_iters * 1e3:.3f} ms/iteration, "
+        f"{g.ne * mx.pull_iters / sec / 1e9:.3f} GTEPS ({K} lanes each); "
+        f"its K-lane compact exchange alone {x_ms:.4f} ms (mean of {reps}) "
+        f"against a bytes bound of {bound(x_bytes, 0)[0]:.4f} ms "
+        f"({x_bytes} B); {mx.exchange_bytes_per_iter()} B per iteration "
+        "priced as interconnect bytes")
+    del st0
+    pr.warmup()
+    secs = [host_seconds(lambda: pr.run(max_iters=ITERS)) for _ in range(3)]
+    sec = float(np.median(secs))
+    log(f"[time] sharded gas pagerank (PullGasAdapter, {pr.exchange_mode}): "
+        f"{sec / ITERS * 1e3:.3f} ms/iteration (median of 3 run({ITERS}): "
+        f"{[round(x * 1e3, 3) for x in secs]}), "
+        f"{g.ne * ITERS / sec / 1e9:.3f} GTEPS")
+    del exs, mx, pr, sgw, layouts
+    log(f"[gas-sharded] peak device memory of phases 3h-6h "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases "
+        f"3h-6h took {time.perf_counter() - t_phase:.1f} s")
+    return totals
 
 
 def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:

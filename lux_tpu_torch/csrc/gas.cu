@@ -93,7 +93,12 @@
 // ops, in one cooperative launch: it fills the accumulator with the
 // identity (its key for f32 min), waits at a grid barrier, folds the edges
 // over a stage of the queue in shared memory and, for f32 min, decodes the
-// keys after a second barrier.
+// keys after a second barrier. It takes one receiver (the single-device
+// engine) or, as K7 does, the P receiving parts of a sharded graph in the
+// same launch: lux_tpu/engine/gas_sharded.py::_push_comp runs once per
+// shard over the all-gathered queue, each into its own (max_nv,)
+// accumulator; here receiver p folds through its own push CSR into row p of
+// one (P, max_nv) accumulator, and the fill and the decode cover all rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -454,13 +459,16 @@ cudaError_t run_relax(const void* packed, const void* values,
 
 template <class C, class G>
 cudaError_t run_push(const void* q, const void* start, const void* offs,
-                     int64_t cnt, int64_t total, const void* col_dst,
+                     int64_t cnt, int parts, int64_t total,
+                     const void* col_dst, int64_t dst_stride,
                      const void* weights, const void* val, void* acc,
-                     int64_t n_acc, void* scratch, cudaStream_t st) {
+                     int64_t acc_stride, int64_t n_acc, void* scratch,
+                     cudaStream_t st) {
   const Receivers r{static_cast<const int64_t*>(start),
                     static_cast<const int64_t*>(offs),
                     static_cast<const int*>(col_dst),
-                    static_cast<const int*>(weights), cnt, 0, 0, 1};
+                    static_cast<const int*>(weights), cnt, dst_stride,
+                    acc_stride, parts};
   return queue_fold<C, G, kInitFill>(q, r, val, acc, n_acc, total, scratch,
                                      st);
 }
@@ -534,21 +542,29 @@ extern "C" int lux_frontier_bits(const void* frontier, int64_t n, int k,
                         static_cast<cudaStream_t>(stream));
 }
 
-// q, start: (cnt,) queue of K6, cnt >= 1; offs: (cnt+1,) exclusive degree
-// prefix, offs[cnt] == total; col_dst, weights: the CSR's (weights read for
-// add_w only); values: (nv,) uint32 or f32 by op. acc: n_acc = nv words,
-// written: the identity combined with the messages, as f32 for f32 ops.
-// scratch: K6's, whose first two words are the grid barrier's.
+// q: (cnt,) queue of K6 (rows of val), cnt >= 1; per receiver p < parts (1
+// to kQueueMaxParts, more is refused): start (parts, cnt) and offs (parts,
+// cnt + 1) its CSR ranges at the queue and their exclusive prefix
+// (offs[p][cnt] its edge total), col_dst and weights (parts, dst_stride) its
+// CSR destinations and weights (weights read for add_w only). val: uint32 or
+// f32 by op, the rows q indexes. acc: (parts, acc_stride) words, n_acc =
+// parts * acc_stride, written: receiver p's row the identity combined with
+// its messages, as f32 for f32 ops (the identity fill and the f32 decode run
+// over all n_acc words). One receiver: parts 1, strides unused (0). total:
+// the receivers' edges together (sizes the grid only). scratch: K6's, whose
+// first two words are the grid barrier's.
 extern "C" int lux_gas_push_acc(const void* q, const void* start,
-                                const void* offs, int64_t cnt, int64_t total,
-                                const void* col_dst, const void* weights,
+                                const void* offs, int64_t cnt, int parts,
+                                int64_t total, const void* col_dst,
+                                int64_t dst_stride, const void* weights,
                                 const void* values, int op, void* acc,
-                                int64_t n_acc, void* scratch, void* stream) {
+                                int64_t acc_stride, int64_t n_acc,
+                                void* scratch, void* stream) {
   if (op < 0 || op > 4) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LUX_PUSH(C, G)                                                    \
-  run_push<C, G>(q, start, offs, cnt, total, col_dst, weights, values, acc, \
-                 n_acc, scratch, st)
+#define LUX_PUSH(C, G)                                                     \
+  run_push<C, G>(q, start, offs, cnt, parts, total, col_dst, dst_stride,   \
+                 weights, values, acc, acc_stride, n_acc, scratch, st)
   switch (op) {
     case 0:
       return (int)LUX_PUSH(MinU32, Add1);

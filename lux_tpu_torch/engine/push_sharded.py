@@ -88,6 +88,51 @@ from lux_tpu_torch.parallel.shard import ShardedGraph
 from lux_tpu_torch.utils.logging import get_logger
 
 
+class SparseQueue:
+    """The push-direction branch of a sharded executor, shared by
+    :class:`ShardedPushExecutor` (K7) and the sharded GAS engine (K11):
+    each part's frontier queue (K6) and every receiver's push-CSR ranges
+    at the all-gathered queue. Needs ``sg``, ``device`` and ``_put``."""
+
+    sg: ShardedGraph
+    device: torch.device
+
+    def _build_queue(self) -> None:
+        """The push CSR (``build_push_csr``, keyed by global source) and
+        the per-part out-degrees on the device."""
+        prp, pdst, pw = self.sg.build_push_csr()
+        self.push_row_ptr = self._put(prp.astype(np.int64))
+        self.push_dst_local = self._put(pdst)
+        self.push_weights = None if pw is None else self._put(pw)
+        self.out_degrees = self._put(self.sg.out_degrees)
+        # K6 also reads a row pointer into start/deg/offs, which the
+        # branch does not use (each receiver expands the queue through
+        # its own push CSR, keyed by global id): one zero row pointer
+        # serves every part.
+        self._queue_row_ptr = torch.zeros(self.sg.max_nv + 1,
+                                          dtype=torch.int64,
+                                          device=self.device)
+
+    def _queue(self, frontier: torch.Tensor, counts):
+        """Each part's frontier queue (K6, none for a part whose count is
+        0), in part order: the all-gathered queue as (flat rows int32,
+        global ids int64)."""
+        n = self.sg.max_nv
+        rows, ids = [], []
+        for p, cnt in enumerate(counts):
+            q = frontier_queue(frontier[p], self._queue_row_ptr, cnt)[0]
+            rows.append(q + p * n)
+            ids.append(q.long() + int(self.sg.row_left[p]))
+        return torch.cat(rows), torch.cat(ids)
+
+    def _ranges(self, ids: torch.Tensor):
+        """Every receiver's push-CSR ranges at global ``ids``: (P, cnt)
+        ``start`` and their exclusive prefix, (P, cnt + 1) ``offs``."""
+        start = self.push_row_ptr[:, ids]
+        deg = self.push_row_ptr[:, ids + 1] - start
+        return start, torch.nn.functional.pad(deg.cumsum(1), (1, 0))
+
+
 class _ShardedPush(ShardedBase):
     """The padded uint32 state of the two sharded push executors, whose
     exchanged row is a uint32 value and a frontier byte per lane."""
@@ -106,7 +151,7 @@ class _ShardedPush(ShardedBase):
         return self.sg.from_padded(u32_to_numpy(state.values))
 
 
-class ShardedPushExecutor(_ShardedPush, FixpointLoop):
+class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
     """Push executor over the ``num_parts`` parts of a :class:`LocalMesh`
     (``cuda`` unless ``device`` or ``mesh`` names another), with the
     single-device engine's two branches chosen per iteration from
@@ -177,18 +222,7 @@ class ShardedPushExecutor(_ShardedPush, FixpointLoop):
             self.queue_cap, self.edge_budget = _sparse_budgets(
                 sg.max_nv, sg.max_ne, queue_frac, edge_budget_frac)
             self.tiers = _make_tiers(self.queue_cap, self.edge_budget)
-            prp, pdst, pw = sg.build_push_csr()
-            self.push_row_ptr = self._put(prp.astype(np.int64))
-            self.push_dst_local = self._put(pdst)
-            self.push_weights = None if pw is None else self._put(pw)
-            self.out_degrees = self._put(sg.out_degrees)
-            # K6 also reads a row pointer into start/deg/offs, which the
-            # sparse branch does not use (each receiver expands the queue
-            # through its own push CSR, keyed by global id): one zero row
-            # pointer serves every part.
-            self._queue_row_ptr = torch.zeros(sg.max_nv + 1,
-                                              dtype=torch.int64,
-                                              device=self.device)
+            self._build_queue()
         self.sparse_iters = 0
         self.branch_log: List[tuple] = []
         self.queue_log: List[tuple] = []
@@ -219,14 +253,7 @@ class ShardedPushExecutor(_ShardedPush, FixpointLoop):
     def _sparse_load(self, state: PushState, stats):
         """Each part's frontier queue (K6), in part order: the
         all-gathered queue as (flat rows int32, global ids int64)."""
-        n = self.sg.max_nv
-        rows, ids = [], []
-        for p, cnt in enumerate(stats[2]):
-            q = frontier_queue(state.frontier[p], self._queue_row_ptr,
-                               cnt)[0]
-            rows.append(q + p * n)
-            ids.append(q.long() + int(self.sg.row_left[p]))
-        return torch.cat(rows), torch.cat(ids)
+        return self._queue(state.frontier, stats[2])
 
     def _sparse_new(self, state: PushState, queue, stats) -> torch.Tensor:
         """(P, max_nv) new values: one K7 launch over the queue's
@@ -235,9 +262,7 @@ class ShardedPushExecutor(_ShardedPush, FixpointLoop):
         out-edges over all parts, is the receivers' edge total."""
         prog = self.program
         rows, ids = queue
-        start = self.push_row_ptr[:, ids]
-        deg = self.push_row_ptr[:, ids + 1] - start
-        offs = torch.nn.functional.pad(deg.cumsum(1), (1, 0))
+        start, offs = self._ranges(ids)
         new = queue_relax_scatter(
             rows, start, offs, self.push_dst_local, state.values,
             prog.combiner, prog.relax_op, stats[1], relax=prog.relax,

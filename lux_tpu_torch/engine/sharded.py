@@ -54,7 +54,10 @@ class ShardedBase:
 
     def _setup(self, graph: Graph, program, mesh: Optional[LocalMesh],
                num_parts: Optional[int], sg: Optional[ShardedGraph],
-               device) -> None:
+               device, frontier_ok: bool = False) -> None:
+        """The mesh, partition and exchange mode; ``frontier_ok`` (an
+        exchange that carries per-iteration activity) lets
+        ``LUX_EXCHANGE=frontier`` stay frontier, else it runs compact."""
         if program.needs_weights and graph.weights is None:
             raise ValueError(f"{program.name} requires an edge-weighted graph")
         self.mesh = mesh_for(mesh, num_parts, device)
@@ -65,7 +68,7 @@ class ShardedBase:
         self.sg = validated_sg(sg, graph, self.num_parts)
         # The mode is captured here, once; a downgrade is logged.
         self.exchange_mode, self._xplan = resolve_exchange(
-            self.sg, get_logger("engine"))
+            self.sg, get_logger("engine"), frontier_ok=frontier_ok)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)

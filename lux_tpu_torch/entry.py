@@ -4,22 +4,25 @@
   :class:`TiledPullExecutor` with PageRank, and ``(step_fn,
   example_args)`` where ``step_fn(*example_args)`` runs one iteration in
   internal vertex order.
-- ``dryrun_multichip(n)``: the sharded pull, tiled and push engines over
-  ``n`` parts of a :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` (one
-  device), checked against their oracles.
+- ``dryrun_multichip(n)``: the sharded pull, tiled, push and GAS
+  engines over ``n`` parts of a
+  :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` (one device), checked
+  against their oracles.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from lux_tpu_torch.engine.gas_sharded import ShardedAdaptiveExecutor
 from lux_tpu_torch.engine.program import VertexCtx
 from lux_tpu_torch.engine.pull_sharded import ShardedPullExecutor
 from lux_tpu_torch.engine.push_sharded import ShardedPushExecutor
 from lux_tpu_torch.engine.tiled import TiledPullExecutor
 from lux_tpu_torch.engine.tiled_sharded import ShardedTiledExecutor
 from lux_tpu_torch.graph import generate
-from lux_tpu_torch.models import SSSP, ConnectedComponents, PageRank
+from lux_tpu_torch.models import BFS, SSSP, ConnectedComponents, PageRank
+from lux_tpu_torch.models.bfs import reference_bfs
 from lux_tpu_torch.models.components import reference_components
 from lux_tpu_torch.models.pagerank import reference_pagerank
 from lux_tpu_torch.models.sssp import reference_sssp
@@ -51,7 +54,9 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     on its undirected closure, push CC to fixpoint and
     push SSSP from vertex 0 with ``__graft_entry__``'s small sparse
     budgets (so the queue branch runs too), each bitwise against its
-    oracle."""
+    oracle; and adaptive BFS from vertex 0 on the closure through the
+    sharded GAS engine with half ``lux_tpu``'s edge budget, bitwise
+    against ``reference_bfs``, taking both directions."""
     mesh = make_mesh(n_devices, device)
     g = generate.rmat(10, 8, seed=0)
     pull = ShardedPullExecutor(g, PageRank(), mesh=mesh)
@@ -73,7 +78,19 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
         raise AssertionError("the sparse branch did not run")
     np.testing.assert_array_equal(sssp.gather_values(state),
                                   reference_sssp(gsym, 0))
-    print(f"dryrun_multichip({n_devices}): sharded pull and tiled PageRank "
-          f"and push CC and SSSP (dense and sparse) steps executed OK on "
-          f"{mesh} (exchange {pull.exchange_mode}; tiled exchange "
-          f"{tiled.exchange_mode})")
+    # Half lux_tpu's edge budget fits the hub's 1,062 out-edges, so the
+    # first iteration pushes.
+    bfs = ShardedAdaptiveExecutor(gsym, BFS(), mesh=mesh,
+                                  edge_budget_frac=2)
+    state, _ = bfs.run(start=0)
+    if bfs.push_iters == 0 or bfs.pull_iters == 0:
+        raise AssertionError(f"sharded BFS took one direction only: "
+                             f"{bfs.push_iters} push, {bfs.pull_iters} pull")
+    np.testing.assert_array_equal(bfs.gather_values(state),
+                                  reference_bfs(gsym, 0)[0])
+    print(f"dryrun_multichip({n_devices}): sharded pull and tiled PageRank, "
+          f"push CC and SSSP (dense and sparse) and adaptive GAS BFS "
+          f"({bfs.push_iters} push, {bfs.pull_iters} pull) steps executed "
+          f"OK on {mesh} (exchange {pull.exchange_mode}; tiled exchange "
+          f"{tiled.exchange_mode}; GAS exchange {bfs.exchange_mode}, "
+          f"{bfs.exchange_downgrades} downgrades)")

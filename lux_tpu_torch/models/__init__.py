@@ -64,19 +64,20 @@ ROOTED_APPS = rooted_apps()
 # Which executor kinds of this package can run each program: lux_tpu's
 # table with the kinds not yet ported left out (each entry keeps
 # lux_tpu's order). tiled is spmv-only; push needs a PushProgram; the
-# multi-source kinds (push_multi, gas_multi) need a rooted frontier
-# program; gas runs every program (PullPrograms as frontier-less dense
-# pull); the *_sharded kinds run over the parts of a LocalMesh.
+# multi-source kinds (push_multi, gas_multi, gas_multi_sharded) need a
+# rooted frontier program; gas and gas_sharded run every program
+# (PullPrograms as frontier-less dense pull); the *_sharded kinds run
+# over the parts of a LocalMesh.
 ENGINE_KINDS = {
-    "pagerank": ("pull", "tiled", "pull_sharded", "gas"),
+    "pagerank": ("pull", "tiled", "pull_sharded", "gas", "gas_sharded"),
     "sssp": ("push", "push_multi", "push_sharded", "push_multi_sharded",
-             "gas", "gas_multi"),
-    "components": ("push", "push_sharded", "gas"),
-    "colfilter": ("pull", "pull_sharded", "gas"),
-    "bfs": ("gas", "gas_multi"),
-    "sssp_delta": ("gas", "gas_multi"),
-    "labelprop": ("gas",),
-    "kcore": ("gas",),
+             "gas", "gas_multi", "gas_sharded", "gas_multi_sharded"),
+    "components": ("push", "push_sharded", "gas", "gas_sharded"),
+    "colfilter": ("pull", "pull_sharded", "gas", "gas_sharded"),
+    "bfs": ("gas", "gas_multi", "gas_sharded", "gas_multi_sharded"),
+    "sssp_delta": ("gas", "gas_multi", "gas_sharded", "gas_multi_sharded"),
+    "labelprop": ("gas", "gas_sharded"),
+    "kcore": ("gas", "gas_sharded"),
 }
 
 

@@ -79,10 +79,10 @@ _SIGNATURES = {
                          _INT, _P, _P, _P),
     # frontier, n, k, bits, stream
     "lux_frontier_bits": (_P, _I64, _INT, _P, _P),
-    # q, start, offs, cnt, total, col_dst, weights, values, op, acc, n_acc,
-    # scratch, stream
-    "lux_gas_push_acc": (_P, _P, _P, _I64, _I64, _P, _P, _P, _INT, _P, _I64,
-                         _P, _P),
+    # q, start, offs, cnt, parts, total, col_dst, dst_stride, weights,
+    # values, op, acc, acc_stride, n_acc, scratch, stream
+    "lux_gas_push_acc": (_P, _P, _P, _I64, _INT, _I64, _P, _I64, _P, _P,
+                         _INT, _P, _I64, _I64, _P, _P),
     # x, idx, rows, L, S, axis, idx_bytes, out, stream
     "lux_block_take": (_P, _P, _I64, _INT, _INT, _INT, _INT, _P, _P),
     # cand, l, s, R, out, stream

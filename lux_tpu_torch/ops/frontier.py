@@ -20,8 +20,10 @@ its branch), so the queue and the edge slots are sized exactly:
   the P receiving parts of a sharded graph at once;
 - :func:`gas_push_acc` (K11, ``csrc/gas.cu``) expands the same ranges,
   gathers with the CSR weights and combines into an identity-filled
-  accumulator (``lux_tpu/engine/gas.py::AdaptiveExecutor._push_acc``);
-  k-core's sum needs the identity fill.
+  accumulator (``lux_tpu/engine/gas.py::AdaptiveExecutor._push_acc``),
+  for one receiver or for the P receiving parts of a sharded graph at
+  once (``lux_tpu/engine/gas_sharded.py::_push_comp``, one per shard
+  there); k-core's sum needs the identity fill.
 
 K7 and K11 are one cooperative launch each (``csrc/gas_ops.cuh``): the
 copy or the identity fill, the fold and (f32) the decode, split by grid
@@ -252,20 +254,28 @@ def gas_push_acc_plain(
     gather: EdgeFn,
     weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K11's plain version: an identity-filled (nv,) accumulator into
+    """K11's plain version: an identity-filled accumulator of ``values``'
+    shape and storage type (int32 words of uint32 bits, or f32) into
     which, for every out-edge (u -> d) of every queued u,
-    ``gather(values[u], w)`` is combined with ``kind`` (min, max or sum)
-    at d; values' storage type (int32 words of uint32 bits, or f32)."""
-    slot, edge = queue_edges(q, start, offs)
+    ``gather(values.flat[u], w)`` is combined with ``kind`` (min, max or
+    sum) at d. ``q`` indexes the flat values. With 1-D ``start``,
+    ``offs`` and ``col_dst`` (one receiver), d indexes the (nv,) values;
+    with (P, ...) ones (P receivers), receiver p's d index row p of the
+    (P, n) accumulator and its edges are ``col_dst[p]`` (and
+    ``weights[p]``)."""
+    recv, rows = _receivers(start, offs, col_dst, weights, values)
     vals, dom = gas_widen(values)
-    msg = gather(vals[q.long()[slot]],
-                 None if weights is None else weights[edge])
-    acc = torch.full(values.shape, identity_for(kind, dom), dtype=msg.dtype,
-                     device=values.device)
+    flat = vals.reshape(-1)
     reduce = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
-    acc = acc.scatter_reduce(0, col_dst[edge].long(), msg, reduce=reduce,
-                             include_self=True)
-    return gas_narrow(acc, values)
+    accs = []
+    for st, of, cd, w in recv:
+        slot, edge = queue_edges(q, st, of)
+        msg = gather(flat[q.long()[slot]], None if w is None else w[edge])
+        acc = torch.full(rows.shape[1:], identity_for(kind, dom),
+                         dtype=msg.dtype, device=values.device)
+        accs.append(acc.scatter_reduce(0, cd[edge].long(), msg,
+                                       reduce=reduce, include_self=True))
+    return gas_narrow(torch.stack(accs).reshape(values.shape), values)
 
 
 def gas_push_acc(
@@ -282,48 +292,62 @@ def gas_push_acc(
 ) -> torch.Tensor:
     """The GAS engine's push-direction accumulator (see
     :func:`gas_push_acc_plain`) over the queue of :func:`frontier_queue`.
-    ``total`` is the queue's out-edge count (``offs[-1]``), which the
-    caller knows.
+    ``total`` is the queue's out-edge count over all receivers (the sum
+    of ``offs[..., -1]``), which the caller knows. A sharded graph's P
+    receiving parts go in one call: (P, cnt) ``start``, (P, cnt + 1)
+    ``offs``, (P, ne) ``col_dst`` and ``weights`` and the (P, max_nv)
+    values, whose flat rows ``q`` holds; the accumulator is (P, max_nv).
 
     CPU tensors take the plain version with ``gather`` (default: the
     plain form of ``gather_op``); CUDA tensors launch K11 once (the
-    identity fill, the fold and, for f32, the decode), which knows the
-    edge function only by ``gather_op`` and reads ``weights`` (the
-    CSR's) for ``"add_w"``. An empty queue or one without out-edges
-    launches nothing."""
+    identity fill of every receiver's row, the fold and, for f32, the
+    decode), which knows the edge function only by ``gather_op`` and
+    reads ``weights`` (the CSR's) for ``"add_w"``. An empty queue or one
+    without out-edges launches nothing."""
     if values.device.type == "cpu":
         return gas_push_acc_plain(
             q, start, offs, col_dst, values, kind,
             plain_edge_fn(gather_op, gather, GATHER_OPS), weights)
     op = gas_kernel_code(kind, gather_op)
     dev = values.device
+    ranks = 1 if start.dim() == 1 else 2
+    parts = 1 if ranks == 1 else start.shape[0]
     _cuda.check(q, "q", torch.int32, dev, ndim=1)
-    _cuda.check(start, "start", torch.int64, dev, ndim=1)
-    _cuda.check(offs, "offs", torch.int64, dev, ndim=1)
-    _cuda.check(col_dst, "col_dst", torch.int32, dev, ndim=1)
-    _cuda.check(values, "values", gas_storage_dtype(gather_op), dev, ndim=1)
+    _cuda.check(start, "start", torch.int64, dev, ndim=ranks)
+    _cuda.check(offs, "offs", torch.int64, dev, ndim=ranks)
+    _cuda.check(col_dst, "col_dst", torch.int32, dev, ndim=ranks)
+    _cuda.check(values, "values", gas_storage_dtype(gather_op), dev,
+                ndim=ranks)
     cnt = q.shape[0]
-    if start.shape[0] != cnt or offs.shape[0] != cnt + 1:
-        raise ValueError(f"queue of {cnt} slots needs start ({cnt},) and "
-                         f"offs ({cnt + 1},)")
-    if total < 0 or total > col_dst.shape[0]:
-        raise ValueError(f"total {total} outside [0, {col_dst.shape[0]}]")
+    if start.shape[-1] != cnt or offs.shape[-1] != cnt + 1:
+        raise ValueError(f"queue of {cnt} slots needs start (..., {cnt}) "
+                         f"and offs (..., {cnt + 1})")
+    if ranks == 2 and not (offs.shape[0] == col_dst.shape[0]
+                           == values.shape[0] == parts):
+        raise ValueError(f"{parts} receivers need {parts} rows of offs, "
+                         "col_dst and values")
+    if total < 0 or total > parts * col_dst.shape[-1]:
+        raise ValueError(f"total {total} outside [0, "
+                         f"{parts * col_dst.shape[-1]}]")
     weighted = gather_op in F32_GATHER_OPS
     if weighted:
         if weights is None:
             raise ValueError(f"gather op {gather_op!r} needs edge weights")
-        _cuda.check(weights, "weights", torch.int32, dev, ndim=1)
+        _cuda.check(weights, "weights", torch.int32, dev, ndim=ranks)
         if weights.shape != col_dst.shape:
             raise ValueError("weights and col_dst differ in shape")
     if total == 0 or cnt == 0:
         return gas_identity_storage(kind, values.shape, values.dtype, dev)
     acc = torch.empty_like(values)
+    # One receiver keeps strides of 0, as before the P-receiver form.
+    dst_stride = col_dst.shape[-1] if ranks == 2 else 0
+    acc_stride = values.shape[-1] if ranks == 2 else 0
     stream = _cuda.stream(dev)
     _cuda.launch(
         "gas_push_acc", "lux_gas_push_acc", _cuda.ptr(q), _cuda.ptr(start),
-        _cuda.ptr(offs), cnt, total, _cuda.ptr(col_dst),
+        _cuda.ptr(offs), cnt, parts, total, _cuda.ptr(col_dst), dst_stride,
         _cuda.ptr(weights if weighted else None), _cuda.ptr(values), op,
-        _cuda.ptr(acc), acc.numel(),
+        _cuda.ptr(acc), acc_stride, acc.numel(),
         _cuda.ptr(_queue_scratch(dev, stream.value)), stream,
     )
     return acc

@@ -20,7 +20,9 @@ engines need over that axis. They are the only place where parts meet:
 
 On top of them, :class:`CompactExchange` is the compact
 (``LUX_EXCHANGE=compact``) exchange of the sharded engines: each
-receiver's table of the rows its edges read.
+receiver's table of the rows its edges read; :class:`FrontierExchange`
+the frontier (``LUX_EXCHANGE=frontier``) exchange of the sharded GAS
+engine: of those rows, only the ones whose source is active.
 
 One NCCL communicator cannot hold two ranks on one GPU, so P parts on one
 card cannot be P processes. A ``torch.distributed`` backend behind the
@@ -166,3 +168,92 @@ class CompactExchange:
         buf.index_copy_(0, self.recv, got.reshape((-1,) + tail))
         buf.index_copy_(0, self.own, local)
         return buf.view((P, P * n + 1) + tail)[:, :-1]
+
+
+class FrontierExchange:
+    """The frontier exchange of an :class:`ExchangePlan` over a
+    :class:`LocalMesh`, for scalar values and a bool frontier: per
+    (sender, receiver) pair, only the plan's send rows whose source is
+    active this iteration, compacted in send-table order into ``cap``
+    sentinel-padded slots (``lux_tpu/engine/gas_sharded.py::
+    _frontier_tables``).
+
+    :meth:`widest` is what decides whether an iteration may take it:
+    each sender's largest count of active send rows over its receivers.
+    An iteration whose count exceeds ``cap`` on any pair takes the
+    static compact send instead (the caller's downgrade), so no active
+    row is ever cut. :meth:`tables` compacts the active rows (a
+    ``cumsum`` and a scatter), gathers their values with
+    ``torch.gather``, moves (row id, value) pairs with the mesh's
+    ``all_to_all`` and scatters them by ``sender * max_nv + row`` into
+    each receiver's table with ``index_copy_``, frontier True. Rows not
+    sent keep (0, False): their sources are inactive, so a pull masks
+    them to the combiner identity, as the compact table's do. The
+    receiver's own span is written from its shard, as
+    :class:`CompactExchange` writes it."""
+
+    def __init__(self, plan: ExchangePlan, mesh: LocalMesh, max_nv: int,
+                 cap: int):
+        if not 1 <= cap <= plan.capacity:
+            raise ValueError(f"frontier capacity {cap} outside [1, "
+                             f"{plan.capacity}]")
+        P, n = mesh.num_parts, max_nv
+        self.mesh, self.max_nv, self.cap = mesh, n, int(cap)
+        rows = P * n + 1
+        parts = np.arange(P, dtype=np.int64)[:, None]
+        send = plan.send_units.astype(np.int64).reshape(P, P, plan.capacity)
+        sender = np.arange(P * cap, dtype=np.int64) // cap
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
+
+        # Sender p's send rows to each receiver (sentinel n), whether each
+        # is a real row, and where its frontier flag lies in the flat stack.
+        self.send = put(send)
+        self.real = put(send < n)
+        self.flag_at = put((np.minimum(send, n - 1)
+                            + parts[:, :, None] * n).reshape(-1))
+        # Receiver q's table starts at q * rows of one flat buffer; a
+        # block from sender p lands at p * n + row, a pad in the last row.
+        self.base = put(parts * rows + sender[None, :] * n)
+        self.trash = put(parts * rows + P * n)
+        self.own = put((parts * rows + parts * n
+                        + np.arange(n, dtype=np.int64)).reshape(-1))
+
+    def _active(self, frontier: torch.Tensor) -> torch.Tensor:
+        """(P, P, capacity): which send rows have an active source."""
+        f = frontier.reshape(-1).index_select(0, self.flag_at)
+        return self.real & f.view(self.real.shape)
+
+    def widest(self, frontier: torch.Tensor) -> torch.Tensor:
+        """(P,) int64: each sender's largest count of active send rows
+        to one receiver."""
+        return self._active(frontier).sum(2).amax(1)
+
+    def tables(self, values: torch.Tensor, frontier: torch.Tensor):
+        """(P, max_nv) values and frontier -> (values table, frontier
+        table), each (P, P * max_nv): row q is the flat table receiver
+        q's edges read. Only for an iteration whose :meth:`widest` is
+        at most ``cap`` everywhere (the rest would be cut)."""
+        P, n, cap = self.mesh.num_parts, self.max_nv, self.cap
+        act = self._active(frontier)
+        pos = act.cumsum(2) - 1
+        keep = act & (pos < cap)
+        slot = torch.where(keep, pos, cap)          # cap: a trash column
+        rows = torch.full((P, P, cap + 1), n, dtype=torch.int64,
+                          device=values.device)
+        rows.scatter_(2, slot, torch.where(keep, self.send, n))
+        rows = rows[:, :, :cap].reshape(P, P * cap)
+        vals = values.gather(1, rows.clamp(max=n - 1))
+        got_rows = self.mesh.all_to_all(rows)
+        got_vals = self.mesh.all_to_all(vals)
+        at = torch.where(got_rows < n, self.base + got_rows,
+                         self.trash).reshape(-1)
+        width = P * n + 1
+        tab_v = values.new_zeros(P * width)
+        tab_f = frontier.new_zeros(P * width)
+        tab_v.index_copy_(0, at, got_vals.reshape(-1))
+        tab_f.index_fill_(0, at, True)
+        tab_v.index_copy_(0, self.own, values.reshape(-1))
+        tab_f.index_copy_(0, self.own, frontier.reshape(-1))
+        return (tab_v.view(P, width)[:, :-1], tab_f.view(P, width)[:, :-1])

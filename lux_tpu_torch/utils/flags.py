@@ -132,3 +132,8 @@ define("LUX_EXCHANGE", "full",
        "static compact send on dense iterations — frontier-less "
        "executors run 'compact'. Captured at executor build; P=1 and "
        "unprofitable plans fall back to full")
+define("LUX_EXCHANGE_FRONTIER_FRAC", 0.25,
+       "frontier-exchange row budget as a fraction of the static "
+       "compact capacity (ExchangePlan.frontier_capacity): smaller = "
+       "bigger byte win on sparse iterations but earlier self-downgrade "
+       "to the static compact send", kind="float")

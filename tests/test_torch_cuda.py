@@ -999,6 +999,61 @@ def test_gas_push_acc_matches_plain(dev, kind, gather_op, nv, frac):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("which", ["first", "cap"])
+@pytest.mark.parametrize("kind,gather_op", [("min", "add1"),
+                                            ("min", "add_w"),
+                                            ("sum", "one")])
+def test_gas_push_acc_over_receivers_matches_plain(dev, kind, gather_op,
+                                                   which, parts):
+    # The sharded GAS push branch's K11: one launch over the P receiving
+    # parts' push CSRs, from the flat (P, max_nv) values, on a first
+    # frontier (vertex 0) and at the per-part queue cap; bitwise against
+    # the plain version and against P one-receiver launches.
+    from lux_tpu_torch.engine.push import _sparse_budgets
+    from lux_tpu_torch.parallel.shard import ShardedGraph
+
+    g = generate.rmat(12, 10, seed=1, weighted=True)
+    sg = ShardedGraph.build(g, parts)
+    prp, pdst, pw = (torch.from_numpy(a) for a in sg.build_push_csr())
+    prp = prp.long()
+    n = sg.max_nv
+    rng = np.random.default_rng(parts)
+    fr = np.zeros((parts, n), bool)
+    if which == "first":
+        fr[0, 0] = True
+    else:
+        cap = _sparse_budgets(n, sg.max_ne, 16, 8)[0]
+        for p in range(parts):
+            nv_p = int(sg.local_nv[p])
+            fr[p, rng.choice(nv_p, min(nv_p, cap), replace=False)] = True
+    part, local = np.nonzero(fr)
+    rows = torch.from_numpy((part * n + local).astype(np.int32))
+    ids = torch.from_numpy(local + sg.row_left[part])
+    start = prp[:, ids]
+    offs = torch.nn.functional.pad((prp[:, ids + 1] - start).cumsum(1),
+                                   (1, 0))
+    total = int(offs[:, -1].sum())
+    vals, _ = _gas_operands(parts * n, gather_op, 0.0, 1, seed=parts)
+    vals = vals.reshape(parts, n)
+    want = fq.gas_push_acc(rows, start, offs, pdst, vals, kind, gather_op,
+                           total, weights=pw)
+    on = [x.to(dev) for x in (rows, start, offs, pdst, vals, pw)]
+    _cuda.reset_launches()
+    got = fq.gas_push_acc(*on[:5], kind, gather_op, total, weights=on[5])
+    assert _cuda.LAUNCHES["gas_push_acc"] == 1
+    assert got.shape == (parts, n) and got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)
+    for p in range(parts):
+        # One receiver: its local destinations index the first n words of
+        # an accumulator of the flat values' shape.
+        one = fq.gas_push_acc(on[0], on[1][p].contiguous(),
+                              on[2][p].contiguous(), on[3][p].contiguous(),
+                              on[4].reshape(-1), kind, gather_op,
+                              int(offs[p, -1]), weights=on[5][p].contiguous())
+        assert torch.equal(one[:n].cpu(), want[p])
+
+
 def test_gas_wrappers_check_their_inputs(dev):
     g = generate.rmat(8, 8, seed=1, weighted=True)
     rp = torch.from_numpy(g.row_ptr).to(dev)

@@ -703,7 +703,8 @@ def test_registry_matches_lux_tpu():
 
 def test_engine_kinds_are_ported_subsequences_of_lux_tpu():
     ported = {"pull", "tiled", "push", "gas", "gas_multi", "pull_sharded",
-              "push_multi", "push_sharded", "push_multi_sharded"}
+              "push_multi", "push_sharded", "push_multi_sharded",
+              "gas_sharded", "gas_multi_sharded"}
     assert sorted(tmodels.ENGINE_KINDS) == sorted(jmodels.ENGINE_KINDS)
     for name, kinds in tmodels.ENGINE_KINDS.items():
         want = tuple(k for k in jmodels.ENGINE_KINDS[name] if k in ported)
