@@ -212,6 +212,22 @@ through ``PullGasAdapter``:
     compact and frontier exchanges alone against their bytes bound, and
     the 8-lane run with its K-lane compact exchange alone.
 
+Last, the app CLIs (``python -m lux_tpu_torch.models.<app>``), each a
+subprocess on the card:
+
+3i. while the graphs and phase 3's plan are at hand, each graph written
+    as a ``.lux`` file under ``build/lux_tpu_torch/cli/`` and the plan
+    saved at the tiled CLI's cache key, so the CLI loads it;
+4i-6i. tiled PageRank (``-check``), flat and over 4 parts, CF, SSSP (one
+    device and 4 parts), CC, BFS and DeltaSSSP (``-check``), and SSSP
+    saved after 2 iterations and resumed: each run must say it ran on
+    the card, and its ``-save`` checkpoint must equal the in-process
+    run of its path (phases 5, 5c, 5g within the PageRank and CF
+    tolerances; 5b and 5d bitwise with their iteration counts); its
+    wall seconds, ``ELAPSED TIME`` and ``GTEPS`` lines are logged beside
+    the in-process times of phases 6-6h. The files are removed at the
+    end.
+
 Each phase group's seconds are logged. Any failure exits non-zero.
 Without a card it exits non-zero and prints no result. The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels as JSON.
@@ -222,6 +238,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -395,21 +412,30 @@ def main(argv=None) -> int:
     group_s = {}
 
     def group(name, fn, *a):
+        """``fn(*a)``, its seconds added to the group's."""
         t0 = time.perf_counter()
         out = fn(*a)
-        group_s[name] = time.perf_counter() - t0
-        log(f"[time] phase group {name} took {group_s[name]:.1f} s")
+        took = time.perf_counter() - t0
+        group_s[name] = group_s.get(name, 0.0) + took
+        log(f"[time] phase group {name} took {took:.1f} s")
         return out
 
+    # The CLI group (3i-6i) writes its files while the graphs and phase 3's
+    # plan are at hand, and holds each CLI run against the in-process run
+    # of its path, which the phase groups leave in ``held``.
+    held = {}
+    cli_dir = _cuda.BUILD_DIR / "cli"
+    cli = "3i-6i CLIs"
     totals, oracle, plan = group("3-6 tiled", _pagerank_phases, g, dev,
-                                 kernels)
+                                 kernels, held)
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     # Phases 3g-6g reuse phase 3's plan (planning costs host minutes at
     # scale), so they run here, before the plan is dropped.
     totals.update(group("3g-6g sharded tiled", _tiled_sharded_phases, g,
-                        plan, oracle, dev, kernels))
+                        plan, oracle, dev, kernels, held))
     peak = max(peak, torch.cuda.max_memory_allocated())
+    group(cli, _cli_files, cli_dir, {"g": g, "gw": gw}, plan)
     del plan
     torch.cuda.empty_cache()
     totals.update(group("4g probes", _probe_phases, dev, kernels))
@@ -419,13 +445,15 @@ def main(argv=None) -> int:
     gu = generate.undirected(g)
     log(f"[push] undirected closure: nv={gu.nv} ne={gu.ne} in "
         f"{time.perf_counter() - t:.1f} s")
+    group(cli, _cli_files, cli_dir, {"gu": gu})
     push_totals, push_ctx = group("3b-6b push", _push_phases, g, gu, dev,
                                   kernels)
     for name, n in push_totals.items():
         totals[name] += n
     torch.cuda.empty_cache()
     pull_totals, gc, cf_oracle = group("3c-6c pull", _pull_phases, g, oracle,
-                                       args.scale, dev, kernels)
+                                       args.scale, dev, kernels, held)
+    group(cli, _cli_files, cli_dir, {"gc": gc})
     for name, n in pull_totals.items():
         totals[name] += n
     torch.cuda.empty_cache()
@@ -443,7 +471,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     push_sharded_totals, sgs = group("3f-6f sharded push",
                                      _push_sharded_phases, g, gu, push_ctx,
-                                     dev, kernels)
+                                     dev, kernels, held)
     for name, n in push_sharded_totals.items():
         totals[name] = totals.get(name, 0) + n
     peak = max(peak, torch.cuda.max_memory_allocated())
@@ -453,6 +481,9 @@ def main(argv=None) -> int:
         totals[name] = totals.get(name, 0) + n
     del gw, sgs
     peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    group(cli, _cli_phases, cli_dir, f"torch device: cuda ({kind})", held,
+          push_ctx, gas_ctx)
     log("[time] phase groups (s): " + ", ".join(
         f"{k}={v:.1f}" for k, v in group_s.items()))
 
@@ -469,9 +500,11 @@ def main(argv=None) -> int:
     return 0
 
 
-def _pagerank_phases(g, dev, kernels):
+def _pagerank_phases(g, dev, kernels, held):
     """Phases 3-6 on the tiled pull path; returns the launch counts of
-    its two runs, summed, the f64 oracle of ``run(10)`` and the plan."""
+    its two runs, summed, the f64 oracle of ``run(10)`` and the plan, and
+    leaves the lane-select ``run(10)`` values and its ms per iteration in
+    ``held["pagerank"]`` for the CLI group."""
     import torch
 
     from lux_tpu_torch.engine.tiled import TiledPullExecutor
@@ -679,6 +712,8 @@ def _pagerank_phases(g, dev, kernels):
         ex.warmup()
         vals = ex.init_values()
         ms = cuda_ms(lambda: ex.run(ITERS, vals=vals), 3) / ITERS
+        if label == "lane-select":
+            held["pagerank"] = {"values": out, "ms": ms}
         runs = [ex.phase_step(vals)[1] for _ in range(5)]
         phases = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
         log(f"[time] {label}: {ms:.3f} ms/iteration, "
@@ -1049,11 +1084,12 @@ def _k6_k7_rows(ex, st_cap, q_cap: int, rng, dev) -> None:
     log(f"[push] phase 4b's extra rows took {time.perf_counter() - t:.1f} s")
 
 
-def _pull_phases(g, pr_oracle, scale, dev, kernels):
+def _pull_phases(g, pr_oracle, scale, dev, kernels, held):
     """Phases 3c-6c on the flat pull engine: flat PageRank on ``g`` and
     CF on ``bench.py``'s ratings graph of this scale; returns the launch
     counts of their two runs, summed, the ratings graph and CF's f64
-    oracle of ``run(5)``."""
+    oracle of ``run(5)``, and leaves each run's values and ms per
+    iteration in ``held["flat"]`` and ``held["cf"]``."""
     import torch
 
     from lux_tpu_torch.engine.pull import DEFAULT_EDGE_CHUNK, PullExecutor
@@ -1175,6 +1211,7 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
                                err_msg="flat pagerank vs f64 oracle")
     err = float(np.max(np.abs(out.astype(np.float64) - pr_oracle)))
     check_launches("flat pagerank", counts, {"gather_segment_sum": ITERS})
+    held["flat"] = {"values": out}
     log(f"[pull] flat pagerank: run({ITERS}) matches the f64 oracle (max abs "
         f"err {err:.3e}); launches {counts['gather_segment_sum']}")
     for name, n in counts.items():
@@ -1197,6 +1234,7 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
                                err_msg="cf vs f64 oracle")
     err = float(np.max(np.abs(out.astype(np.float64) - cf_oracle)))
     check_launches("cf", counts, {"cf_edge_sum": CF_ITERS})
+    held["cf"] = {"values": out}
     log(f"[pull] cf: run({CF_ITERS}) matches the f64 oracle (max abs err "
         f"{err:.3e}); RMSE {rmse0:.6f} before, "
         f"{rmse(gc, out, device=dev):.6f} after; launches "
@@ -1205,14 +1243,16 @@ def _pull_phases(g, pr_oracle, scale, dev, kernels):
         totals[name] += n
 
     # -- 6c. timing -----------------------------------------------------------
-    for label, ex, graph, iters in (("flat pagerank", ex_pr, g, ITERS),
-                                    ("cf", ex_cf, gc, CF_ITERS)):
+    for label, key, ex, graph, iters in (
+            ("flat pagerank", "flat", ex_pr, g, ITERS),
+            ("cf", "cf", ex_cf, gc, CF_ITERS)):
         ex.warmup()
         vals = ex.init_values()
         secs = [host_seconds(lambda: ex.run(iters, vals=vals))
                 for _ in range(3)]
         sec = float(np.median(secs))
         ev_ms = cuda_ms(lambda: ex.run(iters, vals=vals), 3) / iters
+        held[key]["ms"] = ev_ms
         log(f"[time] pull {label}: {sec / iters * 1e3:.3f} ms/iteration, "
             f"{graph.ne * iters / sec / 1e9:.3f} GTEPS (host clock, median "
             f"of 3 runs of {iters}: {[round(x * 1e3, 3) for x in secs]} ms); "
@@ -1844,7 +1884,7 @@ def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev) -> dict:
 MULTI_LANES = 8
 
 
-def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
+def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
     """Phases 3f-6f on the multi-source and sharded push engines: SSSP
     from vertex 0 on ``g`` over ``SHARDED_PARTS`` parts in the full and
     compact exchange modes, CC on the closure ``gu``, and 8-lane
@@ -1853,7 +1893,8 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
     executor). Returns the launch counts of the phase 5f runs, summed,
     and under ``<kernel>[split]`` those of the split-table calls; and the
     two shard layouts (``rmat``, ``closure``) for the sharded GAS
-    phases."""
+    phases. Leaves the full-mode SSSP's ms to fixpoint in
+    ``held["sharded sssp"]``."""
     import torch
 
     from lux_tpu_torch.engine.check import count_violations
@@ -2269,6 +2310,8 @@ def _push_sharded_phases(g, gu, push, dev, kernels) -> dict:
         st0 = ex.init_state(**kw)
         iter_sec = float(np.median([host_seconds(lambda: ex.run(state=st0))
                                     for _ in range(3)]))
+        if label == "sssp full":
+            held["sharded sssp"] = {"ms": sec * 1e3}
         log(f"[time] sharded push {label}: {iters} iterations "
             f"({ex.sparse_iters} sparse) in {sec * 1e3:.3f} ms (median of 3:"
             f" {[round(x * 1e3, 3) for x in secs]}), "
@@ -2769,12 +2812,14 @@ def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
     return totals
 
 
-def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
+def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels, held) -> dict:
     """Phases 3g-6g on the sharded tiled engine: PageRank on ``g`` over
     ``SHARDED_PARTS`` parts of a ``LocalMesh`` on the card, built on
     phase 3's ``plan``, in the full and compact exchange modes. Returns
     the launch counts of the phase 5g runs under ``strip_spmv[sharded]``
-    and ``tail_gather_sum[sharded]``."""
+    and ``tail_gather_sum[sharded]``, and leaves the full mode's
+    ``run(10)`` values and ms per iteration in
+    ``held["sharded tiled"]``."""
     import torch
 
     from lux_tpu_torch.engine.tiled_sharded import ShardedTiledExecutor
@@ -2893,6 +2938,8 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
         totals["strip_spmv[sharded]"] += counts["strip_spmv"]
         totals["tail_gather_sum[sharded]"] += counts["tail_gather_sum"]
         outs[mode] = out
+        if mode == "full":
+            held["sharded tiled"] = {"values": got}
     check_equal("sharded tiled compact vs full", outs["compact"],
                 outs["full"])
     log("[tiled-sharded] compact equals full bitwise"
@@ -2908,6 +2955,8 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels) -> dict:
                 for _ in range(3)]
         sec = float(np.median(secs))
         ev_ms = cuda_ms(lambda: ex.run(ITERS, vals=vals), 3) / ITERS
+        if mode == "full":
+            held["sharded tiled"]["ms"] = ev_ms
         runs = [ex.phase_step(vals)[1] for _ in range(5)]
         split = {k: float(np.median([r[k] for r in runs])) * 1e3
                  for k in runs[0]}
@@ -3253,6 +3302,194 @@ def _k1_yardsticks(host_levels, levels, x, nvb: int, reps: int, label: str,
         f"{bound(nbytes, flops)[0]:.4f} ms ({nbytes} B), on the strip "
         f"layout {bound(strip_bytes, 0)[0]:.4f} ms ({strip_bytes} B)")
     return ms, plain, nbytes, flops, lib
+
+
+# -- 3i-6i: the app CLIs, each a subprocess on the card ----------------------
+
+CLI_TIMEOUT_S = 400
+
+
+def _cli_files(work, graphs: dict, plan=None) -> None:
+    """Phase 3i: each of ``graphs`` (name -> graph) written as
+    ``<work>/<name>.lux`` and, with ``plan``, that plan saved where the
+    tiled CLI looks for ``g.lux``'s (its default ``-levels`` and
+    ``-tile-mb``), so the CLI loads it instead of planning again."""
+    from lux_tpu_torch.graph import write_lux
+    from lux_tpu_torch.models.cli import (
+        _parse_levels,
+        build_parser,
+        plan_cache_path,
+    )
+    from lux_tpu_torch.ops.tiled_spmv import save_plan
+
+    work.mkdir(parents=True, exist_ok=True)
+    for name, graph in graphs.items():
+        t = time.perf_counter()
+        write_lux(str(work / f"{name}.lux"), graph)
+        log(f"[cli] wrote {name}.lux (nv={graph.nv} ne={graph.ne}, "
+            f"{(work / f'{name}.lux').stat().st_size} B) in "
+            f"{time.perf_counter() - t:.1f} s")
+    if plan is not None:
+        args = build_parser("pagerank", push=False).parse_args(
+            ["-file", str(work / "g.lux"), "-ni", "1"])
+        path = plan_cache_path(args, _parse_levels(args.levels))
+        t = time.perf_counter()
+        save_plan(path, plan)
+        log(f"[cli] phase 3's plan saved at the CLI's cache key "
+            f"{os.path.basename(path)} in {time.perf_counter() - t:.1f} s "
+            f"({plan.strip_bytes} B of strips); free disk "
+            f"{shutil.disk_usage(work).free / 2**30:.1f} GiB")
+
+
+def _cli_run(work, device_line: str, label: str, app: str, *argv):
+    """``python -m lux_tpu_torch.models.<app> <argv> -save`` in a
+    subprocess; raises unless it exits 0 and says it ran on the card.
+    Returns (stdout, its checkpoint as a dict of arrays)."""
+    ck = work / f"{label.replace(' ', '_')}.npz"
+    cmd = [sys.executable, "-m", f"lux_tpu_torch.models.{app}",
+           *(str(a) for a in argv), "-save", str(ck)]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True,
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    if r.returncode != 0:
+        raise AssertionError(
+            f"cli {label}: {' '.join(cmd[2:])} exited {r.returncode}\n"
+            f"{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    if device_line not in r.stderr:
+        raise AssertionError(f"cli {label}: no '{device_line}' line; "
+                             f"stderr:\n{r.stderr[-3000:]}")
+    said = [ln for ln in r.stdout.splitlines()
+            if ln.startswith(("ELAPSED TIME", "GTEPS", "iterations", "[",
+                              "memory advisory"))]
+    notes = [ln.split(": ", 1)[1] for ln in r.stderr.splitlines()
+             if ln.split(": ", 1)[-1].startswith(
+                 ("torch device:", "hybrid plan:", "loaded "))]
+    log(f"[cli] {label}: {' '.join(cmd[2:-2])}: exit 0 in {wall:.1f} s "
+        f"wall; {'; '.join(said)}; {'; '.join(notes)}")
+    with np.load(ck) as z:
+        return r.stdout, {k: z[k] for k in z.files}
+
+
+def _cli_line(out: str, prefix: str) -> str:
+    got = [ln for ln in out.splitlines() if ln.startswith(prefix)]
+    if len(got) != 1:
+        raise AssertionError(f"{len(got)} '{prefix}' lines in\n{out}")
+    return got[0]
+
+
+def _cli_phases(work, device_line: str, held: dict, push: dict,
+                gas: dict) -> None:
+    """Phases 4i-6i: every app CLI on the files of phase 3i, each held
+    against the in-process phase that ran its path: tiled, flat and
+    sharded tiled PageRank against phases 5, 5c and 5g's ``run(10)``
+    (rtol=5e-5, atol=1e-9), CF against 5c's ``run(5)`` (rtol=1e-4,
+    atol=1e-7), SSSP (one device and 4 parts), CC, BFS and DeltaSSSP
+    bitwise against 5b's and 5d's fixpoints with their iteration counts,
+    and SSSP saved after 2 iterations and resumed bitwise against the
+    uninterrupted run. Each run's wall seconds, ELAPSED TIME and GTEPS
+    lines are logged beside the in-process times of phases 6-6h."""
+    t_phase = time.perf_counter()
+    g_lux, gu_lux, gw_lux, gc_lux = (work / f"{n}.lux"
+                                     for n in ("g", "gu", "gw", "gc"))
+
+    def run(label, app, *argv):
+        return _cli_run(work, device_line, label, app, *argv)
+
+    def close(label, got, want, rtol, atol, in_process):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"cli {label}: {got.shape} {got.dtype}, "
+                                 f"expected {want.shape} {want.dtype}")
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=f"cli {label}")
+        err = float(np.max(np.abs(got.astype(np.float64) - want)))
+        log(f"[cli] {label}: values within rtol={rtol}, atol={atol} of "
+            f"{in_process} (max abs err {err:.3e})")
+
+    def exact(label, out, saved, want, iters, in_process, ran=None):
+        """Values bitwise ``want``, the checkpoint at iteration ``iters``
+        with an empty frontier, and ``ran`` (default ``iters``)
+        iterations said."""
+        ran = iters if ran is None else ran
+        if saved["values"].dtype != want.dtype or not np.array_equal(
+                saved["values"], want):
+            raise AssertionError(f"cli {label}: values differ from "
+                                 f"{in_process}")
+        if _cli_line(out, "iterations") != f"iterations = {ran}":
+            raise AssertionError(f"cli {label}: {_cli_line(out, 'iter')}, "
+                                 f"expected {ran}")
+        if saved["iteration"] != iters or saved["frontier"].any():
+            raise AssertionError(f"cli {label}: checkpoint at iteration "
+                                 f"{saved['iteration']} with a frontier")
+        log(f"[cli] {label}: values bitwise equal to {in_process}, "
+            f"{iters} iterations")
+
+    # Pull: PageRank in the three layouts, CF.
+    out, saved = run("tiled pagerank", "pagerank", "-file", g_lux,
+                     "-ni", ITERS, "-check")
+    _cli_line(out, "[PASS]")
+    close("tiled pagerank", saved["values"], held["pagerank"]["values"],
+          RTOL, ATOL, f"phase 5's run({ITERS})")
+    out, saved = run("flat pagerank", "pagerank", "-file", g_lux,
+                     "-ni", ITERS, "-layout", "flat")
+    close("flat pagerank", saved["values"], held["flat"]["values"],
+          RTOL, ATOL, f"phase 5c's run({ITERS})")
+    out, saved = run("sharded tiled pagerank", "pagerank", "-file", g_lux,
+                     "-ni", ITERS, "-parts", SHARDED_PARTS)
+    close("sharded tiled pagerank", saved["values"],
+          held["sharded tiled"]["values"], RTOL, ATOL,
+          f"phase 5g's full-mode run({ITERS})")
+    log(f"[cli] in-process ms/iteration (CUDA events): tiled "
+        f"{held['pagerank']['ms']:.3f} (phase 6), flat "
+        f"{held['flat']['ms']:.3f} (6c), sharded tiled "
+        f"{held['sharded tiled']['ms']:.3f} (6g)")
+    # The host f64 oracle over 100 M ratings costs minutes: no -check.
+    out, saved = run("cf", "colfilter", "-file", gc_lux, "-ni", CF_ITERS)
+    close("cf", saved["values"], held["cf"]["values"], CF_RTOL, CF_ATOL,
+          f"phase 5c's run({CF_ITERS})")
+    log(f"[cli] cf ran without -check (its host f64 oracle over the "
+        f"ratings graph costs minutes); in-process "
+        f"{held['cf']['ms']:.3f} ms/iteration (6c)")
+
+    # Push and GAS: to fixpoint, bitwise.
+    for label, app, path, want, phases, argv in (
+            ("sssp", "sssp", g_lux, push["sssp"], "5b 6b", ("-start", 0)),
+            ("sharded sssp", "sssp", g_lux, push["sssp"], "5b 6f",
+             ("-start", 0, "-parts", SHARDED_PARTS)),
+            ("cc", "components", gu_lux, push["cc"], "5b 6b", ()),
+            ("bfs", "bfs", g_lux, gas["bfs"], "5d 6d", ("-start", 0)),
+            ("sssp_delta", "sssp_delta", gw_lux, gas["sssp_delta"], "5d 6d",
+             ("-start", 0))):
+        check = () if label == "sharded sssp" else ("-check",)
+        out, saved = run(label, app, "-file", path, *argv, *check)
+        if check:
+            _cli_line(out, "[PASS]")
+        held_in, ms_in = phases.split()
+        exact(label, out, saved, want["oracle"], want["iters"],
+              f"phase {held_in}'s fixpoint")
+        in_ms = (held["sharded sssp"] if ms_in == "6f" else want)["ms"]
+        log(f"[cli] {label}: in-process {in_ms:.3f} ms to fixpoint "
+            f"(phase {ms_in})")
+
+    # SSSP saved after 2 iterations, then resumed to its fixpoint.
+    first = 2
+    total = push["sssp"]["iters"]
+    out, saved = run("sssp first 2", "sssp", "-file", g_lux, "-start", 0,
+                     "-ni", first)
+    if saved["iteration"] != first or not saved["frontier"].any():
+        raise AssertionError("cli sssp first 2: checkpoint at iteration "
+                             f"{saved['iteration']}, frontier "
+                             f"{int(saved['frontier'].sum())}")
+    out, saved = run("sssp resumed", "sssp", "-file", g_lux, "-start", 0,
+                     "-resume", work / "sssp_first_2.npz", "-check")
+    _cli_line(out, "[PASS]")
+    exact("sssp resumed", out, saved, push["sssp"]["oracle"], total,
+          "phase 5b's fixpoint", ran=total - first)
+    log(f"[cli] sssp resumed: {first} + {total - first} iterations = the "
+        f"uninterrupted run's {total}")
+    shutil.rmtree(work)
+    log(f"[cli] phases 4i-6i took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

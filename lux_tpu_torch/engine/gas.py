@@ -553,6 +553,19 @@ class AdaptiveExecutor(_GasBase):
         times["direction"] = "push" if push else "pull"
         return GasState(new, frontier, int(push)), st[0], times
 
+    def warmup_phases(self, state: GasState):
+        """Run every phase of both directions once outside any timed
+        region. ``state`` is only read."""
+        if not self.program.frontier:
+            self._pull.step(state.values)
+        else:
+            stats = self._frontier_stats(state)
+            self._update(state.values, self._pull_acc(state))
+            if self.mode != "pull":
+                self._update(state.values, self._push_acc(
+                    state, self._queue(state, stats[0]), stats[1]))
+        self._sync()
+
 
 class MultiSourceGasExecutor(_GasBase):
     """Dense GAS executor over K value columns: one pull sweep (K10 with

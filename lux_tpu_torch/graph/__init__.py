@@ -1,5 +1,6 @@
 from lux_tpu_torch.graph.graph import Csr, Graph
 from lux_tpu_torch.graph.format import (
+    convert_edge_list,
     detect_layout,
     read_lux,
     read_lux_mmap,
@@ -13,6 +14,7 @@ __all__ = [
     "read_lux",
     "read_lux_mmap",
     "write_lux",
+    "convert_edge_list",
     "detect_layout",
     "generate",
 ]

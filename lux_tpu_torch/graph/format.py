@@ -127,3 +127,39 @@ def write_lux(path: str, g: Graph, include_degrees: bool = True) -> None:
             g.weights.astype("<i4").tofile(f)
         if include_degrees:
             g.out_degrees.astype("<u4").tofile(f)
+
+
+def convert_edge_list(
+    input_path: str,
+    output_path: str,
+    nv: int,
+    ne: int,
+    weighted: bool = False,
+    include_degrees: bool = True,
+) -> Graph:
+    """Text edge list (``src dst [weight]`` per line) → ``.lux``.
+
+    Python equivalent of the reference converter CLI
+    (tools/converter.cc:72-130) and a copy of ``lux_tpu``'s numpy
+    converter: the same file, byte for byte.
+    """
+    ncols = 3 if weighted else 2
+    data = np.loadtxt(input_path, dtype=np.int64, max_rows=ne, ndmin=2)
+    if data.shape[0] != ne:
+        raise ValueError(f"expected {ne} edges, got {data.shape[0]}")
+    if data.shape[1] < ncols:
+        raise ValueError(
+            f"expected {ncols} columns (weighted={weighted}), "
+            f"got {data.shape[1]}"
+        )
+    src, dst = data[:, 0], data[:, 1]
+    for name, ids in (("src", src), ("dst", dst)):
+        if len(ids) and (ids.min() < 0 or ids.max() >= nv):
+            raise ValueError(
+                f"{name} ids out of range [0, {nv}): "
+                f"[{ids.min()}, {ids.max()}]"
+            )
+    w = data[:, 2].astype(np.int32) if weighted else None
+    g = Graph.from_edges(src, dst, nv=nv, weights=w)
+    write_lux(output_path, g, include_degrees=include_degrees)
+    return g

@@ -72,3 +72,19 @@ def reference_bfs(graph: Graph, start: int = 0):
     minimum-id tie-break."""
     depth = reference_sssp(graph, start)
     return depth, bfs_parents(graph, depth)
+
+
+def main(argv=None):
+    """CLI:
+
+        python -m lux_tpu_torch.models.bfs -file g.lux -start R
+    """
+    from lux_tpu_torch.models.cli import run_push_app
+
+    return run_push_app(BFS(), argv, supports_start=True)
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main(sys.argv[1:]))

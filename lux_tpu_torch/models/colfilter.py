@@ -117,3 +117,23 @@ def rmse(graph, vec, window: int = WINDOW, device=None) -> float:
         dot = (v[src_all[lo:hi].long()] * v[dst_all[lo:hi].long()]).sum(-1)
         total += ((w_all[lo:hi].double() - dot) ** 2).sum()
     return float(torch.sqrt(total / max(graph.ne, 1)))
+
+
+def main(argv=None):
+    """CLI:
+
+        python -m lux_tpu_torch.models.colfilter -file g.lux -ni 10
+    """
+    from lux_tpu_torch.models.cli import run_pull_app
+
+    return run_pull_app(
+        CollaborativeFiltering(),
+        argv,
+        oracle=lambda g, ni: reference_colfilter(g, ni),
+    )
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main(sys.argv[1:]))

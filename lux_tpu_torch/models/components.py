@@ -55,3 +55,19 @@ def reference_components(graph: Graph) -> np.ndarray:
     order = np.argsort(labels, kind="stable")
     last = np.cumsum(np.bincount(labels, minlength=ncomp)) - 1
     return order[last][labels].astype(np.uint32)
+
+
+def main(argv=None):
+    """CLI:
+
+        python -m lux_tpu_torch.models.components -file g.lux [-check]
+    """
+    from lux_tpu_torch.models.cli import run_push_app
+
+    return run_push_app(ConnectedComponents(), argv, supports_start=False)
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main(sys.argv[1:]))

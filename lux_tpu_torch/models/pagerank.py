@@ -66,3 +66,23 @@ def reference_pagerank(graph, num_iters: int) -> np.ndarray:
         r = (1.0 - ALPHA) / graph.nv + ALPHA * acc
         vals = np.where(deg == 0, r, r / np.maximum(deg, 1))
     return vals.astype(np.float32)
+
+
+def main(argv=None):
+    """CLI:
+
+        python -m lux_tpu_torch.models.pagerank -file g.lux -ni 10 [-check]
+    """
+    from lux_tpu_torch.models.cli import run_pull_app
+
+    return run_pull_app(
+        PageRank(),
+        argv,
+        oracle=lambda g, ni: reference_pagerank(g, ni),
+    )
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main(sys.argv[1:]))

@@ -64,3 +64,19 @@ def reference_sssp(graph: Graph, start: int = 0) -> np.ndarray:
         frontier = nbr[dist[nbr] > d].astype(np.int64)
         dist[frontier] = d
     return dist
+
+
+def main(argv=None):
+    """CLI:
+
+        python -m lux_tpu_torch.models.sssp -file g.lux -start R [-check]
+    """
+    from lux_tpu_torch.models.cli import run_push_app
+
+    return run_push_app(SSSP(), argv, supports_start=True)
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main(sys.argv[1:]))

@@ -81,3 +81,19 @@ def reference_sssp_delta(graph: Graph, start: int = 0) -> np.ndarray:
                      shape=(nv, nv))
     dist = dijkstra(adj, directed=True, indices=start)
     return dist.astype(np.float32)
+
+
+def main(argv=None):
+    """CLI:
+
+        python -m lux_tpu_torch.models.sssp_delta -file g.lux -start R
+    """
+    from lux_tpu_torch.models.cli import run_push_app
+
+    return run_push_app(DeltaSSSP(), argv, supports_start=True)
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main(sys.argv[1:]))

@@ -26,7 +26,7 @@ from typing import Optional
 
 import numpy as np
 
-from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.graph.graph import Graph, stable_argsort
 from lux_tpu_torch.graph.partition import ExchangePlan, PartitionInfo
 from lux_tpu_torch.utils import flags
 
@@ -343,7 +343,7 @@ class ShardedGraph:
             if n_e == 0:
                 continue
             srcs = self.src_global[p, :n_e].astype(np.int64)
-            order = np.argsort(srcs, kind="stable")
+            order = stable_argsort(srcs)
             dstl[p, :n_e] = self.dst_local[p, :n_e][order]
             if w is not None:
                 w[p, :n_e] = self.weights[p, :n_e][order]

@@ -93,6 +93,12 @@ def tristate(name: str, strict: bool = True) -> Optional[bool]:
     return None
 
 
+# Backend (utils/platform.py)
+define("LUX_PLATFORM", None,
+       "the device the CLIs run on: 'cpu' runs the kernels' plain PyTorch "
+       "versions on the CPU; unset (or 'cuda') runs on the card and fails "
+       "without one")
+
 define("LUX_PLAN_BANDED", None,
        "tiled planner level-0 banded passes: 1 force, 0 direct, unset "
        "auto by edge count", kind="tristate")

@@ -1,10 +1,50 @@
-"""Phase timing on the card or the host."""
+"""Wall-clock and phase timing on the card or the host.
+
+:class:`Timer` is the counterpart of ``lux_tpu/utils/timing.py``'s: the
+reference brackets its iteration loop with
+``Realm::Clock::current_time_in_microseconds`` and prints ``ELAPSED TIME
+= %7.7f s`` (pagerank/pagerank.cc:108-118). The executors' ``run()``
+methods return with their work still queued on the card, so the timer
+waits for the card before it reads the clock.
+"""
 
 from __future__ import annotations
 
 import time
 
 import torch
+
+
+def gteps(ne: int, iters: int, seconds: float) -> float:
+    """Traversed edges per second in units of 1e9: ``ne`` edges visited
+    per iteration, ``iters`` iterations, over ``seconds`` of iteration
+    time (``lux_tpu/obs/iterlog.py``'s one definition)."""
+    if seconds <= 0 or iters <= 0:
+        return 0.0
+    return ne * iters / seconds / 1e9
+
+
+class Timer:
+    """``with Timer(device) as t: ...`` sets ``t.elapsed`` (seconds),
+    read after the work queued on ``device`` (a CUDA device) finished."""
+
+    def __init__(self, device=None):
+        self._device = None if device is None else torch.device(device)
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if (exc_type is None and self._device is not None
+                and self._device.type == "cuda"):
+            torch.cuda.synchronize(self._device)
+        self.elapsed = time.perf_counter() - self.start
+        return False
+
+    def print_elapsed(self):
+        # Same format string family as the reference (pagerank.cc:117).
+        print(f"ELAPSED TIME = {self.elapsed:7.7f} s")
 
 
 def timed(fn, device: torch.device):

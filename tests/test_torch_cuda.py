@@ -1501,3 +1501,70 @@ def test_merge4_and_merge_level_match_plain(dev):
     assert _cuda.LAUNCHES["level_apply"] == 1
     assert torch.equal(got.cpu(), pg.merge_level_plain(stream, aoff, boff,
                                                        idx))
+
+
+# -- the app CLIs: main(argv) on the card against the same argv on the CPU ----
+
+CLI_APPS = {
+    # app -> (graph file, argv beyond -file, tolerance or None for bitwise)
+    "pagerank": ("g.lux", ["-ni", "10", "-check"], (5e-5, 1e-9)),
+    "colfilter": ("r.lux", ["-ni", "5", "-check"], (1e-4, 1e-7)),
+    "sssp": ("g.lux", ["-start", "0", "-check"], None),
+    "components": ("u.lux", ["-check"], None),
+    "bfs": ("g.lux", ["-start", "0", "-check"], None),
+    "sssp_delta": ("w.lux", ["-start", "0", "-check"], None),
+}
+
+
+@pytest.fixture(scope="module")
+def cli_graphs(tmp_path_factory):
+    from lux_tpu_torch.graph import write_lux
+
+    d = tmp_path_factory.mktemp("cuda_cli")
+    gw = generate.rmat(10, 16, seed=42, weighted=True)
+    g = generate.rmat(10, 16, seed=42)
+    write_lux(str(d / "g.lux"), g)
+    write_lux(str(d / "w.lux"), gw)
+    write_lux(str(d / "u.lux"), generate.undirected(g))
+    write_lux(str(d / "r.lux"),
+              generate.bipartite_ratings(800, 200, 8000, seed=11))
+    return d
+
+
+def _cli_run(app, argv, capsys):
+    import importlib
+
+    main = importlib.import_module(f"lux_tpu_torch.models.{app}").main
+    capsys.readouterr()
+    rc = main([str(a) for a in argv])
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+@pytest.mark.parametrize("app", sorted(CLI_APPS))
+def test_cli_on_cuda_equals_cpu(dev, cli_graphs, tmp_path, monkeypatch,
+                                capsys, app):
+    name, extra, tol = CLI_APPS[app]
+    argv = ["-file", cli_graphs / name, *extra]
+    saved = {}
+    for where in ("cpu", "cuda"):
+        if where == "cpu":
+            monkeypatch.setenv("LUX_PLATFORM", "cpu")
+        else:
+            monkeypatch.delenv("LUX_PLATFORM", raising=False)
+        ck = tmp_path / f"{where}.npz"
+        rc, out, err = _cli_run(app, [*argv, "-save", ck], capsys)
+        assert rc == 0 and "[PASS]" in out, out + err
+        assert f"torch device: {where}" in err
+        saved[where] = (np.load(ck), [ln for ln in out.splitlines()
+                                      if ln.startswith("iterations")])
+    (cpu, it_cpu), (card, it_card) = saved["cpu"], saved["cuda"]
+    assert it_card == it_cpu
+    assert card["values"].dtype == cpu["values"].dtype
+    if tol is None:
+        np.testing.assert_array_equal(card["values"], cpu["values"])
+    else:
+        np.testing.assert_allclose(card["values"], cpu["values"],
+                                   rtol=tol[0], atol=tol[1])
+    for key in set(cpu.files) - {"values"}:
+        np.testing.assert_array_equal(card[key], cpu[key])

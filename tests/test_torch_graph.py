@@ -62,3 +62,22 @@ def test_lux_files_cross_read(tmp_path, writer, weighted):
         mm = reader.read_lux_mmap(path)
         np.testing.assert_array_equal(np.asarray(mm.col_src), g.col_src)
         np.testing.assert_array_equal(mm.row_ptr, g.row_ptr)
+
+
+@pytest.mark.parametrize("case", ["random", "sorted", "one_key", "empty",
+                                  "negative", "wide"])
+def test_stable_argsort_is_numpys(case):
+    from lux_tpu_torch.graph.graph import stable_argsort
+
+    rng = np.random.default_rng(7)
+    keys = {
+        "random": rng.integers(0, 300, 5000).astype(np.int32),
+        "sorted": np.repeat(np.arange(50, dtype=np.int64), 7),
+        "one_key": np.zeros(1000, dtype=np.int32),
+        "empty": np.zeros(0, dtype=np.int32),
+        "negative": rng.integers(-5, 5, 400),
+        "wide": rng.integers(0, 2**40, 400),
+    }[case]
+    got = stable_argsort(keys)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, np.argsort(keys, kind="stable"))

@@ -35,7 +35,8 @@ def test_port_files_found():
                  "parallel/mesh.py", "engine/sharded.py",
                  "engine/pull_sharded.py", "engine/push_sharded.py",
                  "engine/tiled_sharded.py", "engine/gas_sharded.py",
-                 "utils/logging.py",
+                 "utils/logging.py", "utils/checkpoint.py",
+                 "models/cli.py", "tools/converter.py",
                  "probes/gather.py", "probes/dgather.py",
                  "probes/dgather2.py", "probes/merge_kernel.py"):
         assert f"lux_tpu_torch/{name}" in FILES
