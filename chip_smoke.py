@@ -212,6 +212,35 @@ through ``PullGasAdapter``:
     compact and frontier exchanges alone against their bytes bound, and
     the 8-lane run with its K-lane compact exchange alone.
 
+Then dynamic graphs and incremental recompute (``graph/delta.py``,
+``graph/wal.py``, ``graph/snapshot.py``, ``engine/incremental.py``) on
+the graph and its closure, with ``lux_tpu``'s "~1% edit batch"
+(``tools/snapshot_smoke.py:114-125``: ``ne // 100`` edits, half inserts
+uniform over nv, half deletes of existing edges, ``default_rng(17)``;
+symmetrised on the closure):
+
+3j. a ``SnapshotStore`` with its WAL under ``build/lux_tpu_torch/wal``
+    mints version 1 from the batch; ``SnapshotStore.recover`` must give
+    version 1 with its fingerprint, ``row_ptr`` and ``col_src``; a second
+    batch (seed 18) stacks version 2 on version 0's anchor, below
+    ``LUX_DELTA_COMPACT_RATIO``, and recover must give version 2 the same
+    way; version 1's graph (merged once) and the closure's edited twin,
+    with their CSRs, serve every run below;
+5j. on the card, each against a from-scratch run on the new graph and
+    its oracle, bitwise: warm SSSP from vertex 0 (old values: phase 5b's
+    fixpoint) with zero violations, warm CC on the edited closure, the
+    8-lane warm SSSP from phase 5f's lanes (K10 with 8 columns; lane 0
+    against the SSSP oracle), and incremental PageRank (K8) from a flat
+    ``run(20)`` on the old graph, its warm vector bitwise the old true
+    ranks over the new out-degrees and its true ranks within rtol=1e-3,
+    atol=1e-3/nv of a from-scratch ``run(20)``; launch counts checked
+    against each run's branch log or iterations;
+6j. the seconds of each host step (edits, WAL append with fsync, merge,
+    ``removed_edges``, recover, CSR, invalidation, state upload), the
+    ``info`` dicts, the iterations, and the ms of the warm and the
+    from-scratch runs (median of 3 after ``warmup``, host clock), the
+    warm runs split into invalidation, upload and the rest.
+
 Last, the app CLIs (``python -m lux_tpu_torch.models.<app>``), each a
 subprocess on the card:
 
@@ -480,6 +509,11 @@ def main(argv=None) -> int:
                          gu, sgs, gas_ctx, oracle, dev, kernels).items():
         totals[name] = totals.get(name, 0) + n
     del gw, sgs
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    for name, n in group("3j-6j incremental", _incremental_phases, g, gu,
+                         push_ctx, held, dev, _cuda.BUILD_DIR / "wal").items():
+        totals[name] = totals.get(name, 0) + n
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
     group(cli, _cli_phases, cli_dir, f"torch device: cuda ({kind})", held,
@@ -1894,7 +1928,8 @@ def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
     and under ``<kernel>[split]`` those of the split-table calls; and the
     two shard layouts (``rmat``, ``closure``) for the sharded GAS
     phases. Leaves the full-mode SSSP's ms to fixpoint in
-    ``held["sharded sssp"]``."""
+    ``held["sharded sssp"]`` and the single-device 8-lane run's roots
+    and host lanes in ``held["multi"]``."""
     import torch
 
     from lux_tpu_torch.engine.check import count_violations
@@ -2275,6 +2310,7 @@ def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
         raise AssertionError(f"multi-source: {miters} iterations, longest "
                              f"single-source run {longest}")
     lanes = seg.u32_to_numpy(mst.values)
+    held["multi"] = (roots, lanes)      # group 3j-6j's old lanes
     log(f"[push-sharded] multi-source sssp k={K}: {miters} iterations; "
         f"every lane equals its single-source PushExecutor run bitwise "
         f"(longest {longest} iterations); launches K10 "
@@ -3302,6 +3338,354 @@ def _k1_yardsticks(host_levels, levels, x, nvb: int, reps: int, label: str,
         f"{bound(nbytes, flops)[0]:.4f} ms ({nbytes} B), on the strip "
         f"layout {bound(strip_bytes, 0)[0]:.4f} ms ({strip_bytes} B)")
     return ms, plain, nbytes, flops, lib
+
+
+# -- 3j-6j: dynamic graphs and incremental recompute --------------------------
+
+EDIT_SEED = 17                   # tools/snapshot_smoke.py:114
+PR_WARM_ITERS, PR_WARM_TOL = 20, 1e-7
+# tests/test_incremental.py:261 holds warm PageRank within rtol 1e-3,
+# atol 1e-6 at nv ~ 256; a rank here is about 0.85 / nv ~ 2e-7, so the
+# atol is scaled to the ranks: PR_WARM_ATOL_NV / nv.
+PR_WARM_RTOL, PR_WARM_ATOL_NV = 1e-3, 1e-3
+INC_KERNELS = ("segment_minmax_relax", "frontier_queue",
+               "queue_relax_scatter", "gather_segment_sum", "gas_pull_acc")
+
+
+def _edit_batch(graph, symmetric=False, seed=EDIT_SEED):
+    """``lux_tpu``'s "~1% edit batch" (``tools/snapshot_smoke.py:114-125``)
+    drawn as arrays, the same draws: ``ne // 100`` edits, half inserts
+    with both ends uniform over nv, half deletes of existing edges drawn
+    without replacement, ``default_rng(17)``. ``symmetric`` adds the
+    reverse of every insert and delete, as tests/test_incremental.py
+    does for CC on a closure."""
+    from lux_tpu_torch.graph import EdgeEdits
+
+    rng = np.random.default_rng(seed)
+    n = max(2, graph.ne // 100)
+    pairs = rng.integers(graph.nv, size=(n // 2, 2))
+    e = rng.choice(graph.ne, size=n - n // 2, replace=False)
+    ins_s, ins_d = pairs[:, 0], pairs[:, 1]
+    del_s = graph.col_src[e].astype(np.int64)
+    del_d = graph.col_dst[e].astype(np.int64)
+    if symmetric:
+        ins_s, ins_d = np.r_[ins_s, ins_d], np.r_[ins_d, ins_s]
+        del_s, del_d = np.r_[del_s, del_d], np.r_[del_d, del_s]
+    return EdgeEdits(ins_src=ins_s, ins_dst=ins_d, ins_w=None,
+                     del_src=del_s, del_dst=del_d)
+
+
+def _incremental_phases(g, gu, push, held, dev, work) -> dict:
+    """Phases 3j-6j: an edit batch arrives, a snapshot is minted and
+    logged to the WAL (under ``work``), and warm-started fixpoints run
+    on the new graph: SSSP from vertex 0 and CC on the edited closure
+    (K5-K7), 8-lane SSSP (K10 with 8 columns) and PageRank (K8).
+    ``push`` is phase 5b's context (its fixpoints are the old values);
+    ``held["multi"]`` phase 5f's roots and lanes. Returns the launch
+    counts of the four warm runs, summed."""
+    import torch
+
+    from lux_tpu_torch.engine.check import count_violations
+    from lux_tpu_torch.engine.incremental import (IncrementalExecutor,
+                                                  incremental_pagerank)
+    from lux_tpu_torch.engine.pull import PullExecutor
+    from lux_tpu_torch.engine.push import MultiSourcePushExecutor, PushExecutor
+    from lux_tpu_torch.graph import DeltaGraph, SnapshotStore
+    from lux_tpu_torch.graph.delta import removed_edges
+    from lux_tpu_torch.models import SSSP, ConnectedComponents, PageRank
+    from lux_tpu_torch.models.components import reference_components
+    from lux_tpu_torch.models.pagerank import true_ranks
+    from lux_tpu_torch.models.sssp import reference_sssp
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.utils import checkpoint
+
+    torch.cuda.reset_peak_memory_stats()
+    host = {}
+
+    def timed_host(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        host[name] = host.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    # -- 3j. snapshots ---------------------------------------------------------
+    shutil.rmtree(work, ignore_errors=True)
+    edits = timed_host("edits", lambda: _edit_batch(g))
+    store = SnapshotStore(g, wal_dir=str(work))
+    timed_host("WAL append + fsync", lambda: store.enqueue(edits))
+    snap = timed_host("merge + fingerprint + commit", store.apply)
+    new_g = snap.graph
+    removed = timed_host("removed_edges",
+                         lambda: removed_edges(g, edits.del_src,
+                                               edits.del_dst))
+    inserted = (edits.ins_src, edits.ins_dst)
+    wal = store.wal_stats()
+    rec = timed_host("recover", lambda: SnapshotStore.recover(g, str(work)))
+    head = rec.current()
+    if (head.version, head.fingerprint) != (1, snap.fingerprint) or not (
+            np.array_equal(head.graph.row_ptr, new_g.row_ptr)
+            and np.array_equal(head.graph.col_src, new_g.col_src)):
+        raise AssertionError(
+            f"recovered version {head.version} fingerprint "
+            f"{head.fingerprint} differs from version 1's "
+            f"{snap.fingerprint}")
+    # A second batch below LUX_DELTA_COMPACT_RATIO stacks version 2 on
+    # version 0's anchor, as version 1 is: replay must rebuild it there.
+    edits2 = timed_host("edits", lambda: _edit_batch(g, seed=EDIT_SEED + 1))
+    snap2 = timed_host("merge + fingerprint + commit",
+                       lambda: store.apply(edits2))
+    rec = timed_host("recover", lambda: SnapshotStore.recover(g, str(work)))
+    head = rec.current()
+    if snap2.delta.base is not g or (head.version, head.fingerprint) != (
+            2, snap2.fingerprint) or not (
+            np.array_equal(head.graph.row_ptr, snap2.graph.row_ptr)
+            and np.array_equal(head.graph.col_src, snap2.graph.col_src)):
+        raise AssertionError(
+            f"recovered version {head.version} fingerprint "
+            f"{head.fingerprint} differs from version 2's "
+            f"{snap2.fingerprint} (stacked on version 0: "
+            f"{snap2.delta.base is g})")
+    wal2 = store.wal_stats()
+    del rec, head, store, snap2
+    shutil.rmtree(work, ignore_errors=True)
+    timed_host("CSR", new_g.csr)
+    log(f"[incremental] batch (seed {EDIT_SEED}): {edits.n_ins} inserts, "
+        f"{edits.n_del} deletes removing {removed[0].size} edges; version 1"
+        f": ne={new_g.ne} fingerprint {snap.fingerprint} (version 0 "
+        f"{checkpoint.fingerprint_hex(g)}); WAL {wal['records']} records, "
+        f"{wal['bytes']} B; recover gave version 1, its fingerprint and "
+        "row_ptr and col_src bitwise; a second batch (seed "
+        f"{EDIT_SEED + 1}) stacked version 2 on version 0's anchor, WAL "
+        f"{wal2['records']} records, {wal2['bytes']} B, and recover gave "
+        "version 2 bitwise")
+    edits_c = timed_host("edits (closure)",
+                         lambda: _edit_batch(gu, symmetric=True))
+    new_gu = timed_host("merge (closure)", lambda: DeltaGraph.fresh(
+        gu).stack(edits_c).merged())
+    removed_c = timed_host("removed_edges (closure)",
+                           lambda: removed_edges(gu, edits_c.del_src,
+                                                 edits_c.del_dst))
+    inserted_c = (edits_c.ins_src, edits_c.ins_dst)
+    timed_host("CSR (closure)", new_gu.csr)
+    log(f"[incremental] closure batch (symmetrised): {edits_c.n_ins} "
+        f"inserts, {edits_c.n_del} deletes removing {removed_c[0].size} "
+        f"edges; ne {gu.ne} -> {new_gu.ne}")
+
+    # -- 5j. results held on the card ------------------------------------------
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    runs = {}
+
+    def counted(fn):
+        _cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(_cuda.LAUNCHES)
+
+    def push_want(ex):
+        log_ = ex.branch_log
+        return {"segment_minmax_relax": sum(1 for b, _, _ in log_ if b == 0),
+                "frontier_queue": sum(1 for b, c, _ in log_ if b and c),
+                "queue_relax_scatter": sum(1 for b, c, e in log_
+                                           if b and c and e)}
+
+    oracles = {}
+    for app, graph, prog, old, rem, ins, kw, oracle in (
+            ("sssp", new_g, SSSP(), push["sssp"]["oracle"], removed,
+             inserted, {"start": 0}, lambda: reference_sssp(new_g, 0)),
+            ("cc", new_gu, ConnectedComponents(), push["cc"]["oracle"],
+             removed_c, inserted_c, {}, lambda: reference_components(
+                 new_gu))):
+        t = time.perf_counter()
+        ex = PushExecutor(graph, prog)
+        inc = IncrementalExecutor(graph, prog, push=ex)
+        torch.cuda.synchronize()
+        host[f"executor ({app})"] = time.perf_counter() - t
+        (st, iters, info), counts = counted(
+            lambda: inc.run(old, removed=rem, inserted=ins, **kw))
+        host[f"invalidation ({app})"] = inc.host_seconds["invalidation"]
+        host[f"state upload ({app})"] = inc.host_seconds["upload"]
+        check_launches(f"warm {app}", counts, push_want(ex))
+        branches, sparse = list(ex.branch_log), ex.sparse_iters
+        vals = ex.values(st)
+        (fst, fiters), fcounts = counted(lambda: ex.run(**kw))
+        check_launches(f"from-scratch {app}", fcounts, push_want(ex))
+        oracles[app] = timed_host(f"oracle ({app})", oracle)
+        if vals.shape != (graph.nv,) or vals.dtype != np.uint32:
+            raise AssertionError(f"warm {app}: bad output {vals.shape}")
+        if not np.array_equal(vals, ex.values(fst)):
+            raise AssertionError(f"warm {app}: differs from the "
+                                 "from-scratch run on the card")
+        if not np.array_equal(vals, oracles[app]):
+            raise AssertionError(
+                f"warm {app}: {int(np.sum(vals != oracles[app]))} values "
+                "differ from the oracle")
+        viol = count_violations(graph, st.values, prog)
+        if viol:
+            raise AssertionError(f"warm {app}: {viol} invariant violations")
+        for name, n in counts.items():
+            totals[name] += n
+        runs[app] = {"ex": ex, "inc": inc, "old": old, "rem": rem,
+                     "ins": ins, "kw": kw, "iters": iters, "info": info,
+                     "scratch_iters": fiters}
+        log(f"[incremental] warm {app}: {iters} iterations "
+            f"({sparse} sparse; branches {branches}) against "
+            f"{fiters} from scratch; info {info}; values equal the "
+            "from-scratch run on the card and the oracle bitwise, 0 "
+            f"violations; launches K5 {counts['segment_minmax_relax']}, K6 "
+            f"{counts['frontier_queue']}, K7 {counts['queue_relax_scatter']}")
+        del st, fst
+
+    roots, lanes = held.pop("multi")
+    t = time.perf_counter()
+    mx = MultiSourcePushExecutor(new_g, SSSP(), len(roots))
+    minc = IncrementalExecutor(new_g, SSSP(), push=runs["sssp"]["ex"],
+                               multi=mx)
+    torch.cuda.synchronize()
+    host["executor (multi)"] = time.perf_counter() - t
+    cols = [np.ascontiguousarray(lanes[:, j]) for j in range(len(roots))]
+    del lanes
+    (mst, miters, minfo), counts = counted(
+        lambda: minc.run_multi(roots, cols, removed=removed,
+                               inserted=inserted))
+    host["invalidation (multi)"] = minc.host_seconds["invalidation"]
+    host["state upload (multi)"] = minc.host_seconds["upload"]
+    check_launches("warm multi-source", counts, {"gas_pull_acc": miters})
+    for name, n in counts.items():
+        totals[name] += n
+    (fst, fiters), fcounts = counted(lambda: mx.run(roots))
+    check_launches("from-scratch multi-source", fcounts,
+                   {"gas_pull_acc": fiters})
+    check_equal("warm multi-source lanes", mst.values, fst.values)
+    if not np.array_equal(mx.values_for(mst, 0), oracles["sssp"]):
+        raise AssertionError("warm multi-source lane 0 differs from the "
+                             "SSSP oracle")
+    runs["multi"] = {"iters": miters, "info": minfo, "scratch_iters": fiters}
+    log(f"[incremental] warm multi-source sssp k={len(roots)} (roots "
+        f"{roots}): {miters} iterations against {fiters} from scratch; "
+        f"info {minfo}; every lane equals the from-scratch run on the card "
+        f"bitwise, lane 0 the oracle; launches K10 {counts['gas_pull_acc']}")
+    del mst, fst
+
+    t = time.perf_counter()
+    pg_old = PullExecutor(g, PageRank())
+    pg_new = PullExecutor(new_g, PageRank())
+    torch.cuda.synchronize()
+    host["executor (pagerank)"] = time.perf_counter() - t
+    ni, tol = PR_WARM_ITERS, PR_WARM_TOL
+    old_pr = pg_old.run(ni)
+    del pg_old
+    # The warm vector (ni = 0 returns it), bitwise the old true ranks
+    # re-divided by the new out-degrees: eight iterations at ALPHA 0.15
+    # shrink a wrong start by 0.15**8, so the ranks alone cannot tell.
+    warm0, zero = incremental_pagerank(pg_new, old_pr, g.out_degrees, 0)
+    old_h, od, nd = old_pr.cpu().numpy(), g.out_degrees, new_g.out_degrees
+    true0 = np.where(od == 0, old_h, old_h * od)
+    want0 = np.where(nd == 0, true0, true0 / np.maximum(nd, 1)).astype(
+        np.float32)
+    moved = (od != nd) & (np.maximum(od, nd) > 1)
+    if zero or not np.array_equal(warm0, want0) or np.any(
+            warm0[moved] == old_h[moved]):
+        raise AssertionError("warm pagerank: the warm vector is not the "
+                             "old true ranks over the new out-degrees")
+    del warm0, want0, true0, old_h
+    (stored, piters), counts = counted(lambda: incremental_pagerank(
+        pg_new, old_pr, g.out_degrees, ni, tol=tol))
+    check_launches("warm pagerank", counts, {"gather_segment_sum": piters})
+    for name, n in counts.items():
+        totals[name] += n
+    scratch, fcounts = counted(lambda: pg_new.run(ni))
+    check_launches("from-scratch pagerank", fcounts,
+                   {"gather_segment_sum": ni})
+    deg = new_g.out_degrees
+    got = true_ranks(stored, deg)
+    want = true_ranks(scratch.cpu().numpy(), deg)
+    if got.shape != (new_g.nv,) or not np.isfinite(got).all():
+        raise AssertionError("warm pagerank: bad output")
+    atol = PR_WARM_ATOL_NV / new_g.nv
+    np.testing.assert_allclose(got, want, rtol=PR_WARM_RTOL, atol=atol,
+                               err_msg="warm pagerank")
+    pr_err = float(np.max(np.abs(got - want)))
+    runs["pagerank"] = {"iters": piters, "scratch_iters": ni}
+    log(f"[incremental] warm pagerank: the warm vector equals the old true "
+        f"ranks over the new out-degrees bitwise ({int(moved.sum())} "
+        f"vertices' degrees moved); {piters} iterations (tol {tol}, ni "
+        f"{ni}) from a flat run({ni}) on version 0; true ranks within "
+        f"rtol={PR_WARM_RTOL}, atol={atol:.3e} of run({ni}) on version 1 "
+        f"(max abs err {pr_err:.3e}, median rank "
+        f"{float(np.median(want)):.3e}); launches K8 "
+        f"{counts['gather_segment_sum']}")
+
+    # -- 6j. timing --------------------------------------------------------------
+    log("[time] incremental host steps (s): " + ", ".join(
+        f"{k}={v:.3f}" for k, v in host.items()))
+    def warm_runs(inc, run):
+        """Three host-clock runs of ``run``; with each its host split."""
+        secs, split = [], []
+        for _ in range(3):
+            secs.append(host_seconds(run))
+            split.append(dict(inc.host_seconds))
+        med = {k: float(np.median([d[k] for d in split])) * 1e3
+               for k in split[0]}
+        device = float(np.median([t - sum(d.values())
+                                  for t, d in zip(secs, split)])) * 1e3
+        return (f"{_med_ms(secs)} ms (median of 3: {_ms_list(secs)}; "
+                f"invalidation {med['invalidation']:.3f}, upload "
+                f"{med['upload']:.3f}, the rest {device:.3f})")
+
+    for app in ("sssp", "cc"):
+        r = runs[app]
+        ex, inc = r["ex"], r["inc"]
+        inc.warmup(**r["kw"])
+        warm = warm_runs(inc, lambda: inc.run(
+            r["old"], removed=r["rem"], inserted=r["ins"], **r["kw"]))
+        scratch = [host_seconds(lambda: ex.run(**r["kw"])) for _ in range(3)]
+        log(f"[time] incremental {app}: warm run {warm}, {r['iters']} "
+            f"iterations; from scratch {_med_ms(scratch)} ms (median of 3: "
+            f"{_ms_list(scratch)}), {r['scratch_iters']} iterations; reset "
+            f"{r['info']['reset']}, frontier {r['info']['frontier']}, "
+            f"touched_frac {r['info']['touched_frac']:.6f}")
+    minc.multi.warmup(start=roots[0])
+    warm = warm_runs(minc, lambda: minc.run_multi(
+        roots, cols, removed=removed, inserted=inserted))
+    scratch = [host_seconds(lambda: mx.run(roots)) for _ in range(3)]
+    r = runs["multi"]
+    log(f"[time] incremental multi-source sssp k={len(roots)}: warm run "
+        f"{warm}, {r['iters']} iterations; from scratch {_med_ms(scratch)} "
+        f"ms ({_ms_list(scratch)}), {r['scratch_iters']} iterations; reset "
+        f"{r['info']['reset']}, frontier {r['info']['frontier']}, "
+        f"touched_frac {r['info']['touched_frac']:.6f}")
+    pg_new.warmup()
+    warm = [host_seconds(lambda: incremental_pagerank(
+        pg_new, old_pr, g.out_degrees, ni, tol=tol)) for _ in range(3)]
+    scratch = [host_seconds(lambda: pg_new.run(ni)) for _ in range(3)]
+    # The iterations alone, from a state on the card (K8 and the apply
+    # take the same time whatever the values).
+    v0 = pg_new.init_values()
+    dev_iters = {n: [host_seconds(lambda: pg_new.run(n, vals=v0))
+                     for _ in range(3)]
+                 for n in (runs["pagerank"]["iters"], ni)}
+    log(f"[time] incremental pagerank: warm run {_med_ms(warm)} ms (median "
+        f"of 3: {_ms_list(warm)}), {runs['pagerank']['iters']} iterations; "
+        f"from scratch {_med_ms(scratch)} ms ({_ms_list(scratch)}), {ni} "
+        "iterations; the iterations alone from a state on the card: "
+        + ", ".join(f"{n} in {_med_ms(v)} ms" for n, v in dev_iters.items()))
+    del v0
+    log("[incremental] launches of the warm runs: " + ", ".join(
+        f"{k}={totals[k]}" for k in INC_KERNELS))
+    log(f"[incremental] peak device memory of phases 3j-6j "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in INC_KERNELS:
+        if totals[name] <= 0:
+            raise AssertionError(f"{name} never ran on the incremental path")
+    return totals
+
+
+def _med_ms(secs) -> str:
+    return f"{float(np.median(secs)) * 1e3:.3f}"
+
+
+def _ms_list(secs) -> list:
+    return [round(x * 1e3, 3) for x in secs]
 
 
 # -- 3i-6i: the app CLIs, each a subprocess on the card ----------------------

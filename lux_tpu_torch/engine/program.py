@@ -19,6 +19,14 @@ import numpy as np
 import torch
 
 
+class ProgramContractError(TypeError):
+    """An engine was asked to run a program whose contract does not
+    license it; the message names the failed rule. ``lux_tpu`` raises its
+    own from the machine-checked algebra of ``analysis/gasck.py``; the
+    port raises this one from the program's declarations until that lint
+    is ported (ROADMAP A16)."""
+
+
 @dataclasses.dataclass(frozen=True)
 class VertexCtx:
     """Per-vertex context available to ``apply``."""

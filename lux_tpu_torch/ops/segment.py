@@ -31,6 +31,9 @@ comparison and narrow back to the same bit pattern
 (:func:`narrow_u32`). :func:`identity_for` gives identities as values
 of that widened domain: the uint32 min identity is ``0xFFFFFFFF``, never
 −1. Results leave as numpy uint32 (:func:`u32_to_numpy`).
+
+:func:`csc_counting_merge`, the delta graph's merge, is a numpy copy of
+``lux_tpu``'s and runs on the host there too: it is not a kernel.
 """
 
 from __future__ import annotations
@@ -934,3 +937,72 @@ def gas_pull_acc(
         _cuda.stream(dev),
     )
     return acc
+
+
+# -- the delta graph's merge (host, numpy) -------------------------------
+
+
+def csc_counting_merge(
+    row_ptr: np.ndarray,
+    col_src: np.ndarray,
+    weights,
+    keep: np.ndarray,
+    ins_dst: np.ndarray,
+    ins_src: np.ndarray,
+    ins_w,
+    nv: int,
+):
+    """Merge a kept subset of a CSC edge list with sorted inserts, host-side.
+
+    One counting-sort pass instead of a full ``argsort`` over the merged
+    edge list: per-destination survivor counts come from the dropped
+    edges' destinations, insert counts from a ``bincount``, and every
+    insert's final slot is a closed-form offset — kept edges keep their
+    base-relative order within each destination segment and fill the
+    slots the inserts (pre-sorted by ``(dst, src)``) leave, after them.
+    O(ne + ni + nv) with no comparison sort, deterministic by
+    construction; the same arrays as ``lux_tpu``'s, which finds each kept
+    edge's slot by a search of ``row_ptr`` and a prefix sum over ``keep``
+    instead (several times slower at 67 M edges).
+
+    ``keep`` is a boolean mask over the base edges; ``ins_dst``/``ins_src``
+    must be sorted by ``(dst, src)``. Returns
+    ``(new_row_ptr int64 (nv+1,), new_col_src, new_weights|None)``.
+    """
+    ni = int(ins_dst.shape[0])
+    if weights is None and ins_w is not None:
+        raise ValueError("insert weights given for an unweighted base")
+    if weights is not None and ni and ins_w is None:
+        raise ValueError("weighted base requires insert weights")
+
+    # Destinations of the dropped edges (few) by a search of row_ptr.
+    dropped = np.flatnonzero(~keep)
+    dropped_dst = np.searchsorted(row_ptr, dropped, side="right") - 1
+    kept_per = np.diff(row_ptr).astype(np.int64) - np.bincount(
+        dropped_dst, minlength=nv)
+    ins_per = np.bincount(ins_dst, minlength=nv).astype(np.int64)
+
+    new_rp = np.zeros(nv + 1, dtype=np.int64)
+    np.cumsum(kept_per + ins_per, out=new_rp[1:])
+    total = int(new_rp[-1])
+
+    new_src = np.empty(total, dtype=col_src.dtype)
+    has_w = weights is not None
+    new_w = np.empty(total, dtype=weights.dtype) if has_w else None
+
+    is_ins = np.zeros(total, dtype=bool)
+    if ni:
+        first = np.searchsorted(ins_dst, ins_dst)  # first index of each dst run
+        rank = np.arange(ni, dtype=np.int64) - first
+        d = ins_dst.astype(np.int64)
+        pos_i = new_rp[d] + kept_per[d] + rank
+        is_ins[pos_i] = True
+        new_src[pos_i] = ins_src.astype(col_src.dtype)
+        if has_w:
+            new_w[pos_i] = ins_w
+    # The kept edges, in base order, fill the other slots in order.
+    is_kept = ~is_ins
+    new_src[is_kept] = col_src[keep]
+    if has_w:
+        new_w[is_kept] = weights[keep]
+    return new_rp, new_src, new_w

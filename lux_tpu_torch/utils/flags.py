@@ -93,6 +93,14 @@ def tristate(name: str, strict: bool = True) -> Optional[bool]:
     return None
 
 
+# Observability (obs/trace.py, obs/spans.py)
+define("LUX_TRACE", None,
+       "stream Chrome trace_event JSON-lines to this path", kind="path")
+define("LUX_SPANS", True,
+       "request-scoped serve spans (obs/spans.py): trace-id propagation, "
+       "per-phase histograms, async Chrome events (0 disables)",
+       kind="bool")
+
 # Backend (utils/platform.py)
 define("LUX_PLATFORM", None,
        "the device the CLIs run on: 'cpu' runs the kernels' plain PyTorch "
@@ -143,3 +151,34 @@ define("LUX_EXCHANGE_FRONTIER_FRAC", 0.25,
        "compact capacity (ExchangePlan.frontier_capacity): smaller = "
        "bigger byte win on sparse iterations but earlier self-downgrade "
        "to the static compact send", kind="float")
+
+# Concurrency discipline (utils/locks.py)
+define("LUX_LOCKWATCH", False,
+       "wrap every utils/locks.make_lock in the LockWatch sentinel: "
+       "per-thread acquisition stacks, online lock-order inversion "
+       "detection, lux_lock_{wait,hold}_seconds histograms (set before "
+       "import; locks are wrapped at construction)", kind="bool")
+define("LUX_LOCK_HOLD_WARN_MS", 250.0,
+       "LockWatch: warn + count lux_lock_hold_warnings_total when a "
+       "watched lock is held longer than this many ms (0 disables)",
+       kind="float")
+
+# Dynamic graphs (graph/snapshot.py, engine/incremental.py)
+define("LUX_DELTA_COMPACT_RATIO", 0.05,
+       "background-compact a snapshot's delta once pending edits exceed "
+       "this fraction of the base edge count", kind="float")
+
+# Robustness: fault injection (utils/faults.py), edit WAL (graph/wal.py)
+define("LUX_FAULTS", None,
+       "fault-injection spec `point:kind:prob[:arg]`, comma-separated "
+       "(kinds: raise|delay_ms|corrupt|crash; see utils/faults.py); "
+       "unset/empty = disarmed, the points cost one bool check")
+define("LUX_FAULTS_SEED", 0,
+       "seed for the per-rule fault-injection RNGs (utils/faults.py)",
+       kind="int")
+define("LUX_WAL_DIR", None,
+       "directory for the edit write-ahead log; when set, a SnapshotStore "
+       "made without a wal_dir CRC-frames + fsyncs every edit batch to "
+       "<dir>/lux.wal before any version is minted, and "
+       "SnapshotStore.recover without a wal_dir replays it (unset = no "
+       "durability, the pre-WAL behavior)", kind="path")

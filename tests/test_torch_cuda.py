@@ -1568,3 +1568,112 @@ def test_cli_on_cuda_equals_cpu(dev, cli_graphs, tmp_path, monkeypatch,
                                    rtol=tol[0], atol=tol[1])
     for key in set(cpu.files) - {"values"}:
         np.testing.assert_array_equal(card[key], cpu[key])
+
+
+def _edited(g, seed, symmetric=False):
+    """A 1% batch of random inserts and deletes of existing edges (both
+    directions of each when ``symmetric``), the edited graph, and the
+    (removed, inserted) arrays of the incremental path."""
+    from lux_tpu_torch.graph import DeltaGraph, EdgeEdits
+    from lux_tpu_torch.graph.delta import removed_edges
+
+    rng = np.random.default_rng(seed)
+    n = g.ne // 100
+    ins_s = rng.integers(0, g.nv, n // 2)
+    ins_d = rng.integers(0, g.nv, n // 2)
+    e = rng.choice(g.ne, n - n // 2, replace=False)
+    del_s, del_d = g.col_src[e].astype(np.int64), g.col_dst[e].astype(np.int64)
+    if symmetric:
+        ins_s, ins_d = np.r_[ins_s, ins_d], np.r_[ins_d, ins_s]
+        del_s, del_d = np.r_[del_s, del_d], np.r_[del_d, del_s]
+    ed = EdgeEdits(ins_src=ins_s, ins_dst=ins_d, ins_w=None,
+                   del_src=del_s, del_dst=del_d)
+    new = DeltaGraph.fresh(g).stack(ed).merged()
+    return new, removed_edges(g, ed.del_src, ed.del_dst), (ed.ins_src,
+                                                           ed.ins_dst)
+
+
+@pytest.mark.parametrize("app", ["sssp", "cc"])
+def test_incremental_push_on_cuda(dev, app):
+    """Warm SSSP and CC on a 1% batch at scale 10: the card's values,
+    iterations and info equal the CPU's, and the launches the branch
+    log says (K5 dense, K6 and K7 sparse)."""
+    from lux_tpu_torch.engine.incremental import IncrementalExecutor
+
+    g = generate.rmat(10, 16, seed=42)
+    if app == "cc":
+        g = generate.undirected(g)
+    prog, kw = (SSSP(), {"start": 0}) if app == "sssp" else (
+        ConnectedComponents(), {})
+    old_st, _ = PushExecutor(g, prog, device="cpu").run(**kw)
+    old = seg.u32_to_numpy(old_st.values)
+    new, removed, inserted = _edited(g, 17, symmetric=app == "cc")
+    got = {}
+    for where in ("cpu", "cuda"):
+        inc = IncrementalExecutor(new, prog, device=where)
+        _cuda.reset_launches()
+        st, iters, info = inc.run(old, removed=removed, inserted=inserted,
+                                  **kw)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            log = inc.push.branch_log
+            assert _cuda.LAUNCHES == {
+                **dict.fromkeys(_cuda.LAUNCHES, 0),
+                "segment_minmax_relax": sum(1 for b, _, _ in log if b == 0),
+                "frontier_queue": sum(1 for b, c, _ in log if b and c),
+                "queue_relax_scatter": sum(1 for b, c, e in log
+                                           if b and c and e)}
+        got[where] = (inc.push.values(st), iters, info)
+    np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
+    assert got["cuda"][1:] == got["cpu"][1:]
+    ref = (reference_sssp(new, 0) if app == "sssp"
+           else reference_components(new))
+    np.testing.assert_array_equal(got["cuda"][0], ref)
+
+
+def test_incremental_multi_source_on_cuda(dev):
+    from lux_tpu_torch.engine.incremental import IncrementalExecutor
+
+    g = generate.rmat(10, 16, seed=42)
+    roots = [0, 3, 11, 40, 77, 100, 512]
+    single = PushExecutor(g, SSSP(), device="cpu")
+    cols = [single.values(single.run(start=r)[0]) for r in roots]
+    new, removed, inserted = _edited(g, 18)
+    got = {}
+    for where in ("cpu", "cuda"):
+        inc = IncrementalExecutor(new, SSSP(), k=8, device=where)
+        _cuda.reset_launches()
+        st, iters, info = inc.run_multi(roots, cols, removed=removed,
+                                        inserted=inserted)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert _cuda.LAUNCHES == {**dict.fromkeys(_cuda.LAUNCHES, 0),
+                                      "gas_pull_acc": iters}
+        got[where] = (seg.u32_to_numpy(st.values), iters, info)
+    np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
+    assert got["cuda"][1:] == got["cpu"][1:]
+    for j, r in enumerate(roots):
+        np.testing.assert_array_equal(got["cuda"][0][:, j],
+                                      reference_sssp(new, r))
+
+
+def test_incremental_pagerank_on_cuda(dev):
+    """Warm PageRank (K8) at scale 10: the card's ranks within
+    rtol=5e-5, atol=1e-9 of the CPU's plain run, equal iterations."""
+    from lux_tpu_torch.engine.incremental import incremental_pagerank
+
+    g = generate.rmat(10, 16, seed=42)
+    old = PullExecutor(g, PageRank(), device="cpu").run(20)
+    new, _, _ = _edited(g, 19)
+    got = {}
+    for where in ("cpu", "cuda"):
+        _cuda.reset_launches()
+        got[where] = incremental_pagerank(
+            PullExecutor(new, PageRank(), device=where), old,
+            g.out_degrees, 20, tol=1e-7)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert _cuda.LAUNCHES["gather_segment_sum"] == got[where][1]
+    np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], rtol=RTOL,
+                               atol=ATOL)
+    assert got["cuda"][1] == got["cpu"][1]

@@ -38,7 +38,12 @@ def test_port_files_found():
                  "utils/logging.py", "utils/checkpoint.py",
                  "models/cli.py", "tools/converter.py",
                  "probes/gather.py", "probes/dgather.py",
-                 "probes/dgather2.py", "probes/merge_kernel.py"):
+                 "probes/dgather2.py", "probes/merge_kernel.py",
+                 "utils/locks.py", "utils/faults.py", "utils/host.py",
+                 "obs/__init__.py",
+                 "obs/metrics.py", "obs/trace.py", "obs/spans.py",
+                 "graph/delta.py", "graph/wal.py", "graph/snapshot.py",
+                 "engine/incremental.py"):
         assert f"lux_tpu_torch/{name}" in FILES
 
 
