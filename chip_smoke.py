@@ -212,6 +212,30 @@ through ``PullGasAdapter``:
     compact and frontier exchanges alone against their bytes bound, and
     the 8-lane run with its K-lane compact exchange alone.
 
+Then the sharded executors over a ``torch.distributed`` mesh
+(``parallel/multihost.py``, ``parallel/mesh.py::DistMesh``), each held
+bitwise against its ``LocalMesh`` run with equal iterations and
+ledgers:
+
+3k. one NCCL rank in this process (``initialize(backend="nccl",
+    world_size=1, rank=0)``, then ``make_global_mesh(4)``): tiled
+    PageRank on phase 3's plan right after 3g, then on the layouts of
+    phases 3e-3h pull PageRank (full, compact), SSSP (full, compact),
+    CC, BFS in frontier mode and the 8-lane SSSP and BFS, each against
+    its run of 5e-5h with its launches checked, timed (median of 3
+    after ``warmup``) beside the LocalMesh time;
+4k-6k. two ranks of this script on the one card over gloo (``--mesh-rank``,
+    started with ``torchrun``'s environment, so a bare ``initialize()``
+    picks gloo), P = 4, two parts a rank: each rank reads phase 3i's
+    ``g.lux`` and plan, builds its parts' layout (host seconds logged),
+    and runs pull PageRank (compact), tiled PageRank, SSSP (its sparse
+    branch crosses ranks) and BFS in frontier mode, its launches checked
+    against its ledgers; both ranks bitwise equal to 3k's values,
+    iterations and ledgers, their times beside 3k's and the LocalMesh's,
+    and the bytes staged through pinned host buffers beside
+    ``exchange_bytes_per_iter``. A rank that fails or outlasts its time
+    fails the script.
+
 Then dynamic graphs and incremental recompute (``graph/delta.py``,
 ``graph/wal.py``, ``graph/snapshot.py``, ``engine/incremental.py``) on
 the graph and its closure, with ``lux_tpu``'s "~1% edit batch"
@@ -371,6 +395,12 @@ def check_launches(label: str, counts: dict, want: dict) -> None:
         raise AssertionError(f"{label}: launches {counts}, expected {full}")
 
 
+def keep(held, label, **kw) -> None:
+    """Keep what a LocalMesh run gave under ``held["mesh"][label]``, for
+    group 3k and 4k-6k to hold the runs over ranks against."""
+    held.setdefault("mesh", {}).setdefault(label, {}).update(kw)
+
+
 def record(kernels, name, source, replaces, err, ms, plain_ms, nbytes, flops,
            lib_ms):
     """Append one kernel's entry of the ``kernels`` JSON line (its
@@ -391,8 +421,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=22,
                     help="R-MAT scale (nv = 2**scale, 16 edges per vertex)")
+    ap.add_argument("--mesh-rank", nargs=3,
+                    metavar=("WORK", "GRAPH", "PLAN"),
+                    help="run as one rank of group 4k-6k (the script "
+                    "starts its ranks so, with torchrun's environment)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    if args.mesh_rank:
+        return _rank_main(*args.mesh_rank)
 
     import torch
 
@@ -464,7 +500,14 @@ def main(argv=None) -> int:
     totals.update(group("3g-6g sharded tiled", _tiled_sharded_phases, g,
                         plan, oracle, dev, kernels, held))
     peak = max(peak, torch.cuda.max_memory_allocated())
-    group(cli, _cli_files, cli_dir, {"g": g, "gw": gw}, plan)
+    # Group 3k's tiled run holds phase 5g's while the plan is at hand.
+    mesh = group(MESH_GROUP, _mesh_init, dev)
+    for name, n in group(MESH_GROUP, _mesh_phases, {
+            "tiled pagerank full": (g, plan, None)}, mesh, held,
+            dev).items():
+        totals[name] = totals.get(name, 0) + n
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    plan_path = group(cli, _cli_files, cli_dir, {"g": g, "gw": gw}, plan)
     del plan
     torch.cuda.empty_cache()
     totals.update(group("4g probes", _probe_phases, dev, kernels))
@@ -492,25 +535,42 @@ def main(argv=None) -> int:
         totals[name] += n
     torch.cuda.empty_cache()
     peak = max(peak, torch.cuda.max_memory_allocated())
-    for name, n in group("3e-6e sharded pull", _sharded_phases, g, oracle,
-                         gc, cf_oracle, dev).items():
+    sharded_totals, sg_rmat = group("3e-6e sharded pull", _sharded_phases,
+                                    g, oracle, gc, cf_oracle, dev, held)
+    for name, n in sharded_totals.items():
         totals[name] += n
     peak = max(peak, torch.cuda.max_memory_allocated())
     del gc
     torch.cuda.empty_cache()
     push_sharded_totals, sgs = group("3f-6f sharded push",
                                      _push_sharded_phases, g, gu, push_ctx,
-                                     dev, kernels, held)
+                                     dev, kernels, held, sg_rmat)
+    del sg_rmat
     for name, n in push_sharded_totals.items():
         totals[name] = totals.get(name, 0) + n
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
     for name, n in group("3h-6h sharded gas", _gas_sharded_phases, g, gw,
-                         gu, sgs, gas_ctx, oracle, dev, kernels).items():
+                         gu, sgs, gas_ctx, oracle, dev, kernels,
+                         held).items():
         totals[name] = totals.get(name, 0) + n
-    del gw, sgs
+    del gw
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
+    # Group 3k on the layouts of phases 3e-3h, then 4k-6k on the files of
+    # phase 3i.
+    runs = {label: (gu if key == "closure" else g, sgs[key],
+                    held["mesh"][label].get("roots"))
+            for label, (_, key, _) in MESH_RUNS.items() if key}
+    for name, n in group(MESH_GROUP, _mesh_phases, runs, mesh, held,
+                         dev).items():
+        totals[name] = totals.get(name, 0) + n
+    del runs, sgs, mesh
+    torch.distributed.destroy_process_group()
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    group(RANKS_GROUP, _rank_phases, cli_dir / "ranks", cli_dir / "g.lux",
+          plan_path, held, smi)
     for name, n in group("3j-6j incremental", _incremental_phases, g, gu,
                          push_ctx, held, dev, _cuda.BUILD_DIR / "wal").items():
         totals[name] = totals.get(name, 0) + n
@@ -1714,11 +1774,13 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels):
 SHARDED_PARTS = 4
 
 
-def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev) -> dict:
+def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev, held):
     """Phases 3e-6e on the sharded pull engine: PageRank on ``g`` in the
     full and compact exchange modes and CF on the ratings graph ``gc``,
     each over ``SHARDED_PARTS`` parts of a ``LocalMesh`` on the card;
-    returns the launch counts of the phase 5e runs, summed."""
+    returns the launch counts of the phase 5e runs, summed, and the
+    layout of ``g`` (phases 3f-3k reuse it). Keeps PageRank's values and
+    ms per iteration for group 3k."""
     import torch
 
     from lux_tpu_torch.engine.pull import PullExecutor
@@ -1846,6 +1908,8 @@ def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev) -> dict:
         for name, n in counts.items():
             totals[name] += n
         outs[label] = (out, got)
+        if label != "cf":
+            keep(held, f"pull {label}", values=got)
     check_equal("sharded pagerank compact vs full",
                 outs["pagerank compact"][0], outs["pagerank full"][0])
     log("[sharded] pagerank: compact equals full bitwise")
@@ -1874,6 +1938,8 @@ def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev) -> dict:
         runs = [ex.phase_step(vals)[1] for _ in range(5)]
         split = {k: float(np.median([r[k] for r in runs])) * 1e3
                  for k in runs[0]}
+        if label != "cf":
+            keep(held, f"pull {label}", ms=sec / iters * 1e3)
         log(f"[time] sharded {label}: {sec / iters * 1e3:.3f} ms/iteration, "
             f"{graph.ne * iters / sec / 1e9:.3f} GTEPS (host clock, median "
             f"of 3 runs of {iters}: {[round(x * 1e3, 3) for x in secs]} ms);"
@@ -1912,13 +1978,13 @@ def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev) -> dict:
     log(f"[sharded] dryrun_multichip({P}) passed on the card; launches "
         f"{ {k: v for k, v in _cuda.LAUNCHES.items() if v} }; phases 3e-6e "
         f"took {time.perf_counter() - t_phase:.1f} s")
-    return totals
+    return totals, sgs["rmat"]
 
 
 MULTI_LANES = 8
 
 
-def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
+def _push_sharded_phases(g, gu, push, dev, kernels, held, sg_rmat=None):
     """Phases 3f-6f on the multi-source and sharded push engines: SSSP
     from vertex 0 on ``g`` over ``SHARDED_PARTS`` parts in the full and
     compact exchange modes, CC on the closure ``gu``, and 8-lane
@@ -1927,9 +1993,10 @@ def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
     executor). Returns the launch counts of the phase 5f runs, summed,
     and under ``<kernel>[split]`` those of the split-table calls; and the
     two shard layouts (``rmat``, ``closure``) for the sharded GAS
-    phases. Leaves the full-mode SSSP's ms to fixpoint in
-    ``held["sharded sssp"]`` and the single-device 8-lane run's roots
-    and host lanes in ``held["multi"]``."""
+    phases. ``sg_rmat``, phase 3e's layout of ``g``, is reused. Leaves the
+    full-mode SSSP's ms to fixpoint in ``held["sharded sssp"]``, the
+    single-device 8-lane run's roots and host lanes in ``held["multi"]``
+    and each run's values, ledgers and ms for group 3k."""
     import torch
 
     from lux_tpu_torch.engine.check import count_violations
@@ -1956,7 +2023,8 @@ def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
     sgs = {}
     for name, graph in (("rmat", g), ("closure", gu)):
         t = time.perf_counter()
-        sg = ShardedGraph.build(graph, P)
+        sg = (sg_rmat if name == "rmat" and sg_rmat is not None
+              else ShardedGraph.build(graph, P))
         t_sg = time.perf_counter() - t
         t = time.perf_counter()
         sg.build_push_csr()     # cached on sg: the executors share it
@@ -1965,7 +2033,9 @@ def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
         log(f"[push-sharded] {name}: nv={graph.nv} ne={graph.ne} P={P} "
             f"max_nv={sg.max_nv} ({P * sg.max_nv / graph.nv:.3f} nv padded "
             f"rows) max_ne={sg.max_ne} part nv={sg.local_nv.tolist()}; "
-            f"layout {t_sg:.1f} s, push CSR {t_csr:.1f} s; compact capacity "
+            f"layout {t_sg:.1f} s"
+            f"{' (phase 3e' + chr(39) + 's)' if sg is sg_rmat else ''}, "
+            f"push CSR {t_csr:.1f} s; compact capacity "
             f"{plan.capacity} (profitable {plan.profitable}); exchange bytes "
             f"per iteration at 5 B rows: full {P * (P - 1) * sg.max_nv * 5},"
             f" compact {plan.exchange_bytes_per_iter(5)}")
@@ -2288,6 +2358,8 @@ def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
             f"= {with_edges} parts x {dense} dense, K6 "
             f"{counts['frontier_queue']}, K7 {counts['queue_relax_scatter']}")
         finals[label] = st
+        keep(held, f"push {label}", values=vals, iters=iters,
+             sparse=ex.sparse_iters, log=list(ex.branch_log))
     for part in ("values", "frontier"):
         check_equal(f"sharded sssp compact vs full {part}",
                     getattr(finals["sssp compact"], part),
@@ -2330,6 +2402,7 @@ def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
         log(f"[push-sharded] {label}: {iters} iterations, equal to the "
             f"single-device multi-source run bitwise; launches K10 "
             f"{counts['gas_pull_acc']} = {P} parts x {iters}")
+        keep(held, f"push {label}", values=got, iters=iters, roots=roots)
     del mst, st, lanes
 
     # -- 6f. timing -----------------------------------------------------------
@@ -2348,6 +2421,7 @@ def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
                                     for _ in range(3)]))
         if label == "sssp full":
             held["sharded sssp"] = {"ms": sec * 1e3}
+        keep(held, f"push {label}", ms=sec * 1e3)
         log(f"[time] sharded push {label}: {iters} iterations "
             f"({ex.sparse_iters} sparse) in {sec * 1e3:.3f} ms (median of 3:"
             f" {[round(x * 1e3, 3) for x in secs]}), "
@@ -2418,6 +2492,8 @@ def _push_sharded_phases(g, gu, push, dev, kernels, held) -> dict:
                 break
         med = {k: float(np.median([r[k] for r in runs])) * 1e3
                for k in runs[0]}
+        if label != "multi 1 device":
+            keep(held, f"push {label}", ms=sec * 1e3)
         log(f"[time] {label} sssp k={K}: {miters} iterations in "
             f"{sec * 1e3:.3f} ms (median of 3: "
             f"{[round(x * 1e3, 3) for x in secs]}), "
@@ -2483,7 +2559,7 @@ def _gas_sharded_expected(ex) -> dict:
 
 
 def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
-                        kernels) -> dict:
+                        kernels, held) -> dict:
     """Phases 3h-6h on the sharded GAS engines over ``SHARDED_PARTS``
     parts: adaptive BFS from 0 on ``g`` in the full, compact and frontier
     exchange modes, DeltaSSSP from 0 on the weighted twin ``gw`` (full,
@@ -2493,7 +2569,8 @@ def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
     phase 3f's layouts of ``g`` and ``gu``; ``gas`` is phase 5d's context
     (oracles, iterations, ms to fixpoint). Returns the launch counts of
     the phase 5h runs, summed, and under ``gas_push_acc[sharded]`` K11's
-    launches over the parts."""
+    launches over the parts. Keeps frontier-mode BFS's and the 8-lane
+    BFS's values, ledgers and ms for group 3k."""
     import torch
 
     from lux_tpu_torch.engine.check import count_violations
@@ -2713,6 +2790,10 @@ def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
             f"{[e[:4] for e in ex.direction_log]}; launches "
             f"{ {k: counts[k] for k in GAS_KERNELS} }")
         finals[label] = vals
+        if label == "bfs frontier":
+            keep(held, f"gas {label}", values=vals, iters=iters,
+                 log=[e[:4] for e in ex.direction_log],
+                 down=ex.exchange_downgrades)
     for a, b in (("bfs compact", "bfs full"), ("bfs frontier", "bfs full"),
                  ("sssp_delta frontier", "sssp_delta full")):
         if not np.array_equal(finals[a], finals[b]):
@@ -2737,6 +2818,8 @@ def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
     log(f"[gas-sharded] multi compact bfs k={K}: {iters} iterations; every "
         f"lane equals its single-root run bitwise; launches K10 "
         f"{counts['gas_pull_acc']} = {P} parts x {iters}")
+    keep(held, "gas multi compact", values=mx.gather_values(st), iters=iters,
+         roots=roots)
     del st, sst
     # PageRank through the pull adapter: K8 once per part and iteration.
     (st, iters), counts = counted(lambda: pr.run(max_iters=ITERS))
@@ -2775,6 +2858,8 @@ def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
             f"{graph.ne * iters / sec / 1e9:.3f} GTEPS; run from a device "
             f"state {iter_sec * 1e3:.3f} ms; single-device "
             f"{gas[app]['ms']:.3f} ms (phase 6d)")
+        if label == "bfs frontier":
+            keep(held, f"gas {label}", ms=sec * 1e3)
         st = ex.init_state(**kw)
         ex.warmup_phases(st)
         split, pull_state = {}, None
@@ -2824,6 +2909,7 @@ def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
     x_ms = cuda_ms(lambda: mx._load(st0), reps)
     rows_all = P * mx.sg.max_nv
     x_bytes = 5 * K * rows_all * (P + 1)
+    keep(held, "gas multi compact", ms=sec * 1e3)
     log(f"[time] sharded gas multi compact bfs k={K}: {mx.pull_iters} "
         f"iterations in {sec * 1e3:.3f} ms (median of 3: "
         f"{[round(x * 1e3, 3) for x in secs]}), "
@@ -2976,6 +3062,7 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels, held) -> dict:
         outs[mode] = out
         if mode == "full":
             held["sharded tiled"] = {"values": got}
+            keep(held, "tiled pagerank full", values=got)
     check_equal("sharded tiled compact vs full", outs["compact"],
                 outs["full"])
     log("[tiled-sharded] compact equals full bitwise"
@@ -2993,6 +3080,7 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels, held) -> dict:
         ev_ms = cuda_ms(lambda: ex.run(ITERS, vals=vals), 3) / ITERS
         if mode == "full":
             held["sharded tiled"]["ms"] = ev_ms
+            keep(held, "tiled pagerank full", ms=sec / ITERS * 1e3)
         runs = [ex.phase_step(vals)[1] for _ in range(5)]
         split = {k: float(np.median([r[k] for r in runs])) * 1e3
                  for k in runs[0]}
@@ -3688,16 +3776,435 @@ def _ms_list(secs) -> list:
     return [round(x * 1e3, 3) for x in secs]
 
 
+# -- 3k and 4k-6k: the sharded executors over a torch.distributed mesh ------
+
+MESH_GROUP = "3k one-rank NCCL"
+RANKS_GROUP = "4k-6k two gloo ranks"
+RANKS = 2
+RANK_TIMEOUT_S = 600
+# label -> (executor kind, graph key, LUX_EXCHANGE); each label's LocalMesh
+# run is phase 5e's, 5f's, 5g's or 5h's, kept under held["mesh"][label].
+# The tiled run takes phase 3's plan, not a layout (graph key None).
+MESH_RUNS = {
+    "tiled pagerank full": ("tiled", None, "full"),
+    "pull pagerank full": ("pull", "rmat", "full"),
+    "pull pagerank compact": ("pull", "rmat", "compact"),
+    "push sssp full": ("push", "rmat", "full"),
+    "push sssp compact": ("push", "rmat", "compact"),
+    "push cc": ("push", "closure", None),
+    "push multi full": ("push multi", "rmat", "full"),
+    "gas bfs frontier": ("gas", "rmat", "frontier"),
+    "gas multi compact": ("gas multi", "rmat", "compact"),
+}
+# The paths the two ranks run (4k-6k), each against group 3k's run.
+RANK_RUNS = ("pull pagerank compact", "tiled pagerank full",
+             "push sssp full", "gas bfs frontier")
+
+
+def _mesh_executor(label, graph, sg, mesh, plan=None):
+    """The executor of a group 3k or 4k-6k run over ``mesh``, built
+    under its ``LUX_EXCHANGE``."""
+    from lux_tpu_torch.engine.gas_sharded import (
+        ShardedAdaptiveExecutor,
+        ShardedMultiSourceGasExecutor,
+    )
+    from lux_tpu_torch.engine.pull_sharded import ShardedPullExecutor
+    from lux_tpu_torch.engine.push_sharded import (
+        ShardedMultiSourcePushExecutor,
+        ShardedPushExecutor,
+    )
+    from lux_tpu_torch.engine.tiled_sharded import ShardedTiledExecutor
+    from lux_tpu_torch.models import (
+        BFS,
+        SSSP,
+        ConnectedComponents,
+        PageRank,
+    )
+
+    kind, _, mode = MESH_RUNS[label]
+    flag = os.environ.get("LUX_EXCHANGE")
+    if mode is None:
+        os.environ.pop("LUX_EXCHANGE", None)
+    else:
+        os.environ["LUX_EXCHANGE"] = mode
+    try:
+        if kind == "tiled":
+            ex = ShardedTiledExecutor(graph, PageRank(), mesh=mesh, plan=plan)
+        elif kind == "pull":
+            ex = ShardedPullExecutor(graph, PageRank(), mesh=mesh, sg=sg)
+        elif kind == "push":
+            prog = SSSP() if "sssp" in label else ConnectedComponents()
+            ex = ShardedPushExecutor(graph, prog, mesh=mesh, sg=sg)
+        elif kind == "push multi":
+            ex = ShardedMultiSourcePushExecutor(graph, SSSP(), MULTI_LANES,
+                                                mesh=mesh, sg=sg)
+        elif kind == "gas":
+            ex = ShardedAdaptiveExecutor(graph, BFS(), mesh=mesh, sg=sg)
+        else:
+            ex = ShardedMultiSourceGasExecutor(graph, BFS(), MULTI_LANES,
+                                               mesh=mesh, sg=sg)
+    finally:
+        if flag is None:
+            os.environ.pop("LUX_EXCHANGE", None)
+        else:
+            os.environ["LUX_EXCHANGE"] = flag
+    if ex.exchange_mode != (mode or "full"):
+        raise AssertionError(f"{label}: resolved {ex.exchange_mode}")
+    return ex
+
+
+def _mesh_run(label, ex, roots=None):
+    """One run of a group 3k or 4k-6k executor, as its phase 5 run was
+    made: (values gathered on the host, what its ledgers say, the
+    launches it should make on this process, the call that is timed:
+    PageRank's ``run(ITERS)`` from initial values on the card, the
+    other programs' ``run`` from their host ``init_state``, as phases
+    6e-6h time them)."""
+    kind = MESH_RUNS[label][0]
+    if kind in ("tiled", "pull"):
+        # Timed from a state on the card, as phases 6e and 6g time them.
+        vals = ex.init_values()
+
+        def call():
+            return ex.run(ITERS, vals=vals)
+        out = call()
+        k1 = sum(1 for p in getattr(ex, "_parts", ())
+                 for lev in getattr(p, "levels", ()) if lev.items.n_items)
+        want = ({"strip_spmv": k1 * ITERS,
+                 "tail_gather_sum": len(ex._parts) * ITERS}
+                if kind == "tiled" else
+                {"gather_segment_sum": len(ex._parts) * ITERS})
+        return ex.gather_values(out), {}, want, call
+    if kind in ("push multi", "gas multi"):
+        def call():
+            return ex.run(roots)
+        st, iters = call()
+        return (ex.gather_values(st), {"iters": iters},
+                {"gas_pull_acc": len(ex._parts) * iters}, call)
+    kw = {} if "cc" in label else {"start": 0}
+
+    def call():
+        return ex.run(**kw)
+    st, iters = call()
+    if kind == "push":
+        with_edges = sum(1 for pt in ex._parts if pt.col_src.numel())
+        want = {"segment_minmax_relax":
+                with_edges * (iters - ex.sparse_iters),
+                "frontier_queue": sum(k6 for k6, _ in ex.queue_log),
+                "queue_relax_scatter": sum(k7 for _, k7 in ex.queue_log)}
+        return (ex.gather_values(st), {"iters": iters,
+                                       "sparse": ex.sparse_iters,
+                                       "log": list(ex.branch_log)},
+                want, call)
+    log_ = ex.direction_log
+    want = {"gas_pull_acc": len(ex._parts) * sum(1 for e in log_
+                                                 if e[0] == 0),
+            "frontier_queue": sum(k6 for k6, _ in ex.queue_log),
+            "gas_push_acc": sum(k11 for _, k11 in ex.queue_log)}
+    return (ex.gather_values(st), {"iters": iters,
+                                   "log": [e[:4] for e in log_],
+                                   "down": ex.exchange_downgrades},
+            want, call)
+
+
+def _collectives_alone(label, ex, dev) -> dict:
+    """PageRank's collectives alone over its mesh: the exchange (an
+    all-to-all for compact, an all-gather for full) and, tiled, the strip
+    merge (the reduce-scatter): what -> (ms, median of 10 host-clock
+    calls after one, bytes staged a call)."""
+    vals = ex.init_values()
+    fns = {"exchange": lambda: ex._exchange(vals)}
+    if label.startswith("tiled"):
+        partials = ex._partials(ex._exchange(vals))
+        fns["strip merge"] = lambda: ex._merge(partials)
+    clock = host_seconds if dev.type == "cuda" else _host_clock
+    out = {}
+    for what, fn in fns.items():
+        clock(fn)
+        before = getattr(ex.mesh, "staged_bytes", 0)
+        secs = [clock(fn) for _ in range(10)]
+        out[what] = (float(np.median(secs)) * 1e3,
+                     (getattr(ex.mesh, "staged_bytes", 0) - before) / 10)
+    return out
+
+
+def _warm_kw(label, roots=None) -> dict:
+    """``warmup``'s arguments for a group 3k or 4k-6k run."""
+    if roots:
+        return {"start": roots[0]}
+    return {"start": 0} if "sssp" in label or "bfs" in label else {}
+
+
+def _held_equal(label, got, ledgers, want, what) -> None:
+    """Raise unless a run's values are ``want``'s bitwise and its
+    ledgers equal ``want``'s."""
+    if got.dtype != want["values"].dtype or not np.array_equal(
+            got, want["values"]):
+        raise AssertionError(f"{label}: values differ from {what}")
+    for key, v in ledgers.items():
+        if v != want[key]:
+            raise AssertionError(f"{label}: {key} {v}, {what} {want[key]}")
+
+
+def _mesh_init(dev):
+    """Group 3k's process group: ``initialize(backend="nccl",
+    world_size=1, rank=0)`` in this process (gloo when rehearsed on the
+    CPU), then ``make_global_mesh(SHARDED_PARTS)``."""
+    from lux_tpu_torch.parallel.multihost import initialize, make_global_mesh
+
+    t = time.perf_counter()
+    initialize(backend="nccl" if dev.type == "cuda" else "gloo",
+               world_size=1, rank=0)
+    mesh = make_global_mesh(SHARDED_PARTS, device=dev)
+    log(f"[mesh] {mesh} in {time.perf_counter() - t:.1f} s")
+    return mesh
+
+
+def _mesh_phases(runs, mesh, held, dev) -> dict:
+    """Group 3k: each of ``runs`` (label -> (graph, layout or plan,
+    roots)) over the one-rank ``mesh`` of ``_mesh_init``, built on the
+    layouts and plan phases 3e-3h used, held bitwise against its
+    LocalMesh run (``held["mesh"]``) with equal iterations and ledgers,
+    its launches checked, then timed (median of 3 after ``warmup``, host
+    clock) beside the LocalMesh time. Keeps each run's values and
+    ledgers under ``held["3k"]`` for group 4k-6k; returns the launch
+    counts of the held runs, summed."""
+    import torch
+
+    from lux_tpu_torch.ops import _cuda
+
+    totals = dict.fromkeys(_cuda.LAUNCHES, 0)
+    for label, (graph, layout, roots) in runs.items():
+        t = time.perf_counter()
+        plan = layout if label.startswith("tiled") else None
+        ex = _mesh_executor(label, graph, None if plan else layout, mesh,
+                            plan)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t
+        _cuda.reset_launches()
+        got, ledgers, want_launches, call = _mesh_run(label, ex, roots)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        ref = held["mesh"][label]
+        _held_equal(label, got, ledgers, ref, "its LocalMesh run")
+        check_launches(f"3k {label}", counts, want_launches)
+        for name, n in counts.items():
+            totals[name] += n
+        held.setdefault("3k", {})[label] = {"values": got, **ledgers}
+        ex.warmup(**_warm_kw(label, roots))
+        secs = [host_seconds(call) for _ in range(3)]
+        ms = float(np.median(secs)) * 1e3
+        per = ("ms/iteration" if "pagerank" in label else "ms to fixpoint")
+        if per == "ms/iteration":
+            ms /= ITERS
+        held["3k"][label]["ms"] = ms
+        if "pagerank" in label:
+            alone = _collectives_alone(label, ex, dev)
+            held["3k"][label]["alone"] = alone
+            log(f"[mesh] 3k {label} collectives alone (median of 10, host "
+                "clock): " + ", ".join(f"{k} {v[0]:.4f} ms"
+                                       for k, v in alone.items()))
+        log(f"[mesh] 3k {label} (built in {built:.1f} s): bitwise equal to "
+            f"its LocalMesh run{'' if not ledgers else ', ledgers equal'} "
+            f"({', '.join(f'{k}={v}' for k, v in ledgers.items() if k != 'log')}"
+            f"); launches {({k: v for k, v in counts.items() if v})}; "
+            f"{ms:.3f} {per} (median of 3 after warmup: "
+            f"{[round(x * 1e3, 3) for x in secs]} ms) against LocalMesh "
+            f"{ref['ms']:.3f}; exchange_bytes_per_iter "
+            f"{ex.exchange_bytes_per_iter()}")
+        del ex, got
+        torch.cuda.empty_cache()
+    return totals
+
+
+def _rank_phases(work, graph_path, plan_path, held, smi) -> None:
+    """Group 4k-6k: ``RANKS`` processes of this script on the one card
+    (``--mesh-rank``), started as ``torchrun`` starts them (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``), so a bare ``initialize()`` picks
+    gloo. Each rank reads ``graph_path`` and ``plan_path``, builds its
+    parts' layout and runs ``RANK_RUNS`` (``_rank_main``). Every rank's
+    values, iterations and ledgers are held bitwise against group 3k's;
+    their times and staged bytes are logged beside 3k's and the
+    LocalMesh's. A rank that fails or outlasts ``RANK_TIMEOUT_S`` fails
+    the group, and no rank outlives it."""
+    import pickle
+    import socket
+
+    import torch
+
+    torch.cuda.empty_cache()
+    work.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = {k: v for k, v in os.environ.items() if k != "LUX_EXCHANGE"}
+    base.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                WORLD_SIZE=str(RANKS), LOCAL_WORLD_SIZE=str(RANKS))
+    procs, logs = [], []
+    for r in range(RANKS):
+        logs.append(open(work / f"rank{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(work), str(graph_path), str(plan_path)],
+            env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        for line in (work / f"rank{r}.log").read_text().splitlines():
+            log(line if line.startswith("[rank") else f"[rank {r}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {RANKS} exited "
+                                 f"{p.returncode}")
+    got = []
+    for r in range(RANKS):
+        with open(work / f"rank{r}.pkl", "rb") as f:
+            got.append(pickle.load(f))
+    for label in RANK_RUNS:
+        want = held["3k"][label]
+        for r, res in enumerate(got):
+            run = res[label]
+            _held_equal(f"rank {r} {label}", run["values"],
+                        {k: v for k, v in run.items()
+                         if k in ("iters", "sparse", "log", "down")},
+                        want, "group 3k's run")
+        run = got[0][label]
+        per = "ms/iteration" if "pagerank" in label else "ms to fixpoint"
+        log(f"[ranks] {label}: both ranks bitwise equal to group 3k's run "
+            f"with its iterations and ledgers; {per} rank 0 "
+            f"{run['ms']:.3f}, rank 1 {got[1][label]['ms']:.3f} against "
+            f"one rank (NCCL) {want['ms']:.3f} and LocalMesh "
+            f"{held['mesh'][label]['ms']:.3f}; staged through pinned host "
+            f"buffers {run['staged'] / run['calls']:.0f} B a run "
+            f"({run['staged_iter']:.0f} B an iteration) by rank 0 against "
+            f"{run['bytes']} B exchange_bytes_per_iter; on {smi}")
+        for what, (ms_, staged) in run.get("alone", {}).items():
+            log(f"[ranks] {label} {what} alone: {ms_:.4f} ms over two gloo "
+                f"ranks ({staged:.0f} B staged a call by rank 0) against "
+                f"{want['alone'][what][0]:.4f} ms over one NCCL rank "
+                "(median of 10, host clock)")
+    shutil.rmtree(work)
+
+
+def _rank_main(work, graph_path, plan_path) -> int:
+    """One rank of group 4k-6k (``--mesh-rank``): a bare ``initialize()``
+    from the launcher's environment, ``make_global_mesh(SHARDED_PARTS)``
+    on the card (``LUX_PLATFORM=cpu`` for the CPU), the layout of its
+    parts from the files (each host step's seconds logged), then each of
+    ``RANK_RUNS`` with its launches checked and its time (median of 3
+    after ``warmup``, host clock) and staged bytes taken; what it got is
+    pickled to ``<work>/rank<r>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from lux_tpu_torch.graph import read_lux
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops.tiled_spmv import load_plan
+    from lux_tpu_torch.parallel.multihost import initialize, make_global_mesh
+    from lux_tpu_torch.parallel.shard import ShardedGraph
+    from lux_tpu_torch.utils.platform import platform_device
+
+    t0 = time.perf_counter()
+    dev = platform_device()
+    clock = host_seconds if dev.type == "cuda" else _host_clock
+    initialize()
+    mesh = make_global_mesh(SHARDED_PARTS, device=dev)
+    rank = mesh.rank
+
+    def say(msg):
+        log(f"[rank {rank}] {msg}")
+
+    say(f"{mesh} in {time.perf_counter() - t0:.1f} s after start")
+    host = {}
+
+    def step(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        host[name] = time.perf_counter() - t
+        return out
+
+    g = step("read", lambda: read_lux(str(graph_path)))
+    sg = step("layout", lambda: ShardedGraph.build(g, SHARDED_PARTS))
+    step("compact plan", sg.exchange_plan)
+    step("push CSR", sg.build_push_csr)
+    plan = step("plan load", lambda: load_plan(str(plan_path)))
+    exs = {}
+    for label in RANK_RUNS:
+        exs[label] = step(f"{label} executor", lambda: _mesh_executor(
+            label, g, sg, mesh, plan))
+    say("host seconds of the layout of parts "
+        f"{list(mesh.local_parts)}: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in host.items()))
+    out = {}
+    for label, ex in exs.items():
+        _cuda.reset_launches()
+        got, ledgers, want_launches, call = _mesh_run(label, ex)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        if dev.type == "cuda":
+            check_launches(f"rank {rank} {label}", counts, want_launches)
+        ex.warmup(**_warm_kw(label))
+        before = mesh.staged_bytes
+        secs = [clock(call) for _ in range(3)]
+        staged = mesh.staged_bytes - before
+        iters = ledgers.get("iters", ITERS)
+        ms = float(np.median(secs)) * 1e3
+        if "pagerank" in label:
+            ms /= ITERS
+        out[label] = {"values": got, **ledgers, "ms": ms, "staged": staged,
+                      "calls": 3, "staged_iter": staged / (3 * iters),
+                      "bytes": ex.exchange_bytes_per_iter(),
+                      "launches": counts}
+        if "pagerank" in label:
+            out[label]["alone"] = _collectives_alone(label, ex, dev)
+            say(f"{label} collectives alone (median of 10, host clock): "
+                + ", ".join(f"{k} {v[0]:.4f} ms, {v[1]:.0f} B staged"
+                            for k, v in out[label]["alone"].items()))
+        say(f"{label}: {iters} iterations; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; "
+            f"{ms:.3f} {'ms/iteration' if 'pagerank' in label else 'ms'} "
+            f"(median of 3: {[round(x * 1e3, 3) for x in secs]} ms); "
+            f"staged {staged / 3:.0f} B a run")
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+    say(f"done in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def _host_clock(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return time.perf_counter() - t
+
+
 # -- 3i-6i: the app CLIs, each a subprocess on the card ----------------------
 
 CLI_TIMEOUT_S = 400
 
 
-def _cli_files(work, graphs: dict, plan=None) -> None:
+def _cli_files(work, graphs: dict, plan=None):
     """Phase 3i: each of ``graphs`` (name -> graph) written as
     ``<work>/<name>.lux`` and, with ``plan``, that plan saved where the
     tiled CLI looks for ``g.lux``'s (its default ``-levels`` and
-    ``-tile-mb``), so the CLI loads it instead of planning again."""
+    ``-tile-mb``), so the CLI loads it instead of planning again; returns
+    the plan's path (group 4k-6k's ranks load it too)."""
     from lux_tpu_torch.graph import write_lux
     from lux_tpu_torch.models.cli import (
         _parse_levels,
@@ -3723,6 +4230,8 @@ def _cli_files(work, graphs: dict, plan=None) -> None:
             f"{os.path.basename(path)} in {time.perf_counter() - t:.1f} s "
             f"({plan.strip_bytes} B of strips); free disk "
             f"{shutil.disk_usage(work).free / 2**30:.1f} GiB")
+        return path
+    return None
 
 
 def _cli_run(work, device_line: str, label: str, app: str, *argv):

@@ -1,24 +1,27 @@
 """Sharded GAS: direction-adaptive gather-apply-scatter over the P parts
-of a :class:`~lux_tpu_torch.parallel.mesh.LocalMesh`, on one device.
+of a :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` (one device) or a
+:class:`~lux_tpu_torch.parallel.mesh.DistMesh` (the ranks of a process
+group).
 
 The counterparts of ``ShardedAdaptiveExecutor`` and
 ``ShardedMultiSourceGasExecutor`` in ``lux_tpu/engine/gas_sharded.py``,
-which run one part per device of a ``shard_map`` mesh. Here the parts
-are the leading axis of stacked ``(P, max_nv)`` values and frontier on
-one device, and each kernel is launched once per part, as ``lux_tpu``
-runs one device per part, except the push branch's K11: one launch for
-every receiving part.
+which run one part per device of a ``shard_map`` mesh. Here the parts a
+process holds are the leading axis of stacked ``(L, max_nv)`` values and
+frontier, and each kernel is launched once per held part, as
+``lux_tpu`` runs one device per part, except the push branch's K11: one
+launch for every held receiving part.
 
 :class:`ShardedAdaptiveExecutor` picks a direction per iteration exactly
 as ``lux_tpu`` does (``_decide_block``), on counters over all parts: the
 density hysteresis on the global frontier count (``psum`` there), and a
 push must fit the per-part queue (the largest part's count, ``pmax``)
 and the edge budget (the out-edges of all parts, ``psum``). The update
-leaves each part's (count, out-edges) and, in frontier mode, each
-sender's largest count of active send rows as one small ``(P, ·)``
-tensor that the host reads once per iteration; that read is the
-direction decision, the frontier exchange's admission and the halt
-check.
+leaves each held part's count, its out-edges into the parts of each
+process that holds parts and, in frontier mode, its largest count of
+active send rows as one small ``(L, ·)`` tensor that the host reads
+once per iteration, gathered over ranks into the same rows on every
+rank; that read is the direction decision, the frontier exchange's
+admission, the push's edge total and the halt check.
 
 - **pull**: the exchange, then one K10 launch (``ops/segment.py::
   gas_pull_acc``) per part over its real in-edges (``local_row_ptr[p]``,
@@ -32,12 +35,14 @@ check.
   counts one downgrade. The receiver's own span is written from its
   shard in both, so they equal full bitwise without ``lux_tpu``'s
   per-edge local/remote select;
-- **push**: each part compacts its frontier into a queue (K6,
+- **push**: each held part compacts its frontier into a queue (K6,
   ``ops/frontier.py::frontier_queue``), the queues in part order are
-  the all-gathered queue, and each receiving part's push CSR (keyed by
-  global source) gives its ranges at the queued ids; one K11 launch
-  (``gas_push_acc``) folds every receiver's messages into its row of an
-  identity-filled ``(P, max_nv)`` accumulator;
+  the all-gathered queue (across ranks with their values,
+  :meth:`~lux_tpu_torch.engine.push_sharded.SparseQueue._queue`), and
+  each held receiving part's push CSR (keyed by global source) gives its
+  ranges at the queued ids; one K11 launch (``gas_push_acc``) folds
+  every held receiver's messages into its row of an identity-filled
+  ``(L, max_nv)`` accumulator;
 - **merge**: ``apply`` and ``scatter`` over the stacked parts, pad
   vertices frozen by ``vertex_mask`` and kept out of the new frontier.
 
@@ -49,10 +54,10 @@ programs (``PullGasAdapter``) run
 :class:`~lux_tpu_torch.engine.pull_sharded.ShardedPullExecutor`'s step:
 the values-only exchange and K8 or K9 per part.
 
-:class:`ShardedMultiSourceGasExecutor` is pull only over ``(P, max_nv,
+:class:`ShardedMultiSourceGasExecutor` is pull only over ``(L, max_nv,
 K)`` lanes: the K-lane full or compact exchange (``frontier`` runs
-compact, logged), one K10 launch with K columns per part, the merge and
-one shared count.
+compact, logged), one K10 launch with K columns per held part, the
+merge and one count over all parts.
 
 On the CPU the kernels' plain versions run. Not ported: ``trace_step``
 (ROADMAP A16), the recorder, engobs and ``prof`` regions (A14, A19).
@@ -94,7 +99,7 @@ from lux_tpu_torch.ops.segment import (
     to_u32_storage,
     u32_to_numpy,
 )
-from lux_tpu_torch.parallel.mesh import FrontierExchange, LocalMesh
+from lux_tpu_torch.parallel.mesh import AnyMesh, FrontierExchange, gather_rows
 from lux_tpu_torch.parallel.shard import ShardedGraph
 from lux_tpu_torch.utils import flags
 from lux_tpu_torch.utils.timing import timed
@@ -108,6 +113,7 @@ class Stats(NamedTuple):
     counts: Tuple[int, ...]    # active vertices per part
     widest: int                # largest active send rows of one pair
     #                            (frontier mode; else 0)
+    recv_edges: int = 0        # their out-edges into the held parts
 
 
 class _ShardedGas(ShardedBase):
@@ -118,7 +124,7 @@ class _ShardedGas(ShardedBase):
     _u32: bool
 
     def _gas_setup(self, graph: Graph, program: GasProgram,
-                   mesh: Optional[LocalMesh], num_parts: Optional[int],
+                   mesh: Optional[AnyMesh], num_parts: Optional[int],
                    sg: Optional[ShardedGraph], device,
                    frontier_ok: bool) -> None:
         """The mesh, partition, exchange mode and per-part operands (K10's
@@ -131,9 +137,9 @@ class _ShardedGas(ShardedBase):
         self._build_parts(RowTasks.build)
 
     def _padded(self, host: np.ndarray) -> torch.Tensor:
-        """Global (nv, *t) host array -> (P, max_nv, *t) device storage:
-        bool, int32 words of uint32 values, or f32."""
-        padded = self.sg.to_padded(np.asarray(host))
+        """Global (nv, *t) host array -> (L, max_nv, *t) device storage
+        of the held parts: bool, int32 words of uint32 values, or f32."""
+        padded = self._own(self.sg.to_padded(np.asarray(host)))
         if padded.dtype == bool:
             return self._put(padded)
         if self._u32:
@@ -142,9 +148,10 @@ class _ShardedGas(ShardedBase):
 
     def gather_values(self, state: GasState) -> np.ndarray:
         """Padded device layout -> global (nv, *t) host array: numpy
-        uint32, or f32."""
-        vals = (u32_to_numpy(state.values) if self._u32
-                else state.values.detach().cpu().numpy())
+        uint32, or f32; on every rank (a collective over ranks)."""
+        every = self._gathered(state.values)
+        vals = (u32_to_numpy(every) if self._u32
+                else every.detach().cpu().numpy())
         return self.sg.from_padded(vals)
 
     def _merge(self, values: torch.Tensor, acc: torch.Tensor):
@@ -159,8 +166,8 @@ class _ShardedGas(ShardedBase):
         return gas_narrow(new, values), prog.scatter(old, new) & mask
 
     def _pull_acc(self, loaded) -> torch.Tensor:
-        """(P, max_nv[, K]) accumulators: one K10 launch per part over
-        its table (K columns for lanes)."""
+        """(L, max_nv[, K]) accumulators: one K10 launch per held part
+        over its table (K columns for lanes)."""
         prog = self.program
         table, front = loaded
         return torch.stack([
@@ -172,24 +179,28 @@ class _ShardedGas(ShardedBase):
 
 
 class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
-    """GAS executor over the ``num_parts`` parts of a :class:`LocalMesh`
-    (``cuda`` unless ``device`` or ``mesh`` names another) with
-    ``lux_tpu``'s per-iteration direction choice (see the module
-    docstring).
+    """GAS executor over the ``num_parts`` parts of a
+    :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` or a
+    :class:`~lux_tpu_torch.parallel.mesh.DistMesh` (``cuda`` unless
+    ``device`` or ``mesh`` names another) with ``lux_tpu``'s
+    per-iteration direction choice (see the module docstring).
 
     ``direction_log`` holds, per iteration of the last ``run()``,
     (direction, frontier count, frontier out-edges, branch, per-part
     counts) before the step: direction 0 pull, 1 push; the branch as
     :meth:`phase_step` reports it (``push``, ``pull``, ``pull/frontier``,
-    ``pull/downgraded``, ``pull/dense``). K10 launches once per part and
-    pull iteration, K6 once per part with a frontier and push iteration,
-    K11 once per push iteration with out-edges."""
+    ``pull/downgraded``, ``pull/dense``). K10 launches once per held
+    part and pull iteration, K6 once per held part with a frontier and
+    push iteration, K11 once per push iteration with out-edges into the
+    held parts: ``queue_log`` holds, per push iteration since the last
+    ``run()``, (held parts that compacted a queue, 1 if K11 launched
+    else 0), from the counts the iteration already read."""
 
     def __init__(
         self,
         graph: Graph,
         program,
-        mesh: Optional[LocalMesh] = None,
+        mesh: Optional[AnyMesh] = None,
         num_parts: Optional[int] = None,
         mode: Optional[str] = None,
         queue_frac: int = QUEUE_FRAC,
@@ -221,7 +232,7 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
             self._pull = ShardedPullExecutor(graph, inner, mesh=mesh,
                                              num_parts=num_parts, sg=sg,
                                              device=device)
-            for name in ("mesh", "num_parts", "device", "sg",
+            for name in ("mesh", "num_parts", "parts", "device", "sg",
                          "exchange_mode", "_xplan", "_row_bytes"):
                 setattr(self, name, getattr(self._pull, name))
             self.graph, self.program, self._u32 = graph, program, False
@@ -254,6 +265,7 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
         self.direction_switches = 0
         self.exchange_downgrades = 0
         self.direction_log: List[tuple] = []
+        self.queue_log: List[tuple] = []
 
     # -- the two directions ----------------------------------------------
 
@@ -269,21 +281,27 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
             self._fx is not None)
 
     def _push_load(self, state: GasState, stats: Stats):
-        """Each part's frontier queue (K6), all-gathered in part order."""
-        return self._queue(state.frontier, stats.counts)
+        """Each held part's frontier queue (K6), all-gathered in part
+        order: (flat rows, global ids[, values table])."""
+        return self._queue(state.frontier, state.values, stats.counts)
 
     def _push_acc(self, state: GasState, queue, stats: Stats):
-        """(P, max_nv) accumulators: one K11 launch over the queue's
-        out-edges in every part's push CSR. ``stats.out_edges``, the
-        frontier's out-edges over all parts, is the receivers' total."""
+        """(L, max_nv) accumulators: one K11 launch over the queue's
+        out-edges in every held part's push CSR. ``stats.recv_edges``,
+        the frontier's out-edges into the held parts, is the receivers'
+        total."""
         prog = self.program
-        rows, ids = queue
+        rows, ids = queue[:2]
         start, offs = self._ranges(ids)
+        self.queue_log.append((
+            sum(1 for p in self.parts if stats.counts[p]),
+            int(rows.numel() > 0 and stats.recv_edges > 0)))
         return gas_push_acc(
-            rows, start, offs, self.push_dst_local, state.values,
-            prog.combiner, prog.gather_op, stats.out_edges,
+            rows, start, offs, self.push_dst_local,
+            self._table_of(queue, state.values),
+            prog.combiner, prog.gather_op, stats.recv_edges,
             gather=prog.gather_push or prog.gather,
-            weights=self.push_weights)
+            weights=self.push_weights)[:, :self.sg.max_nv]
 
     def _decide_push(self, stats: Stats, prev_direction: int) -> bool:
         """``lux_tpu``'s direction decision: pinned modes are constants,
@@ -307,26 +325,30 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
     # -- the host read ----------------------------------------------------
 
     def _stats_tensor(self, frontier: torch.Tensor) -> torch.Tensor:
-        """Per part, the frontier's count, its out-edge total (unless
-        the executor never pushes) and, in frontier mode, the part's
-        largest count of active send rows to one receiver: one (P, 1-3)
-        int64 tensor."""
-        cols = [frontier.sum(1)]
+        """Per held part, the frontier's count, its out-edges into the
+        parts of each process that holds parts (unless the executor
+        never pushes) and, in frontier mode, the part's largest count of
+        active send rows to one receiver: one (L, k) int64 tensor."""
+        cols = [frontier.sum(1)[:, None]]
         if self.mode != "pull":
-            cols.append(torch.where(frontier, self.out_degrees, 0).sum(1))
+            cols.append(self._send_edges(frontier))
         if self._fx is not None:
-            cols.append(self._fx.widest(frontier))
-        return torch.stack(cols, 1)
+            cols.append(self._fx.widest(frontier)[:, None])
+        return torch.cat(cols, 1)
 
     def _read(self, stats: torch.Tensor) -> Stats:
-        """The one device-to-host read of an iteration."""
-        rows = stats.tolist()
+        """The one device-to-host read of an iteration, the same on every
+        rank."""
+        rows = self._gather_stats(stats)
         counts = tuple(r[0] for r in rows)
+        out = recv = 0
+        if self.mode != "pull":
+            procs = self.num_parts // len(self.parts)
+            out = sum(sum(r[1:1 + procs]) for r in rows)
+            recv = sum(r[1 + self._slot] for r in rows)
         return Stats(
-            sum(counts),
-            sum(r[1] for r in rows) if self.mode != "pull" else 0,
-            counts,
-            max(r[-1] for r in rows) if self._fx is not None else 0)
+            sum(counts), out, counts,
+            max(r[-1] for r in rows) if self._fx is not None else 0, recv)
 
     def _frontier_stats(self, state: GasState) -> Stats:
         if not self.program.frontier:
@@ -365,7 +387,7 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
     # -- driving ----------------------------------------------------------
 
     def init_state(self, **kw) -> GasState:
-        """The program's initial state, padded to (P, max_nv)."""
+        """The program's initial state, padded to (L, max_nv)."""
         prog = self.program
         if not prog.frontier:
             vals = self._pull.init_values()
@@ -412,6 +434,7 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
                 "run() needs max_iters")
         if state is None:
             state = self.init_state(**init_kw)
+        self.queue_log = []
         state, total, self.direction_log = self._run(state, max_iters, chunk)
         dirs = [e[0] for e in self.direction_log]
         self.push_iters = sum(dirs)
@@ -516,10 +539,12 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
 
 
 class ShardedMultiSourceGasExecutor(_ShardedGas, LanesLoop):
-    """Dense GAS over the parts of a :class:`LocalMesh` with K value
-    lanes per vertex (``cuda`` unless ``device`` or ``mesh`` names
-    another): one K10 launch with K columns per part and iteration serves
-    K root queries of a rooted frontier program; column j of
+    """Dense GAS over the parts of a
+    :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` or a
+    :class:`~lux_tpu_torch.parallel.mesh.DistMesh` with K value lanes per
+    vertex (``cuda`` unless ``device`` or ``mesh`` names another): one
+    K10 launch with K columns per held part and iteration serves K root
+    queries of a rooted frontier program; column j of
     :meth:`gather_values` equals a single-source run from root j.
     ``LUX_EXCHANGE=frontier`` runs the compact exchange (logged): the
     frontier send is single-lane shaped. ``phase_step``'s load is the
@@ -530,7 +555,7 @@ class ShardedMultiSourceGasExecutor(_ShardedGas, LanesLoop):
         graph: Graph,
         program,
         k: int,
-        mesh: Optional[LocalMesh] = None,
+        mesh: Optional[AnyMesh] = None,
         num_parts: Optional[int] = None,
         sg: Optional[ShardedGraph] = None,
         device=None,
@@ -560,12 +585,13 @@ class ShardedMultiSourceGasExecutor(_ShardedGas, LanesLoop):
         return self._exchange(state.values), self._exchange(state.frontier)
 
     def _acc(self, loaded) -> torch.Tensor:
-        """(P, max_nv, K) accumulators: one K10 launch per part."""
+        """(L, max_nv, K) accumulators: one K10 launch per held part."""
         return self._pull_acc(loaded)
 
     def _update(self, values: torch.Tensor, acc: torch.Tensor):
         new, frontier = self._merge(values, acc)
-        return GasState(new, frontier, 0), frontier.sum()
+        return GasState(new, frontier, 0), gather_rows(
+            self.mesh, frontier.sum((1, 2))[:, None]).sum()
 
     def run(self, starts, max_iters: Optional[int] = None, chunk: int = 16,
             state: Optional[GasState] = None):
@@ -577,7 +603,8 @@ class ShardedMultiSourceGasExecutor(_ShardedGas, LanesLoop):
         return state, total
 
     def values_for(self, state: GasState, j: int) -> np.ndarray:
-        """Host copy of lane ``j``'s global value column."""
+        """Host copy of lane ``j``'s global value column (a collective
+        over ranks)."""
         return np.ascontiguousarray(self.gather_values(state)[:, j])
 
     def finalize_for(self, state: GasState, j: int) -> dict:

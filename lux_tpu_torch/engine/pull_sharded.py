@@ -1,17 +1,19 @@
 """Sharded pull executor: the P parts of an edge-balanced partition, on
-one device.
+one device or over the ranks of a process group.
 
 The counterpart of ``ShardedPullExecutor`` in
 ``lux_tpu/engine/pull_sharded.py``, which runs one part per device of a
-``shard_map`` mesh. Here the parts are the leading axis of stacked
-``(P, max_nv, *value_shape)`` values on one device
-(:class:`~lux_tpu_torch.parallel.mesh.LocalMesh`), and one iteration is
-three phases:
+``shard_map`` mesh. Here the parts a process holds are the leading axis
+of stacked ``(L, max_nv, *value_shape)`` values: all P on one device
+(:class:`~lux_tpu_torch.parallel.mesh.LocalMesh`), or a rank's P / W
+(:class:`~lux_tpu_torch.parallel.mesh.DistMesh`, where the exchange's
+collectives cross ranks). One iteration is three phases:
 
 - **exchange**: the flat ``(P * max_nv, *t)`` table of every part's
   values that the parts' edges gather from (``src_pidx``). Full mode:
   the mesh's ``all_gather``, which on one device is a view of the
-  stacked values. Compact mode (``LUX_EXCHANGE=compact``, a profitable
+  stacked values and across ranks one collective. Compact mode
+  (``LUX_EXCHANGE=compact``, a profitable
   :class:`~lux_tpu_torch.graph.partition.ExchangePlan`): one table per
   receiver, of the rows its edges read
   (:class:`~lux_tpu_torch.parallel.mesh.CompactExchange`:
@@ -64,21 +66,23 @@ from lux_tpu_torch.ops.segment import (
     pull_sum,
     segment_reduce,
 )
-from lux_tpu_torch.parallel.mesh import LocalMesh
+from lux_tpu_torch.parallel.mesh import AnyMesh
 from lux_tpu_torch.parallel.shard import ShardedGraph
 from lux_tpu_torch.utils.timing import timed
 
 
 class ShardedPullExecutor(ShardedBase):
     """Runs a :class:`PullProgram` over the ``num_parts`` parts of a
-    :class:`LocalMesh` (``cuda`` unless ``device`` or ``mesh`` names
-    another)."""
+    :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` or a
+    :class:`~lux_tpu_torch.parallel.mesh.DistMesh` (``cuda`` unless
+    ``device`` or ``mesh`` names another). Values are the ``(L, max_nv,
+    *value_shape)`` stack of the parts this process holds."""
 
     def __init__(
         self,
         graph: Graph,
         program: PullProgram,
-        mesh: Optional[LocalMesh] = None,
+        mesh: Optional[AnyMesh] = None,
         num_parts: Optional[int] = None,
         sum_strategy: str = "rowptr",
         sg: Optional[ShardedGraph] = None,
@@ -97,11 +101,11 @@ class ShardedPullExecutor(ShardedBase):
         sg = self.sg
         self._build_parts(
             lambda rp, dev: pull_row_tasks(rp, program.edge_op, dev))
-        self.dst_local = (self._put(sg.dst_local) if program.combiner != "sum"
-                          else None)
+        self.dst_local = (self._put_own(sg.dst_local)
+                          if program.combiner != "sum" else None)
         self._ctx = VertexCtx(nv=graph.nv,
-                              out_degrees=self._put(sg.out_degrees),
-                              in_degrees=self._put(sg.in_degrees))
+                              out_degrees=self._put_own(sg.out_degrees),
+                              in_degrees=self._put_own(sg.in_degrees))
 
     # -- one iteration ---------------------------------------------------
 
@@ -110,7 +114,8 @@ class ShardedPullExecutor(ShardedBase):
             EdgeCtx(src_vals=src, dst_vals=dst, weights=w))
 
     def _comp(self, flat: torch.Tensor) -> torch.Tensor:
-        """(P, max_nv, *t) accumulators: one kernel launch per part."""
+        """(L, max_nv, *t) accumulators: one kernel launch per held
+        part."""
         prog = self.program
         accs = []
         for q, part in enumerate(self._parts):
@@ -143,13 +148,13 @@ class ShardedPullExecutor(ShardedBase):
     # -- running -----------------------------------------------------------
 
     def _values(self, a) -> torch.Tensor:
-        """(P, max_nv, *value_shape) f32 values on the device."""
+        """(L, max_nv, *value_shape) f32 values on the device."""
         if isinstance(a, torch.Tensor):
             t = a.to(device=self.device, dtype=torch.float32)
         else:
             t = torch.from_numpy(np.array(a, dtype=np.float32)).to(
                 self.device)
-        want = (self.num_parts, self.sg.max_nv) + self.value_shape
+        want = (len(self.parts), self.sg.max_nv) + self.value_shape
         if tuple(t.shape) != want:
             raise ValueError(f"values must be {want}, got {tuple(t.shape)}")
         return t.contiguous()
@@ -158,12 +163,13 @@ class ShardedPullExecutor(ShardedBase):
         return self.host_to_device(self.program.init_values(self.graph))
 
     def host_to_device(self, host_vals) -> torch.Tensor:
-        """Global (nv, *t) host array → the padded (P, max_nv, *t) stack
-        on the device."""
-        return self._values(self.sg.to_padded(np.asarray(host_vals)))
+        """Global (nv, *t) host array → the padded (L, max_nv, *t) stack
+        of the held parts on the device."""
+        return self._values(self._own(self.sg.to_padded(
+            np.asarray(host_vals))))
 
     def step(self, vals) -> torch.Tensor:
-        """One iteration; (P, max_nv, *value_shape) in and out."""
+        """One iteration; (L, max_nv, *value_shape) in and out."""
         return self._step(self._values(vals))
 
     def phase_step(self, vals):
@@ -194,5 +200,7 @@ class ShardedPullExecutor(ShardedBase):
         return vals
 
     def gather_values(self, vals) -> np.ndarray:
-        """Padded device layout → global (nv, *t) host array."""
-        return self.sg.from_padded(self._values(vals).cpu().numpy())
+        """Padded device layout → global (nv, *t) host array, on every
+        rank (a collective over ranks)."""
+        return self.sg.from_padded(
+            self._gathered(self._values(vals)).cpu().numpy())

@@ -197,7 +197,9 @@ class FixpointLoop:
         while max_iters is None or len(log) < max_iters:
             prev = stats
             state, stats, tier = self._iterate(state, stats)
-            log.append((tier,) + prev)
+            # (branch, count, out-edges[, per-part counts]): a sharded
+            # read's fourth entry is the process's own.
+            log.append((tier,) + tuple(prev)[:3])
             if stats[0] == 0:
                 break
         return state, len(log), log

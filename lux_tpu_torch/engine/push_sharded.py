@@ -1,20 +1,25 @@
 """Sharded push executors: the P parts of an edge-balanced partition, on
-one device.
+one device or over the ranks of a process group.
 
 The counterparts of ``ShardedPushExecutor`` and
 ``ShardedMultiSourcePushExecutor`` in ``lux_tpu/engine/push.py``, which
-run one part per device of a ``shard_map`` mesh. Here the parts are the
-leading axis of stacked ``(P, max_nv)`` values and frontier on one
-device (:class:`~lux_tpu_torch.parallel.mesh.LocalMesh`), and each
-kernel is launched once per part, as ``lux_tpu`` runs one device per
-part, except the sparse branch's K7: one launch for every part.
+run one part per device of a ``shard_map`` mesh. Here the parts a
+process holds are the leading axis of stacked ``(L, max_nv)`` values and
+frontier: all P on one device
+(:class:`~lux_tpu_torch.parallel.mesh.LocalMesh`) or a rank's P / W
+(:class:`~lux_tpu_torch.parallel.mesh.DistMesh`). Each kernel is
+launched once per held part, as ``lux_tpu`` runs one device per part,
+except the sparse branch's K7: one launch for every held part.
 
 :class:`ShardedPushExecutor` chooses a branch per iteration exactly as
 ``lux_tpu`` does: from the largest part's frontier count (``pmax``
 there) and the frontier's out-edge total over all parts (``psum``).
-The update leaves both as one small ``(P, 2)`` tensor, each part's
-count and out-edge total, that the host reads once per iteration; the
-read is also the halt check.
+The update leaves both as one small ``(L, 1 + S)`` tensor, each held
+part's count and its frontier's out-edges into the parts of each of the
+S processes that hold parts (S = 1 on one device), that the host reads
+once per iteration, gathered over ranks into the same ``(P, 1 + S)``
+rows on every rank; the read is also the halt check, and its column of
+this process gives K7 its receivers' edge total.
 
 - **dense**: the exchange, then one K5 launch
   (``ops/segment.py::segment_minmax_relax``) per part over its real
@@ -28,23 +33,28 @@ read is also the halt check.
   a table of the rows its edges read, values and frontier bits; its own
   span is written from its shard, so compact equals full bitwise without
   ``lux_tpu``'s per-edge local/remote select;
-- **sparse**: each part compacts its frontier into a queue of local ids
-  (K6, ``ops/frontier.py::frontier_queue``); the queues in part order
-  are the all-gathered queue, as flat rows and global ids, and the flat
-  pre-step stack holds their values. For each receiving part, ``start``
-  and ``deg`` come from its push CSR (``build_push_csr``, keyed by
-  global source) at the global ids and ``offs`` is their prefix, (P,
-  cnt) and (P, cnt + 1) tensors; one K7 launch
-  (``queue_relax_scatter``) copies the pre-step stack, reads it at the
-  queued rows and combines into every part's row of the copy through
-  its ``push_dst_local``. It reads the P receivers' edge totals on the
-  card, so the host reads nothing more than the iteration's stats. It
-  reads pre-step values only, so it gives ``lux_tpu``'s one scatter.
+- **sparse**: each held part compacts its frontier into a queue of
+  local ids (K6, ``ops/frontier.py::frontier_queue``); the queues in
+  part order are the all-gathered queue, as flat rows and global ids.
+  On one device the flat pre-step stack holds their values; across
+  ranks each rank's queues and their values travel in one all-gather,
+  padded to the largest count (which every rank read) and trimmed, and
+  the values ride in a few extra columns of the held parts' rows, where
+  the flat rows point (:meth:`SparseQueue._queue`). For each held
+  receiving part, ``start`` and ``deg`` come from its push CSR
+  (``build_push_csr``, keyed by global source) at the global ids and
+  ``offs`` is their prefix, (L, cnt) and (L, cnt + 1) tensors; one K7
+  launch (``queue_relax_scatter``) copies the pre-step stack, reads it
+  at the queued rows and combines into every held part's row of the
+  copy through its ``push_dst_local``. It reads the receivers' edge
+  totals on the card, so the host reads nothing more than the
+  iteration's stats. It reads pre-step values only, so it gives
+  ``lux_tpu``'s one scatter.
 
-:class:`ShardedMultiSourcePushExecutor` is dense only over ``(P,
-max_nv, K)`` lanes: the K-lane exchange, then per part one K10 launch
-(``gas_pull_acc``) with K columns over the flat ``(P * max_nv, K)``
-table, the merge, the pad mask and one shared count.
+:class:`ShardedMultiSourcePushExecutor` is dense only over ``(L,
+max_nv, K)`` lanes: the K-lane exchange, then per held part one K10
+launch (``gas_pull_acc``) with K columns over the flat ``(P * max_nv,
+K)`` table, the merge, the pad mask and one count over all parts.
 
 On the CPU the kernels' plain versions run. Not ported: ``trace_step``
 (ROADMAP A16), the recorder and engobs (A14, A19), and the per-shard
@@ -53,7 +63,7 @@ activity list of ``phase_step``.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,7 +93,7 @@ from lux_tpu_torch.ops.segment import (
     to_u32_storage,
     u32_to_numpy,
 )
-from lux_tpu_torch.parallel.mesh import LocalMesh
+from lux_tpu_torch.parallel.mesh import AnyMesh, gather_rows
 from lux_tpu_torch.parallel.shard import ShardedGraph
 from lux_tpu_torch.utils.logging import get_logger
 
@@ -91,20 +101,34 @@ from lux_tpu_torch.utils.logging import get_logger
 class SparseQueue:
     """The push-direction branch of a sharded executor, shared by
     :class:`ShardedPushExecutor` (K7) and the sharded GAS engine (K11):
-    each part's frontier queue (K6) and every receiver's push-CSR ranges
-    at the all-gathered queue. Needs ``sg``, ``device`` and ``_put``."""
+    each held part's frontier queue (K6), the all-gathered queue and the
+    table its values are read from, and every held receiver's push-CSR
+    ranges at it. Needs ``sg``, ``parts``, ``mesh``, ``device``,
+    ``_put`` and ``_put_own``."""
 
     sg: ShardedGraph
     device: torch.device
 
     def _build_queue(self) -> None:
-        """The push CSR (``build_push_csr``, keyed by global source) and
-        the per-part out-degrees on the device."""
+        """The held receivers' push CSR (``build_push_csr``, keyed by
+        global source), the held parts' out-degrees and, per vertex of a
+        held part, its out-edges into the parts each process holds
+        (``_send_degrees``, (L, max_nv, S)) on the device."""
         prp, pdst, pw = self.sg.build_push_csr()
-        self.push_row_ptr = self._put(prp.astype(np.int64))
-        self.push_dst_local = self._put(pdst)
-        self.push_weights = None if pw is None else self._put(pw)
-        self.out_degrees = self._put(self.sg.out_degrees)
+        self.push_row_ptr = self._put_own(prp.astype(np.int64))
+        self.push_dst_local = self._put_own(pdst)
+        self.push_weights = None if pw is None else self._put_own(pw)
+        self.out_degrees = self._put_own(self.sg.out_degrees)
+        held, P = len(self.parts), self.sg.num_parts
+        self._slot = self.parts.start // held
+        if held == P:
+            self._send_degrees = self.out_degrees[:, :, None]
+        else:
+            nv = self.sg.graph.nv
+            deg = np.diff(prp[:, :nv + 1].astype(np.int64), axis=1)
+            per = deg.reshape(P // held, held, nv).sum(1).T
+            self._send_degrees = self._put_own(
+                self.sg.to_padded(np.ascontiguousarray(per)))
         # K6 also reads a row pointer into start/deg/offs, which the
         # branch does not use (each receiver expands the queue through
         # its own push CSR, keyed by global id): one zero row pointer
@@ -113,24 +137,79 @@ class SparseQueue:
                                           dtype=torch.int64,
                                           device=self.device)
 
-    def _queue(self, frontier: torch.Tensor, counts):
-        """Each part's frontier queue (K6, none for a part whose count is
-        0), in part order: the all-gathered queue as (flat rows int32,
-        global ids int64)."""
-        n = self.sg.max_nv
-        rows, ids = [], []
-        for p, cnt in enumerate(counts):
-            q = frontier_queue(frontier[p], self._queue_row_ptr, cnt)[0]
-            rows.append(q + p * n)
-            ids.append(q.long() + int(self.sg.row_left[p]))
-        return torch.cat(rows), torch.cat(ids)
+    def _send_edges(self, frontier: torch.Tensor) -> torch.Tensor:
+        """(L, S) int64: each held part's frontier's out-edges into the
+        parts of each process that holds parts."""
+        return torch.where(frontier[:, :, None], self._send_degrees,
+                           0).sum(1)
+
+    def _queue(self, frontier: torch.Tensor, values: torch.Tensor,
+               counts):
+        """The frontier queue of every part, in part order, from K6 on
+        each held part whose count is not 0: (flat rows int32, global ids
+        int64) and, across ranks, the table K7 or K11 reads the rows'
+        values from (see :meth:`_table_of`).
+
+        With every part held, the rows index the (P, max_nv) values
+        themselves. Across ranks, each rank's queues and their values
+        go to every rank in one all-gather of (id, value bits) pairs,
+        padded to the largest of ``counts`` (every rank read them) and
+        trimmed; the table is then the held values with ``pad`` more
+        columns, (L, max_nv + pad), whose tail holds the queue's values
+        in queue order, and the rows point there. Columns past max_nv are
+        no vertex's, so the kernels write nothing of them a caller
+        keeps."""
+        n, P = self.sg.max_nv, self.sg.num_parts
+        held = [frontier_queue(frontier[j], self._queue_row_ptr,
+                               counts[p])[0]
+                for j, p in enumerate(self.parts)]
+        if len(held) == P:
+            rows = [q + p * n for p, q in enumerate(held)]
+            ids = [q.long() + int(self.sg.row_left[p])
+                   for p, q in enumerate(held)]
+            return torch.cat(rows), torch.cat(ids)
+        width, L = max(counts), len(held)
+        send = torch.zeros((L, width, 2), dtype=torch.int32,
+                           device=values.device)
+        for j, q in enumerate(held):
+            send[j, :q.shape[0], 0] = q
+            send[j, :q.shape[0], 1] = values[j].index_select(
+                0, q.long()).view(torch.int32)
+        got = self.mesh.all_gather(send).view(P, width, 2)
+        ids = torch.cat([got[p, :c, 0].long() + int(self.sg.row_left[p])
+                         for p, c in enumerate(counts)])
+        vals = torch.cat([got[p, :c, 1] for p, c in enumerate(counts)])
+        cnt = vals.shape[0]
+        pad = -(-cnt // L)
+        tail = vals.new_zeros(L * pad)
+        tail[:cnt] = vals
+        table = torch.cat([values, tail.view(values.dtype).view(L, pad)], 1)
+        k = torch.arange(cnt, dtype=torch.int64, device=values.device)
+        rows = (k // pad * (n + pad) + n + k % pad).to(torch.int32)
+        return rows, ids, table
+
+    @staticmethod
+    def _table_of(queue, values: torch.Tensor) -> torch.Tensor:
+        """The values table a :meth:`_queue`'s rows index: its third
+        entry across ranks, else the held values."""
+        return queue[2] if len(queue) > 2 else values
 
     def _ranges(self, ids: torch.Tensor):
-        """Every receiver's push-CSR ranges at global ``ids``: (P, cnt)
-        ``start`` and their exclusive prefix, (P, cnt + 1) ``offs``."""
+        """Every held receiver's push-CSR ranges at global ``ids``: (L,
+        cnt) ``start`` and their exclusive prefix, (L, cnt + 1)
+        ``offs``."""
         start = self.push_row_ptr[:, ids]
         deg = self.push_row_ptr[:, ids + 1] - start
         return start, torch.nn.functional.pad(deg.cumsum(1), (1, 0))
+
+
+class PushStats(NamedTuple):
+    """One host read of a sharded push frontier's counters."""
+
+    count: int                 # active vertices over all parts
+    out_edges: int             # their out-edges over all parts
+    counts: Tuple[int, ...]    # active vertices per part
+    recv_edges: int            # their out-edges into the held parts
 
 
 class _ShardedPush(ShardedBase):
@@ -138,22 +217,25 @@ class _ShardedPush(ShardedBase):
     exchanged row is a uint32 value and a frontier byte per lane."""
 
     def _padded(self, host: np.ndarray):
-        """Global (nv, *t) host array -> (P, max_nv, *t) device storage:
-        int32 words of uint32 values, or bool."""
-        padded = self.sg.to_padded(np.asarray(host))
+        """Global (nv, *t) host array -> (L, max_nv, *t) device storage
+        of the held parts: int32 words of uint32 values, or bool."""
+        padded = self._own(self.sg.to_padded(np.asarray(host)))
         if padded.dtype == bool:
             return self._put(padded)
         return to_u32_storage(padded, self.device)
 
     def gather_values(self, state: PushState) -> np.ndarray:
         """Padded device layout -> global (nv[, K]) host array, numpy
-        uint32."""
-        return self.sg.from_padded(u32_to_numpy(state.values))
+        uint32, on every rank (a collective over ranks)."""
+        return self.sg.from_padded(u32_to_numpy(self._gathered(
+            state.values)))
 
 
 class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
-    """Push executor over the ``num_parts`` parts of a :class:`LocalMesh`
-    (``cuda`` unless ``device`` or ``mesh`` names another), with the
+    """Push executor over the ``num_parts`` parts of a
+    :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` or a
+    :class:`~lux_tpu_torch.parallel.mesh.DistMesh` (``cuda`` unless
+    ``device`` or ``mesh`` names another), with the
     single-device engine's two branches chosen per iteration from
     counters over all parts (see the module docstring). ``phase_step``'s
     load is the exchange in the dense branch (packing included) and the
@@ -162,9 +244,9 @@ class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
     ``branch_log`` holds, per iteration of the last ``run()``, (branch,
     frontier count, frontier out-edges, per-part counts) before the
     step; ``queue_log``, per sparse iteration since the last ``run()``,
-    (parts that compacted a queue, 1 if the queue has out-edges else 0):
-    K6's and K7's launches on the card, from the counts the iteration
-    already read."""
+    (held parts that compacted a queue, 1 if the queue has out-edges
+    into the held parts else 0): K6's and K7's launches on the card,
+    from the counts the iteration already read."""
 
     BLOCKED_DENSE_MIN_NE = PushExecutor.BLOCKED_DENSE_MIN_NE
 
@@ -172,7 +254,7 @@ class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
         self,
         graph: Graph,
         program: PushProgram,
-        mesh: Optional[LocalMesh] = None,
+        mesh: Optional[AnyMesh] = None,
         num_parts: Optional[int] = None,
         sparse: bool = True,
         queue_frac: int = 16,       # per-part queue = max_nv/queue_frac + slack
@@ -238,7 +320,7 @@ class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
         return self._exchange(state.values), self._exchange(state.frontier)
 
     def _dense_acc(self, loaded) -> torch.Tensor:
-        """(P, max_nv) accumulators: one K5 launch per part."""
+        """(L, max_nv) accumulators: one K5 launch per held part."""
         prog = self.program
         table, front = loaded
         return torch.stack([
@@ -250,46 +332,52 @@ class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
 
     # -- the sparse branch -------------------------------------------------
 
-    def _sparse_load(self, state: PushState, stats):
-        """Each part's frontier queue (K6), in part order: the
-        all-gathered queue as (flat rows int32, global ids int64)."""
-        return self._queue(state.frontier, stats[2])
+    def _sparse_load(self, state: PushState, stats: PushStats):
+        """Each held part's frontier queue (K6), all-gathered in part
+        order: (flat rows int32, global ids int64[, values table])."""
+        return self._queue(state.frontier, state.values, stats.counts)
 
-    def _sparse_new(self, state: PushState, queue, stats) -> torch.Tensor:
-        """(P, max_nv) new values: one K7 launch over the queue's
-        out-edges in every part's push CSR, each part combining into its
-        row of a copy of the values. ``stats[1]``, the frontier's
-        out-edges over all parts, is the receivers' edge total."""
+    def _sparse_new(self, state: PushState, queue,
+                    stats: PushStats) -> torch.Tensor:
+        """(L, max_nv) new values: one K7 launch over the queue's
+        out-edges in every held part's push CSR, each part combining into
+        its row of a copy of the values. ``stats.recv_edges``, the
+        frontier's out-edges into the held parts, is the receivers' edge
+        total."""
         prog = self.program
-        rows, ids = queue
+        rows, ids = queue[:2]
         start, offs = self._ranges(ids)
         new = queue_relax_scatter(
-            rows, start, offs, self.push_dst_local, state.values,
-            prog.combiner, prog.relax_op, stats[1], relax=prog.relax,
-            weights=self.push_weights)
-        self.queue_log.append((sum(1 for c in stats[2] if c),
-                               int(rows.numel() > 0 and stats[1] > 0)))
-        return new
+            rows, start, offs, self.push_dst_local,
+            self._table_of(queue, state.values),
+            prog.combiner, prog.relax_op, stats.recv_edges,
+            relax=prog.relax, weights=self.push_weights)
+        self.queue_log.append((
+            sum(1 for p in self.parts if stats.counts[p]),
+            int(rows.numel() > 0 and stats.recv_edges > 0)))
+        return new[:, :self.sg.max_nv]
 
     # -- update and the host read ----------------------------------------
 
     def _stats_tensor(self, frontier: torch.Tensor) -> torch.Tensor:
-        """Per part, the frontier's (count, out-edge total) as one (P, 2)
-        int64 tensor ((P, 1) counts when the sparse branch is off)."""
-        cnt = frontier.sum(1)
+        """Per held part, the frontier's count and its out-edges into the
+        parts of each process that holds parts, as one (L, 1 + S) int64
+        tensor ((L, 1) counts when the sparse branch is off)."""
+        cnt = frontier.sum(1)[:, None]
         if not self.sparse:
-            return cnt[:, None]
-        out = torch.where(frontier, self.out_degrees, 0).sum(1)
-        return torch.stack([cnt, out], 1)
+            return cnt
+        return torch.cat([cnt, self._send_edges(frontier)], 1)
 
-    @staticmethod
-    def _read(stats: torch.Tensor):
-        """The one device-to-host read of an iteration: (count, out-edge
-        total, per-part counts)."""
-        rows = stats.tolist()
+    def _read(self, stats: torch.Tensor) -> PushStats:
+        """The one device-to-host read of an iteration, the same on every
+        rank: the count, the out-edges over all parts, the per-part
+        counts and the out-edges into the held parts."""
+        rows = self._gather_stats(stats)
         counts = tuple(r[0] for r in rows)
-        out_edges = sum(r[1] for r in rows) if len(rows[0]) > 1 else 0
-        return sum(counts), out_edges, counts
+        if len(rows[0]) == 1:
+            return PushStats(sum(counts), 0, counts, 0)
+        return PushStats(sum(counts), sum(sum(r[1:]) for r in rows), counts,
+                         sum(r[1 + self._slot] for r in rows))
 
     def _branch(self, stats) -> int:
         """``lux_tpu``'s choice from the largest part's count and the
@@ -306,7 +394,7 @@ class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
     # -- public API --------------------------------------------------------
 
     def init_state(self, **kw) -> PushState:
-        """The program's initial state, padded to (P, max_nv)."""
+        """The program's initial state, padded to (L, max_nv)."""
         prog = self.program
         return PushState(
             self._padded(prog.init_values(self.graph, **kw)),
@@ -320,19 +408,21 @@ class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
 
 
 class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
-    """Dense multi-source push over the parts of a :class:`LocalMesh`:
-    ``(P, max_nv, K)`` lanes, one K10 launch with K columns per part and
-    iteration, one shared halt count (``cuda`` unless ``device`` or
-    ``mesh`` names another). Column j of :meth:`gather_values` equals a
-    single-source run from root j. ``phase_step``'s load is the K-lane
-    exchange."""
+    """Dense multi-source push over the parts of a
+    :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` or a
+    :class:`~lux_tpu_torch.parallel.mesh.DistMesh`: ``(L, max_nv, K)``
+    lanes of the held parts, one K10 launch with K columns per held part
+    and iteration, one shared halt count over all parts (``cuda`` unless
+    ``device`` or ``mesh`` names another). Column j of
+    :meth:`gather_values` equals a single-source run from root j.
+    ``phase_step``'s load is the K-lane exchange."""
 
     def __init__(
         self,
         graph: Graph,
         program: PushProgram,
         k: int,
-        mesh: Optional[LocalMesh] = None,
+        mesh: Optional[AnyMesh] = None,
         num_parts: Optional[int] = None,
         sg: Optional[ShardedGraph] = None,
         device=None,
@@ -355,7 +445,7 @@ class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
         return self._exchange(state.values), self._exchange(state.frontier)
 
     def _acc(self, loaded) -> torch.Tensor:
-        """(P, max_nv, K) accumulators: one K10 launch per part."""
+        """(L, max_nv, K) accumulators: one K10 launch per held part."""
         prog = self.program
         table, front = loaded
         return torch.stack([
@@ -369,8 +459,11 @@ class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
         new = combine_u32(self.program.combiner, values, acc)
         new = torch.where(self.vertex_mask[:, :, None], new, values)
         frontier = new != values
-        return PushState(new, frontier), frontier.sum()
+        return PushState(new, frontier), gather_rows(
+            self.mesh, frontier.sum((1, 2))[:, None]).sum()
 
     def values_for(self, state: PushState, j: int) -> np.ndarray:
-        """Host copy of lane ``j``'s global value column, numpy uint32."""
-        return self.sg.from_padded(u32_to_numpy(state.values[:, :, j]))
+        """Host copy of lane ``j``'s global value column, numpy uint32,
+        on every rank (a collective over ranks)."""
+        return self.sg.from_padded(u32_to_numpy(self._gathered(
+            state.values[:, :, j])))

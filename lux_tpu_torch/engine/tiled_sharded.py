@@ -1,11 +1,14 @@
 """Sharded hybrid pull executor: int8 strips and the lane-select tail over
-P parts, on one device.
+P parts, on one device or over the ranks of a process group.
 
 The counterpart of ``lux_tpu/engine/tiled_sharded.py``, which runs one
-part per device of a ``shard_map`` mesh. Here the parts are the leading
-axis of stacked ``(P, max_nv)`` values on one
-:class:`~lux_tpu_torch.parallel.mesh.LocalMesh`, and the two layouts of
-the hybrid plan are distributed separately, as there:
+part per device of a ``shard_map`` mesh. Here the parts a process holds
+are the leading axis of stacked ``(L, max_nv)`` values: all P on one
+:class:`~lux_tpu_torch.parallel.mesh.LocalMesh`, or a rank's P / W on a
+:class:`~lux_tpu_torch.parallel.mesh.DistMesh` (every rank partitions
+the whole plan on the host and builds the cell streams and tails of its
+own parts only). The two layouts of the hybrid plan are distributed
+separately, as there:
 
 - **Tail edges** are owner-computes over a non-contiguous destination
   partition: :func:`partition_plan` snake-deals the 128-vertex blocks to
@@ -25,11 +28,11 @@ the hybrid plan are distributed separately, as there:
   zeroed partial sum over the whole vertex space. The partials are
   rearranged into owner-stacked block layout (``stack_map``; pad slots
   read a zero row) and the mesh's ``reduce_scatter`` hands every part
-  the sum of its own blocks.
+  the sum of its own blocks, added in sender order on every mesh.
 - **The exchange** builds each part's ``(nvb, 128)`` gather operand.
-  Full mode: the mesh's ``all_gather`` of the ``(P, max_nvb, 128)``
-  stack (a view on one device), reordered by ``block_map``; all parts
-  share it. Compact mode (``LUX_EXCHANGE=compact``, a profitable
+  Full mode: the mesh's ``all_gather`` of the ``(L, max_nvb, 128)``
+  stack (a view on one device), reordered by ``block_map``; all held
+  parts share it. Compact mode (``LUX_EXCHANGE=compact``, a profitable
   block-granular :class:`~lux_tpu_torch.graph.partition.ExchangePlan`):
   :class:`~lux_tpu_torch.parallel.mesh.CompactExchange` over the stack
   with blocks as its rows, then ``block_map`` per receiver. Blocks a
@@ -73,7 +76,12 @@ from lux_tpu_torch.ops.tiled_spmv import (
     tail_stream,
     tail_sum,
 )
-from lux_tpu_torch.parallel.mesh import CompactExchange, LocalMesh, mesh_for
+from lux_tpu_torch.parallel.mesh import (
+    AnyMesh,
+    CompactExchange,
+    mesh_for,
+    own_parts,
+)
 from lux_tpu_torch.parallel.shard import exchange_mode
 from lux_tpu_torch.utils.logging import get_logger
 from lux_tpu_torch.utils.timing import timed
@@ -150,20 +158,22 @@ def _ranges_to_indices(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
 
 class ShardedTiledExecutor:
     """Strip/lane-select hybrid SpMV over the ``num_parts`` parts of a
-    :class:`LocalMesh` (``cuda`` unless ``device`` or ``mesh`` names
-    another).
+    :class:`~lux_tpu_torch.parallel.mesh.LocalMesh` or a
+    :class:`~lux_tpu_torch.parallel.mesh.DistMesh` (``cuda`` unless
+    ``device`` or ``mesh`` names another).
 
     Same program contract as :class:`TiledPullExecutor` (sum combiner,
     identity contribution); the value contract is the sharded one:
-    ``init_values``/``step``/``run`` speak the ``(P, max_nv)`` padded
-    degree-sorted layout, and ``gather_values`` converts back to a global
-    ``(nv,)`` host array in external vertex order."""
+    ``init_values``/``step``/``run`` speak the ``(L, max_nv)`` padded
+    degree-sorted layout of the held parts, and ``gather_values``
+    converts back to a global ``(nv,)`` host array in external vertex
+    order (on every rank)."""
 
     def __init__(
         self,
         graph: Graph,
         program: PullProgram,
-        mesh: Optional[LocalMesh] = None,
+        mesh: Optional[AnyMesh] = None,
         num_parts: Optional[int] = None,
         levels: Sequence[Tuple[int, int]] = ((8, 2),),
         budget_bytes: int = 8 << 30,
@@ -177,6 +187,7 @@ class ShardedTiledExecutor:
         self.program = program
         self.mesh = mesh_for(mesh, num_parts, device)
         self.num_parts = self.mesh.num_parts
+        self.parts = own_parts(self.mesh)
         self.device = self.mesh.device
         self.plan = plan if plan is not None else plan_hybrid(
             graph, levels=levels, budget_bytes=budget_bytes)
@@ -190,14 +201,15 @@ class ShardedTiledExecutor:
     # -- host-side shard construction ------------------------------------
 
     def _build(self) -> None:
-        plan, part, put = self.plan, self.part, self._put
+        plan, part, put, held = self.plan, self.part, self._put, self.parts
         P, max_nvb = self.num_parts, part.max_nvb
         self.max_nv = max_nv = max_nvb * BLOCK
         # Which global source blocks each part's strips and tail gather:
-        # the remote-read index and the compact plan's needs.
+        # the remote-read index and the compact plan's needs, of every
+        # part; the card holds the held parts' cells and tails only.
         read_blocks = [set() for _ in range(P)]
 
-        part_levels: List[List[DeviceLevel]] = [[] for _ in range(P)]
+        part_levels: List[List[DeviceLevel]] = [[] for _ in held]
         for lev in plan.levels:
             n = lev.rows.shape[0]
             cmax = -(-n // P) if n else 0
@@ -207,17 +219,18 @@ class ShardedTiledExecutor:
                 if i1 > i0:
                     read_blocks[p].update(
                         np.unique(lev.cols[i0:i1]).tolist())
-                part_levels[p].append(build_level(
-                    lev, plan.nvb, self.device, i0, i1, band=True))
+                if p in held:
+                    part_levels[p - held.start].append(build_level(
+                        lev, plan.nvb, self.device, i0, i1, band=True))
 
         # Each part's local vertex space is the ascending concatenation of
         # its owned blocks' vertices, and its tail edges the matching
         # gather of per-vertex CSC ranges (destination-sorted in the part).
         tail_per_v = np.diff(plan.tail_row_ptr).astype(np.int64)
         self._vidx = []
-        deg_out = np.ones((P, max_nv), np.int64)
-        deg_in = np.zeros((P, max_nv), np.int64)
-        vmask = np.zeros((P, max_nv), bool)
+        deg_out = np.ones((len(held), max_nv), np.int64)
+        deg_in = np.zeros((len(held), max_nv), np.int64)
+        vmask = np.zeros((len(held), max_nv), bool)
         self._parts: List[DeviceHybrid] = []
         for p in range(P):
             B = part.blocks[p]
@@ -232,20 +245,23 @@ class ShardedTiledExecutor:
             sb = plan.tail_sb[eidx]
             if m:
                 read_blocks[p].update(np.unique(sb).tolist())
+            if p not in held:
+                continue
+            j = p - held.start
             rp = np.full(max_nv + 1, m, np.int64)
             np.cumsum(lens, out=rp[1:nvloc + 1])
             rp[0] = 0
-            deg_out[p, :nvloc] = plan.out_degrees[vidx]
-            deg_in[p, :nvloc] = plan.in_degrees[vidx]
-            vmask[p, :nvloc] = True
+            deg_out[j, :nvloc] = plan.out_degrees[vidx]
+            deg_in[j, :nvloc] = plan.in_degrees[vidx]
+            vmask[j, :nvloc] = True
             lane = plan.tail_lane[eidx]
             self._parts.append(DeviceHybrid(
-                levels=tuple(part_levels[p]),
+                levels=tuple(part_levels[j]),
                 tail_src=tail_stream(sb, lane, self.device),
                 tail_row_ptr=put(rp),
                 nvb=plan.nvb,
                 src_end=max([(int(sb.max()) << 7) + BLOCK if m else 0]
-                            + [lev.src_end for lev in part_levels[p]]),
+                            + [lev.src_end for lev in part_levels[j]]),
             ))
 
         # (P, P) rows-read matrix in value rows (lux_tpu's engobs ledger).
@@ -314,8 +330,8 @@ class ShardedTiledExecutor:
 
     def _exchange(self, vals: torch.Tensor) -> torch.Tensor:
         """The gather operand: one shared (nvb, 128) array (full), or
-        (P, nvb, 128), one per receiving part (compact)."""
-        stack = vals.view(self.num_parts, self.part.max_nvb, BLOCK)
+        (L, nvb, 128), one per held receiving part (compact)."""
+        stack = vals.view(len(self.parts), self.part.max_nvb, BLOCK)
         if self._xch is None:
             return self.mesh.all_gather(stack).index_select(
                 0, self._block_map)
@@ -325,11 +341,11 @@ class ShardedTiledExecutor:
         return ops if self._xch is None else ops[q]
 
     def _partials(self, ops: torch.Tensor) -> torch.Tensor:
-        """(P, nvb + 1, 128): each part's full-height strip sum, K1 once
-        per part and level adding the part's band into zeros, and a zero
-        row for stack_map's pad slots."""
+        """(L, nvb + 1, 128): each held part's full-height strip sum, K1
+        once per held part and level adding the part's band into zeros,
+        and a zero row for stack_map's pad slots."""
         nvb = self.plan.nvb
-        buf = torch.zeros((self.num_parts, nvb + 1, BLOCK),
+        buf = torch.zeros((len(self.parts), nvb + 1, BLOCK),
                           dtype=torch.float32, device=self.device)
         for q, part in enumerate(self._parts):
             strips_sum(self._x2d(ops, q), part, nvb * BLOCK,
@@ -337,19 +353,19 @@ class ShardedTiledExecutor:
         return buf
 
     def _merge(self, partials: torch.Tensor) -> torch.Tensor:
-        """(P, max_nv) strip sums: the partials in owner-stacked block
-        order, then the mesh's reduce_scatter."""
+        """(L, max_nv) strip sums of the held parts: the partials in
+        owner-stacked block order, then the mesh's reduce_scatter."""
         stacked = partials.index_select(1, self._stack_map)
-        return self.mesh.reduce_scatter(stacked).view(self.num_parts,
+        return self.mesh.reduce_scatter(stacked).view(len(self.parts),
                                                       self.max_nv)
 
     def _strips(self, ops: torch.Tensor) -> torch.Tensor:
         return self._merge(self._partials(ops))
 
     def _tail(self, ops: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-        """Adds each part's tail sums over its owned destinations into
-        its row of ``acc`` (P, max_nv), the strips' sums: K2 once per
-        part. Returns ``acc``."""
+        """Adds each held part's tail sums over its owned destinations
+        into its row of ``acc`` (L, max_nv), the strips' sums: K2 once
+        per held part. Returns ``acc``."""
         for q, part in enumerate(self._parts):
             tail_sum(self._x2d(ops, q), part, out=acc[q])
         return acc
@@ -365,24 +381,26 @@ class ShardedTiledExecutor:
     # -- running -----------------------------------------------------------
 
     def _values(self, a) -> torch.Tensor:
-        """(P, max_nv) f32 values on the device."""
+        """(L, max_nv) f32 values of the held parts on the device."""
         if isinstance(a, torch.Tensor):
             t = a.to(device=self.device, dtype=torch.float32)
         else:
             t = torch.from_numpy(np.array(a, dtype=np.float32)).to(
                 self.device)
-        want = (self.num_parts, self.max_nv)
+        want = (len(self.parts), self.max_nv)
         if tuple(t.shape) != want:
             raise ValueError(f"values must be {want}, got {tuple(t.shape)}")
         return t.contiguous()
 
     def _to_padded_internal(self, ext_vals) -> torch.Tensor:
         """Global (nv,) host values in external order → the padded
-        (P, max_nv) degree-sorted stack on the device."""
+        (L, max_nv) degree-sorted stack of the held parts on the
+        device."""
         internal = np.asarray(ext_vals)[self.plan.order]
-        out = np.zeros((self.num_parts, self.max_nv), np.float32)
-        for p, vidx in enumerate(self._vidx):
-            out[p, :vidx.shape[0]] = internal[vidx]
+        out = np.zeros((len(self.parts), self.max_nv), np.float32)
+        for j, p in enumerate(self.parts):
+            vidx = self._vidx[p]
+            out[j, :vidx.shape[0]] = internal[vidx]
         return self._values(out)
 
     host_to_device = _to_padded_internal
@@ -392,7 +410,7 @@ class ShardedTiledExecutor:
             self.program.init_values(self.graph))
 
     def step(self, vals) -> torch.Tensor:
-        """One iteration; (P, max_nv) in and out."""
+        """One iteration; (L, max_nv) in and out."""
         return self._step(self._values(vals))
 
     def phase_step(self, vals):
@@ -427,17 +445,20 @@ class ShardedTiledExecutor:
         """Interconnect bytes of one iteration's value exchange, as
         ``lux_tpu`` prices them. Full: the all-gather of the (P, max_nv)
         f32 stack, each part sending its shard to the P-1 others.
-        Compact: the packed block all_to_all payload. On one device
-        neither crosses an interconnect."""
+        Compact: the packed block all_to_all payload. The figure is the
+        whole mesh's, on every rank; on one device neither crosses an
+        interconnect."""
         if self._xplan is not None:
             return self._xplan.exchange_bytes_per_iter(4)
         p = self.num_parts
         return p * (p - 1) * self.max_nv * 4
 
     def gather_values(self, vals) -> np.ndarray:
-        """Padded (P, max_nv) layout → global (nv,) host array in
-        external vertex order."""
-        host = self._values(vals).cpu().numpy()
+        """Padded (L, max_nv) layout → global (nv,) host array in
+        external vertex order, on every rank (a collective over
+        ranks)."""
+        host = self.mesh.all_gather(self._values(vals)).view(
+            self.num_parts, self.max_nv).cpu().numpy()
         internal = np.empty(self.plan.nv, host.dtype)
         for p, vidx in enumerate(self._vidx):
             internal[vidx] = host[p, :vidx.shape[0]]

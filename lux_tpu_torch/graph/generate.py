@@ -12,7 +12,15 @@ from typing import Optional
 
 import numpy as np
 
-from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.graph.graph import Graph, stable_argsort
+from lux_tpu_torch.utils.host import run_parts
+
+# Edges of one thread's share of a batch: small enough that its arrays
+# stay in the core's cache across the bit levels.
+RMAT_CHUNK = 1 << 18
+# Up to this many edges, rmat() keeps pass 1's batches for pass 2 (8
+# bytes an edge) instead of drawing them again.
+RMAT_KEEP_EDGES = 1 << 28
 
 
 def rmat_edges(
@@ -26,21 +34,43 @@ def rmat_edges(
 ):
     """Yield (src, dst) int64 batches of an R-MAT graph with 2**scale
     vertices. Vectorized one bit-level at a time; streamed in batches so
-    RMAT27-sized generation stays within memory."""
-    rng = np.random.default_rng(seed)
+    RMAT27-sized generation stays within memory.
+
+    Bit level k of a batch of n edges takes draws k * n .. k * n + n - 1
+    of the batch's share of one ``default_rng(seed)`` stream (one 64-bit
+    draw a double), as ``lux_tpu``'s generator draws them level by
+    level. Each chunk of edges jumps a copy of the stream to its draws
+    (``PCG64.advance``), so the chunks run on the host's threads and the
+    edges are the same, byte for byte."""
+    base = np.random.PCG64(seed).state
+    drawn = 0
     remaining = ne
     while remaining > 0:
         n = min(batch, remaining)
-        src = np.zeros(n, dtype=np.int64)
-        dst = np.zeros(n, dtype=np.int64)
-        for _ in range(scale):
-            u = rng.random(n)
-            # Quadrant probs: (0,0)=a, (0,1)=b, (1,0)=c, (1,1)=d.
-            src_bit = u >= a + b
-            dst_bit = ((u >= a) & (u < a + b)) | (u >= a + b + c)
-            src = (src << 1) | src_bit
-            dst = (dst << 1) | dst_bit
+        src = np.empty(n, dtype=np.int64)
+        dst = np.empty(n, dtype=np.int64)
+
+        def chunk(lo: int, n=n, src=src, dst=dst, drawn=drawn) -> None:
+            hi = min(lo + RMAT_CHUNK, n)
+            s = np.zeros(hi - lo, dtype=np.int64)
+            d = np.zeros(hi - lo, dtype=np.int64)
+            bg = np.random.PCG64()
+            gen = np.random.Generator(bg)
+            for k in range(scale):
+                bg.state = base
+                bg.advance(drawn + k * n + lo)
+                u = gen.random(hi - lo)
+                # Quadrant probs: (0,0)=a, (0,1)=b, (1,0)=c, (1,1)=d.
+                src_bit = u >= a + b
+                dst_bit = ((u >= a) & (u < a + b)) | (u >= a + b + c)
+                s = (s << 1) | src_bit
+                d = (d << 1) | dst_bit
+            src[lo:hi] = s
+            dst[lo:hi] = d
+
+        run_parts(chunk, list(range(0, n, RMAT_CHUNK)))
         yield src, dst
+        drawn += scale * n
         remaining -= n
 
 
@@ -67,28 +97,39 @@ def rmat(
     nv = 1 << scale
     ne = nv * edge_factor
 
-    # Pass 1: in-degree histogram.
+    def batches():
+        return rmat_edges(scale, ne, a=a, b=b, c=c, seed=seed, batch=batch)
+
+    # Pass 1: in-degree histogram. A graph of up to RMAT_KEEP_EDGES edges
+    # keeps its batches (int32 ids) for pass 2 instead of drawing them
+    # again.
+    keep = ne <= RMAT_KEEP_EDGES and scale < 32
+    kept = []
     in_deg = np.zeros(nv, dtype=np.int64)
-    for s, d in rmat_edges(scale, ne, a=a, b=b, c=c, seed=seed, batch=batch):
+    for s, d in batches():
         in_deg += np.bincount(d, minlength=nv)
+        if keep:
+            kept.append((s.astype(np.int32), d.astype(np.int32)))
     row_ptr = np.zeros(nv + 1, dtype=np.int64)
     np.cumsum(in_deg, out=row_ptr[1:])
 
-    # Pass 2: regenerate the same batches and counting-sort into place.
+    # Pass 2: the same batches again, each counting-sorted into place.
     col_src = np.empty(ne, dtype=np.int32)
     w_out = np.empty(ne, dtype=np.int32) if weighted else None
     wrng = np.random.default_rng(seed + 1) if weighted else None
     cursor = row_ptr[:-1].copy()  # next free slot per destination
-    for s, d in rmat_edges(scale, ne, a=a, b=b, c=c, seed=seed, batch=batch):
-        order = np.argsort(d, kind="stable")
-        d_sorted = d[order]
+    # Kept batches are sorted side by side; drawn ones one at a time.
+    orders = (run_parts(lambda sd: stable_argsort(sd[1]), kept)
+              if keep else None)
+    for i, (s, d) in enumerate(kept if keep else batches()):
+        order = orders[i] if keep else stable_argsort(d)
+        d_sorted = d[order].astype(np.int64)
         s_sorted = s[order]
-        # rank of each edge within its (batch-local) destination group
+        # rank of each edge within its (batch-local) destination group:
+        # its index less its group's first index
         counts = np.bincount(d_sorted, minlength=nv)
-        local_rank = np.arange(len(d_sorted)) - np.searchsorted(
-            d_sorted, d_sorted
-        )
-        pos = cursor[d_sorted] + local_rank
+        first = np.cumsum(counts) - counts
+        pos = (cursor - first)[d_sorted] + np.arange(len(d_sorted))
         col_src[pos] = s_sorted.astype(np.int32)
         if weighted:
             batch_w = wrng.integers(

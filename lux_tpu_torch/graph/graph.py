@@ -148,7 +148,7 @@ class Graph:
         src = np.asarray(src)
         dst = np.asarray(dst)
         ne = src.shape[0]
-        order = np.argsort(dst, kind="stable")
+        order = stable_argsort(dst)
         src_sorted = src[order].astype(np.int32)
         dst_sorted = dst[order]
         row_ptr = np.zeros(nv + 1, dtype=np.int64)
