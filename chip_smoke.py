@@ -278,8 +278,33 @@ subprocess on the card:
     run of its path (phases 5, 5c, 5g within the PageRank and CF
     tolerances; 5b and 5d bitwise with their iteration counts); its
     wall seconds, ``ELAPSED TIME`` and ``GTEPS`` lines are logged beside
-    the in-process times of phases 6-6h. The files are removed at the
-    end.
+    the in-process times of phases 6-6h. They run three at a time (the
+    resumed SSSP after its first part), so their start-ups overlap. The
+    files are removed at the end.
+
+Telemetry (``lux_tpu_torch/obs``), group 3l-6l, each part right after
+the group whose executors it takes, so it builds none of its own:
+
+3l. after phase 6, on its lane-select executor: ``run(10)`` with
+    ``LUX_METRICS`` and ``LUX_TRACE`` off and on, bitwise equal with
+    equal launches, 2 flush windows in the record and the trace; ms per
+    iteration of both by CUDA events; the report's byte-model rate
+    against the card's roofline row; a ``profile.v1`` capture of 3
+    iterations (K1 and K2 among its top kernels, the device idle share,
+    steps per second within 3x of the recorder's);
+4l. after phase 6e, on its compact executor: ``run(3)`` under
+    ``LUX_ENGOBS=1`` inside a capture, bitwise equal to the plain run,
+    with exchange- and compute-tagged device time (its realized hidden
+    share is 0 on one stream);
+5l. after phase 6d: SSSP (phase 3b's executor) and BFS (3d's) with a
+    recorder, values, iterations, branches and frontiers equal to their
+    ledgers;
+6l. after 4i-6i: BFS's CLI with ``-metrics -trace`` (its record splits
+    the timed run into the warm-up's compile seconds and the execute
+    seconds of the iterations; ``tools/trace_summary.py`` reads the
+    trace) and tiled PageRank's with ``-profile`` (read by ``python -m
+    lux_tpu_torch.tools.prof_summary``), each checkpoint bitwise equal
+    to 4i-6i's.
 
 Each phase group's seconds are logged. Any failure exits non-zero.
 Without a card it exits non-zero and prints no result. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -289,12 +314,15 @@ before it lists the kernels as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -493,6 +521,12 @@ def main(argv=None) -> int:
     cli = "3i-6i CLIs"
     totals, oracle, plan = group("3-6 tiled", _pagerank_phases, g, dev,
                                  kernels, held)
+    # Group 3l-6l runs each part right after the group whose executors
+    # it takes; its files live in ``tel_dir``.
+    tel_dir = _cuda.BUILD_DIR / "telemetry"
+    shutil.rmtree(tel_dir, ignore_errors=True)
+    tel_dir.mkdir(parents=True)
+    _add(totals, group(TELEMETRY_GROUP, _telemetry_tiled, held, tel_dir))
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     # Phases 3g-6g reuse phase 3's plan (planning costs host minutes at
@@ -533,12 +567,15 @@ def main(argv=None) -> int:
                                 oracle, dev, kernels)
     for name, n in gas_totals.items():
         totals[name] += n
+    _add(totals, group(TELEMETRY_GROUP, _telemetry_fixpoints, push_ctx,
+                       gas_ctx, tel_dir))
     torch.cuda.empty_cache()
     peak = max(peak, torch.cuda.max_memory_allocated())
     sharded_totals, sg_rmat = group("3e-6e sharded pull", _sharded_phases,
                                     g, oracle, gc, cf_oracle, dev, held)
     for name, n in sharded_totals.items():
         totals[name] += n
+    _add(totals, group(TELEMETRY_GROUP, _telemetry_sharded, held, tel_dir))
     peak = max(peak, torch.cuda.max_memory_allocated())
     del gc
     torch.cuda.empty_cache()
@@ -576,8 +613,12 @@ def main(argv=None) -> int:
         totals[name] = totals.get(name, 0) + n
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
-    group(cli, _cli_phases, cli_dir, f"torch device: cuda ({kind})", held,
-          push_ctx, gas_ctx)
+    device_line = f"torch device: cuda ({kind})"
+    saved = group(cli, _cli_phases, cli_dir, device_line, held, push_ctx,
+                  gas_ctx)
+    group(TELEMETRY_GROUP, _telemetry_cli, cli_dir, device_line, saved)
+    shutil.rmtree(cli_dir)
+    shutil.rmtree(tel_dir)
     log("[time] phase groups (s): " + ", ".join(
         f"{k}={v:.1f}" for k, v in group_s.items()))
 
@@ -818,6 +859,9 @@ def _pagerank_phases(g, dev, kernels, held):
     log(f"[time] peak device memory of phases 3-6 "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases 3-6 "
         f"took {time.perf_counter() - t_phase:.1f} s after planning")
+    # Phase 3l takes the lane-select executor and its run's launches.
+    held.setdefault("telemetry", {})["tiled"] = (ex_lane,
+                                                 expected["lane-select"])
     return totals, oracle, plan
 
 
@@ -1680,7 +1724,9 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels):
             results[mode] = (vals, iters, ex.push_iters, ex.pull_iters,
                              ex.direction_switches)
             if mode == "adaptive":
-                gas_ctx[app] = {"oracle": want, "iters": iters}
+                gas_ctx[app] = {"oracle": want, "iters": iters,
+                                "push_iters": ex.push_iters,
+                                "pull_iters": ex.pull_iters}
             extra = {k: v for k, v in ofin.items()
                      if not isinstance(v, np.ndarray)}
             log(f"[gas] {app} {mode}: fixpoint in {iters} iterations "
@@ -1768,6 +1814,7 @@ def _gas_phases(g, gw, gu, pr_oracle, dev, kernels):
         gas_ctx[app]["ms"] = sec * 1e3
         del st, st0
     gas_ctx["bfs"]["parent"] = oracles["bfs"][1]
+    gas_ctx["bfs"]["ex"] = exs["bfs"]     # phase 5l takes it
     return totals, gas_ctx
 
 
@@ -1840,6 +1887,8 @@ def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev, held):
         del os.environ["LUX_EXCHANGE"]
     else:
         os.environ["LUX_EXCHANGE"] = flag
+    # Phase 4l takes the compact PageRank executor.
+    held.setdefault("telemetry", {})["pull_sharded"] = exs["pagerank compact"]
 
     # -- 4e. K8 and K9 on one part's flat table, against the plain versions ----
     rng = np.random.default_rng(SEED)
@@ -4194,9 +4243,300 @@ def _host_clock(fn) -> float:
     return time.perf_counter() - t
 
 
+# -- 3l-6l: telemetry (obs/) on the card -------------------------------------
+
+TELEMETRY_GROUP = "3l-6l telemetry"
+# K1's two kernels and K2's row pass over a gather, as torch.profiler
+# names them.
+KERNEL_NAMES = {
+    "K1": lambda n: "cell_items_kernel" in n or "cell_rows_kernel" in n,
+    "K2": lambda n: "row_sum_kernel<" in n and "Gather" in n,
+}
+
+
+def _kernels_among(rep, labels=("K1", "K2")) -> None:
+    """Raise unless each of ``labels`` names a kernel among the report's
+    top ops."""
+    names = [t["op"] for t in rep["top_ops"]]
+    for label in labels:
+        if not any(KERNEL_NAMES[label](n) for n in names):
+            raise AssertionError(f"profile.v1: no {label} kernel among "
+                                 f"the top ops {names}")
+
+
+@contextlib.contextmanager
+def _knobs(**env):
+    """The LUX_* telemetry knobs ``env`` set and the obs package
+    re-reading them; unset and re-read after."""
+    from lux_tpu_torch import obs
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    obs.reconfigure()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        obs.reconfigure()
+
+
+def _counted_run(fn):
+    """(fn(), its launches), the counts set to 0 just before."""
+    import torch
+
+    from lux_tpu_torch.ops import _cuda
+
+    _cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_cuda.LAUNCHES)
+
+
+def _add(totals, counts) -> None:
+    for name, n in counts.items():
+        totals[name] = totals.get(name, 0) + n
+
+
+def _top_kernels(rep, n: int = 4) -> str:
+    return "; ".join(f"{t['op'][:64]} {t['total_us']:.0f} us x{t['count']} "
+                     f"[{t.get('tag') or '-'}]" for t in rep["top_ops"][:n])
+
+
+def _telemetry_tiled(held, work) -> dict:
+    """Phase 3l on phase 3's lane-select executor: ``run(10)`` with
+    telemetry off and on (bitwise equal, equal launches, two flush
+    windows), the cost of telemetry by CUDA events, the report's HBM
+    rate against the card's row, and a capture of 3 iterations
+    (``profile.v1``: K1 and K2 among the top kernels, the device idle
+    share, steps per second against the recorder's). Returns the
+    launches of its counted runs."""
+    import torch
+
+    from lux_tpu_torch.obs import prof, report
+
+    ex, want = held["telemetry"].pop("tiled")
+    vals = ex.init_values()
+    metrics, trace = work / "tiled_metrics.jsonl", work / "tiled_trace.jsonl"
+    totals = {}
+    off, c_off = _counted_run(lambda: ex.run(ITERS, vals=vals))
+    with _knobs(LUX_METRICS=metrics, LUX_TRACE=trace):
+        on, c_on = _counted_run(lambda: ex.run(ITERS, vals=vals))
+    check_equal("tiled run(10): telemetry on vs off", on, off)
+    check_launches("tiled run(10), telemetry off", c_off, want)
+    check_launches("tiled run(10), telemetry on", c_on, want)
+    _add(totals, c_off)
+    _add(totals, c_on)
+    rec = report.read_last(str(metrics))
+    spans = sorted({it["flush_span"] for it in rec["iterations"]})
+    if rec["num_iters"] != ITERS or spans != [1, 2]:
+        raise AssertionError(f"tiled record: {rec['num_iters']} iterations "
+                             f"in flush windows {spans}, expected 2")
+    events = [json.loads(ln) for ln in trace.read_text().splitlines()]
+    flushes = sum(1 for e in events
+                  if e.get("name") == "tiled.flush" and e.get("ph") == "B")
+    if flushes != 2:
+        raise AssertionError(f"tiled trace: {flushes} flush spans")
+    roof = rec["roofline"]
+    if roof["device_kind"] != torch.cuda.get_device_name():
+        raise AssertionError(f"roofline priced {roof['device_kind']}")
+    log(f"[telemetry] tiled run({ITERS}): on equals off bitwise, launches "
+        f"equal; 2 flush windows; compile {rec['compile_s']:.4f} s "
+        f"execute {rec['execute_s'] * 1e3:.3f} ms (host clock after the "
+        f"window's wait); roofline on {roof['device_kind']}: "
+        f"{roof.get('hbm_gbps', 0):.1f} GB/s of the byte model, hbm_frac "
+        f"{roof.get('hbm_frac')} (peak "
+        f"{report.device_profile()['hbm_peak_gbps']} GB/s, capacity "
+        f"{roof.get('hbm_capacity_bytes')} B)")
+    ms_off = cuda_ms(lambda: ex.run(ITERS, vals=vals), 3) / ITERS
+    with _knobs(LUX_METRICS=metrics, LUX_TRACE=trace):
+        ms_on = cuda_ms(lambda: ex.run(ITERS, vals=vals), 3) / ITERS
+    log(f"[telemetry] tiled ms/iteration by CUDA events (mean of 3 "
+        f"run({ITERS})): off {ms_off:.4f}, on {ms_on:.4f} "
+        f"(+{(ms_on / ms_off - 1) * 100:.1f}%)")
+    # A capture of 3 iterations, the recorder on.
+    metrics3 = work / "tiled3.jsonl"
+    with _knobs(LUX_METRICS=metrics3):
+        (out, rep), c3 = _counted_run(lambda: prof.profile_window(
+            lambda: ex.run(3, vals=vals), dirname=str(work / "prof_tiled"),
+            steps=3,
+            iterlog_summary=lambda: report.read_last(str(metrics3))))
+    check_launches("tiled run(3) in a capture", c3,
+                   {k: n * 3 // ITERS for k, n in want.items()})
+    _add(totals, c3)
+    _kernels_among(rep)
+    (dev_rep,) = rep["devices"].values()
+    st = rep["steps"]
+    rate, il_rate = st["steps_per_s"], st["iterlog"]["steps_per_s"]
+    if not (1 / 3 <= rate / il_rate <= 3):
+        raise AssertionError(f"profile.v1 {rate:.1f} steps/s against the "
+                             f"recorder's {il_rate:.1f}")
+    log(f"[telemetry] capture of tiled run(3): {dev_rep['device']}, busy "
+        f"{dev_rep['busy_us']:.0f} us over a {dev_rep['span_us']:.0f} us "
+        f"span, idle share {dev_rep['idle_frac']:.3f}; {rate:.1f} steps/s "
+        f"on the device span, {il_rate:.1f} by the recorder; top: "
+        f"{_top_kernels(rep)}")
+    return totals
+
+
+def _telemetry_sharded(held, work) -> dict:
+    """Phase 4l on phase 3e's compact sharded PageRank (P = 4): ``run(3)``
+    under ``LUX_ENGOBS=1`` inside a capture, bitwise equal to the plain
+    run, with exchange- and compute-tagged device time; its realized
+    hidden share (0 on one stream). Returns the launches."""
+    from lux_tpu_torch.obs import prof, report
+
+    ex = held["telemetry"].pop("pull_sharded")
+    vals = ex.init_values()
+    plain, c_plain = _counted_run(lambda: ex.run(3, vals=vals))
+    warm = getattr(ex, "_phases_warm", False)
+    metrics = work / "sharded.jsonl"
+    with _knobs(LUX_ENGOBS=1, LUX_METRICS=metrics):
+        (out, rep), counts = _counted_run(lambda: prof.profile_window(
+            lambda: ex.run(3, vals=vals), dirname=str(work / "prof_sharded"),
+            steps=3, iterlog_summary=lambda: report.read_last(str(metrics))))
+    check_equal("sharded pull run(3): phase-fenced vs plain", out, plain)
+    p = ex.num_parts
+    check_launches("sharded pull run(3)", c_plain,
+                   {"gather_segment_sum": p * 3})
+    check_launches("sharded pull run(3), phase-fenced", counts,
+                   {"gather_segment_sum": p * (3 if warm else 4)})
+    (dev_rep,) = rep["devices"].values()
+    if not (dev_rep["exchange_us"] > 0 and dev_rep["compute_us"] > 0):
+        raise AssertionError(f"profile.v1: exchange {dev_rep['exchange_us']}"
+                             f" us, compute {dev_rep['compute_us']} us")
+    rec = report.read_last(str(metrics))
+    totals = {}
+    _add(totals, c_plain)
+    _add(totals, counts)
+    log(f"[telemetry] sharded pull ({ex.exchange_mode}, P={p}) run(3) "
+        f"phase-fenced in a capture: equals the plain run bitwise; device "
+        f"exchange {dev_rep['exchange_us']:.0f} us, compute "
+        f"{dev_rep['compute_us']:.0f} us, overlap "
+        f"{dev_rep['overlap_us']:.0f} us, realized_hidden_frac "
+        f"{rep['realized_hidden_frac']}, idle share "
+        f"{dev_rep['idle_frac']:.3f}; the recorder's split: exchange_frac "
+        f"{rec['phases']['exchange_frac']:.3f}, budget "
+        f"{rec['phases'].get('exchange_hidden_frac')}; tags {rep['tags']}")
+    return totals
+
+
+def _telemetry_fixpoints(push_ctx, gas_ctx, work) -> dict:
+    """Phase 5l: SSSP (phase 3b's executor) and BFS (phase 3d's) with a
+    live recorder: values, iterations, sparse iterations and push/pull
+    counts equal phases 5b and 5d's, each record's frontiers the
+    counters the runs read, launches by the ledgers. Returns the
+    launches."""
+    from lux_tpu_torch.obs import report
+
+    totals = {}
+    for app, ex, ctx in (("sssp", push_ctx["sssp_ex"], push_ctx["sssp"]),
+                         ("bfs", gas_ctx["bfs"].pop("ex"), gas_ctx["bfs"])):
+        metrics = work / f"{app}.jsonl"
+        with _knobs(LUX_METRICS=metrics):
+            (st, iters), counts = _counted_run(lambda: ex.run(start=0))
+        vals = ex.values(st)
+        if iters != ctx["iters"] or not np.array_equal(vals, ctx["oracle"]):
+            raise AssertionError(f"{app} with a recorder: {iters} "
+                                 "iterations or its values differ")
+        rec = report.read_last(str(metrics))
+        branches = [it["branch"] for it in rec["iterations"]]
+        fronts = [it["frontier"] for it in rec["iterations"]]
+        if app == "sssp":
+            log_ = ex.branch_log
+            got = (branches.count("sparse"), branches.count("dense"))
+            want = (ctx["sparse_iters"], iters - ctx["sparse_iters"])
+            dense = sum(1 for b, _, _ in log_ if b == 0)
+            check_launches(f"{app} with a recorder", counts, {
+                "segment_minmax_relax": dense,
+                "frontier_queue": sum(1 for b, c, _ in log_
+                                      if b > 0 and c > 0),
+                "queue_relax_scatter": sum(1 for b, c, e in log_
+                                           if b > 0 and c > 0 and e > 0)})
+        else:
+            log_ = ex.direction_log
+            got = (branches.count("push"), branches.count("pull"))
+            want = (ctx["push_iters"], ctx["pull_iters"])
+            check_launches(f"{app} with a recorder", counts,
+                           _gas_expected(log_))
+        # Iteration i left the frontier iteration i + 1 started from.
+        if got != want or fronts[:-1] != [e[1] for e in log_[1:]] \
+                or fronts[-1] != 0 or rec["num_iters"] != iters:
+            raise AssertionError(f"{app} record: branches {got}, expected "
+                                 f"{want}; frontiers {fronts}")
+        _add(totals, counts)
+        log(f"[telemetry] {app} with a recorder: {iters} iterations, "
+            f"branches {branches} equal phase 5b/5d's ledger, frontiers "
+            f"{fronts}; execute {rec['execute_s'] * 1e3:.3f} ms over "
+            f"{max(it['flush_span'] for it in rec['iterations'])} flush "
+            f"window(s), compile {rec['compile_s']:.3f} s")
+    return totals
+
+
+def _telemetry_cli(work, device_line: str, saved: dict) -> None:
+    """Phase 6l: two CLI runs on phase 3i's files, each checkpoint
+    bitwise equal to group 4i-6i's run without the flags: BFS with
+    ``-metrics -trace`` (its record splits the one timed run into the
+    warm-up's compile seconds and the execute seconds of its
+    iterations), then tiled PageRank with ``-profile``, read by
+    ``python -m lux_tpu_torch.tools.prof_summary``."""
+    from lux_tpu_torch.obs import report
+
+    g_lux = work / "g.lux"
+    metrics, trace = work / "bfs_cli.jsonl", work / "bfs_cli_trace.jsonl"
+    out, ck = _cli_run(work, device_line, "bfs telemetry", "bfs", "-file",
+                       g_lux, "-start", 0, "-metrics", metrics, "-trace",
+                       trace)
+    want = saved["bfs"]
+    if not np.array_equal(ck["values"], want["values"]) \
+            or ck["iteration"] != want["iteration"]:
+        raise AssertionError("cli bfs -metrics -trace: checkpoint differs")
+    rec = report.read_last(str(metrics))
+    elapsed = float(_cli_line(out, "ELAPSED TIME").split("=")[1].split()[0])
+    r = subprocess.run([sys.executable, str(Path(__file__).parent / "tools"
+                                            / "trace_summary.py"),
+                        str(trace)], capture_output=True, text=True)
+    if r.returncode != 0 or "gas.flush" not in r.stdout:
+        raise AssertionError(f"trace_summary: {r.returncode} {r.stderr}")
+    its = rec["iterations"]
+    log(f"[telemetry] cli bfs -metrics -trace: checkpoint equals 4i-6i's "
+        f"bitwise; ELAPSED TIME {elapsed * 1e3:.3f} ms = the recorder's "
+        f"execute {rec['execute_s'] * 1e3:.3f} ms over {rec['num_iters']} "
+        f"iterations ({rec['execute_s'] / rec['num_iters'] * 1e3:.3f} ms "
+        f"each, flush windows {sorted({i['flush_span'] for i in its})}) + "
+        f"{(elapsed - rec['execute_s']) * 1e3:.3f} ms outside it "
+        f"(init_state, the run's set-up and finish); the warm-up's compile "
+        f"{rec['compile_s']:.3f} s is outside ELAPSED TIME; branches "
+        f"{[i.get('branch') for i in its]}; trace_summary reads the trace")
+    prof_dir = work / "prof_cli"
+    out, ck = _cli_run(work, device_line, "tiled pagerank profile",
+                       "pagerank", "-file", g_lux, "-ni", ITERS, "-profile",
+                       prof_dir)
+    want = saved["tiled pagerank"]
+    if not np.array_equal(ck["values"], want["values"]):
+        raise AssertionError("cli pagerank -profile: checkpoint differs")
+    r = subprocess.run([sys.executable, "-m",
+                        "lux_tpu_torch.tools.prof_summary", str(prof_dir),
+                        "--json"], capture_output=True, text=True,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0:
+        raise AssertionError(f"prof_summary: {r.stderr[-2000:]}")
+    rep = json.loads(r.stdout)
+    _kernels_among(rep)
+    (dev_rep,) = rep["devices"].values()
+    log(f"[telemetry] cli pagerank -profile: checkpoint equals 4i-6i's "
+        f"bitwise; prof_summary: idle share {dev_rep['idle_frac']:.3f} "
+        f"over a {dev_rep['span_us']:.0f} us device span; top: "
+        f"{_top_kernels(rep)}")
+
+
 # -- 3i-6i: the app CLIs, each a subprocess on the card ----------------------
 
 CLI_TIMEOUT_S = 400
+CLI_WORKERS = 3      # CLI subprocesses at a time in group 4i-6i
 
 
 def _cli_files(work, graphs: dict, plan=None):
@@ -4273,7 +4613,7 @@ def _cli_line(out: str, prefix: str) -> str:
 
 
 def _cli_phases(work, device_line: str, held: dict, push: dict,
-                gas: dict) -> None:
+                gas: dict) -> dict:
     """Phases 4i-6i: every app CLI on the files of phase 3i, each held
     against the in-process phase that ran its path: tiled, flat and
     sharded tiled PageRank against phases 5, 5c and 5g's ``run(10)``
@@ -4281,8 +4621,11 @@ def _cli_phases(work, device_line: str, held: dict, push: dict,
     atol=1e-7), SSSP (one device and 4 parts), CC, BFS and DeltaSSSP
     bitwise against 5b's and 5d's fixpoints with their iteration counts,
     and SSSP saved after 2 iterations and resumed bitwise against the
-    uninterrupted run. Each run's wall seconds, ELAPSED TIME and GTEPS
-    lines are logged beside the in-process times of phases 6-6h."""
+    uninterrupted run. The runs go ``CLI_WORKERS`` at a time (the resumed
+    run after its first part), so their start-ups overlap; their wall
+    seconds, ELAPSED TIME and GTEPS lines are logged beside the
+    in-process times of phases 6-6h. Returns the checkpoints of tiled
+    PageRank and BFS (group 3l-6l holds its runs against them)."""
     t_phase = time.perf_counter()
     g_lux, gu_lux, gw_lux, gc_lux = (work / f"{n}.lux"
                                      for n in ("g", "gu", "gw", "gc"))
@@ -4318,18 +4661,53 @@ def _cli_phases(work, device_line: str, held: dict, push: dict,
         log(f"[cli] {label}: values bitwise equal to {in_process}, "
             f"{iters} iterations")
 
+    first = 2
+    fix = (("sssp", "sssp", g_lux, push["sssp"], "5b 6b", ("-start", 0)),
+           ("sharded sssp", "sssp", g_lux, push["sssp"], "5b 6f",
+            ("-start", 0, "-parts", SHARDED_PARTS)),
+           ("cc", "components", gu_lux, push["cc"], "5b 6b", ()),
+           ("bfs", "bfs", g_lux, gas["bfs"], "5d 6d", ("-start", 0)),
+           ("sssp_delta", "sssp_delta", gw_lux, gas["sssp_delta"], "5d 6d",
+            ("-start", 0)))
+    jobs = {
+        "tiled pagerank": ("pagerank", "-file", g_lux, "-ni", ITERS,
+                           "-check"),
+        "sharded tiled pagerank": ("pagerank", "-file", g_lux, "-ni", ITERS,
+                                   "-parts", SHARDED_PARTS),
+        # The host f64 oracle over 100 M ratings costs minutes: no -check.
+        "cf": ("colfilter", "-file", gc_lux, "-ni", CF_ITERS),
+        "flat pagerank": ("pagerank", "-file", g_lux, "-ni", ITERS,
+                          "-layout", "flat"),
+    }
+    for label, app, path, _, _, argv in fix:
+        check = () if label == "sharded sssp" else ("-check",)
+        jobs[label] = (app, "-file", path, *argv, *check)
+
+    def sssp_resumed():
+        """SSSP saved after 2 iterations, then resumed to its fixpoint."""
+        part = run("sssp first 2", "sssp", "-file", g_lux, "-start", 0,
+                   "-ni", first)
+        return part, run("sssp resumed", "sssp", "-file", g_lux, "-start",
+                         0, "-resume", work / "sssp_first_2.npz", "-check")
+
+    with ThreadPoolExecutor(CLI_WORKERS) as pool:
+        chained = pool.submit(sssp_resumed)
+        futs = {label: pool.submit(run, label, *job)
+                for label, job in jobs.items()}
+        results = {label: f.result() for label, f in futs.items()}
+        (_, part), resumed = chained.result()
+    log(f"[cli] {len(results) + 2} runs, {CLI_WORKERS} at a time, in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
     # Pull: PageRank in the three layouts, CF.
-    out, saved = run("tiled pagerank", "pagerank", "-file", g_lux,
-                     "-ni", ITERS, "-check")
+    out, saved = results["tiled pagerank"]
     _cli_line(out, "[PASS]")
     close("tiled pagerank", saved["values"], held["pagerank"]["values"],
           RTOL, ATOL, f"phase 5's run({ITERS})")
-    out, saved = run("flat pagerank", "pagerank", "-file", g_lux,
-                     "-ni", ITERS, "-layout", "flat")
+    out, saved = results["flat pagerank"]
     close("flat pagerank", saved["values"], held["flat"]["values"],
           RTOL, ATOL, f"phase 5c's run({ITERS})")
-    out, saved = run("sharded tiled pagerank", "pagerank", "-file", g_lux,
-                     "-ni", ITERS, "-parts", SHARDED_PARTS)
+    out, saved = results["sharded tiled pagerank"]
     close("sharded tiled pagerank", saved["values"],
           held["sharded tiled"]["values"], RTOL, ATOL,
           f"phase 5g's full-mode run({ITERS})")
@@ -4337,8 +4715,7 @@ def _cli_phases(work, device_line: str, held: dict, push: dict,
         f"{held['pagerank']['ms']:.3f} (phase 6), flat "
         f"{held['flat']['ms']:.3f} (6c), sharded tiled "
         f"{held['sharded tiled']['ms']:.3f} (6g)")
-    # The host f64 oracle over 100 M ratings costs minutes: no -check.
-    out, saved = run("cf", "colfilter", "-file", gc_lux, "-ni", CF_ITERS)
+    out, saved = results["cf"]
     close("cf", saved["values"], held["cf"]["values"], CF_RTOL, CF_ATOL,
           f"phase 5c's run({CF_ITERS})")
     log(f"[cli] cf ran without -check (its host f64 oracle over the "
@@ -4346,17 +4723,9 @@ def _cli_phases(work, device_line: str, held: dict, push: dict,
         f"{held['cf']['ms']:.3f} ms/iteration (6c)")
 
     # Push and GAS: to fixpoint, bitwise.
-    for label, app, path, want, phases, argv in (
-            ("sssp", "sssp", g_lux, push["sssp"], "5b 6b", ("-start", 0)),
-            ("sharded sssp", "sssp", g_lux, push["sssp"], "5b 6f",
-             ("-start", 0, "-parts", SHARDED_PARTS)),
-            ("cc", "components", gu_lux, push["cc"], "5b 6b", ()),
-            ("bfs", "bfs", g_lux, gas["bfs"], "5d 6d", ("-start", 0)),
-            ("sssp_delta", "sssp_delta", gw_lux, gas["sssp_delta"], "5d 6d",
-             ("-start", 0))):
-        check = () if label == "sharded sssp" else ("-check",)
-        out, saved = run(label, app, "-file", path, *argv, *check)
-        if check:
+    for label, app, path, want, phases, argv in fix:
+        out, saved = results[label]
+        if label != "sharded sssp":
             _cli_line(out, "[PASS]")
         held_in, ms_in = phases.split()
         exact(label, out, saved, want["oracle"], want["iters"],
@@ -4366,23 +4735,20 @@ def _cli_phases(work, device_line: str, held: dict, push: dict,
             f"(phase {ms_in})")
 
     # SSSP saved after 2 iterations, then resumed to its fixpoint.
-    first = 2
     total = push["sssp"]["iters"]
-    out, saved = run("sssp first 2", "sssp", "-file", g_lux, "-start", 0,
-                     "-ni", first)
-    if saved["iteration"] != first or not saved["frontier"].any():
+    if part["iteration"] != first or not part["frontier"].any():
         raise AssertionError("cli sssp first 2: checkpoint at iteration "
-                             f"{saved['iteration']}, frontier "
-                             f"{int(saved['frontier'].sum())}")
-    out, saved = run("sssp resumed", "sssp", "-file", g_lux, "-start", 0,
-                     "-resume", work / "sssp_first_2.npz", "-check")
+                             f"{part['iteration']}, frontier "
+                             f"{int(part['frontier'].sum())}")
+    out, saved = resumed
     _cli_line(out, "[PASS]")
     exact("sssp resumed", out, saved, push["sssp"]["oracle"], total,
           "phase 5b's fixpoint", ran=total - first)
     log(f"[cli] sssp resumed: {first} + {total - first} iterations = the "
         f"uninterrupted run's {total}")
-    shutil.rmtree(work)
     log(f"[cli] phases 4i-6i took {time.perf_counter() - t_phase:.1f} s")
+    return {"tiled pagerank": results["tiled pagerank"][1],
+            "bfs": results["bfs"][1]}
 
 
 if __name__ == "__main__":

@@ -40,7 +40,10 @@ Layout:
                             pull, sharded push and sharded tiled
                             executors, result checker
     lux_tpu_torch.probes  — the gather probes (P2-P7) and their kernels
-    lux_tpu_torch.models  — the eight programs and their registry
+    lux_tpu_torch.models  — the eight programs and their registry, the
+                            app CLIs
+    lux_tpu_torch.obs     — telemetry: run recorder, report, ledger,
+                            flight recorder, engobs, profiler captures
     lux_tpu_torch.utils   — flags, device resolution, loggers
 """
 

@@ -44,10 +44,12 @@ fixed number of dense pull iterations through
 :class:`~lux_tpu_torch.engine.pull.PullExecutor`'s step: K8 or K9 by
 ``edge_op``.
 
-Not ported: the run recorder, engobs notes, compile-seconds notes and
-``trace_step`` (ROADMAP A19). ``chunk`` keeps ``lux_tpu``'s signature:
-there it batches host reads; here only a non-positive chunk changes
-anything (it runs no iteration).
+``run`` records itself as ``lux_tpu``'s does (a recorder flushed once
+per ``chunk``, the engobs note of its directions, the compile seconds
+``warmup`` notes). Not ported: ``trace_step`` (ROADMAP A16). ``chunk``
+keeps ``lux_tpu``'s signature: there it batches host reads; here it
+sets the recorder's flush windows, and a non-positive chunk runs no
+iteration.
 """
 
 from __future__ import annotations
@@ -61,7 +63,14 @@ import torch
 from lux_tpu_torch.engine.program import EdgeCtx, PullProgram, VertexCtx
 from lux_tpu_torch.engine.pull import PullExecutor, _owner
 from lux_tpu_torch.engine.push import PushProgram, _sparse_budgets
+from lux_tpu_torch.engine.telemetry import (
+    NULL_RECORDER,
+    FlushWindow,
+    open_run,
+    timed_warmup,
+)
 from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.obs import engobs
 from lux_tpu_torch.ops.frontier import frontier_queue, gas_push_acc
 from lux_tpu_torch.ops.segment import (
     RowTasks,
@@ -483,25 +492,30 @@ class AdaptiveExecutor(_GasBase):
                                             self._frontier_stats(state))
         return new_state, stats[0]
 
-    def _run(self, state: GasState, max_iters: Optional[int], chunk: int):
+    def _run(self, state: GasState, max_iters: Optional[int], chunk: int,
+             rec=NULL_RECORDER):
         """Iterate until a step leaves an empty frontier or ``max_iters``
         steps ran; returns (state, iterations, direction log). A start
         with an empty frontier still runs one iteration, as in
-        ``lux_tpu``."""
+        ``lux_tpu``. ``rec`` gets one flush per chunk, as there."""
         log: List[Tuple[int, int, int]] = []
         if chunk <= 0:
             return state, 0, log
+        window = FlushWindow(rec, chunk, "directions")
         stats = self._frontier_stats(state)
         while max_iters is None or len(log) < max_iters:
             prev = stats
             state, stats, direction = self._iterate(state, stats)
             log.append((direction,) + prev)
+            window.step(len(log), stats[0], direction)
             if stats[0] == 0:
                 break
+        window.close(len(log))
         return state, len(log), log
 
     def run(self, max_iters: Optional[int] = None,
-            state: Optional[GasState] = None, chunk: int = 16, **init_kw):
+            state: Optional[GasState] = None, chunk: int = 16,
+            recorder=None, **init_kw):
         """Iterate to fixpoint (or ``max_iters``); returns (final_state,
         iterations_run). The directions land in ``push_iters``,
         ``pull_iters``, ``direction_switches`` and ``direction_log``."""
@@ -511,18 +525,28 @@ class AdaptiveExecutor(_GasBase):
                 "run() needs max_iters")
         if state is None:
             state = self.init_state(**init_kw)
-        state, total, self.direction_log = self._run(state, max_iters, chunk)
+        rec = open_run(self, "gas", recorder, lambda: (
+            engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne)))
+        state, total, self.direction_log = self._run(state, max_iters, chunk,
+                                                     rec)
         dirs = [d for d, _, _ in self.direction_log]
         self.push_iters = sum(dirs)
         self.pull_iters = total - self.push_iters
         self.direction_switches = count_switches(dirs)
+        engobs.note(
+            "gas", program=self.program.name, mode=self.mode,
+            num_iters=total, direction_push=self.push_iters,
+            direction_pull=self.pull_iters,
+            direction_switches=self.direction_switches)
+        rec.finish()
         return state, total
 
     def warmup(self, chunk: int = 16, **init_kw):
         """One throwaway iteration through the run() path (builds the
-        kernels) so timed runs exclude set-up."""
-        self._run(self.init_state(**init_kw), 1, chunk)
-        self._sync()
+        kernels) so timed runs exclude set-up; its seconds are the next
+        run's compile time."""
+        timed_warmup(self, lambda: self._run(self.init_state(**init_kw), 1,
+                                             chunk))
 
     def finalize(self, state: GasState) -> dict:
         """Host-side derived outputs of the converged state (numpy)."""
@@ -623,19 +647,33 @@ class MultiSourceGasExecutor(_GasBase):
         return GasState(new, frontier, 0), int(frontier.sum())
 
     def run(self, starts, max_iters: Optional[int] = None, chunk: int = 16,
-            state: Optional[GasState] = None):
+            recorder=None, state: Optional[GasState] = None):
         """Run all roots to their shared fixpoint; column j of
         ``state.values`` is root ``starts[j]``'s result."""
         if state is None:
             state = self.init_state(starts)
+        rec = open_run(self, "gas_multi", recorder, lambda: (
+            engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne,
+                                      k=self.k)))
+        state, total = self._run(state, max_iters, chunk, rec)
+        self.pull_iters = total
+        engobs.note("gas_multi", program=self.program.name, mode="pull",
+                    num_iters=total, lanes=self.k)
+        rec.finish()
+        return state, total
+
+    def _run(self, state: GasState, max_iters: Optional[int], chunk: int,
+             rec=NULL_RECORDER):
         total = 0
         if chunk > 0:
+            window = FlushWindow(rec, chunk, "directions")
             while max_iters is None or total < max_iters:
                 state, cnt = self.step(state)
                 total += 1
+                window.step(total, cnt, 0)
                 if cnt == 0:
                     break
-        self.pull_iters = total
+            window.close(total)
         return state, total
 
     def warmup(self, chunk: int = 16, start: int = 0):
@@ -643,10 +681,10 @@ class MultiSourceGasExecutor(_GasBase):
         ``init_state([start])`` (builds the kernels) so timed runs exclude
         set-up, as ``lux_tpu``'s ``warmup``; no iteration when ``chunk``
         is 0, as in ``run``. It leaves no state behind: ``pull_iters``
-        stays as the last ``run`` left it."""
-        if chunk > 0:
-            self.step(self.init_state([start]))
-        self._sync()
+        stays as the last ``run`` left it; its seconds are the next
+        run's compile time."""
+        timed_warmup(self, lambda: self._run(self.init_state([start]), 1,
+                                             chunk))
 
     def values_for(self, state: GasState, j: int) -> np.ndarray:
         """Host copy of lane ``j``'s value column."""

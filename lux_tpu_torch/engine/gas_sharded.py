@@ -59,10 +59,15 @@ K)`` lanes: the K-lane full or compact exchange (``frontier`` runs
 compact, logged), one K10 launch with K columns per held part, the
 merge and one count over all parts.
 
-On the CPU the kernels' plain versions run. Not ported: ``trace_step``
-(ROADMAP A16), the recorder, engobs and ``prof`` regions (A14, A19).
-``chunk`` keeps ``lux_tpu``'s signature: there it batches host reads;
-here only a non-positive chunk changes anything (it runs no iteration).
+On the CPU the kernels' plain versions run. Telemetry is ``lux_tpu``'s:
+``run`` takes a recorder (one flush per ``chunk``, the exchange ledger,
+useful bytes, the byte model), ``ShardedAdaptiveExecutor`` runs
+phase-fenced under ``LUX_ENGOBS=1`` (``obs/engobs.py``), and a step's
+exchange and compute are the ``prof`` regions ``lux.gas_sharded.*``
+(``lux.gas_multi_sharded.*``). Not ported: ``trace_step``. ``chunk``
+keeps ``lux_tpu``'s signature: there it batches host reads; here it
+sets the recorder's flush windows, and a non-positive chunk runs no
+iteration.
 """
 
 from __future__ import annotations
@@ -86,10 +91,19 @@ from lux_tpu_torch.engine.gas import (
 )
 from lux_tpu_torch.engine.program import PullProgram
 from lux_tpu_torch.engine.pull_sharded import ShardedPullExecutor
-from lux_tpu_torch.engine.push import LanesLoop, _sparse_budgets, _sync
+from lux_tpu_torch.engine.push import LanesLoop, _sparse_budgets
 from lux_tpu_torch.engine.push_sharded import SparseQueue
 from lux_tpu_torch.engine.sharded import ShardedBase
+from lux_tpu_torch.engine.telemetry import (
+    NULL_RECORDER,
+    FlushWindow,
+    note_exchange,
+    open_run,
+    sync,
+    timed_warmup,
+)
 from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.obs import engobs, prof
 from lux_tpu_torch.ops.frontier import gas_push_acc
 from lux_tpu_torch.ops.segment import (
     RowTasks,
@@ -103,6 +117,9 @@ from lux_tpu_torch.parallel.mesh import AnyMesh, FrontierExchange, gather_rows
 from lux_tpu_torch.parallel.shard import ShardedGraph
 from lux_tpu_torch.utils import flags
 from lux_tpu_torch.utils.timing import timed
+
+_EXCHANGE = prof.region("lux.gas_sharded.exchange")
+_COMPUTE = prof.region("lux.gas_sharded.compute")
 
 
 class Stats(NamedTuple):
@@ -370,16 +387,26 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
         returns (new state, its stats, direction, branch)."""
         if not self.program.frontier:
             # Frontier and direction pass through unchanged.
-            new = self._pull._step(state.values)
+            pull = self._pull
+            with _EXCHANGE:
+                flat = pull._exchange(state.values)
+            with _COMPUTE:
+                new = pull._update(state.values, pull._comp(flat))
             return state._replace(values=new), stats, 0, "pull/dense"
         push = self._decide_push(stats, state.direction)
         down = 0
         if push:
-            acc = self._push_acc(state, self._push_load(state, stats), stats)
+            with _EXCHANGE:
+                queue = self._push_load(state, stats)
+            with _COMPUTE:
+                acc = self._push_acc(state, queue, stats)
         else:
-            loaded, down = self._pull_load(state, stats)
-            acc = self._pull_acc(loaded)
-        new, frontier = self._merge(state.values, acc)
+            with _EXCHANGE:
+                loaded, down = self._pull_load(state, stats)
+            with _COMPUTE:
+                acc = self._pull_acc(loaded)
+        with _COMPUTE:
+            new, frontier = self._merge(state.values, acc)
         return (GasState(new, frontier, int(push)),
                 self._read(self._stats_tensor(frontier)), int(push),
                 self._branch(push, down))
@@ -404,30 +431,37 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
                                                self._frontier_stats(state))
         return new_state, stats.count
 
-    def _run(self, state: GasState, max_iters: Optional[int], chunk: int):
+    def _run(self, state: GasState, max_iters: Optional[int], chunk: int,
+             rec=NULL_RECORDER):
         """Iterate until a step leaves an empty frontier or ``max_iters``
         steps ran; returns (state, iterations, direction log). A start
         with an empty frontier still runs one iteration, as in
-        ``lux_tpu``."""
+        ``lux_tpu``. ``rec`` gets one flush per chunk, as there."""
         log: List[tuple] = []
         if chunk <= 0:
             return state, 0, log
+        window = FlushWindow(rec, chunk, "directions")
         stats = self._frontier_stats(state)
         while max_iters is None or len(log) < max_iters:
             prev = stats
             state, stats, direction, branch = self._iterate(state, stats)
             log.append((direction, prev.count, prev.out_edges, branch,
                         prev.counts))
+            window.step(len(log), stats.count, direction)
             if stats.count == 0:
                 break
+        window.close(len(log))
         return state, len(log), log
 
     def run(self, max_iters: Optional[int] = None,
-            state: Optional[GasState] = None, chunk: int = 16, **init_kw):
+            state: Optional[GasState] = None, chunk: int = 16,
+            recorder=None, **init_kw):
         """Iterate to fixpoint (or ``max_iters``); returns (final_state,
         iterations_run). The directions land in ``push_iters``,
         ``pull_iters``, ``direction_switches`` and ``direction_log``,
-        frontier-exchange downgrades in ``exchange_downgrades``."""
+        frontier-exchange downgrades in ``exchange_downgrades``. Under
+        ``LUX_ENGOBS=1`` the run is phase-fenced and ``direction_log``
+        stays empty (the recorder holds each iteration's branch)."""
         if not self.program.frontier and max_iters is None:
             raise ValueError(
                 f"{self.program.name} is a frontier-less pull program; "
@@ -435,20 +469,42 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
         if state is None:
             state = self.init_state(**init_kw)
         self.queue_log = []
-        state, total, self.direction_log = self._run(state, max_iters, chunk)
-        dirs = [e[0] for e in self.direction_log]
-        self.push_iters = sum(dirs)
-        self.pull_iters = total - self.push_iters
-        self.direction_switches = count_switches(dirs)
-        self.exchange_downgrades = sum(
-            1 for e in self.direction_log if e[3] == "pull/downgraded")
+        rec = open_run(self, "gas_sharded", recorder, lambda: (
+            engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne)))
+        note_exchange(rec, self, "dense_estimate", self._row_bytes,
+                      note=("frontier_all_to_all"
+                            if self.exchange_mode == "frontier" else None))
+        if engobs.enabled():
+            state, total, pushes, switches, downs = engobs.run_gas_phased(
+                self, state, max_iters, rec)
+            self.direction_log = []
+        else:
+            state, total, self.direction_log = self._run(state, max_iters,
+                                                         chunk, rec)
+            dirs = [e[0] for e in self.direction_log]
+            pushes = sum(dirs)
+            switches = count_switches(dirs)
+            downs = sum(1 for e in self.direction_log
+                        if e[3] == "pull/downgraded")
+        self.push_iters = pushes
+        self.pull_iters = total - pushes
+        self.direction_switches = switches
+        self.exchange_downgrades = downs
+        engobs.note(
+            "gas_sharded", program=self.program.name, mode=self.mode,
+            exchange=self.exchange_mode, num_parts=self.num_parts,
+            num_iters=total, direction_push=pushes,
+            direction_pull=total - pushes, direction_switches=switches,
+            exchange_downgrades=downs)
+        rec.finish()
         return state, total
 
     def warmup(self, chunk: int = 16, **init_kw):
         """One throwaway iteration through the run() path (builds the
-        kernels) so timed runs exclude set-up."""
-        self._run(self.init_state(**init_kw), 1, chunk)
-        _sync(self.device)
+        kernels) so timed runs exclude set-up; its seconds are the next
+        run's compile time."""
+        timed_warmup(self, lambda: self._run(self.init_state(**init_kw), 1,
+                                             chunk))
 
     def finalize(self, state: GasState) -> dict:
         """Host-side derived outputs of the converged state (numpy)."""
@@ -467,31 +523,39 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
         stats = self._frontier_stats(state)
         if not self.program.frontier:
             pull = self._pull
-            flat, times["loadTime"] = timed(
-                lambda: pull._exchange(state.values), dev)
-            acc, times["compTime"] = timed(lambda: pull._comp(flat), dev)
-            new, times["updateTime"] = timed(
-                lambda: pull._update(state.values, acc), dev)
+            with _EXCHANGE:
+                flat, times["loadTime"] = timed(
+                    lambda: pull._exchange(state.values), dev)
+            with _COMPUTE:
+                acc, times["compTime"] = timed(lambda: pull._comp(flat),
+                                               dev)
+                new, times["updateTime"] = timed(
+                    lambda: pull._update(state.values, acc), dev)
             times["branch"], times["downgraded"] = "pull/dense", 0
             return state._replace(values=new), stats.count, times
         push = self._decide_push(stats, state.direction)
         down = 0
         if push:
-            queue, times["loadTime"] = timed(
-                lambda: self._push_load(state, stats), dev)
-            acc, times["compTime"] = timed(
-                lambda: self._push_acc(state, queue, stats), dev)
+            with _EXCHANGE:
+                queue, times["loadTime"] = timed(
+                    lambda: self._push_load(state, stats), dev)
+            with _COMPUTE:
+                acc, times["compTime"] = timed(
+                    lambda: self._push_acc(state, queue, stats), dev)
         else:
-            (loaded, down), times["loadTime"] = timed(
-                lambda: self._pull_load(state, stats), dev)
-            acc, times["compTime"] = timed(lambda: self._pull_acc(loaded),
-                                           dev)
+            with _EXCHANGE:
+                (loaded, down), times["loadTime"] = timed(
+                    lambda: self._pull_load(state, stats), dev)
+            with _COMPUTE:
+                acc, times["compTime"] = timed(
+                    lambda: self._pull_acc(loaded), dev)
 
         def finish():
             new, frontier = self._merge(state.values, acc)
             return new, frontier, self._read(self._stats_tensor(frontier))
 
-        (new, frontier, st), times["updateTime"] = timed(finish, dev)
+        with _COMPUTE:
+            (new, frontier, st), times["updateTime"] = timed(finish, dev)
         times["branch"], times["downgraded"] = self._branch(push, down), down
         return GasState(new, frontier, int(push)), st.count, times
 
@@ -510,7 +574,7 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
             if self.mode != "pull":
                 self._merge(state.values, self._push_acc(
                     state, self._push_load(state, stats), stats))
-        _sync(self.device)
+        sync(self.device)
 
     # -- accounting ---------------------------------------------------------
 
@@ -549,6 +613,11 @@ class ShardedMultiSourceGasExecutor(_ShardedGas, LanesLoop):
     ``LUX_EXCHANGE=frontier`` runs the compact exchange (logged): the
     frontier send is single-lane shaped. ``phase_step``'s load is the
     K-lane exchange."""
+
+    _regions = (prof.region("lux.gas_multi_sharded.exchange"),
+                prof.region("lux.gas_multi_sharded.compute"))
+    _engine = "gas_multi_sharded"
+    _flush_kind = "directions"   # the recorder's branch: "pull"
 
     def __init__(
         self,
@@ -594,13 +663,20 @@ class ShardedMultiSourceGasExecutor(_ShardedGas, LanesLoop):
             self.mesh, frontier.sum((1, 2))[:, None]).sum()
 
     def run(self, starts, max_iters: Optional[int] = None, chunk: int = 16,
-            state: Optional[GasState] = None):
+            recorder=None, state: Optional[GasState] = None):
         """Run all roots in ``starts`` to their shared fixpoint; returns
         (final state, iterations run), the count also in
         ``pull_iters``."""
-        state, total = super().run(starts, max_iters, chunk, state)
+        state, total = super().run(starts, max_iters, chunk, recorder,
+                                   state)
         self.pull_iters = total
+        engobs.note("gas_multi_sharded", program=self.program.name,
+                    mode="pull", exchange=self.exchange_mode,
+                    num_parts=self.num_parts, num_iters=total, lanes=self.k)
         return state, total
+
+    def _note_exchange(self, rec) -> None:
+        note_exchange(rec, self, "dense_estimate")
 
     def values_for(self, state: GasState, j: int) -> np.ndarray:
         """Host copy of lane ``j``'s global value column (a collective

@@ -40,8 +40,9 @@ PageRank is not a monotone push program; :func:`incremental_pagerank`
 warm-starts the pull iteration (K8) from the previous ranks (re-divided
 by the new out-degrees) and runs to an L-inf tolerance instead.
 
-Not ported: the run recorder (``recorder_for``, ROADMAP A14 and A19) and
-``trace_step``, the luxlint-IR hook (A16, A19).
+A warm run records itself under the engine label ``incremental``
+(``recorder_for``), as ``lux_tpu``'s does. Not ported: ``trace_step``,
+the luxlint-IR hook (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from lux_tpu_torch.engine.program import ProgramContractError
 from lux_tpu_torch.engine.push import (MultiSourcePushExecutor, PushExecutor,
                                        PushState)
 from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.obs import recorder_for
 from lux_tpu_torch.ops.segment import to_u32_storage
 from lux_tpu_torch.utils import faults, host
 
@@ -282,20 +284,26 @@ class IncrementalExecutor:
         return state, info
 
     def run(self, old_values, removed=None, inserted=None,
-            max_iters: Optional[int] = None, chunk: int = 16, **init_kw):
+            max_iters: Optional[int] = None, chunk: int = 16,
+            recorder=None, **init_kw):
         """Fixpoint from the warm state; returns ``(state, iters, info)``
         with ``state.values`` bitwise-equal to a from-scratch run."""
         faults.point("serve.engine.execute")
         state, info = self.warm_state(old_values, removed, inserted,
                                       **init_kw)
+        if recorder is None:
+            # Label the warm-started fixpoint as this engine's run, not
+            # the wrapped push executor's.
+            recorder = recorder_for("incremental", self.graph, self.program)
         state, iters = self.push.run(max_iters=max_iters, state=state,
-                                     chunk=chunk)
+                                     chunk=chunk, recorder=recorder)
         return state, iters, info
 
     # -- multi source (dense (nv, K) sweep) ------------------------------
 
     def run_multi(self, starts, old_columns, removed=None, inserted=None,
-                  max_iters: Optional[int] = None, chunk: int = 16):
+                  max_iters: Optional[int] = None, chunk: int = 16,
+                  recorder=None):
         """Warm the K-lane sweep: lane j restarts root ``starts[j]`` from
         ``old_columns[j]``. Fewer than k roots are right-padded exactly
         like ``init_state``."""
@@ -334,8 +342,11 @@ class IncrementalExecutor:
                 fsum / max(self.graph.nv * self.multi.k, 1)
             ),
         }
+        if recorder is None:
+            recorder = recorder_for("incremental", self.graph, self.program)
         state, iters = self.multi.run(starts, max_iters=max_iters,
-                                      chunk=chunk, state=state)
+                                      chunk=chunk, state=state,
+                                      recorder=recorder)
         return state, iters, info
 
     # -- warm-up ------------------------------------------------------------

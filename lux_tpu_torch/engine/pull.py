@@ -37,8 +37,9 @@ Not ported, because they are TPU layouts that change no result:
 which the H100 does not have (a 40 MB table sits in its L2); and
 ``lane_pad_width`` pads K-vectors to the TPU's 128 lanes. Values stay
 ``(nv, *value_shape)``, unpadded. ``run`` is a plain loop of steps on
-device tensors; ``flush_every``, the recorder and ``trace_step`` are
-not ported.
+device tensors (``lux_tpu``'s fused runner has no counterpart); with
+telemetry on it waits for the card once per ``flush_every`` window and
+flushes its recorder there. ``trace_step`` is not ported.
 """
 
 from __future__ import annotations
@@ -50,7 +51,14 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.engine.program import EdgeCtx, PullProgram, VertexCtx
+from lux_tpu_torch.engine.telemetry import (
+    NULL_RECORDER,
+    open_run,
+    run_steps,
+    timed_warmup,
+)
 from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.obs import engobs
 from lux_tpu_torch.ops.segment import (
     PULL_EDGE_OPS,
     SUM_STRATEGIES,
@@ -292,16 +300,22 @@ class PullExecutor:
 
     def warmup(self):
         """One throwaway iteration through the run() path (builds the
-        kernels) so timed runs exclude set-up."""
-        self.run(1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        kernels) so timed runs exclude set-up; its seconds are the next
+        run's compile time."""
+        timed_warmup(self, lambda: self.run(1, recorder=NULL_RECORDER))
 
-    def run(self, num_iters: int, vals=None) -> torch.Tensor:
+    def run(self, num_iters: int, vals=None, flush_every: int = 8,
+            recorder=None) -> torch.Tensor:
         """``num_iters`` iterations from ``vals`` (default: the program's
-        initial values). A plain loop of steps on device tensors (no
-        host sync inside)."""
+        initial values). A plain loop of steps on device tensors; with
+        telemetry on, one wait for the card every ``flush_every``
+        iterations (0: at the end) closes a recorder window."""
         vals = self.init_values() if vals is None else self._values(vals)
-        for _ in range(num_iters):
-            vals = self._step(vals)
+        width = int(np.prod(self.value_shape)) if self.value_shape else 1
+        rec = open_run(self, "pull", recorder, lambda: (
+            engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne,
+                                      k=width)))
+        vals = run_steps(self._step, vals, num_iters, flush_every, rec,
+                         self.device)
+        rec.finish()
         return vals

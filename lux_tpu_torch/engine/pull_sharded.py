@@ -42,11 +42,16 @@ card a program that no kernel covers raises ``NotImplementedError``
 ``sum_strategy`` values are the same launch; on the CPU the kernels'
 plain versions run, and min/max combiners reduce by ``dst_local``.
 
+Telemetry as ``lux_tpu``'s: ``run`` takes ``flush_every`` and a
+recorder (the exchange ledger, useful bytes and the byte model), runs
+phase-fenced under ``LUX_ENGOBS=1`` (``obs/engobs.py``), and the
+exchange and compute of a step are the ``prof`` regions
+``lux.pull_sharded.exchange`` and ``lux.pull_sharded.compute``.
+
 Not ported, by design: ``lux_tpu``'s lane padding (``_kpad``), a TPU
 gather layout that changes no result (``exchange_bytes_per_iter`` prices
-the real width, as ``lux_tpu`` does); the recorder, engobs, ``prof``
-regions, ``trace_step`` and the fused runner (``run`` is a plain loop of
-steps on device tensors).
+the real width, as ``lux_tpu`` does); ``trace_step`` and the fused
+runner (``run`` is a plain loop of steps on device tensors).
 """
 
 from __future__ import annotations
@@ -59,7 +64,14 @@ import torch
 from lux_tpu_torch.engine.program import EdgeCtx, PullProgram, VertexCtx
 from lux_tpu_torch.engine.pull import check_kernel_covers
 from lux_tpu_torch.engine.sharded import ShardedBase
+from lux_tpu_torch.engine.telemetry import (
+    note_exchange,
+    open_run,
+    run_steps,
+    timed_warmup,
+)
 from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.obs import engobs, prof
 from lux_tpu_torch.ops.segment import (
     SUM_STRATEGIES,
     pull_row_tasks,
@@ -69,6 +81,9 @@ from lux_tpu_torch.ops.segment import (
 from lux_tpu_torch.parallel.mesh import AnyMesh
 from lux_tpu_torch.parallel.shard import ShardedGraph
 from lux_tpu_torch.utils.timing import timed
+
+_EXCHANGE = prof.region("lux.pull_sharded.exchange")
+_COMPUTE = prof.region("lux.pull_sharded.compute")
 
 
 class ShardedPullExecutor(ShardedBase):
@@ -143,7 +158,10 @@ class ShardedPullExecutor(ShardedBase):
         return torch.where(mask, new, vals)   # freeze pad vertices
 
     def _step(self, vals: torch.Tensor) -> torch.Tensor:
-        return self._update(vals, self._comp(self._exchange(vals)))
+        with _EXCHANGE:
+            flat = self._exchange(vals)
+        with _COMPUTE:
+            return self._update(vals, self._comp(flat))
 
     # -- running -----------------------------------------------------------
 
@@ -178,26 +196,42 @@ class ShardedPullExecutor(ShardedBase):
         seconds})."""
         vals = self._values(vals)
         dev, times = self.device, {}
-        flat, times["exchange"] = timed(lambda: self._exchange(vals), dev)
-        acc, times["comp"] = timed(lambda: self._comp(flat), dev)
-        new, times["update"] = timed(lambda: self._update(vals, acc), dev)
+        with _EXCHANGE:
+            flat, times["exchange"] = timed(lambda: self._exchange(vals),
+                                            dev)
+        with _COMPUTE:
+            acc, times["comp"] = timed(lambda: self._comp(flat), dev)
+            new, times["update"] = timed(lambda: self._update(vals, acc),
+                                         dev)
         return new, times
 
     def warmup(self):
-        """One throwaway iteration through the run() path (builds the
-        kernels) so timed runs exclude set-up."""
-        self.run(1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """One throwaway step, the one run() loops over (builds the
+        kernels), so timed runs exclude set-up; its seconds are the next
+        run's compile time."""
+        timed_warmup(self, lambda: self._step(self.init_values()))
 
-    def run(self, num_iters: int, vals=None) -> torch.Tensor:
+    def run(self, num_iters: int, vals=None, flush_every: int = 8,
+            recorder=None) -> torch.Tensor:
         """``num_iters`` iterations from ``vals`` (default: the program's
-        initial values). A plain loop of steps on device tensors (no
-        host sync inside)."""
+        initial values). A plain loop of steps on device tensors; with
+        telemetry on, one wait for the card every ``flush_every``
+        iterations (0: at the end) closes a recorder window, and
+        ``LUX_ENGOBS=1`` runs the iterations phase-fenced."""
         vals = self.init_values() if vals is None else self._values(vals)
-        for _ in range(num_iters):
-            vals = self._step(vals)
-        return vals
+        width = int(np.prod(self.value_shape)) if self.value_shape else 1
+        itemsize = self._row_bytes // width
+        rec = open_run(self, "pull_sharded", recorder, lambda: (
+            engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne,
+                                      itemsize, width)))
+        note_exchange(rec, self, "all_gather", self._row_bytes)
+        if engobs.enabled():
+            out = engobs.run_pull_phased(self, vals, num_iters, rec)
+        else:
+            out = run_steps(self._step, vals, num_iters, flush_every, rec,
+                            self.device)
+        rec.finish()
+        return out
 
     def gather_values(self, vals) -> np.ndarray:
         """Padded device layout → global (nv, *t) host array, on every

@@ -52,7 +52,16 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from lux_tpu_torch.engine.telemetry import (
+    NO_REGION,
+    NULL_RECORDER,
+    FlushWindow,
+    open_run,
+    sync,
+    timed_warmup,
+)
 from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.obs import engobs
 from lux_tpu_torch.ops.frontier import frontier_queue, queue_relax_scatter
 from lux_tpu_torch.ops.segment import (
     RowTasks,
@@ -141,11 +150,6 @@ def _tier_label(tiers, tier):
     return f"sparse/{tiers[tier - 1][1]}" if tier > 0 else "dense"
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class FixpointLoop:
     """The iteration and fixpoint loop of the push executors, over their
     hooks: ``init_state``; ``_stats_tensor`` and ``_read`` (the one host
@@ -153,29 +157,43 @@ class FixpointLoop:
     frontier's size and second its out-edge total); ``_branch`` (0
     dense, i >= 1 sparse tier i); the dense ``_dense_load`` (K5's
     input) and ``_dense_acc``; the sparse ``_sparse_load`` (the queue)
-    and ``_sparse_new`` (the new values); and ``_update``."""
+    and ``_sparse_new`` (the new values); and ``_update``.
+
+    A sharded executor names its step's exchange and compute ``prof``
+    regions in ``_regions`` and runs phase-fenced under ``LUX_ENGOBS=1``
+    (``_phase_fenced``); a run's recorder label is ``_engine``."""
 
     device: torch.device
     program: PushProgram
     sparse: bool
     tiers: List[Tuple[int, int]]
+    _regions = (NO_REGION, NO_REGION)
+    _engine = "push"
+    _phase_fenced = False    # LUX_ENGOBS=1 runs phase-fenced (sharded)
 
     def _frontier_stats(self, state: PushState):
         return self._read(self._stats_tensor(state.frontier))
 
     def _new_values(self, state: PushState, tier: int, stats):
+        exchange, compute = self._regions
         if tier > 0:
-            return self._sparse_new(
-                state, self._sparse_load(state, stats), stats)
-        acc = self._dense_acc(self._dense_load(state))
-        return combine_u32(self.program.combiner, state.values, acc)
+            with exchange:
+                queue = self._sparse_load(state, stats)
+            with compute:
+                return self._sparse_new(state, queue, stats)
+        with exchange:
+            loaded = self._dense_load(state)
+        with compute:
+            acc = self._dense_acc(loaded)
+            return combine_u32(self.program.combiner, state.values, acc)
 
     def _iterate(self, state: PushState, stats):
         """One iteration from ``state``, whose frontier has ``stats``;
         returns (new state, its stats, branch index)."""
         tier = self._branch(stats)
-        new_state, st = self._update(state.values,
-                                     self._new_values(state, tier, stats))
+        new = self._new_values(state, tier, stats)
+        with self._regions[1]:
+            new_state, st = self._update(state.values, new)
         return new_state, self._read(st), tier
 
     def step(self, state):
@@ -184,15 +202,17 @@ class FixpointLoop:
                                             self._frontier_stats(state))
         return new_state, stats[0]
 
-    def _run(self, state, max_iters: Optional[int], chunk: int):
+    def _run(self, state, max_iters: Optional[int], chunk: int,
+             rec=NULL_RECORDER):
         """Iterate until a step leaves an empty frontier or ``max_iters``
         steps ran; returns (state, iterations, branch log). ``chunk``
         keeps ``lux_tpu``'s signature: there it batches host reads, and
         the iterations do not depend on it, except that a non-positive
-        chunk runs none."""
+        chunk runs none. ``rec`` gets one flush per chunk, as there."""
         log: List[tuple] = []
         if chunk <= 0:
             return state, 0, log
+        window = FlushWindow(rec, chunk, "sparse_flags")
         stats = self._frontier_stats(state)
         while max_iters is None or len(log) < max_iters:
             prev = stats
@@ -200,27 +220,46 @@ class FixpointLoop:
             # (branch, count, out-edges[, per-part counts]): a sharded
             # read's fourth entry is the process's own.
             log.append((tier,) + tuple(prev)[:3])
+            window.step(len(log), stats[0], tier > 0)
             if stats[0] == 0:
                 break
+        window.close(len(log))
         return state, len(log), log
 
+    def _hbm_bytes(self) -> int:
+        return engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne)
+
+    def _note_exchange(self, rec) -> None:
+        """A sharded executor's exchange ledger (none on one device)."""
+
     def run(self, max_iters: Optional[int] = None, state=None,
-            chunk: int = 16, **init_kw):
+            chunk: int = 16, recorder=None, **init_kw):
         """Iterate to fixpoint; returns (final_state, iterations_run). The
         number of iterations the sparse branch served is left in
         ``self.sparse_iters``, and each iteration's (branch, counters
         before it) in ``self.branch_log``."""
         if state is None:
             state = self.init_state(**init_kw)
-        state, total, self.branch_log = self._run(state, max_iters, chunk)
-        self.sparse_iters = sum(1 for e in self.branch_log if e[0] > 0)
+        rec = open_run(self, self._engine, recorder, self._hbm_bytes)
+        self._note_exchange(rec)
+        if self._phase_fenced and engobs.enabled():
+            # Phase-fenced measurement fixpoint of a sharded executor.
+            state, total, self.sparse_iters = engobs.run_push_phased(
+                self, state, max_iters, rec)
+            self.branch_log = []
+        else:
+            state, total, self.branch_log = self._run(state, max_iters,
+                                                      chunk, rec)
+            self.sparse_iters = sum(1 for e in self.branch_log if e[0] > 0)
+        rec.finish()
         return state, total
 
     def warmup(self, chunk: int = 16, **init_kw):
         """One throwaway iteration through the exact run() path (builds
-        the kernels) so timed runs exclude set-up."""
-        self._run(self.init_state(**init_kw), 1, chunk)
-        _sync(self.device)
+        the kernels) so timed runs exclude set-up; its seconds are the
+        next run's compile time."""
+        timed_warmup(self, lambda: self._run(self.init_state(**init_kw), 1,
+                                             chunk))
 
     def warmup_phases(self, state: PushState):
         """Run every phase of both branches once outside any timed
@@ -229,7 +268,7 @@ class FixpointLoop:
         self._update(state.values, self._new_values(state, 0, stats))
         if self.sparse:
             self._update(state.values, self._new_values(state, 1, stats))
-        _sync(self.device)
+        sync(self.device)
 
     def phase_step(self, state: PushState):
         """One iteration as separately timed phases (CUDA events on the
@@ -240,27 +279,33 @@ class FixpointLoop:
         new frontier and its counters. Returns (new state, active count,
         times)."""
         dev = self.device
+        exchange, compute = self._regions
         stats = self._frontier_stats(state)
         tier = self._branch(stats)
         times = {}
         if tier > 0:
-            queue, times["loadTime"] = timed(
-                lambda: self._sparse_load(state, stats), dev)
-            new, times["compTime"] = timed(
-                lambda: self._sparse_new(state, queue, stats), dev)
+            with exchange:
+                queue, times["loadTime"] = timed(
+                    lambda: self._sparse_load(state, stats), dev)
+            with compute:
+                new, times["compTime"] = timed(
+                    lambda: self._sparse_new(state, queue, stats), dev)
 
             def finish():
                 return self._update(state.values, new)
         else:
-            loaded, times["loadTime"] = timed(
-                lambda: self._dense_load(state), dev)
-            acc, times["compTime"] = timed(
-                lambda: self._dense_acc(loaded), dev)
+            with exchange:
+                loaded, times["loadTime"] = timed(
+                    lambda: self._dense_load(state), dev)
+            with compute:
+                acc, times["compTime"] = timed(
+                    lambda: self._dense_acc(loaded), dev)
 
             def finish():
                 return self._update(state.values, combine_u32(
                     self.program.combiner, state.values, acc))
-        (new_state, st), times["updateTime"] = timed(finish, dev)
+        with compute:
+            (new_state, st), times["updateTime"] = timed(finish, dev)
         times["branch"] = _tier_label(self.tiers, tier)
         return new_state, self._read(st)[0], times
 
@@ -418,6 +463,10 @@ class LanesLoop:
     graph: Graph
     program: PushProgram
     k: int
+    _regions = (NO_REGION, NO_REGION)
+    _engine = "push_multi"
+    _flush_kind = "sparse_flags"   # the recorder's branch: "dense"
+    _phase_fenced = False
 
     def init_state(self, starts) -> PushState:
         """One value/frontier lane per root in ``starts``; fewer than k
@@ -438,36 +487,68 @@ class LanesLoop:
     def step(self, state: PushState):
         """One iteration; returns (new state, new frontier count over all
         lanes)."""
-        new_state, cnt = self._update(state.values,
-                                      self._acc(self._load(state)))
+        exchange, compute = self._regions
+        with exchange:
+            loaded = self._load(state)
+        with compute:
+            new_state, cnt = self._update(state.values, self._acc(loaded))
         return new_state, int(cnt)
 
+    def _hbm_bytes(self) -> int:
+        return engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne,
+                                         k=self.k)
+
+    def _note_exchange(self, rec) -> None:
+        """A sharded executor's exchange ledger (none on one device)."""
+
     def run(self, starts, max_iters: Optional[int] = None, chunk: int = 16,
-            state: Optional[PushState] = None):
+            recorder=None, state: Optional[PushState] = None):
         """Run all roots in ``starts`` to their shared fixpoint; returns
         (final state, iterations run). Lane j holds root ``starts[j]``'s
         result. ``state`` starts the sweep from a caller-built state of
         ``init_state``'s shape instead. ``chunk`` keeps ``lux_tpu``'s
-        signature (there it batches host reads); a non-positive chunk
-        runs no iteration."""
+        signature (there it batches host reads, and the recorder flushes
+        once per chunk here too); a non-positive chunk runs no
+        iteration."""
         if state is None:
             state = self.init_state(starts)
+        rec = open_run(self, self._engine, recorder, self._hbm_bytes)
+        self._note_exchange(rec)
+        if self._phase_fenced and engobs.enabled():
+            state, total, _ = engobs.run_push_phased(self, state, max_iters,
+                                                     rec)
+        else:
+            state, total = self._run(state, max_iters, chunk, rec)
+        rec.finish()
+        return state, total
+
+    def _run(self, state: PushState, max_iters: Optional[int], chunk: int,
+             rec=NULL_RECORDER):
         total = 0
         if chunk > 0:
+            window = FlushWindow(rec, chunk, self._flush_kind)
             while max_iters is None or total < max_iters:
                 state, cnt = self.step(state)
                 total += 1
+                window.step(total, cnt, 0)
                 if cnt == 0:
                     break
+            window.close(total)
         return state, total
 
     def warmup(self, chunk: int = 16, start: int = 0):
         """One iteration from ``init_state([start])`` through the run()
-        path (builds the kernels) so timed runs exclude set-up; none
-        when ``chunk`` is not positive, as in ``run``."""
-        if chunk > 0:
-            self.step(self.init_state([start]))
-        _sync(self.device)
+        path (builds the kernels) so timed runs exclude set-up, none when
+        ``chunk`` is not positive, as in ``run``; its seconds are the
+        next run's compile time."""
+        timed_warmup(self, lambda: self._run(self.init_state([start]), 1,
+                                             chunk))
+
+    def warmup_phases(self, state: PushState):
+        """Run every phase once outside any timed region. ``state`` is
+        only read."""
+        self._update(state.values, self._acc(self._load(state)))
+        sync(self.device)
 
     def phase_step(self, state: PushState):
         """One iteration as separately timed phases (CUDA events on the
@@ -476,10 +557,14 @@ class LanesLoop:
         frontier and its count. Returns (new state, active count over
         all lanes, times)."""
         dev, times = self.device, {}
-        loaded, times["loadTime"] = timed(lambda: self._load(state), dev)
-        acc, times["compTime"] = timed(lambda: self._acc(loaded), dev)
-        (new_state, cnt), times["updateTime"] = timed(
-            lambda: self._update(state.values, acc), dev)
+        exchange, compute = self._regions
+        with exchange:
+            loaded, times["loadTime"] = timed(lambda: self._load(state),
+                                              dev)
+        with compute:
+            acc, times["compTime"] = timed(lambda: self._acc(loaded), dev)
+            (new_state, cnt), times["updateTime"] = timed(
+                lambda: self._update(state.values, acc), dev)
         times["branch"] = "dense"
         return new_state, int(cnt), times
 

@@ -56,9 +56,13 @@ max_nv, K)`` lanes: the K-lane exchange, then per held part one K10
 launch (``gas_pull_acc``) with K columns over the flat ``(P * max_nv,
 K)`` table, the merge, the pad mask and one count over all parts.
 
-On the CPU the kernels' plain versions run. Not ported: ``trace_step``
-(ROADMAP A16), the recorder and engobs (A14, A19), and the per-shard
-activity list of ``phase_step``.
+On the CPU the kernels' plain versions run. Telemetry is ``lux_tpu``'s:
+``run`` takes a recorder (one flush per ``chunk``, the exchange ledger,
+useful bytes, the byte model), runs phase-fenced under ``LUX_ENGOBS=1``
+(``obs/engobs.py``), and a step's exchange and compute are the ``prof``
+regions ``lux.push_sharded.*`` (``lux.push_multi_sharded.*``). Not
+ported: ``trace_step`` and the per-shard activity list of
+``phase_step``.
 """
 
 from __future__ import annotations
@@ -79,7 +83,9 @@ from lux_tpu_torch.engine.push import (
     _tier_index,
 )
 from lux_tpu_torch.engine.sharded import ShardedBase
+from lux_tpu_torch.engine.telemetry import note_exchange
 from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.obs import prof
 from lux_tpu_torch.ops.frontier import frontier_queue, queue_relax_scatter
 from lux_tpu_torch.ops.segment import (
     RowTasks,
@@ -203,6 +209,12 @@ class SparseQueue:
         return start, torch.nn.functional.pad(deg.cumsum(1), (1, 0))
 
 
+_PUSH_REGIONS = (prof.region("lux.push_sharded.exchange"),
+                 prof.region("lux.push_sharded.compute"))
+_LANES_REGIONS = (prof.region("lux.push_multi_sharded.exchange"),
+                  prof.region("lux.push_multi_sharded.compute"))
+
+
 class PushStats(NamedTuple):
     """One host read of a sharded push frontier's counters."""
 
@@ -249,6 +261,9 @@ class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
     from the counts the iteration already read."""
 
     BLOCKED_DENSE_MIN_NE = PushExecutor.BLOCKED_DENSE_MIN_NE
+    _regions = _PUSH_REGIONS
+    _engine = "push_sharded"
+    _phase_fenced = True
 
     def __init__(
         self,
@@ -402,9 +417,13 @@ class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
                                     dtype=bool)))
 
     def run(self, max_iters: Optional[int] = None,
-            state: Optional[PushState] = None, chunk: int = 16, **init_kw):
+            state: Optional[PushState] = None, chunk: int = 16,
+            recorder=None, **init_kw):
         self.queue_log = []
-        return super().run(max_iters, state, chunk, **init_kw)
+        return super().run(max_iters, state, chunk, recorder, **init_kw)
+
+    def _note_exchange(self, rec) -> None:
+        note_exchange(rec, self, "dense_estimate", 5)
 
 
 class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
@@ -416,6 +435,10 @@ class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
     ``device`` or ``mesh`` names another). Column j of
     :meth:`gather_values` equals a single-source run from root j.
     ``phase_step``'s load is the K-lane exchange."""
+
+    _regions = _LANES_REGIONS
+    _engine = "push_multi_sharded"
+    _phase_fenced = True
 
     def __init__(
         self,
@@ -439,6 +462,9 @@ class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
 
     def _lanes_storage(self, vals: np.ndarray, fr: np.ndarray) -> PushState:
         return PushState(self._padded(vals), self._padded(fr))
+
+    def _note_exchange(self, rec) -> None:
+        note_exchange(rec, self, "dense_estimate", 5 * self.k)
 
     def _load(self, state: PushState):
         """The K-lane exchange: (values, frontier) tables."""

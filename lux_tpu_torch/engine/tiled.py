@@ -22,7 +22,14 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.engine.program import PullProgram, VertexCtx
+from lux_tpu_torch.engine.telemetry import (
+    NULL_RECORDER,
+    open_run,
+    run_steps,
+    timed_warmup,
+)
 from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.obs import engobs, metrics
 from lux_tpu_torch.ops.merge_tail_kernel import (
     DeviceGroupedTail,
     grouped_tail_enabled,
@@ -184,6 +191,12 @@ class TiledPullExecutor:
             gplan = plan_grouped_tail(p.tail_sb, p.tail_lane, p.tail_row_ptr)
             self.gtail = DeviceGroupedTail.build(gplan, self.device)
             self.gtail_stats = gplan.stats
+            metrics.gauge("lux_grouped_tail_inflation").set(
+                gplan.stats["mean_inflation"])
+            metrics.counter("lux_grouped_tail_copy_rows").inc(
+                gplan.stats["copy_rows"])
+            metrics.counter("lux_grouped_tail_merge_rows").inc(
+                gplan.stats["merge_rows"])
         self.out_degrees = put(p.out_degrees.astype(np.int32))
         self.in_degrees = put(p.in_degrees.astype(np.int32))
         self.order = put(p.order.astype(np.int64))  # external id at internal pos
@@ -233,7 +246,9 @@ class TiledPullExecutor:
         network level at a time: ``times["tail_level<k>"]`` per level
         (level 0 is the x2d gather level), ``times["tail_root"]`` for the
         masked per-destination reduction (K4, adding into the strips'
-        sums), and ``times["tail"]`` the total."""
+        sums), and ``times["tail"]`` the total; each level's seconds also
+        go to the ``lux_grouped_tail_level_seconds`` histogram of its
+        level."""
         dev = self.device
         nv = self.graph.nv
         dh = self.dhybrid
@@ -255,6 +270,8 @@ class TiledPullExecutor:
             x, t = _timed(lambda: level_apply(
                 x, gt.arow[k], gt.brow[k], gt.codes[k]), dev)
             times[f"tail_level{k}"] = t
+            metrics.histogram("lux_grouped_tail_level_seconds",
+                              {"level": str(k)}).observe(t)
             total += t
         acc, t = _timed(lambda: root_reduce(
             x, gt.nvalid_root, gt.dst_row_ptr, out=acc_s), dev)
@@ -265,18 +282,25 @@ class TiledPullExecutor:
         return new[self.rank], times
 
     def warmup(self):
-        """One throwaway iteration through every path run() takes."""
-        self.run(1, vals=self.init_values())
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """One throwaway iteration through every path run() takes; its
+        seconds are the next run's compile time."""
+        timed_warmup(self, lambda: self.run(1, vals=self.init_values(),
+                                            recorder=NULL_RECORDER))
 
-    def run(self, num_iters: int, vals=None) -> torch.Tensor:
+    def run(self, num_iters: int, vals=None, flush_every: int = 8,
+            recorder=None) -> torch.Tensor:
         """``num_iters`` iterations; external order in and out. A plain
-        loop of steps on device tensors (no host sync inside)."""
+        loop of steps on device tensors; with telemetry on, one wait for
+        the card every ``flush_every`` iterations (0: at the end) closes
+        a recorder window."""
         if vals is None:
             internal = self._init_internal()
         else:
             internal = self._values(vals)[self.order]
-        for _ in range(num_iters):
-            internal = self._step(internal)
-        return internal[self.rank]
+        rec = open_run(self, "tiled", recorder, lambda: (
+            engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne)))
+        internal = run_steps(self._step, internal, num_iters, flush_every,
+                             rec, self.device)
+        out = internal[self.rank]
+        rec.finish()
+        return out

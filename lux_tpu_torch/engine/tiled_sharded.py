@@ -48,8 +48,12 @@ Not ported, by design: the Z-stream boundaries, ``crossing_correction``,
 ``segs``, ``_warn_big_table`` and the ``chunk_strips``/``chunk_tail``
 knobs. They are the TPU's layout and change no result; the port's
 :class:`~lux_tpu_torch.engine.tiled.TiledPullExecutor` has none of them
-either. Also not here: the recorder, engobs, ``prof`` regions,
-``trace_step``, the fused runner and ``run``'s ``flush_every``.
+either. Not here either: ``trace_step`` and the fused runner. Telemetry
+is ``lux_tpu``'s: ``run`` takes ``flush_every`` and a recorder (the
+exchange ledger, useful bytes from the block read counts, the byte
+model), runs phase-fenced under ``LUX_ENGOBS=1``, and a step's exchange
+and its strips, tail and apply are the ``prof`` regions
+``lux.tiled_sharded.exchange`` and ``lux.tiled_sharded.compute``.
 """
 
 from __future__ import annotations
@@ -61,6 +65,12 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.engine.program import PullProgram, VertexCtx
+from lux_tpu_torch.engine.telemetry import (
+    note_exchange,
+    open_run,
+    run_steps,
+    timed_warmup,
+)
 from lux_tpu_torch.engine.tiled import require_spmv_program
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.graph.partition import ExchangePlan
@@ -82,9 +92,13 @@ from lux_tpu_torch.parallel.mesh import (
     mesh_for,
     own_parts,
 )
+from lux_tpu_torch.obs import engobs, prof
 from lux_tpu_torch.parallel.shard import exchange_mode
 from lux_tpu_torch.utils.logging import get_logger
 from lux_tpu_torch.utils.timing import timed
+
+_EXCHANGE = prof.region("lux.tiled_sharded.exchange")
+_COMPUTE = prof.region("lux.tiled_sharded.compute")
 
 # ---------------------------------------------------------------------------
 # Host-side partitioning of a HybridPlan (a copy of lux_tpu's)
@@ -375,8 +389,10 @@ class ShardedTiledExecutor:
         return torch.where(self.vertex_mask, new, vals)   # freeze pads
 
     def _step(self, vals: torch.Tensor) -> torch.Tensor:
-        ops = self._exchange(vals)
-        return self._apply(vals, self._tail(ops, self._strips(ops)))
+        with _EXCHANGE:
+            ops = self._exchange(vals)
+        with _COMPUTE:
+            return self._apply(vals, self._tail(ops, self._strips(ops)))
 
     # -- running -----------------------------------------------------------
 
@@ -420,26 +436,55 @@ class ShardedTiledExecutor:
         (new vals, {phase: seconds})."""
         vals = self._values(vals)
         dev, times = self.device, {}
-        ops, times["exchange"] = timed(lambda: self._exchange(vals), dev)
-        acc, times["strips"] = timed(lambda: self._strips(ops), dev)
-        acc, times["tail"] = timed(lambda: self._tail(ops, acc), dev)
-        new, times["apply"] = timed(lambda: self._apply(vals, acc), dev)
+        with _EXCHANGE:
+            ops, times["exchange"] = timed(lambda: self._exchange(vals),
+                                           dev)
+        with _COMPUTE:
+            acc, times["strips"] = timed(lambda: self._strips(ops), dev)
+            acc, times["tail"] = timed(lambda: self._tail(ops, acc), dev)
+            new, times["apply"] = timed(lambda: self._apply(vals, acc),
+                                        dev)
         return new, times
 
     def warmup(self):
-        """One throwaway iteration through the run() path."""
-        self.run(1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """One throwaway step, the one run() loops over; its seconds are
+        the next run's compile time."""
+        timed_warmup(self, lambda: self._step(self.init_values()))
 
-    def run(self, num_iters: int, vals=None) -> torch.Tensor:
+    def run(self, num_iters: int, vals=None, flush_every: int = 8,
+            recorder=None) -> torch.Tensor:
         """``num_iters`` iterations from ``vals`` (default: the program's
-        initial values). A plain loop of steps on device tensors (no
-        host sync inside)."""
+        initial values). A plain loop of steps on device tensors; with
+        telemetry on, one wait for the card every ``flush_every``
+        iterations (0: at the end) closes a recorder window, and
+        ``LUX_ENGOBS=1`` runs the iterations phase-fenced."""
         vals = self.init_values() if vals is None else self._values(vals)
-        for _ in range(num_iters):
-            vals = self._step(vals)
-        return vals
+        rec = open_run(self, "tiled_sharded", recorder, lambda: (
+            engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne, 4)))
+        note_exchange(rec, self, "all_gather")
+        if rec.enabled:
+            self._note_useful(rec)
+        if engobs.enabled():
+            out = engobs.run_pull_phased(self, vals, num_iters, rec)
+        else:
+            out = run_steps(self._step, vals, num_iters, flush_every, rec,
+                            self.device)
+        rec.finish()
+        return out
+
+    def _note_useful(self, rec) -> None:
+        """Useful bytes from the (P, P) block read counts, ``lux_tpu``'s
+        ledger of this engine: rows read off-part over rows exchanged."""
+        counts = self._remote_read_counts
+        p = self.num_parts
+        if self._xplan is not None:
+            exchanged = (self._xplan.exchanged_units_per_iter
+                         * self._xplan.unit_rows)
+        else:
+            exchanged = p * (p - 1) * self.max_nv
+        useful_rows = int(counts.sum() - np.trace(counts))
+        if exchanged:
+            rec.set_useful_bytes(useful_rows * 4, useful_rows / exchanged)
 
     def exchange_bytes_per_iter(self) -> int:
         """Interconnect bytes of one iteration's value exchange, as

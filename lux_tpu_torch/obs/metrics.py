@@ -4,10 +4,9 @@ of ``lux_tpu/obs/metrics.py``.
 The reference has no metrics layer at all — its only instrumentation is
 the wall-clock bracket around the iteration loop (pagerank.cc:108-118).
 This registry follows the Prometheus client data model, dependency-free.
-In the port the WAL, the snapshot store, the fault points, the locks and
-the spans count into it; ``lux_tpu``'s run report and per-iteration log
-(``obs/report.py``, ``obs/iterlog.py``) are not ported yet (ROADMAP
-A14).
+The run recorder (``obs/iterlog.py``) and report (``obs/report.py``)
+dump it beside each run's records; the WAL, the snapshot store, the
+fault points, the locks and the spans count into it too.
 
 Identity semantics: a metric is keyed by ``(name, sorted(labels))``;
 requesting the same key twice returns the SAME object (label dedup), and

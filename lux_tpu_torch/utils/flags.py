@@ -1,16 +1,36 @@
 """The ``LUX_*`` environment flags this package reads.
 
-A minimal copy of ``lux_tpu/utils/flags.py``: the same names, defaults
+The counterpart of ``lux_tpu/utils/flags.py``: the same names, defaults
 and accessor semantics (:func:`get`, :func:`get_int`, :func:`get_float`,
-:func:`get_bool`, :func:`tristate`) for the flags the port's executors read. Accessors
-re-read ``os.environ`` on every call, so flags stay runtime knobs.
+:func:`get_bool`, :func:`tristate`) for the flags the port reads, and the
+same table functions (:func:`declared`, :func:`names`, :func:`default`,
+:func:`overrides`, :func:`snapshot`, :func:`config_hash`, :func:`table`).
+Accessors re-read ``os.environ`` on every call, so flags stay runtime
+knobs (CLI flags set env vars after first import).
+
+:func:`overrides` layers a scoped, context-local overlay on top of the
+environment: inside the ``with`` block every accessor (and therefore
+:func:`snapshot` and :func:`config_hash`) sees the overlaid values
+without touching ``os.environ``; a run-ledger record written under an
+overlay carries it.
+
+``python -m lux_tpu_torch.utils.flags`` prints the flag table.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import hashlib
 import os
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
+
+__all__ = [
+    "Flag", "define", "declared", "names", "default", "get", "get_int",
+    "get_float", "get_bool", "tristate", "table", "snapshot",
+    "config_hash", "overrides",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,13 +38,14 @@ class Flag:
     name: str          # LUX_* env var name
     default: object    # value returned when the env var is unset
     doc: str           # one line: what the flag does / legal values
-    kind: str = "str"  # str | int | float | bool | tristate
+    kind: str = "str"  # str | path | int | float | bool | tristate
 
 
 _REGISTRY: Dict[str, Flag] = {}
 
 
 def define(name: str, default, doc: str, kind: str = "str") -> Flag:
+    """Declare a flag. Redefining with a different spec raises."""
     if not name.startswith("LUX_"):
         raise ValueError(f"flag name must start with LUX_: {name!r}")
     f = Flag(name, default, doc, kind)
@@ -33,6 +54,14 @@ def define(name: str, default, doc: str, kind: str = "str") -> Flag:
         raise ValueError(f"flag {name} already defined as {old}")
     _REGISTRY[name] = f
     return f
+
+
+def declared(name: str) -> bool:
+    return name in _REGISTRY
+
+
+def names() -> tuple:
+    return tuple(sorted(_REGISTRY))
 
 
 def _flag(name: str) -> Flag:
@@ -45,11 +74,54 @@ def _flag(name: str) -> Flag:
         ) from None
 
 
+def default(name: str):
+    """The declared default."""
+    return _flag(name).default
+
+
+# Context-local overlay stack. Each layer maps flag name -> str value
+# (or None, which masks any env var and forces the declared default).
+_OVERRIDES: contextvars.ContextVar = contextvars.ContextVar(
+    "lux_torch_flag_overrides", default=())
+
+
+def _overlaid(name: str):
+    """(hit, value) against the innermost overlay layer naming ``name``."""
+    for layer in reversed(_OVERRIDES.get()):
+        if name in layer:
+            return True, layer[name]
+    return False, None
+
+
+@contextlib.contextmanager
+def overrides(mapping: Mapping[str, object]):
+    """Scoped flag overlay: inside the block every accessor resolves the
+    given flags to the mapped values (stringified; ``None`` masks the env
+    var, restoring the declared default). Layers nest, inner wins.
+    Undeclared names raise up front."""
+    frozen = {}
+    for name, value in mapping.items():
+        _flag(name)
+        frozen[name] = None if value is None else str(value)
+    token = _OVERRIDES.set(_OVERRIDES.get() + (frozen,))
+    try:
+        yield
+    finally:
+        _OVERRIDES.reset(token)
+
+
+def _raw(name: str) -> Optional[str]:
+    """The overlay's value if a layer names ``name``, else the env var."""
+    hit, ov = _overlaid(name)
+    return ov if hit else os.environ.get(name)
+
+
 def get(name: str) -> Optional[str]:
-    """Raw string value: the env var if set, else the declared default
+    """Raw string value: the innermost :func:`overrides` layer if one
+    names this flag, else the env var if set, else the declared default
     (coerced to str unless None)."""
     f = _flag(name)
-    v = os.environ.get(name)
+    v = _raw(name)
     if v is not None:
         return v
     return f.default if f.default is None else str(f.default)
@@ -67,7 +139,7 @@ def get_bool(name: str) -> bool:
     """Unset → declared default; '' / '0' / 'false' / 'no' / 'off'
     (case-insensitive) → False; anything else → True."""
     f = _flag(name)
-    v = os.environ.get(name)
+    v = _raw(name)
     if v is None:
         return bool(f.default)
     return v.strip().lower() not in ("", "0", "false", "no", "off")
@@ -78,7 +150,7 @@ def tristate(name: str, strict: bool = True) -> Optional[bool]:
     (force off), '1' → True (force on). Other values raise when
     ``strict``, else behave as unset."""
     _flag(name)
-    v = os.environ.get(name, "")
+    v = _raw(name) or ""
     if v == "":
         return None
     if v == "0":
@@ -93,13 +165,88 @@ def tristate(name: str, strict: bool = True) -> Optional[bool]:
     return None
 
 
-# Observability (obs/trace.py, obs/spans.py)
+def snapshot() -> Dict[str, Optional[str]]:
+    """Effective value of every declared flag, in sorted-name order: the
+    config side of a run-ledger record (obs/ledger.py). Only declared
+    ``LUX_*`` flags are captured, never the whole environment."""
+    return {name: get(name) for name in names()}
+
+
+def config_hash() -> str:
+    """Stable 12-hex digest of the behavioural flag config. Path-kind
+    flags are left out: they name sinks (metrics files, the ledger dir
+    itself) that differ per run without changing behaviour."""
+    items = [
+        (name, get(name))
+        for name in names()
+        if _REGISTRY[name].kind != "path"
+    ]
+    blob = "\x00".join(f"{k}={'' if v is None else v}" for k, v in items)
+    return hashlib.sha1(blob.encode("utf-8")).hexdigest()[:12]
+
+
+def table() -> str:
+    """Human-readable flag table (name, kind, default, doc)."""
+    rows = [("flag", "kind", "default", "doc")]
+    for name in names():
+        f = _REGISTRY[name]
+        rows.append((f.name, f.kind, repr(f.default), f.doc))
+    w0 = max(len(r[0]) for r in rows)
+    w1 = max(len(r[1]) for r in rows)
+    w2 = max(len(r[2]) for r in rows)
+    return "\n".join(
+        f"{r[0]:<{w0}}  {r[1]:<{w1}}  {r[2]:<{w2}}  {r[3]}" for r in rows
+    )
+
+
+# -- the flags -------------------------------------------------------------
+# Observability (obs/, utils/logging.py)
+define("LUX_LOG", "INFO",
+       "log level for the lux_tpu_torch.* logger categories "
+       "(DEBUG..CRITICAL)")
+define("LUX_METRICS", None,
+       "append one JSON run-report line (summary + metrics snapshot) per "
+       "run to this path", kind="path")
 define("LUX_TRACE", None,
        "stream Chrome trace_event JSON-lines to this path", kind="path")
 define("LUX_SPANS", True,
        "request-scoped serve spans (obs/spans.py): trace-id propagation, "
        "per-phase histograms, async Chrome events (0 disables)",
        kind="bool")
+define("LUX_FLIGHT_DIR", None,
+       "arm the flight recorder (obs/flight.py): postmortem flight.v1 "
+       "JSON dumps land in this directory", kind="path")
+define("LUX_FLIGHT_CAPACITY", 256,
+       "flight-recorder ring size: last N completed traces and last N "
+       "engine iteration records kept for postmortems", kind="int")
+define("LUX_STATUSZ_WINDOWS", "60,300",
+       "rolling SLO window lengths in seconds, comma-separated "
+       "(obs/slo.py)")
+define("LUX_ENGOBS", False,
+       "engine performance observatory (obs/engobs.py): run sharded "
+       "executors through phase-fenced steps splitting exchange vs "
+       "compute time per iteration; off keeps the plain loop of steps",
+       kind="bool")
+define("LUX_PROF_DIR", None,
+       "arm the device-timeline profiler (obs/prof.py): capture windows "
+       "(profile_window, SIGUSR2 toggle) write torch.profiler Chrome "
+       "traces + profile.v1 reports under this directory", kind="path")
+define("LUX_LEDGER_DIR", None,
+       "arm the run ledger (obs/ledger.py): every engine run appends one "
+       "crc-framed runrec.v1 JSON line under this directory", kind="path")
+define("LUX_LEDGER_ROTATE_BYTES", 8 << 20,
+       "run-ledger segment rotation threshold in bytes: a segment at or "
+       "past this size is sealed and a new runrec-NNNNNN.jsonl opens",
+       kind="int")
+define("LUX_HBM_PEAK_GBPS", None,
+       "override the roofline HBM peak (GB/s) of the device-profile "
+       "registry (obs/report.py)")
+define("LUX_ICI_PEAK_GBPS", None,
+       "price the roofline per-device interconnect peak (GB/s); no row "
+       "has one, since the parts of a LocalMesh share one card")
+define("LUX_HBM_CAPACITY_BYTES", None,
+       "override the device memory capacity in bytes (the card's row "
+       "reads torch.cuda.get_device_properties)", kind="int")
 
 # Backend (utils/platform.py)
 define("LUX_PLATFORM", None,
@@ -182,3 +329,7 @@ define("LUX_WAL_DIR", None,
        "<dir>/lux.wal before any version is minted, and "
        "SnapshotStore.recover without a wal_dir replays it (unset = no "
        "durability, the pre-WAL behavior)", kind="path")
+
+
+if __name__ == "__main__":
+    print(table())

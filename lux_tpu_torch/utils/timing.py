@@ -14,14 +14,9 @@ import time
 
 import torch
 
-
-def gteps(ne: int, iters: int, seconds: float) -> float:
-    """Traversed edges per second in units of 1e9: ``ne`` edges visited
-    per iteration, ``iters`` iterations, over ``seconds`` of iteration
-    time (``lux_tpu/obs/iterlog.py``'s one definition)."""
-    if seconds <= 0 or iters <= 0:
-        return 0.0
-    return ne * iters / seconds / 1e9
+# The one GTEPS definition lives in obs/iterlog.py; the CLIs' GTEPS line
+# reads it from here.
+from lux_tpu_torch.obs.iterlog import gteps  # noqa: F401
 
 
 class Timer:

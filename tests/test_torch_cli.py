@@ -13,7 +13,11 @@ the integer apps, PageRank at ``rtol=5e-5, atol=1e-9`` as in
 
 import contextlib
 import io
+import json
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -307,10 +311,63 @@ def test_refusals_match_lux_tpu(graphs, app, extra):
 
 
 @pytest.mark.parametrize("flag", ["-profile", "-metrics", "-trace"])
-def test_telemetry_flags_are_refused(graphs, tmp_path, flag):
-    with pytest.raises(SystemExit, match="not available in lux_tpu_torch"):
-        run_main("torch", "pagerank", ["-file", graphs / "g.lux", "-ni", "2",
-                                       flag, tmp_path / "out"])
+def test_telemetry_flags_are_refused(graphs, tmp_path, monkeypatch, flag):
+    """The telemetry flags are no longer refused (the test keeps its
+    name): each runs, and the checkpoint equals the run's without it.
+    ``-metrics`` writes a line whose fixed fields equal ``lux_tpu``'s
+    CLI's, ``-trace`` a file ``tools/trace_summary.py`` reads, and
+    ``-profile DIR`` a trace ``lux_tpu_torch.tools.prof_summary``
+    parses."""
+    from lux_tpu import obs as jobs
+    from lux_tpu_torch import obs as tobs
+
+    argv = ["-file", graphs / "g.lux", "-ni", "5"]
+    plain = tmp_path / "plain.npz"
+    run_main("torch", "pagerank", [*argv, "-save", plain])
+    out = tmp_path / "out"
+    # Registered first, so the environment the CLI sets is restored.
+    for name in ("LUX_METRICS", "LUX_TRACE"):
+        monkeypatch.setenv(name, "")
+    try:
+        flagged = tmp_path / "flagged.npz"
+        rc, said = run_main("torch", "pagerank",
+                            [*argv, flag, out, "-save", flagged])
+        if flag == "-metrics":
+            jout = tmp_path / "jax_out"
+            run_main("jax", "pagerank", [*argv, flag, jout])
+    finally:
+        for name in ("LUX_METRICS", "LUX_TRACE"):
+            monkeypatch.setenv(name, "")
+        tobs.reconfigure()
+        jobs.reconfigure()
+    assert rc == 0 and "ELAPSED TIME" in said
+    got, want = load_npz(flagged), load_npz(plain)
+    np.testing.assert_array_equal(got["values"], want["values"])
+    assert got["iteration"] == want["iteration"] == 5
+    tools = Path(__file__).resolve().parent.parent / "tools"
+    if flag == "-metrics":
+        rec = json.loads(out.read_text().splitlines()[-1])
+        jrec = json.loads(jout.read_text().splitlines()[-1])
+        for key in ("schema", "engine", "program", "nv", "ne", "num_iters",
+                    "exchange_bytes_per_iter", "hbm_bytes_per_iter"):
+            assert rec[key] == jrec[key], key
+        assert [(r["iter"], r["flush_span"], r["active_edges"])
+                for r in rec["iterations"]] == \
+            [(r["iter"], r["flush_span"], r["active_edges"])
+             for r in jrec["iterations"]]
+        assert rec["compile_s"] > 0 and rec["execute_s"] > 0
+    elif flag == "-trace":
+        r = subprocess.run([sys.executable, tools / "trace_summary.py", out],
+                           capture_output=True, text=True)
+        assert r.returncode == 0, r.stderr
+        assert "tiled.flush" in r.stdout
+    else:
+        r = subprocess.run(
+            [sys.executable, "-m", "lux_tpu_torch.tools.prof_summary", out,
+             "--json"], capture_output=True, text=True,
+            cwd=Path(__file__).resolve().parent.parent)
+        assert r.returncode == 0, r.stderr
+        assert json.loads(r.stdout)["schema"] == "profile.v1"
 
 
 def test_colfilter_refuses_unweighted_graph(graphs, capsys):

@@ -43,7 +43,10 @@ def test_port_files_found():
                  "obs/__init__.py",
                  "obs/metrics.py", "obs/trace.py", "obs/spans.py",
                  "graph/delta.py", "graph/wal.py", "graph/snapshot.py",
-                 "engine/incremental.py"):
+                 "engine/incremental.py", "engine/telemetry.py",
+                 "obs/engobs.py", "obs/flight.py", "obs/iterlog.py",
+                 "obs/ledger.py", "obs/prof.py", "obs/report.py",
+                 "obs/slo.py", "tools/prof_summary.py"):
         assert f"lux_tpu_torch/{name}" in FILES
 
 
