@@ -306,6 +306,34 @@ the group whose executors it takes, so it builds none of its own:
     lux_tpu_torch.tools.prof_summary``), each checkpoint bitwise equal
     to 4i-6i's.
 
+Serving (``lux_tpu_torch/serve``), group 3m-6m, after the CLIs and on
+their files:
+
+3m. ``python -m lux_tpu_torch.serve.http -file g.lux -port 0`` as a
+    subprocess: up and warm (each engine's warmup seconds from its log),
+    its tiled PageRank on phase 3's plan from the CLI's cache key;
+4m. over HTTP: 64 concurrent SSSP roots, each answer's SHA-256 equal
+    to a ``PushExecutor`` run from its root, in batches of more than 4
+    lanes (queries per second, p50 and p99 latency); PageRank (ni 10)
+    within the tolerance of phase 5's f64 oracle at 65,536 vertices,
+    and its digest against phase 5's run; CC, BFS (with parents), label
+    propagation and k-core bitwise against in-process runs (BFS and
+    label propagation phase 5d's, with their iterations); ``/metrics``
+    with zero serve-phase compiles, ``/stats`` with no build after
+    warmup, ``/statusz`` (latency windows, audits, peak memory);
+5m. an in-process ``Session`` on the weighted twin read back from
+    ``gw.lux`` (flat PageRank, K8, against the oracle; DeltaSSSP bitwise
+    phase 5d's), then ``apply_edits`` of the 1% batch while 8 client
+    threads query SSSP: every answer bitwise its version's (N until the
+    flip, N+1 after, by fresh 8-lane executors on each graph); the
+    swap's apply, warm, refresh and flip seconds; no build and no
+    compile on the serving path;
+6m. an in-process ``Session`` on ``g.lux`` with ``LUX_SERVE_MESH=4``:
+    every engine over 4 parts of a ``LocalMesh``, its answers bitwise
+    4m's (sharded tiled PageRank within the oracle's tolerance), mesh
+    keys on every pool entry.
+The in-process sessions' launches join the kernels line's counts.
+
 Each phase group's seconds are logged. Any failure exits non-zero.
 Without a card it exits non-zero and prints no result. The last line is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels as JSON.
@@ -315,6 +343,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -617,6 +646,10 @@ def main(argv=None) -> int:
     saved = group(cli, _cli_phases, cli_dir, device_line, held, push_ctx,
                   gas_ctx)
     group(TELEMETRY_GROUP, _telemetry_cli, cli_dir, device_line, saved)
+    torch.cuda.empty_cache()
+    _add(totals, group(SERVE_GROUP, _serve_phases, cli_dir, device_line, g,
+                       push_ctx, gas_ctx, oracle, held, dev, smi))
+    peak = max(peak, torch.cuda.max_memory_allocated())
     shutil.rmtree(cli_dir)
     shutil.rmtree(tel_dir)
     log("[time] phase groups (s): " + ", ".join(
@@ -4749,6 +4782,548 @@ def _cli_phases(work, device_line: str, held: dict, push: dict,
     log(f"[cli] phases 4i-6i took {time.perf_counter() - t_phase:.1f} s")
     return {"tiled pagerank": results["tiled pagerank"][1],
             "bfs": results["bfs"][1]}
+
+
+# -- 3m-6m: serving (serve/) on the card --------------------------------------
+
+SERVE_GROUP = "3m-6m serving"
+SERVE_ROOTS = 64         # concurrent SSSP queries over HTTP (phase 4m)
+SERVE_CLIENTS = 8        # client threads through the hot swap (phase 5m)
+SERVE_SWAP_ROOTS = 32    # the roots they cycle through
+SERVE_MESH_ROOTS = 16    # of phase 4m's roots, asked again of phase 6m's mesh
+SERVE_MESH_PARTS = 4
+SERVE_SAMPLE = 1 << 16   # served PageRank ranks held against the f64 oracle
+SERVE_TIMEOUT_S = 600
+# A batch of SERVE_ROOTS concurrent queries is formed within this window.
+SERVE_WINDOW_MS = 20.0
+# Kernels each in-process session must launch: flat PageRank (K8), the
+# SSSP lanes (K10), dense and sparse SSSP (K5, K6); over the mesh the
+# sharded tiled PageRank (K1, K2).
+SERVE_SWAP_KERNELS = ("gather_segment_sum", "gas_pull_acc",
+                      "segment_minmax_relax", "frontier_queue")
+SERVE_MESH_KERNELS = ("strip_spmv", "tail_gather_sum", "gas_pull_acc",
+                      "segment_minmax_relax")
+
+
+def _post(base: str, payload: dict, timeout: float = SERVE_TIMEOUT_S):
+    """(response JSON, seconds) of one POST /query."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/query",
+                                 json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        out = json.loads(resp.read())
+    return out, time.perf_counter() - t0
+
+
+def _get(base: str, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=60) as resp:
+        body = resp.read().decode()
+    return body if path == "/metrics" else json.loads(body)
+
+
+def _quantiles(secs) -> str:
+    xs = np.asarray(secs) * 1e3
+    return (f"p50 {np.percentile(xs, 50):.1f} ms, p99 "
+            f"{np.percentile(xs, 99):.1f} ms over {len(xs)}")
+
+
+def _serve_roots(g, n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    has_out = np.flatnonzero(g.out_degrees > 0)
+    return [0] + sorted(int(r) for r in rng.choice(has_out, n - 1,
+                                                   replace=False))
+
+
+def _compiles(prom: str) -> dict:
+    """Phase -> summed ``lux_xla_compiles_total`` of a /metrics page."""
+    out = {}
+    for line in prom.splitlines():
+        if line.startswith("lux_xla_compiles_total{"):
+            phase = line.split('phase="', 1)[1].split('"', 1)[0]
+            out[phase] = out.get(phase, 0) + float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def _serve_http(work, device_line: str, g, push: dict, gas: dict, oracle,
+                held: dict, dev, smi: str) -> dict:
+    """Phases 3m-4m: ``python -m lux_tpu_torch.serve.http -file g.lux
+    -port 0`` as a subprocess on phase 3i's files (its tiled PageRank
+    loads phase 3's plan from the CLI's cache key), then over HTTP:
+    PageRank (``ni`` 10) held against phase 5's f64 oracle at
+    ``SERVE_SAMPLE`` vertices and its digest against phase 5's run; 64
+    concurrent SSSP roots, each bitwise (SHA-256 of the answer) a
+    ``PushExecutor`` run from that root, with batches of more than 4
+    lanes; CC, BFS, label propagation and k-core (the served default k =
+    2, whose engine warmup built) bitwise against in-process runs (BFS
+    and label propagation: phase 5d's); /metrics
+    with zero serve-phase compiles, /stats with no pool build after
+    warmup, /statusz. Returns the answers' digests (phase 6m holds the
+    serving mesh against them)."""
+    import re
+
+    import torch
+
+    from lux_tpu_torch.engine.gas import AdaptiveExecutor
+    from lux_tpu_torch.engine.push import PushExecutor
+    from lux_tpu_torch.models import ConnectedComponents, KCore
+    from lux_tpu_torch.serve.http import digest
+
+    # -- 3m. what the server must answer, then the server -------------------
+    t = time.perf_counter()
+    roots = _serve_roots(g, SERVE_ROOTS, SEED)
+    sssp = push["sssp_ex"]
+    want = {("sssp", r): digest(sssp.values(sssp.run(start=r)[0]))
+            for r in roots}
+    cc = PushExecutor(g, ConnectedComponents(), device=dev)
+    want[("components",)] = digest(cc.values(cc.run()[0]))
+    kc = AdaptiveExecutor(g, KCore(k=2), device=dev)
+    want[("kcore", 2)] = digest(kc.values(kc.run()[0]))
+    del cc, kc
+    torch.cuda.empty_cache()
+    want[("bfs", 0)] = digest(gas["bfs"]["oracle"])
+    want[("labelprop",)] = digest(gas["labelprop"]["oracle"])
+    log(f"[serve] in-process answers: {SERVE_ROOTS} SSSP roots (phase 3b's "
+        f"executor), CC and k-core (k = 2) on g in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    errlog = work / "serve_http.log"
+    cmd = [sys.executable, "-m", "lux_tpu_torch.serve.http", "-file",
+           str(work / "g.lux"), "-port", "0", "-window-ms",
+           str(SERVE_WINDOW_MS), "-max-queue", "256", "-pagerank-iters",
+           str(ITERS)]
+    t0 = time.perf_counter()
+    with open(errlog, "w") as err:
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.DEVNULL, stderr=err,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        base = None
+        while base is None:
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"serve: {' '.join(cmd[2:])} exited {proc.returncode}"
+                    f"\n{errlog.read_text()[-6000:]}")
+            if time.perf_counter() - t0 > SERVE_TIMEOUT_S:
+                raise AssertionError("serve: no 'serving ... on http' line "
+                                     f"in {SERVE_TIMEOUT_S} s")
+            m = re.search(r"on http://([\d.]+):(\d+)", errlog.read_text())
+            if m:
+                base = f"http://{m.group(1)}:{m.group(2)}"
+            else:
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        text = errlog.read_text()
+        if device_line not in text:
+            raise AssertionError(f"serve: no '{device_line}' line:\n"
+                                 f"{text[-3000:]}")
+        health = _get(base, "/healthz")
+        if not health["ok"] or health["nv"] != g.nv:
+            raise AssertionError(f"serve: /healthz {health}")
+        warm = re.findall(r"warmup (.+?): ([\d.]+)s", text)
+        log(f"[serve] 3m: server up and warm in {up_s:.1f} s ({base}); "
+            f"/healthz device {health['device']}, {health['engines']} "
+            "engines; warmup s per engine: " + ", ".join(
+                f"{k} {v}" for k, v in warm))
+        for line in text.splitlines():
+            if "hybrid plan" in line or line.split(": ", 1)[-1].startswith(
+                    "loaded "):
+                log(f"[serve] 3m: server: {line.split(': ', 1)[-1]}")
+        pool0 = _get(base, "/stats")["pool"]
+
+        # -- 4m. queries over HTTP ------------------------------------------
+        lat = {}
+        t = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_ROOTS) as pool:
+            futs = {r: pool.submit(_post, base, {"app": "sssp", "start": r,
+                                                 "digest": True})
+                    for r in roots}
+            got = {r: f.result() for r, f in futs.items()}
+        wall = time.perf_counter() - t
+        bad = [r for r in roots if got[r][0]["sha256"] != want[("sssp", r)]]
+        if bad:
+            raise AssertionError(f"serve: SSSP roots {bad[:8]} differ from "
+                                 "their PushExecutor runs")
+        lat["sssp"] = [s for _, s in got.values()]
+        hist = _get(base, "/statusz")["batch_size"]
+        wide = sum(b["count"] for b in hist["buckets"]
+                   if b["le"] == "+Inf" or b["le"] > 4)
+        if wide == 0:
+            raise AssertionError(f"serve: no SSSP batch of more than 4 "
+                                 f"lanes: {hist}")
+        log(f"[serve] 4m: {SERVE_ROOTS} concurrent SSSP roots bitwise equal "
+            f"to PushExecutor runs, in {wall:.2f} s: "
+            f"{SERVE_ROOTS / wall:.1f} queries/s; latency "
+            f"{_quantiles(lat['sssp'])}; batch sizes "
+            f"{ {b['le']: b['count'] for b in hist['buckets'] if b['count']} }"
+            f" ({smi})")
+
+        sample = np.random.default_rng(SEED).choice(
+            g.nv, min(SERVE_SAMPLE, g.nv), replace=False)
+        out, lat["pagerank"] = _post(base, {"app": "pagerank", "ni": ITERS,
+                                            "digest": True})
+        part, _ = _post(base, {"app": "pagerank", "ni": ITERS,
+                               "targets": sample.tolist()})
+        np.testing.assert_allclose(np.asarray(part["values"], np.float64),
+                                   oracle[sample], rtol=RTOL, atol=ATOL,
+                                   err_msg="served pagerank vs f64 oracle")
+        same = out["sha256"] == digest(held["pagerank"]["values"])
+        want[("pagerank", ITERS)] = out["sha256"]
+        log(f"[serve] 4m: pagerank ni={ITERS} within rtol={RTOL}, "
+            f"atol={ATOL} of the f64 oracle at {len(sample)} vertices; "
+            f"{'bitwise equal to' if same else 'not bitwise'} phase 5's "
+            f"run({ITERS}); {lat['pagerank'] * 1e3:.1f} ms")
+        for app, body, key, extra in (
+                ("components", {}, ("components",), None),
+                ("bfs", {"start": 0}, ("bfs", 0), "parent"),
+                ("labelprop", {}, ("labelprop",), None),
+                ("kcore", {"k": 2}, ("kcore", 2), None)):
+            out, lat[app] = _post(base, {"app": app, "digest": True, **body})
+            if out["sha256"] != want[key]:
+                raise AssertionError(f"serve: {app} differs from its "
+                                     "in-process run")
+            if extra and out[extra + "_sha256"] != digest(
+                    gas["bfs"]["parent"]):
+                raise AssertionError(f"serve: {app} {extra} differs")
+            if app in gas and out["iters"] != gas[app]["iters"]:
+                raise AssertionError(f"serve: {app} took {out['iters']} "
+                                     f"iterations, 5d {gas[app]['iters']}")
+            log(f"[serve] 4m: {app} {body or ''} bitwise equal to the "
+                f"in-process run in {out['iters']} iterations; "
+                f"{lat[app] * 1e3:.1f} ms")
+
+        prom = _get(base, "/metrics")
+        comp = _compiles(prom)
+        stats = _get(base, "/stats")
+        sz = _get(base, "/statusz")
+        if comp.get("serve", 0) != 0 or sz["counters"]["recompiles"] != 0:
+            raise AssertionError(f"serve: compiles after warmup {comp}")
+        if stats["pool"]["misses"] != pool0["misses"]:
+            raise AssertionError(f"serve: pool built {stats['pool']['misses']}"
+                                 f" engines, {pool0['misses']} at warmup")
+        win = sz["windows"][sorted(sz["windows"], key=lambda w: float(
+            w.rstrip("s")))[-1]]
+        log(f"[serve] 4m: /metrics compiles {comp} (the kernel library's "
+            f"load at warmup); /stats pool {stats['pool']['engines']} "
+            f"engines, {stats['pool']['misses']} builds, "
+            f"{stats['pool']['hits']} hits; /statusz audits "
+            f"{ {k: v['status'] for k, v in sz['audits'].items()} }")
+        log("[serve] 4m: client latency per app: " + "; ".join(
+            f"{app} " + (_quantiles(v) if isinstance(v, list)
+                         else f"{v * 1e3:.1f} ms (one miss)")
+            for app, v in lat.items()))
+        log("[serve] 4m: /statusz window " + json.dumps(
+            {app: {k: round(v * 1e3, 1) for k, v in q.items()
+                   if k.startswith("p")} for app, q in win.items()})
+            + " (ms)")
+        mem = {k: v / 2**30 for k, v in sz["memory"].items()
+               if k in ("device_peak_bytes", "hbm_capacity_bytes") and v}
+        log(f"[serve] 4m: server device memory (GiB) {mem} ({smi})")
+    finally:
+        proc.send_signal(2)   # SIGINT: serve_forever ends, the session closes
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if proc.returncode not in (0, -2):
+        raise AssertionError(f"serve: exited {proc.returncode}:\n"
+                             f"{errlog.read_text()[-3000:]}")
+    return {"roots": roots, "digests": want}
+
+
+def _serve_logs():
+    """A handler collecting the ``lux_tpu_torch.serve`` log lines."""
+    import logging
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    h = Keep()
+    logging.getLogger("lux_tpu_torch.serve").addHandler(h)
+    return h
+
+
+def _weighted_edit_batch(graph):
+    """``_edit_batch``'s 1% batch with insert weights drawn as the R-MAT
+    generator draws its own: 1..100 from a generator of their own."""
+    ed = _edit_batch(graph)
+    w = np.random.default_rng(EDIT_SEED + 1).integers(
+        1, 101, size=len(ed.ins_src), dtype=np.int32)
+    return dataclasses.replace(ed, ins_w=w)
+
+
+def _lane_digests(graph, roots, dev) -> dict:
+    """root -> digest of its SSSP column from a fresh 8-lane
+    ``MultiSourcePushExecutor`` (``len(roots)`` a multiple of 8)."""
+    import torch
+
+    from lux_tpu_torch.engine.push import MultiSourcePushExecutor
+    from lux_tpu_torch.models import SSSP
+    from lux_tpu_torch.serve.http import digest
+
+    mx = MultiSourcePushExecutor(graph, SSSP(), k=8, device=dev)
+    out = {}
+    for i in range(0, len(roots), 8):
+        st, _ = mx.run(roots[i:i + 8])
+        for j, r in enumerate(roots[i:i + 8]):
+            out[r] = digest(mx.values_for(st, j))
+    del mx, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str) -> dict:
+    """Phase 5m: an in-process ``Session`` on the weighted twin read back
+    from ``gw.lux`` (in memory, so PageRank takes the flat K8 path;
+    DeltaSSSP served), held against phases 5c and 5d; then
+    ``apply_edits`` of the 1% batch while ``SERVE_CLIENTS`` threads query
+    SSSP over ``SERVE_SWAP_ROOTS`` roots: each answer bitwise version N's
+    (a fresh 8-lane executor on N) until the flip and N+1's after it,
+    none of N after a thread saw N+1; CC after the swap equal to a
+    from-scratch run; no pool build and no compile on the serving path.
+    Returns the session's launches."""
+    import threading
+
+    import torch
+
+    from lux_tpu_torch.graph import read_lux
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.serve import ServeConfig, Session
+    from lux_tpu_torch.serve.http import digest
+
+    t = time.perf_counter()
+    gw = read_lux(str(work / "gw.lux"))
+    edits = _weighted_edit_batch(gw)
+    roots = _serve_roots(gw, SERVE_SWAP_ROOTS, SEED + 1)
+    want = {0: _lane_digests(gw, roots, dev)}
+    log(f"[serve] 5m: gw.lux read back, the 1% batch ({len(edits.ins_src)}"
+        f" inserts, {len(edits.del_src)} deletes) and version N's "
+        f"{SERVE_SWAP_ROOTS} SSSP answers in {time.perf_counter() - t:.1f} s")
+
+    logs = _serve_logs()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    s = Session(gw, ServeConfig(max_batch=8, window_s=0.005, max_queue=256,
+                                pagerank_iters=ITERS), device=dev)
+    try:
+        warm_s = time.perf_counter() - t
+        log(f"[serve] 5m: session on gw warm in {warm_s:.1f} s; " + ", ".join(
+            ln.replace("warmup ", "") for ln in logs.lines
+            if ln.startswith("warmup ")))
+        misses0 = s.pool.stats()["misses"]
+        lat = {}
+        t = time.perf_counter()
+        pr = s.query("pagerank", ni=ITERS, timeout=SERVE_TIMEOUT_S)
+        lat["pagerank"] = time.perf_counter() - t
+        np.testing.assert_allclose(pr["values"], oracle, rtol=RTOL,
+                                   atol=ATOL, err_msg="served flat pagerank")
+        same = np.array_equal(pr["values"], held["flat"]["values"])
+        t = time.perf_counter()
+        ds = s.query("sssp_delta", start=0, timeout=SERVE_TIMEOUT_S)
+        lat["sssp_delta"] = time.perf_counter() - t
+        if not np.array_equal(ds["values"], gas["sssp_delta"]["oracle"]) \
+                or ds["iters"] != gas["sssp_delta"]["iters"]:
+            raise AssertionError("serve: sssp_delta differs from phase 5d")
+        t = time.perf_counter()
+        s.query("components", timeout=SERVE_TIMEOUT_S)
+        lat["components"] = time.perf_counter() - t
+        log(f"[serve] 5m: flat pagerank (K8) within rtol={RTOL}, atol={ATOL}"
+            f" of the f64 oracle, {'bitwise equal to' if same else 'not '}"
+            f" phase 5c's run({ITERS}); sssp_delta from 0 bitwise phase "
+            f"5d's in {ds['iters']} iterations; latency (ms) " + ", ".join(
+                f"{k} {v * 1e3:.1f}" for k, v in lat.items()))
+
+        records, errors = [], []
+        stop = threading.Event()
+
+        def client(c):
+            i = c
+            while not stop.is_set():
+                r = roots[i % len(roots)]
+                v0 = s.version
+                t0 = time.perf_counter()
+                try:
+                    vals = s.query("sssp", start=r,
+                                   timeout=SERVE_TIMEOUT_S)["values"]
+                except Exception as e:   # any failure fails the phase
+                    errors.append(repr(e))
+                    return
+                records.append((c, r, v0, digest(vals), s.version,
+                                time.perf_counter() - t0))
+                i += SERVE_CLIENTS
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        time.sleep(1.0)
+        summary = s.apply_edits(edits)
+        time.sleep(1.0)
+        stop.set()
+        for th in threads:
+            th.join(SERVE_TIMEOUT_S)
+        if errors:
+            raise AssertionError(f"serve: queries failed in the swap: "
+                                 f"{errors[:3]}")
+        cc = s.query("components", timeout=SERVE_TIMEOUT_S)
+        for r in roots[:8]:
+            s.query("sssp", start=r, timeout=SERVE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        st = s.pool.stats()
+        if st["recompiles"] != 0:
+            raise AssertionError(f"serve: recompiles {st}")
+        log(f"[serve] 5m: swap v0 -> v{summary['version']}: apply "
+            f"{summary['apply_s']:.2f} s, warm {summary['warm_s']:.2f} s, "
+            f"refresh {summary['refresh_s']:.2f} s "
+            f"({summary['refreshed']}), flip + drain "
+            f"{summary['flip_s']:.2f} s, total {summary['swap_s']:.2f} s; "
+            f"evicted {summary['evicted']}, retired {summary['retired']}; "
+            f"pool {misses0} builds at warmup, {st['misses']} after "
+            f"(version N+1's warm), recompiles 0 ({smi})")
+        # CC is refreshed when it is still cached at the swap (the
+        # clients' answers, 4 bytes a vertex each, may have pushed it out
+        # of the 64 MiB cache); either way it equals a from-scratch run.
+        scratch = s._components_engine()
+        if not np.array_equal(cc["values"],
+                              scratch.values(scratch.run()[0])):
+            raise AssertionError("serve: CC after the swap differs from a "
+                                 "from-scratch run")
+        misses1 = s.pool.stats()["misses"]
+        new_g = s.graph
+    finally:
+        s.close()
+    if misses1 != st["misses"]:
+        raise AssertionError("serve: a pool build after the swap")
+    want[1] = _lane_digests(new_g, roots, dev)
+    seen, by_version = {}, {0: 0, 1: 0}
+    for c, r, v0, d, v1, _ in records:
+        match = [v for v in (0, 1) if d == want[v][r]]
+        if (not match or (v1 == 0 and 0 not in match)
+                or (v0 == 1 and 1 not in match)
+                or max(match) < seen.get(c, 0)):
+            raise AssertionError(f"serve: client {c} root {r} (version "
+                                 f"{v0}..{v1}) answered {match}")
+        seen[c] = max(seen.get(c, 0), min(match))
+        by_version[min(match)] += 1
+    log(f"[serve] 5m: {len(records)} queries from {SERVE_CLIENTS} clients "
+        f"through the swap, each bitwise its version's ({by_version[0]} "
+        f"of N, {by_version[1]} of N+1); latency "
+        f"{_quantiles([x[-1] for x in records])}; CC after the swap "
+        f"({'refreshed' if cc.get('incremental') else 'recomputed'}) equals "
+        f"a from-scratch run; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    for name in SERVE_SWAP_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"serve: {name} never ran in phase 5m")
+    del gw, new_g
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _serve_mesh(work, dev, http: dict, oracle, smi: str) -> dict:
+    """Phase 6m: an in-process ``Session`` on ``g.lux`` with
+    ``LUX_SERVE_MESH=4``: every engine sharded over 4 parts of a
+    ``LocalMesh`` (PageRank the sharded tiled engine on phase 3's plan),
+    each answer bitwise phase 4m's (PageRank within rtol, atol of the f64
+    oracle), mesh keys on every pool entry, no build and no compile on
+    the serving path. Returns its launches."""
+    import torch
+
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.serve import ServeConfig, Session
+    from lux_tpu_torch.serve.http import digest
+
+    logs = _serve_logs()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    with _knobs(LUX_SERVE_MESH=SERVE_MESH_PARTS):
+        s = Session(str(work / "g.lux"), ServeConfig(
+            max_batch=8, window_s=SERVE_WINDOW_MS / 1e3, max_queue=256,
+            pagerank_iters=ITERS), device=dev)
+    try:
+        warm_s = time.perf_counter() - t
+        if s.meshspec.num_parts != SERVE_MESH_PARTS or not all(
+                k[-1] == (SERVE_MESH_PARTS,) for k in s.pool.keys()):
+            raise AssertionError(f"serve mesh: keys {s.pool.keys()}")
+        if s.stats()["mesh"]["fallbacks"]:
+            raise AssertionError(f"serve mesh: {s.stats()['mesh']}")
+        log(f"[serve] 6m: {SERVE_MESH_PARTS}-part session warm in "
+            f"{warm_s:.1f} s; " + ", ".join(
+                ln.replace("warmup ", "") for ln in logs.lines
+                if ln.startswith("warmup ")))
+        misses0 = s.pool.stats()["misses"]
+        want = http["digests"]
+        t = time.perf_counter()
+        roots = http["roots"][:SERVE_MESH_ROOTS]
+        futs = [s.submit("sssp", start=r) for r in roots]
+        for r, f in zip(roots, futs):
+            if digest(f.result(SERVE_TIMEOUT_S)["values"]) \
+                    != want[("sssp", r)]:
+                raise AssertionError(f"serve mesh: sssp root {r} differs")
+        lat = {"sssp": time.perf_counter() - t}
+        for app, kw, key in (("components", {}, ("components",)),
+                             ("bfs", {"start": 0}, ("bfs", 0)),
+                             ("labelprop", {}, ("labelprop",)),
+                             ("kcore", {"k": 2}, ("kcore", 2))):
+            t = time.perf_counter()
+            out = s.query(app, timeout=SERVE_TIMEOUT_S, **kw)
+            lat[app] = time.perf_counter() - t
+            if digest(out["values"]) != want[key]:
+                raise AssertionError(f"serve mesh: {app} differs from 4m")
+        t = time.perf_counter()
+        pr = s.query("pagerank", ni=ITERS, timeout=SERVE_TIMEOUT_S)
+        lat["pagerank"] = time.perf_counter() - t
+        np.testing.assert_allclose(pr["values"], oracle, rtol=RTOL,
+                                   atol=ATOL, err_msg="mesh pagerank")
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        st = s.pool.stats()
+        if st["misses"] != misses0 or st["recompiles"] != 0:
+            raise AssertionError(f"serve mesh: pool {st}")
+        same = digest(pr["values"]) == want[("pagerank", ITERS)]
+        log(f"[serve] 6m: {SERVE_MESH_ROOTS} SSSP roots, CC, BFS, label "
+            f"propagation and k-core bitwise phase 4m's; sharded tiled "
+            f"pagerank within rtol={RTOL}, atol={ATOL} of the f64 oracle "
+            f"({'bitwise' if same else 'not bitwise'} 4m's); latency (ms) "
+            + ", ".join(
+                f"{k} {v * 1e3:.1f}" for k, v in lat.items())
+            + f"; exchange bytes/iteration {s.mesh_exchange_bytes()}; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; launches { {k: v for k, v in counts.items() if v} } "
+            f"({smi})")
+    finally:
+        s.close()
+    for name in SERVE_MESH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"serve mesh: {name} never ran")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _serve_phases(work, device_line, g, push, gas, oracle, held, dev,
+                  smi) -> dict:
+    """Group 3m-6m: phases 3m-4m over HTTP, then 5m and 6m in process;
+    returns the launches of the in-process sessions, summed."""
+    http = _serve_http(work, device_line, g, push, gas, oracle, held, dev,
+                       smi)
+    totals = {}
+    _add(totals, _serve_swap(work, dev, gas, oracle, held, smi))
+    _add(totals, _serve_mesh(work, dev, http, oracle, smi))
+    return totals
 
 
 if __name__ == "__main__":

@@ -44,6 +44,10 @@ Layout:
                             app CLIs
     lux_tpu_torch.obs     — telemetry: run recorder, report, ledger,
                             flight recorder, engobs, profiler captures
+    lux_tpu_torch.serve   — serving: the warm-engine Session, its pool,
+                            batcher, cache, breaker, cost accounts,
+                            serving mesh and HTTP front end
+    lux_tpu_torch.analysis — the recompile sentinel serving counts with
     lux_tpu_torch.utils   — flags, device resolution, loggers
 """
 

@@ -38,8 +38,6 @@ from lux_tpu_torch.obs import metrics, spans
 from lux_tpu_torch.utils import checkpoint, flags
 from lux_tpu_torch.utils.locks import make_lock
 
-_compactions = metrics.counter("lux_snapshot_compactions_total")
-
 
 class Snapshot:
     """One immutable version: a DeltaGraph plus lazy graph/fingerprint."""
@@ -259,7 +257,9 @@ class SnapshotStore:
             with spans.span("snapshot.compact", version=snap.version,
                             delta_edges=snap.delta.delta_edges):
                 snap.compact()
-                _compactions.inc()
+                # Looked up at each use: a registry reset (tests) must
+                # not orphan the counter the store increments.
+                metrics.counter("lux_snapshot_compactions_total").inc()
         if on_compact is not None:
             on_compact(snap)
 

@@ -54,6 +54,16 @@ def capabilities() -> dict:
     return capability_report()["programs"]
 
 
+def frontier_ok(name: str) -> bool:
+    """Declared license for the frontier exchange / adaptive lanes."""
+    return bool(capabilities().get(name, {}).get("frontier_ok", False))
+
+
+def incremental_ok(name: str) -> bool:
+    """Declared license for IncrementalExecutor warm-starts."""
+    return bool(capabilities().get(name, {}).get("incremental_ok", False))
+
+
 def rooted_apps() -> frozenset:
     return frozenset(
         name for name, caps in capabilities().items() if caps["rooted"])
@@ -61,18 +71,21 @@ def rooted_apps() -> frozenset:
 
 ROOTED_APPS = rooted_apps()
 
-# Which executor kinds of this package can run each program: lux_tpu's
-# table with the kinds not yet ported left out (each entry keeps
-# lux_tpu's order). tiled is spmv-only; push needs a PushProgram; the
-# multi-source kinds (push_multi, gas_multi, gas_multi_sharded) need a
-# rooted frontier program; gas and gas_sharded run every program
-# (PullPrograms as frontier-less dense pull); the *_sharded kinds run
-# over the parts of a LocalMesh.
+# Which executor kinds can run each program: lux_tpu's table, kind for
+# kind and in its order. tiled and tiled_sharded are spmv-only; push and
+# push_incremental need a PushProgram; the multi-source kinds
+# (push_multi, gas_multi, gas_multi_sharded) need a rooted frontier
+# program; gas and gas_sharded run every program (PullPrograms as
+# frontier-less dense pull); the *_sharded kinds run over the parts of a
+# LocalMesh.
 ENGINE_KINDS = {
-    "pagerank": ("pull", "tiled", "pull_sharded", "gas", "gas_sharded"),
-    "sssp": ("push", "push_multi", "push_sharded", "push_multi_sharded",
-             "gas", "gas_multi", "gas_sharded", "gas_multi_sharded"),
-    "components": ("push", "push_sharded", "gas", "gas_sharded"),
+    "pagerank": ("pull", "tiled", "pull_sharded", "tiled_sharded", "gas",
+                 "gas_sharded"),
+    "sssp": ("push", "push_multi", "push_incremental", "push_sharded",
+             "push_multi_sharded", "gas", "gas_multi", "gas_sharded",
+             "gas_multi_sharded"),
+    "components": ("push", "push_incremental", "push_sharded", "gas",
+                   "gas_sharded"),
     "colfilter": ("pull", "pull_sharded", "gas", "gas_sharded"),
     "bfs": ("gas", "gas_multi", "gas_sharded", "gas_multi_sharded"),
     "sssp_delta": ("gas", "gas_multi", "gas_sharded", "gas_multi_sharded"),
@@ -115,6 +128,8 @@ __all__ = [
     "ENGINE_KINDS",
     "capability_report",
     "capabilities",
+    "frontier_ok",
+    "incremental_ok",
     "rooted_apps",
     "engine_kinds",
     "get_program",

@@ -10,6 +10,10 @@ sources and flags changes. Pointers and the stream pass as
 and :func:`launch` raises if that is not 0.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it.
+Callbacks given to :func:`add_compile_hook` are told of the
+compile-like work a process does here: ``"nvcc"`` when :func:`build`
+compiles the sources, ``"load"`` when :func:`library` loads the library
+(``analysis/sentinel.py`` counts both).
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -90,11 +95,28 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# Serialises the first load (threads of a server may race to it) and the
+# launch counts (an engine may launch from several threads at once).
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+_COMPILE_HOOKS: List[Callable[[str], None]] = []
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def add_compile_hook(fn: Callable[[str], None]) -> None:
+    """Call ``fn(what)`` on the calling thread whenever this module
+    compiles the sources (``"nvcc"``) or loads the library (``"load"``)."""
+    _COMPILE_HOOKS.append(fn)
+
+
+def _compiled(what: str) -> None:
+    for fn in list(_COMPILE_HOOKS):
+        fn(what)
 
 
 def _nvcc() -> str:
@@ -159,6 +181,7 @@ def build() -> Path:
         stamp.write_text(digest)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    _compiled("nvcc")
     return lib
 
 
@@ -166,12 +189,15 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-        _lib = lib
+        with _LIB_LOCK:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, args in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(args)
+                    fn.restype = ctypes.c_int
+                _compiled("load")
+                _lib = lib
     return _lib
 
 
@@ -189,7 +215,8 @@ def launch(kernel: str, fn: str, *args) -> None:
     rc = getattr(library(), fn)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -64,8 +64,8 @@ __all__ = [
 
 # The registered fault points. point() only accepts these names, so a
 # typo'd lace site fails loudly the first time it is armed instead of
-# silently never firing. The serve/ points are lux_tpu's; the port laces
-# wal.fsync and serve.engine.execute (engine/incremental.py) so far.
+# silently never firing. Every point is laced in the port as in lux_tpu
+# (serve.engine.execute also in engine/incremental.py).
 POINTS = (
     "serve.engine.execute",   # engine run inside the batcher (serve/session.py)
     "pool.build",             # executor build/compile (serve/pool.py)

@@ -299,6 +299,31 @@ define("LUX_EXCHANGE_FRONTIER_FRAC", 0.25,
        "bigger byte win on sparse iterations but earlier self-downgrade "
        "to the static compact send", kind="float")
 
+# The serve pool's build-time audits and admission (serve/pool.py). Of
+# lux_tpu's analysis tiers only the IR audit's guard has a counterpart
+# (no executor of the port has ``trace_step``, so it skips as lux_tpu's
+# does); exchck, gasck and memck are not ported (ROADMAP A16), and while
+# their flags ask for them the pool's stats() and /statusz say so.
+define("LUX_IR_POOL_AUDIT", True,
+       "run the LUX104 donation audit on every engine the serve pool "
+       "builds (one abstract lowering per build; 0 disables)", kind="bool")
+define("LUX_EXCH_POOL_AUDIT", True,
+       "run the LUX401-403 exchange-plan audit on every plan-carrying "
+       "engine the serve pool builds (pure numpy over the live "
+       "ExchangePlan tables; 0 disables)", kind="bool")
+define("LUX_GAS_POOL_AUDIT", True,
+       "run the LUX601/602/605 program-algebra audit on every "
+       "GAS-program-carrying engine the serve pool builds (cached "
+       "per program class; 0 disables)", kind="bool")
+define("LUX_MEM_POOL_ADMIT", True,
+       "gate new serve-pool engine builds on the memcap.v1 predicted "
+       "footprint fitting the HBM budget (0 = admit freely; admission "
+       "is also skipped when no budget can be derived)", kind="bool")
+define("LUX_RESULT_CACHE_BYTES", 64 << 20,
+       "serve ResultCache byte budget: LRU entries evict once their "
+       "summed value nbytes exceed this (the entry-count capacity still "
+       "bounds the dict)", kind="int")
+
 # Concurrency discipline (utils/locks.py)
 define("LUX_LOCKWATCH", False,
        "wrap every utils/locks.make_lock in the LockWatch sentinel: "
@@ -310,12 +335,22 @@ define("LUX_LOCK_HOLD_WARN_MS", 250.0,
        "watched lock is held longer than this many ms (0 disables)",
        kind="float")
 
-# Dynamic graphs (graph/snapshot.py, engine/incremental.py)
+# Dynamic graphs (graph/snapshot.py, engine/incremental.py,
+# serve/session.py)
 define("LUX_DELTA_COMPACT_RATIO", 0.05,
        "background-compact a snapshot's delta once pending edits exceed "
        "this fraction of the base edge count", kind="float")
+define("LUX_SNAPSHOT_WARM_TIMEOUT", 120.0,
+       "seconds to wait for the next snapshot's engines to warm before "
+       "aborting the hot-swap (the old version keeps serving)",
+       kind="float")
+define("LUX_INCREMENTAL", True,
+       "warm-start components/cached-SSSP fixpoints from the previous "
+       "snapshot's values during a hot-swap instead of recomputing on "
+       "demand (0 = evict only)", kind="bool")
 
-# Robustness: fault injection (utils/faults.py), edit WAL (graph/wal.py)
+# Robustness: fault injection (utils/faults.py), edit WAL (graph/wal.py),
+# graceful degradation (serve/session.py, serve/breaker.py)
 define("LUX_FAULTS", None,
        "fault-injection spec `point:kind:prob[:arg]`, comma-separated "
        "(kinds: raise|delay_ms|corrupt|crash; see utils/faults.py); "
@@ -329,6 +364,39 @@ define("LUX_WAL_DIR", None,
        "<dir>/lux.wal before any version is minted, and "
        "SnapshotStore.recover without a wal_dir replays it (unset = no "
        "durability, the pre-WAL behavior)", kind="path")
+define("LUX_EDIT_QUEUE_MAX", 8,
+       "Session.enqueue_edits auto-flushes the WAL-backed edit queue "
+       "into one hot-swap once this many batches are pending (ROADMAP "
+       "item 3: swaps amortize over many small edits)", kind="int")
+define("LUX_RETRY_MAX", 2,
+       "max engine re-executions after a transient (non-ServeError) "
+       "failure per batch, clamped by the request deadline (0 = fail "
+       "fast)", kind="int")
+define("LUX_RETRY_BACKOFF_MS", 25.0,
+       "initial retry backoff in ms, doubling per attempt", kind="float")
+define("LUX_BREAKER_THRESHOLD", 5,
+       "consecutive engine failures on one (app, fingerprint) before the "
+       "circuit breaker opens and sheds that program with 503 + "
+       "Retry-After", kind="int")
+define("LUX_BREAKER_COOLDOWN_MS", 2000.0,
+       "ms an open breaker waits before going half-open and probing the "
+       "rebuilt engine in the background", kind="float")
+
+# Multi-part serving (serve/mesh.py, serve/session.py)
+define("LUX_SERVE_MESH", 1,
+       "serving mesh spec: a part count ('4') or a PxQ shape ('2x2', "
+       "folded onto the 1-D parts axis); 1 = single-part serving. The "
+       "parts are those of a LocalMesh on the one device", kind="str")
+define("LUX_SHARD_PLAN_CACHE", 8,
+       "max (fingerprint, parts) partition plans the serving shard-plan "
+       "cache keeps; hot-swaps evict the outgoing fingerprint's plans "
+       "regardless", kind="int")
+
+# Profile-guided auto-tuner: not ported (ROADMAP A15)
+define("LUX_TUNE_DIR", None,
+       "lux_tpu's auto-tuner cache directory. The tuner is not ported "
+       "(ROADMAP A15): unset, serving runs untuned as lux_tpu's disarmed "
+       "tuner does; set, serve.Session refuses to start", kind="path")
 
 
 if __name__ == "__main__":

@@ -1677,3 +1677,217 @@ def test_incremental_pagerank_on_cuda(dev):
     np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], rtol=RTOL,
                                atol=ATOL)
     assert got["cuda"][1] == got["cpu"][1]
+
+
+# -- serving on the card --------------------------------------------------
+
+SERVE_ROOTS = (0, 3, 77, 300)
+
+
+def _serve_cfg(**kw):
+    from lux_tpu_torch.serve import ServeConfig
+
+    kw.setdefault("max_batch", 4)
+    kw.setdefault("window_s", 0.25)
+    kw.setdefault("pagerank_iters", 10)
+    return ServeConfig(**kw)
+
+
+@pytest.fixture(scope="module")
+def served_cuda():
+    """A warm session on the card over the weighted R-MAT 10 (in memory,
+    so PageRank takes the flat K8 path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from lux_tpu_torch.serve import Session
+
+    g = generate.rmat(10, 16, seed=42, weighted=True)
+    with Session(g, _serve_cfg(), device="cuda") as s:
+        yield g, s
+
+
+def _direct_rooted(g, prog, roots, lane_roots, dev):
+    """Each of ``roots`` alone on the single-source executor, and
+    ``lane_roots`` together as the lanes of a 4-wide multi-source one:
+    (values, iterations) of each."""
+    from lux_tpu_torch.engine.gas import (AdaptiveExecutor,
+                                          MultiSourceGasExecutor)
+    from lux_tpu_torch.engine.push import MultiSourcePushExecutor
+
+    push = isinstance(prog, SSSP)
+    one = (PushExecutor(g, prog, device=dev) if push
+           else AdaptiveExecutor(g, prog, device=dev))
+    singles = []
+    for r in roots:
+        st, it = one.run(start=r)
+        singles.append((one.values(st), int(it)))
+    multi = (MultiSourcePushExecutor(g, prog, k=4, device=dev) if push
+             else MultiSourceGasExecutor(g, prog, k=4, device=dev))
+    st, it = multi.run(list(lane_roots))
+    return singles, [(multi.values_for(st, j), int(it))
+                     for j in range(len(lane_roots))]
+
+
+def test_session_on_cuda_equals_executors(served_cuda):
+    """Every served app equals its executor run directly on the card,
+    bitwise (PageRank too: the same K8 in the same order); no engine is
+    built and nothing compiles after warmup."""
+    from lux_tpu_torch.engine.gas import AdaptiveExecutor
+    from lux_tpu_torch.models.cli import final_values
+
+    g, s = served_cuda
+    dev = torch.device("cuda")
+    assert s.APPS == ("sssp", "components", "pagerank", "bfs", "kcore",
+                      "labelprop", "sssp_delta")
+    misses = s.pool.stats()["misses"]
+    for app, prog in (("sssp", SSSP()), ("bfs", BFS()),
+                      ("sssp_delta", DeltaSSSP())):
+        singles, lanes = _direct_rooted(g, prog, SERVE_ROOTS[:2],
+                                        SERVE_ROOTS[2:], dev)
+        for r, (want, it) in zip(SERVE_ROOTS[:2], singles):
+            got = s.query(app, start=r, timeout=120)
+            assert got["iters"] == it
+            np.testing.assert_array_equal(got["values"], want)
+        futs = [s.submit(app, start=r) for r in SERVE_ROOTS[2:]]
+        for f, (want, it) in zip(futs, lanes):
+            got = f.result(120)
+            assert got["iters"] == it
+            np.testing.assert_array_equal(got["values"], want)
+    fix = (("components", {}, PushExecutor(g, ConnectedComponents(),
+                                            device=dev)),
+           ("labelprop", {}, AdaptiveExecutor(g, LabelPropagation(),
+                                              device=dev)),
+           ("kcore", {}, AdaptiveExecutor(g, KCore(k=2), device=dev)))
+    for app, kw, ex in fix:
+        st, it = ex.run()
+        got = s.query(app, timeout=120, **kw)
+        assert got["iters"] == int(it)
+        np.testing.assert_array_equal(got["values"], ex.values(st))
+    ex = PullExecutor(g, PageRank(), device=dev)
+    got = s.query("pagerank", ni=10, timeout=120)
+    np.testing.assert_array_equal(got["values"], final_values(ex, ex.run(10)))
+    st = s.pool.stats()
+    assert st["misses"] == misses and st["recompiles"] == 0
+    s.pool.sentinel.assert_zero_recompiles()
+    assert s.statusz()["memory"]["device_peak_bytes"] > 0
+
+
+def test_session_tiled_pagerank_from_a_file_on_cuda(dev, tmp_path):
+    """A session on a .lux path serves PageRank through the CLI's tiled
+    engine and its cached plan (K1, K2), equal to that engine run
+    directly."""
+    from lux_tpu_torch.engine.tiled import get_cached_plan
+    from lux_tpu_torch.graph import write_lux
+    from lux_tpu_torch.models.cli import final_values
+    from lux_tpu_torch.serve import Session
+
+    g = generate.rmat(10, 16, seed=42)
+    path = tmp_path / "g.lux"
+    write_lux(str(path), g)
+    with Session(str(path), _serve_cfg(), device="cuda") as s:
+        plan_path = str(path) + ".plan_8x2_8192.luxplan"
+        ex = TiledPullExecutor(g, PageRank(), device=dev,
+                               plan=get_cached_plan(g, plan_path))
+        _cuda.reset_launches()
+        got = s.query("pagerank", ni=10, timeout=120)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["strip_spmv"] > 0
+        assert _cuda.LAUNCHES["tail_gather_sum"] > 0
+        np.testing.assert_array_equal(got["values"],
+                                      final_values(ex, ex.run(10)))
+
+
+def test_swap_under_eight_client_threads_on_cuda(dev):
+    """Queries from 8 client threads during an ``apply_edits`` swap: an
+    answer is version N's while N serves and N+1's once the flip
+    happened, bitwise; a thread never sees N after N+1; nothing is built
+    or compiled on the serving path."""
+    import threading
+
+    from lux_tpu_torch.graph import DeltaGraph, EdgeEdits
+    from lux_tpu_torch.serve import Session
+
+    g = generate.rmat(10, 16, seed=44)
+    rng = np.random.default_rng(17)
+    n = g.ne // 100
+    e = rng.choice(g.ne, n - n // 2, replace=False)
+    ed = EdgeEdits(ins_src=rng.integers(0, g.nv, n // 2),
+                   ins_dst=rng.integers(0, g.nv, n // 2), ins_w=None,
+                   del_src=g.col_src[e].astype(np.int64),
+                   del_dst=g.col_dst[e].astype(np.int64))
+    new = DeltaGraph.fresh(g).stack(ed).merged()
+    roots = list(range(64))
+    want = {0: {r: reference_sssp(g, r) for r in roots},
+            1: {r: reference_sssp(new, r) for r in roots}}
+    with Session(g, _serve_cfg(window_s=0.005), device="cuda") as s:
+        s.query("sssp", start=0, timeout=120)
+        errors, stop = [], threading.Event()
+
+        def client(t):
+            seen, i = 0, t
+            while not stop.is_set():
+                r = roots[i % len(roots)]
+                v0 = s.version
+                try:
+                    got = s.query("sssp", start=r, timeout=120)["values"]
+                except Exception as exc:
+                    errors.append(repr(exc))
+                    return
+                v1 = s.version
+                match = [v for v in (0, 1)
+                         if np.array_equal(got, want[v][r])]
+                if (not match or (v1 == 0 and 0 not in match)
+                        or (v0 == 1 and 1 not in match)
+                        or max(match) < seen):
+                    errors.append((t, r, v0, v1, match, seen))
+                    return
+                seen = max(seen, min(match))
+                i += 8
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(8)]
+        for t in threads:
+            t.start()
+        summary = s.apply_edits(ed)
+        for r in (5, 6, 7, 8):
+            np.testing.assert_array_equal(
+                s.query("sssp", start=r, timeout=120)["values"], want[1][r])
+        stop.set()
+        for t in threads:
+            t.join(120)
+        assert not errors, errors[:3]
+        assert summary["version"] == 1 and s.version == 1
+        assert s.pool.stats()["recompiles"] == 0
+        s.pool.sentinel.assert_zero_recompiles()
+
+
+def test_profile_capture_while_the_batcher_serves_on_cuda(
+        served_cuda, tmp_path, monkeypatch):
+    """``profile_capture(3)`` on one thread while another's queries run
+    through the batcher: the capture holds device kernels and every
+    answer stays bitwise right."""
+    import threading
+
+    g, s = served_cuda
+    monkeypatch.setenv("LUX_PROF_DIR", str(tmp_path))
+    errors, done = [], threading.Event()
+
+    def client():
+        r = 500
+        while not done.is_set():
+            got = s.query("sssp", start=r, timeout=120)["values"]
+            if not np.array_equal(got, reference_sssp(g, r)):
+                errors.append(r)
+            r += 1
+
+    t = threading.Thread(target=client)
+    t.start()
+    try:
+        rep = s.profile_capture(3)
+    finally:
+        done.set()
+        t.join(120)
+    assert not errors, errors
+    assert rep["schema"] == "profile.v1" and rep["devices"]
+    assert rep["steps"]["captured"] == 3
+    assert s.pool.stats()["recompiles"] == 0

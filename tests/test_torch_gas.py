@@ -702,16 +702,13 @@ def test_registry_matches_lux_tpu():
 
 
 def test_engine_kinds_are_ported_subsequences_of_lux_tpu():
-    ported = {"pull", "tiled", "push", "gas", "gas_multi", "pull_sharded",
-              "push_multi", "push_sharded", "push_multi_sharded",
-              "gas_sharded", "gas_multi_sharded"}
-    assert sorted(tmodels.ENGINE_KINDS) == sorted(jmodels.ENGINE_KINDS)
+    assert tmodels.ENGINE_KINDS == jmodels.ENGINE_KINDS
     for name, kinds in tmodels.ENGINE_KINDS.items():
-        want = tuple(k for k in jmodels.ENGINE_KINDS[name] if k in ported)
-        assert kinds == want, name
         assert tmodels.engine_kinds(name) == kinds
         if "gas_multi" in kinds:
             assert name in tmodels.ROOTED_APPS
+        assert tmodels.frontier_ok(name) == jmodels.frontier_ok(name)
+        assert tmodels.incremental_ok(name) == jmodels.incremental_ok(name)
 
 
 @pytest.mark.parametrize("name", ["LUX_GAS", "LUX_GAS_DENSITY_HI",

@@ -46,7 +46,12 @@ def test_port_files_found():
                  "engine/incremental.py", "engine/telemetry.py",
                  "obs/engobs.py", "obs/flight.py", "obs/iterlog.py",
                  "obs/ledger.py", "obs/prof.py", "obs/report.py",
-                 "obs/slo.py", "tools/prof_summary.py"):
+                 "obs/slo.py", "tools/prof_summary.py",
+                 "analysis/__init__.py", "analysis/sentinel.py",
+                 "serve/__init__.py", "serve/errors.py", "serve/cache.py",
+                 "serve/cost.py", "serve/breaker.py", "serve/batcher.py",
+                 "serve/pool.py", "serve/mesh.py", "serve/session.py",
+                 "serve/http.py"):
         assert f"lux_tpu_torch/{name}" in FILES
 
 
