@@ -10,7 +10,9 @@ PageRank in both tail configurations (lane-select, and the grouped
 merge-network tail of ``LUX_GROUPED_TAIL=1``):
 
 1. environment: the card, and its name and power limit from nvidia-smi;
-2. build: compile the CUDA kernels from ``lux_tpu_torch/csrc``;
+2. build: compile the CUDA kernels from ``lux_tpu_torch/csrc`` and the
+   native host library (``lux_tpu_torch/native/lux_native.cc``, with
+   ``g++``; a failed build fails the run);
 3. graph and plans: generate the graph, plan it, build both executors
    (each strip level becomes a cell stream on the card; the build's
    seconds are logged per level);
@@ -270,7 +272,10 @@ subprocess on the card:
 
 3i. while the graphs and phase 3's plan are at hand, each graph written
     as a ``.lux`` file under ``build/lux_tpu_torch/cli/`` and the plan
-    saved at the tiled CLI's cache key, so the CLI loads it;
+    saved at the tiled CLI's cache key, so the CLI loads it; ``g.lux``
+    read natively and with numpy, and ``g``'s CSR built natively and
+    with numpy, each pair bitwise equal, their seconds logged (the CLIs'
+    reads and every ``Graph.csr()`` go through the native paths);
 4i-6i. tiled PageRank (``-check``), flat and over 4 parts, CF, SSSP (one
     device and 4 parts), CC, BFS and DeltaSSSP (``-check``), and SSSP
     saved after 2 iterations and resumed: each run must say it ran on
@@ -331,8 +336,33 @@ their files:
 6m. an in-process ``Session`` on ``g.lux`` with ``LUX_SERVE_MESH=4``:
     every engine over 4 parts of a ``LocalMesh``, its answers bitwise
     4m's (sharded tiled PageRank within the oracle's tolerance), mesh
-    keys on every pool entry.
+    keys on every pool entry; armed with 3n-4n's store, its BFS engine
+    built under 4n's winner (its exchange mode and thresholds).
 The in-process sessions' launches join the kernels line's counts.
+
+The auto-tuner (``lux_tpu_torch/tune``), group 3n-6n, between 4m and
+5m:
+
+3n. ``tune()`` for BFS, kind ``gas``, with real probes and the tuner's
+    defaults on the weighted twin read back natively from ``gw.lux``:
+    each probe (rung, candidate, score, phase medians, switches, build
+    and run seconds) and the winner logged; candidate 0 the defaults,
+    the winner the last rung's argmin, 0 ``tuneck`` findings; each
+    probe's launches checked against its direction log;
+4n. ``tune()`` for BFS, kind ``gas_sharded``, over 4 parts of a
+    ``LocalMesh`` on ``g``, every probe on one shared layout, with
+    ``LUX_TUNE_MAX_CANDIDATES`` and ``LUX_TUNE_RUNGS`` logged; then
+    ``python -m lux_tpu_torch.tools.luxlint --tune`` over the store: 0
+    findings, rc 0;
+5n. in 5m's session, armed with the store (``LUX_TUNE_DIR``): the BFS
+    engine built under 3n's winner (its thresholds), ``tuned_for`` its
+    id, every other app a counted fallback, BFS from 0 bitwise phase
+    5d's, no build after warmup; the swap evicts the tuned config and
+    version N+1's BFS is a counted fallback;
+6n. the tuned and the default BFS executors of both searches to
+    fixpoint, bitwise phase 5d's and each other, their launches checked
+    against their direction logs, medians of 3 after ``warmup``, beside
+    each search's seconds.
 
 Each phase group's seconds are logged. Any failure exits non-zero.
 Without a card it exits non-zero and prints no result. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -345,6 +375,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -515,6 +546,13 @@ def main(argv=None) -> int:
     _cuda.library()
     log(f"[build] libluxk.so ready in {time.perf_counter() - t:.1f} s "
         f"({_cuda.BUILD_DIR})")
+    from lux_tpu_torch.native import build as native_build
+
+    t = time.perf_counter()
+    native_build.load_library()   # a failed g++ build fails the run
+    log(f"[build] {native_build.library_path().name} (g++, the native "
+        f"reader, converter and CSR build) ready in "
+        f"{time.perf_counter() - t:.1f} s")
     nvcc_log = _cuda.BUILD_DIR / "nvcc.log"
     if nvcc_log.exists():
         for line in nvcc_log.read_text().splitlines():
@@ -573,6 +611,7 @@ def main(argv=None) -> int:
     plan_path = group(cli, _cli_files, cli_dir, {"g": g, "gw": gw}, plan)
     del plan
     torch.cuda.empty_cache()
+    group(cli, _native_io, cli_dir, g)
     totals.update(group("4g probes", _probe_phases, dev, kernels))
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
@@ -647,8 +686,19 @@ def main(argv=None) -> int:
                   gas_ctx)
     group(TELEMETRY_GROUP, _telemetry_cli, cli_dir, device_line, saved)
     torch.cuda.empty_cache()
-    _add(totals, group(SERVE_GROUP, _serve_phases, cli_dir, device_line, g,
-                       push_ctx, gas_ctx, oracle, held, dev, smi))
+    # Group 3m-6m: 3m-4m over HTTP, then 3n-6n's searches and timings,
+    # whose store arms the in-process sessions of 5m (with 5n) and 6m.
+    http = group(SERVE_GROUP, _serve_http, cli_dir, device_line, g,
+                 push_ctx, gas_ctx, oracle, held, dev, smi)
+    tuned = group(TUNE_GROUP, _tune_phases, cli_dir, g, gas_ctx, dev, smi)
+    _add(totals, tuned["launches"])
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    _add(totals, group(SERVE_GROUP, _serve_swap, cli_dir, dev, gas_ctx,
+                       oracle, held, smi, tuned))
+    _add(totals, group(SERVE_GROUP, _serve_mesh, cli_dir, dev, http, oracle,
+                       smi, tuned))
+    os.environ.pop("LUX_TUNE_DIR")
+    del tuned
     peak = max(peak, torch.cuda.max_memory_allocated())
     shutil.rmtree(cli_dir)
     shutil.rmtree(tel_dir)
@@ -4607,6 +4657,44 @@ def _cli_files(work, graphs: dict, plan=None):
     return None
 
 
+def _native_io(work, g) -> None:
+    """Phase 3i, the native host paths (``native/``) the CLIs, the
+    sessions and the push CSRs go through: ``g.lux`` read natively and
+    with numpy, and ``g``'s CSR built natively and with numpy, each pair
+    bitwise equal, their seconds logged."""
+    from lux_tpu_torch.graph.format import read_lux
+    from lux_tpu_torch.native import io as native_io
+
+    path = str(work / "g.lux")
+    t = time.perf_counter()
+    got = native_io.read_lux(path)
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = read_lux(path)
+    numpy_s = time.perf_counter() - t
+    for name in ("row_ptr", "col_src"):
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"native read: {name} differs from numpy's")
+    del got, want
+    t = time.perf_counter()
+    got = g._csr_native()
+    native_csr_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = g._csr_numpy()
+    numpy_csr_s = time.perf_counter() - t
+    if got is None:
+        raise AssertionError("native CSR: the library did not run")
+    for name in ("row_ptr", "col_dst"):
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"native CSR: {name} differs from numpy's")
+    log(f"[cli] native io: g.lux ({os.path.getsize(path)} B) read in "
+        f"{native_s:.2f} s native, {numpy_s:.2f} s numpy; CSR of {g.ne} "
+        f"edges built in {native_csr_s:.2f} s native, {numpy_csr_s:.2f} s "
+        f"numpy; each pair bitwise equal")
+
+
 def _cli_run(work, device_line: str, label: str, app: str, *argv):
     """``python -m lux_tpu_torch.models.<app> <argv> -save`` in a
     subprocess; raises unless it exits 0 and says it ran on the card.
@@ -4782,6 +4870,257 @@ def _cli_phases(work, device_line: str, held: dict, push: dict,
     log(f"[cli] phases 4i-6i took {time.perf_counter() - t_phase:.1f} s")
     return {"tiled pagerank": results["tiled pagerank"][1],
             "bfs": results["bfs"][1]}
+
+
+# -- 3n-6n: the auto-tuner (tune/) on the card --------------------------------
+
+TUNE_GROUP = "3n-6n tuner"
+# 4n's search settings: the tuner's defaults (16 candidates of the 30,
+# seeded, and 2 rungs), logged; lower only if the time limit forces it.
+TUNE_SHARDED_CANDIDATES = 16
+TUNE_SHARDED_RUNGS = 2
+TUNE_REPS = 3            # 6n: median of this many runs after warmup
+
+
+@contextlib.contextmanager
+def _counted_probes(runs: list):
+    """Count each tuner probe's recorded run: every executor the probes
+    build (``analysis/ir.py::build_executor``) has its ``run`` wrapped,
+    the counts set to 0 just before and read just after. A single-device
+    GAS probe's counts are checked against its direction log, as phase
+    5d checks; a sharded probe runs phase-fenced (``LUX_ENGOBS=1``),
+    leaves no log and its counts include ``warmup_phases``, so they are
+    summed only (6n checks the sharded runs against their logs)."""
+    from lux_tpu_torch.analysis import ir
+
+    real = ir.build_executor
+
+    def spy(kind, graph, program, **kw):
+        ex = real(kind, graph, program, **kw)
+        run = ex.run
+
+        def counted(*a, **k):
+            out, counts = _counted_run(lambda: run(*a, **k))
+            if not kind.endswith("sharded"):
+                check_launches(f"tune probe {len(runs)} ({kind})", counts,
+                               _gas_expected(ex.direction_log))
+            runs.append((kind, counts))
+            return out
+
+        ex.run = counted
+        return ex
+
+    ir.build_executor = spy
+    try:
+        yield
+    finally:
+        ir.build_executor = real
+
+
+def _tune_log(label: str, art: dict) -> None:
+    """Each probe of a search (rung, candidate, score, phase medians,
+    switches, downgrades, build and run seconds) and the winner."""
+    for r in art["score_table"]:
+        d = r["detail"]
+        log(f"[tune] {label} rung {r['rung']} candidate "
+            f"{r['candidate_index']} {r['config']}: score "
+            f"{r['score'] * 1e3:.4f} ms/iteration over {r['iters']} "
+            f"iterations (medians: exchange {d['exchange_s_med'] * 1e3:.4f},"
+            f" compute {d['compute_s_med'] * 1e3:.4f}, iteration "
+            f"{d['t_iter_s_med'] * 1e3:.4f} ms; {d['direction_switches']} "
+            f"switches, {d['exchange_downgrades']} downgrades); build "
+            f"{d['build_s']:.2f} s, run {d['run_s']:.2f} s")
+    t = art["tuner"]
+    defaults = [r["score"] for r in art["score_table"]
+                if r["candidate_index"] == 0]
+    log(f"[tune] {label}: {len(art['score_table'])} probes of "
+        f"{t['candidates']} candidates ({t['rungs']} rungs, eta {t['eta']},"
+        f" {t['probe_iters']} iterations at rung 0, seed {t['seed']}) in "
+        f"{t['search_s']:.1f} s; winner candidate {t['winner_index']} "
+        f"{art['config']} at {art['score'] * 1e3:.4f} ms/iteration "
+        f"(the defaults' last {defaults[-1] * 1e3:.4f}); {art['id']}")
+
+
+def _check_artifact(label: str, art: dict, kind: str) -> None:
+    """What holds whatever the timings: candidate 0 is the defaults and
+    was probed first, the winner is the last rung's argmin (score, then
+    index: LUX503) and the artifact checks with 0 findings."""
+    from lux_tpu_torch.analysis import tuneck
+    from lux_tpu_torch.tune import space
+
+    rows = art["score_table"]
+    if (rows[0]["candidate_index"], rows[0]["config"]) != (
+            0, space.default_candidate(kind)):
+        raise AssertionError(f"tune {label}: candidate 0 is {rows[0]}")
+    last = max(r["rung"] for r in rows)
+    best = min((r for r in rows if r["rung"] == last),
+               key=lambda r: (r["score"], r["candidate_index"]))
+    if best["config"] != art["config"] or best["score"] != art["score"]:
+        raise AssertionError(f"tune {label}: winner {art['config']} is not "
+                             f"the last rung's argmin {best['config']}")
+    res = tuneck.verify_artifact(art)
+    if res.findings or res.error:
+        raise AssertionError(f"tune {label}: tuneck {res.findings} "
+                             f"{res.error}")
+
+
+def _tune_bfs(label, make, gas: dict, sharded: bool, dev) -> dict:
+    """6n: one BFS executor from ``make()``: ``warmup``, a run to
+    fixpoint with its launches checked against its direction log and its
+    values, parents and iterations against phase 5d's, then the median
+    of ``TUNE_REPS`` host-clock runs."""
+    ex = make()
+    ex.warmup(start=0)
+    (st, iters), counts = _counted_run(lambda: ex.run(start=0))
+    want = (_gas_sharded_expected(ex) if sharded
+            else _gas_expected(ex.direction_log))
+    check_launches(f"tune {label}", counts, want)
+    vals = ex.gather_values(st) if sharded else ex.values(st)
+    if not np.array_equal(vals, gas["bfs"]["oracle"]) \
+            or iters != gas["bfs"]["iters"]:
+        raise AssertionError(f"tune {label}: differs from phase 5d's BFS")
+    if not np.array_equal(ex.finalize(st)["parent"], gas["bfs"]["parent"]):
+        raise AssertionError(f"tune {label}: parents differ from 5d's")
+    del st
+    secs = sorted(host_seconds(lambda: ex.run(start=0))
+                  for _ in range(TUNE_REPS))
+    return {"ex": ex, "vals": vals, "counts": counts,
+            "ms": secs[TUNE_REPS // 2] * 1e3,
+            "log": [e[:4] for e in ex.direction_log]}
+
+
+def _tune_phases(work, g, gas: dict, dev, smi: str) -> dict:
+    """Group 3n-6n's search and timing. 3n: ``tune()`` for BFS (kind
+    ``gas``) with real probes and the tuner's defaults on the weighted
+    twin read back natively from ``gw.lux`` (the graph 5m's session
+    serves; BFS reads no weights, so its answers are phase 5d's). 4n:
+    ``tune()`` for BFS (kind ``gas_sharded``) over 4 parts of a
+    ``LocalMesh`` on ``g`` (the graph 6m's session serves), every probe
+    on one shared partition; then ``python -m
+    lux_tpu_torch.tools.luxlint --tune`` over the store: 0 findings, rc
+    0. 6n: the tuned and the default BFS executors of both searches to
+    fixpoint, bitwise equal, medians of 3 after ``warmup``. Arms
+    ``LUX_TUNE_DIR`` at the store for the sessions of 5n and 6m; returns
+    their context and the group's launches."""
+    import torch
+
+    from lux_tpu_torch.engine.gas import AdaptiveExecutor
+    from lux_tpu_torch.engine.gas_sharded import ShardedAdaptiveExecutor
+    from lux_tpu_torch.models import BFS
+    from lux_tpu_torch.native import io as native_io
+    from lux_tpu_torch.parallel.mesh import make_mesh
+    from lux_tpu_torch.parallel.shard import ShardedGraph
+    from lux_tpu_torch.tune import tune, tune_cache
+    from lux_tpu_torch.utils import flags
+    from lux_tpu_torch.utils.checkpoint import fingerprint_hex
+
+    store = work / "tune"
+    shutil.rmtree(store, ignore_errors=True)
+    os.environ["LUX_TUNE_DIR"] = str(store)
+    tune_cache().clear()
+    runs = []
+
+    # -- 3n. BFS on one device, the tuner's defaults ---------------------------
+    t = time.perf_counter()
+    gw = native_io.read_lux(str(work / "gw.lux"))
+    fp_w = fingerprint_hex(gw)
+    log(f"[tune] 3n: gw.lux read back (native) and fingerprinted in "
+        f"{time.perf_counter() - t:.1f} s")
+    with _counted_probes(runs):
+        single = tune(gw, BFS(), "gas", program_name="bfs",
+                      graph_fingerprint=fp_w, mesh_shape="1",
+                      init_kw={"start": 0}, build_kw={"device": dev})
+    _tune_log("3n gas", single)
+    _check_artifact("3n gas", single, "gas")
+    tune_cache().put(single)
+
+    # -- 4n. BFS over 4 parts of a LocalMesh -----------------------------------
+    t = time.perf_counter()
+    fp = fingerprint_hex(g)
+    mesh = make_mesh(SHARDED_PARTS, dev)
+    sg = ShardedGraph.build(g, SHARDED_PARTS)
+    sg.exchange_plan()
+    log(f"[tune] 4n: g fingerprinted, its {SHARDED_PARTS}-part layout and "
+        f"compact plan built once for every probe in "
+        f"{time.perf_counter() - t:.1f} s; LUX_TUNE_MAX_CANDIDATES="
+        f"{TUNE_SHARDED_CANDIDATES}, LUX_TUNE_RUNGS={TUNE_SHARDED_RUNGS}")
+    with flags.overrides({"LUX_TUNE_MAX_CANDIDATES": TUNE_SHARDED_CANDIDATES,
+                          "LUX_TUNE_RUNGS": TUNE_SHARDED_RUNGS}), \
+            _counted_probes(runs):
+        sharded = tune(g, BFS(), "gas_sharded", program_name="bfs",
+                       graph_fingerprint=fp, mesh_shape=str(SHARDED_PARTS),
+                       init_kw={"start": 0},
+                       build_kw={"mesh": mesh, "sg": sg})
+    _tune_log("4n gas_sharded", sharded)
+    _check_artifact("4n gas_sharded", sharded, "gas_sharded")
+    tune_cache().put(sharded)
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "lux_tpu_torch.tools.luxlint", "--tune",
+         str(store)], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=120)
+    summary = json.loads(r.stdout.rsplit("LUXLINT ", 1)[1])
+    if r.returncode != 0 or summary["findings"] or summary["files"] != 2:
+        raise AssertionError(f"luxlint --tune: rc {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    log(f"[tune] 4n: python -m lux_tpu_torch.tools.luxlint --tune over the "
+        f"store: rc 0, {summary['files']} artifacts, 0 findings in "
+        f"{time.perf_counter() - t:.1f} s")
+    totals = {}
+    for kind, counts in runs:
+        _add(totals, counts)
+        if kind.endswith("sharded"):
+            totals["gas_push_acc[sharded]"] = totals.get(
+                "gas_push_acc[sharded]", 0) + counts["gas_push_acc"]
+    log(f"[tune] 3n-4n: {len(runs)} probe runs, launches "
+        f"{ {k: v for k, v in totals.items() if v} }; every single-device "
+        "probe's equal to its direction log")
+    for name in GAS_KERNELS:
+        if totals.get(name, 0) <= 0:
+            raise AssertionError(f"tune: {name} never ran in 3n-4n")
+
+    # -- 6n. tuned against default, to fixpoint ---------------------------------
+    for label, art, sharded_run, make in (
+            ("gas", single, False,
+             lambda: AdaptiveExecutor(gw, BFS(), device=dev)),
+            ("gas_sharded", sharded, True,
+             lambda: ShardedAdaptiveExecutor(g, BFS(), mesh=mesh, sg=sg))):
+        with flags.overrides(art["config"]):
+            tuned = _tune_bfs(f"{label} tuned", make, gas, sharded_run, dev)
+        default = _tune_bfs(f"{label} default", make, gas, sharded_run, dev)
+        ex, cfg = tuned["ex"], art["config"]
+        if "LUX_GAS_DENSITY_HI" in cfg and (
+                ex.hi_count != max(1, math.ceil(
+                    float(cfg["LUX_GAS_DENSITY_HI"]) * g.nv))
+                or ex.lo_count != max(0, math.ceil(
+                    float(cfg["LUX_GAS_DENSITY_LO"]) * g.nv))):
+            raise AssertionError(f"tune {label}: thresholds {ex.hi_count}/"
+                                 f"{ex.lo_count} are not {cfg}'s")
+        if "LUX_EXCHANGE" in cfg and ex.exchange_mode != cfg["LUX_EXCHANGE"]:
+            raise AssertionError(f"tune {label}: exchange {ex.exchange_mode},"
+                                 f" tuned {cfg['LUX_EXCHANGE']}")
+        if not np.array_equal(tuned["vals"], default["vals"]):
+            raise AssertionError(f"tune {label}: tuned differs from default")
+        for run in (tuned, default):
+            _add(totals, run["counts"])
+            if sharded_run:
+                totals["gas_push_acc[sharded]"] = totals.get(
+                    "gas_push_acc[sharded]", 0) + run["counts"]["gas_push_acc"]
+        log(f"[time] tune 6n {label}: BFS from 0 to fixpoint, tuned {cfg} "
+            f"{tuned['ms']:.3f} ms against default {default['ms']:.3f} ms "
+            f"(median of {TUNE_REPS} after warmup, host clock; "
+            f"{gas['bfs']['iters']} iterations, values and parents bitwise "
+            f"phase 5d's; ledgers tuned {tuned['log']}, default "
+            f"{default['log']}); the search took "
+            f"{art['tuner']['search_s']:.1f} s ({smi})")
+        del tuned, default, ex
+        torch.cuda.empty_cache()
+    del sg, mesh
+    torch.cuda.empty_cache()
+    log(f"[tune] 3n-6n: launches of the probes and 6n's runs "
+        f"{ {k: v for k, v in totals.items() if v} }")
+    return {"gw": gw, "single": single, "sharded": sharded,
+            "launches": totals}
 
 
 # -- 3m-6m: serving (serve/) on the card --------------------------------------
@@ -5082,31 +5421,43 @@ def _lane_digests(graph, roots, dev) -> dict:
     return out
 
 
-def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str) -> dict:
+def _fallback_counts() -> dict:
+    """app -> this process's ``lux_tune_fallback_total{app}``."""
+    from lux_tpu_torch.obs import metrics
+
+    return {m["labels"]["app"]: m["value"] for m in metrics.snapshot()
+            if m["name"] == "lux_tune_fallback_total"}
+
+
+def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str,
+                tuned: dict) -> dict:
     """Phase 5m: an in-process ``Session`` on the weighted twin read back
-    from ``gw.lux`` (in memory, so PageRank takes the flat K8 path;
-    DeltaSSSP served), held against phases 5c and 5d; then
+    from ``gw.lux`` (phase 3n's read; in memory, so PageRank takes the
+    flat K8 path; DeltaSSSP served), held against phases 5c and 5d; then
     ``apply_edits`` of the 1% batch while ``SERVE_CLIENTS`` threads query
     SSSP over ``SERVE_SWAP_ROOTS`` roots: each answer bitwise version N's
     (a fresh 8-lane executor on N) until the flip and N+1's after it,
     none of N after a thread saw N+1; CC after the swap equal to a
     from-scratch run; no pool build and no compile on the serving path.
-    Returns the session's launches."""
+    With it, phase 5n: ``LUX_TUNE_DIR`` armed at 3n-4n's store, the BFS
+    engine built under 3n's winner (its thresholds), ``tuned_for`` its
+    id, every other app a counted fallback, BFS from 0 bitwise phase
+    5d's; the swap evicts the tuned config and version N+1's BFS is a
+    counted fallback. Returns the session's launches."""
     import threading
 
     import torch
 
-    from lux_tpu_torch.graph import read_lux
     from lux_tpu_torch.ops import _cuda
     from lux_tpu_torch.serve import ServeConfig, Session
     from lux_tpu_torch.serve.http import digest
 
     t = time.perf_counter()
-    gw = read_lux(str(work / "gw.lux"))
+    gw = tuned["gw"]
     edits = _weighted_edit_batch(gw)
     roots = _serve_roots(gw, SERVE_SWAP_ROOTS, SEED + 1)
     want = {0: _lane_digests(gw, roots, dev)}
-    log(f"[serve] 5m: gw.lux read back, the 1% batch ({len(edits.ins_src)}"
+    log(f"[serve] 5m: the 1% batch ({len(edits.ins_src)}"
         f" inserts, {len(edits.del_src)} deletes) and version N's "
         f"{SERVE_SWAP_ROOTS} SSSP answers in {time.perf_counter() - t:.1f} s")
 
@@ -5122,6 +5473,7 @@ def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str) -> dict:
             ln.replace("warmup ", "") for ln in logs.lines
             if ln.startswith("warmup ")))
         misses0 = s.pool.stats()["misses"]
+        _tuned_session(s, tuned["single"], gas, warm_s)
         lat = {}
         t = time.perf_counter()
         pr = s.query("pagerank", ni=ITERS, timeout=SERVE_TIMEOUT_S)
@@ -5185,6 +5537,16 @@ def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str) -> dict:
         st = s.pool.stats()
         if st["recompiles"] != 0:
             raise AssertionError(f"serve: recompiles {st}")
+        falls = _fallback_counts()
+        if (summary["tunes_evicted"] < 1 or s.tuned_for("bfs") is not None
+                or falls.get("bfs") != 1
+                or "bfs" not in s.statusz()["tune"]["fallbacks"]):
+            raise AssertionError(f"tune 5n: after the swap {summary} "
+                                 f"{falls} {s.statusz()['tune']}")
+        log(f"[tune] 5n: the swap evicted {summary['tunes_evicted']} tuned "
+            f"configs; version {summary['version']}'s BFS serves under the "
+            f"defaults, a counted fallback (lux_tune_fallback_total "
+            f"{{app=bfs}} {falls['bfs']})")
         log(f"[serve] 5m: swap v0 -> v{summary['version']}: apply "
             f"{summary['apply_s']:.2f} s, warm {summary['warm_s']:.2f} s, "
             f"refresh {summary['refresh_s']:.2f} s "
@@ -5233,13 +5595,54 @@ def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str) -> dict:
     return counts
 
 
-def _serve_mesh(work, dev, http: dict, oracle, smi: str) -> dict:
+def _tuned_session(s, art: dict, gas: dict, warm_s: float) -> None:
+    """Phase 5n in 5m's session: BFS served under ``art``'s config (its
+    engine's thresholds), every other app a counted fallback, BFS from 0
+    bitwise phase 5d's with its parents, no build for it after warmup."""
+    cfg = art["config"]
+    misses = s.pool.stats()["misses"]
+    if s.tuned_for("bfs") != {"id": art["id"], "score": art["score"]}:
+        raise AssertionError(f"tune 5n: tuned_for {s.tuned_for('bfs')}")
+    ex = s._gas_single("bfs")
+    nv = s.graph.nv
+    hi = max(1, math.ceil(float(cfg["LUX_GAS_DENSITY_HI"]) * nv))
+    lo = max(0, math.ceil(float(cfg["LUX_GAS_DENSITY_LO"]) * nv))
+    if (ex.hi_count, ex.lo_count) != (hi, lo):
+        raise AssertionError(f"tune 5n: engine thresholds {ex.hi_count}/"
+                             f"{ex.lo_count}, the artifact's {hi}/{lo}")
+    tb = s.statusz()["tune"]
+    falls = _fallback_counts()
+    others = set(s.APPS) - {"bfs"}
+    if (not tb["armed"] or tb["artifacts"]["bfs"]["id"] != art["id"]
+            or set(tb["fallbacks"]) != others
+            or falls != dict.fromkeys(others, 1)):
+        raise AssertionError(f"tune 5n: {tb} {falls}")
+    t = time.perf_counter()
+    out = s.query("bfs", start=0, timeout=SERVE_TIMEOUT_S)
+    took = time.perf_counter() - t
+    if not np.array_equal(out["values"], gas["bfs"]["oracle"]) \
+            or not np.array_equal(out["parent"], gas["bfs"]["parent"]):
+        raise AssertionError("tune 5n: tuned BFS differs from phase 5d's")
+    if s.pool.stats()["misses"] != misses:
+        raise AssertionError("tune 5n: a pool build after warmup")
+    log(f"[tune] 5n: the session (warm in {warm_s:.1f} s) serves bfs "
+        f"under {art['id']} {cfg} (engine thresholds {hi}/{lo}); "
+        f"{len(others)} apps counted fallbacks; BFS from 0 in "
+        f"{took * 1e3:.1f} ms, {out['iters']} iterations, depths and parents "
+        f"bitwise phase 5d's (and 6n's default-config run); no build after "
+        f"warmup")
+
+
+def _serve_mesh(work, dev, http: dict, oracle, smi: str,
+                tuned: dict) -> dict:
     """Phase 6m: an in-process ``Session`` on ``g.lux`` with
     ``LUX_SERVE_MESH=4``: every engine sharded over 4 parts of a
     ``LocalMesh`` (PageRank the sharded tiled engine on phase 3's plan),
     each answer bitwise phase 4m's (PageRank within rtol, atol of the f64
     oracle), mesh keys on every pool entry, no build and no compile on
-    the serving path. Returns its launches."""
+    the serving path; with ``LUX_TUNE_DIR`` armed, its BFS engine built
+    under phase 4n's winner (its exchange mode and thresholds). Returns
+    its launches."""
     import torch
 
     from lux_tpu_torch.ops import _cuda
@@ -5261,6 +5664,18 @@ def _serve_mesh(work, dev, http: dict, oracle, smi: str) -> dict:
             raise AssertionError(f"serve mesh: keys {s.pool.keys()}")
         if s.stats()["mesh"]["fallbacks"]:
             raise AssertionError(f"serve mesh: {s.stats()['mesh']}")
+        art, bfs = tuned["sharded"], s._gas_single("bfs")
+        cfg = art["config"]
+        if (s.tuned_for("bfs") or {}).get("id") != art["id"] \
+                or bfs.exchange_mode != cfg["LUX_EXCHANGE"] \
+                or bfs.hi_count != max(1, math.ceil(
+                    float(cfg["LUX_GAS_DENSITY_HI"]) * bfs.graph.nv)):
+            raise AssertionError(f"serve mesh: bfs {bfs.exchange_mode} "
+                                 f"{bfs.hi_count} under {s.tuned_for('bfs')}")
+        log(f"[tune] 6m: the {SERVE_MESH_PARTS}-part session's BFS engine "
+            f"is built under 4n's {art['id']} {cfg} (exchange "
+            f"{bfs.exchange_mode}, hi/lo counts {bfs.hi_count}/"
+            f"{bfs.lo_count})")
         log(f"[serve] 6m: {SERVE_MESH_PARTS}-part session warm in "
             f"{warm_s:.1f} s; " + ", ".join(
                 ln.replace("warmup ", "") for ln in logs.lines
@@ -5312,18 +5727,6 @@ def _serve_mesh(work, dev, http: dict, oracle, smi: str) -> dict:
             raise AssertionError(f"serve mesh: {name} never ran")
     torch.cuda.empty_cache()
     return counts
-
-
-def _serve_phases(work, device_line, g, push, gas, oracle, held, dev,
-                  smi) -> dict:
-    """Group 3m-6m: phases 3m-4m over HTTP, then 5m and 6m in process;
-    returns the launches of the in-process sessions, summed."""
-    http = _serve_http(work, device_line, g, push, gas, oracle, held, dev,
-                       smi)
-    totals = {}
-    _add(totals, _serve_swap(work, dev, gas, oracle, held, smi))
-    _add(totals, _serve_mesh(work, dev, http, oracle, smi))
-    return totals
 
 
 if __name__ == "__main__":

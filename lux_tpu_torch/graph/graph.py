@@ -4,8 +4,8 @@ The reference (Lux) stores graphs in binary CSC: edges sorted by destination
 vertex, with per-vertex *end* offsets (reference: README.md "Graph Format",
 tools/converter.cc:108-124). Like the JAX package, this keeps SoA numpy
 arrays, not the reference's AoS ``NodeStruct``/``EdgeStruct``
-(core/graph.h:26-34); the file is a copy of ``lux_tpu/graph/graph.py``
-without its native CSR builder.
+(core/graph.h:26-34); the file is a copy of ``lux_tpu/graph/graph.py``,
+with the native CSR build of ``lux_tpu_torch/native``.
 
 Conventions:
 - ``row_ptr`` has length ``nv + 1`` with a leading 0 (the reference keeps
@@ -117,14 +117,52 @@ class Graph:
         """Out-edge (push) view: edges grouped by source.
 
         The reference builds this per GPU at init time via a degree
-        histogram + prefix sum + scatter (sssp/sssp_gpu.cu:550-607);
-        here it is a stable argsort by source (the JAX package's numpy
-        path, by :func:`stable_argsort`; its native C++ CSR build is not
-        ported).
+        histogram + prefix sum + scatter (sssp/sssp_gpu.cu:550-607); the
+        native C++ path does the same (lux_native.cc lux_build_csr); the
+        numpy fallback is a stable argsort by source
+        (:func:`stable_argsort`). Both give the same arrays.
         """
         if self._csr is None:
-            self._csr = self._csr_numpy()
+            self._csr = self._csr_native() or self._csr_numpy()
         return self._csr
+
+    def _csr_native(self) -> Optional["Csr"]:
+        import ctypes
+
+        from lux_tpu_torch.native.build import maybe_library
+
+        lib = maybe_library()
+        if lib is None:
+            return None
+        ptr = np.empty(self.nv + 1, dtype=np.int64)
+        dst = np.empty(self.ne, dtype=np.int32)
+        w = None if self.weights is None else np.empty(self.ne, np.int32)
+        col_src = np.ascontiguousarray(self.col_src, dtype=np.int32)
+        # Keep every buffer alive in a local: c_void_p captures only the
+        # raw address, so an inline temporary would be freed pre-call.
+        csc_ptr = np.ascontiguousarray(self.row_ptr, np.int64)
+        weights = (
+            None
+            if self.weights is None
+            else np.ascontiguousarray(self.weights, dtype=np.int32)
+        )
+        rc = lib.lux_build_csr(
+            ctypes.c_uint32(self.nv),
+            ctypes.c_uint64(self.ne),
+            ctypes.c_void_p(col_src.ctypes.data),
+            ctypes.c_void_p(csc_ptr.ctypes.data),
+            ctypes.c_void_p(ptr.ctypes.data),
+            ctypes.c_void_p(dst.ctypes.data),
+            ctypes.c_void_p(weights.ctypes.data) if weights is not None else None,
+            ctypes.c_void_p(w.ctypes.data) if w is not None else None,
+        )
+        if rc != 0:
+            if rc == -6:
+                raise ValueError(
+                    f"col_src contains ids outside [0, {self.nv})"
+                )
+            return None
+        return Csr(row_ptr=ptr, col_dst=dst, weights=w)
 
     def _csr_numpy(self) -> "Csr":
         order = stable_argsort(self.col_src)

@@ -36,8 +36,8 @@ import torch
 from lux_tpu_torch import obs
 from lux_tpu_torch.engine.gas import GasProgram
 from lux_tpu_torch.engine.push import PushState
-from lux_tpu_torch.graph.format import read_lux
 from lux_tpu_torch.graph.graph import Graph
+from lux_tpu_torch.native import io as native_io
 from lux_tpu_torch.obs import prof
 from lux_tpu_torch.ops.segment import to_u32_storage
 from lux_tpu_torch.utils import checkpoint
@@ -140,7 +140,7 @@ def load_graph(path: str, log) -> Tuple[Graph, torch.device]:
     else:
         log.info("torch device: %s", dev)
     with Timer() as t:
-        g = read_lux(path)
+        g = native_io.read_lux(path)
     log.info("loaded %s: nv=%d ne=%d (%.2fs)", path, g.nv, g.ne, t.elapsed)
     return g, dev
 

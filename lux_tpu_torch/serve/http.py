@@ -51,9 +51,10 @@ counted into ``lux_requests_total{code=...}``. Degraded serving (a
 failed N+1 warm; version N still answering) adds ``X-Lux-Degraded``
 with the version that failed; shed responses (429/503/504) carry
 ``Retry-After`` seconds from the error taxonomy (serve/errors.py) or
-the circuit breaker's cooldown remainder (serve/breaker.py). The
-auto-tuner is not ported (ROADMAP A15), so no response carries
-``lux_tpu``'s ``X-Lux-Tuned``.
+the circuit breaker's cooldown remainder (serve/breaker.py). A query
+answered by engines built under a tuned config (serve/session.py,
+``LUX_TUNE_DIR``) carries ``X-Lux-Tuned`` with the ``tuneconf.v1``
+artifact's id.
 
 Every ``POST /query`` runs under a root request span (obs/spans.py):
 the response carries the trace-id in ``X-Lux-Trace``, and the same id
@@ -168,7 +169,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _reply(self, status: int, payload: dict,
                trace_id: str = None, retry_after: float = None,
-               cost: str = None):
+               cost: str = None, tuned: dict = None):
         body = json.dumps(payload).encode()
         # Counted HERE and only here, so every terminal status — success,
         # shed, breaker-open, handler bug — lands in one per-code series
@@ -187,6 +188,11 @@ class _Handler(BaseHTTPRequestHandler):
             # Shed responses (429/503/504) tell clients when to come
             # back instead of letting them hammer a known-bad window.
             self.send_header("Retry-After", f"{max(0.0, retry_after):.3f}")
+        if tuned:
+            # Tune provenance: which tuneconf.v1 artifact the answering
+            # engines were built under (absent on default-config apps),
+            # so a client-side A/B can attribute latency to the tuner.
+            self.send_header("X-Lux-Tuned", tuned["id"])
         if self.session is not None:
             self.send_header("X-Lux-Snapshot", str(self.session.version))
             degraded = self.session.degraded
@@ -275,6 +281,7 @@ class _Handler(BaseHTTPRequestHandler):
                     200, render_result(result, body, self.session.graph.nv),
                     trace_id=tid,
                     cost=qc.header() if qc is not None else None,
+                    tuned=self.session.tuned_for(app),
                 )
             except ServeError as e:
                 self._reply(e.http_status, {

@@ -37,9 +37,17 @@ engine work — the batcher, the hot swap's warm thread, the thread that
 called ``apply_edits`` (incremental refresh), a profile capture's HTTP
 thread, a breaker probe — does so on a CUDA stream of its own
 (``serve/pool.py::engine_stream``) and waits for it before its results
-leave the thread. The auto-tuner is not ported (ROADMAP A15): with
-``LUX_TUNE_DIR`` unset serving is untuned, as ``lux_tpu``'s disarmed
-tuner leaves it; with it set the session refuses to start.
+leave the thread.
+
+Profile-guided tuning (``tune/``): with ``LUX_TUNE_DIR`` set, warmup
+resolves each served app's ``tuneconf.v1`` artifact for the snapshot
+before any engine builds, and every build of that app's engines — in
+whichever thread does it: the warmup, a swap's warm thread, a refresh,
+a breaker rebuild — runs under the artifact's flag overlay, so the
+tuned knobs are captured at build and a query adds no work. An app
+without an artifact is a counted fallback to defaults
+(``lux_tune_fallback_total{app}``); a swap evicts the old fingerprint's
+tuned configs with its engines.
 """
 
 from __future__ import annotations
@@ -69,8 +77,6 @@ from lux_tpu_torch.utils import faults, flags
 from lux_tpu_torch.utils.locks import make_lock
 from lux_tpu_torch.utils.logging import get_logger
 from lux_tpu_torch.utils.platform import resolve_device
-
-TUNER_NOT_PORTED = "the auto-tuner is not ported (ROADMAP A15)"
 
 
 class ServeConfig:
@@ -121,10 +127,6 @@ class Session:
         warm: bool = True,
         device=None,
     ):
-        if flags.get("LUX_TUNE_DIR"):
-            raise RuntimeError(
-                f"LUX_TUNE_DIR is set, but {TUNER_NOT_PORTED}: unset it "
-                "to serve with the default engine configs")
         self.log = get_logger("serve")
         self.config = config or ServeConfig()
         self.device = resolve_device(device)
@@ -140,10 +142,10 @@ class Session:
             self.store = graph
         else:
             if isinstance(graph, str):
-                from lux_tpu_torch.graph.format import read_lux
+                from lux_tpu_torch.native import io as native_io
 
                 self.graph_path = graph
-                graph = read_lux(graph)
+                graph = native_io.read_lux(graph)
             self.store = SnapshotStore(graph,
                                        wal_dir=flags.get("LUX_WAL_DIR"))
         self._serving = self.store.current()
@@ -174,6 +176,12 @@ class Session:
         # inside.
         self._fallback_lock = make_lock("session.mesh_fallback")
         self._mesh_fallbacks: Dict[str, str] = {}
+        # Profile-guided tuning (tune/): (fingerprint, app) ->
+        # tuneconf.v1 artifact resolved at warmup. Entries are immutable
+        # and only ever swapped whole; reads and writes share the leaf
+        # fallback lock.
+        self._tuned: Dict[tuple, dict] = {}
+        self._tune_fallbacks: Dict[str, str] = {}
         self.slo = slo.SloWindows()
         self.costs = CostAccounts()
         self._served_keys = set()   # batcher-thread only
@@ -216,12 +224,20 @@ class Session:
         # Sharded keys also carry the exchange mode captured at build
         # (LUX_EXCHANGE): a full-exchange engine warmed before a flag
         # flip must not answer for compact — the pool warms a fresh
-        # entry instead.
+        # entry instead. When the app serves under a tuned config, the
+        # artifact's exchange mode wins over the ambient flag: warmup
+        # builds inside the tuned overlay and query threads run outside
+        # it, so only the artifact keeps the two key computations
+        # identical (a mismatch would miss the pool and rebuild per
+        # query).
         key = (kind, snap.fingerprint) + tuple(extra)
         if self.sharded:
             from lux_tpu_torch.parallel.shard import exchange_mode
 
-            key = key + (exchange_mode(),)
+            art = self._tuned_art(extra[0] if extra else None, snap)
+            mode = (art or {}).get("config", {}).get("LUX_EXCHANGE") \
+                or exchange_mode()
+            key = key + (mode,)
         return key + (self.meshspec.shape,)
 
     @property
@@ -255,7 +271,7 @@ class Session:
             def build():
                 return PushExecutor(snap.graph, SSSP(), device=self.device)
         return self.pool.get(self._engine_key("push", snap, ("sssp", 1)),
-                             build)
+                             self._tuned_build("sssp", snap, build))
 
     def _sssp_multi(self, snap: Optional[Snapshot] = None):
         from lux_tpu_torch.models.sssp import SSSP
@@ -276,7 +292,8 @@ class Session:
                 return MultiSourcePushExecutor(snap.graph, SSSP(), k=k,
                                                device=self.device)
         return self.pool.get(
-            self._engine_key("push_multi", snap, ("sssp", k)), build)
+            self._engine_key("push_multi", snap, ("sssp", k)),
+            self._tuned_build("sssp", snap, build))
 
     def _components_engine(self, snap: Optional[Snapshot] = None):
         from lux_tpu_torch.models.components import ConnectedComponents
@@ -295,7 +312,8 @@ class Session:
                 return PushExecutor(snap.graph, ConnectedComponents(),
                                     device=self.device)
         return self.pool.get(
-            self._engine_key("push", snap, ("components", 1)), build)
+            self._engine_key("push", snap, ("components", 1)),
+            self._tuned_build("components", snap, build))
 
     def _pagerank_engine(self, snap: Optional[Snapshot] = None):
         from lux_tpu_torch.models.cli import make_executor
@@ -333,7 +351,8 @@ class Session:
                                  self.log)
 
         return self.pool.get(
-            self._engine_key("pull", snap, ("pagerank",)), build)
+            self._engine_key("pull", snap, ("pagerank",)),
+            self._tuned_build("pagerank", snap, build))
 
     # -- GAS apps (direction-optimizing adaptive executor) ----------------
 
@@ -413,7 +432,7 @@ class Session:
                                     device=self.device)
 
         if not self.sharded:
-            return self.pool.get(key, flat)
+            return self.pool.get(key, self._tuned_build(app, snap, flat))
         from lux_tpu_torch.engine.gas_sharded import ShardedAdaptiveExecutor
 
         def build():
@@ -428,7 +447,7 @@ class Session:
                 self._note_mesh_fallback(app, repr(e))
                 return flat()
 
-        return self.pool.get(key, build)
+        return self.pool.get(key, self._tuned_build(app, snap, build))
 
     def _gas_multi(self, app: str, snap: Optional[Snapshot] = None):
         from lux_tpu_torch.engine.gas import MultiSourceGasExecutor
@@ -443,7 +462,7 @@ class Session:
                                           device=self.device)
 
         if not self.sharded:
-            return self.pool.get(key, flat)
+            return self.pool.get(key, self._tuned_build(app, snap, flat))
         from lux_tpu_torch.engine.gas_sharded import (
             ShardedMultiSourceGasExecutor)
 
@@ -456,14 +475,128 @@ class Session:
                 self._note_mesh_fallback(app + "_multi", repr(e))
                 return flat()
 
-        return self.pool.get(key, build)
+        return self.pool.get(key, self._tuned_build(app, snap, build))
 
-    # -- the tuner, capabilities and memory views --------------------------
+    # -- profile-guided tuning (tune/) -------------------------------------
+
+    def _tune_engine_kind(self, app: str) -> str:
+        """The engine kind a tune artifact for ``app`` is keyed under:
+        the app's primary serving executor. Layout choice is part of
+        the key on purpose — each layout tunes separately."""
+        if app == "pagerank":
+            base = "pull"
+        elif app in ("sssp", "components"):
+            base = "push"
+        else:
+            base = "gas"
+        return base + ("_sharded" if self.sharded else "")
+
+    def _tuned_art(self, app, snap: Snapshot) -> Optional[dict]:
+        with self._fallback_lock:
+            return self._tuned.get((snap.fingerprint, app))
+
+    def _tuned_overlay(self, app: str, snap: Snapshot):
+        """Scoped flag overlay applying ``app``'s tuned config so an
+        engine *build* captures the tuned knobs (every tuner-managed
+        flag is capture-at-build — the tuned path adds no per-query
+        work); a no-op when the app serves under defaults."""
+        art = self._tuned_art(app, snap)
+        if art is None:
+            return contextlib.nullcontext()
+        return flags.overrides(art["config"])
+
+    def _tuned_build(self, app: str, snap: Snapshot, build):
+        """Wrap an engine builder so every pool miss — warmup, a swap's
+        warm thread, a refresh, a breaker rebuild, the first use of a
+        sibling key — constructs under ``app``'s tuned overlay, entered
+        in the thread that builds (the overlay is context-local and
+        does not follow a build into another thread)."""
+        def wrapped():
+            with self._tuned_overlay(app, snap):
+                return build()
+        return wrapped
+
+    def _load_tuned(self, snap: Snapshot) -> dict:
+        """Resolve each served app's ``tuneconf.v1`` artifact for
+        ``snap`` from the TuneCache before its engines build. A miss is
+        a counted fallback to defaults (``lux_tune_fallback_total``,
+        the /statusz tune block) — never silent; an unarmed tuner
+        (LUX_TUNE_DIR unset) shows as ``armed: false`` there instead.
+        An artifact that exists but does not load raises: a corrupt
+        artifact must never silently become a fallback."""
+        from lux_tpu_torch.obs import report
+        from lux_tpu_torch.tune import key_string, make_key, tune_cache
+
+        tc = tune_cache()
+        found: Dict[str, str] = {}
+        if not tc.enabled():
+            return found
+        device_kind = report.device_profile()["device_kind"]
+        for app in self.APPS:
+            key = make_key(snap.fingerprint, app,
+                           self._tune_engine_kind(app),
+                           self._mesh_label(), device_kind)
+            art = tc.get(key)
+            if art is None:
+                metrics.counter(
+                    "lux_tune_fallback_total", {"app": app}).inc()
+                with self._fallback_lock:
+                    self._tune_fallbacks[app] = (
+                        f"no tuneconf.v1 for {snap.fingerprint[:12]}; "
+                        "serving defaults")
+                self.log.info(
+                    "tune fallback: %s v%d serves under default config "
+                    "(no artifact for key %r)", app, snap.version,
+                    key_string(key))
+                continue
+            with self._fallback_lock:
+                self._tuned[(snap.fingerprint, app)] = art
+                self._tune_fallbacks.pop(app, None)
+            found[app] = art["id"]
+            self.log.info(
+                "tuned config %s for %s v%d: %s (score %.3gs/iter, %d "
+                "probes)", art["id"], app, snap.version, art["config"],
+                art["score"], len(art.get("score_table") or ()))
+        return found
+
+    def tuned_for(self, app: str) -> Optional[dict]:
+        """Tune provenance for ``app`` on the serving snapshot
+        (``{id, score}`` or None) — the HTTP layer stamps the
+        ``X-Lux-Tuned`` response header from it."""
+        art = self._tuned_art(str(app), self._serving)
+        if art is None:
+            return None
+        return {"id": art["id"], "score": art["score"]}
 
     def _tune_block(self) -> dict:
-        """The /statusz ``tune`` view: ``lux_tpu``'s disarmed tuner's."""
-        return {"armed": False, "artifacts": {}, "fallbacks": {},
-                "cache": None, "status": TUNER_NOT_PORTED}
+        """The /statusz ``tune`` view: per-app artifact provenance
+        (id, score, config, probe count, age), counted fallbacks, cache
+        health."""
+        from lux_tpu_torch.tune import tune_cache
+
+        snap = self._serving
+        # Artifact created_at is unix wall time (tune/artifact.py), so
+        # the age math needs the wall clock, not the span epoch.
+        now = time.time()
+        with self._fallback_lock:
+            arts = {app: a for (fp, app), a in self._tuned.items()
+                    if fp == snap.fingerprint}
+            fallbacks = dict(self._tune_fallbacks)
+        return {
+            "armed": tune_cache().enabled(),
+            "artifacts": {
+                app: {"id": a["id"], "score": a["score"],
+                      "config": a["config"],
+                      "probes": len(a.get("score_table") or ()),
+                      "age_s": round(now - float(a.get("created_at",
+                                                       now)), 1)}
+                for app, a in sorted(arts.items())
+            },
+            "fallbacks": fallbacks,
+            "cache": tune_cache().stats(),
+        }
+
+    # -- capabilities and memory views -------------------------------------
 
     def _programs_block(self) -> dict:
         """The /statusz ``programs`` view: where routing's capability
@@ -516,6 +649,11 @@ class Session:
         stays flat across the query phase."""
         snap = snap or self._serving
         t_warm0 = spans.clock()
+        # Resolve tuned configs BEFORE any engine builds: each app's
+        # engines construct inside its tuned overlay, so the tuner's
+        # knobs (all capture-at-build) are baked into the warm engines
+        # and the query path builds nothing new.
+        tuned = self._load_tuned(snap)
         from lux_tpu_torch.models import capability_report
         caps = capability_report()
         if caps.get("error"):
@@ -556,7 +694,7 @@ class Session:
              "pool": self.pool.stats()},
             graph_fingerprint=snap.fingerprint, program="serve",
             engine_kind="warmup", mesh_shape=self._mesh_label(),
-            tuned={},
+            tuned=tuned,
         )
 
     def _mesh_label(self) -> str:
@@ -1316,8 +1454,19 @@ class Session:
             # engines — a sharded swap atomically replaces the whole
             # mesh of engines plus the host-side plan they shared.
             plans = plan_cache().evict_fingerprint(old_fp)
+            # Tuned configs are fingerprint-keyed like shard plans:
+            # version N's artifacts must not influence N+1's engine keys
+            # or overlays (the disk artifacts stay — they are evidence).
+            from lux_tpu_torch.tune import tune_cache
+
+            tunes = tune_cache().evict_fingerprint(old_fp)
+            with self._fallback_lock:
+                stale_tunes = [k for k in self._tuned if k[0] == old_fp]
+                for k in stale_tunes:
+                    del self._tuned[k]
             return {"evicted": evicted, "retired": retired,
-                    "plans_evicted": plans, "tunes_evicted": 0}
+                    "plans_evicted": plans,
+                    "tunes_evicted": tunes + len(stale_tunes)}
 
         while True:
             try:

@@ -7,8 +7,9 @@ Same interface as the reference tool (tools/converter.cc:16-70):
         -input edges.txt -output g.lux [-weighted]
 
 ``-weighted`` reads 3-column (src dst weight) inputs. The conversion is
-numpy (:func:`lux_tpu_torch.graph.format.convert_edge_list`); the output
-is byte-identical to the JAX package's converter.
+the native C++ one (:func:`lux_tpu_torch.native.io.convert_edge_list`),
+with numpy's as the fallback; either output is byte-identical to the JAX
+package's converter.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import argparse
 import sys
 import time
 
-from lux_tpu_torch.graph.format import convert_edge_list
+from lux_tpu_torch.native.io import convert_edge_list
 
 
 def main(argv=None):

@@ -392,12 +392,46 @@ define("LUX_SHARD_PLAN_CACHE", 8,
        "cache keeps; hot-swaps evict the outgoing fingerprint's plans "
        "regardless", kind="int")
 
-# Profile-guided auto-tuner: not ported (ROADMAP A15)
+# Profile-guided auto-tuner (lux_tpu_torch/tune/)
 define("LUX_TUNE_DIR", None,
-       "lux_tpu's auto-tuner cache directory. The tuner is not ported "
-       "(ROADMAP A15): unset, serving runs untuned as lux_tpu's disarmed "
-       "tuner does; set, serve.Session refuses to start", kind="path")
+       "arm the auto-tuner cache (lux_tpu_torch/tune/): tuneconf.v1 "
+       "artifacts are persisted under this directory and serving warmup "
+       "consults them; unset = tuner disarmed, every lookup is a counted "
+       "fallback to defaults", kind="path")
+define("LUX_TUNE_PROBE_ITERS", 6,
+       "fixed iteration count of a rung-0 tuner probe; later "
+       "successive-halving rungs double it", kind="int")
+define("LUX_TUNE_RUNGS", 2,
+       "successive-halving rung count for the tuner search (1 = a single "
+       "flat sweep, no halving)", kind="int")
+define("LUX_TUNE_ETA", 2,
+       "successive-halving keep fraction: the top ceil(n/eta) candidates "
+       "by score survive each rung", kind="int")
+define("LUX_TUNE_SEED", 0,
+       "seed for the tuner's candidate subsample + deterministic "
+       "tie-breaks (same seed + graph -> identical winner and score "
+       "table)", kind="int")
+define("LUX_TUNE_MAX_CANDIDATES", 16,
+       "cap on rung-0 candidates; larger declared knob spaces are "
+       "seeded-subsampled down to this before probing", kind="int")
+define("LUX_TUNE_MAX_AGE_S", 604800.0,
+       "luxlint --tune staleness bound: a tuneconf.v1 artifact older "
+       "than this many seconds is flagged LUX504 (0 disables the bound)",
+       kind="float")
+define("LUX_TUNE_PENALTY", 0.05,
+       "tuner score penalty weight per direction switch / exchange "
+       "downgrade, as a fraction of phase time per event per iteration "
+       "(instability is a cost even when the phase medians look good)",
+       kind="float")
+define("LUX_TUNE_CACHE", 8,
+       "max tuneconf.v1 entries the in-memory TuneCache keeps "
+       "(LRU; hot-swaps evict the outgoing fingerprint's entries "
+       "regardless, like LUX_SHARD_PLAN_CACHE)", kind="int")
 
+# Native host library (native/build.py)
+define("LUX_NATIVE_CACHE", None,
+       "native-library build directory (default build/lux_tpu_torch/ at "
+       "the root of the checkout)", kind="path")
 
 if __name__ == "__main__":
     print(table())

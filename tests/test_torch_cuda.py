@@ -1891,3 +1891,88 @@ def test_profile_capture_while_the_batcher_serves_on_cuda(
     assert rep["schema"] == "profile.v1" and rep["devices"]
     assert rep["steps"]["captured"] == 3
     assert s.pool.stats()["recompiles"] == 0
+
+
+# -- the auto-tuner (tune/) on the card ---------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["gas", "gas_sharded"])
+def test_tune_real_probes_on_cuda(dev, kind):
+    """tune() with real probes on the card: candidate 0 is the defaults,
+    the winner the last rung's argmin, 0 tuneck findings, the key names
+    the card; the winner's executor answers bitwise the default's. Which
+    candidate wins is not asserted (scores are timings)."""
+    from lux_tpu_torch.analysis import tuneck
+    from lux_tpu_torch.engine.gas_sharded import ShardedAdaptiveExecutor
+    from lux_tpu_torch.tune import space, tune
+    from lux_tpu_torch.utils import flags
+
+    g = generate.rmat(10, 16, seed=42)
+    build_kw = ({"num_parts": 4, "device": dev} if kind == "gas_sharded"
+                else {"device": dev})
+    art = tune(g, BFS(), kind, program_name="bfs", graph_fingerprint="ab" * 20,
+               mesh_shape="4" if kind == "gas_sharded" else "1",
+               init_kw={"start": 0}, build_kw=build_kw)
+    assert art["key"]["device_kind"] == torch.cuda.get_device_name()
+    rows = art["score_table"]
+    assert rows[0]["config"] == space.default_candidate(kind)
+    last = max(r["rung"] for r in rows)
+    best = min((r for r in rows if r["rung"] == last),
+               key=lambda r: (r["score"], r["candidate_index"]))
+    assert best["config"] == art["config"]
+    assert tuneck.verify_artifact(art).findings == []
+    make = ((lambda: ShardedAdaptiveExecutor(g, BFS(), **build_kw))
+            if kind == "gas_sharded"
+            else (lambda: gas.AdaptiveExecutor(g, BFS(), device=dev)))
+    with flags.overrides(art["config"]):
+        tuned = make()
+    default = make()
+    if "LUX_EXCHANGE" in art["config"]:
+        assert tuned.exchange_mode == art["config"]["LUX_EXCHANGE"]
+    outs = []
+    for ex in (tuned, default):
+        st, it = ex.run(start=0)
+        outs.append((ex.gather_values(st) if kind == "gas_sharded"
+                     else ex.values(st), it))
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    np.testing.assert_array_equal(outs[0][0], reference_bfs(g, 0)[0])
+    assert outs[0][1] == outs[1][1]
+
+
+def test_tuned_session_on_cuda(dev, tmp_path, monkeypatch):
+    """A session on the card armed with a store: BFS built under the
+    artifact's thresholds, bitwise the default config's answers, the
+    other apps counted fallbacks, no build after warmup."""
+    import math
+
+    from lux_tpu_torch.obs import report
+    from lux_tpu_torch.serve import Session
+    from lux_tpu_torch.tune import tune, tune_cache
+    from lux_tpu_torch.utils.checkpoint import fingerprint_hex
+
+    g = generate.rmat(10, 16, seed=42)
+    art = tune(g, BFS(), "gas", program_name="bfs",
+               graph_fingerprint=fingerprint_hex(g), mesh_shape="1",
+               device_kind=report.device_profile()["device_kind"],
+               measure=lambda c, i, r: 2.0 - float(c["LUX_GAS_DENSITY_HI"])
+               - float(c["LUX_GAS_DENSITY_LO"]))
+    monkeypatch.setenv("LUX_TUNE_DIR", str(tmp_path))
+    tune_cache().clear()
+    tune_cache().put(art)
+    try:
+        with Session(g, _serve_cfg(), device="cuda") as s:
+            assert s.tuned_for("bfs")["id"] == art["id"]
+            ex = s._gas_single("bfs")
+            assert ex.hi_count == math.ceil(0.9 * g.nv)
+            misses = s.pool.stats()["misses"]
+            got = [s.query("bfs", start=r, timeout=120) for r in SERVE_ROOTS]
+            assert s.pool.stats()["misses"] == misses
+            assert set(s.statusz()["tune"]["fallbacks"]) \
+                == set(s.APPS) - {"bfs"}
+    finally:
+        tune_cache().clear()
+    default = gas.AdaptiveExecutor(g, BFS(), device=dev)
+    for r, out in zip(SERVE_ROOTS, got):
+        st, it = default.run(start=r)
+        np.testing.assert_array_equal(out["values"], default.values(st))
+        assert out["iters"] == int(it)

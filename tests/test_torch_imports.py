@@ -51,7 +51,11 @@ def test_port_files_found():
                  "serve/__init__.py", "serve/errors.py", "serve/cache.py",
                  "serve/cost.py", "serve/breaker.py", "serve/batcher.py",
                  "serve/pool.py", "serve/mesh.py", "serve/session.py",
-                 "serve/http.py"):
+                 "serve/http.py", "analysis/core.py",
+                 "analysis/tuneck.py", "analysis/ir.py", "tune/space.py",
+                 "tune/probe.py", "tune/search.py", "tune/artifact.py",
+                 "tune/cache.py", "tools/luxlint.py", "native/build.py",
+                 "native/io.py"):
         assert f"lux_tpu_torch/{name}" in FILES
 
 

@@ -246,14 +246,14 @@ def test_flag_table_has_the_obs_flags():
         assert tflags.default(name) == jflags.default(name), name
     assert set(tflags.names()) <= set(jflags.names())
     # Of the tuner, bench, serving and lint-tier families the port
-    # declares the serving knobs and the tuner's directory only (the
-    # serve pool reads the audit and admission flags to report them as
-    # not ported; a set LUX_TUNE_DIR makes a Session refuse to start).
+    # declares the tuner's flags (tune/) and the serving knobs (the serve
+    # pool reads the audit and admission flags to report them as not
+    # ported).
     assert {n for n in tflags.names()
             if n.startswith(("LUX_TUNE", "LUX_BENCH", "LUX_SERVE",
                              "LUX_MEM", "LUX_GASCK", "LUX_IR"))} == {
-        "LUX_TUNE_DIR", "LUX_SERVE_MESH", "LUX_MEM_POOL_ADMIT",
-        "LUX_IR_POOL_AUDIT"}
+        n for n in jflags.names() if n.startswith("LUX_TUNE")} | {
+        "LUX_SERVE_MESH", "LUX_MEM_POOL_ADMIT", "LUX_IR_POOL_AUDIT"}
     table = tflags.table()
     assert table.splitlines()[0].split()[:3] == ["flag", "kind", "default"]
     assert len(table.splitlines()) == len(tflags.names()) + 1

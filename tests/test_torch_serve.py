@@ -466,7 +466,8 @@ def test_stats_and_statusz_say_what_is_not_ported(pair):
     assert mem["budget_bytes"] is None and mem["admission"]
     assert mem["reason"].startswith(NOT_PORTED)
     assert mem["device_peak_bytes"] is None
-    assert sz["tune"]["armed"] is False and "A15" in sz["tune"]["status"]
+    assert sz["tune"]["armed"] is False and sz["tune"]["artifacts"] == {}
+    assert sz["tune"]["cache"]["armed"] is False
     json.dumps(sz)   # the /statusz payload must serialise
 
 
@@ -474,10 +475,29 @@ def test_stats_and_statusz_say_what_is_not_ported(pair):
 
 
 def test_session_refuses_the_unported_tuner(monkeypatch, tmp_path):
+    """The tuner is ported: an armed LUX_TUNE_DIR serves (every app a
+    counted fallback on an empty store), and what the session refuses is
+    a tuneconf.v1 that exists for its key but does not load."""
+    from lux_tpu_torch.obs import report
+    from lux_tpu_torch.tune import artifact, tune_cache
+    from lux_tpu_torch.utils.checkpoint import fingerprint_hex
+
     monkeypatch.setenv("LUX_TUNE_DIR", str(tmp_path))
+    tune_cache().clear()
+    metrics.reset()
     g = generate.gnp(50, 200, seed=1)
-    with pytest.raises(RuntimeError, match="A15"):
+    with Session(g, _cfg(), device="cpu") as s:
+        tb = s.statusz()["tune"]
+        assert tb["armed"] and tb["artifacts"] == {}
+        assert set(tb["fallbacks"]) == set(s.APPS)
+    key = artifact.make_key(fingerprint_hex(g), "bfs", "gas", "1",
+                            report.device_profile()["device_kind"])
+    with open(artifact.artifact_path(str(tmp_path), key), "w") as f:
+        f.write('{"schema": "tuneconf.v0"}')
+    tune_cache().clear()
+    with pytest.raises(ValueError, match="schema"):
         Session(g, device="cpu")
+    tune_cache().clear()
 
 
 def test_session_needs_a_card_or_the_cpu_asked_for(monkeypatch):
