@@ -13,6 +13,15 @@ merge-network tail of ``LUX_GROUPED_TAIL=1``):
 2. build: compile the CUDA kernels from ``lux_tpu_torch/csrc`` and the
    native host library (``lux_tpu_torch/native/lux_native.cc``, with
    ``g++``; a failed build fails the run);
+2p. the program-contract tier (``analysis/gasck.py``) with the program
+   hooks on the card: ``python -m lux_tpu_torch.tools.luxlint --programs
+   --gascap-out`` (rc 0, 0 findings over the 8 registry programs, the
+   artifact's id the committed ``lux_tpu_torch/analysis/gascap.json``'s),
+   each fixture of ``tests/torch_gas_fixtures/`` firing exactly its
+   rule, and the incremental gate admitting an SSSP that does not
+   declare ``incremental_ok`` and refusing ``DriftingMin`` and
+   ``Claimant`` (LUX604, gather not inflationary), with the tier's
+   seconds (the CLI runs beside the graph's generation of phase 3);
 3. graph and plans: generate the graph, plan it, build both executors
    (each strip level becomes a cell stream on the card; the build's
    seconds are logged per level);
@@ -53,13 +62,15 @@ of a ``LocalMesh`` on the card, in the full and compact exchange modes:
     phases' peak device memory.
 
 Then the gather probes P2-P7 (``lux_tpu_torch.probes``), phase 4g too:
-each probe's entry point as a user runs it, with its launches counted,
-then ``block_take`` in its four forms, ``merge4`` and P7's K3 launch
-bitwise against their plain versions at the probes' full shapes, each
-with its time, the plain version's, one ``torch.gather`` call's where
-one computes the same function, and its bytes bound; ``merge4`` also
-twice bitwise, by medians of 100 calls beside ``torch.gather``'s, and
-beside its time before its redesign and its bytes floors (distinct
+each probe's entry point as a user runs it, with its launches counted
+(P2's axis-0 lines of 512 rows and more through the strip kernel), then
+``block_take`` in its four forms (P3-P5), each of P2's axis-0 lines,
+``merge4`` and P7's K3 launch bitwise against their plain versions at
+the probes' full shapes, each with its time (P3-P5 and P2's largest
+line beside PR 15's), the plain version's, one ``torch.gather`` call's
+where one computes the same function, and its bytes bound; ``merge4``
+also twice bitwise, by medians of 100 calls beside ``torch.gather``'s,
+and beside its time before its redesign and its bytes floors (distinct
 elements, touched 32-byte sectors, all candidates streamed).
 
 Then the push engine (``PushExecutor``): SSSP from vertex 0 on the same
@@ -260,7 +271,9 @@ symmetrised on the closure):
     ``run(20)`` on the old graph, its warm vector bitwise the old true
     ranks over the new out-degrees and its true ranks within rtol=1e-3,
     atol=1e-3/nv of a from-scratch ``run(20)``; launch counts checked
-    against each run's branch log or iterations;
+    against each run's branch log or iterations; the three
+    ``IncrementalExecutor`` builds go through the LUX604 proof gate,
+    which proves SSSP and CC once each;
 6j. the seconds of each host step (edits, WAL append with fsync, merge,
     ``removed_edges``, recover, CSR, invalidation, state upload), the
     ``info`` dicts, the iterations, and the ms of the warm and the
@@ -325,14 +338,17 @@ their files:
     propagation and k-core bitwise against in-process runs (BFS and
     label propagation phase 5d's, with their iterations); ``/metrics``
     with zero serve-phase compiles, ``/stats`` with no build after
-    warmup, ``/statusz`` (latency windows, audits, peak memory);
+    warmup, ``/statusz`` (latency windows, audits, peak memory): the
+    pool's gasck audit ran on every build with 0 findings, and
+    ``programs.source`` is ``artifact``;
 5m. an in-process ``Session`` on the weighted twin read back from
     ``gw.lux`` (flat PageRank, K8, against the oracle; DeltaSSSP bitwise
     phase 5d's), then ``apply_edits`` of the 1% batch while 8 client
     threads query SSSP: every answer bitwise its version's (N until the
     flip, N+1 after, by fresh 8-lane executors on each graph); the
     swap's apply, warm, refresh and flip seconds; no build and no
-    compile on the serving path;
+    compile on the serving path; the gasck audit on every build, 0
+    findings, ``programs.source`` ``artifact``;
 6m. an in-process ``Session`` on ``g.lux`` with ``LUX_SERVE_MESH=4``:
     every engine over 4 parts of a ``LocalMesh``, its answers bitwise
     4m's (sharded tiled PageRank within the oracle's tolerance), mesh
@@ -560,10 +576,18 @@ def main(argv=None) -> int:
                 log(f"[build] {line.strip()}")
 
     # -- 3. graph and plans -------------------------------------------------
-    # The weighted R-MAT draws its weights from a generator of their own,
-    # so dropping them leaves exactly the unweighted graph.
+    # Group 2p's CLI runs beside the generation. The weighted R-MAT draws
+    # its weights from a generator of their own, so dropping them leaves
+    # exactly the unweighted graph.
+    prog_dir = _cuda.BUILD_DIR / "programs"
+    lint = _programs_cli(prog_dir)
     t = time.perf_counter()
-    gw = generate.rmat(args.scale, 16, seed=SEED, weighted=True)
+    try:
+        gw = generate.rmat(args.scale, 16, seed=SEED, weighted=True)
+    except BaseException:
+        lint.kill()
+        lint.wait()
+        raise
     g = Graph(nv=gw.nv, ne=gw.ne, row_ptr=gw.row_ptr, col_src=gw.col_src)
     t_gen = time.perf_counter() - t
     log(f"[graph] rmat({args.scale}, 16, seed={SEED}, weighted=True): "
@@ -580,6 +604,8 @@ def main(argv=None) -> int:
         log(f"[time] phase group {name} took {took:.1f} s")
         return out
 
+    group(PROGRAMS_GROUP, _program_phases, prog_dir, lint, dev)
+    shutil.rmtree(prog_dir, ignore_errors=True)
     # The CLI group (3i-6i) writes its files while the graphs and phase 3's
     # plan are at hand, and holds each CLI run against the in-process run
     # of its path, which the phase groups leave in ``held``.
@@ -3261,14 +3287,21 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels, held) -> dict:
 
 
 # Launches of each probe kernel when the three probes run: one warm-up
-# and 10 timed calls per probe line (P2: 3 lane and 4 row lines; P3, P4,
-# P5, its int8 form and P6 one line each), and P7's tiny case plus three
-# lines of 11.
+# and 10 timed calls per probe line (P2: 3 lane and 4 row lines, the rows
+# of 512 and more through the strip kernel; P3, P4, P5, its int8 form and
+# P6 one line each), and P7's tiny case plus three lines of 11.
 PROBE_LAUNCHES = {
     "block_take[axis=1 int32]": 4 * 11, "block_take[axis=1 int8]": 11,
-    "block_take[axis=0 int32]": 5 * 11, "block_take[axis=0 int8]": 11,
+    "block_take[axis=0 int32]": 2 * 11, "block_take[axis=0 int8]": 11,
+    "block_take_strip[axis=0 int32]": 3 * 11,
     "merge4": 11, "level_apply": 1 + 3 * 11,
 }
+# PR 15's times of the block_take lines (PERF.md), NVIDIA H100 80GB HBM3 at
+# 700 W: P2's largest line on the row kernel, and P3, P4, P5 and P5's
+# int8 form, which keep it.
+P2_WAS_MS = 0.304
+TAKE_WAS_MS = {"axis=1 int32": 0.136, "axis=1 int8": 0.108,
+               "axis=0 int32": 0.139, "axis=0 int8": 0.112}
 
 
 def _probe_phases(dev, kernels) -> dict:
@@ -3335,31 +3368,51 @@ def _probe_phases(dev, kernels) -> dict:
             reads = needed(shape, iv, 1)
         nbytes = 4 * reads + idx.numel() * idx.element_size() + 4 * x.numel()
         log(f"[probe] block_take[{label}] at ({rows}, 128), blocks of "
-            f"{block} rows: bitwise; {reads} distinct elements of x read")
+            f"{block} rows: bitwise; {reads} distinct elements of x read; "
+            f"{ms:.4f} ms (PR 15: {TAKE_WAS_MS[label]:.3f})")
         record(kernels, f"block_take[{label}]",
                "lux_tpu_torch/csrc/probe_gather.cu", replaces, 0.0, ms,
                plain, nbytes, 0, lib)
         del idx, idx64, got
     del x
 
-    # P2's largest line, (8192, 128) blocks x 32 along axis 0, drawn as
-    # the probe draws it.
-    S, reps2 = 8192, 32
-    prng = np.random.default_rng(0)
-    x = put(prng.standard_normal((reps2 * S, 128), dtype=np.float32))
-    idx = put(prng.integers(0, S, (reps2 * S, 128), dtype=np.int32))
-    check_equal("block_take[P2 (8192, 128) x 32 axis=0]",
-                pg.block_take(x, idx, 0, S), pg.block_take_plain(x, idx, 0, S))
-    ms = cuda_ms(lambda: pg.block_take(x, idx, 0, S), reps)
-    shape = (reps2, S, 128)
-    xv, iv = x.view(shape), idx.long().view(shape)
-    lib = cuda_ms(lambda: torch.gather(xv, 1, iv), reps)
-    reads = needed(shape, iv, 1)
-    p2_bound = bound(4 * reads + 4 * idx.numel() + 4 * x.numel(), 0)[0]
-    log(f"[probe] P2's largest line, block_take (8192, 128) x 32 axis=0: "
-        f"bitwise; {ms:.4f} ms, bound {p2_bound:.4f} ms ({reads} distinct "
-        f"elements read), torch.gather {lib:.4f} ms")
-    del x, idx, xv, iv
+    # P2's axis-0 lines at the probe's shapes, drawn on the card, each
+    # bitwise and timed; the kernels line takes the strip kernel at the
+    # largest, (8192, 128) blocks x 32.
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED + 2)
+    for S, width, axis, reps2 in dgather.SHAPES:
+        if axis != 0:
+            continue
+        x = torch.randn((reps2 * S, width), generator=gen, device=dev)
+        idx = torch.randint(0, S, (reps2 * S, width), generator=gen,
+                            device=dev, dtype=torch.int32)
+        plan = pg.strip_plan(S, width, idx.dtype)
+        name = pg.take_kernel(0, idx.dtype, strip=plan is not None)
+        line = f"P2 ({S}, {width}) x {reps2} axis=0"
+        check_equal(f"block_take[{line}]", pg.block_take(x, idx, 0, S),
+                    pg.block_take_plain(x, idx, 0, S))
+        ms = cuda_ms(lambda: pg.block_take(x, idx, 0, S), reps)
+        plain = cuda_ms(lambda: pg.block_take_plain(x, idx, 0, S), reps)
+        shape = (reps2, S, width)
+        xv, iv = x.view(shape), idx.long().view(shape)
+        lib = cuda_ms(lambda: torch.gather(xv, 1, iv), reps)
+        reads = needed(shape, iv, 1)
+        nbytes = 4 * reads + 4 * idx.numel() + 4 * x.numel()
+        b_ms = bound(nbytes, 0)[0]
+        was = (f"; the row kernel's {P2_WAS_MS:.3f} ms before the strip "
+               "kernel (PR 15)" if S == 8192 else "")
+        log(f"[probe] {line}: {name}"
+            + (f" (strips of {plan[0]} floats, {plan[1]} rows in shared "
+               "memory)" if plan else "")
+            + f", bitwise; {ms:.4f} ms against a bound of {b_ms:.4f} ms "
+            f"({reads} distinct elements read), {100 * b_ms / ms:.0f}% of "
+            f"it; plain {plain:.4f} ms, torch.gather {lib:.4f} ms{was}")
+        if S == 8192:
+            record(kernels, name, "lux_tpu_torch/csrc/probe_gather.cu",
+                   "tools/probe_dgather.py:30", 0.0, ms, plain, nbytes, 0,
+                   lib)
+        del x, idx, xv, iv
 
     r = dgather2.R
     cand = put(rng.standard_normal((r, 4, 128), dtype=np.float32))
@@ -3427,6 +3480,116 @@ def _probe_phases(dev, kernels) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; it took "
         f"{time.perf_counter() - t_phase:.1f} s; launches {totals}")
     return totals
+
+PROGRAMS_GROUP = "2p program contracts"
+GAS_FIXTURES = (("lux601_bad_identity", "LUX601"),
+                ("lux602_inexact_sum", "LUX602"),
+                ("lux603_push_pull_skew", "LUX603"),
+                ("lux604_nonmonotone_incremental", "LUX604"),
+                ("lux605_clobbering_apply", "LUX605"),
+                ("lux606_overclaimed_frontier", "LUX606"))
+
+
+def _programs_cli(work):
+    """Start ``python -m lux_tpu_torch.tools.luxlint --programs
+    --gascap-out <work>/gascap.json`` on the card, as a user runs it;
+    group 2p collects it (it runs beside the graph's generation)."""
+    work.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("LUX_PLATFORM", "LUX_GASCAP_DIR")}
+    return subprocess.Popen(
+        [sys.executable, "-m", "lux_tpu_torch.tools.luxlint", "--programs",
+         "--gascap-out", str(work / "gascap.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _program_phases(work, lint, dev) -> None:
+    """Group 2p, the program-contract tier (``analysis/gasck.py``) with
+    the program hooks on the card: ``lint``, the ``luxlint --programs``
+    run of :func:`_programs_cli` (rc 0, 0 findings over the 8 registry
+    programs, the written artifact's id the committed
+    ``lux_tpu_torch/analysis/gascap.json``'s); each seeded fixture of
+    ``tests/torch_gas_fixtures/`` fires exactly its rule; the incremental
+    gate admits an SSSP that does not declare ``incremental_ok`` and
+    refuses the over-claiming ``DriftingMin`` and ``Claimant`` with a
+    ``ProgramContractError`` naming LUX604 and its sub-check."""
+    import importlib.util
+
+    import torch
+
+    from lux_tpu_torch.analysis import gasck
+    from lux_tpu_torch.engine.incremental import require_incremental
+    from lux_tpu_torch.engine.program import ProgramContractError
+    from lux_tpu_torch.models import SSSP, ConnectedComponents
+    from lux_tpu_torch.ops.segment import U32_MASK
+
+    out = work / "gascap.json"
+    t0 = time.perf_counter()
+    stdout, stderr = lint.communicate(timeout=300)
+    wait_s = time.perf_counter() - t0
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("LUXLINT ")]
+    summary = json.loads(lines[-1][len("LUXLINT "):]) if lines else {}
+    if (lint.returncode != 0 or summary.get("findings") != 0
+            or summary.get("files") != 8):
+        raise AssertionError(f"luxlint --programs: rc {lint.returncode}, "
+                             f"{summary}\n{stdout[-2000:]}{stderr[-2000:]}")
+    committed = gasck.load_capmap(
+        str(Path(gasck.__file__).with_name(gasck.CAP_FILENAME)))
+    art = gasck.load_capmap(str(out))
+    if art["id"] != committed["id"]:
+        raise AssertionError(f"luxlint --programs on the card wrote "
+                             f"{art['id']}, the committed artifact is "
+                             f"{committed['id']}")
+    log(f"[programs] python -m lux_tpu_torch.tools.luxlint --programs "
+        f"--gascap-out on the card, beside the graph's generation: rc 0, "
+        f"{summary['files']} programs, 0 findings, the tier "
+        f"{summary['elapsed_s']} s (waited {wait_s:.1f} s for the CLI); "
+        f"artifact {art['id']} = the committed one")
+
+    t0 = time.perf_counter()
+    fixtures = Path(__file__).resolve().parent / "tests" / \
+        "torch_gas_fixtures"
+    for stem, rule in GAS_FIXTURES:
+        rep = gasck.verify_fixture_paths([str(fixtures / f"{stem}.py")],
+                                         device=dev)
+        rules = sorted({f.rule for f in rep.findings})
+        if rules != [rule] or rep.errors:
+            raise AssertionError(f"{stem}: fired {rules}, errors "
+                                 f"{rep.errors}; expected exactly {rule}")
+    fix_s = time.perf_counter() - t0
+
+    class Quiet(SSSP):
+        incremental_ok = False
+
+    class Claimant(ConnectedComponents):
+        name = "claimant"
+
+        def relax(self, src_vals, weights):
+            return (src_vals + 1) & U32_MASK
+
+    spec = importlib.util.spec_from_file_location(
+        "_smoke_lux604", fixtures / "lux604_nonmonotone_incremental.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    require_incremental(Quiet(), dev)
+    for prog in (mod.DriftingMin(), Claimant()):
+        try:
+            require_incremental(prog, dev)
+        except ProgramContractError as e:
+            if "LUX604" not in str(e) or "not inflationary" not in str(e):
+                raise AssertionError(f"{prog.name}: refused as {e}") from e
+            log(f"[programs] gate refuses {prog.name}: {e}")
+        else:
+            raise AssertionError(f"{prog.name}: the incremental gate "
+                                 "admitted a program whose LUX604 proof "
+                                 "fails")
+    torch.cuda.synchronize()
+    log(f"[programs] the six fixtures fire exactly their rules, hooks on "
+        f"{dev} ({fix_s:.2f} s); the gate admits an SSSP that does not "
+        f"declare incremental_ok and refuses DriftingMin and Claimant "
+        f"(three proofs {time.perf_counter() - t0:.2f} s)")
+
 
 def _k2_check(label, tail_src, row_ptr, n_x: int, rng, reps: int, dev):
     """K2 over one tail stream and row pointer, as the main path calls it
@@ -3605,6 +3768,7 @@ def _incremental_phases(g, gu, push, held, dev, work) -> dict:
     counts of the four warm runs, summed."""
     import torch
 
+    from lux_tpu_torch.analysis import gasck
     from lux_tpu_torch.engine.check import count_violations
     from lux_tpu_torch.engine.incremental import (IncrementalExecutor,
                                                   incremental_pagerank)
@@ -3708,6 +3872,9 @@ def _incremental_phases(g, gu, push, held, dev, work) -> dict:
                 "queue_relax_scatter": sum(1 for b, c, e in log_
                                            if b and c and e)}
 
+    # Each IncrementalExecutor below is built through the LUX604 gate
+    # (analysis/gasck.py), which proves a program once per process.
+    proofs0 = gasck.incremental_proofs()
     oracles = {}
     for app, graph, prog, old, rem, ins, kw, oracle in (
             ("sssp", new_g, SSSP(), push["sssp"]["oracle"], removed,
@@ -3762,6 +3929,14 @@ def _incremental_phases(g, gu, push, held, dev, work) -> dict:
                                multi=mx)
     torch.cuda.synchronize()
     host["executor (multi)"] = time.perf_counter() - t
+    proofs = gasck.incremental_proofs() - proofs0
+    if proofs != 2:
+        raise AssertionError(f"5j: {proofs} LUX604 proofs for three "
+                             "IncrementalExecutors of SSSP, CC and SSSP; "
+                             "expected one a program")
+    log(f"[incremental] 5j: the three IncrementalExecutors (SSSP, CC, "
+        f"8-lane SSSP) passed the LUX604 gate, {proofs} proofs (one a "
+        f"program, hooks on {dev})")
     cols = [np.ascontiguousarray(lanes[:, j]) for j in range(len(roots))]
     del lanes
     (mst, miters, minfo), counts = counted(
@@ -5344,6 +5519,7 @@ def _serve_http(work, device_line: str, g, push: dict, gas: dict, oracle,
         if stats["pool"]["misses"] != pool0["misses"]:
             raise AssertionError(f"serve: pool built {stats['pool']['misses']}"
                                  f" engines, {pool0['misses']} at warmup")
+        _check_gas_audit("4m (the HTTP server)", sz, stats["pool"], 0)
         win = sz["windows"][sorted(sz["windows"], key=lambda w: float(
             w.rstrip("s")))[-1]]
         log(f"[serve] 4m: /metrics compiles {comp} (the kernel library's "
@@ -5373,6 +5549,26 @@ def _serve_http(work, device_line: str, g, push: dict, gas: dict, oracle,
         raise AssertionError(f"serve: exited {proc.returncode}:\n"
                              f"{errlog.read_text()[-3000:]}")
     return {"roots": roots, "digests": want}
+
+
+def _check_gas_audit(label, statusz: dict, pool: dict, findings0) -> None:
+    """The serving pool's program-algebra audit (``analysis/gasck.py``)
+    ran on every build with no finding beyond ``findings0`` (its
+    counter is process-wide), and ``/statusz``'s capability matrix came
+    from the gascap.v1 artifact."""
+    from lux_tpu_torch.serve.pool import GAS_AUDIT_STATUS
+
+    audit, progs = statusz["audits"]["gasck"], statusz["programs"]
+    if (audit["status"] != GAS_AUDIT_STATUS
+            or audit["audited_builds"] != pool["misses"]
+            or audit["findings"] != findings0
+            or progs["gas_findings"] != findings0
+            or progs["source"] != "artifact"):
+        raise AssertionError(f"serve {label}: gasck audit {audit}, "
+                             f"programs {progs}, {pool['misses']} builds")
+    log(f"[serve] {label}: the pool's gasck audit ran on all "
+        f"{audit['audited_builds']} builds, 0 findings; /statusz programs "
+        f"from the artifact {progs['artifact_id']}")
 
 
 def _serve_logs():
@@ -5448,6 +5644,7 @@ def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str,
 
     import torch
 
+    from lux_tpu_torch.obs import metrics
     from lux_tpu_torch.ops import _cuda
     from lux_tpu_torch.serve import ServeConfig, Session
     from lux_tpu_torch.serve.http import digest
@@ -5464,6 +5661,7 @@ def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str,
     logs = _serve_logs()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
+    gas0 = metrics.counter("lux_gas_findings_total").value
     t = time.perf_counter()
     s = Session(gw, ServeConfig(max_batch=8, window_s=0.005, max_queue=256,
                                 pagerank_iters=ITERS), device=dev)
@@ -5564,6 +5762,8 @@ def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str,
             raise AssertionError("serve: CC after the swap differs from a "
                                  "from-scratch run")
         misses1 = s.pool.stats()["misses"]
+        _check_gas_audit("5m (the swap session)", s.statusz(),
+                         s.pool.stats(), gas0)
         new_g = s.graph
     finally:
         s.close()

@@ -1,7 +1,8 @@
 """Lint findings and reports, the part of ``lux_tpu/analysis/core.py``
-the tune-artifact tier (``tuneck.py``) uses: :class:`Finding`,
-:class:`FileResult` and :class:`LintReport`, with the same fields,
-summary payload and human and JSON output. The AST rule engine
+the tune-artifact and program-contract tiers (``tuneck.py``,
+``gasck.py``) use: :class:`Finding`, :class:`FileResult` and
+:class:`LintReport`, with the same fields, summary payload and human and
+JSON output, and :func:`iter_python_files`. The AST rule engine
 (``Rule``, suppressions, the file runner) comes with the AST tiers
 (ROADMAP A16).
 
@@ -14,9 +15,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Optional
+import os
+from typing import Dict, List, Optional, Sequence
 
-__all__ = ["Finding", "FileResult", "LintReport"]
+__all__ = ["Finding", "FileResult", "LintReport", "iter_python_files"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +42,27 @@ class FileResult:
     findings: List[Finding]
     suppressed: List[Finding]
     error: Optional[str] = None   # read/load error, reported as-is
+
+
+def iter_python_files(paths: Sequence[str]) -> List[str]:
+    """The ``.py`` files of ``paths``: files as given, directories
+    walked in sorted order (skipping ``__pycache__``, ``.git`` and
+    ``build``)."""
+    out: List[str] = []
+    for p in paths:
+        if os.path.isdir(p):
+            for root, dirs, files in os.walk(p):
+                dirs[:] = sorted(
+                    d for d in dirs
+                    if d not in ("__pycache__", ".git", "build")
+                )
+                out.extend(
+                    os.path.join(root, f) for f in sorted(files)
+                    if f.endswith(".py")
+                )
+        elif p.endswith(".py"):
+            out.append(p)
+    return out
 
 
 @dataclasses.dataclass

@@ -30,7 +30,24 @@
 // (L % 4 == 0): a 16-byte (int32) or 4-byte (int8) index load, four
 // gathers through the read-only cache, one 16-byte store. A warp covers one
 // 128-wide row, so an axis-1 gather touches one 512-byte row of x, and an
-// axis-0 gather the S rows of its block, both reused from L1/L2.
+// axis-0 gather the S rows of its block, both reused from L1/L2. That suits
+// axis 1 and axis 0 over small blocks (8 rows, 4 KB), which stay in L1.
+//
+// block_take_strip: axis 0 over large blocks (int32 indices; an int8
+// index reaches only a block's first 128 rows, which stay in L1). There
+// every element of the row kernel reads its own 32-byte sector from a block
+// of S * 512 bytes that L1 cannot hold: at S = 8192, 33.5 M elements ask for
+// about 1.07 GB of L2 sectors to use 134 MB of x. So a CTA owns one (S, W)
+// column strip of one block (W = 32, 16 or 8 floats: 128, 64 or 32 bytes a
+// row): it copies the strip's first R rows into shared memory once with
+// cp.async in 16-byte pieces (L2 only), then streams idx[i, c:c+W] and
+// writes out[i, c:c+W] in 16-byte pieces, gathering from shared memory. The
+// wider the strip, the fuller the lines idx and out are read and written in
+// (python -m lux_tpu_torch.probes.shapes --only p2 times each width), so the
+// caller takes the widest strip that fits. Where even W = 8 does not fit
+// (S = 8192 needs 256 KB of the 227 KB a block may use), the first R rows
+// live in shared memory and a pick of a later row reads x through L1 and L2
+// (R = 6144 leaves 64 KB of the SM's L1 for the rest).
 //
 // merge4's design. Its picks are uniform over a row's 512 candidates, so
 // 128 picks touch 1 - (1 - 8/512)^128, about 87%, of the row's 32-byte
@@ -45,6 +62,7 @@
 // store. The blocks resident on an SM keep each other's copies in flight,
 // so a block needs no second buffer.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -91,15 +109,66 @@ block_take_kernel(const float* __restrict__ x, const IdxT* __restrict__ idx,
   reinterpret_cast<float4*>(out)[t] = make_float4(r[0], r[1], r[2], r[3]);
 }
 
-constexpr int kMergeRows = kThreads / 32;             // rows of cand a block
-constexpr int kBlockFloats = kMergeRows * 512;         // 16 KB
-constexpr int kPieces = kBlockFloats / 4 / kThreads;   // 16-byte copies
+constexpr int kStripThreads = 1024;
+constexpr int kStripUnroll = 4;                        // pieces in flight
+constexpr int kStripSmemMax = 227 * 1024;              // per block, sm_90
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
                "l"(gmem));
 }
+
+template <int W>
+__global__ void __launch_bounds__(kStripThreads)
+block_take_strip_kernel(const float* __restrict__ x,
+                        const int32_t* __restrict__ idx, int L, int S, int R,
+                        float* __restrict__ out) {
+  extern __shared__ __align__(16) float strip[];       // R * W floats
+  constexpr int P = W / 4;                             // pieces a row
+  const int strips = L / W;
+  const int64_t blk = blockIdx.x / strips;
+  const int c = (int)(blockIdx.x % strips) * W;
+  const int64_t base = blk * S * (int64_t)L + c;       // x[blk * S, c]
+  for (int p = threadIdx.x; p < R * P; p += kStripThreads) {
+    const int r = p / P, q = p - r * P;
+    cp_async16(strip + r * W + q * 4, x + base + (int64_t)r * L + q * 4);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  const int n = S * P;
+  for (int p0 = threadIdx.x; p0 < n; p0 += kStripThreads * kStripUnroll) {
+    int v[kStripUnroll][4];
+    int64_t e[kStripUnroll];
+#pragma unroll
+    for (int u = 0; u < kStripUnroll; ++u) {
+      const int p = p0 + u * kStripThreads;
+      const int r = p / P, q = p - r * P;
+      e[u] = base + (int64_t)r * L + q * 4;
+      if (p < n) load4(idx + e[u], v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kStripUnroll; ++u) {
+      const int p = p0 + u * kStripThreads;
+      if (p >= n) break;
+      const int q = (p % P) * 4;
+      float r[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = clamp_to(v[u][k], S);
+        r[k] = j < R ? strip[j * W + q + k]
+                     : __ldg(x + base + (int64_t)j * L + q + k);
+      }
+      __stcs(reinterpret_cast<float4*>(out + e[u]),
+             make_float4(r[0], r[1], r[2], r[3]));
+    }
+  }
+}
+
+constexpr int kMergeRows = kThreads / 32;             // rows of cand a block
+constexpr int kBlockFloats = kMergeRows * 512;         // 16 KB
+constexpr int kPieces = kBlockFloats / 4 / kThreads;   // 16-byte copies
 
 __global__ void __launch_bounds__(kThreads)
 merge4_kernel(const float* __restrict__ cand, const int32_t* __restrict__ l,
@@ -152,6 +221,36 @@ cudaError_t launch_take(const float* x, const void* idx, int idx_bytes,
   return cudaGetLastError();
 }
 
+// Lets block_take_strip_kernel<W> take up to kStripSmemMax bytes of dynamic
+// shared memory, once per device (bit d of the mask: device d).
+template <int W>
+cudaError_t allow_strip_smem() {
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done.load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(block_take_strip_kernel<W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kStripSmemMax);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <int W>
+cudaError_t launch_strip(const float* x, const int32_t* idx, int64_t rows,
+                         int L, int S, int R, float* out,
+                         cudaStream_t stream) {
+  const size_t smem = (size_t)R * W * sizeof(float);
+  cudaError_t err = allow_strip_smem<W>();
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)(rows / S * (L / W));
+  block_take_strip_kernel<W><<<blocks, kStripThreads, smem, stream>>>(
+      x, idx, L, S, R, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, idx: (rows, L) with rows a multiple of S and L a multiple of 4;
@@ -179,4 +278,26 @@ extern "C" int lux_merge4(const void* cand, const void* l, const void* s,
       static_cast<const float*>(cand), static_cast<const int32_t*>(l),
       static_cast<const int32_t*>(s), R, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// Axis 0 through column strips of W (32, 16 or 8) floats, the first R
+// rows of each in shared memory: x, idx (int32), out (rows, L) with rows a
+// multiple of S, L a multiple of W, all 16-byte aligned, 0 < R <= S and
+// R * W * 4 <= 227 KB.
+extern "C" int lux_block_take_strip(const void* x, const void* idx,
+                                    int64_t rows, int L, int S, int W, int R,
+                                    void* out, void* stream) {
+  if (rows == 0) return (int)cudaSuccess;
+  if (L % W || R < 1 || R > S || (int64_t)R * W * 4 > kStripSmemMax)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto xf = static_cast<const float*>(x);
+  auto ix = static_cast<const int32_t*>(idx);
+  auto of = static_cast<float*>(out);
+  switch (W) {
+    case 32: return (int)launch_strip<32>(xf, ix, rows, L, S, R, of, st);
+    case 16: return (int)launch_strip<16>(xf, ix, rows, L, S, R, of, st);
+    case 8: return (int)launch_strip<8>(xf, ix, rows, L, S, R, of, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -31,10 +31,12 @@ compares exactly as ``lux_tpu``'s.
 
 The warm start is sound for programs whose merge is idempotent and
 monotone, ``apply`` the combiner's merge, and ``relax`` inflationary and
-monotone: ``lux_tpu``'s LUX604 proof (``analysis/gasck.py``), which its
-executor requires. Until that lint is ported (ROADMAP A16),
-:func:`require_incremental` gates on the program's declarations: a
-``relax``, a frontier, and ``incremental_ok``.
+monotone: the LUX604 proof of ``analysis/gasck.py``, which
+:class:`IncrementalExecutor` requires (:func:`require_incremental`, run
+once per program identity with the hooks on the executor's device). The
+declaration ``incremental_ok`` does not decide: a program whose proof
+holds is admitted without it, and one whose proof fails is refused with
+it.
 
 PageRank is not a monotone push program; :func:`incremental_pagerank`
 warm-starts the pull iteration (K8) from the previous ranks (re-divided
@@ -53,38 +55,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lux_tpu_torch.engine.program import ProgramContractError
+from lux_tpu_torch.analysis.gasck import require_incremental
 from lux_tpu_torch.engine.push import (MultiSourcePushExecutor, PushExecutor,
                                        PushState)
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.obs import recorder_for
 from lux_tpu_torch.ops.segment import to_u32_storage
 from lux_tpu_torch.utils import faults, host
-
-
-def require_incremental(program) -> None:
-    """Raise :class:`ProgramContractError` unless ``program`` may be
-    warm-started: it has a host ``relax``, a frontier, and declares
-    ``incremental_ok``. The first two are ``lux_tpu``'s own refusals;
-    the declaration stands in for its LUX604 proof until A16."""
-    from lux_tpu_torch.engine.gas import as_gas
-
-    name = getattr(program, "name", type(program).__name__)
-    why = None
-    if not callable(getattr(program, "relax", None)):
-        why = ("no host relax hook — IncrementalExecutor re-relaxes "
-               "invalidated columns on the host, so a relax(src_vals, "
-               "weights) method is part of the incremental contract")
-    elif not bool(as_gas(program).frontier):
-        why = ("frontier-less programs have no activation signal to "
-               "warm-start from")
-    elif not getattr(program, "incremental_ok", False):
-        why = "the program does not declare incremental_ok"
-    if why is not None:
-        raise ProgramContractError(
-            f"{name}: LUX604 monotone-convergence: {why} (the port gates "
-            "on the program's declarations until the LUX604 proof arrives "
-            "with A16; ROADMAP A10)")
 
 
 def _relax_np(program, vals: np.ndarray, w) -> np.ndarray:
@@ -237,7 +214,8 @@ class IncrementalExecutor:
                  push: Optional[PushExecutor] = None,
                  multi: Optional[MultiSourcePushExecutor] = None,
                  k: Optional[int] = None, device=None):
-        require_incremental(program)
+        require_incremental(program,
+                            push.device if push is not None else device)
         self.graph = graph
         self.program = program
         self.push = push if push is not None else PushExecutor(

@@ -20,11 +20,9 @@ import torch
 
 
 class ProgramContractError(TypeError):
-    """An engine was asked to run a program whose contract does not
-    license it; the message names the failed rule. ``lux_tpu`` raises its
-    own from the machine-checked algebra of ``analysis/gasck.py``; the
-    port raises this one from the program's declarations until that lint
-    is ported (ROADMAP A16)."""
+    """An engine was asked to run a program whose machine-checked
+    algebra (``analysis/gasck.py``) does not license it; the message
+    names the failed rule."""
 
 
 @dataclasses.dataclass(frozen=True)

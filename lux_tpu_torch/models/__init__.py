@@ -3,9 +3,10 @@
 SSSP, CC, CF) and the GAS programs (BFS, weighted delta-SSSP, label
 propagation, k-core).
 
-``lux_tpu``'s capability report prefers the ``gascap.v1`` artifact of
-its program-algebra lint (``analysis/gasck``), which is not ported
-(ROADMAP A16): here the source is always the class declarations.
+The capability matrix (rooted, frontier_ok, incremental_ok) comes from
+the ``gascap.v1`` artifact of the program-algebra lint
+(``analysis/gasck.py``, ``lux_tpu_torch/analysis/gascap.json``), with
+the class declarations as the fallback when it is missing or rejected.
 """
 
 from lux_tpu_torch.models.bfs import BFS
@@ -32,10 +33,24 @@ PROGRAMS = {
 }
 
 
-def capability_report() -> dict:
-    """``{source, artifact_id, error, programs: {name: {rooted,
-    frontier_ok, incremental_ok}}}`` from the class declarations
-    (``source`` is ``"declared"``)."""
+_CAPABILITY_REPORT = None
+
+
+def capability_report(refresh: bool = False) -> dict:
+    """The machine-checked capability matrix the registry trusts.
+
+    Prefers the derived proof matrix of the ``gascap.v1`` artifact
+    (``luxlint --programs``, ``analysis/gasck.py``, honouring
+    ``LUX_GASCAP_DIR``); falls back to the class declarations when the
+    artifact is missing or rejected (a tampered artifact raises inside
+    gasck and lands here as ``error``). Returns ``{source, artifact_id,
+    error, programs: {name: {rooted, frontier_ok, incremental_ok}}}``
+    with ``source`` one of ``artifact`` / ``declared``; cached until
+    ``refresh``.
+    """
+    global _CAPABILITY_REPORT
+    if _CAPABILITY_REPORT is not None and not refresh:
+        return _CAPABILITY_REPORT
     declared = {
         name: {
             "rooted": bool(getattr(cls, "rooted", False)),
@@ -44,23 +59,45 @@ def capability_report() -> dict:
         }
         for name, cls in PROGRAMS.items()
     }
-    return {"source": "declared", "artifact_id": None,
-            "error": "no gascap artifact in the port (ROADMAP A16)",
-            "programs": declared}
+    report = {"source": "declared", "artifact_id": None, "error": None,
+              "programs": declared}
+    try:
+        from lux_tpu_torch.analysis import gasck
+
+        art = gasck.load_capmap(gasck.capmap_path())
+        programs = {}
+        for name, caps in declared.items():
+            entry = (art.get("programs") or {}).get(name)
+            derived = entry.get("derived") if isinstance(entry, dict) \
+                else None
+            if isinstance(derived, dict):
+                programs[name] = {
+                    k: bool(derived.get(k, caps[k])) for k in caps
+                }
+            else:
+                programs[name] = caps   # program newer than the artifact
+        report = {"source": "artifact", "artifact_id": art.get("id"),
+                  "error": None, "programs": programs}
+    except FileNotFoundError:
+        report["error"] = "artifact missing (run luxlint --programs)"
+    except Exception as e:
+        report["error"] = f"artifact rejected: {e!r}"
+    _CAPABILITY_REPORT = report
+    return report
 
 
-def capabilities() -> dict:
+def capabilities(refresh: bool = False) -> dict:
     """``{name: {rooted, frontier_ok, incremental_ok}}`` per program."""
-    return capability_report()["programs"]
+    return capability_report(refresh)["programs"]
 
 
 def frontier_ok(name: str) -> bool:
-    """Declared license for the frontier exchange / adaptive lanes."""
+    """Proof-derived license for the frontier exchange / adaptive lanes."""
     return bool(capabilities().get(name, {}).get("frontier_ok", False))
 
 
 def incremental_ok(name: str) -> bool:
-    """Declared license for IncrementalExecutor warm-starts."""
+    """Proof-derived license for IncrementalExecutor warm-starts."""
     return bool(capabilities().get(name, {}).get("incremental_ok", False))
 
 
@@ -69,6 +106,8 @@ def rooted_apps() -> frozenset:
         name for name, caps in capabilities().items() if caps["rooted"])
 
 
+# Derived from the gascap.v1 proof matrix (the declarations as the
+# no-artifact fallback), as lux_tpu's is.
 ROOTED_APPS = rooted_apps()
 
 # Which executor kinds can run each program: lux_tpu's table, kind for

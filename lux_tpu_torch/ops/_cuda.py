@@ -46,7 +46,9 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
      "frontier_bits",
      # the gather probes (lux_tpu_torch/probes), one name per kernel form
      "block_take[axis=0 int32]", "block_take[axis=0 int8]",
-     "block_take[axis=1 int32]", "block_take[axis=1 int8]", "merge4"), 0
+     "block_take[axis=1 int32]", "block_take[axis=1 int8]",
+     "block_take_strip[axis=0 int32]",
+     "merge4"), 0
 )
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -90,6 +92,8 @@ _SIGNATURES = {
                          _INT, _P, _I64, _I64, _P, _P),
     # x, idx, rows, L, S, axis, idx_bytes, out, stream
     "lux_block_take": (_P, _P, _I64, _INT, _INT, _INT, _INT, _P, _P),
+    # x, idx, rows, L, S, W, R, out, stream
+    "lux_block_take_strip": (_P, _P, _I64, _INT, _INT, _INT, _INT, _P, _P),
     # cand, l, s, R, out, stream
     "lux_merge4": (_P, _P, _P, _I64, _P, _P),
 }

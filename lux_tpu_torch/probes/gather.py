@@ -7,7 +7,10 @@ The counterparts of the Pallas kernels of ``tools/probe_dgather.py``,
 - :func:`block_take` (P2-P5): ``take_along_axis(x, idx, axis)`` within
   each ``(S, L)`` block of an ``(rows, L)`` f32 array, axis 0 or 1, with
   an int32 or int8 index; kernel ``block_take`` in
-  ``csrc/probe_gather.cu``.
+  ``csrc/probe_gather.cu``, or, along axis 0 over blocks too large for
+  L1 (:func:`strip_plan`), kernel ``block_take_strip``, which copies a
+  column strip of a block into shared memory once and gathers from
+  there. The wrapper chooses from the call's shapes and index type.
 - :func:`merge4` (P6): ``out[i, j] = cand[i, s[i, j], l[i, j]]`` as
   ``k_merge``'s masked sum over four candidates; kernel ``merge4`` in the
   same source, which streams each row's 2 KB of candidates through
@@ -38,12 +41,39 @@ from lux_tpu_torch.ops.merge_tail_kernel import level_apply
 _IDX_TYPES = {torch.int32: "int32", torch.int8: "int8"}
 
 
-def take_kernel(axis: int, dtype: torch.dtype) -> str:
-    """The launch-count name of one form of the block_take kernel."""
-    return f"block_take[axis={axis} {_IDX_TYPES[dtype]}]"
+def take_kernel(axis: int, dtype: torch.dtype, strip: bool = False) -> str:
+    """The launch-count name of one form of the block_take kernel (of
+    block_take_strip with ``strip``)."""
+    kernel = "block_take_strip" if strip else "block_take"
+    return f"{kernel}[axis={axis} {_IDX_TYPES[dtype]}]"
 
 
-# -- P2-P5: take_along_axis within (S, L) blocks ----------------------------
+# block_take_strip takes axis-0 int32 gathers over blocks of at least
+# STRIP_MIN_ROWS rows. Its strip is the widest of STRIP_WIDTHS floats whose
+# S rows fit in STRIP_SMEM bytes of shared memory; where none does, it is
+# 8 floats wide with its first STRIP_ROWS rows in shared memory (the widths
+# and the budget timed best on the H100 over S from 512 to 8192).
+STRIP_MIN_ROWS = 128
+STRIP_WIDTHS = (32, 16, 8)
+STRIP_SMEM = 128 * 1024
+STRIP_ROWS = 6144
+STRIP_SMEM_MAX = 227 * 1024   # shared memory a block may use on sm_90
+
+
+def strip_plan(block_rows: int, width: int, dtype=torch.int32):
+    """``(W, R)`` of the strip kernel for an axis-0 gather over
+    ``(block_rows, width)`` blocks with a ``dtype`` index: strips of W
+    floats with their first R rows in shared memory; or None when the
+    row kernel takes the blocks: under STRIP_MIN_ROWS rows they stay in
+    L1, and an int8 index reaches only a block's first 128 rows."""
+    if dtype != torch.int32 or block_rows < STRIP_MIN_ROWS:
+        return None
+    for w in STRIP_WIDTHS:
+        if width % w == 0 and block_rows * w * 4 <= STRIP_SMEM:
+            return w, block_rows
+    if width % 8:
+        return None
+    return 8, min(block_rows, STRIP_ROWS)
 
 
 def _check_take(x, idx, axis, block_rows):
@@ -84,6 +114,11 @@ def block_take(x, idx, axis: int, block_rows: int):
         raise ValueError("the kernel takes rows of a multiple of 4 lanes "
                          "and an index aligned to 4 elements")
     out = torch.empty_like(x)
+    plan = strip_plan(block_rows, x.shape[1], idx.dtype) if axis == 0 \
+        else None
+    if plan is not None and x.data_ptr() % 16 == 0:
+        take_strip(x, idx, block_rows, *plan, out)
+        return out
     _cuda.launch(
         take_kernel(axis, idx.dtype), "lux_block_take",
         _cuda.ptr(x), _cuda.ptr(idx), x.shape[0], x.shape[1],
@@ -91,6 +126,20 @@ def block_take(x, idx, axis: int, block_rows: int):
         _cuda.ptr(out), _cuda.stream(dev),
     )
     return out
+
+
+def take_strip(x, idx, block_rows: int, w: int, r: int, out) -> None:
+    """Launch block_take_strip into ``out``: strips of ``w`` floats, the
+    first ``r`` rows of each in shared memory (``block_take`` plans them
+    with :func:`strip_plan`; the probes time other plans through here)."""
+    if idx.dtype != torch.int32:
+        raise ValueError("block_take_strip takes an int32 index")
+    dev = x.device
+    _cuda.launch(
+        take_kernel(0, idx.dtype, strip=True), "lux_block_take_strip",
+        _cuda.ptr(x), _cuda.ptr(idx), x.shape[0], x.shape[1], block_rows,
+        w, r, _cuda.ptr(out), _cuda.stream(dev),
+    )
 
 
 # -- P6: the 4-candidate merge level ------------------------------------------

@@ -62,6 +62,13 @@ scale:
   also timed folding into an accumulator prepared beforehand (no copy or
   fill, no decode): what a kept accumulator, reset only where the last
   push touched it, would cost at least.
+- P2's axis-0 ``block_take`` over (S, 128) blocks of a (262,144, 128)
+  f32 array with a uniform int32 index, S from 64 to 8192: the row
+  kernel, the strip kernel at every width of ``probes/gather.py::
+  STRIP_WIDTHS`` whose rows fit in the shared memory a block may use
+  (and 8 floats with ``STRIP_ROWS`` rows where none does), the plan
+  ``block_take`` takes, one ``torch.gather``, and 402 MB (x, idx and out
+  once) streamed whole by one ``torch.add`` as a yardstick of the bytes.
 - P6 (``merge4``) at the probe's shape, R = 65,536 rows of 4 x 128
   candidates, uniform lanes and selectors: the kernel against one
   ``torch.gather`` over the same candidates, by means of 20 calls and by
@@ -76,7 +83,7 @@ totals and one launch a part) and K11 (an identity fill, then the fold
 and, for f32, a decode launch) are built and timed first on the same
 inputs, with and without their passes over every word.
 
-``--only`` names the sweeps to run (default: all nine). It prints one
+``--only`` names the sweeps to run (default: all ten). It prints one
 line per variant and shape, and the card's name and power limit first.
 """
 
@@ -171,7 +178,7 @@ OLD_SIGNATURES = {
 OLD_SOURCES = {"k4": "segment_sum.cu", "k7": "frontier.cu", "k11": "gas.cu"}
 REPS = 20
 OUT = _cuda.BUILD_DIR / "shapes"
-SWEEPS = ("k2", "k4", "k10", "k8", "k9", "k5", "k7", "k11", "p6")
+SWEEPS = ("k2", "k4", "k10", "k8", "k9", "k5", "k7", "k11", "p6", "p2")
 
 
 def _ms(fn) -> float:
@@ -530,6 +537,54 @@ def time_p6(dev) -> None:
             f"{name} {_ms(fn):.4f} ms (mean of {REPS}), "
             f"{pg.median_ms(fn, dev, 100, hold=True):.4f} ms (median of "
             f"100, held)" for name, fn in calls.items()), flush=True)
+
+
+P2_ROWS = 262_144
+P2_BLOCKS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def time_p2(dev) -> None:
+    """P2 along axis 0 over (S, 128) blocks: the row kernel, each strip
+    plan that fits, ``block_take``'s own plan, one ``torch.gather`` and
+    the bytes streamed whole, each kernel held bitwise to the plain
+    version first."""
+    from lux_tpu_torch.probes import gather as pg
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((P2_ROWS, 128),
+                                             dtype=np.float32)).to(dev)
+    out = torch.empty_like(x)
+    for S in P2_BLOCKS:
+        idx = torch.from_numpy(rng.integers(0, S, x.shape)
+                               .astype(np.int32)).to(dev)
+        want = pg.block_take_plain(x, idx, 0, S)
+        row = (_cuda.ptr(x), _cuda.ptr(idx), P2_ROWS, 128, S, 0, 4,
+               _cuda.ptr(out), _cuda.stream(dev))
+        calls = {"row kernel": lambda: _call(
+            _cuda.library().lux_block_take, *row)}
+        plans = [(w, S) for w in pg.STRIP_WIDTHS
+                 if S * w * 4 <= pg.STRIP_SMEM_MAX]
+        if not plans:
+            plans = [(8, pg.STRIP_ROWS)]
+        for w, r in plans:
+            calls[f"strip W={w} R={r}"] = \
+                lambda w=w, r=r: pg.take_strip(x, idx, S, w, r, out)
+        for name, fn in calls.items():
+            out.zero_()
+            fn()
+            if not torch.equal(out, want):
+                raise AssertionError(f"P2 S={S} {name}: not bitwise")
+        calls["block_take"] = lambda: pg.block_take(x, idx, 0, S)
+        shape = (P2_ROWS // S, S, 128)
+        xv, iv = x.view(shape), idx.long().view(shape)
+        calls["torch.gather"] = lambda: torch.gather(xv, 1, iv)
+        fl = idx.view(torch.float32)
+        calls["402 MB streamed (torch.add)"] = \
+            lambda: torch.add(x, fl, out=out)
+        print(f"[shapes] P2 S={S} plan {pg.strip_plan(S, 128)}: "
+              + ", ".join(f"{name} {_ms(fn):.4f} ms"
+                          for name, fn in calls.items()), flush=True)
+        del idx, want, iv
 
 
 # -- K4 ----------------------------------------------------------------------
@@ -913,6 +968,8 @@ def main(argv=None) -> int:
         sweep_pull(libs, gc, "cf_sgd", n_users, dev)
     if "p6" in only:
         time_p6(dev)
+    if "p2" in only:
+        time_p2(dev)
     return 0
 
 

@@ -18,15 +18,17 @@ recompile the stats (and the serve tests) flag.
 
 ``lux_tpu``'s pool also audits every build (the IR donation audit, the
 exchange-plan audit, the program-algebra audit) and admits builds under
-an HBM budget priced by its memcap.v1 footprint model. Of these only
-the IR audit's guard has a counterpart: it audits executors with a
-``trace_step``, and no executor of the port has one, so it skips every
-build as ``lux_tpu``'s does for such an executor. The exchange-plan and
-program-algebra audits and the footprint model are not ported (ROADMAP
-A16): while their flags ask for them, :meth:`stats` reports them as not
-ported with the count of builds left unaudited, never as zero clean
-findings; and with no budget to derive, admission takes ``lux_tpu``'s
-own branch for that case and admits every build.
+an HBM budget priced by its memcap.v1 footprint model. The
+program-algebra audit runs here as there (``analysis/gasck.py``,
+LUX601/602/605, advisory, its findings counted in
+``lux_gas_findings_total``). The IR audit's guard has a counterpart: it
+audits executors with a ``trace_step``, and no executor of the port has
+one, so it skips every build as ``lux_tpu``'s does for such an executor.
+The exchange-plan audit and the footprint model are not ported (ROADMAP
+A16): while its flag asks for it, :meth:`stats` reports the exchange
+audit as not ported with the count of builds left unaudited, never as
+zero clean findings; and with no budget to derive, admission takes
+``lux_tpu``'s own branch for that case and admits every build.
 
 Engine work on a card runs on a CUDA stream of the calling thread's own
 (:func:`engine_stream`): the port's cooperative kernels keep one queue
@@ -49,6 +51,8 @@ from lux_tpu_torch.utils.locks import make_lock
 from lux_tpu_torch.utils.logging import get_logger
 
 NOT_PORTED = "not ported (ROADMAP A16)"
+GAS_AUDIT_STATUS = ("ported: LUX601/602/605 on every build carrying a "
+                    "program (analysis/gasck.py)")
 
 _STREAMS = threading.local()
 
@@ -89,9 +93,12 @@ class EnginePool:
         # Created eagerly so a clean pool still exports 0 — the serve
         # dashboards alert on this going nonzero, not on its absence.
         self._ir_findings = metrics.counter("lux_ir_findings_total")
+        self._gas_findings = metrics.counter("lux_gas_findings_total")
         self._retired = metrics.counter("lux_serve_pool_retired_total")
-        # Builds an audit of lux_tpu's would have read, per audit.
-        self._unaudited = {"exchck": 0, "gasck": 0}
+        # Builds lux_tpu's exchange-plan audit would have read, and builds
+        # the program-algebra audit read.
+        self._exch_unaudited = 0
+        self._gas_audited = 0
         self.sentinel = RecompileSentinel(scope)
 
     def get(self, key: Hashable, factory: Callable[[], object]):
@@ -154,17 +161,33 @@ class EnginePool:
             return
         if getattr(ex, "_xplan", None) is None:
             return
-        self._unaudited["exchck"] += 1
+        self._exch_unaudited += 1
 
     def _audit_programs(self, key: Hashable, ex) -> None:
-        """``lux_tpu``'s LUX601/602/605 program-algebra audit of an
-        engine carrying a program: not ported; counted as unaudited
-        while asked for."""
+        """LUX601/602/605 program-algebra audit on the freshly built
+        engine: probe-grid identity/exactness/annihilation, the hooks on
+        the engine's device, no graph trace (gasck caches per program
+        identity, so the k-th engine for a program costs a dict lookup).
+        A finding means the combiner algebra this engine's masking and
+        sharded accumulation rely on does not hold — flagged once at
+        build time (``lux_gas_findings_total``), never per query. The
+        audit is advisory: a build survives its findings, and a failed
+        probe never takes a build down."""
         if not flags.get_bool("LUX_GAS_POOL_AUDIT"):
             return
-        if getattr(ex, "program", None) is None:
+        prog = getattr(ex, "program", None)
+        if prog is None:
             return
-        self._unaudited["gasck"] += 1
+        from lux_tpu_torch.analysis import gasck
+        try:
+            findings = gasck.audit_program(
+                prog, f"pool@{key}", getattr(ex, "device", None))
+        except Exception:
+            return
+        self._gas_audited += 1
+        for f in findings:
+            self._gas_findings.inc()
+            self.log.warning("EnginePool: %s", f.format())
 
     def retire(self, predicate: Callable[[Hashable], bool]) -> int:
         """Drop every engine whose key satisfies ``predicate`` (hot-swap:
@@ -195,17 +218,22 @@ class EnginePool:
         the flag that asks for it, whether it asks, and what the port
         does about it."""
         with self._lock:
-            unaudited = dict(self._unaudited)
+            exch_unaudited, gas_audited = (self._exch_unaudited,
+                                           self._gas_audited)
         out = {"ir": {
             "flag": "LUX_IR_POOL_AUDIT",
             "requested": flags.get_bool("LUX_IR_POOL_AUDIT"),
             "status": "skips every build: no executor of the port has "
                       "a trace_step"}}
-        for name, flag in (("exchck", "LUX_EXCH_POOL_AUDIT"),
-                           ("gasck", "LUX_GAS_POOL_AUDIT")):
-            out[name] = {"flag": flag, "requested": flags.get_bool(flag),
+        out["exchck"] = {"flag": "LUX_EXCH_POOL_AUDIT",
+                         "requested": flags.get_bool("LUX_EXCH_POOL_AUDIT"),
                          "status": NOT_PORTED,
-                         "unaudited_builds": unaudited[name]}
+                         "unaudited_builds": exch_unaudited}
+        out["gasck"] = {"flag": "LUX_GAS_POOL_AUDIT",
+                        "requested": flags.get_bool("LUX_GAS_POOL_AUDIT"),
+                        "status": GAS_AUDIT_STATUS,
+                        "audited_builds": gas_audited,
+                        "findings": int(self._gas_findings.value)}
         out["memck"] = {
             "flag": "LUX_MEM_POOL_ADMIT",
             "requested": flags.get_bool("LUX_MEM_POOL_ADMIT"),
@@ -229,7 +257,7 @@ class EnginePool:
             "recompiles": self.sentinel.recompiles(),
             "ir_findings": int(self._ir_findings.value),
             "exch_findings": self._findings("LUX_EXCH_POOL_AUDIT"),
-            "gas_findings": self._findings("LUX_GAS_POOL_AUDIT"),
+            "gas_findings": int(self._gas_findings.value),
             # No build is priced (see get), so none is resident by the
             # model's account and none was evicted for the budget.
             "hbm_resident_bytes": None,

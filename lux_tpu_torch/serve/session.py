@@ -600,9 +600,9 @@ class Session:
 
     def _programs_block(self) -> dict:
         """The /statusz ``programs`` view: where routing's capability
-        matrix came from (the class declarations, and why), the
-        per-program bits, and the pool's program-audit findings (None
-        while the audit is asked for: it is not ported)."""
+        matrix came from (the gascap.v1 artifact, or the declarations
+        and why), the per-program bits, and the pool's program-audit
+        findings."""
         from lux_tpu_torch.models import capability_report
 
         rep = capability_report()

@@ -300,10 +300,10 @@ define("LUX_EXCHANGE_FRONTIER_FRAC", 0.25,
        "to the static compact send", kind="float")
 
 # The serve pool's build-time audits and admission (serve/pool.py). Of
-# lux_tpu's analysis tiers only the IR audit's guard has a counterpart
-# (no executor of the port has ``trace_step``, so it skips as lux_tpu's
-# does); exchck, gasck and memck are not ported (ROADMAP A16), and while
-# their flags ask for them the pool's stats() and /statusz say so.
+# lux_tpu's analysis tiers the IR audit's guard has a counterpart (no
+# executor of the port has ``trace_step``, so it skips as lux_tpu's does)
+# and gasck runs; exchck and memck are not ported (ROADMAP A16), and
+# while their flags ask for them the pool's stats() and /statusz say so.
 define("LUX_IR_POOL_AUDIT", True,
        "run the LUX104 donation audit on every engine the serve pool "
        "builds (one abstract lowering per build; 0 disables)", kind="bool")
@@ -311,10 +311,23 @@ define("LUX_EXCH_POOL_AUDIT", True,
        "run the LUX401-403 exchange-plan audit on every plan-carrying "
        "engine the serve pool builds (pure numpy over the live "
        "ExchangePlan tables; 0 disables)", kind="bool")
+define("LUX_GASCAP_DIR", None,
+       "directory holding the gascap.v1 program-capability artifact "
+       "(analysis/gasck.py) the registry/serving layers consult; unset = "
+       "the committed lux_tpu_torch/analysis/gascap.json", kind="path")
 define("LUX_GAS_POOL_AUDIT", True,
        "run the LUX601/602/605 program-algebra audit on every "
        "GAS-program-carrying engine the serve pool builds (cached "
        "per program class; 0 disables)", kind="bool")
+define("LUX_GASCK_SEED", 7,
+       "luxlint --programs: RNG seed for the probe graphs and the "
+       "LUX602 associativity/commutativity probe triples", kind="int")
+define("LUX_GASCK_TRIPLES", 64,
+       "luxlint --programs: number of seeded probe triples per program "
+       "for the LUX602 combiner-algebra proof", kind="int")
+define("LUX_GASCK_NV", 24,
+       "luxlint --programs: vertex count of the seeded probe graphs the "
+       "LUX603 push/pull duality traces run on", kind="int")
 define("LUX_MEM_POOL_ADMIT", True,
        "gate new serve-pool engine builds on the memcap.v1 predicted "
        "footprint fitting the HBM budget (0 = admit freely; admission "

@@ -1446,8 +1446,54 @@ def test_block_take_matches_plain(dev, axis, rows, dtype):
                            .astype(np.int32)).to(dtype)
     _cuda.reset_launches()
     got = pg.block_take(x.to(dev), idx.to(dev), axis, rows)
-    assert _cuda.LAUNCHES[pg.take_kernel(axis, dtype)] == 1
+    strip = axis == 0 and pg.strip_plan(rows, 128, dtype) is not None
+    assert _cuda.LAUNCHES[pg.take_kernel(axis, dtype, strip)] == 1
     assert torch.equal(got.cpu(), pg.block_take_plain(x, idx, axis, rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8])
+@pytest.mark.parametrize("S,blocks", [(512, 3), (4096, 2), (8192, 2)])
+def test_block_take_strip_matches_plain(dev, S, blocks, dtype):
+    """P2's axis-0 gather over large blocks: bitwise the plain version
+    with indices at 0 and at the top of their range (S - 1; 127 for
+    int8), through the planned kernel (the strip kernel for int32, the
+    row kernel for int8), through every strip plan that fits, and with a
+    misaligned x view, which the row kernel takes."""
+    from lux_tpu_torch.probes import gather as pg
+
+    rng = np.random.default_rng(S + blocks)
+    rows = blocks * S
+    x = torch.from_numpy(rng.standard_normal((rows, 128), dtype=np.float32))
+    hi = min(S, 128) if dtype == torch.int8 else S
+    draw = rng.integers(0, hi, (rows, 128))
+    draw[0, :] = hi - 1
+    draw[1, :] = 0
+    draw[S - 1, ::2] = hi - 1
+    draw[-1, 1::2] = 0
+    idx = torch.from_numpy(draw.astype(np.int32)).to(dtype)
+    xd, idd = x.to(dev), idx.to(dev)
+    want = pg.block_take_plain(x, idx, 0, S)
+    plan = pg.strip_plan(S, 128, dtype)
+    assert (plan is None) == (dtype == torch.int8)
+    _cuda.reset_launches()
+    assert torch.equal(pg.block_take(xd, idd, 0, S).cpu(), want)
+    assert _cuda.LAUNCHES[pg.take_kernel(0, dtype, plan is not None)] == 1
+    assert sum(_cuda.LAUNCHES.values()) == 1
+    if dtype == torch.int32:
+        for w in pg.STRIP_WIDTHS:
+            for r in (S, min(S, pg.STRIP_ROWS), S // 2, 1):
+                if r * w * 4 > pg.STRIP_SMEM_MAX:
+                    continue
+                out = torch.empty_like(xd)
+                pg.take_strip(xd, idd, S, w, r, out)
+                assert torch.equal(out.cpu(), want), (w, r)
+    # x one float past a 16-byte boundary: the row kernel takes it.
+    flat = torch.empty(rows * 128 + 1, device=dev)
+    xm = flat[1:].view(rows, 128)
+    xm.copy_(xd)
+    _cuda.reset_launches()
+    assert torch.equal(pg.block_take(xm, idd, 0, S).cpu(), want)
+    assert _cuda.LAUNCHES[pg.take_kernel(0, dtype)] == 1
 
 
 @pytest.mark.parametrize("r", [1, 7, 13, 1001, 20003])
@@ -1976,3 +2022,40 @@ def test_tuned_session_on_cuda(dev, tmp_path, monkeypatch):
         st, it = default.run(start=r)
         np.testing.assert_array_equal(out["values"], default.values(st))
         assert out["iters"] == int(it)
+
+
+def test_program_contracts_with_hooks_on_the_card(dev):
+    """The program-contract tier with the hooks on the card derives the
+    committed gascap.v1 artifact, each seeded fixture fires exactly its
+    rule, and the incremental gate's verdicts are the CPU's."""
+    import os
+
+    from lux_tpu_torch.analysis import gasck
+    from lux_tpu_torch.engine.program import ProgramContractError
+
+    report, art = gasck.prove_registry(device=dev)
+    assert report.ok and len(report.results) == 8
+    committed = gasck.load_capmap(os.path.join(
+        os.path.dirname(gasck.__file__), gasck.CAP_FILENAME))
+    assert art["id"] == committed["id"]
+    fixtures = os.path.join(os.path.dirname(__file__), "torch_gas_fixtures")
+    for name in sorted(os.listdir(fixtures)):
+        if not name.startswith("lux60"):
+            continue
+        rep = gasck.verify_fixture_paths([os.path.join(fixtures, name)],
+                                         device=dev)
+        assert sorted({f.rule for f in rep.findings}) == \
+            [name[:3].upper() + name[3:6]], name
+
+    class Quiet(SSSP):
+        incremental_ok = False
+
+    class Claimant(ConnectedComponents):
+        name = "claimant"
+
+        def relax(self, src_vals, weights):
+            return (src_vals + 1) & seg.U32_MASK
+
+    gasck.require_incremental(Quiet(), dev)
+    with pytest.raises(ProgramContractError, match="not inflationary"):
+        gasck.require_incremental(Claimant(), dev)

@@ -694,7 +694,10 @@ def test_registry_matches_lux_tpu():
         assert got == {
             k: bool(getattr(jmodels.PROGRAMS[name], k, False))
             for k in ("rooted", "frontier_ok", "incremental_ok")}
-    assert tmodels.capability_report()["source"] == "declared"
+    rep = tmodels.capability_report()
+    assert rep["source"] == "artifact"
+    assert rep["artifact_id"] == jmodels.capability_report()["artifact_id"]
+    assert rep["programs"] == jmodels.capability_report()["programs"]
     with pytest.raises(KeyError):
         tmodels.get_program("nope")
     with pytest.raises(KeyError):

@@ -246,14 +246,18 @@ def test_flag_table_has_the_obs_flags():
         assert tflags.default(name) == jflags.default(name), name
     assert set(tflags.names()) <= set(jflags.names())
     # Of the tuner, bench, serving and lint-tier families the port
-    # declares the tuner's flags (tune/) and the serving knobs (the serve
-    # pool reads the audit and admission flags to report them as not
-    # ported).
+    # declares the tuner's flags (tune/), the program-contract tier's
+    # (analysis/gasck.py) and the serving knobs (the serve pool reads the
+    # audit and admission flags, and reports the unported ones as such).
     assert {n for n in tflags.names()
             if n.startswith(("LUX_TUNE", "LUX_BENCH", "LUX_SERVE",
-                             "LUX_MEM", "LUX_GASCK", "LUX_IR"))} == {
-        n for n in jflags.names() if n.startswith("LUX_TUNE")} | {
+                             "LUX_MEM", "LUX_GASCK", "LUX_GASCAP",
+                             "LUX_IR"))} == {
+        n for n in jflags.names()
+        if n.startswith(("LUX_TUNE", "LUX_GASCK", "LUX_GASCAP"))} | {
         "LUX_SERVE_MESH", "LUX_MEM_POOL_ADMIT", "LUX_IR_POOL_AUDIT"}
+    for name in ("LUX_GASCK_SEED", "LUX_GASCK_TRIPLES", "LUX_GASCK_NV"):
+        assert tflags.default(name) == jflags.default(name), name
     table = tflags.table()
     assert table.splitlines()[0].split()[:3] == ["flag", "kind", "default"]
     assert len(table.splitlines()) == len(tflags.names()) + 1

@@ -24,6 +24,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from lux_tpu_torch.ops import _cuda
 from lux_tpu_torch.ops.merge_tail_kernel import level_apply
 from lux_tpu_torch.probes import dgather, dgather2, merge_kernel
 from lux_tpu_torch.probes import gather as pg
@@ -210,6 +211,37 @@ def test_wrappers_refuse_bad_inputs():
                        torch.zeros(1, dtype=torch.int32),
                        torch.zeros(16, 128, dtype=torch.int32))
     assert pg.take_kernel(0, torch.int8) == "block_take[axis=0 int8]"
+
+
+def test_strip_route_by_block_shape():
+    """Axis 0 with an int32 index over blocks of STRIP_MIN_ROWS rows or
+    more takes the strip kernel, the widest strip whose rows fit in
+    STRIP_SMEM, else 8 floats with STRIP_ROWS rows in shared memory; the
+    probes' 8-row blocks, P5's and any int8 index keep the row kernel. On
+    the CPU both are the plain version."""
+    assert pg.strip_plan(8, 128) is None
+    assert pg.strip_plan(pg.STRIP_MIN_ROWS - 1, 128) is None
+    assert pg.strip_plan(512, 128) == (32, 512)
+    assert pg.strip_plan(1024, 128) == (32, 1024)
+    assert pg.strip_plan(2048, 128) == (16, 2048)
+    assert pg.strip_plan(4096, 128) == (8, 4096)
+    assert pg.strip_plan(8192, 128) == (8, pg.STRIP_ROWS)
+    assert pg.strip_plan(5000, 128) == (8, 5000)
+    assert pg.strip_plan(512, 24) == (8, 512)
+    assert pg.strip_plan(512, 12) is None
+    assert pg.strip_plan(4096, 128, torch.int8) is None
+    assert pg.take_kernel(0, torch.int32, strip=True) == \
+        "block_take_strip[axis=0 int32]"
+    assert "block_take_strip[axis=0 int32]" in _cuda.LAUNCHES
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((1024, 128), dtype=np.float32))
+    idx = torch.from_numpy(rng.integers(0, 512, (1024, 128), dtype=np.int32))
+    _cuda.reset_launches()
+    assert torch.equal(pg.block_take(x, idx, 0, 512),
+                       pg.block_take_plain(x, idx, 0, 512))
+    assert not any(_cuda.LAUNCHES.values())
+    with pytest.raises(ValueError, match="int32"):
+        pg.take_strip(x, idx.to(torch.int8), 512, 8, 512, torch.empty_like(x))
 
 
 @pytest.mark.parametrize("probe", ["dgather", "dgather2", "merge_kernel"])

@@ -41,7 +41,7 @@ from lux_tpu_torch.serve import (
     ServeConfig,
     Session,
 )
-from lux_tpu_torch.serve.pool import NOT_PORTED
+from lux_tpu_torch.serve.pool import GAS_AUDIT_STATUS, NOT_PORTED
 
 ROOTS = (0, 5, 77, 300)
 
@@ -161,14 +161,18 @@ def test_engine_pool_builds_once():
     st = pool.stats()
     audits = st.pop("audits")
     # lux_tpu's dict, but for the audits that are not ported: while their
-    # flags ask for them they did not run, which must not read as 0.
+    # flags ask for them they did not run, which must not read as 0. The
+    # program-algebra audit runs; its counter is process-global, as
+    # lux_tpu's is.
+    gas = metrics.counter("lux_gas_findings_total").value
     assert st == {"engines": 1, "hits": 1, "misses": 1, "retired": 0,
                   "warmup_compiles": 0, "recompiles": 0,
                   "ir_findings": 0, "exch_findings": None,
-                  "gas_findings": None, "hbm_resident_bytes": None,
+                  "gas_findings": gas, "hbm_resident_bytes": None,
                   "hbm_evictions": 0}
-    assert audits["exchck"]["status"] == audits["gasck"]["status"] \
-        == NOT_PORTED
+    assert audits["exchck"]["status"] == NOT_PORTED
+    assert audits["gasck"]["status"] == GAS_AUDIT_STATUS
+    assert audits["gasck"]["audited_builds"] == 0   # no program carried
     assert audits["memck"]["status"].startswith(NOT_PORTED)
     pool.close()
 
@@ -197,7 +201,10 @@ def test_pool_counts_builds_the_audits_would_read():
     pool.get(("b",), Prog)
     audits = pool.audits()
     assert audits["exchck"]["unaudited_builds"] == 1
-    assert audits["gasck"]["unaudited_builds"] == 1
+    # The program audit ran on the build carrying a program; Prog is no
+    # program gasck can adapt, and the advisory audit let the build be.
+    assert audits["gasck"]["audited_builds"] == 0
+    assert len(pool) == 2
     assert audits["ir"]["requested"]
     pool.close()
 
@@ -456,11 +463,17 @@ def test_stats_and_statusz_say_what_is_not_ported(pair):
     _, s, _ = pair
     st, sz = s.stats(), s.statusz()
     assert st["device"] == "cpu"
-    assert st["pool"]["gas_findings"] is None
-    assert sz["counters"]["gas_findings"] is None
-    assert sz["programs"]["gas_findings"] is None
+    # The program audit ran over every build, and the registry's
+    # programs are clean: no finding beyond what the process had.
+    gas = metrics.counter("lux_gas_findings_total").value
+    assert st["pool"]["gas_findings"] == gas
+    assert sz["counters"]["gas_findings"] == gas
+    assert sz["programs"]["gas_findings"] == gas
+    assert sz["programs"]["source"] == "artifact"
+    assert sz["audits"]["gasck"]["status"] == GAS_AUDIT_STATUS
+    assert sz["audits"]["gasck"]["audited_builds"] == st["pool"]["misses"]
+    assert sz["audits"]["exchck"]["status"] == NOT_PORTED
     for name in ("exchck", "gasck"):
-        assert sz["audits"][name]["status"] == NOT_PORTED
         assert sz["audits"][name]["requested"]
     mem = sz["memory"]
     assert mem["budget_bytes"] is None and mem["admission"]
@@ -561,6 +574,7 @@ def test_http_end_to_end():
     from lux_tpu_torch.serve.http import serve_in_thread
 
     g = generate.gnp(200, 1200, seed=301)
+    gas_before = metrics.counter("lux_gas_findings_total").value
     s = Session(g, _cfg(max_batch=2, window_s=0.01, pagerank_iters=3),
                 device="cpu")
     server, _ = serve_in_thread(s, port=0)
@@ -588,7 +602,9 @@ def test_http_end_to_end():
         assert _get(base, "/stats")["pool"]["misses"] >= 1
         sz = _get(base, "/statusz")
         assert sz["counters"]["recompiles"] == 0
-        assert sz["audits"]["gasck"]["status"] == NOT_PORTED
+        assert sz["audits"]["gasck"]["status"] == GAS_AUDIT_STATUS
+        assert sz["audits"]["gasck"]["findings"] == gas_before
+        assert sz["programs"]["source"] == "artifact"
         assert _get(base, "/costz")["schema"] == "costz.v1"
         prom = urllib.request.urlopen(base + "/metrics",
                                       timeout=10).read().decode()

@@ -626,16 +626,19 @@ def test_luxlint_tune_output_equals_tools_luxlint(tmp_path):
 
 
 def test_luxlint_refuses_unported_tiers():
-    for args in ((), ("--ir",), ("--memory",), ("--programs",),
+    for args in ((), ("--ir",), ("--memory",), ("--threads",),
                  ("lux_tpu_torch",)):
         proc = _luxlint(LUXLINT, *args)
         assert proc.returncode == 2, args
         assert "A16" in proc.stderr
+    both = _luxlint(LUXLINT, "--programs", "--tune")
+    assert both.returncode == 2 and "separate tiers" in both.stderr
     listed = _luxlint(LUXLINT, "--list-rules")
     assert listed.returncode == 0
     assert [ln.split()[0] for ln in listed.stdout.splitlines()
-            if ln.startswith("LUX")] == ["LUX501", "LUX502", "LUX503",
-                                         "LUX504"]
+            if ln.startswith("LUX")] == [
+        "LUX501", "LUX502", "LUX503", "LUX504", "LUX601", "LUX602",
+        "LUX603", "LUX604", "LUX605", "LUX606"]
 
 
 # -- probe scoring --------------------------------------------------------
