@@ -22,6 +22,28 @@ merge-network tail of ``LUX_GROUPED_TAIL=1``):
    declare ``incremental_ok`` and refusing ``DriftingMin`` and
    ``Claimant`` (LUX604, gather not inflationary), with the tier's
    seconds (the CLI runs beside the graph's generation of phase 3);
+2q. the static tiers (``analysis/rules.py``, ``threads.py``,
+   ``planck.py``, ``exchck.py``) on the card's host, and
+   ``HostTransferGuard`` on the card: ``python -m
+   lux_tpu_torch.tools.luxlint`` (the AST tier), ``--threads`` and
+   ``--exchange`` (registry mode, the sharded registry executors built on
+   the card) beside the graph's generation, each rc 0 with 0 findings and
+   its suppressions counted per rule; phase 3's grouped-tail plan (the
+   one the grouped executor runs, kept from its build, not planned
+   again) saved with ``save_grouped_plan``, loaded back by mmap,
+   uploaded, its grouped tail (K3 per level, K4) bitwise the executor's,
+   and ``luxlint --plans`` over it (0 findings) and over a copy with one
+   code flipped (LUX203 only), beside the phases that follow, with its
+   bytes and seconds; the compact exchange plans of phases 3e, 3g and 3h
+   saved with ``save_exchange_artifact`` and ``luxlint --exchange`` over
+   them (0 findings) and over a copy with one ``recv_pos`` misrouted
+   (LUX402 only); ten ``step`` calls of phase 5's tiled executor (K1,
+   K2) under the guard, then ``torch.cuda.synchronize()`` inside
+   ``allow()``; ``.item()``, ``.cpu()``, ``.tolist()`` and ``float()``
+   of a CUDA tensor each raising ``HostTransferError`` inside it, and the
+   push executor's SSSP ``step`` raising at its counter read (ROADMAP
+   A20); in 6m's session, the pool's exchange audit reading every compact
+   build (a compact sharded tiled engine joins it) with 0 findings;
 3. graph and plans: generate the graph, plan it, build both executors
    (each strip level becomes a cell stream on the card; the build's
    seconds are logged per level);
@@ -581,12 +603,15 @@ def main(argv=None) -> int:
     # exactly the unweighted graph.
     prog_dir = _cuda.BUILD_DIR / "programs"
     lint = _programs_cli(prog_dir)
+    tiers = _lint_clis()
+    shutil.rmtree(_cuda.BUILD_DIR / "xplans", ignore_errors=True)
     t = time.perf_counter()
     try:
         gw = generate.rmat(args.scale, 16, seed=SEED, weighted=True)
     except BaseException:
-        lint.kill()
-        lint.wait()
+        for proc in [lint] + [p for _, p in tiers.values()]:
+            proc.kill()
+            proc.wait()
         raise
     g = Graph(nv=gw.nv, ne=gw.ne, row_ptr=gw.row_ptr, col_src=gw.col_src)
     t_gen = time.perf_counter() - t
@@ -606,6 +631,7 @@ def main(argv=None) -> int:
 
     group(PROGRAMS_GROUP, _program_phases, prog_dir, lint, dev)
     shutil.rmtree(prog_dir, ignore_errors=True)
+    group(LINT_GROUP, _lint_phases, tiers)
     # The CLI group (3i-6i) writes its files while the graphs and phase 3's
     # plan are at hand, and holds each CLI run against the in-process run
     # of its path, which the phase groups leave in ``held``.
@@ -639,6 +665,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     group(cli, _native_io, cli_dir, g)
     totals.update(group("4g probes", _probe_phases, dev, kernels))
+    group(LINT_GROUP, _plan_lint, held.pop("plan_artifact"))
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -648,6 +675,7 @@ def main(argv=None) -> int:
     group(cli, _cli_files, cli_dir, {"gu": gu})
     push_totals, push_ctx = group("3b-6b push", _push_phases, g, gu, dev,
                                   kernels)
+    group(LINT_GROUP, _guard_phases, push_ctx, dev)
     for name, n in push_totals.items():
         totals[name] += n
     torch.cuda.empty_cache()
@@ -685,6 +713,7 @@ def main(argv=None) -> int:
                          gu, sgs, gas_ctx, oracle, dev, kernels,
                          held).items():
         totals[name] = totals.get(name, 0) + n
+    group(LINT_GROUP, _exchange_artifacts)
     del gw
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
@@ -751,6 +780,7 @@ def _pagerank_phases(g, dev, kernels, held):
     ``held["pagerank"]`` for the CLI group."""
     import torch
 
+    import lux_tpu_torch.engine.tiled as tiled_mod
     from lux_tpu_torch.engine.tiled import TiledPullExecutor
     from lux_tpu_torch.models.pagerank import PageRank, reference_pagerank
     from lux_tpu_torch.ops import _cuda
@@ -785,11 +815,17 @@ def _pagerank_phases(g, dev, kernels, held):
         log(f"[plan] cell build of level r={hlev.r} ({hlev.rows.shape[0]} "
             f"strips, {hlev.nbytes} B on the host): {t:.2f} s")
     t = time.perf_counter()
+    # Keep the grouped plan the executor builds (group 2q saves and
+    # verifies it): planning it again costs minutes at this scale.
+    planner, kept = tiled_mod.plan_grouped_tail, []
+    tiled_mod.plan_grouped_tail = lambda *a, **kw: kept.append(
+        planner(*a, **kw)) or kept[-1]
     os.environ["LUX_GROUPED_TAIL"] = "1"
     try:
         ex_grp = TiledPullExecutor(g, PageRank(), plan=plan)
     finally:
         del os.environ["LUX_GROUPED_TAIL"]
+        tiled_mod.plan_grouped_tail = planner
     torch.cuda.synchronize()
     gt = ex_grp.gtail
     level_rows = [int(c.shape[0]) for c in gt.codes]
@@ -912,6 +948,9 @@ def _pagerank_phases(g, dev, kernels, held):
     record(kernels, "segment_sum_rowptr", "lux_tpu_torch/csrc/segment_sum.cu",
            "lux_tpu/ops/merge_tail_kernel.py:146", err, k4_ms, k4_plain,
            k4_bytes, k4_ops, k4_lib)
+    # Group 2q: the plan the grouped executor runs, saved, reloaded and
+    # its tail held against the executor's; its lint runs meanwhile.
+    held["plan_artifact"] = _plan_artifact(kept.pop(), gt, x_float, dev)
     del x_float, x_int, root_f, root_i, x, y_i, y_f
     torch.cuda.empty_cache()
 
@@ -968,6 +1007,8 @@ def _pagerank_phases(g, dev, kernels, held):
     log(f"[time] peak device memory of phases 3-6 "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases 3-6 "
         f"took {time.perf_counter() - t_phase:.1f} s after planning")
+    # Group 2q: phase 5's executor, stepped under HostTransferGuard.
+    _guard_tiled(ex_lane, held["pagerank"]["values"], nlev)
     # Phase 3l takes the lane-select executor and its run's launches.
     held.setdefault("telemetry", {})["tiled"] = (ex_lane,
                                                  expected["lane-select"])
@@ -1996,8 +2037,10 @@ def _sharded_phases(g, pr_oracle, gc, cf_oracle, dev, held):
         del os.environ["LUX_EXCHANGE"]
     else:
         os.environ["LUX_EXCHANGE"] = flag
-    # Phase 4l takes the compact PageRank executor.
+    # Phase 4l takes the compact PageRank executor; group 2q its plan.
     held.setdefault("telemetry", {})["pull_sharded"] = exs["pagerank compact"]
+    _save_xplan("pull_pagerank_compact", "pull_sharded",
+                exs["pagerank compact"])
 
     # -- 4e. K8 and K9 on one part's flat table, against the plain versions ----
     rng = np.random.default_rng(SEED)
@@ -2814,6 +2857,7 @@ def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
     else:
         os.environ["LUX_EXCHANGE"] = flag
     log(f"[gas-sharded] multi-source roots {roots}")
+    _save_xplan("gas_bfs_compact", "gas_sharded", exs["bfs compact"])
 
     # -- 4h. K11 over the P receivers in one launch --------------------------
     # BFS's first frontier (vertex 0) and a synthetic frontier of
@@ -3134,6 +3178,7 @@ def _tiled_sharded_phases(g, plan, pr_oracle, dev, kernels, held) -> dict:
         del os.environ["LUX_EXCHANGE"]
     else:
         os.environ["LUX_EXCHANGE"] = flag
+    _save_xplan("tiled_pagerank_compact", "tiled_sharded", exs["compact"])
     ex = exs["full"]
     parts = ex._parts
     strips = [[lev.n_cells for lev in p.levels] for p in parts]
@@ -3589,6 +3634,318 @@ def _program_phases(work, lint, dev) -> None:
         f"{dev} ({fix_s:.2f} s); the gate admits an SSSP that does not "
         f"declare incremental_ok and refuses DriftingMin and Claimant "
         f"(three proofs {time.perf_counter() - t0:.2f} s)")
+
+
+# -- 2q: the static tiers, their artifacts and HostTransferGuard -------------
+
+LINT_GROUP = "2q static tiers"
+LINT_TIERS = {"ast": (), "threads": ("--threads",),
+              "exchange": ("--exchange",)}
+GUARD_STEPS = 10
+
+
+def _luxlint_json(proc, label):
+    """(summary, document) of a finished ``luxlint --json`` run."""
+    out, err = proc.communicate(timeout=600)
+    if "LUXLINT " not in out:
+        raise AssertionError(f"{label}: rc {proc.returncode}, no summary\n"
+                             f"{out[-2000:]}{err[-2000:]}")
+    doc = json.loads(out[:out.rindex("LUXLINT ")])
+    return doc["summary"], doc, err
+
+
+def _lint_clis():
+    """Start the port's static tiers as a user runs them, on the card's
+    host: ``python -m lux_tpu_torch.tools.luxlint`` (the AST tier over
+    ``lux_tpu_torch`` and ``chip_smoke.py``), ``--threads`` and
+    ``--exchange`` (registry mode: every sharded registry executor built
+    on the card, its compact plan verified); group 2q collects them (they
+    run beside the graph's generation)."""
+    env = {k: v for k, v in os.environ.items() if k != "LUX_PLATFORM"}
+    return {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "lux_tpu_torch.tools.luxlint", "--json",
+         *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)) for name, args in LINT_TIERS.items()}
+
+
+def _lint_phases(procs) -> None:
+    """Group 2q's CLIs: each rc 0 with 0 findings and 0 errors, its
+    suppressions counted per rule; the registry ``--exchange`` over more
+    than 20 compact plans, and naming LUX404-406 as not ported."""
+    from collections import Counter
+
+    for name, (t0, proc) in procs.items():
+        t = time.perf_counter()
+        summary, doc, err = _luxlint_json(proc, f"luxlint {name}")
+        waited = time.perf_counter() - t
+        if (proc.returncode != 0 or summary["findings"]
+                or summary["errors"] or not summary["ok"]):
+            raise AssertionError(f"luxlint {name}: rc {proc.returncode}, "
+                                 f"{summary}\n{err[-2000:]}")
+        per_rule = dict(sorted(Counter(
+            f["rule"] for f in doc["suppressed"]).items()))
+        extra = ""
+        if name == "exchange":
+            if summary["files"] < 20 or "LUX404-406" not in err:
+                raise AssertionError(f"luxlint --exchange: {summary}; "
+                                     f"{err[-500:]}")
+            extra = (f"; {summary['files']} compact plans of the sharded "
+                     "registry executors, built on the card (LUX404-406 "
+                     "named as not ported)")
+        elif summary["files"] < 90:
+            raise AssertionError(f"luxlint {name}: {summary}")
+        log(f"[lint] {name}: rc 0, {summary['files']} files, 0 findings, "
+            f"suppressed {summary['suppressed']} {per_rule}, schema "
+            f"{summary['schema']}, the tier {summary['elapsed_s']} s "
+            f"(waited {waited:.1f} s for the CLI, "
+            f"{time.perf_counter() - t0:.1f} s since its start){extra}")
+
+
+def _plan_artifact(gplan, gt, x, dev):
+    """Phase 3's grouped-tail plan, the one the grouped executor was
+    built from: saved with ``save_grouped_plan``, loaded back (mmap),
+    uploaded with ``DeviceGroupedTail.build``; the grouped tail (K3 per
+    level, K4) from the reloaded plan bitwise equal to the executor's own
+    on ``x``. A copy with one code of level 0 flipped negative is made
+    beside it, and ``luxlint --plans --json`` is started over both in
+    the background; :func:`_plan_lint` collects it. Returns what it
+    needs."""
+    import torch
+
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.ops.merge_tail_kernel import (DeviceGroupedTail,
+                                                     grouped_tail_sums)
+    from lux_tpu_torch.ops.merge_tail_plan import (load_grouped_plan,
+                                                   save_grouped_plan)
+
+    root = _cuda.BUILD_DIR / "gplan"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    good, bad = root / "plan", root / "flipped"
+    t = time.perf_counter()
+    save_grouped_plan(str(good), gplan)
+    save_s = time.perf_counter() - t
+    nbytes = sum(f.stat().st_size for f in good.iterdir())
+    # The copy: codes.npy copied and one code flipped, the rest linked.
+    bad.mkdir()
+    for f in good.iterdir():
+        if f.name == "codes.npy":
+            shutil.copyfile(f, bad / f.name)
+        else:
+            os.link(f, bad / f.name)
+    codes = np.load(bad / "codes.npy", mmap_mode="r+")
+    r0 = int(gplan.level_ptr[1])
+    row = int(np.argmax(np.asarray(gplan.nvalid[:r0]) > 0))
+    codes[row, 0] = -1 - int(codes[row, 0])
+    codes.flush()
+    del codes
+    env = {k: v for k, v in os.environ.items() if k != "LUX_PLATFORM"}
+    lint = (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "lux_tpu_torch.tools.luxlint", "--plans",
+         "--json", str(good), str(bad)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env))
+    t = time.perf_counter()
+    back = load_grouped_plan(str(good), mmap=True)
+    load_s = time.perf_counter() - t
+    t = time.perf_counter()
+    gt_back = DeviceGroupedTail.build(back, dev)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t
+    got = grouped_tail_sums(x, gt_back)
+    want = grouped_tail_sums(x, gt)
+    if not torch.equal(got, want):
+        raise AssertionError("the reloaded grouped plan's tail differs from "
+                             "the executor's")
+    rows = int(gplan.arow.shape[0])
+    log(f"[lint] phase 3's grouped plan ({gplan.n_levels} merge levels, "
+        f"{rows} stream rows, {gplan.n_edges} reals): saved in "
+        f"{save_s:.1f} s ({nbytes} B), loaded back by mmap in "
+        f"{load_s:.2f} s, uploaded in {up_s:.2f} s; its grouped tail (K3 "
+        f"x {gt_back.n_levels + 1} levels, K4) equals the executor's "
+        f"bitwise; luxlint --plans started on it and on a copy with code "
+        f"[{row}, 0] of level 0 flipped")
+    del gt_back, back, got, want
+    return {"root": root, "good": str(good), "bad": str(bad),
+            "lint": lint, "bytes": nbytes}
+
+
+def _plan_lint(art) -> None:
+    """Collect :func:`_plan_artifact`'s ``luxlint --plans``: rc 1, the
+    saved plan 0 findings, the flipped copy only LUX203 (the code-plane
+    rule it breaks); then remove the directory."""
+    t0, proc = art["lint"]
+    t = time.perf_counter()
+    summary, doc, err = _luxlint_json(proc, "luxlint --plans")
+    waited = time.perf_counter() - t
+    by_path = {}
+    for f in doc["findings"]:
+        by_path.setdefault(f["path"], set()).add(f["rule"])
+    if (proc.returncode != 1 or summary["errors"]
+            or set(by_path) != {art["bad"]}
+            or by_path[art["bad"]] != {"LUX203"}):
+        raise AssertionError(f"luxlint --plans: rc {proc.returncode}, "
+                             f"{summary}, {by_path}\n{err[-2000:]}")
+    log(f"[lint] luxlint --plans on the scale's grouped plan "
+        f"({art['bytes']} B) and its flipped copy: rc 1; the plan 0 "
+        f"findings, the copy {summary['findings']} LUX203 finding(s); "
+        f"the tier {summary['elapsed_s']} s for both (waited {waited:.1f} "
+        f"s for the CLI, {time.perf_counter() - t0:.1f} s since its "
+        f"start, beside the phases that followed)")
+    shutil.rmtree(art["root"], ignore_errors=True)
+
+
+def _save_xplan(label: str, kind: str, ex) -> None:
+    """Save ``ex``'s compact exchange plan with ``save_exchange_artifact``
+    (remote-read counts, row bytes, ledger) under the build directory's
+    ``xplans/<label>``, for :func:`_exchange_artifacts`."""
+    from lux_tpu_torch.analysis.ir import _plan_evidence
+    from lux_tpu_torch.graph.partition import save_exchange_artifact
+    from lux_tpu_torch.ops import _cuda
+
+    plan = ex._xplan
+    if plan is None:
+        raise AssertionError(f"{label}: no compact plan to save")
+    ev = _plan_evidence(kind, ex, plan)
+    save_exchange_artifact(plan, str(_cuda.BUILD_DIR / "xplans" / label),
+                           remote_read_counts=ev["remote_read_counts"],
+                           row_bytes=ev["row_bytes"], ledger=ev["ledger"])
+
+
+def _exchange_artifacts() -> None:
+    """The compact plans of phases 3e, 3g and 3h, saved by
+    :func:`_save_xplan`, through ``luxlint --exchange --json`` with a
+    copy of 3e's whose first real ``recv_pos`` is misrouted: the saved
+    plans 0 findings, the copy only LUX402 (rc 1); then remove them."""
+    from lux_tpu_torch.ops import _cuda
+
+    root = _cuda.BUILD_DIR / "xplans"
+    dirs = sorted(str(d) for d in root.iterdir())
+    if len(dirs) != 3:
+        raise AssertionError(f"exchange artifacts: {dirs}")
+    src = root / "pull_pagerank_compact"
+    bad = root / "misrouted"
+    shutil.copytree(src, bad)
+    meta = json.loads((bad / "meta.json").read_text())
+    counts = np.load(bad / "counts.npy")
+    recv = np.load(bad / "recv_pos.npy")
+    cap = int(meta["capacity"])
+    q, p = (int(v) for v in np.argwhere(
+        (counts > 0) & ~np.eye(counts.shape[0], dtype=bool))[0])
+    recv[q, p * cap] += 1
+    np.save(bad / "recv_pos.npy", recv)
+    nbytes = sum(f.stat().st_size for d in dirs for f in Path(d).iterdir())
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lux_tpu_torch.tools.luxlint", "--exchange",
+         "--json", *dirs, str(bad)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    summary, doc, err = _luxlint_json(proc, "luxlint --exchange DIRS")
+    by_path = {}
+    for f in doc["findings"]:
+        by_path.setdefault(f["path"], set()).add(f["rule"])
+    if (proc.returncode != 1 or summary["errors"] or summary["files"] != 4
+            or by_path != {str(bad): {"LUX402"}}):
+        raise AssertionError(f"luxlint --exchange DIRS: rc "
+                             f"{proc.returncode}, {summary}, {by_path}\n"
+                             f"{err[-2000:]}")
+    log(f"[lint] exchange artifacts of phases 3e (pull PageRank), 3g "
+        f"(tiled) and 3h (GAS BFS), compact over {SHARDED_PARTS} parts "
+        f"({nbytes} B): luxlint --exchange 0 findings on each, and LUX402 "
+        f"only on the copy with recv_pos[{q}, sender {p}, slot 0] "
+        f"misrouted (rc 1); the tier {summary['elapsed_s']} s, the CLI "
+        f"{time.perf_counter() - t:.1f} s")
+    shutil.rmtree(root)
+
+
+def _guard_tiled(ex, want, nlev: int) -> None:
+    """``GUARD_STEPS`` steps of phase 5's tiled executor (K1, K2) under
+    ``HostTransferGuard``, then ``torch.cuda.synchronize()`` inside
+    ``allow()``: no step reads the card on the host, the values equal
+    phase 5's ``run(10)`` bitwise, and the launches are K1 once per
+    level and K2 once per step."""
+    import torch
+
+    from lux_tpu_torch.analysis.sentinel import HostTransferGuard
+    from lux_tpu_torch.ops import _cuda
+
+    t = time.perf_counter()
+    with HostTransferGuard("first use"):
+        # The first op under a dispatch mode pays torch's one-time
+        # set-up of its Python dispatcher (hundreds of imports).
+        torch.zeros(1) + 1
+    first_s = time.perf_counter() - t
+    v = ex.init_values()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    with HostTransferGuard("tiled steps") as guard:
+        for _ in range(GUARD_STEPS):
+            v = ex.step(v)
+        with guard.allow():
+            torch.cuda.synchronize()
+    took = time.perf_counter() - t
+    counts = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+    if counts != {"strip_spmv": nlev * GUARD_STEPS,
+                  "tail_gather_sum": GUARD_STEPS}:
+        raise AssertionError(f"guarded tiled steps: launches {counts}")
+    if not np.array_equal(v.cpu().numpy(), want):
+        raise AssertionError("guarded tiled steps differ from run(10)")
+    log(f"[guard] {GUARD_STEPS} tiled step() calls (K1, K2) under "
+        f"HostTransferGuard: no device->host read, then "
+        f"torch.cuda.synchronize() inside allow(); values bitwise phase "
+        f"5's run({ITERS}); launches {counts}; {took * 1e3:.1f} ms (the "
+        f"dispatch mode's one-time set-up before them {first_s:.2f} s)")
+
+
+def _guard_phases(push: dict, dev) -> None:
+    """``HostTransferGuard`` on the card: ``.item()``, ``.cpu()``,
+    ``.tolist()`` and ``float()`` of a CUDA tensor each raise
+    ``HostTransferError`` inside it and pass inside ``allow()``; the push
+    executor's SSSP ``step`` raises at its per-iteration counter read
+    (``_read``, ROADMAP A20)."""
+    import traceback
+
+    import torch
+
+    from lux_tpu_torch.analysis.sentinel import (HostTransferError,
+                                                 HostTransferGuard)
+
+    t = torch.arange(1 << 20, dtype=torch.float32, device=dev)
+    forms = {".item()": lambda: t.sum().item(), ".cpu()": t.cpu,
+             ".tolist()": lambda: t[:8].tolist(),
+             "float()": lambda: float(t[3])}
+    raised = {}
+    with HostTransferGuard("forms") as guard:
+        for name, form in forms.items():
+            try:
+                form()
+            except HostTransferError as e:
+                raised[name] = str(e).split(" inside ")[0]
+            else:
+                raise AssertionError(f"HostTransferGuard let {name} of a "
+                                     "CUDA tensor through")
+            with guard.allow():
+                form()
+    log(f"[guard] inside HostTransferGuard each form of a CUDA tensor "
+        f"raises HostTransferError: {raised}; inside allow() each passes")
+    ex = push["sssp_ex"]
+    state = ex.init_state(start=0)
+    torch.cuda.synchronize()
+    try:
+        with HostTransferGuard("push sssp"):
+            ex.step(state)
+    except HostTransferError as e:
+        frames = [f.name for f in traceback.extract_tb(e.__traceback__)]
+        if "_read" not in frames:
+            raise AssertionError(f"push step raised outside _read: "
+                                 f"{frames}") from e
+        log(f"[guard] the push executor's SSSP step() raises at its "
+            f"counter read ({' -> '.join(frames[-4:])}: {e}): one host read "
+            f"per iteration, where lux_tpu reads once a chunk (ROADMAP "
+            f"A20)")
+    else:
+        raise AssertionError("the push executor's step read nothing on "
+                             "the host under HostTransferGuard")
 
 
 def _k2_check(label, tail_src, row_ptr, n_x: int, rng, reps: int, dev):
@@ -5920,6 +6277,7 @@ def _serve_mesh(work, dev, http: dict, oracle, smi: str,
             f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             f"GiB; launches { {k: v for k, v in counts.items() if v} } "
             f"({smi})")
+        _pool_exchange_audit(s)
     finally:
         s.close()
     for name in SERVE_MESH_KERNELS:
@@ -5927,6 +6285,45 @@ def _serve_mesh(work, dev, http: dict, oracle, smi: str,
             raise AssertionError(f"serve mesh: {name} never ran")
     torch.cuda.empty_cache()
     return counts
+
+
+def _pool_exchange_audit(s) -> None:
+    """Group 2q in 6m's session: the pool's exchange-plan audit
+    (``analysis/exchck.py``) read every build that carries a compact
+    plan, with 0 findings. The session's engines exchange in full (4n's
+    winner included, when it is full), so one compact sharded tiled
+    PageRank engine on the session's own hybrid plan joins its pool and
+    must audit clean too."""
+    from lux_tpu_torch.engine.tiled_sharded import ShardedTiledExecutor
+    from lux_tpu_torch.models.pagerank import PageRank
+
+    pool = s.pool
+    before = pool.audits()["exchck"]
+    snap = s.store.current()
+    plan = s._pagerank_engine(snap).plan    # the session's, a pool hit
+    t = time.perf_counter()
+    with _knobs(LUX_EXCHANGE="compact"):
+        ex = pool.get(("smoke", "pagerank", "compact", snap.fingerprint),
+                      lambda: ShardedTiledExecutor(
+                          snap.graph, PageRank(), mesh=s.meshspec.mesh,
+                          plan=plan))
+    took = time.perf_counter() - t
+    if ex._xplan is None:
+        raise AssertionError("6m: the compact engine resolved full")
+    with pool._lock:
+        compact = sum(getattr(e, "_xplan", None) is not None
+                      for e in pool._engines.values())
+    a = pool.audits()["exchck"]
+    if (not a["requested"] or a["audited_builds"] != compact
+            or a["findings"] != before["findings"]
+            or pool.stats()["exch_findings"] != a["findings"]):
+        raise AssertionError(f"6m: exchange audit {before} -> {a}, "
+                             f"{compact} compact builds")
+    log(f"[lint] 6m: the pool's exchange audit read {a['audited_builds']} "
+        f"compact build(s) of {len(pool)} (the session's "
+        f"{before['audited_builds']} and a compact sharded tiled PageRank "
+        f"engine on the session's plan, built, warmed and audited in "
+        f"{took:.1f} s), 0 findings; audits.exchck {a['status']!r}")
 
 
 if __name__ == "__main__":

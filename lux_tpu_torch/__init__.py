@@ -47,14 +47,15 @@ Layout:
     lux_tpu_torch.serve   — serving: the warm-engine Session, its pool,
                             batcher, cache, breaker, cost accounts,
                             serving mesh and HTTP front end
-    lux_tpu_torch.analysis — the recompile sentinel serving counts with,
-                            the tune-artifact checker (LUX501-504),
-                            build_executor
+    lux_tpu_torch.analysis — the lint tiers (AST, threads, grouped-tail
+                            and exchange plans, tune artifacts, program
+                            contracts), the recompile sentinel and
+                            HostTransferGuard, build_executor
     lux_tpu_torch.tune    — the auto-tuner: knob space, probes, search,
                             tuneconf.v1 artifacts and their cache
     lux_tpu_torch.native  — the C++ .lux reader, converter and CSR build
                             (g++ on first use), numpy as the fallback
-    lux_tpu_torch.tools   — the converter, prof_summary and luxlint --tune
+    lux_tpu_torch.tools   — the converter, prof_summary and luxlint
     lux_tpu_torch.utils   — flags, device resolution, loggers
 """
 

@@ -469,6 +469,7 @@ class AdaptiveExecutor(_GasBase):
             acc = self._pull_acc(state)
         new, frontier = self._update(state.values, acc)
         return (GasState(new, frontier, int(push)),
+                # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
                 self._read(self._stats_tensor(frontier)), int(push))
 
     # -- driving ----------------------------------------------------------
@@ -644,6 +645,7 @@ class MultiSourceGasExecutor(_GasBase):
             prog.combiner, prog.gather_op, self.tasks, gather=prog.gather,
             weights=self.weights)
         new, frontier = self._update(state.values, acc)
+        # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
         return GasState(new, frontier, 0), int(frontier.sum())
 
     def run(self, starts, max_iters: Optional[int] = None, chunk: int = 16,

@@ -408,6 +408,7 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
         with _COMPUTE:
             new, frontier = self._merge(state.values, acc)
         return (GasState(new, frontier, int(push)),
+                # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
                 self._read(self._stats_tensor(frontier)), int(push),
                 self._branch(push, down))
 

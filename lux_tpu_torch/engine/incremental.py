@@ -49,7 +49,6 @@ the luxlint-IR hook (ROADMAP A16).
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -59,7 +58,7 @@ from lux_tpu_torch.analysis.gasck import require_incremental
 from lux_tpu_torch.engine.push import (MultiSourcePushExecutor, PushExecutor,
                                        PushState)
 from lux_tpu_torch.graph.graph import Graph
-from lux_tpu_torch.obs import recorder_for
+from lux_tpu_torch.obs import recorder_for, spans
 from lux_tpu_torch.ops.segment import to_u32_storage
 from lux_tpu_torch.utils import faults, host
 
@@ -233,12 +232,12 @@ class IncrementalExecutor:
     def _upload(self, t0: float, make):
         """``make()``'s device state, with the seconds since ``t0`` (the
         host work before it) and of the upload noted."""
-        t1 = time.perf_counter()
+        t1 = spans.clock()
         state = make()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.host_seconds = {"invalidation": t1 - t0,
-                             "upload": time.perf_counter() - t1}
+                             "upload": spans.clock() - t1}
         return state
 
     # -- single source ---------------------------------------------------
@@ -246,7 +245,7 @@ class IncrementalExecutor:
     def warm_state(self, old_values, removed=None, inserted=None, **init_kw):
         """Device-resident warm ``PushState`` + an info dict
         (``reset``/``frontier``/``touched_frac``)."""
-        t0 = time.perf_counter()
+        t0 = spans.clock()
         vals, fr, n_reset = _warm_column(
             self.program, self.graph, old_values, removed, inserted,
             **init_kw
@@ -299,7 +298,7 @@ class IncrementalExecutor:
         pad = self.multi.k - len(starts)
         starts = starts + [starts[-1]] * pad
         cols = cols + [cols[-1]] * pad
-        t0 = time.perf_counter()
+        t0 = spans.clock()
 
         def lane(j):
             # The lanes run side by side, each on one thread.

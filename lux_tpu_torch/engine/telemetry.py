@@ -12,11 +12,10 @@ run's launches and host reads are those of the plain loop.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
 
-from lux_tpu_torch.obs import engobs
+from lux_tpu_torch.obs import engobs, spans
 from lux_tpu_torch.obs.iterlog import (
     NULL_RECORDER,
     consume_compile_seconds,
@@ -81,6 +80,7 @@ def run_steps(step, vals, num_iters: int, flush_every: int, rec, device):
     for i in range(num_iters):
         vals = step(vals)
         if live and flush_every and (i + 1) % flush_every == 0:
+            # luxlint: disable=LUX001 -- designed flush point, one sync per flush_every iters
             sync(device)
             rec.flush(i + 1)
     if live and not (flush_every and num_iters % flush_every == 0):
@@ -93,10 +93,10 @@ def timed_warmup(ex, fn) -> None:
     """Run ``fn()`` (a warm-up through the run() path), wait for the
     card, and note its seconds as ``ex``'s compile time for the next
     ``run()``'s recorder."""
-    t0 = time.perf_counter()
+    t0 = spans.clock()
     fn()
     sync(ex.device)
-    note_compile_seconds(ex, time.perf_counter() - t0)
+    note_compile_seconds(ex, spans.clock() - t0)
 
 
 class FlushWindow:

@@ -1,9 +1,10 @@
 """Edge-balanced contiguous vertex partitioning and the needed-rows
 exchange plan.
 
-A copy of ``lux_tpu/graph/partition.py`` (host numpy, without its
-exchange-plan artifact writer, which feeds ``lux_tpu``'s lint tiers).
-Tests hold every array byte-identical to the reference's.
+A copy of ``lux_tpu/graph/partition.py`` (host numpy), with its
+exchange-plan artifact writer, which feeds the exchange tier
+(``analysis/exchck.py``). Tests hold every array byte-identical to the
+reference's, and each package's artifact loads in the other.
 
 The partitioner reproduces the reference's greedy sweep exactly
 (core/pull_model.inl:108-131, same code in push_model.inl:378-413): walk
@@ -24,6 +25,8 @@ Two deliberate divergences from the reference, as in ``lux_tpu``:
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -259,3 +262,56 @@ class ExchangePlan:
             needs, max_nv, P, unit_rows=1, multiple=multiple,
             capacity=capacity,
         )
+
+
+# -- exchange-plan artifact (consumed by the torch-free exchange linter) ---
+#
+# Layout mirrors the grouped-tail plan artifact (merge_tail_plan.py /
+# planck.py): one directory per plan, ``meta.json`` with the scalar
+# fields plus one ``.npy`` per table so the checker can mmap them
+# without torch. ``analysis/exchck.py`` mirrors these constants
+# deliberately; tests/test_torch_exchck.py keeps the two in lockstep, and
+# the format is ``lux_tpu``'s, byte for byte.
+
+EXCHANGE_PLAN_FORMAT = 1
+EXCHANGE_PLAN_ARRAYS = ("counts", "send_units", "recv_pos")
+
+
+def save_exchange_artifact(
+    plan: ExchangePlan,
+    path: str,
+    remote_read_counts: Optional[np.ndarray] = None,
+    row_bytes: Optional[int] = None,
+    ledger: Optional[dict] = None,
+) -> None:
+    """Write ``plan`` to ``path/`` for offline verification.
+
+    ``remote_read_counts`` (value rows, from ShardedGraph) enables the
+    LUX402 conservation proof; ``row_bytes`` and ``ledger`` (the
+    ``engobs.useful_exchange`` dict) enable the LUX403 pricing checks.
+    """
+    os.makedirs(path, exist_ok=True)
+    meta = {
+        "format": EXCHANGE_PLAN_FORMAT,
+        "num_parts": int(plan.num_parts),
+        "max_units": int(plan.max_units),
+        "unit_rows": int(plan.unit_rows),
+        "capacity": int(plan.capacity),
+        "profitable": bool(plan.profitable),
+        "exchanged_units_per_iter": int(plan.exchanged_units_per_iter),
+    }
+    if row_bytes is not None:
+        meta["row_bytes"] = int(row_bytes)
+        meta["exchange_bytes_per_iter"] = int(
+            plan.exchange_bytes_per_iter(row_bytes))
+    if ledger is not None:
+        meta["ledger"] = {k: (float(v) if k == "ratio" else int(v))
+                          for k, v in ledger.items()}
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2, sort_keys=True)
+    for name in EXCHANGE_PLAN_ARRAYS:
+        np.save(os.path.join(path, name + ".npy"),
+                np.asarray(getattr(plan, name)))
+    if remote_read_counts is not None:
+        np.save(os.path.join(path, "remote_read_counts.npy"),
+                np.asarray(remote_read_counts))

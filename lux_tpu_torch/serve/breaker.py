@@ -86,7 +86,7 @@ class CircuitBreaker:
         # Called under self._lock.
         entry.state = state
         self._transitions[state].inc()
-        tripped = self._entries.values()
+        tripped = self._entries.values()  # luxlint: guarded-by=_lock
         self._open_gauge.set(sum(1 for e in tripped if e.state != CLOSED))
 
     # -- hot path --------------------------------------------------------
@@ -97,6 +97,7 @@ class CircuitBreaker:
         probe (requests keep shedding until it reports back)."""
         # Lock-free fast path (one GIL-atomic dict probe per request):
         # any non-CLOSED hit is re-read under _lock before a decision.
+        # luxlint: disable=LUX301 -- a stale probe only costs one retry
         entry = self._entries.get(key)
         if entry is None or entry.state == CLOSED:
             return

@@ -99,7 +99,7 @@ class ShardPlanCache:
 
     def __init__(self):
         self._lock = make_lock("mesh.plans")
-        self._plans = OrderedDict()
+        self._plans = OrderedDict()  # luxlint: guarded-by=_lock
         self._hits = metrics.counter("lux_serve_plan_hits_total")
         self._misses = metrics.counter("lux_serve_plan_misses_total")
         self._evicted = metrics.counter("lux_serve_plan_evicted_total")

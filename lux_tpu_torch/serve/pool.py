@@ -21,13 +21,13 @@ exchange-plan audit, the program-algebra audit) and admits builds under
 an HBM budget priced by its memcap.v1 footprint model. The
 program-algebra audit runs here as there (``analysis/gasck.py``,
 LUX601/602/605, advisory, its findings counted in
-``lux_gas_findings_total``). The IR audit's guard has a counterpart: it
-audits executors with a ``trace_step``, and no executor of the port has
-one, so it skips every build as ``lux_tpu``'s does for such an executor.
-The exchange-plan audit and the footprint model are not ported (ROADMAP
-A16): while its flag asks for it, :meth:`stats` reports the exchange
-audit as not ported with the count of builds left unaudited, never as
-zero clean findings; and with no budget to derive, admission takes
+``lux_gas_findings_total``), and so does the exchange-plan audit
+(``analysis/exchck.py``, LUX401-403/407 over the live compact plan of a
+sharded engine, its findings counted in ``lux_exch_findings_total``).
+The IR audit's guard has a counterpart: it audits executors with a
+``trace_step``, and no executor of the port has one, so it skips every
+build as ``lux_tpu``'s does for such an executor. The footprint model is
+not ported (ROADMAP A16): with no budget to derive, admission takes
 ``lux_tpu``'s own branch for that case and admits every build.
 
 Engine work on a card runs on a CUDA stream of the calling thread's own
@@ -53,6 +53,8 @@ from lux_tpu_torch.utils.logging import get_logger
 NOT_PORTED = "not ported (ROADMAP A16)"
 GAS_AUDIT_STATUS = ("ported: LUX601/602/605 on every build carrying a "
                     "program (analysis/gasck.py)")
+EXCH_AUDIT_STATUS = ("ported: LUX401-403/407 on every build carrying a "
+                     "compact exchange plan (analysis/exchck.py)")
 
 _STREAMS = threading.local()
 
@@ -93,11 +95,11 @@ class EnginePool:
         # Created eagerly so a clean pool still exports 0 — the serve
         # dashboards alert on this going nonzero, not on its absence.
         self._ir_findings = metrics.counter("lux_ir_findings_total")
+        self._exch_findings = metrics.counter("lux_exch_findings_total")
         self._gas_findings = metrics.counter("lux_gas_findings_total")
         self._retired = metrics.counter("lux_serve_pool_retired_total")
-        # Builds lux_tpu's exchange-plan audit would have read, and builds
-        # the program-algebra audit read.
-        self._exch_unaudited = 0
+        # Builds the exchange-plan and program-algebra audits read.
+        self._exch_audited = 0
         self._gas_audited = 0
         self.sentinel = RecompileSentinel(scope)
 
@@ -130,6 +132,7 @@ class EnginePool:
                         # First-build warmup deliberately holds the lock:
                         # releasing would let a concurrent request build
                         # the same engine twice.
+                        # luxlint: disable=LUX303 -- single-build guarantee needs the lock
                         ex.warmup()
                     dev = getattr(ex, "device", None)
                     if dev is not None and dev.type == "cuda":
@@ -155,13 +158,21 @@ class EnginePool:
                          "would lower; the audit is %s", key, NOT_PORTED)
 
     def _audit_exchange(self, key: Hashable, ex) -> None:
-        """``lux_tpu``'s LUX401-403 exchange-plan audit of a plan-carrying
-        engine: not ported; counted as unaudited while asked for."""
+        """LUX401-403/407 plan audit on the freshly built engine: pure
+        numpy over the live ExchangePlan tables, nothing run on the card.
+        A finding means the packed exchange this engine is about to serve
+        with drops or duplicates rows — flagged once at build time
+        (``lux_exch_findings_total``), never per query."""
         if not flags.get_bool("LUX_EXCH_POOL_AUDIT"):
             return
         if getattr(ex, "_xplan", None) is None:
             return
-        self._exch_unaudited += 1
+        from lux_tpu_torch.analysis import exchck
+        findings = exchck.audit_exchange(ex, f"pool@{key}")
+        self._exch_audited += 1
+        for f in findings:
+            self._exch_findings.inc()
+            self.log.warning("EnginePool: %s", f.format())
 
     def _audit_programs(self, key: Hashable, ex) -> None:
         """LUX601/602/605 program-algebra audit on the freshly built
@@ -182,6 +193,7 @@ class EnginePool:
         try:
             findings = gasck.audit_program(
                 prog, f"pool@{key}", getattr(ex, "device", None))
+        # luxlint: disable=LUX007 -- advisory audit: a failed probe must never take down a build
         except Exception:
             return
         self._gas_audited += 1
@@ -218,8 +230,8 @@ class EnginePool:
         the flag that asks for it, whether it asks, and what the port
         does about it."""
         with self._lock:
-            exch_unaudited, gas_audited = (self._exch_unaudited,
-                                           self._gas_audited)
+            exch_audited, gas_audited = (self._exch_audited,
+                                         self._gas_audited)
         out = {"ir": {
             "flag": "LUX_IR_POOL_AUDIT",
             "requested": flags.get_bool("LUX_IR_POOL_AUDIT"),
@@ -227,8 +239,9 @@ class EnginePool:
                       "a trace_step"}}
         out["exchck"] = {"flag": "LUX_EXCH_POOL_AUDIT",
                          "requested": flags.get_bool("LUX_EXCH_POOL_AUDIT"),
-                         "status": NOT_PORTED,
-                         "unaudited_builds": exch_unaudited}
+                         "status": EXCH_AUDIT_STATUS,
+                         "audited_builds": exch_audited,
+                         "findings": int(self._exch_findings.value)}
         out["gasck"] = {"flag": "LUX_GAS_POOL_AUDIT",
                         "requested": flags.get_bool("LUX_GAS_POOL_AUDIT"),
                         "status": GAS_AUDIT_STATUS,
@@ -241,12 +254,6 @@ class EnginePool:
                       "every build is admitted"}
         return out
 
-    @staticmethod
-    def _findings(flag: str):
-        """A not-ported audit's findings: None while its flag asks for it
-        (it did not run), else 0."""
-        return None if flags.get_bool(flag) else 0
-
     def stats(self) -> dict:
         return {
             "engines": len(self),
@@ -256,7 +263,7 @@ class EnginePool:
             "warmup_compiles": self.sentinel.compiles(),
             "recompiles": self.sentinel.recompiles(),
             "ir_findings": int(self._ir_findings.value),
-            "exch_findings": self._findings("LUX_EXCH_POOL_AUDIT"),
+            "exch_findings": int(self._exch_findings.value),
             "gas_findings": int(self._gas_findings.value),
             # No build is priced (see get), so none is resident by the
             # model's account and none was evicted for the budget.

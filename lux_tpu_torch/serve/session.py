@@ -148,7 +148,7 @@ class Session:
                 graph = native_io.read_lux(graph)
             self.store = SnapshotStore(graph,
                                        wal_dir=flags.get("LUX_WAL_DIR"))
-        self._serving = self.store.current()
+        self._serving = self.store.current()  # luxlint: publish=_swap_lock
         # The served app list derives from the program registry (every
         # ``servable`` program routes: rooted GAS apps through the
         # micro-batcher, GAS fixpoints through the result cache;
@@ -156,7 +156,7 @@ class Session:
         # — shadowing the class-level legacy triple.
         self.APPS, self._gas_rooted, self._gas_fixpoints = (
             self._compute_apps())
-        self._degraded = None
+        self._degraded = None  # luxlint: publish=_swap_lock
         self._swap_lock = make_lock("session.swap")
         self.breaker = CircuitBreaker(self._breaker_probe)
         self.pool = EnginePool()
@@ -577,7 +577,7 @@ class Session:
         snap = self._serving
         # Artifact created_at is unix wall time (tune/artifact.py), so
         # the age math needs the wall clock, not the span epoch.
-        now = time.time()
+        now = time.time()  # luxlint: disable=LUX006 -- age vs artifact created_at needs unix wall time
         with self._fallback_lock:
             arts = {app: a for (fp, app), a in self._tuned.items()
                     if fp == snap.fingerprint}
@@ -876,6 +876,7 @@ class Session:
         thread's stream. A key's first served execution counts as
         warmup; every later execution promises zero compiles — the "zero
         recompiles after the first batch" serving contract."""
+        # luxlint: disable=LUX301 -- _served_keys is batcher-thread-only
         if key in self._served_keys:
             with self.pool.sentinel.watch(key), engine_stream(self.device):
                 yield
@@ -883,6 +884,7 @@ class Session:
             with self.pool.sentinel.expect(key), \
                     engine_stream(self.device):
                 yield
+            # luxlint: disable=LUX301 -- _watched only runs on the batcher thread
             self._served_keys.add(key)
 
     def _engine_execute(self, app: str, snap: Snapshot, key, deadline, fn):
@@ -1388,8 +1390,8 @@ class Session:
 
         # The atomic flip: requests admitted after this line bind to N+1.
         t_flip0 = spans.clock()
-        self._serving = snap
-        self._degraded = None
+        self._serving = snap  # luxlint: guarded-by=_swap_lock -- apply_edits holds it
+        self._degraded = None  # luxlint: guarded-by=_swap_lock -- _swap_entry holds it
         metrics.gauge("lux_serve_degraded").set(0.0)
         metrics.gauge("lux_snapshot_version").set(float(snap.version))
         metrics.counter("lux_snapshot_applies_total").inc()
@@ -1427,7 +1429,7 @@ class Session:
                        snap: Snapshot) -> None:
         """Stale-while-revalidate: ``old`` keeps serving, responses grow
         an X-Lux-Degraded header until a later swap lands."""
-        self._degraded = {
+        self._degraded = {  # luxlint: guarded-by=_swap_lock -- _swap holds it
             "reason": why, "stale_version": old.version,
             "failed_version": snap.version, "since": spans.clock(),
         }
@@ -1446,9 +1448,11 @@ class Session:
             )
             # _served_keys is batcher-thread-only state and the barrier
             # runs on the batcher thread: prune without a lock.
+            # luxlint: disable=LUX301 -- barrier runs on the batcher thread
             stale = {k for k in self._served_keys
                      if isinstance(k, tuple) and len(k) > 1
                      and k[1] == old_fp}
+            # luxlint: disable=LUX301 -- barrier runs on the batcher thread
             self._served_keys -= stale
             # The outgoing snapshot's partition plans go with its
             # engines — a sharded swap atomically replaces the whole

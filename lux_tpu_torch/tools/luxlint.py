@@ -1,7 +1,27 @@
-"""luxlint for the port: the tune-artifact and program-contract tiers of
-``tools/luxlint.py``.
+"""luxlint for the port: the tiers of ``tools/luxlint.py`` that check
+source text, saved host arrays or program algebra, over the port's tree.
 
 Usage:
+    python -m lux_tpu_torch.tools.luxlint           # AST tier (LUX001-010)
+                                                  # over lux_tpu_torch and
+                                                  # chip_smoke.py
+    python -m lux_tpu_torch.tools.luxlint path.py dir/  # lint targets
+    python -m lux_tpu_torch.tools.luxlint --changed  # only files changed
+                                                  # vs git HEAD
+    python -m lux_tpu_torch.tools.luxlint --threads  # concurrency tier
+                                                  # (LUX301-305) over
+                                                  # lux_tpu_torch
+    python -m lux_tpu_torch.tools.luxlint --plans DIR...  # verify saved
+                                                  # GroupedTailPlan
+                                                  # artifacts (LUX201-205)
+    python -m lux_tpu_torch.tools.luxlint --exchange  # the plan rules
+                                                  # (LUX401-403, 407) over
+                                                  # every sharded registry
+                                                  # executor's compact plan
+    python -m lux_tpu_torch.tools.luxlint --exchange DIR|f.py  # verify
+                                                  # saved exchange-plan
+                                                  # artifacts / PLANS
+                                                  # fixtures
     python -m lux_tpu_torch.tools.luxlint --tune DIR...  # verify saved
                                                   # tuneconf.v1 artifacts
                                                   # (LUX501-504)
@@ -15,19 +35,26 @@ Usage:
                                                   # programs of fixture
                                                   # modules instead
     python -m lux_tpu_torch.tools.luxlint --programs --gascap-out F
+    python -m lux_tpu_torch.tools.luxlint --json / --select LUX001 / ...
     python -m lux_tpu_torch.tools.luxlint --baseline F ...  # snapshot/
                                                   # compare: only findings
                                                   # absent from F fail
     python -m lux_tpu_torch.tools.luxlint --list-rules
 
-The program hooks of ``--programs`` run on the card, or on the CPU with
-``LUX_PLATFORM=cpu``. The output and exit status are ``tools/luxlint.py``'s:
-one line per finding, a human summary line and one greppable
-``LUXLINT {...}`` summary line; exit 0 clean, 1 on findings or
-unloadable artifacts and fixtures, 2 on a usage error (tiers are
-mutually exclusive). The other tiers (AST, threads, IR, grouped-tail
-plans, exchange, memory) are not ported (ROADMAP A16): asking for one
+The AST, concurrency and plan tiers run on the host and import no torch
+for the checks themselves. The executors of registry ``--exchange`` and
+the program hooks of ``--programs`` are built on the card, or on the CPU
+with ``LUX_PLATFORM=cpu``. The output and exit status are
+``tools/luxlint.py``'s: one line per finding, a human summary line and
+one greppable ``LUXLINT {...}`` summary line; exit 0 clean, 1 on
+findings, syntax errors or unloadable artifacts and fixtures, 2 on a
+usage error (tiers are mutually exclusive). Not ported (ROADMAP A16, the
+trace tiers): ``--ir`` (LUX101-105), ``--memory`` (LUX701-706) and the
+exchange dataflow rules LUX404-406; asking for ``--ir`` or ``--memory``
 exits 2 with a message saying so.
+
+Suppress an AST- or threads-tier finding inline, with a reason:
+    x.item()  # luxlint: disable=LUX001 -- intended once-per-run sync
 """
 
 from __future__ import annotations
@@ -36,20 +63,48 @@ import argparse
 import hashlib
 import json
 import os
+import subprocess
 import sys
 
 from lux_tpu_torch.utils import flags
 
-_UNPORTED = ("ir", "plans", "threads", "exchange", "memory")
-_TIERS = ("tune", "programs") + _UNPORTED
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+# The AST tier's default tree; the concurrency tier's is the package.
+DEFAULT_TARGETS = ("lux_tpu_torch", "chip_smoke.py")
+THREAD_TARGETS = ("lux_tpu_torch",)
+
+_UNPORTED = ("ir", "memory")
+_TIERS = ("plans", "threads", "exchange", "tune", "programs") + _UNPORTED
 
 _SPAN_CACHE: dict = {}
+
+
+def _changed_paths() -> list:
+    """Python files changed vs HEAD (staged + unstaged + untracked)."""
+    out = set()
+    for cmd in (["git", "diff", "--name-only", "HEAD"],
+                ["git", "ls-files", "--others", "--exclude-standard"]):
+        try:
+            text = subprocess.run(cmd, cwd=_REPO, capture_output=True,
+                                  text=True, check=True).stdout
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"luxlint: --changed: {' '.join(cmd)} failed: {e}",
+                  file=sys.stderr)
+            return []
+        for line in text.splitlines():
+            if line.endswith(".py"):
+                p = os.path.join(_REPO, line)
+                if os.path.isfile(p):
+                    out.add(p)
+    return sorted(out)
 
 
 def _span_hash(path: str, line: int) -> str:
     """Content hash of the finding's source span: sha1 (16 hex chars) of
     the stripped text of the flagged line. Returns "" when the path is
-    virtual (registry programs, artifacts) or the line is out of
+    virtual (registry targets, artifacts) or the line is out of
     range."""
     if line < 1:
         return ""
@@ -99,11 +154,49 @@ def _apply_baseline(report, baseline_path: str) -> int:
     return 1 if new or errors else 0
 
 
+def _select(select: str):
+    return {s.strip() for s in select.split(",") if s.strip()} or None
+
+
+def _clean_skip(schema: str, why: str) -> int:
+    print(f"luxlint: --changed: {why}")
+    print("LUXLINT " + json.dumps(
+        {"schema": schema, "files": 0, "findings": 0, "errors": 0,
+         "ok": True}, sort_keys=True))
+    return 0
+
+
+def _run_plans(paths, select: str):
+    from lux_tpu_torch.analysis import planck
+    rules = planck.all_plan_rules()
+    want = _select(select)
+    if want:
+        rules = [r for r in rules if r.id in want]
+    return planck.verify_plan_dirs(paths, rules)
+
+
+def _run_exchange(paths, select: str):
+    """Exchange tier, plan half (LUX401-403, 407): with paths, saved
+    artifact directories and ``PLANS`` fixtures; with none, every live
+    compact plan of the sharded registry executors, built on the card
+    unless ``LUX_PLATFORM=cpu``. The trace half (LUX404-406) is named as
+    not ported on stderr, so a clean run never reads as a full one."""
+    from lux_tpu_torch.analysis import ir
+
+    print(f"luxlint: --exchange: {ir.TRACE_RULES_NOT_PORTED}",
+          file=sys.stderr)
+    want = _select(select)
+    if paths:
+        return ir.run_exchange_paths(paths, select=want)
+    from lux_tpu_torch.utils.platform import platform_device
+    return ir.run_exchange_matrix(select=want, device=platform_device())
+
+
 def _run_tune(paths, select: str):
     from lux_tpu_torch.analysis import tuneck
     rules = tuneck.all_tune_rules()
-    if select:
-        want = {s.strip() for s in select.split(",") if s.strip()}
+    want = _select(select)
+    if want:
         rules = [r for r in rules if r.id in want]
     return tuneck.verify_artifact_paths(paths, rules)
 
@@ -126,10 +219,27 @@ def _run_programs(paths, select: str, gascap_out: str):
                                  capmap_out=gascap_out or None, device=dev)
 
 
+def _list_rules() -> None:
+    from lux_tpu_torch.analysis import (exchck, gasck, planck, rules,
+                                        threads, tuneck)
+    for r in (rules.all_rules() + planck.all_plan_rules()
+              + threads.all_thread_rules() + exchck.all_exchange_rules()
+              + list(tuneck.all_tune_rules()) + gasck.all_program_rules()):
+        print(f"{r.id}  {r.title}\n       {r.doc}")
+    print("not ported (ROADMAP A16, the trace tiers): LUX101-105 (--ir), "
+          "LUX404-406 (--exchange's dataflow rules), LUX701-706 "
+          "(--memory); of LUX002 and LUX003, lux_tpu's jax.jit donation "
+          "and Pallas BlockSpec halves have no counterpart")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="luxlint", description=__doc__)
     ap.add_argument("paths", nargs="*",
-                    help="with --tune: tuneconf.v1 artifact files or "
+                    help=f"files/dirs to lint (default: {DEFAULT_TARGETS}; "
+                         f"with --threads: {THREAD_TARGETS}); with --plans: "
+                         "saved plan artifact dirs; with --exchange: saved "
+                         "exchange-plan dirs or PLANS fixtures; with "
+                         "--tune: tuneconf.v1 artifact files or "
                          "directories (default: LUX_TUNE_DIR); with "
                          "--programs: fixture modules defining programs")
     ap.add_argument("--json", action="store_true",
@@ -138,6 +248,20 @@ def main(argv=None) -> int:
                     help="comma-separated rule ids to run (default: all)")
     ap.add_argument("--list-rules", action="store_true",
                     help="print the rule table and exit")
+    ap.add_argument("--plans", action="store_true",
+                    help="verify saved GroupedTailPlan artifact dirs "
+                         "(LUX201-205; torch-free, mmap load)")
+    ap.add_argument("--threads", action="store_true",
+                    help="run the concurrency tier (LUX301-305): thread-"
+                         "shared state, lock-order graph, blocking-under-"
+                         "lock, unjoined threads, publish discipline")
+    ap.add_argument("--exchange", action="store_true",
+                    help="run the exchange tier's plan rules (LUX401-403, "
+                         "407): ExchangePlan structure/coverage/"
+                         "profitability and frontier coverage over every "
+                         "sharded registry executor's compact plan; with "
+                         "paths, verify saved exchange artifacts or "
+                         "fixture modules")
     ap.add_argument("--tune", action="store_true",
                     help="verify saved tuneconf.v1 auto-tuner artifacts "
                          "(LUX501-504: structure, knob domains, selection "
@@ -153,6 +277,11 @@ def main(argv=None) -> int:
                     help="with --programs (registry mode): write the "
                          "derived gascap.v1 capability artifact here when "
                          "the run is clean")
+    ap.add_argument("--changed", action="store_true",
+                    help="AST/threads tiers: restrict to .py files changed "
+                         "vs git HEAD (plus untracked); the threads tier "
+                         "still builds its lock-order graph over the whole "
+                         "package")
     ap.add_argument("--baseline", default="",
                     help="snapshot file: if missing, write current findings "
                          "and pass; if present, fail only on new findings")
@@ -162,21 +291,33 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if sum(getattr(args, t) for t in _TIERS) > 1:
-        ap.error("--tune, --programs, " + ", ".join(
-            f"--{t}" for t in _UNPORTED) + " are separate tiers; run them "
-            "separately")
+        ap.error(", ".join(f"--{t}" for t in _TIERS)
+                 + " are separate tiers; run them separately")
     if args.list_rules:
-        from lux_tpu_torch.analysis import gasck, tuneck
-        for r in list(tuneck.all_tune_rules()) + gasck.all_program_rules():
-            print(f"{r.id}  {r.title}\n       {r.doc}")
+        _list_rules()
         return 0
     asked = [t for t in _UNPORTED if getattr(args, t)]
-    if asked or not (args.tune or args.programs):
-        tier = f"--{asked[0]}" if asked else "the AST tier"
-        ap.error(f"{tier} is not ported to lux_tpu_torch (ROADMAP A16); "
-                 "only --tune and --programs are: run tools/luxlint.py "
-                 "for the others")
-    if args.tune:
+    if asked:
+        ap.error(f"--{asked[0]} is not ported to lux_tpu_torch (ROADMAP "
+                 "A16, the trace tiers): run tools/luxlint.py for it")
+
+    if args.exchange:
+        if args.changed and not args.paths:
+            # The matrix verifies live engine/partition behaviour, not
+            # file text: skip it unless an exchange-relevant file changed.
+            relevant = tuple(f"lux_tpu_torch/{d}" for d in (
+                "engine/", "parallel/", "graph/", "analysis/", "models",
+                "obs/"))
+            if not [p for p in _changed_paths()
+                    if os.path.relpath(p, _REPO).startswith(relevant)]:
+                return _clean_skip("luxlint-exchange.v1",
+                                   "no exchange-relevant files modified")
+        report = _run_exchange(args.paths, args.select)
+    elif args.plans:
+        if not args.paths:
+            ap.error("--plans requires at least one artifact directory")
+        report = _run_plans(args.paths, args.select)
+    elif args.tune:
         paths = args.paths
         if not paths and flags.get("LUX_TUNE_DIR"):
             paths = [flags.get("LUX_TUNE_DIR")]
@@ -184,8 +325,46 @@ def main(argv=None) -> int:
             ap.error("--tune requires at least one artifact file or "
                      "directory")
         report = _run_tune(paths, args.select)
-    else:
+    elif args.programs:
         report = _run_programs(args.paths, args.select, args.gascap_out)
+    elif args.threads:
+        from lux_tpu_torch.analysis.threads import (all_thread_rules,
+                                                    run_threads)
+        select = _select(args.select)
+        if select:
+            unknown = select - {r.id for r in all_thread_rules()}
+            if unknown:
+                ap.error(f"unknown rule id(s): {sorted(unknown)}")
+        tree = [os.path.join(_REPO, t) for t in THREAD_TARGETS]
+        if args.changed:
+            paths = _changed_paths()
+            if not paths:
+                return _clean_skip("luxlint-threads.v1",
+                                   "no modified .py files")
+            graph_paths = tree   # order graph stays whole-tree
+        elif args.paths:
+            paths = graph_paths = args.paths
+        else:
+            paths = graph_paths = tree
+        report = run_threads(paths, select=select, graph_paths=graph_paths)
+    else:
+        from lux_tpu_torch.analysis.core import run_paths
+        from lux_tpu_torch.analysis.rules import all_rules
+        rules = all_rules()
+        want = _select(args.select)
+        if want:
+            unknown = want - {r.id for r in rules}
+            if unknown:
+                ap.error(f"unknown rule id(s): {sorted(unknown)}")
+            rules = [r for r in rules if r.id in want]
+        if args.changed:
+            paths = _changed_paths()
+            if not paths:
+                return _clean_skip("luxlint.v1", "no modified .py files")
+        else:
+            paths = args.paths or [os.path.join(_REPO, t)
+                                   for t in DEFAULT_TARGETS]
+        report = run_paths(paths, rules)
     if args.json:
         print(report.to_json())
     else:

@@ -31,7 +31,7 @@ class TuneCache:
 
     def __init__(self, root: Optional[str] = None):
         self._lock = make_lock("tune.cache")
-        self._entries = OrderedDict()  # guarded by _lock
+        self._entries = OrderedDict()  # luxlint: guarded-by=_lock
         self._root = root
         self._hits = metrics.counter("lux_tune_hits_total")
         self._misses = metrics.counter("lux_tune_misses_total")

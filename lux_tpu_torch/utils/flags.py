@@ -299,11 +299,17 @@ define("LUX_EXCHANGE_FRONTIER_FRAC", 0.25,
        "bigger byte win on sparse iterations but earlier self-downgrade "
        "to the static compact send", kind="float")
 
+# Static analysis: the grouped-tail plan tier (analysis/planck.py).
+define("LUX_PLANCK_INFLATION", 8.0,
+       "luxlint --plans LUX205: max per-level grouped-tail stream "
+       "inflation (rows per level / ceil(reals/128)) a saved plan may "
+       "carry", kind="float")
+
 # The serve pool's build-time audits and admission (serve/pool.py). Of
 # lux_tpu's analysis tiers the IR audit's guard has a counterpart (no
-# executor of the port has ``trace_step``, so it skips as lux_tpu's does)
-# and gasck runs; exchck and memck are not ported (ROADMAP A16), and
-# while their flags ask for them the pool's stats() and /statusz say so.
+# executor of the port has ``trace_step``, so it skips as lux_tpu's does),
+# and gasck and exchck run; memck is not ported (ROADMAP A16), and while
+# its flag asks for it the pool's stats() and /statusz say so.
 define("LUX_IR_POOL_AUDIT", True,
        "run the LUX104 donation audit on every engine the serve pool "
        "builds (one abstract lowering per build; 0 disables)", kind="bool")

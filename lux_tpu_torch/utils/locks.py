@@ -20,8 +20,8 @@ its own locking discipline while it runs:
 - **hold warnings** — a hold longer than ``LUX_LOCK_HOLD_WARN_MS`` logs
   one warning and bumps ``lux_lock_hold_warnings_total{lock}``.
 
-``lux_tpu``'s static half of this tier (``analysis/threads.py``,
-LUX301–LUX305) is not ported yet (ROADMAP A16); this module is the
+The static half of this tier is ``analysis/threads.py`` (LUX301–LUX305,
+``python -m lux_tpu_torch.tools.luxlint --threads``); this module is the
 runtime witness for what the AST cannot see — actual interleavings.
 
 Import discipline: this module is imported by ``lux_tpu_torch.obs``

@@ -2059,3 +2059,89 @@ def test_program_contracts_with_hooks_on_the_card(dev):
     gasck.require_incremental(Quiet(), dev)
     with pytest.raises(ProgramContractError, match="not inflationary"):
         gasck.require_incremental(Claimant(), dev)
+
+
+def test_host_transfer_guard_on_the_card(dev):
+    """Each device->host form of a CUDA tensor raises under the guard and
+    none does inside allow(); the tiled executor's steps (K1, K2) pass
+    under it; the push executor's step raises at its counter read."""
+    from lux_tpu_torch.analysis.sentinel import (HostTransferError,
+                                                 HostTransferGuard)
+
+    t = torch.arange(6, dtype=torch.float32, device=dev)
+    host = torch.zeros(6)
+    forms = {
+        "item": lambda: t.sum().item(),
+        "float": lambda: float(t.sum()),
+        "int": lambda: int(t[1]),
+        "bool": lambda: bool(t[1]),
+        "cpu": lambda: t.cpu(),
+        "to_cpu": lambda: t.to("cpu"),
+        "tolist": lambda: t.tolist(),
+        "numpy_force": lambda: t.numpy(force=True),
+        "copy_": lambda: host.copy_(t),
+        "synchronize": lambda: torch.cuda.synchronize(),
+        "event": lambda: torch.cuda.Event().synchronize(),
+        "stream": lambda: torch.cuda.current_stream().synchronize(),
+    }
+    with HostTransferGuard("card") as guard:
+        for name, form in forms.items():
+            with pytest.raises(HostTransferError):
+                form()
+            with guard.allow():
+                form()
+        u = t * 2 + 1          # device work stays legal
+    assert u.sum().item() == 2 * 15 + 6
+    g = generate.rmat(10, 8, seed=3)
+    ex = TiledPullExecutor(g, PageRank())
+    want = ex.run(10)
+    v = ex.init_values()
+    with HostTransferGuard("tiled") as guard:
+        for _ in range(10):
+            v = ex.step(v)
+        with guard.allow():
+            torch.cuda.synchronize()
+    torch.testing.assert_close(v, want, rtol=0, atol=0)
+    push = PushExecutor(g, SSSP())
+    state = push.init_state(start=0)
+    with HostTransferGuard("push"):
+        with pytest.raises(HostTransferError):
+            push.step(state)
+
+
+def test_grouped_plan_artifact_on_the_card(dev, tmp_path):
+    """A grouped-tail plan saved, verified (0 findings), reloaded by mmap
+    and uploaded gives the executor's grouped tail bitwise; a flipped
+    code fails with LUX203."""
+    import os
+
+    from lux_tpu_torch.analysis import planck
+
+    g = generate.rmat(12, 16, seed=1)
+    plan = ts.plan_hybrid(g, levels=((8, 10 ** 9),))
+    gp = mtp.plan_grouped_tail(plan.tail_sb, plan.tail_lane,
+                               plan.tail_row_ptr)
+    path = str(tmp_path / "gplan")
+    mtp.save_grouped_plan(path, gp)
+    assert planck.verify_plan_dirs([path]).ok
+    back = mtp.load_grouped_plan(path, mmap=True)
+    x = torch.rand((plan.nvb, 128), device=dev)
+    a = mtk.grouped_tail_sums(x, mtk.DeviceGroupedTail.build(gp, dev))
+    b = mtk.grouped_tail_sums(x, mtk.DeviceGroupedTail.build(back, dev))
+    assert torch.equal(a, b)
+    codes = np.load(os.path.join(path, "codes.npy"))
+    r0 = int(gp.level_ptr[1])
+    codes[int(np.argmax(gp.nvalid[:r0] > 0)), 0] = -5
+    np.save(os.path.join(path, "codes.npy"), codes)
+    assert {f.rule for f in planck.verify_plan_dirs([path]).findings} == \
+        {"LUX203"}
+
+
+def test_registry_exchange_plans_on_the_card(dev):
+    """luxlint --exchange's registry mode with the executors on the card:
+    every compact plan verifies clean."""
+    from lux_tpu_torch.analysis import ir
+
+    report = ir.run_exchange_matrix(device=dev)
+    assert report.ok, report.format_human()
+    assert len(report.results) >= 20

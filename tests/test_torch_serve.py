@@ -41,7 +41,8 @@ from lux_tpu_torch.serve import (
     ServeConfig,
     Session,
 )
-from lux_tpu_torch.serve.pool import GAS_AUDIT_STATUS, NOT_PORTED
+from lux_tpu_torch.serve.pool import (EXCH_AUDIT_STATUS, GAS_AUDIT_STATUS,
+                                      NOT_PORTED)
 
 ROOTS = (0, 5, 77, 300)
 
@@ -160,17 +161,17 @@ def test_engine_pool_builds_once():
     assert a is bb and builds == [1]
     st = pool.stats()
     audits = st.pop("audits")
-    # lux_tpu's dict, but for the audits that are not ported: while their
-    # flags ask for them they did not run, which must not read as 0. The
-    # program-algebra audit runs; its counter is process-global, as
-    # lux_tpu's is.
+    # lux_tpu's dict, but for the footprint model, which is not ported.
+    # The program-algebra and exchange-plan audits run; their counters
+    # are process-global, as lux_tpu's are, and exch_findings is an int.
     gas = metrics.counter("lux_gas_findings_total").value
     assert st == {"engines": 1, "hits": 1, "misses": 1, "retired": 0,
                   "warmup_compiles": 0, "recompiles": 0,
-                  "ir_findings": 0, "exch_findings": None,
+                  "ir_findings": 0, "exch_findings": 0,
                   "gas_findings": gas, "hbm_resident_bytes": None,
                   "hbm_evictions": 0}
-    assert audits["exchck"]["status"] == NOT_PORTED
+    assert audits["exchck"]["status"] == EXCH_AUDIT_STATUS
+    assert audits["exchck"]["audited_builds"] == 0   # no plan carried
     assert audits["gasck"]["status"] == GAS_AUDIT_STATUS
     assert audits["gasck"]["audited_builds"] == 0   # no program carried
     assert audits["memck"]["status"].startswith(NOT_PORTED)
@@ -196,11 +197,16 @@ def test_pool_counts_builds_the_audits_would_read():
         program = Prog()
         _xplan = object()
 
+    metrics.reset()
     pool = EnginePool("audits")
     pool.get(("a",), Ex)
     pool.get(("b",), Prog)
     audits = pool.audits()
-    assert audits["exchck"]["unaudited_builds"] == 1
+    # The exchange audit read the build carrying a plan; a plan it cannot
+    # read is one finding, and the advisory audit let the build be.
+    assert audits["exchck"]["audited_builds"] == 1
+    assert audits["exchck"]["findings"] == 1
+    assert pool.stats()["exch_findings"] == 1
     # The program audit ran on the build carrying a program; Prog is no
     # program gasck can adapt, and the advisory audit let the build be.
     assert audits["gasck"]["audited_builds"] == 0
@@ -472,7 +478,11 @@ def test_stats_and_statusz_say_what_is_not_ported(pair):
     assert sz["programs"]["source"] == "artifact"
     assert sz["audits"]["gasck"]["status"] == GAS_AUDIT_STATUS
     assert sz["audits"]["gasck"]["audited_builds"] == st["pool"]["misses"]
-    assert sz["audits"]["exchck"]["status"] == NOT_PORTED
+    assert sz["audits"]["exchck"]["status"] == EXCH_AUDIT_STATUS
+    # One device runs full exchanges: no build carries a compact plan.
+    assert sz["audits"]["exchck"]["audited_builds"] == 0
+    assert st["pool"]["exch_findings"] == \
+        metrics.counter("lux_exch_findings_total").value
     for name in ("exchck", "gasck"):
         assert sz["audits"][name]["requested"]
     mem = sz["memory"]

@@ -24,7 +24,7 @@ from lux_tpu_torch.parallel.mesh import LocalMesh
 from lux_tpu_torch.serve import ServeConfig, Session
 from lux_tpu_torch.serve.mesh import (MeshSpec, ShardPlanCache,
                                       parse_mesh_spec, serving_mesh)
-from lux_tpu_torch.serve.pool import NOT_PORTED, EnginePool
+from lux_tpu_torch.serve.pool import EXCH_AUDIT_STATUS, EnginePool
 
 
 def _cfg(**kw):
@@ -234,11 +234,13 @@ def test_stats_and_statusz_report_mesh(pair):
     assert all(isinstance(v, int) and v > 0 for v in eb.values())
     assert s1.stats()["mesh"]["num_parts"] == 1
     assert s1.mesh_exchange_bytes() == {}
-    # The exchange-plan audit is not ported; it reads only engines that
-    # carry a compact plan, and a full-exchange engine carries none.
+    # The exchange-plan audit reads only engines that carry a compact
+    # plan, and a full-exchange engine carries none.
     audits = s4.statusz()["audits"]
-    assert audits["exchck"]["status"] == NOT_PORTED
-    assert audits["exchck"]["unaudited_builds"] == 0
+    assert audits["exchck"]["status"] == EXCH_AUDIT_STATUS
+    assert audits["exchck"]["audited_builds"] == 0
+    assert s4.stats()["pool"]["exch_findings"] == \
+        metrics.counter("lux_exch_findings_total").value
 
 
 def test_sharded_hot_swap_retires_engine_mesh_under_load():

@@ -626,19 +626,29 @@ def test_luxlint_tune_output_equals_tools_luxlint(tmp_path):
 
 
 def test_luxlint_refuses_unported_tiers():
-    for args in ((), ("--ir",), ("--memory",), ("--threads",),
-                 ("lux_tpu_torch",)):
+    # The trace tiers (--ir, --memory) are still refused; the AST,
+    # --threads, --plans and --exchange tiers now run.
+    for args in (("--ir",), ("--memory",)):
         proc = _luxlint(LUXLINT, *args)
         assert proc.returncode == 2, args
         assert "A16" in proc.stderr
+    for args in ((), ("--threads",), ("lux_tpu_torch",)):
+        proc = _luxlint(LUXLINT, *args)
+        assert proc.returncode == 0, (args, proc.stdout + proc.stderr)
+    assert _luxlint(LUXLINT, "--plans").returncode == 2   # needs a dir
     both = _luxlint(LUXLINT, "--programs", "--tune")
     assert both.returncode == 2 and "separate tiers" in both.stderr
     listed = _luxlint(LUXLINT, "--list-rules")
     assert listed.returncode == 0
     assert [ln.split()[0] for ln in listed.stdout.splitlines()
-            if ln.startswith("LUX")] == [
-        "LUX501", "LUX502", "LUX503", "LUX504", "LUX601", "LUX602",
-        "LUX603", "LUX604", "LUX605", "LUX606"]
+            if ln.startswith("LUX")] == (
+        [f"LUX{i:03d}" for i in range(1, 11)]
+        + [f"LUX{i}" for i in range(201, 206)]
+        + [f"LUX{i}" for i in range(301, 306)]
+        + ["LUX401", "LUX402", "LUX403", "LUX407"]
+        + [f"LUX{i}" for i in range(501, 505)]
+        + [f"LUX{i}" for i in range(601, 607)])
+    assert "LUX404-406" in listed.stdout
 
 
 # -- probe scoring --------------------------------------------------------
