@@ -25,9 +25,8 @@ merge-network tail of ``LUX_GROUPED_TAIL=1``):
 2q. the static tiers (``analysis/rules.py``, ``threads.py``,
    ``planck.py``, ``exchck.py``) on the card's host, and
    ``HostTransferGuard`` on the card: ``python -m
-   lux_tpu_torch.tools.luxlint`` (the AST tier), ``--threads`` and
-   ``--exchange`` (registry mode, the sharded registry executors built on
-   the card) beside the graph's generation, each rc 0 with 0 findings and
+   lux_tpu_torch.tools.luxlint`` (the AST tier) and ``--threads``
+   beside the graph's generation, each rc 0 with 0 findings and
    its suppressions counted per rule; phase 3's grouped-tail plan (the
    one the grouped executor runs, kept from its build, not planned
    again) saved with ``save_grouped_plan``, loaded back by mmap,
@@ -44,6 +43,23 @@ merge-network tail of ``LUX_GROUPED_TAIL=1``):
    push executor's SSSP ``step`` raising at its counter read (ROADMAP
    A20); in 6m's session, the pool's exchange audit reading every compact
    build (a compact sharded tiled engine joins it) with 0 findings;
+2r. the trace tiers (``analysis/trace.py``, ``analysis/ir.py``) on the
+   card: ``luxlint --ir`` (the 59 registry targets' steps traced on the
+   card, LUX101-105) and ``--exchange`` (the sharded registry's 40 traced
+   steps, LUX404-406, and its 23 compact plans, LUX401-403/407) beside
+   the graph's generation, each rc 0 with 0 findings; after group 3-6,
+   each torch fixture of ``tests/torch_ir_fixtures/`` through luxlint's
+   ``main`` on the card (rc 1, exactly its rule), and every registry
+   target traced here on the card and on the CPU (0 findings on the
+   card; kernel and collective nodes equal in sequence and shape, glue
+   ops compared and logged); at scale, the steps of phase 5's two tiled
+   executors (K1, K2; K1, K3 per level, K4) and of phase 3h's compact
+   BFS executor (push and pull as alternatives) traced with 0 findings,
+   each with its seconds, nodes, largest intermediate over its input
+   bytes and launches; in 6m's session, the pool's LUX104 audit on
+   every build (its declaration read; a step run where one donates)
+   with 0 findings, and each served engine's declaration held against
+   one run of its step;
 3. graph and plans: generate the graph, plan it, build both executors
    (each strip level becomes a cell stream on the card; the build's
    seconds are logged per level);
@@ -604,12 +620,14 @@ def main(argv=None) -> int:
     prog_dir = _cuda.BUILD_DIR / "programs"
     lint = _programs_cli(prog_dir)
     tiers = _lint_clis()
+    traces = _trace_clis()
     shutil.rmtree(_cuda.BUILD_DIR / "xplans", ignore_errors=True)
     t = time.perf_counter()
     try:
         gw = generate.rmat(args.scale, 16, seed=SEED, weighted=True)
     except BaseException:
-        for proc in [lint] + [p for _, p in tiers.values()]:
+        for proc in [lint] + [p for _, p in list(tiers.values())
+                              + list(traces.values())]:
             proc.kill()
             proc.wait()
         raise
@@ -646,6 +664,8 @@ def main(argv=None) -> int:
     shutil.rmtree(tel_dir, ignore_errors=True)
     tel_dir.mkdir(parents=True)
     _add(totals, group(TELEMETRY_GROUP, _telemetry_tiled, held, tel_dir))
+    # Group 2r once phase 5's guard has paid the dispatch mode's set-up.
+    _add(totals, group(TRACE_GROUP, _trace_phases, traces, dev))
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     # Phases 3g-6g reuse phase 3's plan (planning costs host minutes at
@@ -1009,6 +1029,11 @@ def _pagerank_phases(g, dev, kernels, held):
         f"took {time.perf_counter() - t_phase:.1f} s after planning")
     # Group 2q: phase 5's executor, stepped under HostTransferGuard.
     _guard_tiled(ex_lane, held["pagerank"]["values"], nlev)
+    # Group 2r: both executors' steps traced at this scale.
+    for label, ex in (("lane-select", ex_lane), ("grouped", ex_grp)):
+        want = {k: v // ITERS for k, v in expected[label].items() if v}
+        _add(totals, _trace_scale(f"pagerank@tiled {label} (phase 5)", ex,
+                                  {}, want))
     # Phase 3l takes the lane-select executor and its run's launches.
     held.setdefault("telemetry", {})["tiled"] = (ex_lane,
                                                  expected["lane-select"])
@@ -3129,7 +3154,19 @@ def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
         f"{sec / ITERS * 1e3:.3f} ms/iteration (median of 3 run({ITERS}): "
         f"{[round(x * 1e3, 3) for x in secs]}), "
         f"{g.ne * ITERS / sec / 1e9:.3f} GTEPS")
-    del exs, mx, pr, sgw, layouts
+    # Group 2r: the compact BFS executor's step traced at this scale, its
+    # push branch (K6 per part with a frontier, K11 once when the queue
+    # has out-edges) and its compact pull (K10 per part) as alternatives.
+    ex = exs["bfs compact"]
+    st = ex._frontier_stats(ex.init_state(start=0))
+    want = {"gas_pull_acc": P}
+    if st.count:
+        want["frontier_queue"] = sum(1 for c in st.counts if c)
+        if st.recv_edges:
+            want["gas_push_acc"] = 1
+    _add(totals, _trace_scale("bfs@gas_sharded+compact (phase 3h)", ex,
+                              {"start": 0}, want))
+    del exs, mx, pr, sgw, layouts, ex
     log(f"[gas-sharded] peak device memory of phases 3h-6h "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases "
         f"3h-6h took {time.perf_counter() - t_phase:.1f} s")
@@ -3639,8 +3676,7 @@ def _program_phases(work, lint, dev) -> None:
 # -- 2q: the static tiers, their artifacts and HostTransferGuard -------------
 
 LINT_GROUP = "2q static tiers"
-LINT_TIERS = {"ast": (), "threads": ("--threads",),
-              "exchange": ("--exchange",)}
+LINT_TIERS = {"ast": (), "threads": ("--threads",)}
 GUARD_STEPS = 10
 
 
@@ -3657,10 +3693,9 @@ def _luxlint_json(proc, label):
 def _lint_clis():
     """Start the port's static tiers as a user runs them, on the card's
     host: ``python -m lux_tpu_torch.tools.luxlint`` (the AST tier over
-    ``lux_tpu_torch`` and ``chip_smoke.py``), ``--threads`` and
-    ``--exchange`` (registry mode: every sharded registry executor built
-    on the card, its compact plan verified); group 2q collects them (they
-    run beside the graph's generation)."""
+    ``lux_tpu_torch`` and ``chip_smoke.py``) and ``--threads``; group 2q
+    collects them (they run beside the graph's generation). The exchange
+    tier, which now traces steps too, is group 2r's."""
     env = {k: v for k, v in os.environ.items() if k != "LUX_PLATFORM"}
     return {name: (time.perf_counter(), subprocess.Popen(
         [sys.executable, "-m", "lux_tpu_torch.tools.luxlint", "--json",
@@ -3670,8 +3705,7 @@ def _lint_clis():
 
 def _lint_phases(procs) -> None:
     """Group 2q's CLIs: each rc 0 with 0 findings and 0 errors, its
-    suppressions counted per rule; the registry ``--exchange`` over more
-    than 20 compact plans, and naming LUX404-406 as not ported."""
+    suppressions counted per rule."""
     from collections import Counter
 
     for name, (t0, proc) in procs.items():
@@ -3684,21 +3718,13 @@ def _lint_phases(procs) -> None:
                                  f"{summary}\n{err[-2000:]}")
         per_rule = dict(sorted(Counter(
             f["rule"] for f in doc["suppressed"]).items()))
-        extra = ""
-        if name == "exchange":
-            if summary["files"] < 20 or "LUX404-406" not in err:
-                raise AssertionError(f"luxlint --exchange: {summary}; "
-                                     f"{err[-500:]}")
-            extra = (f"; {summary['files']} compact plans of the sharded "
-                     "registry executors, built on the card (LUX404-406 "
-                     "named as not ported)")
-        elif summary["files"] < 90:
+        if summary["files"] < 90:
             raise AssertionError(f"luxlint {name}: {summary}")
         log(f"[lint] {name}: rc 0, {summary['files']} files, 0 findings, "
             f"suppressed {summary['suppressed']} {per_rule}, schema "
             f"{summary['schema']}, the tier {summary['elapsed_s']} s "
             f"(waited {waited:.1f} s for the CLI, "
-            f"{time.perf_counter() - t0:.1f} s since its start){extra}")
+            f"{time.perf_counter() - t0:.1f} s since its start)")
 
 
 def _plan_artifact(gplan, gt, x, dev):
@@ -3946,6 +3972,195 @@ def _guard_phases(push: dict, dev) -> None:
     else:
         raise AssertionError("the push executor's step read nothing on "
                              "the host under HostTransferGuard")
+
+
+# -- 2r: the trace tiers (analysis/trace.py, analysis/ir.py) -----------------
+
+TRACE_GROUP = "2r trace tiers"
+TRACE_TIERS = {"ir": ("--ir",), "exchange": ("--exchange",)}
+# Each torch fixture, the tier that runs it; it must fire exactly the rule
+# its stem names.
+TRACE_FIXTURES = {
+    "lux101_dtype_drift": "--ir", "lux102_host_callback": "--ir",
+    "lux103_blowup": "--ir", "lux104_donation": "--ir",
+    "lux105_collective": "--ir", "lux404_overlap": "--exchange",
+    "lux405_sentinel": "--exchange", "lux406_bytes": "--exchange"}
+IR_TARGETS, EXCHANGE_RESULTS, EXCHANGE_PLANS = 59, 63, 23
+# Each traced kernel wrapper and the kernel it launches.
+TRACE_LAUNCH = {
+    "lux.strip_level_spmv": "strip_spmv",
+    "lux.lane_select_tail_sums": "tail_gather_sum",
+    "lux.level_apply": "level_apply", "lux.root_reduce":
+    "segment_sum_rowptr", "lux.segment_sum_by_rowptr": "segment_sum_rowptr",
+    "lux.segment_minmax_relax": "segment_minmax_relax",
+    "lux.gas_pull_acc": "gas_pull_acc", "lux.frontier_queue":
+    "frontier_queue", "lux.queue_relax_scatter": "queue_relax_scatter",
+    "lux.gas_push_acc": "gas_push_acc"}
+
+
+def _trace_clis():
+    """Start the trace tiers' registries as a user runs them, on the
+    card: ``python -m lux_tpu_torch.tools.luxlint --ir`` (every
+    registered program x executor's step traced, LUX101-105) and
+    ``--exchange`` (every sharded registry executor's step, LUX404-406,
+    and its compact plan, LUX401-403/407); group 2r collects them (they
+    run beside the graph's generation)."""
+    env = {k: v for k, v in os.environ.items() if k != "LUX_PLATFORM"}
+    return {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "lux_tpu_torch.tools.luxlint", "--json",
+         *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)) for name, args in TRACE_TIERS.items()}
+
+
+def _trace_phases(procs, dev) -> dict:
+    """Group 2r: the registry CLIs rc 0 with 0 findings and 0 errors
+    (59 IR targets; the exchange matrix's 63 results, 23 of them compact
+    plans); each torch fixture of ``tests/torch_ir_fixtures/`` through
+    luxlint's ``main`` in this process, on the card, rc 1 with exactly
+    its rule; then every registry target traced here on the card and on
+    the CPU: 0 findings of LUX101-105 and LUX404-406 on the card, and
+    their kernel and collective nodes equal in sequence and shape
+    (glue-op differences are logged). Returns the card traces'
+    launches, which are at most their kernel nodes (a wrapper with no
+    work launches nothing)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lux_tpu_torch.analysis import ir, trace
+    from lux_tpu_torch.ops import _cuda
+    from lux_tpu_torch.tools import luxlint
+
+    want = {"ir": (IR_TARGETS, "luxlint.ir.v1"),
+            "exchange": (EXCHANGE_RESULTS, "luxlint-exchange.v1")}
+    for name, (t0, proc) in procs.items():
+        t = time.perf_counter()
+        summary, doc, err = _luxlint_json(proc, f"luxlint --{name}")
+        waited = time.perf_counter() - t
+        if (proc.returncode != 0 or summary["findings"] or summary["errors"]
+                or not summary["ok"]
+                or (summary["files"], summary["schema"]) != want[name]):
+            raise AssertionError(f"luxlint --{name}: rc {proc.returncode}, "
+                                 f"{summary}\n{err[-2000:]}")
+        log(f"[trace] --{name}: rc 0, {summary['files']} "
+            + ("registry targets traced on the card" if name == "ir" else
+               f"results (the sharded registry's traced steps and its "
+               f"{EXCHANGE_PLANS} compact plans, on the card)")
+            + f", 0 findings, schema {summary['schema']}, the tier "
+            f"{summary['elapsed_s']} s (waited {waited:.1f} s for the CLI, "
+            f"{time.perf_counter() - t0:.1f} s since its start)")
+
+    fixtures = Path(__file__).resolve().parent / "tests" / "torch_ir_fixtures"
+    fired = {}
+    t = time.perf_counter()
+    for stem, tier in TRACE_FIXTURES.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = luxlint.main([tier, "--json", str(fixtures / f"{stem}.py")])
+        out = buf.getvalue()
+        by_rule = json.loads(out[out.rindex("LUXLINT ") + 8:])["by_rule"]
+        if rc != 1 or list(by_rule) != ["LUX" + stem[3:6]]:
+            raise AssertionError(f"fixture {stem}: rc {rc}, {by_rule}")
+        fired[stem] = by_rule
+    log(f"[trace] the {len(fired)} torch fixtures, each through luxlint "
+        f"{{--ir, --exchange}} on the card: rc 1, exactly its rule "
+        f"({dict((k[:6], v) for k, v in fired.items())}) in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    card = ir.registry_targets(device=dev)
+    cpu = {x.name: x for x in ir.registry_targets(device="cpu")}
+    build_s = time.perf_counter() - t
+    rules = ir.all_ir_rules() + ir.exchange_ir_rules()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    nodes, glue, kernel_nodes = 0, [], {}
+    card_s = cpu_s = 0.0
+    for target in card:
+        kept = []
+        t = time.perf_counter()
+        res = ir.check_target(target, rules, kept)
+        card_s += time.perf_counter() - t
+        if res.error or res.findings:
+            raise AssertionError(f"{target.name} on the card: {res.error} "
+                                 f"{[f.format() for f in res.findings]}")
+        t = time.perf_counter()
+        on_cpu = ir.trace_target(cpu[target.name])
+        cpu_s += time.perf_counter() - t
+        mine, theirs = (trace.kernel_sequence(kept[0]),
+                        trace.kernel_sequence(on_cpu))
+        if mine != theirs:
+            raise AssertionError(f"{target.name}: kernel/collective nodes "
+                                 f"differ, card {mine} CPU {theirs}")
+        for op, _, _ in mine:
+            kernel_nodes[op] = kernel_nodes.get(op, 0) + 1
+        nodes += len(kept[0].nodes)
+        ga = [n.op for n in kept[0].nodes if n.kind == "aten"]
+        gb = [n.op for n in on_cpu.nodes if n.kind == "aten"]
+        if ga != gb:
+            glue.append(f"{target.name} ({len(ga)} vs {len(gb)})")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    per_kernel = {}
+    for op, n in kernel_nodes.items():
+        if op in TRACE_LAUNCH:
+            per_kernel[TRACE_LAUNCH[op]] = per_kernel.get(
+                TRACE_LAUNCH[op], 0) + n
+    pull = kernel_nodes.get("lux.pull_sum", 0)
+    over = {k: v for k, v in counts.items() if v > per_kernel.get(k, 0)
+            + (pull if k in ("gather_segment_sum", "cf_edge_sum") else 0)}
+    if over or not counts:
+        raise AssertionError(f"registry traces: launches {counts} beyond "
+                             f"their kernel nodes {kernel_nodes}")
+    log(f"[trace] {len(card)} registry targets traced in process on the "
+        f"card ({card_s:.2f} s) and on the CPU ({cpu_s:.2f} s; both "
+        f"registries built in {build_s:.2f} s): {nodes} card nodes, 0 "
+        f"findings; kernel and collective nodes equal in sequence and "
+        f"shape on both ({dict(sorted(kernel_nodes.items()))}); glue-op "
+        f"sequences differ in {len(glue)} target(s)"
+        + (f": {', '.join(glue[:8])}" if glue else "")
+        + f"; launches {counts}")
+    return counts
+
+
+def _trace_scale(label, ex, init_kw: dict, want: dict) -> dict:
+    """Group 2r at the main path's scale: ``ex.trace_step`` traced on
+    the card with 0 findings of LUX101-105 and LUX404-406, its launches
+    ``want``; logs its seconds, node count and largest intermediate over
+    the step's input bytes. Returns its launches."""
+    import torch
+
+    from lux_tpu_torch.analysis import ir
+    from lux_tpu_torch.ops import _cuda
+
+    t = time.perf_counter()
+    target = ir.target_from_spec(label, ex.trace_step(**init_kw))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    kept = []
+    res = ir.check_target(target, ir.all_ir_rules()
+                          + ir.exchange_ir_rules(), kept)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t
+    counts = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if res.error or res.findings:
+        raise AssertionError(f"trace {label}: {res.error} "
+                             f"{[f.format() for f in res.findings]}")
+    if counts != want:
+        raise AssertionError(f"trace {label}: launches {counts}, expected "
+                             f"{want}")
+    tr = kept[0]
+    kinds = {}
+    for n in tr.nodes:
+        kinds[n.kind] = kinds.get(n.kind, 0) + 1
+    big, inb = tr.largest_intermediate(), tr.input_bytes()
+    log(f"[trace] {label}: traced on the card in {tr.seconds:.3f} s "
+        f"({took:.2f} s with its spec and the rules), {len(tr.nodes)} nodes "
+        f"{kinds}, 0 findings of LUX101-105 and LUX404-406; largest "
+        f"intermediate {big} B = {big / max(inb, 1):.4f}x the step's "
+        f"{inb} input bytes; launches {counts}")
+    return counts
 
 
 def _k2_check(label, tail_src, row_ptr, n_x: int, rng, reps: int, dev):
@@ -4230,8 +4445,11 @@ def _incremental_phases(g, gu, push, held, dev, work) -> dict:
                                            if b and c and e)}
 
     # Each IncrementalExecutor below is built through the LUX604 gate
-    # (analysis/gasck.py), which proves a program once per process.
+    # (analysis/gasck.py), which proves a program once per process: the
+    # proofs 5j adds are those of its programs no earlier phase proved.
     proofs0 = gasck.incremental_proofs()
+    unproven = sum(not gasck.incremental_proven(p)
+                   for p in (SSSP(), ConnectedComponents()))
     oracles = {}
     for app, graph, prog, old, rem, ins, kw, oracle in (
             ("sssp", new_g, SSSP(), push["sssp"]["oracle"], removed,
@@ -4287,13 +4505,15 @@ def _incremental_phases(g, gu, push, held, dev, work) -> dict:
     torch.cuda.synchronize()
     host["executor (multi)"] = time.perf_counter() - t
     proofs = gasck.incremental_proofs() - proofs0
-    if proofs != 2:
+    if proofs != unproven:
         raise AssertionError(f"5j: {proofs} LUX604 proofs for three "
                              "IncrementalExecutors of SSSP, CC and SSSP; "
-                             "expected one a program")
+                             f"expected {unproven}, one a program not "
+                             "proven before")
     log(f"[incremental] 5j: the three IncrementalExecutors (SSSP, CC, "
-        f"8-lane SSSP) passed the LUX604 gate, {proofs} proofs (one a "
-        f"program, hooks on {dev})")
+        f"8-lane SSSP) passed the LUX604 gate with {proofs} new proofs, "
+        f"one for each of the {unproven} of their programs no earlier "
+        f"phase proved (hooks on {dev})")
     cols = [np.ascontiguousarray(lanes[:, j]) for j in range(len(roots))]
     del lanes
     (mst, miters, minfo), counts = counted(
@@ -5407,9 +5627,10 @@ def _cli_phases(work, device_line: str, held: dict, push: dict,
 # -- 3n-6n: the auto-tuner (tune/) on the card --------------------------------
 
 TUNE_GROUP = "3n-6n tuner"
-# 4n's search settings: the tuner's defaults (16 candidates of the 30,
-# seeded, and 2 rungs), logged; lower only if the time limit forces it.
-TUNE_SHARDED_CANDIDATES = 16
+# 4n's search settings, logged: 12 of the 30 candidates (the tuner's
+# default is 16; 12 keeps the script inside its 1,050 s budget), seeded,
+# and 2 rungs.
+TUNE_SHARDED_CANDIDATES = 12
 TUNE_SHARDED_RUNGS = 2
 TUNE_REPS = 3            # 6n: median of this many runs after warmup
 
@@ -6278,6 +6499,7 @@ def _serve_mesh(work, dev, http: dict, oracle, smi: str,
             f"GiB; launches { {k: v for k, v in counts.items() if v} } "
             f"({smi})")
         _pool_exchange_audit(s)
+        _pool_ir_audit(s)
     finally:
         s.close()
     for name in SERVE_MESH_KERNELS:
@@ -6325,6 +6547,61 @@ def _pool_exchange_audit(s) -> None:
         f"engine on the session's plan, built, warmed and audited in "
         f"{took:.1f} s), 0 findings; audits.exchck {a['status']!r}")
 
+
+def _pool_ir_audit(s) -> None:
+    """Group 2r in 6m's session: the pool's LUX104 donation audit
+    (``analysis/ir.py::audit_engine``) read the declaration of every
+    build with a ``trace_step`` (every engine of the port has one) and
+    ran the step of each that donates, with 0 findings. Each served
+    engine's declaration is then held against one run of its step on
+    the card: the args whose storage an output reuses are exactly the
+    donated ones. Logs the seconds of the pool's declaration reads, of
+    the example states they no longer build, and of the steps."""
+    import torch
+
+    from lux_tpu_torch.analysis import ir, trace
+    from lux_tpu_torch.serve.pool import engine_stream
+
+    pool = s.pool
+    with pool._lock:
+        engines = [(k, e) for k, e in pool._engines.items()
+                   if hasattr(e, "trace_step")]
+    a = pool.audits()["ir"]
+    if (not a["requested"] or not engines
+            or a["audited_builds"] + a["undonated_builds"] != len(engines)
+            or a["findings"] or pool.stats()["ir_findings"]):
+        raise AssertionError(f"6m: IR audit {a}, {len(engines)} builds "
+                             "with a trace_step")
+    read_s = args_s = step_s = 0.0
+    for key, e in engines:
+        t = time.perf_counter()
+        target = ir.engine_target(e, f"pool@{key}")
+        read_s += time.perf_counter() - t
+        with engine_stream(getattr(e, "device", None)):
+            t = time.perf_counter()
+            args = target.example_args()     # built for this run alone
+            torch.cuda.synchronize()
+            args_s += time.perf_counter() - t
+            t = time.perf_counter()
+            run = trace.bare_call(target.call, args)
+            torch.cuda.synchronize()
+            step_s += time.perf_counter() - t
+        outs = {r.lid for r in run.out_leaves if isinstance(r, trace.Ref)}
+        reused = {i for i, lids in enumerate(run.arg_lids)
+                  if lids and lids <= outs}
+        if reused != set(target.donate):
+            raise AssertionError(f"6m: {target.name} declares donate="
+                                 f"{target.donate}, its step reuses "
+                                 f"args {sorted(reused)}")
+        del target, args, run
+    log(f"[trace] 6m: the pool's LUX104 audit read the declaration of "
+        f"{len(engines)} build(s) of {len(pool)} ({a['undonated_builds']} "
+        f"donate nothing: no state built, no step run; "
+        f"{a['audited_builds']} steps run), 0 findings; each declaration "
+        f"exact against its step on the card; seconds over the "
+        f"{len(engines)}: declarations {read_s:.4f}, the example states "
+        f"an audit that runs steps builds {args_s:.4f}, their steps "
+        f"{step_s:.4f}; audits.ir {a['status']!r}")
 
 if __name__ == "__main__":
     sys.exit(main())

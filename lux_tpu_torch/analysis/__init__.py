@@ -22,13 +22,17 @@ lux_tpu_torch.tools.luxlint`` lints the tree in seconds):
 - ``tuneck.py`` — the tune-artifact tier (LUX501-504);
 - ``gasck.py`` — the program-contract tier (LUX601-606) and its
   ``gascap.v1`` artifact ``gascap.json``;
-- ``ir.py`` — the executor registry (``build_executor``, the registry
-  matrix) and ``luxlint --exchange``'s runners.
+- ``trace.py`` — torch traces of a step (the counterpart of
+  ``jax.make_jaxpr``): aten ops, kernel wrappers, mesh collectives and
+  host reads as ordered nodes over storage-versioned buffers;
+- ``ir.py`` — the trace tiers over them: the IR rules (LUX101-105), the
+  exchange dataflow rules (LUX404-406), the executor registry
+  (``build_executor``, the registry matrix), ``luxlint --ir`` and
+  ``--exchange``'s runners, and the serving pool's LUX104 audit.
 
 Runtime side: ``sentinel.py`` — ``RecompileSentinel`` (the serving
 pool's zero-recompiles-after-warmup evidence) and ``HostTransferGuard``
 (fails device->host transfers inside a guarded iteration region).
 
-Not ported (ROADMAP A16, the trace tiers): the IR tier's LUX101-105, the
-exchange dataflow rules LUX404-406 and the memory tier (LUX701-706).
+Not ported (ROADMAP A16): the memory tier (LUX701-706, memck).
 """

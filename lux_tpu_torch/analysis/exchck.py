@@ -45,9 +45,9 @@ sampling:
 numpy + stdlib only, mirroring planck.py: plans are host arrays and a
 verifier must not drag in torch. Findings (rule, path, message) equal
 ``lux_tpu``'s on the same plan, and each package's artifact loads in the
-other. The IR half of ``lux_tpu``'s tier (LUX404-406, dependence-walk
-rules over the traced step) is not ported: it waits for a torch
-mechanism in place of jaxpr tracing (ROADMAP A16).
+other. The trace half of the tier (LUX404-406, dataflow rules over the
+traced step) is ``analysis/ir.py``'s, over ``analysis/trace.py``'s
+torch traces.
 """
 
 from __future__ import annotations

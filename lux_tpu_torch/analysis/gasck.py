@@ -982,6 +982,11 @@ def incremental_proofs() -> int:
     return len(_INCR_CACHE)
 
 
+def incremental_proven(program) -> bool:
+    """Whether this process has run ``program``'s incremental proof."""
+    return _program_key(program) in _INCR_CACHE
+
+
 def _incremental_error(program) -> Optional[str]:
     from lux_tpu_torch.engine.gas import as_gas
 

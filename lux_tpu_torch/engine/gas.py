@@ -46,7 +46,8 @@ fixed number of dense pull iterations through
 
 ``run`` records itself as ``lux_tpu``'s does (a recorder flushed once
 per ``chunk``, the engobs note of its directions, the compile seconds
-``warmup`` notes). Not ported: ``trace_step`` (ROADMAP A16). ``chunk``
+``warmup`` notes). ``trace_step`` gives the trace tiers
+(``analysis/ir.py``) one iteration with both directions. ``chunk``
 keeps ``lux_tpu``'s signature: there it batches host reads; here it
 sets the recorder's flush windows, and a non-positive chunk runs no
 iteration.
@@ -54,6 +55,7 @@ iteration.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -82,7 +84,7 @@ from lux_tpu_torch.ops.segment import (
     to_u32_storage,
     u32_to_numpy,
 )
-from lux_tpu_torch.utils import flags
+from lux_tpu_torch.utils import flags, tracehooks
 from lux_tpu_torch.utils.platform import resolve_device
 from lux_tpu_torch.utils.timing import timed
 
@@ -454,23 +456,44 @@ class AdaptiveExecutor(_GasBase):
             return self.graph.nv, 0    # never halts early: run() bounds it
         return self._read(self._stats_tensor(state.frontier))
 
+    def _device_step(self, state: GasState, stats, every: bool = False):
+        """The device side of one iteration from ``state``, whose
+        frontier has ``stats``: the direction :meth:`_decide_push` picks,
+        and with ``every`` both directions the host may take (pull, and
+        push unless the mode pins pull), each a
+        :func:`~lux_tpu_torch.utils.tracehooks.alternatives` branch, as
+        ``lux_tpu``'s ``lax.cond`` holds both (the trace tiers' step).
+        Returns the picked direction's new state and its counters on the
+        device (None for a frontier-less program, whose frontier and
+        direction pass through); the host's read of them follows."""
+        if not self.program.frontier:
+            new = self._pull.step(state.values)
+            return state._replace(values=new), None
+        push = self._decide_push(stats, state.direction)
+        if not every:
+            ways = (push,)
+        else:
+            ways = (False, True) if self.mode != "pull" else (False,)
+        got = {}
+        alt = tracehooks.alternatives()
+        for p in ways:
+            with alt.branch("push" if p else "pull"):
+                acc = (self._push_acc(state, self._queue(state, stats[0]),
+                                      stats[1]) if p
+                       else self._pull_acc(state))
+                new, frontier = self._update(state.values, acc)
+                got[p] = (GasState(new, frontier, int(p)),
+                          self._stats_tensor(frontier))
+        return got[push]
+
     def _iterate(self, state: GasState, stats):
         """One iteration from ``state``, whose frontier has ``stats``;
         returns (new state, its stats, direction taken)."""
-        if not self.program.frontier:
-            # Frontier and direction pass through unchanged.
-            new = self._pull.step(state.values)
-            return state._replace(values=new), (self.graph.nv, 0), 0
-        push = self._decide_push(stats, state.direction)
-        if push:
-            acc = self._push_acc(state, self._queue(state, stats[0]),
-                                 stats[1])
-        else:
-            acc = self._pull_acc(state)
-        new, frontier = self._update(state.values, acc)
-        return (GasState(new, frontier, int(push)),
-                # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
-                self._read(self._stats_tensor(frontier)), int(push))
+        new_state, st = self._device_step(state, stats)
+        if st is None:
+            return new_state, (self.graph.nv, 0), 0
+        # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
+        return new_state, self._read(st), new_state.direction
 
     # -- driving ----------------------------------------------------------
 
@@ -492,6 +515,23 @@ class AdaptiveExecutor(_GasBase):
         new_state, stats, _ = self._iterate(state,
                                             self._frontier_stats(state))
         return new_state, stats[0]
+
+    def trace_step(self, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): :meth:`_device_step`
+        over both directions, from the program's initial state and its
+        counters (read once, as the step before it ends with).
+        ``lux_tpu`` donates the state (``donate=(0,)``); this step
+        writes new values and a new frontier (a frontier-less program's
+        frontier passes through, but not its values), so it donates
+        nothing (ROADMAP: memck's LUX702)."""
+        def args():
+            state = self.init_state(**init_kw)
+            return state, self._frontier_stats(state)
+
+        return {"kind": "gas",
+                "call": functools.partial(self._device_step, every=True),
+                "args": args,
+                "donate": (), "carry": (0,), "sharded": False}
 
     def _run(self, state: GasState, max_iters: Optional[int], chunk: int,
              rec=NULL_RECORDER):
@@ -636,17 +676,32 @@ class MultiSourceGasExecutor(_GasBase):
         return GasState(self._storage(vals),
                         torch.from_numpy(fr.astype(bool)).to(self.device), 0)
 
-    def step(self, state: GasState):
-        """One iteration; returns (new state, new frontier count over all
-        lanes)."""
+    def _device_step(self, state: GasState):
+        """One iteration on the device: (new state, its frontier count
+        over all lanes, a device tensor)."""
         prog = self.program
         acc = gas_pull_acc(
             self.row_ptr, self.col_src, state.values, state.frontier,
             prog.combiner, prog.gather_op, self.tasks, gather=prog.gather,
             weights=self.weights)
         new, frontier = self._update(state.values, acc)
+        return GasState(new, frontier, 0), frontier.sum()
+
+    def step(self, state: GasState):
+        """One iteration; returns (new state, new frontier count over all
+        lanes)."""
+        new_state, cnt = self._device_step(state)
         # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
-        return GasState(new, frontier, 0), int(frontier.sum())
+        return new_state, int(cnt)
+
+    def trace_step(self, start: int = 0, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): one K-lane iteration
+        from root ``start``, up to its count on the device. ``lux_tpu``
+        donates the state; this step writes new values and a new
+        frontier, so it donates nothing (ROADMAP: memck's LUX702)."""
+        return {"kind": "gas_multi", "call": self._device_step,
+                "args": lambda: (self.init_state([start]),), "donate": (),
+                "carry": (0,), "sharded": False, "k": self.k}
 
     def run(self, starts, max_iters: Optional[int] = None, chunk: int = 16,
             recorder=None, state: Optional[GasState] = None):

@@ -64,7 +64,8 @@ On the CPU the kernels' plain versions run. Telemetry is ``lux_tpu``'s:
 useful bytes, the byte model), ``ShardedAdaptiveExecutor`` runs
 phase-fenced under ``LUX_ENGOBS=1`` (``obs/engobs.py``), and a step's
 exchange and compute are the ``prof`` regions ``lux.gas_sharded.*``
-(``lux.gas_multi_sharded.*``). Not ported: ``trace_step``. ``chunk``
+(``lux.gas_multi_sharded.*``). ``trace_step`` gives the trace tiers
+(``analysis/ir.py``) one iteration with every branch. ``chunk``
 keeps ``lux_tpu``'s signature: there it batches host reads; here it
 sets the recorder's flush windows, and a non-positive chunk runs no
 iteration.
@@ -72,6 +73,7 @@ iteration.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -115,7 +117,7 @@ from lux_tpu_torch.ops.segment import (
 )
 from lux_tpu_torch.parallel.mesh import AnyMesh, FrontierExchange, gather_rows
 from lux_tpu_torch.parallel.shard import ShardedGraph
-from lux_tpu_torch.utils import flags
+from lux_tpu_torch.utils import flags, tracehooks
 from lux_tpu_torch.utils.timing import timed
 
 _EXCHANGE = prof.region("lux.gas_sharded.exchange")
@@ -286,16 +288,13 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
 
     # -- the two directions ----------------------------------------------
 
-    def _pull_load(self, state: GasState, stats: Stats):
-        """The pull exchange: ((values table, frontier table), 1 if a
-        frontier-mode iteration took the compact send, else 0)."""
+    def _pull_load(self, state: GasState, send: bool):
+        """The pull exchange: (values table, frontier table), through
+        the frontier send when ``send``, else the exchange of both."""
         v, f = state.values, state.frontier
-        if self._xch is None:
-            return (self.mesh.all_gather(v), self.mesh.all_gather(f)), 0
-        if self._fx is not None and stats.widest <= self.frontier_cap:
-            return self._fx.tables(v, f), 0
-        return (self._xch.tables(v), self._xch.tables(f)), int(
-            self._fx is not None)
+        if send:
+            return self._fx.tables(v, f, self._pad(v))
+        return self._exchange(v), self._exchange(f)
 
     def _push_load(self, state: GasState, stats: Stats):
         """Each held part's frontier queue (K6), all-gathered in part
@@ -375,42 +374,75 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
 
     # -- one iteration ------------------------------------------------------
 
-    def _branch(self, push: bool, down: int) -> str:
-        if push:
+    def _pick(self, state: GasState, stats: Stats) -> str:
+        """The branch the host takes from a frontier whose counters are
+        ``stats``: ``push``, else the pull; in frontier mode the frontier
+        send, or its compact downgrade when a part's widest send passes
+        the cap."""
+        if self._decide_push(stats, state.direction):
             return "push"
         if self.exchange_mode != "frontier":
             return "pull"
-        return "pull/downgraded" if down else "pull/frontier"
+        return ("pull/downgraded" if stats.widest > self.frontier_cap
+                else "pull/frontier")
 
-    def _iterate(self, state: GasState, stats: Stats):
-        """One iteration from ``state``, whose frontier has ``stats``;
-        returns (new state, its stats, direction, branch)."""
+    def _branches(self) -> Tuple[str, ...]:
+        """Every branch :meth:`_pick` may name."""
+        pulls = (("pull/frontier", "pull/downgraded")
+                 if self.exchange_mode == "frontier" else ("pull",))
+        return (("push",) if self.mode != "pull" else ()) + pulls
+
+    def _device_step(self, state: GasState, stats: Stats,
+                     every: bool = False):
+        """The device side of one iteration from ``state``, whose
+        frontier has ``stats``: the branch :meth:`_pick` names, and with
+        ``every`` each of :meth:`_branches`, each a
+        :func:`~lux_tpu_torch.utils.tracehooks.alternatives` branch, as
+        ``lux_tpu``'s ``lax.cond`` holds them (the trace tiers' step,
+        which leaves ``queue_log`` as it was). Returns the picked
+        branch's new state and its counters on the device (None for a
+        frontier-less program, whose frontier and direction pass
+        through); the host's read of them follows."""
         if not self.program.frontier:
-            # Frontier and direction pass through unchanged.
             pull = self._pull
             with _EXCHANGE:
                 flat = pull._exchange(state.values)
             with _COMPUTE:
                 new = pull._update(state.values, pull._comp(flat))
-            return state._replace(values=new), stats, 0, "pull/dense"
-        push = self._decide_push(stats, state.direction)
-        down = 0
-        if push:
-            with _EXCHANGE:
-                queue = self._push_load(state, stats)
-            with _COMPUTE:
-                acc = self._push_acc(state, queue, stats)
-        else:
-            with _EXCHANGE:
-                loaded, down = self._pull_load(state, stats)
-            with _COMPUTE:
-                acc = self._pull_acc(loaded)
+            return state._replace(values=new), None
+        pick = self._pick(state, stats)
+        accs = {}
+        keep = ("queue_log",) if every else ()
+        with tracehooks.preserved(self, *keep):
+            alt = tracehooks.alternatives()
+            for label in self._branches() if every else (pick,):
+                with alt.branch(label):
+                    if label == "push":
+                        with _EXCHANGE:
+                            queue = self._push_load(state, stats)
+                        with _COMPUTE:
+                            accs[label] = self._push_acc(state, queue,
+                                                         stats)
+                    else:
+                        with _EXCHANGE:
+                            loaded = self._pull_load(
+                                state, label == "pull/frontier")
+                        with _COMPUTE:
+                            accs[label] = self._pull_acc(loaded)
         with _COMPUTE:
-            new, frontier = self._merge(state.values, acc)
-        return (GasState(new, frontier, int(push)),
-                # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
-                self._read(self._stats_tensor(frontier)), int(push),
-                self._branch(push, down))
+            new, frontier = self._merge(state.values, accs[pick])
+        return (GasState(new, frontier, int(pick == "push")),
+                self._stats_tensor(frontier))
+
+    def _iterate(self, state: GasState, stats: Stats):
+        """One iteration from ``state``, whose frontier has ``stats``;
+        returns (new state, its stats, direction, branch)."""
+        new_state, st = self._device_step(state, stats)
+        if st is None:
+            return new_state, stats, 0, "pull/dense"
+        # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
+        return (new_state, self._read(st), new_state.direction,
+                self._pick(state, stats))
 
     # -- driving ----------------------------------------------------------
 
@@ -431,6 +463,24 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
         new_state, stats, _, _ = self._iterate(state,
                                                self._frontier_stats(state))
         return new_state, stats.count
+
+    def trace_step(self, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): :meth:`_device_step`
+        over every branch, from the program's initial state and its
+        counters (read once, as the step before it ends with), with the
+        exchange keys
+        LUX404-407 read. ``lux_tpu`` donates the state; this step
+        writes new values and a new frontier (a frontier-less program's
+        frontier passes through, but not its values), so it donates
+        nothing (ROADMAP: memck's LUX702)."""
+        def args():
+            state = self.init_state(**init_kw)
+            return state, self._frontier_stats(state)
+
+        return {"kind": "gas_sharded",
+                "call": functools.partial(self._device_step, every=True),
+                "args": args,
+                "donate": (), "carry": (0,), **self._exchange_spec()}
 
     def _run(self, state: GasState, max_iters: Optional[int], chunk: int,
              rec=NULL_RECORDER):
@@ -534,9 +584,8 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
                     lambda: pull._update(state.values, acc), dev)
             times["branch"], times["downgraded"] = "pull/dense", 0
             return state._replace(values=new), stats.count, times
-        push = self._decide_push(stats, state.direction)
-        down = 0
-        if push:
+        pick = self._pick(state, stats)
+        if pick == "push":
             with _EXCHANGE:
                 queue, times["loadTime"] = timed(
                     lambda: self._push_load(state, stats), dev)
@@ -545,8 +594,9 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
                     lambda: self._push_acc(state, queue, stats), dev)
         else:
             with _EXCHANGE:
-                (loaded, down), times["loadTime"] = timed(
-                    lambda: self._pull_load(state, stats), dev)
+                loaded, times["loadTime"] = timed(
+                    lambda: self._pull_load(state, pick == "pull/frontier"),
+                    dev)
             with _COMPUTE:
                 acc, times["compTime"] = timed(
                     lambda: self._pull_acc(loaded), dev)
@@ -557,8 +607,9 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
 
         with _COMPUTE:
             (new, frontier, st), times["updateTime"] = timed(finish, dev)
-        times["branch"], times["downgraded"] = self._branch(push, down), down
-        return GasState(new, frontier, int(push)), st.count, times
+        times["branch"] = pick
+        times["downgraded"] = int(pick == "pull/downgraded")
+        return GasState(new, frontier, int(pick == "push")), st.count, times
 
     def warmup_phases(self, state: GasState):
         """Run every phase of both directions once outside any timed
@@ -568,10 +619,10 @@ class ShardedAdaptiveExecutor(_ShardedGas, SparseQueue):
         if not self.program.frontier:
             self._pull._step(state.values)
         else:
-            loaded, _ = self._pull_load(state, stats)
+            loaded = self._pull_load(state, False)
             self._merge(state.values, self._pull_acc(loaded))
             if self._fx is not None:
-                self._fx.tables(state.values, state.frontier)
+                self._pull_load(state, True)
             if self.mode != "pull":
                 self._merge(state.values, self._push_acc(
                     state, self._push_load(state, stats), stats))
@@ -678,6 +729,13 @@ class ShardedMultiSourceGasExecutor(_ShardedGas, LanesLoop):
 
     def _note_exchange(self, rec) -> None:
         note_exchange(rec, self, "dense_estimate")
+
+    def trace_step(self, start: int = 0, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): one K-lane iteration
+        from root ``start`` (:meth:`LanesLoop._trace_spec`), with the
+        exchange keys LUX404-406 read."""
+        return self._trace_spec("gas_multi_sharded", start,
+                                **self._exchange_spec())
 
     def values_for(self, state: GasState, j: int) -> np.ndarray:
         """Host copy of lane ``j``'s global value column (a collective

@@ -43,8 +43,9 @@ warm-starts the pull iteration (K8) from the previous ranks (re-divided
 by the new out-degrees) and runs to an L-inf tolerance instead.
 
 A warm run records itself under the engine label ``incremental``
-(``recorder_for``), as ``lux_tpu``'s does. Not ported: ``trace_step``,
-the luxlint-IR hook (ROADMAP A16).
+(``recorder_for``), as ``lux_tpu``'s does. ``trace_step`` gives the
+trace tiers (``analysis/ir.py``) the wrapped push step entered from a
+warm state.
 """
 
 from __future__ import annotations
@@ -331,6 +332,25 @@ class IncrementalExecutor:
     def warmup(self, chunk: int = 16, **init_kw):
         """The wrapped push executor's ``warmup``."""
         self.push.warmup(chunk=chunk, **init_kw)
+
+    def trace_step(self, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): the wrapped push step
+        (both branches, :meth:`~lux_tpu_torch.engine.push.FixpointLoop.
+        _device_step`) entered through a warm state built from an empty
+        edit batch — the step the incremental path runs, audited as its
+        own target kind. Building the state leaves ``host_seconds`` as
+        it was. ``lux_tpu`` donates the state; this step writes new
+        tensors, so it donates nothing (ROADMAP: memck's LUX702)."""
+        def make_state():
+            init = np.asarray(self.program.init_values(self.graph,
+                                                       **init_kw))
+            saved = dict(self.host_seconds)
+            try:
+                return self.warm_state(init, **init_kw)[0]
+            finally:
+                self.host_seconds = saved
+
+        return self.push._trace_spec("push_incremental", make_state)
 
 
 def _host(a) -> np.ndarray:

@@ -39,7 +39,8 @@ which the H100 does not have (a 40 MB table sits in its L2); and
 ``(nv, *value_shape)``, unpadded. ``run`` is a plain loop of steps on
 device tensors (``lux_tpu``'s fused runner has no counterpart); with
 telemetry on it waits for the card once per ``flush_every`` window and
-flushes its recorder there. ``trace_step`` is not ported.
+flushes its recorder there. ``trace_step`` gives the trace tiers
+(``analysis/ir.py``) that step.
 """
 
 from __future__ import annotations
@@ -297,6 +298,15 @@ class PullExecutor:
     def step(self, vals) -> torch.Tensor:
         """One iteration; (nv, *value_shape) in and out."""
         return self._step(self._values(vals))
+
+    def trace_step(self, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): the step ``run`` loops
+        over, from the program's initial values. ``lux_tpu`` donates
+        the values (``donate=(0,)``); this step writes new values, so it
+        donates nothing (ROADMAP: memck's LUX702)."""
+        return {"kind": "pull", "call": self._step,
+                "args": lambda: (self.init_values(),), "donate": (),
+                "carry": (0,), "sharded": False}
 
     def warmup(self):
         """One throwaway iteration through the run() path (builds the

@@ -50,8 +50,9 @@ exchange and compute of a step are the ``prof`` regions
 
 Not ported, by design: ``lux_tpu``'s lane padding (``_kpad``), a TPU
 gather layout that changes no result (``exchange_bytes_per_iter`` prices
-the real width, as ``lux_tpu`` does); ``trace_step`` and the fused
-runner (``run`` is a plain loop of steps on device tensors).
+the real width, as ``lux_tpu`` does); the fused runner (``run`` is a
+plain loop of steps on device tensors). ``trace_step`` gives the trace
+tiers (``analysis/ir.py``) that step.
 """
 
 from __future__ import annotations
@@ -189,6 +190,17 @@ class ShardedPullExecutor(ShardedBase):
     def step(self, vals) -> torch.Tensor:
         """One iteration; (L, max_nv, *value_shape) in and out."""
         return self._step(self._values(vals))
+
+    def trace_step(self, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): the step ``run`` loops
+        over, from the program's initial values, with the exchange keys
+        LUX404-406 read. ``lux_tpu`` donates the values; this step
+        writes new values, so it donates nothing (ROADMAP: memck's
+        LUX702)."""
+        return {"kind": "pull_sharded", "call": self._step,
+                "args": lambda: (self.init_values(),), "donate": (),
+                "carry": (0,),
+                **self._exchange_spec(np.float32)}
 
     def phase_step(self, vals):
         """One iteration as separately timed exchange, comp and update

@@ -47,7 +47,8 @@ numpy uint32.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+import functools
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +75,7 @@ from lux_tpu_torch.ops.segment import (
     to_u32_storage,
     u32_to_numpy,
 )
+from lux_tpu_torch.utils import tracehooks
 from lux_tpu_torch.utils.platform import resolve_device
 from lux_tpu_torch.utils.timing import timed
 
@@ -187,21 +189,62 @@ class FixpointLoop:
             acc = self._dense_acc(loaded)
             return combine_u32(self.program.combiner, state.values, acc)
 
+    def _device_step(self, state: PushState, stats, every: bool = False):
+        """The device side of one iteration from ``state``, whose
+        frontier has ``stats``: the branch :meth:`_branch` picks, and
+        with ``every`` each branch the host may take (dense, and sparse
+        where the executor has it; the sparse tiers differ only in the
+        budgets the host checks), each a
+        :func:`~lux_tpu_torch.utils.tracehooks.alternatives` branch, as
+        ``lux_tpu``'s ``lax.cond`` holds both (the trace tiers' step,
+        which leaves ``queue_log`` as it was). Returns the picked
+        branch's new state and its counters on the device; the host's
+        read of them follows."""
+        pick = self._branch(stats)
+        if not every:
+            tiers = (pick,)
+        else:
+            tiers = (0, max(pick, 1)) if self.sparse else (0,)
+        got = {}
+        keep = ("queue_log",) if every else ()
+        with tracehooks.preserved(self, *keep):
+            alt = tracehooks.alternatives()
+            for tier in tiers:
+                with alt.branch(_tier_label(self.tiers, tier)):
+                    new = self._new_values(state, tier, stats)
+                    with self._regions[1]:
+                        got[tier] = self._update(state.values, new)
+        return got[pick]
+
     def _iterate(self, state: PushState, stats):
         """One iteration from ``state``, whose frontier has ``stats``;
         returns (new state, its stats, branch index)."""
-        tier = self._branch(stats)
-        new = self._new_values(state, tier, stats)
-        with self._regions[1]:
-            new_state, st = self._update(state.values, new)
+        new_state, st = self._device_step(state, stats)
         # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
-        return new_state, self._read(st), tier
+        return new_state, self._read(st), self._branch(stats)
 
     def step(self, state):
         """One iteration; returns (new state, new frontier count)."""
         new_state, stats, _ = self._iterate(state,
                                             self._frontier_stats(state))
         return new_state, stats[0]
+
+    def _trace_spec(self, kind: str, make_state: Callable[[], PushState],
+                    **extra) -> dict:
+        """``trace_step``'s dict for the state ``make_state()`` builds
+        when the args are first asked for: its counters read once (the
+        read the step before it ends with), then the traced step over
+        (state, counters), :meth:`_device_step` over every branch. The
+        step makes new values and a new frontier, so no arg is
+        donated."""
+        def args():
+            state = make_state()
+            return state, self._frontier_stats(state)
+
+        return {"kind": kind,
+                "call": functools.partial(self._device_step, every=True),
+                "args": args, "donate": (), "carry": (0,), "sharded": False,
+                **extra}
 
     def _run(self, state, max_iters: Optional[int], chunk: int,
              rec=NULL_RECORDER):
@@ -453,6 +496,16 @@ class PushExecutor(FixpointLoop):
         """Host copy of the values, numpy uint32."""
         return u32_to_numpy(state.values)
 
+    def trace_step(self, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): the iteration from the
+        program's initial state, every branch the host may take traced
+        (:meth:`_device_step` over every branch). ``lux_tpu`` donates
+        the state (``donate=(0,)``); this step writes new tensors, so it
+        donates nothing and a run holds two states (ROADMAP: memck's
+        LUX702)."""
+        return self._trace_spec("push",
+                                lambda: self.init_state(**init_kw))
+
 
 class LanesLoop:
     """The iteration and fixpoint loop of the multi-source executors
@@ -485,16 +538,31 @@ class LanesLoop:
             [prog.init_frontier(self.graph, start=s) for s in starts], axis=1)
         return self._lanes_storage(vals, fr.astype(bool))
 
-    def step(self, state: PushState):
-        """One iteration; returns (new state, new frontier count over all
-        lanes)."""
+    def _device_step(self, state: PushState):
+        """One iteration on the device: (new state, its frontier count
+        over all lanes, a device tensor)."""
         exchange, compute = self._regions
         with exchange:
             loaded = self._load(state)
         with compute:
-            new_state, cnt = self._update(state.values, self._acc(loaded))
+            return self._update(state.values, self._acc(loaded))
+
+    def step(self, state: PushState):
+        """One iteration; returns (new state, new frontier count over all
+        lanes)."""
+        new_state, cnt = self._device_step(state)
         # luxlint: disable=LUX001 -- one counter read per iteration, where lux_tpu reads once a chunk (ROADMAP A20)
         return new_state, int(cnt)
+
+    def _trace_spec(self, kind: str, start: int, **extra) -> dict:
+        """``trace_step``'s dict: the dense iteration from
+        ``init_state([start])``, up to its count on the device (the host
+        reads it after the step). It makes new values and a new
+        frontier, so no arg is donated; ``lux_tpu`` donates the state
+        (ROADMAP: memck's LUX702)."""
+        return {"kind": kind, "call": self._device_step,
+                "args": lambda: (self.init_state([start]),), "donate": (),
+                "carry": (0,), "sharded": False, "k": self.k, **extra}
 
     def _hbm_bytes(self) -> int:
         return engobs.hbm_bytes_per_iter(self.graph.nv, self.graph.ne,
@@ -634,3 +702,8 @@ class MultiSourcePushExecutor(LanesLoop):
     def values_for(self, state: PushState, j: int) -> np.ndarray:
         """Host copy of lane ``j``'s value column, numpy uint32."""
         return u32_to_numpy(state.values[:, j].contiguous())
+
+    def trace_step(self, start: int = 0, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): one K-lane iteration
+        from root ``start`` (:meth:`LanesLoop._trace_spec`)."""
+        return self._trace_spec("push_multi", start)

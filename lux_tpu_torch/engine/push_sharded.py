@@ -60,8 +60,9 @@ On the CPU the kernels' plain versions run. Telemetry is ``lux_tpu``'s:
 ``run`` takes a recorder (one flush per ``chunk``, the exchange ledger,
 useful bytes, the byte model), runs phase-fenced under ``LUX_ENGOBS=1``
 (``obs/engobs.py``), and a step's exchange and compute are the ``prof``
-regions ``lux.push_sharded.*`` (``lux.push_multi_sharded.*``). Not
-ported: ``trace_step`` and the per-shard activity list of
+regions ``lux.push_sharded.*`` (``lux.push_multi_sharded.*``).
+``trace_step`` gives the trace tiers (``analysis/ir.py``) one iteration
+with both branches. Not ported: the per-shard activity list of
 ``phase_step``.
 """
 
@@ -422,6 +423,17 @@ class ShardedPushExecutor(_ShardedPush, SparseQueue, FixpointLoop):
         self.queue_log = []
         return super().run(max_iters, state, chunk, recorder, **init_kw)
 
+    def trace_step(self, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): both branches of one
+        iteration from the program's initial state
+        (:meth:`FixpointLoop._device_step` over every branch), with the
+        exchange keys LUX404-406 read. ``lux_tpu`` donates the state;
+        this step writes new tensors, so it donates nothing (ROADMAP:
+        memck's LUX702)."""
+        return self._trace_spec("push_sharded",
+                                lambda: self.init_state(**init_kw),
+                                **self._exchange_spec())
+
     def _note_exchange(self, rec) -> None:
         note_exchange(rec, self, "dense_estimate", 5)
 
@@ -487,6 +499,13 @@ class ShardedMultiSourcePushExecutor(_ShardedPush, LanesLoop):
         frontier = new != values
         return PushState(new, frontier), gather_rows(
             self.mesh, frontier.sum((1, 2))[:, None]).sum()
+
+    def trace_step(self, start: int = 0, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): one K-lane iteration
+        from root ``start`` (:meth:`LanesLoop._trace_spec`), with the
+        exchange keys LUX404-406 read."""
+        return self._trace_spec("push_multi_sharded", start,
+                                **self._exchange_spec())
 
     def values_for(self, state: PushState, j: int) -> np.ndarray:
         """Host copy of lane ``j``'s global value column, numpy uint32,

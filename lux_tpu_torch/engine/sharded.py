@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.graph.graph import Graph
-from lux_tpu_torch.ops.segment import RowTasks
+from lux_tpu_torch.ops.segment import RowTasks, storage_identity
 from lux_tpu_torch.parallel.mesh import (
     AnyMesh,
     CompactExchange,
@@ -42,6 +42,13 @@ from lux_tpu_torch.parallel.shard import (
     validated_sg,
 )
 from lux_tpu_torch.utils.logging import get_logger
+
+
+def dtype_name(dtype) -> str:
+    """``np.dtype(dtype).name`` of a numpy or torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return np.dtype(dtype).name
 
 
 @dataclasses.dataclass(eq=False)
@@ -137,18 +144,39 @@ class ShardedBase:
         self._xch = (None if self._xplan is None
                      else CompactExchange(self._xplan, self.mesh, n))
 
+    def _pad(self, stacked: torch.Tensor):
+        """What a compact table holds in rows no edge reads: the
+        program combiner's identity in ``stacked``'s storage (a bool
+        frontier: False), as ``lux_tpu`` pads its exchanged candidates
+        (LUX405)."""
+        if stacked.dtype == torch.bool:
+            return False
+        return storage_identity(self.program.combiner, stacked.dtype)
+
     def _exchange(self, stacked: torch.Tensor) -> torch.Tensor:
         """The flat table(s) the held parts read: the shared (P*max_nv,
         *t) all-gather (full), or (L, P*max_nv, *t), one per held
         receiver (compact)."""
         if self._xch is None:
             return self.mesh.all_gather(stacked)
-        return self._xch.tables(stacked)
+        return self._xch.tables(stacked, self._pad(stacked))
 
     def _table(self, flat: Optional[torch.Tensor], q: int):
         """The table of the ``q``-th held part of what :meth:`_exchange`
         returned."""
         return flat if flat is None or self._xch is None else flat[q]
+
+    def _exchange_spec(self, default_dtype=np.uint32) -> dict:
+        """The exchange keys of a sharded ``trace_step`` dict, which the
+        LUX404-406 rules read (``analysis/ir.py``): the mode, the byte
+        claim, the combiner, the exchanged values' dtype, the parts and
+        the live compact plan."""
+        dt = getattr(self.program, "value_dtype", default_dtype)
+        return {"sharded": True, "exchange_mode": self.exchange_mode,
+                "exchange_bytes": self.exchange_bytes_per_iter(),
+                "combiner": getattr(self.program, "combiner", ""),
+                "value_dtype": dtype_name(dt), "num_parts": self.num_parts,
+                "plan": self._xplan}
 
     def exchange_bytes_per_iter(self) -> int:
         """Interconnect bytes of one (dense) iteration's exchange, as

@@ -228,6 +228,16 @@ class TiledPullExecutor:
     def init_values(self) -> torch.Tensor:
         return self._values(self.program.init_values(self.graph))
 
+    def trace_step(self, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): the step ``run`` loops
+        over, in internal order, from the program's initial values (K1,
+        K2, or K3 per level and K4 under the grouped tail). ``lux_tpu``
+        donates the values (``donate=(0,)``); this step writes new
+        values, so it donates nothing (ROADMAP: memck's LUX702)."""
+        return {"kind": "tiled", "call": self._step,
+                "args": lambda: (self._init_internal(),), "donate": (),
+                "carry": (0,), "sharded": False}
+
     def step(self, vals) -> torch.Tensor:
         """One iteration, external order in and out (the boundary
         converts cost two nv-row gathers — use run() for loops)."""

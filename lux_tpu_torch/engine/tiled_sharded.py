@@ -48,7 +48,8 @@ Not ported, by design: the Z-stream boundaries, ``crossing_correction``,
 ``segs``, ``_warn_big_table`` and the ``chunk_strips``/``chunk_tail``
 knobs. They are the TPU's layout and change no result; the port's
 :class:`~lux_tpu_torch.engine.tiled.TiledPullExecutor` has none of them
-either. Not here either: ``trace_step`` and the fused runner. Telemetry
+either. Not here either: the fused runner. ``trace_step`` gives the
+trace tiers (``analysis/ir.py``) the step. Telemetry
 is ``lux_tpu``'s: ``run`` takes ``flush_every`` and a recorder (the
 exchange ledger, useful bytes from the block read counts, the byte
 model), runs phase-fenced under ``LUX_ENGOBS=1``, and a step's exchange
@@ -428,6 +429,21 @@ class ShardedTiledExecutor:
     def step(self, vals) -> torch.Tensor:
         """One iteration; (L, max_nv) in and out."""
         return self._step(self._values(vals))
+
+    def trace_step(self, **init_kw) -> dict:
+        """Trace-tier hook (``analysis/ir.py``): the step ``run`` loops
+        over, from the program's initial values, with the exchange keys
+        LUX404-406 read. ``lux_tpu`` donates the values; this step
+        writes new values, so it donates nothing (ROADMAP: memck's
+        LUX702)."""
+        return {"kind": "tiled_sharded", "call": self._step,
+                "args": lambda: (self.init_values(),), "donate": (),
+                "carry": (0,), "sharded": True,
+                "exchange_mode": self.exchange_mode,
+                "exchange_bytes": self.exchange_bytes_per_iter(),
+                "combiner": getattr(self.program, "combiner", "sum"),
+                "value_dtype": "float32", "num_parts": self.num_parts,
+                "plan": self._xplan}
 
     def phase_step(self, vals):
         """One iteration as separately timed exchange, strips, tail and

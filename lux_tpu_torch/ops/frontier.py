@@ -57,6 +57,7 @@ from lux_tpu_torch.ops.segment import (
     plain_edge_fn,
     widen_u32,
 )
+from lux_tpu_torch.utils import tracehooks
 
 # K6's scratch, one per (device, stream): a zeroed int64 tensor holding
 # the grid barrier's two words and two totals per block (see
@@ -80,6 +81,18 @@ def _queue_scratch(dev: torch.device, stream: Optional[int]) -> torch.Tensor:
     return scratch
 
 
+def _scratch_of(*args, **kwargs) -> list:
+    """K6's, K7's and K11's scratch for the calling stream (what the
+    trace tiers count as a pinned input of their nodes; none on the
+    CPU)."""
+    dev = next((a.device for a in list(args) + list(kwargs.values())
+                if isinstance(a, torch.Tensor)), None)
+    if dev is None or dev.type != "cuda":
+        return []
+    t = _SCRATCH.get((dev.index, _cuda.stream(dev).value))
+    return [] if t is None else [t]
+
+
 def frontier_queue_plain(frontier: torch.Tensor, row_ptr: torch.Tensor):
     """K6's plain version: (q int32, start int64, deg int64, offs int64)
     of the frontier's ascending ids, ``offs`` the exclusive prefix of
@@ -92,6 +105,7 @@ def frontier_queue_plain(frontier: torch.Tensor, row_ptr: torch.Tensor):
     return q.to(torch.int32), start, deg, offs
 
 
+@tracehooks.kernel("frontier_queue", extra=_scratch_of)
 def frontier_queue(frontier: torch.Tensor, row_ptr: torch.Tensor, cnt: int):
     """The frontier queue of :func:`frontier_queue_plain`. ``cnt`` is the
     frontier's size, which the caller knows; the CUDA kernel fills
@@ -178,6 +192,7 @@ def queue_relax_scatter_plain(
     return narrow_u32(new).reshape(values.shape)
 
 
+@tracehooks.kernel("queue_relax_scatter", extra=_scratch_of)
 def queue_relax_scatter(
     q: torch.Tensor,
     start: torch.Tensor,
@@ -278,6 +293,7 @@ def gas_push_acc_plain(
     return gas_narrow(torch.stack(accs).reshape(values.shape), values)
 
 
+@tracehooks.kernel("gas_push_acc", extra=_scratch_of)
 def gas_push_acc(
     q: torch.Tensor,
     start: torch.Tensor,

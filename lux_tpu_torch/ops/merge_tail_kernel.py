@@ -26,7 +26,7 @@ import torch
 from lux_tpu_torch.ops import _cuda
 from lux_tpu_torch.ops.merge_tail_plan import GroupedTailPlan
 from lux_tpu_torch.ops.segment import segment_sum_by_rowptr
-from lux_tpu_torch.utils import flags
+from lux_tpu_torch.utils import flags, tracehooks
 
 BLOCK = 128
 
@@ -79,6 +79,7 @@ def level_apply_ref(x, arow, brow, codes):
     return torch.where(codes >= 0, ga, gb)
 
 
+@tracehooks.kernel("level_apply")
 def level_apply(x, arow, brow, codes):
     """One network level; (S, 128) f32. A level with no rows returns an
     empty stream without a launch."""
@@ -105,6 +106,7 @@ def level_apply(x, arow, brow, codes):
     return out
 
 
+@tracehooks.kernel("root_reduce")
 def root_reduce(x, nvalid_root, dst_row_ptr, out=None):
     """Mask the root stream's pad lanes (the one masking point in the
     network) and reduce to per-destination sums (K4), added into ``out``

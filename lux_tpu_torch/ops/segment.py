@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from lux_tpu_torch.ops import _cuda
+from lux_tpu_torch.utils import tracehooks
 
 BLOCK = 128
 
@@ -133,6 +134,7 @@ def segment_sum_by_rowptr_plain(
     return sums if out is None else out.add_(sums)
 
 
+@tracehooks.kernel("segment_sum_by_rowptr")
 def segment_sum_by_rowptr(
     data: torch.Tensor,
     row_ptr: torch.Tensor,
@@ -340,6 +342,7 @@ def segment_minmax_relax_plain(
     return narrow_u32(segment_reduce(cand, seg, nv, kind, dtype=np.uint32))
 
 
+@tracehooks.kernel("segment_minmax_relax")
 def segment_minmax_relax(
     row_ptr: torch.Tensor,
     col_src: torch.Tensor,
@@ -611,6 +614,7 @@ def _check_pull_operands(vals, row_ptr, col_src, tasks, row_base: int = 0):
     _cuda.check(tasks.tasks, "tasks", torch.int32, dev, ndim=2)
 
 
+@tracehooks.kernel("gather_segment_sum")
 def gather_segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
                        col_src: torch.Tensor,
                        tasks: Optional[RowTasks] = None) -> torch.Tensor:
@@ -638,6 +642,7 @@ def gather_segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
     return acc
 
 
+@tracehooks.kernel("cf_edge_sum")
 def cf_edge_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
                 col_src: torch.Tensor, weights: torch.Tensor,
                 tasks: Optional[RowTasks] = None,
@@ -676,6 +681,7 @@ def cf_edge_sum(vals: torch.Tensor, row_ptr: torch.Tensor,
     return acc
 
 
+@tracehooks.kernel("pull_sum")
 def pull_sum(
     vals: torch.Tensor,
     row_ptr: torch.Tensor,
@@ -774,13 +780,17 @@ def gas_narrow(acc: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def storage_identity(kind: str, dtype: torch.dtype):
+    """The combiner identity as a scalar of storage ``dtype``: int32
+    words hold uint32 values, so min's 0xFFFFFFFF is -1."""
+    if dtype == torch.int32:
+        return -1 if kind == "min" else 0
+    return identity_for(kind, dtype)
+
+
 def gas_identity_storage(kind: str, shape, dtype: torch.dtype, device):
     """An accumulator of GAS storage ``dtype`` holding the identity."""
-    if dtype == torch.int32:
-        # uint32 identities as int32 words: 0xFFFFFFFF is -1.
-        return torch.full(shape, -1 if kind == "min" else 0,
-                          dtype=torch.int32, device=device)
-    return torch.full(shape, identity_for(kind, dtype), dtype=dtype,
+    return torch.full(shape, storage_identity(kind, dtype), dtype=dtype,
                       device=device)
 
 
@@ -869,6 +879,7 @@ def frontier_bits(frontier: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@tracehooks.kernel("gas_pull_acc")
 def gas_pull_acc(
     row_ptr: torch.Tensor,
     col_src: torch.Tensor,

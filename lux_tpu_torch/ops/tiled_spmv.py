@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from lux_tpu_torch.graph.graph import Graph
 from lux_tpu_torch.ops import _cuda
 from lux_tpu_torch.ops.segment import SegmentItems, prefix_diff_sum
-from lux_tpu_torch.utils import flags
+from lux_tpu_torch.utils import flags, tracehooks
 
 BLOCK = 128
 # Cells per K1 work item: a hub row (tens of thousands of cells at R-MAT 22
@@ -729,6 +729,7 @@ def strip_level_spmv_plain(x: torch.Tensor, lev: DeviceLevel,
     return out
 
 
+@tracehooks.kernel("strip_level_spmv")
 def strip_level_spmv(x: torch.Tensor, lev: DeviceLevel,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Σ count · x over each destination row's cells; (height,) f32.
@@ -799,6 +800,7 @@ def lane_select_tail_sums_plain(
     return sums if out is None else out.add_(sums)
 
 
+@tracehooks.kernel("lane_select_tail_sums")
 def lane_select_tail_sums(
     x: torch.Tensor,
     tail_src: torch.Tensor,

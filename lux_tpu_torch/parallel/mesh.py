@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from lux_tpu_torch.graph.partition import ExchangePlan
+from lux_tpu_torch.utils import tracehooks
 from lux_tpu_torch.utils.platform import resolve_device
 
 PARTS_AXIS = "parts"
@@ -59,6 +60,25 @@ PARTS_AXIS = "parts"
 # (its ``all_gather_into_tensor`` is the same call under an older name).
 _all_gather_into = getattr(dist, "all_gather_single", None) or getattr(
     dist, "all_gather_into_tensor", None)
+
+
+def _shard_bytes(x: torch.Tensor) -> int:
+    """Bytes of one part's operand of a ``(L, ...)`` stack."""
+    return x.numel() * x.element_size() // max(int(x.shape[0]), 1)
+
+
+def _gather_bytes(mesh, x: torch.Tensor) -> int:
+    """The whole mesh's bytes of an all-gather, as ``lux_tpu`` prices
+    them: every part receives every other part's operand."""
+    p = mesh.num_parts
+    return p * (p - 1) * _shard_bytes(x)
+
+
+def _to_all_bytes(mesh, x: torch.Tensor) -> int:
+    """The whole mesh's bytes of an all-to-all (and of a reduce-scatter,
+    which sends the same blocks): each part keeps its own 1/P chunk and
+    sends the rest."""
+    return (mesh.num_parts - 1) * _shard_bytes(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,12 +99,14 @@ class LocalMesh:
                 f"{name} takes a ({self.num_parts}, n, ...) stack, got "
                 f"{tuple(stacked.shape)}")
 
+    @tracehooks.collective("all_gather", _gather_bytes)
     def all_gather(self, stacked: torch.Tensor) -> torch.Tensor:
         """(P, n, *t) shards → the (P * n, *t) table every part reads,
         as a view (no copy)."""
         self._check(stacked, "all_gather")
         return stacked.view((-1,) + tuple(stacked.shape[2:]))
 
+    @tracehooks.collective("all_to_all", _to_all_bytes)
     def all_to_all(self, blocks: torch.Tensor) -> torch.Tensor:
         """(P, P * cap, *t) → (P, P * cap, *t): row block ``q`` of sender
         ``p`` becomes row block ``p`` of receiver ``q``."""
@@ -99,6 +121,7 @@ class LocalMesh:
         return (blocks.reshape((p, p, cap) + tail).transpose(0, 1)
                 .reshape((p, p * cap) + tail))
 
+    @tracehooks.collective("reduce_scatter", _to_all_bytes)
     def reduce_scatter(self, blocks: torch.Tensor) -> torch.Tensor:
         """(P, P * n, *t) → (P, n, *t): receiver ``q`` gets the sum over
         senders ``p`` of row block ``q`` of sender ``p``. The senders are
@@ -200,6 +223,7 @@ class DistMesh:
                               + out.numel() * out.element_size())
         return out
 
+    @tracehooks.collective("all_gather", _gather_bytes)
     def all_gather(self, stacked: torch.Tensor) -> torch.Tensor:
         """(L, n, *t) local shards → the (P * n, *t) table every part
         reads, in part order: one all-gather into a tensor
@@ -214,6 +238,7 @@ class DistMesh:
             out = out.index_select(0, self._rank_of_slot.to(out.device))
         return out.view((-1,) + tuple(inp.shape[2:]))
 
+    @tracehooks.collective("all_to_all", _to_all_bytes)
     def all_to_all(self, blocks: torch.Tensor) -> torch.Tensor:
         """(L, P * cap, *t) → (L, P * cap, *t): row block ``q`` of sender
         ``p`` becomes row block ``p`` of receiver ``q``: the senders'
@@ -242,6 +267,7 @@ class DistMesh:
         # sender order s * L + j.
         return got.transpose(0, 1).reshape((L, P * cap) + tail)
 
+    @tracehooks.collective("reduce_scatter", _to_all_bytes)
     def reduce_scatter(self, blocks: torch.Tensor) -> torch.Tensor:
         """(L, P * n, *t) → (L, n, *t): receiver ``q`` gets the sum over
         senders ``p`` of row block ``q`` of sender ``p``, added in order
@@ -327,7 +353,8 @@ class CompactExchange:
     pad entries and is sliced off. The receiver's own span is written
     from its local shard (as ``lux_tpu/engine/tiled_sharded.py:515``
     does), so every row an edge reads equals the full all-gather's, and
-    rows no edge reads are zero (a bool frontier: False)."""
+    rows no edge reads hold the pad :meth:`tables` is given (a bool
+    frontier: False)."""
 
     def __init__(self, plan: ExchangePlan, mesh: AnyMesh, max_nv: int):
         P, n = mesh.num_parts, max_nv
@@ -348,15 +375,17 @@ class CompactExchange:
                                           put(recv.ravel()),
                                           put(mine.ravel()))
 
-    def tables(self, stacked: torch.Tensor) -> torch.Tensor:
+    def tables(self, stacked: torch.Tensor, pad=0) -> torch.Tensor:
         """(L, max_nv, *t) shards -> (L, P * max_nv, *t): row q is the
-        flat table receiver q's edges read."""
+        flat table receiver q's edges read; rows no edge reads hold
+        ``pad`` (the program combiner's identity in the stack's storage,
+        as ``lux_tpu`` pads its exchanged candidates)."""
         P, n, L = self.mesh.num_parts, self.max_nv, self.num_local
         tail = tuple(stacked.shape[2:])
         local = stacked.reshape((L * n,) + tail)
         packed = local.index_select(0, self.send)
         got = self.mesh.all_to_all(packed.view((L, -1) + tail))
-        buf = stacked.new_zeros((L * (P * n + 1),) + tail)
+        buf = stacked.new_full((L * (P * n + 1),) + tail, pad)
         buf.index_copy_(0, self.recv, got.reshape((-1,) + tail))
         buf.index_copy_(0, self.own, local)
         return buf.view((L, P * n + 1) + tail)[:, :-1]
@@ -379,7 +408,7 @@ class FrontierExchange:
     ``torch.gather``, moves (row id, value) pairs with the mesh's
     ``all_to_all`` and scatters them by ``sender * max_nv + row`` into
     each receiver's table with ``index_copy_``, frontier True. Rows not
-    sent keep (0, False): their sources are inactive, so a pull masks
+    sent keep (pad, False): their sources are inactive, so a pull masks
     them to the combiner identity, as the compact table's do. The
     receiver's own span is written from its shard, as
     :class:`CompactExchange` writes it."""
@@ -424,11 +453,13 @@ class FrontierExchange:
         to one receiver."""
         return self._active(frontier).sum(2).amax(1)
 
-    def tables(self, values: torch.Tensor, frontier: torch.Tensor):
+    def tables(self, values: torch.Tensor, frontier: torch.Tensor, pad=0):
         """(L, max_nv) values and frontier -> (values table, frontier
         table), each (L, P * max_nv): row q is the flat table receiver
-        q's edges read. Only for an iteration whose :meth:`widest` is
-        at most ``cap`` everywhere (the rest would be cut)."""
+        q's edges read; values of rows not sent are ``pad`` (the
+        combiner's identity in the values' storage). Only for an
+        iteration whose :meth:`widest` is at most ``cap`` everywhere
+        (the rest would be cut)."""
         P, n, cap, L = (self.mesh.num_parts, self.max_nv, self.cap,
                         self.num_local)
         act = self._active(frontier)
@@ -445,7 +476,7 @@ class FrontierExchange:
         at = torch.where(got_rows < n, self.base + got_rows,
                          self.trash).reshape(-1)
         width = P * n + 1
-        tab_v = values.new_zeros(L * width)
+        tab_v = values.new_full((L * width,), pad)
         tab_f = frontier.new_zeros(L * width)
         tab_v.index_copy_(0, at, got_vals.reshape(-1))
         tab_f.index_fill_(0, at, True)

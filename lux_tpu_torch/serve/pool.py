@@ -18,17 +18,17 @@ recompile the stats (and the serve tests) flag.
 
 ``lux_tpu``'s pool also audits every build (the IR donation audit, the
 exchange-plan audit, the program-algebra audit) and admits builds under
-an HBM budget priced by its memcap.v1 footprint model. The
-program-algebra audit runs here as there (``analysis/gasck.py``,
-LUX601/602/605, advisory, its findings counted in
-``lux_gas_findings_total``), and so does the exchange-plan audit
+an HBM budget priced by its memcap.v1 footprint model. The three audits
+run here as there, advisory: the IR audit (``analysis/ir.py``, LUX104
+over the engine's ``trace_step``, its findings counted in
+``lux_ir_findings_total``; no step of the port donates yet, so a build's
+declaration is read and no step runs), the program-algebra audit
+(``analysis/gasck.py``, LUX601/602/605, counted in
+``lux_gas_findings_total``) and the exchange-plan audit
 (``analysis/exchck.py``, LUX401-403/407 over the live compact plan of a
-sharded engine, its findings counted in ``lux_exch_findings_total``).
-The IR audit's guard has a counterpart: it audits executors with a
-``trace_step``, and no executor of the port has one, so it skips every
-build as ``lux_tpu``'s does for such an executor. The footprint model is
-not ported (ROADMAP A16): with no budget to derive, admission takes
-``lux_tpu``'s own branch for that case and admits every build.
+sharded engine, counted in ``lux_exch_findings_total``). The footprint
+model is not ported (ROADMAP A16): with no budget to derive, admission
+takes ``lux_tpu``'s own branch for that case and admits every build.
 
 Engine work on a card runs on a CUDA stream of the calling thread's own
 (:func:`engine_stream`): the port's cooperative kernels keep one queue
@@ -55,6 +55,8 @@ GAS_AUDIT_STATUS = ("ported: LUX601/602/605 on every build carrying a "
                     "program (analysis/gasck.py)")
 EXCH_AUDIT_STATUS = ("ported: LUX401-403/407 on every build carrying a "
                      "compact exchange plan (analysis/exchck.py)")
+IR_AUDIT_STATUS = ("ported: LUX104 on every build with a trace_step, "
+                   "its step run where it donates (analysis/ir.py)")
 
 _STREAMS = threading.local()
 
@@ -98,7 +100,10 @@ class EnginePool:
         self._exch_findings = metrics.counter("lux_exch_findings_total")
         self._gas_findings = metrics.counter("lux_gas_findings_total")
         self._retired = metrics.counter("lux_serve_pool_retired_total")
-        # Builds the exchange-plan and program-algebra audits read.
+        # Builds the IR, exchange-plan and program-algebra audits read;
+        # the IR audit runs a step only where it donates.
+        self._ir_audited = 0
+        self._ir_undonated = 0
         self._exch_audited = 0
         self._gas_audited = 0
         self.sentinel = RecompileSentinel(scope)
@@ -144,18 +149,35 @@ class EnginePool:
             return ex
 
     def _audit(self, key: Hashable, ex) -> None:
-        """``lux_tpu``'s LUX104 donation audit lowers the engine's
-        ``trace_step`` once. Its guard skips executors without one, and
-        no executor of the port has one (their steps are eager PyTorch),
-        so every build is skipped here exactly as there; an executor
-        that grew one would be logged, since the audit itself is not
-        ported (ROADMAP A16)."""
+        """LUX104 donation audit on the freshly built engine
+        (``analysis/ir.py::audit_engine``): its ``trace_step``'s
+        declaration, and where it donates, one unrecorded step whose
+        outputs must reuse the donated storage (``audited_builds``). A
+        step that donates nothing has nothing to audit: its declaration
+        is read, no state is built and no step runs
+        (``undonated_builds``). A finding means an iteration buffer the
+        engine thinks it reuses is copied every step — flagged once at
+        build time (``lux_ir_findings_total``), never per query.
+        Advisory: a failed audit never takes a build down."""
         if not flags.get_bool("LUX_IR_POOL_AUDIT"):
             return
         if not hasattr(ex, "trace_step"):
             return
-        self.log.warning("EnginePool: %r has a trace_step the LUX104 audit "
-                         "would lower; the audit is %s", key, NOT_PORTED)
+        from lux_tpu_torch.analysis import ir
+        try:
+            target = ir.engine_target(ex, f"pool@{key}")
+            if not target.donate:
+                self._ir_undonated += 1
+                return
+            with engine_stream(getattr(ex, "device", None)):
+                findings = ir.audit_target(target)
+        # luxlint: disable=LUX007 -- advisory audit: a failed trace must never take down a build
+        except Exception:
+            return
+        self._ir_audited += 1
+        for f in findings:
+            self._ir_findings.inc()
+            self.log.warning("EnginePool: %s", f.format())
 
     def _audit_exchange(self, key: Hashable, ex) -> None:
         """LUX401-403/407 plan audit on the freshly built engine: pure
@@ -230,13 +252,15 @@ class EnginePool:
         the flag that asks for it, whether it asks, and what the port
         does about it."""
         with self._lock:
-            exch_audited, gas_audited = (self._exch_audited,
-                                         self._gas_audited)
-        out = {"ir": {
-            "flag": "LUX_IR_POOL_AUDIT",
-            "requested": flags.get_bool("LUX_IR_POOL_AUDIT"),
-            "status": "skips every build: no executor of the port has "
-                      "a trace_step"}}
+            ir_audited, ir_undonated, exch_audited, gas_audited = (
+                self._ir_audited, self._ir_undonated, self._exch_audited,
+                self._gas_audited)
+        out = {"ir": {"flag": "LUX_IR_POOL_AUDIT",
+                      "requested": flags.get_bool("LUX_IR_POOL_AUDIT"),
+                      "status": IR_AUDIT_STATUS,
+                      "audited_builds": ir_audited,
+                      "undonated_builds": ir_undonated,
+                      "findings": int(self._ir_findings.value)}}
         out["exchck"] = {"flag": "LUX_EXCH_POOL_AUDIT",
                          "requested": flags.get_bool("LUX_EXCH_POOL_AUDIT"),
                          "status": EXCH_AUDIT_STATUS,

@@ -1,5 +1,6 @@
-"""luxlint for the port: the tiers of ``tools/luxlint.py`` that check
-source text, saved host arrays or program algebra, over the port's tree.
+"""luxlint for the port: the tiers of ``tools/luxlint.py`` over the
+port's tree — source text, saved host arrays, program algebra, and the
+trace tiers over a torch trace of each executor's step.
 
 Usage:
     python -m lux_tpu_torch.tools.luxlint           # AST tier (LUX001-010)
@@ -14,14 +15,21 @@ Usage:
     python -m lux_tpu_torch.tools.luxlint --plans DIR...  # verify saved
                                                   # GroupedTailPlan
                                                   # artifacts (LUX201-205)
-    python -m lux_tpu_torch.tools.luxlint --exchange  # the plan rules
-                                                  # (LUX401-403, 407) over
-                                                  # every sharded registry
-                                                  # executor's compact plan
+    python -m lux_tpu_torch.tools.luxlint --ir      # IR tier: trace every
+                                                  # registered program x
+                                                  # executor's step, run
+                                                  # LUX101-105
+    python -m lux_tpu_torch.tools.luxlint --ir f.py  # trace a module's
+                                                  # TRACES list
+    python -m lux_tpu_torch.tools.luxlint --exchange  # every sharded
+                                                  # registry executor: its
+                                                  # traced step (LUX404-
+                                                  # 406) and compact plan
+                                                  # (LUX401-403, 407)
     python -m lux_tpu_torch.tools.luxlint --exchange DIR|f.py  # verify
                                                   # saved exchange-plan
-                                                  # artifacts / PLANS
-                                                  # fixtures
+                                                  # artifacts / TRACES and
+                                                  # PLANS fixtures
     python -m lux_tpu_torch.tools.luxlint --tune DIR...  # verify saved
                                                   # tuneconf.v1 artifacts
                                                   # (LUX501-504)
@@ -42,16 +50,16 @@ Usage:
     python -m lux_tpu_torch.tools.luxlint --list-rules
 
 The AST, concurrency and plan tiers run on the host and import no torch
-for the checks themselves. The executors of registry ``--exchange`` and
-the program hooks of ``--programs`` are built on the card, or on the CPU
-with ``LUX_PLATFORM=cpu``. The output and exit status are
-``tools/luxlint.py``'s: one line per finding, a human summary line and
-one greppable ``LUXLINT {...}`` summary line; exit 0 clean, 1 on
-findings, syntax errors or unloadable artifacts and fixtures, 2 on a
-usage error (tiers are mutually exclusive). Not ported (ROADMAP A16, the
-trace tiers): ``--ir`` (LUX101-105), ``--memory`` (LUX701-706) and the
-exchange dataflow rules LUX404-406; asking for ``--ir`` or ``--memory``
-exits 2 with a message saying so.
+for the checks themselves. The executors of registry ``--ir`` and
+``--exchange``, the steps they trace and the program hooks of
+``--programs`` run on the card, or on the CPU with ``LUX_PLATFORM=cpu``
+(a step that fails to trace on the card is an error, never retried on
+the CPU). The output and exit status are ``tools/luxlint.py``'s: one
+line per finding, a human summary line and one greppable ``LUXLINT
+{...}`` summary line; exit 0 clean, 1 on findings, syntax errors, failed
+traces or unloadable artifacts and fixtures, 2 on a usage error (tiers
+are mutually exclusive). Not ported (ROADMAP A16): ``--memory``
+(LUX701-706), which exits 2 with a message saying so.
 
 Suppress an AST- or threads-tier finding inline, with a reason:
     x.item()  # luxlint: disable=LUX001 -- intended once-per-run sync
@@ -75,8 +83,14 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 DEFAULT_TARGETS = ("lux_tpu_torch", "chip_smoke.py")
 THREAD_TARGETS = ("lux_tpu_torch",)
 
-_UNPORTED = ("ir", "memory")
-_TIERS = ("plans", "threads", "exchange", "tune", "programs") + _UNPORTED
+_UNPORTED = ("memory",)
+_TIERS = ("ir", "plans", "threads", "exchange", "tune", "programs") \
+    + _UNPORTED
+# Files whose change can change a traced step: --changed runs the trace
+# tiers' registry only when one of them did.
+_TRACE_RELEVANT = tuple(f"lux_tpu_torch/{d}" for d in (
+    "engine/", "parallel/", "graph/", "analysis/", "models", "obs/",
+    "ops/"))
 
 _SPAN_CACHE: dict = {}
 
@@ -175,16 +189,41 @@ def _run_plans(paths, select: str):
     return planck.verify_plan_dirs(paths, rules)
 
 
+def _run_ir(paths, select: str):
+    """IR tier (LUX101-105): with paths, the ``TRACES`` of fixture
+    modules; with none, every registered program x executor, built and
+    traced on the card unless ``LUX_PLATFORM=cpu``."""
+    from lux_tpu_torch.analysis import ir
+    from lux_tpu_torch.analysis.core import FileResult, LintReport
+
+    rules = ir.all_ir_rules()
+    want = _select(select)
+    if want:
+        rules = [r for r in rules if r.id in want]
+    if not paths:
+        from lux_tpu_torch.utils.platform import platform_device
+        return ir.run_targets(ir.registry_targets(device=platform_device()),
+                              rules)
+    targets, broken = [], []
+    for p in paths:
+        try:
+            targets.extend(ir.load_fixture_targets(p))
+        except Exception as e:
+            broken.append(FileResult(
+                p, [], [], error=f"{p}: unloadable fixture: {e!r}"))
+    report = ir.run_targets(targets, rules)
+    return LintReport(broken + report.results, report.elapsed_s,
+                      schema=report.schema)
+
+
 def _run_exchange(paths, select: str):
-    """Exchange tier, plan half (LUX401-403, 407): with paths, saved
-    artifact directories and ``PLANS`` fixtures; with none, every live
-    compact plan of the sharded registry executors, built on the card
-    unless ``LUX_PLATFORM=cpu``. The trace half (LUX404-406) is named as
-    not ported on stderr, so a clean run never reads as a full one."""
+    """Exchange tier: with paths, saved artifact directories and
+    ``TRACES``/``PLANS`` fixtures; with none, every sharded registry
+    executor, built and traced on the card unless ``LUX_PLATFORM=cpu``:
+    its traced step (LUX404-406) and its live compact plan (LUX401-403,
+    407)."""
     from lux_tpu_torch.analysis import ir
 
-    print(f"luxlint: --exchange: {ir.TRACE_RULES_NOT_PORTED}",
-          file=sys.stderr)
     want = _select(select)
     if paths:
         return ir.run_exchange_paths(paths, select=want)
@@ -220,25 +259,26 @@ def _run_programs(paths, select: str, gascap_out: str):
 
 
 def _list_rules() -> None:
-    from lux_tpu_torch.analysis import (exchck, gasck, planck, rules,
+    from lux_tpu_torch.analysis import (exchck, gasck, ir, planck, rules,
                                         threads, tuneck)
     for r in (rules.all_rules() + planck.all_plan_rules()
               + threads.all_thread_rules() + exchck.all_exchange_rules()
-              + list(tuneck.all_tune_rules()) + gasck.all_program_rules()):
+              + list(tuneck.all_tune_rules()) + gasck.all_program_rules()
+              + ir.all_ir_rules() + ir.exchange_ir_rules()):
         print(f"{r.id}  {r.title}\n       {r.doc}")
-    print("not ported (ROADMAP A16, the trace tiers): LUX101-105 (--ir), "
-          "LUX404-406 (--exchange's dataflow rules), LUX701-706 "
-          "(--memory); of LUX002 and LUX003, lux_tpu's jax.jit donation "
-          "and Pallas BlockSpec halves have no counterpart")
+    print("not ported (ROADMAP A16): LUX701-706 (--memory); of LUX002 "
+          "and LUX003, lux_tpu's jax.jit donation and Pallas BlockSpec "
+          "halves have no counterpart")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="luxlint", description=__doc__)
     ap.add_argument("paths", nargs="*",
                     help=f"files/dirs to lint (default: {DEFAULT_TARGETS}; "
-                         f"with --threads: {THREAD_TARGETS}); with --plans: "
+                         f"with --threads: {THREAD_TARGETS}); with --ir: "
+                         "fixture modules defining TRACES; with --plans: "
                          "saved plan artifact dirs; with --exchange: saved "
-                         "exchange-plan dirs or PLANS fixtures; with "
+                         "exchange-plan dirs or TRACES/PLANS fixtures; with "
                          "--tune: tuneconf.v1 artifact files or "
                          "directories (default: LUX_TUNE_DIR); with "
                          "--programs: fixture modules defining programs")
@@ -248,6 +288,10 @@ def main(argv=None) -> int:
                     help="comma-separated rule ids to run (default: all)")
     ap.add_argument("--list-rules", action="store_true",
                     help="print the rule table and exit")
+    ap.add_argument("--ir", action="store_true",
+                    help="run the IR tier (LUX101-105) over a torch trace "
+                         "of every registered program x executor's step, "
+                         "or over the TRACES of the given fixture modules")
     ap.add_argument("--plans", action="store_true",
                     help="verify saved GroupedTailPlan artifact dirs "
                          "(LUX201-205; torch-free, mmap load)")
@@ -256,10 +300,11 @@ def main(argv=None) -> int:
                          "shared state, lock-order graph, blocking-under-"
                          "lock, unjoined threads, publish discipline")
     ap.add_argument("--exchange", action="store_true",
-                    help="run the exchange tier's plan rules (LUX401-403, "
-                         "407): ExchangePlan structure/coverage/"
-                         "profitability and frontier coverage over every "
-                         "sharded registry executor's compact plan; with "
+                    help="run the exchange tier (LUX401-407): the "
+                         "collective dataflow of every sharded registry "
+                         "executor's traced step (LUX404-406) and "
+                         "ExchangePlan structure/coverage/profitability "
+                         "and frontier coverage of its compact plan; with "
                          "paths, verify saved exchange artifacts or "
                          "fixture modules")
     ap.add_argument("--tune", action="store_true",
@@ -281,13 +326,14 @@ def main(argv=None) -> int:
                     help="AST/threads tiers: restrict to .py files changed "
                          "vs git HEAD (plus untracked); the threads tier "
                          "still builds its lock-order graph over the whole "
-                         "package")
+                         "package; --ir/--exchange registry: run only when "
+                         "a file a traced step runs changed")
     ap.add_argument("--baseline", default="",
                     help="snapshot file: if missing, write current findings "
                          "and pass; if present, fail only on new findings")
     for tier in _UNPORTED:
         ap.add_argument(f"--{tier}", action="store_true",
-                        help="not ported (ROADMAP A16)")
+                        help="not ported (ROADMAP A16, memck)")
     args = ap.parse_args(argv)
 
     if sum(getattr(args, t) for t in _TIERS) > 1:
@@ -299,19 +345,20 @@ def main(argv=None) -> int:
     asked = [t for t in _UNPORTED if getattr(args, t)]
     if asked:
         ap.error(f"--{asked[0]} is not ported to lux_tpu_torch (ROADMAP "
-                 "A16, the trace tiers): run tools/luxlint.py for it")
+                 "A16, memck): run tools/luxlint.py for it")
 
-    if args.exchange:
-        if args.changed and not args.paths:
-            # The matrix verifies live engine/partition behaviour, not
-            # file text: skip it unless an exchange-relevant file changed.
-            relevant = tuple(f"lux_tpu_torch/{d}" for d in (
-                "engine/", "parallel/", "graph/", "analysis/", "models",
-                "obs/"))
-            if not [p for p in _changed_paths()
-                    if os.path.relpath(p, _REPO).startswith(relevant)]:
-                return _clean_skip("luxlint-exchange.v1",
-                                   "no exchange-relevant files modified")
+    if (args.ir or args.exchange) and args.changed and not args.paths:
+        # The registries verify live engine behaviour, not file text:
+        # skip them unless a file a traced step runs changed.
+        if not [p for p in _changed_paths()
+                if os.path.relpath(p, _REPO).startswith(_TRACE_RELEVANT)]:
+            from lux_tpu_torch.analysis.exchck import EXCHANGE_SCHEMA
+            from lux_tpu_torch.analysis.ir import IR_SCHEMA
+            return _clean_skip(IR_SCHEMA if args.ir else EXCHANGE_SCHEMA,
+                               "no trace-relevant files modified")
+    if args.ir:
+        report = _run_ir(args.paths, args.select)
+    elif args.exchange:
         report = _run_exchange(args.paths, args.select)
     elif args.plans:
         if not args.paths:

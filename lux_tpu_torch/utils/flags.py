@@ -305,11 +305,17 @@ define("LUX_PLANCK_INFLATION", 8.0,
        "inflation (rows per level / ceil(reals/128)) a saved plan may "
        "carry", kind="float")
 
+# The trace tiers (analysis/ir.py over analysis/trace.py).
+define("LUX_IR_BLOWUP", 16.0,
+       "luxlint-IR LUX103: flag any traced intermediate larger than this "
+       "multiple of the step's total input bytes", kind="float")
+
 # The serve pool's build-time audits and admission (serve/pool.py). Of
-# lux_tpu's analysis tiers the IR audit's guard has a counterpart (no
-# executor of the port has ``trace_step``, so it skips as lux_tpu's does),
-# and gasck and exchck run; memck is not ported (ROADMAP A16), and while
-# its flag asks for it the pool's stats() and /statusz say so.
+# lux_tpu's analysis tiers the IR audit (LUX104: the engine's trace_step
+# declaration, and where it donates one unrecorded step; the doc keeps
+# lux_tpu's wording), gasck and exchck run; memck is not ported (ROADMAP
+# A16), and while its flag asks for it the pool's stats() and /statusz
+# say so.
 define("LUX_IR_POOL_AUDIT", True,
        "run the LUX104 donation audit on every engine the serve pool "
        "builds (one abstract lowering per build; 0 disables)", kind="bool")

@@ -2145,3 +2145,43 @@ def test_registry_exchange_plans_on_the_card(dev):
     report = ir.run_exchange_matrix(device=dev)
     assert report.ok, report.format_human()
     assert len(report.results) >= 20
+
+
+def test_trace_tiers_on_cuda_equal_cpu(dev):
+    # Every registry target's step traced on the card: 0 findings of the
+    # IR and exchange rules, and the same kernel and collective nodes,
+    # in sequence and shape, as its trace on the CPU.
+    from lux_tpu_torch.analysis import ir, trace
+
+    rules = ir.all_ir_rules() + ir.exchange_ir_rules()
+    cpu = {t.name: t for t in ir.registry_targets(device=CPU)}
+    card = ir.registry_targets(device=dev)
+    assert len(card) == len(cpu) == 59
+    for t in card:
+        kept = []
+        res = ir.check_target(t, rules, kept)
+        assert not res.error and not res.findings, (t.name, res.error,
+                                                    res.findings)
+        assert trace.kernel_sequence(kept[0]) == trace.kernel_sequence(
+            ir.trace_target(cpu[t.name])), t.name
+
+
+def test_traced_steps_on_cuda_leave_executors_unchanged(dev):
+    from lux_tpu_torch.analysis import ir
+
+    g = generate.rmat(10, 8, seed=5)
+    for kind, prog, kw in (("tiled", PageRank(), {}),
+                           ("push", SSSP(), {"start": 0}),
+                           ("gas", BFS(), {"start": 0}),
+                           ("gas_sharded", BFS(), {"start": 0})):
+        extra = {"num_parts": 4} if kind.endswith("sharded") else {}
+        ex = ir.build_executor(kind, g, prog, device=dev, **extra)
+        first = ex.run(3) if kind == "tiled" else ex.run(max_iters=4, **kw)[0]
+        res = ir.check_target(ir.target_from_spec(
+            kind, ex.trace_step(**kw)), ir.all_ir_rules())
+        assert not res.findings and not res.error, (kind, res)
+        again = ex.run(3) if kind == "tiled" else ex.run(max_iters=4,
+                                                         **kw)[0]
+        a = first if kind == "tiled" else first.values
+        b = again if kind == "tiled" else again.values
+        assert torch.equal(a, b), kind

@@ -625,13 +625,19 @@ def test_luxlint_tune_output_equals_tools_luxlint(tmp_path):
             assert _lines(mine) == _lines(theirs), args
 
 
-def test_luxlint_refuses_unported_tiers():
-    # The trace tiers (--ir, --memory) are still refused; the AST,
-    # --threads, --plans and --exchange tiers now run.
-    for args in (("--ir",), ("--memory",)):
-        proc = _luxlint(LUXLINT, *args)
-        assert proc.returncode == 2, args
-        assert "A16" in proc.stderr
+def test_luxlint_refuses_unported_tiers(monkeypatch):
+    # The memory tier (--memory) is still refused; the AST, --threads,
+    # --plans, --exchange and --ir tiers run (--ir over a torch fixture:
+    # its rule fires, rc 1, not the usage error).
+    proc = _luxlint(LUXLINT, "--memory")
+    assert proc.returncode == 2
+    assert "A16" in proc.stderr
+    monkeypatch.setenv("LUX_PLATFORM", "cpu")
+    fixture = os.path.join(REPO, "tests", "torch_ir_fixtures",
+                           "lux104_donation.py")
+    proc = _luxlint(LUXLINT, "--ir", fixture)
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert "LUX104" in proc.stdout
     for args in ((), ("--threads",), ("lux_tpu_torch",)):
         proc = _luxlint(LUXLINT, *args)
         assert proc.returncode == 0, (args, proc.stdout + proc.stderr)
@@ -647,8 +653,10 @@ def test_luxlint_refuses_unported_tiers():
         + [f"LUX{i}" for i in range(301, 306)]
         + ["LUX401", "LUX402", "LUX403", "LUX407"]
         + [f"LUX{i}" for i in range(501, 505)]
-        + [f"LUX{i}" for i in range(601, 607)])
-    assert "LUX404-406" in listed.stdout
+        + [f"LUX{i}" for i in range(601, 607)]
+        + [f"LUX{i}" for i in range(101, 106)]
+        + ["LUX404", "LUX405", "LUX406"])
+    assert "LUX701-706" in listed.stdout
 
 
 # -- probe scoring --------------------------------------------------------
