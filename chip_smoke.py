@@ -60,6 +60,23 @@ merge-network tail of ``LUX_GROUPED_TAIL=1``):
    every build (its declaration read; a step run where one donates)
    with 0 findings, and each served engine's declaration held against
    one run of its step;
+2s. the memory tier (``analysis/memck.py``) on the card: ``luxlint
+   --memory`` (the 59 registry targets walked and 13 re-traced at twice
+   the probe, LUX701-706, LUX703 at scale 22 against the card's
+   capacity) beside the graph's generation, rc 0 with 0 findings; each
+   torch fixture of ``tests/torch_mem_fixtures/`` through luxlint's
+   ``main`` (rc 1, exactly its rule); group 2r's registry traces walked
+   on the card and on the CPU, the card's artifact derived and held
+   against the committed ``memcap.json`` (0 findings of LUX701-706), the
+   card's id and every target whose card and CPU peaks differ logged;
+   at scale, the three traces of 2r walked, each with its traced peak,
+   the admission formula's prediction and the allocator's peak around
+   one more step; a one-byte budget on a small graph (the server boots
+   with its warm skips counted, a query is shed with 503 and
+   ``Retry-After``, a direct pool drive evicts by footprint-weighted LRU
+   without a rebuild on warm hits); 3n-4n's pruned candidates and 5m's
+   and 6m's sessions priced (resident bytes beside the allocator's, no
+   eviction, no warm skip);
 3. graph and plans: generate the graph, plan it, build both executors
    (each strip level becomes a cell stream on the card; the build's
    seconds are logged per level);
@@ -621,13 +638,14 @@ def main(argv=None) -> int:
     lint = _programs_cli(prog_dir)
     tiers = _lint_clis()
     traces = _trace_clis()
+    memory = _memory_cli()
     shutil.rmtree(_cuda.BUILD_DIR / "xplans", ignore_errors=True)
     t = time.perf_counter()
     try:
         gw = generate.rmat(args.scale, 16, seed=SEED, weighted=True)
     except BaseException:
-        for proc in [lint] + [p for _, p in list(tiers.values())
-                              + list(traces.values())]:
+        for proc in [lint, memory[1]] + [
+                p for _, p in list(tiers.values()) + list(traces.values())]:
             proc.kill()
             proc.wait()
         raise
@@ -664,9 +682,13 @@ def main(argv=None) -> int:
     shutil.rmtree(tel_dir, ignore_errors=True)
     tel_dir.mkdir(parents=True)
     _add(totals, group(TELEMETRY_GROUP, _telemetry_tiled, held, tel_dir))
-    # Group 2r once phase 5's guard has paid the dispatch mode's set-up.
-    _add(totals, group(TRACE_GROUP, _trace_phases, traces, dev))
-    peak = torch.cuda.max_memory_allocated()
+    # Group 2r once phase 5's guard has paid the dispatch mode's set-up;
+    # group 2s walks the registry traces it keeps.
+    registry = {}
+    _add(totals, group(TRACE_GROUP, _trace_phases, traces, dev, registry))
+    group(MEMORY_GROUP, _memory_phases, memory, t_gen, registry, dev)
+    del registry
+    peak = _device_peak()
     torch.cuda.empty_cache()
     # Phases 3g-6g reuse phase 3's plan (planning costs host minutes at
     # scale), so they run here, before the plan is dropped.
@@ -779,6 +801,8 @@ def main(argv=None) -> int:
     shutil.rmtree(tel_dir)
     log("[time] phase groups (s): " + ", ".join(
         f"{k}={v:.1f}" for k, v in group_s.items()))
+    _memory_summary(group_s.get(MEMORY_GROUP, 0.0))
+    peak = max(peak, _device_peak())
 
     for entry in kernels:
         entry["launches"] = totals[entry["name"]]
@@ -1033,7 +1057,7 @@ def _pagerank_phases(g, dev, kernels, held):
     for label, ex in (("lane-select", ex_lane), ("grouped", ex_grp)):
         want = {k: v // ITERS for k, v in expected[label].items() if v}
         _add(totals, _trace_scale(f"pagerank@tiled {label} (phase 5)", ex,
-                                  {}, want))
+                                  {}, want, "pagerank", "tiled"))
     # Phase 3l takes the lane-select executor and its run's launches.
     held.setdefault("telemetry", {})["tiled"] = (ex_lane,
                                                  expected["lane-select"])
@@ -3165,10 +3189,10 @@ def _gas_sharded_phases(g, gw, gu, sgs, gas, pr_oracle, dev,
         if st.recv_edges:
             want["gas_push_acc"] = 1
     _add(totals, _trace_scale("bfs@gas_sharded+compact (phase 3h)", ex,
-                              {"start": 0}, want))
+                              {"start": 0}, want, "bfs", "gas_sharded"))
     del exs, mx, pr, sgw, layouts, ex
     log(f"[gas-sharded] peak device memory of phases 3h-6h "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases "
+        f"{_device_peak() / 2**30:.2f} GiB; phases "
         f"3h-6h took {time.perf_counter() - t_phase:.1f} s")
     return totals
 
@@ -4012,7 +4036,7 @@ def _trace_clis():
         env=env)) for name, args in TRACE_TIERS.items()}
 
 
-def _trace_phases(procs, dev) -> dict:
+def _trace_phases(procs, dev, keep: dict) -> dict:
     """Group 2r: the registry CLIs rc 0 with 0 findings and 0 errors
     (59 IR targets; the exchange matrix's 63 results, 23 of them compact
     plans); each torch fixture of ``tests/torch_ir_fixtures/`` through
@@ -4020,7 +4044,8 @@ def _trace_phases(procs, dev) -> dict:
     its rule; then every registry target traced here on the card and on
     the CPU: 0 findings of LUX101-105 and LUX404-406 on the card, and
     their kernel and collective nodes equal in sequence and shape
-    (glue-op differences are logged). Returns the card traces'
+    (glue-op differences are logged). ``keep`` gets both registries'
+    (name, target, meta, trace) for group 2s. Returns the card traces'
     launches, which are at most their kernel nodes (a wrapper with no
     work launches nothing)."""
     import contextlib
@@ -4028,7 +4053,7 @@ def _trace_phases(procs, dev) -> dict:
 
     import torch
 
-    from lux_tpu_torch.analysis import ir, trace
+    from lux_tpu_torch.analysis import ir, memck, trace
     from lux_tpu_torch.ops import _cuda
     from lux_tpu_torch.tools import luxlint
 
@@ -4069,15 +4094,18 @@ def _trace_phases(procs, dev) -> dict:
         f"{time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
-    card = ir.registry_targets(device=dev)
-    cpu = {x.name: x for x in ir.registry_targets(device="cpu")}
+    card = [memck.stage_target(*x) for x in ir._registry_executors(
+        device=dev)]
+    cpu = {x[0]: x for x in (memck.stage_target(*y) for y in
+                             ir._registry_executors(device="cpu"))}
     build_s = time.perf_counter() - t
+    keep["card"], keep["cpu"] = [], {}
     rules = ir.all_ir_rules() + ir.exchange_ir_rules()
     torch.cuda.synchronize()
     _cuda.reset_launches()
     nodes, glue, kernel_nodes = 0, [], {}
     card_s = cpu_s = 0.0
-    for target in card:
+    for name, target, meta in card:
         kept = []
         t = time.perf_counter()
         res = ir.check_target(target, rules, kept)
@@ -4086,8 +4114,11 @@ def _trace_phases(procs, dev) -> dict:
             raise AssertionError(f"{target.name} on the card: {res.error} "
                                  f"{[f.format() for f in res.findings]}")
         t = time.perf_counter()
-        on_cpu = ir.trace_target(cpu[target.name])
+        _, cpu_target, cpu_meta = cpu[name]
+        on_cpu = ir.trace_target(cpu_target)
         cpu_s += time.perf_counter() - t
+        keep["card"].append((name, target, meta, kept[0]))
+        keep["cpu"][name] = (cpu_target, cpu_meta, on_cpu)
         mine, theirs = (trace.kernel_sequence(kept[0]),
                         trace.kernel_sequence(on_cpu))
         if mine != theirs:
@@ -4124,11 +4155,14 @@ def _trace_phases(procs, dev) -> dict:
     return counts
 
 
-def _trace_scale(label, ex, init_kw: dict, want: dict) -> dict:
+def _trace_scale(label, ex, init_kw: dict, want: dict, app: str,
+                 kind: str) -> dict:
     """Group 2r at the main path's scale: ``ex.trace_step`` traced on
     the card with 0 findings of LUX101-105 and LUX404-406, its launches
     ``want``; logs its seconds, node count and largest intermediate over
-    the step's input bytes. Returns its launches."""
+    the step's input bytes. Group 2s then walks the same trace
+    (:func:`_memory_scale`, app ``app`` on engine kind ``kind``).
+    Returns its launches."""
     import torch
 
     from lux_tpu_torch.analysis import ir
@@ -4160,7 +4194,285 @@ def _trace_scale(label, ex, init_kw: dict, want: dict) -> dict:
         f"{kinds}, 0 findings of LUX101-105 and LUX404-406; largest "
         f"intermediate {big} B = {big / max(inb, 1):.4f}x the step's "
         f"{inb} input bytes; launches {counts}")
+    _memory_scale(label, ex, target, tr, app, kind)
     return counts
+
+
+MEMORY_GROUP = "2s memory tier"
+MEM_FIXTURES = ("lux701_malformed_artifact", "lux702_unhonored_donation",
+                "lux703_overcommit", "lux704_dishonest_model",
+                "lux705_divergent_exchange_claim", "lux706_stale_committed")
+MEM_RESULTS = 59 + 13     # registry targets and the sweep's re-traces
+MEM_IN_PROCESS_S = 5.0    # the group's budget inside this process
+# The caching allocator hands out whole multiples of 512 bytes, which
+# memory_allocated() counts: the measured side prices a storage so.
+ALLOC_BLOCK = 512
+# Group 2s's running account: its seconds in this process, the scale-22
+# faults (a prediction under a traced or measured peak) and the
+# allocator's peak before a reset of its statistics.
+MEMORY = {"seconds": 0.0, "faults": [], "peak": 0}
+
+
+def _device_peak() -> int:
+    """The allocator's peak since the run began: its current statistic
+    and the peaks group 2s read before resetting it."""
+    import torch
+
+    return max(torch.cuda.max_memory_allocated(), MEMORY["peak"])
+
+
+def _memory_cli():
+    """Start ``python -m lux_tpu_torch.tools.luxlint --memory --json`` on
+    the card beside the graph's generation: every registry target's step
+    traced and walked, the sweep, LUX701-706 against the committed
+    artifact and LUX703 against the card's capacity at the bench
+    scale. Group 2s collects it."""
+    env = {k: v for k, v in os.environ.items() if k != "LUX_PLATFORM"}
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "lux_tpu_torch.tools.luxlint", "--memory",
+         "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env)
+
+
+def _memory_phases(cli, gen_s: float, registry: dict, dev) -> None:
+    """Group 2s: the ``--memory`` CLI rc 0 with 0 findings; the six torch
+    fixtures in this process (rc 1, exactly their rule); group 2r's
+    registry traces walked on the card and on the CPU, the card's
+    artifact against the committed one (0 findings of LUX701-706, LUX703
+    at the bench scale against the card's capacity), the differing
+    targets logged; then the shed and the pool's eviction on a small
+    graph under a one-byte budget."""
+    import io
+
+    from lux_tpu_torch.analysis import memck
+    from lux_tpu_torch.obs import report
+    from lux_tpu_torch.tools import luxlint
+
+    t0, proc = cli
+    t = time.perf_counter()
+    summary, _, err = _luxlint_json(proc, "luxlint --memory")
+    waited = time.perf_counter() - t
+    if (proc.returncode != 0 or summary["findings"] or summary["errors"]
+            or not summary["ok"] or summary["files"] != MEM_RESULTS
+            or summary["schema"] != "luxlint-memory.v1"):
+        raise AssertionError(f"luxlint --memory: rc {proc.returncode}, "
+                             f"{summary}\n{err[-2000:]}")
+    log(f"[memory] --memory: rc 0, {summary['files']} results (59 registry "
+        f"targets traced and walked on the card, 13 swept), 0 findings, "
+        f"schema {summary['schema']}, the tier {summary['elapsed_s']} s "
+        f"(waited {waited:.1f} s for the CLI, {time.perf_counter() - t0:.1f}"
+        f" s since its start; the graph's generation beside it took "
+        f"{gen_s:.1f} s)")
+
+    t_in = time.perf_counter()
+    fixtures = Path(__file__).resolve().parent / "tests" / "torch_mem_fixtures"
+    fired = {}
+    for stem in MEM_FIXTURES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = luxlint.main(["--memory", "--json",
+                               str(fixtures / f"{stem}.py")])
+        out = buf.getvalue()
+        by_rule = json.loads(out[out.rindex("LUXLINT ") + 8:])["by_rule"]
+        if rc != 1 or list(by_rule) != ["LUX" + stem[3:6]]:
+            raise AssertionError(f"fixture {stem}: rc {rc}, {by_rule}")
+        fired[stem[:6]] = by_rule
+    fix_s = time.perf_counter() - t_in
+
+    t = time.perf_counter()
+    card, cpu, differ = [], {}, []
+    for name, target, meta, tr in registry["card"]:
+        ev = memck.target_peak_bytes(target, meta, tr)
+        cpu_target, cpu_meta, cpu_tr = registry["cpu"][name]
+        cpu[name] = memck.target_peak_bytes(cpu_target, cpu_meta, cpu_tr)
+        card.append((name, target, meta, ev, None))
+        if ev["peak_bytes"] != cpu[name]["peak_bytes"]:
+            differ.append(f"{name} card {ev['peak_bytes']} B, CPU "
+                          f"{cpu[name]['peak_bytes']} B")
+    capacity = memck._capacity_bytes()
+    rep, art = memck.prove_staged(card)
+    if not rep.ok or any(r.error for r in rep.results):
+        raise AssertionError("memory: the card's registry against the "
+                             "committed artifact:\n" + rep.format_human())
+    _, art_cpu = memck.prove_staged(
+        [(n, *cpu_t[:2], cpu[n], None) for n, cpu_t in
+         registry["cpu"].items()], check_committed=False)
+    committed = memck.load_memcap(memck.memcap_path())
+    big = max(art["targets"], key=lambda n: memck.eval_model(
+        art["targets"][n]["model"], *memck._bench_scales()[0],
+        art["targets"][n]["parts"]))
+    entry = art["targets"][big]
+    walk_s = time.perf_counter() - t
+    MEMORY["seconds"] += fix_s + walk_s
+    log(f"[memory] the {len(fired)} torch fixtures through luxlint "
+        f"--memory on the card: rc 1, exactly its rule ({fired}) in "
+        f"{fix_s:.2f} s")
+    log(f"[memory] group 2r's {len(card)} registry traces walked on the "
+        f"card and the CPU in {walk_s:.2f} s: the card's artifact "
+        f"{art['id']} against the committed {committed['id']} "
+        f"({'equal' if art['id'] == committed['id'] else 'not equal'}; "
+        f"the CPU traces give {art_cpu['id']}), 0 findings of LUX701-706 "
+        f"(LUX706 within LUX_MEM_MODEL_TOL, LUX703 at nv, ne = "
+        f"{memck._bench_scales()[0]} against the card's "
+        f"{capacity} B of {report.device_profile()['device_kind']}; the "
+        f"costliest, {big}, predicts "
+        f"{memck.eval_model(entry['model'], *memck._bench_scales()[0], entry['parts']):.0f}"
+        f" B a part); peaks differ on {len(differ)} target(s)"
+        + (": " + "; ".join(differ) if differ else ""))
+    _memory_shed(dev)
+
+
+def _memory_shed(dev) -> None:
+    """Group 2s's serving claims (``tools/memck_smoke.py``'s 3 and 4)
+    on the card: a session on a small graph under
+    ``LUX_HBM_BUDGET_BYTES=1`` boots with every warmup counted as a skip,
+    its HTTP front end sheds a query with 503, ``Retry-After`` and
+    ``"kind": "PoolOverBudgetError"``; a direct pool drive under a
+    1,000-byte budget evicts the cold engine by footprint and rebuilds
+    nothing on a warm hit."""
+    import urllib.error
+    import urllib.request
+
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.obs import metrics
+    from lux_tpu_torch.serve import EnginePool, ServeConfig, Session
+    from lux_tpu_torch.serve.http import serve_in_thread
+
+    t = time.perf_counter()
+    skips0 = _metric_sum("lux_pool_hbm_warm_skips_total")
+    os.environ["LUX_HBM_BUDGET_BYTES"] = "1"   # the batcher thread's too
+    try:
+        s = Session(generate.gnp(200, 1200, seed=301),
+                    ServeConfig(max_batch=2, window_s=0.01), device=dev)
+        server, _ = serve_in_thread(s, port=0)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            skips = _metric_sum("lux_pool_hbm_warm_skips_total") - skips0
+            if len(s.pool) or skips < 1:
+                raise AssertionError(f"shed: {len(s.pool)} engines, "
+                                     f"{skips} warm skips")
+            req = urllib.request.Request(
+                base + "/query", json.dumps({"app": "sssp",
+                                             "start": 5}).encode(),
+                {"Content-Type": "application/json"})
+            try:
+                urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S)
+                raise AssertionError("shed: a query was admitted under a "
+                                     "1-byte budget")
+            except urllib.error.HTTPError as e:
+                code, retry = e.code, float(e.headers["Retry-After"] or 0)
+                kind = json.loads(e.read())["kind"]
+            if (code, kind) != (503, "PoolOverBudgetError") or retry <= 0:
+                raise AssertionError(f"shed: {code} {kind} {retry}")
+        finally:
+            server.shutdown()
+            s.close()
+    finally:
+        del os.environ["LUX_HBM_BUDGET_BYTES"]
+    pool = EnginePool(scope="memck-smoke")
+    os.environ["LUX_HBM_BUDGET_BYTES"] = "1000"
+    try:
+        ev0 = pool.stats()["hbm_evictions"]
+        a = pool.get(("a",), dict, footprint_bytes=600)
+        hit = pool.get(("a",), dict, footprint_bytes=600) is a
+        pool.get(("b",), dict, footprint_bytes=600)   # evicts a
+        evicted = pool.stats()["hbm_evictions"] - ev0
+        resident, st = pool.hbm_resident_bytes(), pool.stats()
+    finally:
+        del os.environ["LUX_HBM_BUDGET_BYTES"]
+        pool.close()
+    if not (hit and evicted == 1 and resident == 600
+            and st["recompiles"] == 0 and pool.keys() == [("b",)]
+            and metrics.gauge("lux_pool_hbm_resident_bytes").value == 600):
+        raise AssertionError(f"pool: hit {hit}, evicted {evicted}, "
+                             f"resident {resident}, {st}")
+    took = time.perf_counter() - t
+    MEMORY["seconds"] += took
+    log(f"[memory] shed: under LUX_HBM_BUDGET_BYTES=1 the session on "
+        f"gnp(200, 1200) booted with {skips:.0f} warm skips "
+        f"(lux_pool_hbm_warm_skips_total) and 0 engines; POST /query "
+        f"gave {code} with Retry-After {retry} s and kind {kind}; a direct "
+        f"pool drive under 1,000 B evicted {evicted} cold engine by "
+        f"footprint, kept 600 B resident, a warm hit rebuilt nothing, "
+        f"recompiles 0 ({took:.2f} s)")
+
+
+def _metric_sum(name: str) -> float:
+    from lux_tpu_torch.obs import metrics
+
+    return sum(m["value"] for m in metrics.REGISTRY.snapshot()
+               if m["name"] == name)
+
+
+def _memory_scale(label, ex, target, tr, app: str, kind: str) -> None:
+    """Group 2s at the main path's scale: the trace 2r just recorded,
+    walked (its per-device peak), the admission formula's prediction at
+    the executor's nv, ne and P, and the allocator's peak around one more
+    step of the same executor (``reset_peak_memory_stats``, then
+    ``memory_allocated()`` before and ``max_memory_allocated()`` after),
+    added to the storages the step holds (its device graph and state,
+    in whole allocator blocks). Card totals are a part's figures times
+    the parts the card holds. A prediction under the traced or the
+    measured peak is a fault: logged and kept for the summary."""
+    import torch
+
+    from lux_tpu_torch.analysis import memck
+    from lux_tpu_torch.analysis import trace as trace_mod
+
+    t = time.perf_counter()
+    spec_meta = memck._target_meta(ex, {"num_parts": target.num_parts,
+                                        "exchange_mode":
+                                        target.exchange_mode}, kind)
+    parts = spec_meta["parts"]
+    ev = memck.target_peak_bytes(target, spec_meta, tr)
+    pred = memck.predicted_engine_bytes(
+        app, kind, target.exchange_mode, spec_meta["nv"], spec_meta["ne"],
+        parts, k=spec_meta["k"])
+    block = ALLOC_BLOCK
+    resident = sum(-(-b.nbytes // block) * block
+                   for b in tr.buffers.values() if b.pinned)
+    state = sum(b.nbytes for b in tr.buffers.values() if b.kernel_state)
+    walk_s = time.perf_counter() - t
+    args = trace_mod.clone_args(target.example_args())
+    torch.cuda.synchronize()
+    MEMORY["peak"] = max(MEMORY["peak"], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = target.call(*args)
+    torch.cuda.synchronize()
+    after = torch.cuda.max_memory_allocated()
+    del out, args
+    measured = resident + (after - before)
+    traced_card, pred_card = ev["peak_bytes"] * parts, (pred or 0) * parts
+    fault = pred is None or pred_card < traced_card or pred_card < measured
+    line = (f"{label}: traced peak {ev['peak_bytes']} B a part "
+            f"({traced_card} B on the card over {parts} part(s)), "
+            f"predicted {pred} B a part ({pred_card} B) at nv={spec_meta['nv']}"
+            f" ne={spec_meta['ne']} P={parts}; allocator around one more "
+            f"step: {before} B before, {after} B peak, the step's "
+            f"{resident} B of storages + {after - before} B = {measured} B; "
+            f"predicted/traced {pred_card / traced_card:.3f}, "
+            f"predicted/measured {pred_card / measured:.3f}, "
+            f"traced/measured {traced_card / measured:.3f}; kernel state "
+            f"left out of the walk {state} B (walk {walk_s:.3f} s)")
+    MEMORY["seconds"] += time.perf_counter() - t
+    if fault:
+        MEMORY["faults"].append(line)
+    log(f"[memory] {'FAULT ' if fault else ''}{line}")
+
+
+def _memory_summary(group_s: float) -> None:
+    """Group 2s's seconds (the CLI's collection included) and its part
+    in this process, which must stay under ``MEM_IN_PROCESS_S``; the
+    scale-22 faults again."""
+    if MEMORY["seconds"] >= MEM_IN_PROCESS_S:
+        raise AssertionError(f"group 2s took {MEMORY['seconds']:.2f} s in "
+                             f"process, over {MEM_IN_PROCESS_S} s")
+    log(f"[memory] group 2s: {group_s:.2f} s in its group, "
+        f"{MEMORY['seconds']:.2f} s in this process in all (the scale walks "
+        f"and one more step each, the fixtures, the registry walks, the "
+        f"shed); {len(MEMORY['faults'])} fault(s) at scale"
+        + "".join(f"\n[memory]   {f}" for f in MEMORY["faults"]))
 
 
 def _k2_check(label, tail_src, row_ptr, n_x: int, rng, reps: int, dev):
@@ -5742,6 +6054,24 @@ def _tune_bfs(label, make, gas: dict, sharded: bool, dev) -> dict:
             "log": [e[:4] for e in ex.direction_log]}
 
 
+def _pruned_log(label: str, kind: str, graph, parts: int) -> None:
+    """Group 2s in a search: how many of the kind's candidates the
+    tuner's ``_fits_budget`` pruned before probing (the card's budget,
+    each candidate priced under its own exchange mode)."""
+    from lux_tpu_torch.analysis import memck
+    from lux_tpu_torch.tune import space
+
+    full = space.knob_space(kind)
+    kept = space.knob_space(kind, program_name="bfs", nv=graph.nv,
+                            ne=graph.ne, parts=parts)
+    prices = sorted({memck.predicted_engine_bytes(
+        "bfs", kind, c.get("LUX_EXCHANGE", ""), graph.nv, graph.ne, parts)
+        for c in full}, key=lambda x: (x is None, x))
+    log(f"[memory] {label}: _fits_budget pruned {len(full) - len(kept)} of "
+        f"{len(full)} {kind} candidates (budget {memck.hbm_budget_bytes()} "
+        f"B; predicted {prices} B a part)")
+
+
 def _tune_phases(work, g, gas: dict, dev, smi: str) -> dict:
     """Group 3n-6n's search and timing. 3n: ``tune()`` for BFS (kind
     ``gas``) with real probes and the tuner's defaults on the weighted
@@ -5784,6 +6114,7 @@ def _tune_phases(work, g, gas: dict, dev, smi: str) -> dict:
                       graph_fingerprint=fp_w, mesh_shape="1",
                       init_kw={"start": 0}, build_kw={"device": dev})
     _tune_log("3n gas", single)
+    _pruned_log("3n", "gas", gw, 1)
     _check_artifact("3n gas", single, "gas")
     tune_cache().put(single)
 
@@ -5805,6 +6136,7 @@ def _tune_phases(work, g, gas: dict, dev, smi: str) -> dict:
                        init_kw={"start": 0},
                        build_kw={"mesh": mesh, "sg": sg})
     _tune_log("4n gas_sharded", sharded)
+    _pruned_log("4n", "gas_sharded", g, SHARDED_PARTS)
     _check_artifact("4n gas_sharded", sharded, "gas_sharded")
     tune_cache().put(sharded)
     t = time.perf_counter()
@@ -6097,7 +6429,8 @@ def _serve_http(work, device_line: str, g, push: dict, gas: dict, oracle,
         if stats["pool"]["misses"] != pool0["misses"]:
             raise AssertionError(f"serve: pool built {stats['pool']['misses']}"
                                  f" engines, {pool0['misses']} at warmup")
-        _check_gas_audit("4m (the HTTP server)", sz, stats["pool"], 0)
+        _check_gas_audit("4m (the HTTP server)", sz,
+                         stats["pool"]["misses"], 0)
         win = sz["windows"][sorted(sz["windows"], key=lambda w: float(
             w.rstrip("s")))[-1]]
         log(f"[serve] 4m: /metrics compiles {comp} (the kernel library's "
@@ -6129,21 +6462,22 @@ def _serve_http(work, device_line: str, g, push: dict, gas: dict, oracle,
     return {"roots": roots, "digests": want}
 
 
-def _check_gas_audit(label, statusz: dict, pool: dict, findings0) -> None:
+def _check_gas_audit(label, statusz: dict, builds: int, findings0) -> None:
     """The serving pool's program-algebra audit (``analysis/gasck.py``)
-    ran on every build with no finding beyond ``findings0`` (its
-    counter is process-wide), and ``/statusz``'s capability matrix came
-    from the gascap.v1 artifact."""
+    ran on each of the session's ``builds`` with no finding beyond
+    ``findings0`` (both counters are process-wide, so the caller counts
+    its own builds), and ``/statusz``'s capability matrix came from the
+    gascap.v1 artifact."""
     from lux_tpu_torch.serve.pool import GAS_AUDIT_STATUS
 
     audit, progs = statusz["audits"]["gasck"], statusz["programs"]
     if (audit["status"] != GAS_AUDIT_STATUS
-            or audit["audited_builds"] != pool["misses"]
+            or audit["audited_builds"] != builds
             or audit["findings"] != findings0
             or progs["gas_findings"] != findings0
             or progs["source"] != "artifact"):
         raise AssertionError(f"serve {label}: gasck audit {audit}, "
-                             f"programs {progs}, {pool['misses']} builds")
+                             f"programs {progs}, {builds} builds")
     log(f"[serve] {label}: the pool's gasck audit ran on all "
         f"{audit['audited_builds']} builds, 0 findings; /statusz programs "
         f"from the artifact {progs['artifact_id']}")
@@ -6237,14 +6571,18 @@ def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str,
         f"{SERVE_SWAP_ROOTS} SSSP answers in {time.perf_counter() - t:.1f} s")
 
     logs = _serve_logs()
+    MEMORY["peak"] = max(MEMORY["peak"], torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
     gas0 = metrics.counter("lux_gas_findings_total").value
+    builds0 = metrics.counter("lux_serve_pool_misses_total").value
+    mem0 = _pool_memory_counts()
     t = time.perf_counter()
     s = Session(gw, ServeConfig(max_batch=8, window_s=0.005, max_queue=256,
                                 pagerank_iters=ITERS), device=dev)
     try:
         warm_s = time.perf_counter() - t
+        _pool_memory("5m", s, mem0)
         log(f"[serve] 5m: session on gw warm in {warm_s:.1f} s; " + ", ".join(
             ln.replace("warmup ", "") for ln in logs.lines
             if ln.startswith("warmup ")))
@@ -6341,7 +6679,8 @@ def _serve_swap(work, dev, gas: dict, oracle, held: dict, smi: str,
                                  "from-scratch run")
         misses1 = s.pool.stats()["misses"]
         _check_gas_audit("5m (the swap session)", s.statusz(),
-                         s.pool.stats(), gas0)
+                         s.pool.stats()["misses"] - builds0, gas0)
+        _pool_memory("5m after the swap", s, mem0)
         new_g = s.graph
     finally:
         s.close()
@@ -6428,8 +6767,10 @@ def _serve_mesh(work, dev, http: dict, oracle, smi: str,
     from lux_tpu_torch.serve.http import digest
 
     logs = _serve_logs()
+    MEMORY["peak"] = max(MEMORY["peak"], torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
+    mem0 = _pool_memory_counts()
     t = time.perf_counter()
     with _knobs(LUX_SERVE_MESH=SERVE_MESH_PARTS):
         s = Session(str(work / "g.lux"), ServeConfig(
@@ -6498,6 +6839,7 @@ def _serve_mesh(work, dev, http: dict, oracle, smi: str,
             f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             f"GiB; launches { {k: v for k, v in counts.items() if v} } "
             f"({smi})")
+        _pool_memory("6m", s, mem0)
         _pool_exchange_audit(s)
         _pool_ir_audit(s)
     finally:
@@ -6507,6 +6849,50 @@ def _serve_mesh(work, dev, http: dict, oracle, smi: str,
             raise AssertionError(f"serve mesh: {name} never ran")
     torch.cuda.empty_cache()
     return counts
+
+
+def _pool_memory_counts() -> tuple:
+    """The process's HBM evictions and warm skips so far (both counters
+    are process-wide)."""
+    return (_metric_sum("lux_pool_hbm_evictions_total"),
+            _metric_sum("lux_pool_hbm_warm_skips_total"))
+
+
+def _pool_memory(label: str, s, counts0: tuple) -> None:
+    """Group 2s in a serving session: admission on at the default budget
+    (LUX_HBM_BUDGET_FRAC of the card), every build priced (resident
+    bytes above 0, one price per pool entry), no HBM eviction and no
+    warm skip since ``counts0``: these engines served on this card before
+    the pool priced them, so a refusal would mean the model over-prices.
+    Logs the pool's resident bytes beside the allocator's."""
+    import torch
+
+    from lux_tpu_torch.analysis import memck
+    from lux_tpu_torch.utils import flags
+
+    t = time.perf_counter()
+    st, blk = s.pool.stats(), s.statusz()["memory"]
+    mem = st["audits"]["memck"]
+    evictions, skips = (a - b for a, b in zip(_pool_memory_counts(),
+                                              counts0))
+    budget = memck.hbm_budget_bytes()
+    if (not blk["admission"] or blk["budget_bytes"] != budget
+            or budget is None or st["hbm_resident_bytes"] <= 0
+            or mem["resident_engines"] != st["engines"]
+            or evictions or skips
+            or blk["artifact_id"] != memck.load_memcap(
+                memck.memcap_path())["id"]):
+        raise AssertionError(f"{label}: memory {blk} {mem}, evictions "
+                             f"{evictions}, warm skips {skips}")
+    allocated = torch.cuda.memory_allocated()
+    MEMORY["seconds"] += time.perf_counter() - t
+    log(f"[memory] {label}: admission on at the default budget {budget} B "
+        f"({flags.get_float('LUX_HBM_BUDGET_FRAC')} of "
+        f"{blk['hbm_capacity_bytes']} B); "
+        f"{mem['priced_builds']} builds priced, {st['engines']} engines "
+        f"resident at {st['hbm_resident_bytes']} B predicted, the allocator "
+        f"holding {allocated} B ({st['hbm_resident_bytes'] / allocated:.3f}"
+        f"x); 0 HBM evictions, 0 warm skips")
 
 
 def _pool_exchange_audit(s) -> None:

@@ -28,11 +28,14 @@ lux_tpu_torch.tools.luxlint`` lints the tree in seconds):
 - ``ir.py`` — the trace tiers over them: the IR rules (LUX101-105), the
   exchange dataflow rules (LUX404-406), the executor registry
   (``build_executor``, the registry matrix), ``luxlint --ir`` and
-  ``--exchange``'s runners, and the serving pool's LUX104 audit.
+  ``--exchange``'s runners, and the serving pool's LUX104 audit;
+- ``memck.py`` — the memory tier (LUX701-706): a storage-liveness walk
+  over those traces, the per-device footprint models of its
+  ``memcap.v1`` artifact ``memcap.json``, and the admission formula
+  (``predicted_engine_bytes``, ``hbm_budget_bytes``) the serving pool and
+  the tuner's pruning consult.
 
 Runtime side: ``sentinel.py`` — ``RecompileSentinel`` (the serving
 pool's zero-recompiles-after-warmup evidence) and ``HostTransferGuard``
 (fails device->host transfers inside a guarded iteration region).
-
-Not ported (ROADMAP A16): the memory tier (LUX701-706, memck).
 """

@@ -33,7 +33,11 @@ its input. Buffers that exist before the trace (the example args, the
 executor's device graph, a kernel's cached scratch) are *pinned*; each
 buffer records its defining and last-use node, what a liveness walk
 reads. Every tensor the trace sees is kept alive until it ends, so a
-storage is never reused under another buffer's name.
+storage is never reused under another buffer's name. The scratch a
+wrapper names through ``extra`` (cached per device and stream, shared by
+every engine of the process) is marked ``kernel_state``; the tasks of a
+kernel's :class:`~lux_tpu_torch.ops.segment.RowTasks` carry the rows
+they schedule (``Buffer.rows``).
 
 Nodes may sit inside
 :func:`~lux_tpu_torch.utils.tracehooks.alternatives`: the branches a host
@@ -60,6 +64,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from lux_tpu_torch.ops.segment import RowTasks
 from lux_tpu_torch.utils import tracehooks as hooks
 
 __all__ = ["Buffer", "Node", "Ref", "Trace", "bare_call", "clone_args",
@@ -108,6 +113,8 @@ class Buffer:
     version: int = 0              # writes since creation
     input_derived: bool = False   # computed from the example args
     tainted: bool = False         # computed from a data collective
+    kernel_state: bool = False    # a wrapper's per-stream scratch
+    rows: int = 0                 # a RowTasks schedule over this many rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,8 +340,10 @@ class _Recorder:
             out = fn(*args, **kwargs)
         finally:
             self.fold -= 1
+        scratch = []
         if extra is not None:
-            ins = ins + list(extra(*args, **kwargs))
+            scratch = list(extra(*args, **kwargs))
+            ins = ins + scratch
         outs = leaves(out)
         # A kernel writes the tensors it returns in place (``out=``); an
         # input it returns is written, the rest are read.
@@ -344,6 +353,12 @@ class _Recorder:
                    and kind == "kernel" and _skey(t) in keys]
         self.record(op, kind, ins, [o for o in outs if not any(
             o is w for w in written)], written, nbytes=nbytes, direct=direct)
+        for t in scratch:
+            if isinstance(t, torch.Tensor):
+                self.buffers[self.lid(t)].kernel_state = True
+        for a in tuple(args) + tuple(kwargs.values()):
+            if isinstance(a, RowTasks):
+                self.buffers[self.lid(a.tasks)].rows = a.nrows
         return out
 
     def finish(self, args, out, seconds: float, device: str) -> Trace:

@@ -374,8 +374,9 @@ class AdaptiveExecutor(_GasBase):
             self.col_src = self._put(graph.col_src.astype(np.int32))
             self.weights = (None if graph.weights is None
                             else self._put(graph.weights))
-            self.tasks = (RowTasks.build(graph.row_ptr, self.device)
-                          if on_card else None)
+            # On every device: engine memory, priced alike on the card
+            # and the CPU, whose plain version does not read it.
+            self.tasks = RowTasks.build(graph.row_ptr, self.device)
             if self.mode != "pull":
                 # Budgets sized so every frontier the policy can route to
                 # push fits (the stay-push band tops out at hi_count).
@@ -655,8 +656,7 @@ class MultiSourceGasExecutor(_GasBase):
         self.col_src = self._put(graph.col_src.astype(np.int32))
         self.weights = (None if graph.weights is None
                         else self._put(graph.weights))
-        self.tasks = (RowTasks.build(graph.row_ptr, self.device)
-                      if on_card else None)
+        self.tasks = RowTasks.build(graph.row_ptr, self.device)
         self.push_iters = 0          # pull-only: always 0
         self.pull_iters = 0
         self.direction_switches = 0

@@ -206,6 +206,16 @@ def check_kernel_covers(program: PullProgram) -> None:
             "function; set edge_op where edge_contrib is defined")
 
 
+def kernel_covers(program: PullProgram) -> bool:
+    """:func:`check_kernel_covers` as a test: whether a CUDA pull kernel
+    computes ``program``'s sums."""
+    try:
+        check_kernel_covers(program)
+    except NotImplementedError:
+        return False
+    return True
+
+
 class PullExecutor:
     """Executes a pull program on a single device (``cuda`` unless
     ``device`` names another). ``edge_chunk`` forces chunked with the
@@ -243,9 +253,13 @@ class PullExecutor:
         self.row_ptr = put(graph.row_ptr.astype(np.int64))
         self.col_src = put(graph.col_src.astype(np.int32))
         self.weights = None if graph.weights is None else put(graph.weights)
-        # The kernel's row schedule; the CPU's plain version needs none.
+        # The kernel's row schedule, on every device: engine memory,
+        # priced alike on the card and the CPU, whose plain version does
+        # not read it. A program no kernel runs (refused on the card)
+        # has none.
         self.tasks = (pull_row_tasks(graph.row_ptr, program.edge_op,
-                                     self.device) if on_card else None)
+                                     self.device)
+                      if kernel_covers(program) else None)
         self.col_dst = (put(graph.col_dst) if program.combiner != "sum"
                         else None)
         self._ctx = VertexCtx(

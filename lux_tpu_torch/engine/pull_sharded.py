@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.engine.program import EdgeCtx, PullProgram, VertexCtx
-from lux_tpu_torch.engine.pull import check_kernel_covers
+from lux_tpu_torch.engine.pull import check_kernel_covers, kernel_covers
 from lux_tpu_torch.engine.sharded import ShardedBase
 from lux_tpu_torch.engine.telemetry import (
     note_exchange,
@@ -115,8 +115,10 @@ class ShardedPullExecutor(ShardedBase):
         self._row_bytes = max(width, 1) * getattr(program.value_dtype,
                                                   "itemsize", 4)
         sg = self.sg
+        covered = kernel_covers(program)
         self._build_parts(
-            lambda rp, dev: pull_row_tasks(rp, program.edge_op, dev))
+            lambda rp, dev: (pull_row_tasks(rp, program.edge_op, dev)
+                             if covered else None))
         self.dst_local = (self._put_own(sg.dst_local)
                           if program.combiner != "sum" else None)
         self._ctx = VertexCtx(nv=graph.nv,

@@ -16,7 +16,7 @@ size and out-edge total exactly as ``lux_tpu`` chooses them
 - **dense** (pull direction): kernel K5 (``ops/segment.py::
   segment_minmax_relax``) over every CSC in-edge, each row written once
   over the graph's :class:`~lux_tpu_torch.ops.segment.RowTasks` (K5's
-  thresholds, built on the card only), reading each source either from
+  thresholds, built on every device), reading each source either from
   the packed ``value | frontier << 31`` table (``blocked_dense``) or
   from the values and the bool frontier;
 - **sparse** (push direction): K6 (``ops/frontier.py::frontier_queue``)
@@ -411,8 +411,9 @@ class PushExecutor(FixpointLoop):
         self.row_ptr = put(graph.row_ptr.astype(np.int64))
         self.col_src = put(graph.col_src.astype(np.int32))
         self.weights = None if graph.weights is None else put(graph.weights)
-        self.tasks = (push_row_tasks(graph.row_ptr, self.device)
-                      if self.device.type != "cpu" else None)
+        # On every device: engine memory, priced alike on the card and
+        # the CPU, whose plain version does not read it.
+        self.tasks = push_row_tasks(graph.row_ptr, self.device)
         self.sparse = sparse and graph.ne >= 1024
         self.tiers: List[Tuple[int, int]] = []
         if self.sparse:
@@ -675,8 +676,7 @@ class MultiSourcePushExecutor(LanesLoop):
         self.row_ptr = put(graph.row_ptr.astype(np.int64))
         self.col_src = put(graph.col_src.astype(np.int32))
         self.weights = None if graph.weights is None else put(graph.weights)
-        self.tasks = (RowTasks.build(graph.row_ptr, self.device)
-                      if on_card else None)
+        self.tasks = RowTasks.build(graph.row_ptr, self.device)
         self.sparse_iters = 0   # API parity with PushExecutor (always 0)
 
     def _lanes_storage(self, vals: np.ndarray, fr: np.ndarray) -> PushState:

@@ -56,7 +56,7 @@ class Part:
     """One part's operands on the device: its CSC offsets, its real
     edges' flat source rows and weights (views of the stacked arrays),
     the first row of its own span in the flat table, and its kernels' row
-    tasks (the card only)."""
+    tasks."""
 
     row_ptr: torch.Tensor             # (max_nv + 1,) int64
     col_src: torch.Tensor             # (n_e,) int32, rows of the flat table
@@ -117,14 +117,14 @@ class ShardedBase:
         return gather_rows(self.mesh, stats).tolist()
 
     def _build_parts(self, schedule: Callable[[np.ndarray, torch.device],
-                                              RowTasks]) -> None:
-        """The per-part operands and the compact exchange; on the card,
-        each part's row tasks by ``schedule(local_row_ptr, device)``, the
+                                              Optional[RowTasks]]) -> None:
+        """The per-part operands and the compact exchange; each part's
+        row tasks by ``schedule(local_row_ptr, device)``, the
         :class:`RowTasks` builder of the kernel the executor runs per
-        part."""
+        part, on every device (engine memory, priced alike on the card
+        and the CPU, whose plain version does not read it)."""
         sg = self.sg
         n = sg.max_nv
-        on_card = self.device.type != "cpu"
         self.vertex_mask = self._put_own(sg.vertex_mask)
         row_ptr = self._put_own(sg.local_row_ptr.astype(np.int64))
         src_pidx = self._put_own(sg.src_pidx)
@@ -132,8 +132,7 @@ class ShardedBase:
         self._parts: List[Part] = []
         for j, q in enumerate(self.parts):
             n_e = int(sg.local_row_ptr[q, -1])
-            row_tasks = (schedule(sg.local_row_ptr[q], self.device)
-                         if on_card else None)
+            row_tasks = schedule(sg.local_row_ptr[q], self.device)
             self._parts.append(Part(
                 row_ptr=row_ptr[j],
                 col_src=src_pidx[j, :n_e],

@@ -54,11 +54,13 @@ class SnapshotSwapError(ServeError):
 
 
 class PoolOverBudgetError(ServeError):
-    """The HBM-budgeted engine pool cannot admit this build (HTTP 503 +
-    Retry-After). Kept for ``lux_tpu``'s API: its budget comes from the
-    memcap.v1 footprint model, which is not ported (ROADMAP A16), so the
-    port's pool derives no budget, admits every build and never raises
-    this."""
+    """The HBM-budgeted engine pool cannot admit this build: its
+    memcap.v1-predicted footprint exceeds the per-device budget
+    (LUX_HBM_BUDGET_BYTES, default the card's capacity x
+    LUX_HBM_BUDGET_FRAC) even after evicting every cold engine. Shed
+    with 503 + Retry-After. Advisory until ROADMAP C6 is repaired: the
+    predicted footprint under-prices some engines on the card, so a
+    build that is admitted may still not fit."""
 
     http_status = 503
 

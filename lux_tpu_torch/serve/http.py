@@ -21,8 +21,8 @@ Endpoints:
   histograms, ...); ``GET /metrics.json`` keeps the JSON snapshot.
 - ``GET /statusz`` — rolling 1-min/5-min SLO windows (p50/p95/p99 per
   app), queue depth, cache hit rate, batch-width histogram, shed and
-  recompile counters, the pool's audits (``not ported`` where they are)
-  (JSON; windows set by ``LUX_STATUSZ_WINDOWS``).
+  recompile counters, the pool's audits and its HBM admission (the
+  ``memory`` block) (JSON; windows set by ``LUX_STATUSZ_WINDOWS``).
 - ``GET /costz`` — per-tenant cost accounting (serve/cost.py):
   cumulative totals (requests, engine seconds, exchange bytes,
   iterations, hit/miss) plus rolling engine-seconds quantiles per

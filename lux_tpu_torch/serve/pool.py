@@ -16,19 +16,40 @@ per key — builds run under ``expect(key)``, the session executes queries
 under ``watch(key)``, and any compile landing in a watch region is a
 recompile the stats (and the serve tests) flag.
 
-``lux_tpu``'s pool also audits every build (the IR donation audit, the
-exchange-plan audit, the program-algebra audit) and admits builds under
-an HBM budget priced by its memcap.v1 footprint model. The three audits
-run here as there, advisory: the IR audit (``analysis/ir.py``, LUX104
-over the engine's ``trace_step``, its findings counted in
-``lux_ir_findings_total``; no step of the port donates yet, so a build's
-declaration is read and no step runs), the program-algebra audit
-(``analysis/gasck.py``, LUX601/602/605, counted in
+Every build is audited as ``lux_tpu``'s pool audits it, advisory: the
+IR audit (``analysis/ir.py``, LUX104 over the engine's ``trace_step``,
+its findings counted in ``lux_ir_findings_total``; no step of the port
+donates yet, so a build's declaration is read and no step runs), the
+program-algebra audit (``analysis/gasck.py``, LUX601/602/605, counted in
 ``lux_gas_findings_total``) and the exchange-plan audit
 (``analysis/exchck.py``, LUX401-403/407 over the live compact plan of a
-sharded engine, counted in ``lux_exch_findings_total``). The footprint
-model is not ported (ROADMAP A16): with no budget to derive, admission
-takes ``lux_tpu``'s own branch for that case and admits every build.
+sharded engine, counted in ``lux_exch_findings_total``).
+
+Residency is HBM-budgeted as in ``lux_tpu``: callers that know an
+engine's predicted footprint (the memcap.v1 admission formula,
+``analysis/memck.py::predicted_engine_bytes``) pass it to :meth:`get`,
+and the pool admits the build only if the summed resident bytes fit the
+budget (``LUX_HBM_BUDGET_BYTES``, default the card's capacity x
+``LUX_HBM_BUDGET_FRAC``; none on the CPU, whose profile has no
+capacity), evicting cold engines by footprint-weighted LRU first. An
+engine that cannot fit even in an empty pool is refused with
+:class:`~lux_tpu_torch.serve.errors.PoolOverBudgetError` (HTTP 503 +
+Retry-After). Warm hits never evict, so the zero-rebuild contract on
+repeat traffic is untouched by the budget.
+
+Admission is advisory until ROADMAP C6 is repaired: the formula it
+trusts under-predicts some engines on the card at R-MAT 22 (the
+grouped-tail tiled engine, which it prices as the lane-select one, and
+the compact sharded engines), so a budget that admits a build does not
+yet prove the card holds it.
+
+The budget is one card's, and a footprint is what a build holds on the
+card its parts live on. The formula is per device: one part's share of
+a graph over P parts. A :class:`~lux_tpu_torch.parallel.mesh.LocalMesh`
+holds all P parts on one card, so the session prices a sharded build at
+``len(own_parts(mesh))`` (here P) times the per-device formula; a
+:class:`~lux_tpu_torch.parallel.mesh.DistMesh` rank prices its own
+parts only (``serve/session.py::Session._footprint``).
 
 Engine work on a card runs on a CUDA stream of the calling thread's own
 (:func:`engine_stream`): the port's cooperative kernels keep one queue
@@ -40,17 +61,20 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Hashable
+from typing import Callable, Hashable, Optional
 
 import torch
 
 from lux_tpu_torch.analysis.sentinel import RecompileSentinel
 from lux_tpu_torch.obs import metrics, spans
+from lux_tpu_torch.serve.errors import PoolOverBudgetError
 from lux_tpu_torch.utils import faults, flags
 from lux_tpu_torch.utils.locks import make_lock
 from lux_tpu_torch.utils.logging import get_logger
 
-NOT_PORTED = "not ported (ROADMAP A16)"
+MEM_ADMIT_STATUS = ("ported: every priced build admitted under the HBM "
+                    "budget, cold engines evicted by footprint-weighted "
+                    "LRU (analysis/memck.py)")
 GAS_AUDIT_STATUS = ("ported: LUX601/602/605 on every build carrying a "
                     "program (analysis/gasck.py)")
 EXCH_AUDIT_STATUS = ("ported: LUX401-403/407 on every build carrying a "
@@ -100,6 +124,15 @@ class EnginePool:
         self._exch_findings = metrics.counter("lux_exch_findings_total")
         self._gas_findings = metrics.counter("lux_gas_findings_total")
         self._retired = metrics.counter("lux_serve_pool_retired_total")
+        # HBM residency accounting: predicted resident bytes per key
+        # (memcap.v1 admission formula) + last-hit clock for the
+        # footprint-weighted LRU.
+        self._resident = {}
+        self._last_hit = {}
+        self._hbm_gauge = metrics.gauge("lux_pool_hbm_resident_bytes")
+        self._hbm_evictions = metrics.counter(
+            "lux_pool_hbm_evictions_total")
+        self._priced = 0
         # Builds the IR, exchange-plan and program-algebra audits read;
         # the IR audit runs a step only where it donates.
         self._ir_audited = 0
@@ -108,14 +141,16 @@ class EnginePool:
         self._gas_audited = 0
         self.sentinel = RecompileSentinel(scope)
 
-    def get(self, key: Hashable, factory: Callable[[], object]):
+    def get(self, key: Hashable, factory: Callable[[], object],
+            footprint_bytes: Optional[int] = None):
         """The executor for ``key``, building (and warming, if the
         executor has a ``warmup``) via ``factory`` on first request.
 
-        ``lux_tpu``'s pool first admits the build under an HBM budget
-        priced by the memcap.v1 footprint model, and admits freely when
-        no budget can be derived. The model is not ported (ROADMAP A16),
-        so no build is priced and every build takes that branch.
+        ``footprint_bytes`` is the build's predicted resident footprint
+        on its card (memcap.v1); when given, admission runs first —
+        evicting cold engines until the build fits the HBM budget, or
+        raising :class:`PoolOverBudgetError` if it never can. Hits skip
+        admission entirely (and refresh the key's LRU clock).
 
         The build runs under the lock: concurrent first requests for one
         key must not build twice. On a card the building thread's stream
@@ -125,7 +160,9 @@ class EnginePool:
             ex = self._engines.get(key)
             if ex is not None:
                 self._hits.inc()
+                self._last_hit[key] = spans.clock()
                 return ex
+            self._admit(key, footprint_bytes)
             self._misses.inc()
             # spans.span: a build triggered by a live request joins that
             # request's trace; warmup builds root their own.
@@ -146,7 +183,61 @@ class EnginePool:
             self._audit_exchange(key, ex)
             self._audit_programs(key, ex)
             self._engines[key] = ex
+            self._last_hit[key] = spans.clock()
+            if footprint_bytes is not None:
+                self._priced += 1
+                self._resident[key] = int(footprint_bytes)
+                self._hbm_gauge.set(float(sum(self._resident.values())))
             return ex
+
+    def _admit(self, key: Hashable, footprint_bytes: Optional[int]):
+        """Fit ``footprint_bytes`` under the HBM budget, evicting cold
+        engines by footprint-weighted LRU (idle_seconds x bytes,
+        coldest-and-fattest first). Caller holds the lock. No-op when
+        admission is disabled, unpriced, or unbudgeted. Advisory: the
+        footprints it sums come from a model that under-predicts some
+        engines on the card (ROADMAP C6)."""
+        if footprint_bytes is None:
+            return
+        if not flags.get_bool("LUX_MEM_POOL_ADMIT"):
+            return
+        from lux_tpu_torch.analysis import memck
+        budget = memck.hbm_budget_bytes()
+        if budget is None:
+            return
+        need = int(footprint_bytes)
+        if need > budget:
+            raise PoolOverBudgetError(
+                f"engine {key!r} predicted footprint {need} B exceeds "
+                f"the per-device HBM budget {budget} B even with an "
+                "empty pool (LUX_HBM_BUDGET_BYTES / "
+                "LUX_HBM_BUDGET_FRAC)")
+        now = spans.clock()
+        while sum(self._resident.values()) + need > budget:
+            victims = [k for k in self._resident if k in self._engines]
+            if not victims:
+                # Remaining residency belongs to nothing evictable
+                # (stale accounting); drop it rather than deadlock.
+                self._resident = {k: v for k, v in self._resident.items()
+                                  if k in self._engines}
+                if sum(self._resident.values()) + need <= budget:
+                    break
+                raise PoolOverBudgetError(
+                    f"engine {key!r} predicted footprint {need} B does "
+                    f"not fit the HBM budget {budget} B and no resident "
+                    "engine remains to evict")
+            coldest = max(
+                victims,
+                key=lambda k: (now - self._last_hit.get(k, 0.0))
+                * max(1, self._resident[k]))
+            del self._engines[coldest]
+            self._resident.pop(coldest, None)
+            self._last_hit.pop(coldest, None)
+            self._retired.inc()
+            self._hbm_evictions.inc()
+            self.log.info("EnginePool: evicted %r for %r under the HBM "
+                          "budget %d B", coldest, key, budget)
+        self._hbm_gauge.set(float(sum(self._resident.values())))
 
     def _audit(self, key: Hashable, ex) -> None:
         """LUX104 donation audit on the freshly built engine
@@ -233,8 +324,11 @@ class EnginePool:
             victims = [k for k in self._engines if predicate(k)]
             for k in victims:
                 del self._engines[k]
+                self._resident.pop(k, None)
+                self._last_hit.pop(k, None)
             if victims:
                 self._retired.inc(len(victims))
+                self._hbm_gauge.set(float(sum(self._resident.values())))
         return len(victims)
 
     def __len__(self) -> int:
@@ -247,6 +341,12 @@ class EnginePool:
         with self._lock:
             return list(self._engines)
 
+    def hbm_resident_bytes(self) -> int:
+        """Summed memcap.v1-predicted bytes of the resident engines
+        (only engines admitted with a footprint contribute)."""
+        with self._lock:
+            return int(sum(self._resident.values()))
+
     def audits(self) -> dict:
         """Each build-time audit and the admission of ``lux_tpu``'s pool:
         the flag that asks for it, whether it asks, and what the port
@@ -255,6 +355,7 @@ class EnginePool:
             ir_audited, ir_undonated, exch_audited, gas_audited = (
                 self._ir_audited, self._ir_undonated, self._exch_audited,
                 self._gas_audited)
+            priced, resident = self._priced, len(self._resident)
         out = {"ir": {"flag": "LUX_IR_POOL_AUDIT",
                       "requested": flags.get_bool("LUX_IR_POOL_AUDIT"),
                       "status": IR_AUDIT_STATUS,
@@ -271,11 +372,14 @@ class EnginePool:
                         "status": GAS_AUDIT_STATUS,
                         "audited_builds": gas_audited,
                         "findings": int(self._gas_findings.value)}
-        out["memck"] = {
-            "flag": "LUX_MEM_POOL_ADMIT",
-            "requested": flags.get_bool("LUX_MEM_POOL_ADMIT"),
-            "status": NOT_PORTED + ": no HBM budget can be derived, so "
-                      "every build is admitted"}
+        from lux_tpu_torch.analysis import memck
+        out["memck"] = {"flag": "LUX_MEM_POOL_ADMIT",
+                        "requested": flags.get_bool("LUX_MEM_POOL_ADMIT"),
+                        "status": MEM_ADMIT_STATUS,
+                        "budget_bytes": memck.hbm_budget_bytes(),
+                        "priced_builds": priced,
+                        "resident_engines": resident,
+                        "evictions": int(self._hbm_evictions.value)}
         return out
 
     def stats(self) -> dict:
@@ -289,10 +393,8 @@ class EnginePool:
             "ir_findings": int(self._ir_findings.value),
             "exch_findings": int(self._exch_findings.value),
             "gas_findings": int(self._gas_findings.value),
-            # No build is priced (see get), so none is resident by the
-            # model's account and none was evicted for the budget.
-            "hbm_resident_bytes": None,
-            "hbm_evictions": 0,
+            "hbm_resident_bytes": self.hbm_resident_bytes(),
+            "hbm_evictions": int(self._hbm_evictions.value),
             "audits": self.audits(),
         }
 

@@ -255,6 +255,41 @@ class Session:
     def _sharded_kw(self, snap: Snapshot) -> dict:
         return {"mesh": self.meshspec.mesh, "sg": self._shard_plan(snap)}
 
+    def _footprint(self, kind: str, app: str, snap: Snapshot,
+                   k: int = 1) -> Optional[int]:
+        """Predicted resident bytes of one engine build on the card —
+        the committed memcap.v1 admission formula
+        (analysis/memck.predicted_engine_bytes), resolved under the
+        same exchange mode the engine key carries. The formula is per
+        device (one part's share); a sharded build holds its mesh's own
+        parts on this card (all P of a LocalMesh), so it is priced at
+        that many times the formula. None (pool admits freely) when
+        admission is off, the artifact prices nothing for this build, or
+        pricing itself fails — pricing is advisory input to admission,
+        never a reason a build can't start."""
+        if not flags.get_bool("LUX_MEM_POOL_ADMIT"):
+            return None
+        try:
+            from lux_tpu_torch.analysis import memck
+
+            mode, held = "", 1
+            rkind = kind + "_sharded" if self.sharded else kind
+            if self.sharded:
+                from lux_tpu_torch.parallel.mesh import own_parts
+                from lux_tpu_torch.parallel.shard import exchange_mode
+
+                art = self._tuned_art(app, snap)
+                mode = (art or {}).get("config", {}).get("LUX_EXCHANGE") \
+                    or exchange_mode()
+                held = len(own_parts(self.meshspec.mesh))
+            pred = memck.predicted_engine_bytes(
+                app, rkind, mode, snap.graph.nv, snap.graph.ne,
+                self.meshspec.num_parts, k=k)
+            return None if pred is None else pred * held
+        # luxlint: disable=LUX007 -- advisory pricing must never block a build
+        except Exception:
+            return None
+
     def _sssp_single(self, snap: Optional[Snapshot] = None):
         from lux_tpu_torch.models.sssp import SSSP
 
@@ -271,7 +306,9 @@ class Session:
             def build():
                 return PushExecutor(snap.graph, SSSP(), device=self.device)
         return self.pool.get(self._engine_key("push", snap, ("sssp", 1)),
-                             self._tuned_build("sssp", snap, build))
+                             self._tuned_build("sssp", snap, build),
+                             footprint_bytes=self._footprint(
+                                 "push", "sssp", snap))
 
     def _sssp_multi(self, snap: Optional[Snapshot] = None):
         from lux_tpu_torch.models.sssp import SSSP
@@ -293,7 +330,8 @@ class Session:
                                                device=self.device)
         return self.pool.get(
             self._engine_key("push_multi", snap, ("sssp", k)),
-            self._tuned_build("sssp", snap, build))
+            self._tuned_build("sssp", snap, build),
+            footprint_bytes=self._footprint("push_multi", "sssp", snap, k=k))
 
     def _components_engine(self, snap: Optional[Snapshot] = None):
         from lux_tpu_torch.models.components import ConnectedComponents
@@ -313,7 +351,8 @@ class Session:
                                     device=self.device)
         return self.pool.get(
             self._engine_key("push", snap, ("components", 1)),
-            self._tuned_build("components", snap, build))
+            self._tuned_build("components", snap, build),
+            footprint_bytes=self._footprint("push", "components", snap))
 
     def _pagerank_engine(self, snap: Optional[Snapshot] = None):
         from lux_tpu_torch.models.cli import make_executor
@@ -352,7 +391,8 @@ class Session:
 
         return self.pool.get(
             self._engine_key("pull", snap, ("pagerank",)),
-            self._tuned_build("pagerank", snap, build))
+            self._tuned_build("pagerank", snap, build),
+            footprint_bytes=self._footprint("pull", "pagerank", snap))
 
     # -- GAS apps (direction-optimizing adaptive executor) ----------------
 
@@ -431,8 +471,10 @@ class Session:
             return AdaptiveExecutor(snap.graph, self._gas_program(app, extra),
                                     device=self.device)
 
+        price = self._footprint("gas", app, snap)
         if not self.sharded:
-            return self.pool.get(key, self._tuned_build(app, snap, flat))
+            return self.pool.get(key, self._tuned_build(app, snap, flat),
+                                 footprint_bytes=price)
         from lux_tpu_torch.engine.gas_sharded import ShardedAdaptiveExecutor
 
         def build():
@@ -447,7 +489,8 @@ class Session:
                 self._note_mesh_fallback(app, repr(e))
                 return flat()
 
-        return self.pool.get(key, self._tuned_build(app, snap, build))
+        return self.pool.get(key, self._tuned_build(app, snap, build),
+                             footprint_bytes=price)
 
     def _gas_multi(self, app: str, snap: Optional[Snapshot] = None):
         from lux_tpu_torch.engine.gas import MultiSourceGasExecutor
@@ -461,8 +504,10 @@ class Session:
             return MultiSourceGasExecutor(snap.graph, get_program(app), k=k,
                                           device=self.device)
 
+        price = self._footprint("gas_multi", app, snap, k=k)
         if not self.sharded:
-            return self.pool.get(key, self._tuned_build(app, snap, flat))
+            return self.pool.get(key, self._tuned_build(app, snap, flat),
+                                 footprint_bytes=price)
         from lux_tpu_torch.engine.gas_sharded import (
             ShardedMultiSourceGasExecutor)
 
@@ -475,7 +520,8 @@ class Session:
                 self._note_mesh_fallback(app + "_multi", repr(e))
                 return flat()
 
-        return self.pool.get(key, self._tuned_build(app, snap, build))
+        return self.pool.get(key, self._tuned_build(app, snap, build),
+                             footprint_bytes=price)
 
     # -- profile-guided tuning (tune/) -------------------------------------
 
@@ -615,22 +661,28 @@ class Session:
         }
 
     def _memory_block(self) -> dict:
-        """The /statusz ``memory`` view: admission asked for or not, the
-        budget it would run under (None: no budget can be derived), the
-        pool's priced resident bytes and evictions, the card's capacity,
-        and the bytes the caching allocator holds now and at its peak
-        (None off the card)."""
+        """The /statusz ``memory`` view: the HBM budget admission runs
+        under, the summed memcap.v1-predicted resident bytes, eviction
+        pressure, and where the formula came from (artifact id + device
+        capacity); with the bytes the caching allocator holds now and at
+        its peak (None off the card)."""
+        from lux_tpu_torch.analysis import memck
         from lux_tpu_torch.obs import report
 
         p = self.pool.stats()
+        art = memck._committed()
+        try:
+            budget = memck.hbm_budget_bytes()
+        # luxlint: disable=LUX007 -- a broken budget derivation must not break /statusz
+        except Exception:
+            budget = None
         on_card = self.device.type == "cuda"
         return {
             "admission": flags.get_bool("LUX_MEM_POOL_ADMIT"),
-            "budget_bytes": None,
-            "reason": p["audits"]["memck"]["status"],
+            "budget_bytes": budget,
             "resident_bytes": p["hbm_resident_bytes"],
             "evictions": p["hbm_evictions"],
-            "artifact_id": None,
+            "artifact_id": (art or {}).get("id"),
             "hbm_capacity_bytes": report.device_profile()
             .get("hbm_capacity_bytes"),
             "device_allocated_bytes": (
@@ -663,9 +715,19 @@ class Session:
             self.log.info("program capabilities: %s %s", caps["source"],
                           caps.get("artifact_id"))
 
+        # An engine the HBM budget refuses must not abort warmup (and
+        # with it server boot): warm what fits, count the skips, and let
+        # queries for the rest shed per-request with the typed 503.
         def _warm(label, build, *args, **kw):
+            from lux_tpu_torch.serve.errors import PoolOverBudgetError
+
             with _timed(self.log, f"warmup {label}"):
-                build(*args, **kw)
+                try:
+                    build(*args, **kw)
+                except PoolOverBudgetError as e:
+                    metrics.counter("lux_pool_hbm_warm_skips_total",
+                                    {"engine": label}).inc()
+                    self.log.warning("warmup %s skipped: %s", label, e)
 
         with spans.span("serve.warmup", version=snap.version), \
                 engine_stream(self.device):
@@ -1324,6 +1386,7 @@ class Session:
         # Warm version N+1's engines off-thread so a stuck build can't
         # wedge the session; the sentinel sees the builds as expected
         # warmup (pool.get wraps them in expect(key)).
+        hbm_evictions0 = self.pool.stats()["hbm_evictions"]
         warm_err: List[BaseException] = []
         tid = spans.current_trace_id()
 
@@ -1398,7 +1461,11 @@ class Session:
 
         drained = self._drain_behind(old)
         flip_s = spans.clock() - t_flip0
-        drained["hbm_evicted"] = 0   # no budget, no evictions (pool.py)
+        # HBM-budget evictions during this swap's warm: N+1's engines
+        # admitting over N's residents show up here (and as
+        # X-Lux-Evicted on the HTTP swap response).
+        drained["hbm_evicted"] = (self.pool.stats()["hbm_evictions"]
+                                  - hbm_evictions0)
         swap_s = spans.clock() - t_swap0
         metrics.histogram("lux_snapshot_swap_seconds").observe(swap_s)
         self.log.info(
@@ -1747,7 +1814,7 @@ class Session:
         """Rolling operational view (the /statusz payload): windowed
         SLO quantiles per app, queue pressure, cache efficiency, batch
         width, the shed/reject/recompile counters that page, and the
-        pool's audits (``not ported`` where they are)."""
+        pool's audits and its HBM admission."""
         b = self.batcher.stats()
         c = self.cache.stats()
         p = self.pool.stats()

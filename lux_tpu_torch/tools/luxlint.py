@@ -43,6 +43,16 @@ Usage:
                                                   # programs of fixture
                                                   # modules instead
     python -m lux_tpu_torch.tools.luxlint --programs --gascap-out F
+    python -m lux_tpu_torch.tools.luxlint --memory  # walk buffer liveness
+                                                  # over every registry
+                                                  # target's traced step,
+                                                  # derive the memcap.v1
+                                                  # footprint models
+                                                  # (LUX701-706)
+    python -m lux_tpu_torch.tools.luxlint --memory f.py  # check fixture
+                                                  # modules' TARGETS/
+                                                  # MODELS/MEMCAP instead
+    python -m lux_tpu_torch.tools.luxlint --memory --memcap-out F
     python -m lux_tpu_torch.tools.luxlint --json / --select LUX001 / ...
     python -m lux_tpu_torch.tools.luxlint --baseline F ...  # snapshot/
                                                   # compare: only findings
@@ -51,15 +61,14 @@ Usage:
 
 The AST, concurrency and plan tiers run on the host and import no torch
 for the checks themselves. The executors of registry ``--ir`` and
-``--exchange``, the steps they trace and the program hooks of
-``--programs`` run on the card, or on the CPU with ``LUX_PLATFORM=cpu``
-(a step that fails to trace on the card is an error, never retried on
-the CPU). The output and exit status are ``tools/luxlint.py``'s: one
-line per finding, a human summary line and one greppable ``LUXLINT
-{...}`` summary line; exit 0 clean, 1 on findings, syntax errors, failed
-traces or unloadable artifacts and fixtures, 2 on a usage error (tiers
-are mutually exclusive). Not ported (ROADMAP A16): ``--memory``
-(LUX701-706), which exits 2 with a message saying so.
+``--exchange`` and ``--memory``, the steps they trace and the program
+hooks of ``--programs`` run on the card, or on the CPU with
+``LUX_PLATFORM=cpu`` (a step that fails to trace on the card is an
+error, never retried on the CPU). The output and exit status are
+``tools/luxlint.py``'s: one line per finding, a human summary line and
+one greppable ``LUXLINT {...}`` summary line; exit 0 clean, 1 on
+findings, syntax errors, failed traces or unloadable artifacts and
+fixtures, 2 on a usage error (tiers are mutually exclusive).
 
 Suppress an AST- or threads-tier finding inline, with a reason:
     x.item()  # luxlint: disable=LUX001 -- intended once-per-run sync
@@ -83,14 +92,15 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 DEFAULT_TARGETS = ("lux_tpu_torch", "chip_smoke.py")
 THREAD_TARGETS = ("lux_tpu_torch",)
 
-_UNPORTED = ("memory",)
-_TIERS = ("ir", "plans", "threads", "exchange", "tune", "programs") \
-    + _UNPORTED
+_TIERS = ("ir", "plans", "threads", "exchange", "tune", "programs",
+          "memory")
 # Files whose change can change a traced step: --changed runs the trace
 # tiers' registry only when one of them did.
 _TRACE_RELEVANT = tuple(f"lux_tpu_torch/{d}" for d in (
     "engine/", "parallel/", "graph/", "analysis/", "models", "obs/",
     "ops/"))
+# ... and the memory tier's, which also prices serving's admission.
+_MEMORY_RELEVANT = _TRACE_RELEVANT + ("lux_tpu_torch/serve/",)
 
 _SPAN_CACHE: dict = {}
 
@@ -258,17 +268,37 @@ def _run_programs(paths, select: str, gascap_out: str):
                                  capmap_out=gascap_out or None, device=dev)
 
 
+def _run_memory(paths, select: str, memcap_out: str):
+    """Memory tier (LUX701-706): walk buffer liveness over every traced
+    registry target, built and traced on the card unless
+    ``LUX_PLATFORM=cpu``, and keep the memcap.v1 footprint artifact
+    honest. With paths, fixture modules supply TARGETS/MODELS/MEMCAP/
+    COMMITTED instead (--memcap-out is registry-only: fixtures prove
+    rules, they don't price serving)."""
+    from lux_tpu_torch.analysis import memck
+
+    want = None
+    if select:
+        want = tuple(s.strip() for s in select.split(",") if s.strip())
+    if paths:
+        return memck.verify_fixture_paths(paths, select=want)
+    from lux_tpu_torch.utils.platform import platform_device
+    return memck.verify_registry(select=want,
+                                 memcap_out=memcap_out or None,
+                                 device=platform_device())
+
+
 def _list_rules() -> None:
-    from lux_tpu_torch.analysis import (exchck, gasck, ir, planck, rules,
-                                        threads, tuneck)
+    from lux_tpu_torch.analysis import (exchck, gasck, ir, memck, planck,
+                                        rules, threads, tuneck)
     for r in (rules.all_rules() + planck.all_plan_rules()
               + threads.all_thread_rules() + exchck.all_exchange_rules()
               + list(tuneck.all_tune_rules()) + gasck.all_program_rules()
+              + memck.all_memory_rules()
               + ir.all_ir_rules() + ir.exchange_ir_rules()):
         print(f"{r.id}  {r.title}\n       {r.doc}")
-    print("not ported (ROADMAP A16): LUX701-706 (--memory); of LUX002 "
-          "and LUX003, lux_tpu's jax.jit donation and Pallas BlockSpec "
-          "halves have no counterpart")
+    print("of LUX002 and LUX003, lux_tpu's jax.jit donation and Pallas "
+          "BlockSpec halves have no counterpart")
 
 
 def main(argv=None) -> int:
@@ -281,7 +311,9 @@ def main(argv=None) -> int:
                          "exchange-plan dirs or TRACES/PLANS fixtures; with "
                          "--tune: tuneconf.v1 artifact files or "
                          "directories (default: LUX_TUNE_DIR); with "
-                         "--programs: fixture modules defining programs")
+                         "--programs: fixture modules defining programs; "
+                         "with --memory: fixture modules defining "
+                         "TARGETS/MODELS/MEMCAP")
     ap.add_argument("--json", action="store_true",
                     help="emit the full report as JSON on stdout")
     ap.add_argument("--select", default="",
@@ -322,18 +354,28 @@ def main(argv=None) -> int:
                     help="with --programs (registry mode): write the "
                          "derived gascap.v1 capability artifact here when "
                          "the run is clean")
+    ap.add_argument("--memory", action="store_true",
+                    help="run the memory tier (LUX701-706): buffer-"
+                         "liveness walk over every registry target's "
+                         "traced step deriving per-device peak live bytes "
+                         "and the closed-form footprint model serving "
+                         "admission trusts; with paths, check fixture "
+                         "modules' TARGETS/MODELS/MEMCAP instead")
+    ap.add_argument("--memcap-out", default="", metavar="FILE",
+                    help="with --memory (registry mode): write the derived "
+                         "memcap.v1 footprint artifact here when the run "
+                         "is clean (committed-artifact rules are skipped "
+                         "on a regeneration run)")
     ap.add_argument("--changed", action="store_true",
                     help="AST/threads tiers: restrict to .py files changed "
                          "vs git HEAD (plus untracked); the threads tier "
                          "still builds its lock-order graph over the whole "
-                         "package; --ir/--exchange registry: run only when "
-                         "a file a traced step runs changed")
+                         "package; --ir/--exchange/--memory registry: run "
+                         "only when a file a traced step runs (or, for "
+                         "--memory, serving) changed")
     ap.add_argument("--baseline", default="",
                     help="snapshot file: if missing, write current findings "
                          "and pass; if present, fail only on new findings")
-    for tier in _UNPORTED:
-        ap.add_argument(f"--{tier}", action="store_true",
-                        help="not ported (ROADMAP A16, memck)")
     args = ap.parse_args(argv)
 
     if sum(getattr(args, t) for t in _TIERS) > 1:
@@ -342,20 +384,19 @@ def main(argv=None) -> int:
     if args.list_rules:
         _list_rules()
         return 0
-    asked = [t for t in _UNPORTED if getattr(args, t)]
-    if asked:
-        ap.error(f"--{asked[0]} is not ported to lux_tpu_torch (ROADMAP "
-                 "A16, memck): run tools/luxlint.py for it")
-
-    if (args.ir or args.exchange) and args.changed and not args.paths:
+    if (args.ir or args.exchange or args.memory) and args.changed \
+            and not args.paths:
         # The registries verify live engine behaviour, not file text:
         # skip them unless a file a traced step runs changed.
+        relevant = _MEMORY_RELEVANT if args.memory else _TRACE_RELEVANT
         if not [p for p in _changed_paths()
-                if os.path.relpath(p, _REPO).startswith(_TRACE_RELEVANT)]:
+                if os.path.relpath(p, _REPO).startswith(relevant)]:
             from lux_tpu_torch.analysis.exchck import EXCHANGE_SCHEMA
             from lux_tpu_torch.analysis.ir import IR_SCHEMA
-            return _clean_skip(IR_SCHEMA if args.ir else EXCHANGE_SCHEMA,
-                               "no trace-relevant files modified")
+            from lux_tpu_torch.analysis.memck import MEMORY_SCHEMA
+            schema = (IR_SCHEMA if args.ir else MEMORY_SCHEMA
+                      if args.memory else EXCHANGE_SCHEMA)
+            return _clean_skip(schema, "no trace-relevant files modified")
     if args.ir:
         report = _run_ir(args.paths, args.select)
     elif args.exchange:
@@ -374,6 +415,8 @@ def main(argv=None) -> int:
         report = _run_tune(paths, args.select)
     elif args.programs:
         report = _run_programs(args.paths, args.select, args.gascap_out)
+    elif args.memory:
+        report = _run_memory(args.paths, args.select, args.memcap_out)
     elif args.threads:
         from lux_tpu_torch.analysis.threads import (all_thread_rules,
                                                     run_threads)

@@ -96,8 +96,8 @@ def tune(graph, program, engine_kind: str, *,
     cap = max(2, flags.get_int("LUX_TUNE_MAX_CANDIDATES"))
 
     if candidates is None:
-        # Footprint-pruned: candidates serving admission would refuse
-        # never burn probe wall-clock (none until A16, space.py).
+        # Footprint-pruned: candidates the memcap.v1 admission formula
+        # would refuse at serving time never burn probe wall-clock.
         parts = 1
         try:
             # mesh_shape is the "x"-joined mesh label ("8", "2x4").

@@ -123,13 +123,11 @@ def knob_space(engine_kind: str, *, program_name: Optional[str] = None,
     that one (the tuner then records an honest "nothing to tune").
 
     When the caller supplies the probe context (``program_name`` +
-    graph dims), candidates whose predicted footprint does not fit the
-    HBM budget are pruned *before* probing — a candidate that would be
-    refused admission at serving time is wasted probe wall-clock. Until
-    the memory tier lands (ROADMAP A16) no budget exists and nothing is
-    pruned (:func:`_fits_budget`). Candidate 0 is never pruned (the
-    default config is the comparison baseline and the honest
-    fallback)."""
+    graph dims), candidates whose memcap.v1-predicted footprint does
+    not fit the HBM budget are pruned *before* probing — a candidate
+    that would be refused admission at serving time is wasted probe
+    wall-clock. Candidate 0 is never pruned (the default config is the
+    comparison baseline and the honest fallback)."""
     axes = _axes(engine_kind)
     if not axes:
         return [{}]
@@ -150,8 +148,19 @@ def _fits_budget(cand: Dict[str, str], engine_kind: str,
                  program_name: str, nv: int, ne: int,
                  parts: int, k: int) -> bool:
     """True unless the candidate's predicted per-device footprint
-    provably exceeds the HBM budget. The footprint model (``lux_tpu``'s
-    ``analysis/memck.py``) waits for the memory tier (ROADMAP A16), so
-    no budget can be derived and every candidate fits: ``lux_tpu``'s
-    no-budget branch, the one the serve pool's admission takes too."""
-    return True
+    (under its own LUX_EXCHANGE mode) provably exceeds the HBM budget.
+    Unknown footprint or no budget means fits — pruning only ever removes
+    candidates admission would certainly refuse."""
+    try:
+        from lux_tpu_torch.analysis import memck
+
+        budget = memck.hbm_budget_bytes()
+        if budget is None:
+            return True
+        mode = cand.get("LUX_EXCHANGE", "")
+        pred = memck.predicted_engine_bytes(
+            program_name, engine_kind, mode, nv, ne, parts, k=k)
+        return pred is None or pred <= budget
+    # luxlint: disable=LUX007 -- advisory pruning: a broken predictor keeps the full space
+    except Exception:
+        return True

@@ -313,9 +313,8 @@ define("LUX_IR_BLOWUP", 16.0,
 # The serve pool's build-time audits and admission (serve/pool.py). Of
 # lux_tpu's analysis tiers the IR audit (LUX104: the engine's trace_step
 # declaration, and where it donates one unrecorded step; the doc keeps
-# lux_tpu's wording), gasck and exchck run; memck is not ported (ROADMAP
-# A16), and while its flag asks for it the pool's stats() and /statusz
-# say so.
+# lux_tpu's wording), gasck and exchck run, and memck prices every build
+# the pool admits (its flags below, with lux_tpu's names and help).
 define("LUX_IR_POOL_AUDIT", True,
        "run the LUX104 donation audit on every engine the serve pool "
        "builds (one abstract lowering per build; 0 disables)", kind="bool")
@@ -340,10 +339,39 @@ define("LUX_GASCK_TRIPLES", 64,
 define("LUX_GASCK_NV", 24,
        "luxlint --programs: vertex count of the seeded probe graphs the "
        "LUX603 push/pull duality traces run on", kind="int")
+
+# Static analysis, memory tier (analysis/memck.py) and the HBM-budgeted
+# pool residency it feeds (serve/pool.py, tune/space.py, obs/report.py)
+define("LUX_MEMCAP_DIR", None,
+       "directory holding the memcap.v1 HBM-footprint artifact "
+       "(analysis/memck.py) the serving admission formula consults; "
+       "unset = the committed lux_tpu_torch/analysis/memcap.json",
+       kind="path")
+define("LUX_MEM_MODEL_TOL", 0.25,
+       "luxlint --memory LUX704/706: max relative slack between the "
+       "closed-form footprint model and a traced peak (the model must "
+       "upper-bound the trace and stay within this fraction of it)",
+       kind="float")
+define("LUX_MEM_SWEEP_FACTOR", 2,
+       "luxlint --memory LUX704: probe-graph scale multiplier for the "
+       "model-honesty sweep (the model derived at the base scale must "
+       "bound a re-trace at factor x the base)", kind="int")
 define("LUX_MEM_POOL_ADMIT", True,
        "gate new serve-pool engine builds on the memcap.v1 predicted "
        "footprint fitting the HBM budget (0 = admit freely; admission "
        "is also skipped when no budget can be derived)", kind="bool")
+define("LUX_HBM_BUDGET_BYTES", 0,
+       "per-device HBM byte budget the serve pool admits engine builds "
+       "under; 0 = device-profile hbm_capacity_bytes x "
+       "LUX_HBM_BUDGET_FRAC (no budget at all when capacity is unknown, "
+       "e.g. cpu)", kind="int")
+define("LUX_HBM_BUDGET_FRAC", 0.85,
+       "fraction of the device-profile HBM capacity the serve pool may "
+       "fill with resident engines when LUX_HBM_BUDGET_BYTES is 0 (the "
+       "remainder is headroom for XLA scratch and staging)", kind="float")
+# luxlint --memory LUX703's declared scale (lux_tpu's bench.py knobs)
+define("LUX_BENCH_SCALE", 22, "bench.py R-MAT scale", kind="int")
+define("LUX_BENCH_EF", 16, "bench.py R-MAT edge factor", kind="int")
 define("LUX_RESULT_CACHE_BYTES", 64 << 20,
        "serve ResultCache byte budget: LRU entries evict once their "
        "summed value nbytes exceed this (the entry-count capacity still "

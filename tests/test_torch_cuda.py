@@ -2185,3 +2185,19 @@ def test_traced_steps_on_cuda_leave_executors_unchanged(dev):
         a = first if kind == "tiled" else first.values
         b = again if kind == "tiled" else again.values
         assert torch.equal(a, b), kind
+
+
+def test_memory_tier_on_the_card_matches_the_committed_artifact(dev):
+    # luxlint --memory's registry with the executors on the card: the
+    # card's artifact, derived from its own traces, holds against the
+    # committed one (LUX706 within LUX_MEM_MODEL_TOL, LUX701 coverage)
+    # and fits the card at the bench scale (LUX703).
+    from lux_tpu_torch.analysis import memck
+
+    report, art = memck.prove_registry(device=dev)
+    assert report.ok, report.format_human()
+    assert not any(r.error for r in report.results)
+    committed = memck.load_memcap(memck.memcap_path())
+    assert set(art["targets"]) == set(committed["targets"])
+    assert memck._capacity_bytes() == torch.cuda.get_device_properties(
+        0).total_memory

@@ -482,7 +482,9 @@ def test_cli_fixtures_baseline_and_refusals(tmp_path, capsys):
     new = [ln for ln in out.splitlines() if ln.endswith("[new]")]
     assert rc == 1
     assert new and all(" LUX103 " in ln for ln in new)
-    rc, _, err = _main(capsys, "--memory")
-    assert rc == 2 and "memck" in err
+    # The memory tier runs now; an IR fixture is no memory fixture.
+    rc, out, _ = _main(capsys, "--memory", paths[0])
+    assert rc == 1 and "defines neither TARGETS nor MEMCAP" in out
+    assert _summary(out)["schema"] == "luxlint-memory.v1"
     rc, _, err = _main(capsys, "--ir", "--exchange")
     assert rc == 2 and "separate tiers" in err

@@ -247,19 +247,25 @@ def test_flag_table_has_the_obs_flags():
     assert set(tflags.names()) <= set(jflags.names())
     # Of the tuner, bench, serving and lint-tier families the port
     # declares the tuner's flags (tune/), the program-contract tier's
-    # (analysis/gasck.py), the trace tiers' LUX_IR_BLOWUP and the serving
-    # knobs (the serve pool reads the audit and admission flags, and
-    # reports the unported ones as such).
+    # (analysis/gasck.py), the memory tier's (analysis/memck.py, with
+    # the two bench knobs its LUX703 reads), the trace tiers'
+    # LUX_IR_BLOWUP and the serving knobs (the serve pool reads the
+    # audit and admission flags).
     assert {n for n in tflags.names()
             if n.startswith(("LUX_TUNE", "LUX_BENCH", "LUX_SERVE",
                              "LUX_MEM", "LUX_GASCK", "LUX_GASCAP",
-                             "LUX_IR"))} == {
+                             "LUX_IR", "LUX_HBM_BUDGET"))} == {
         n for n in jflags.names()
-        if n.startswith(("LUX_TUNE", "LUX_GASCK", "LUX_GASCAP"))} | {
-        "LUX_SERVE_MESH", "LUX_MEM_POOL_ADMIT", "LUX_IR_POOL_AUDIT",
-        "LUX_IR_BLOWUP"}
-    for name in ("LUX_GASCK_SEED", "LUX_GASCK_TRIPLES", "LUX_GASCK_NV"):
+        if n.startswith(("LUX_TUNE", "LUX_GASCK", "LUX_GASCAP", "LUX_MEM",
+                         "LUX_HBM_BUDGET"))} | {
+        "LUX_SERVE_MESH", "LUX_IR_POOL_AUDIT", "LUX_IR_BLOWUP",
+        "LUX_BENCH_SCALE", "LUX_BENCH_EF"}
+    for name in ("LUX_GASCK_SEED", "LUX_GASCK_TRIPLES", "LUX_GASCK_NV",
+                 "LUX_MEMCAP_DIR", "LUX_MEM_MODEL_TOL",
+                 "LUX_MEM_SWEEP_FACTOR", "LUX_HBM_BUDGET_BYTES",
+                 "LUX_HBM_BUDGET_FRAC", "LUX_BENCH_SCALE", "LUX_BENCH_EF"):
         assert tflags.default(name) == jflags.default(name), name
+        assert tflags._flag(name).kind == jflags._flag(name).kind, name
     table = tflags.table()
     assert table.splitlines()[0].split()[:3] == ["flag", "kind", "default"]
     assert len(table.splitlines()) == len(tflags.names()) + 1

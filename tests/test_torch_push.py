@@ -298,10 +298,11 @@ def test_push_row_tasks_cover_each_row_once(name):
 
 
 def test_push_executors_build_row_tasks_and_no_items(monkeypatch):
-    # On the card the push executors give K5 the RowTasks of each CSC
-    # they run it over, with K5's thresholds (built here on the CPU from
-    # the device the executor names), and no work items; on the CPU,
-    # none.
+    # On every device the push executors give K5 the RowTasks of each
+    # CSC they run it over, with K5's thresholds (built here on the CPU
+    # from the device the executor names), and no work items: the
+    # schedule is engine memory, which the memory tier prices alike on
+    # the card and the CPU.
     from lux_tpu_torch.engine import sharded
     from lux_tpu_torch.engine.push_sharded import ShardedPushExecutor
 
@@ -330,9 +331,14 @@ def test_push_executors_build_row_tasks_and_no_items(monkeypatch):
     assert built and set(built) == {"meta"}
     assert "items" not in {f.name for f in
                            sharded.dataclasses.fields(sharded.Part)}
-    assert tpush.PushExecutor(g, SSSP(), device="cpu").tasks is None
+    monkeypatch.setattr(tseg.RowTasks, "build", staticmethod(real))
+    want = real(g.row_ptr, CPU, *tseg.PUSH_TASK_EDGES)
+    cpu = tpush.PushExecutor(g, SSSP(), device="cpu").tasks
+    assert cpu.tasks.device == CPU and torch.equal(cpu.tasks, want.tasks)
     cpu = ShardedPushExecutor(g, SSSP(), num_parts=4, device="cpu")
-    assert all(part.tasks is None for part in cpu._parts)
+    for q, part in enumerate(cpu._parts):
+        want = real(cpu.sg.local_row_ptr[q], CPU, *tseg.PUSH_TASK_EDGES)
+        assert torch.equal(part.tasks.tasks, want.tasks)
 
 
 # -- plain versions of K5-K7 against the lux_tpu code they replace ----------

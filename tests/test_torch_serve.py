@@ -42,7 +42,7 @@ from lux_tpu_torch.serve import (
     Session,
 )
 from lux_tpu_torch.serve.pool import (EXCH_AUDIT_STATUS, GAS_AUDIT_STATUS,
-                                      NOT_PORTED)
+                                      MEM_ADMIT_STATUS)
 
 ROOTS = (0, 5, 77, 300)
 
@@ -161,20 +161,23 @@ def test_engine_pool_builds_once():
     assert a is bb and builds == [1]
     st = pool.stats()
     audits = st.pop("audits")
-    # lux_tpu's dict, but for the footprint model, which is not ported.
-    # The program-algebra and exchange-plan audits run; their counters
-    # are process-global, as lux_tpu's are, and exch_findings is an int.
+    # lux_tpu's dict. The program-algebra and exchange-plan audits run;
+    # their counters are process-global, as lux_tpu's are, and
+    # exch_findings is an int. An unpriced build holds no residency.
     gas = metrics.counter("lux_gas_findings_total").value
+    evictions = metrics.counter("lux_pool_hbm_evictions_total").value
     assert st == {"engines": 1, "hits": 1, "misses": 1, "retired": 0,
                   "warmup_compiles": 0, "recompiles": 0,
                   "ir_findings": 0, "exch_findings": 0,
-                  "gas_findings": gas, "hbm_resident_bytes": None,
-                  "hbm_evictions": 0}
+                  "gas_findings": gas, "hbm_resident_bytes": 0,
+                  "hbm_evictions": evictions}
     assert audits["exchck"]["status"] == EXCH_AUDIT_STATUS
     assert audits["exchck"]["audited_builds"] == 0   # no plan carried
     assert audits["gasck"]["status"] == GAS_AUDIT_STATUS
     assert audits["gasck"]["audited_builds"] == 0   # no program carried
-    assert audits["memck"]["status"].startswith(NOT_PORTED)
+    assert audits["memck"]["status"] == MEM_ADMIT_STATUS
+    assert audits["memck"]["priced_builds"] == 0   # none was priced
+    assert audits["memck"]["budget_bytes"] is None   # the CPU has none
     pool.close()
 
 
@@ -487,7 +490,9 @@ def test_stats_and_statusz_say_what_is_not_ported(pair):
         assert sz["audits"][name]["requested"]
     mem = sz["memory"]
     assert mem["budget_bytes"] is None and mem["admission"]
-    assert mem["reason"].startswith(NOT_PORTED)
+    assert "reason" not in mem
+    assert mem["artifact_id"].startswith("memcap-")
+    assert mem["resident_bytes"] == st["pool"]["hbm_resident_bytes"] > 0
     assert mem["device_peak_bytes"] is None
     assert sz["tune"]["armed"] is False and sz["tune"]["artifacts"] == {}
     assert sz["tune"]["cache"]["armed"] is False

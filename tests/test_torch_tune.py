@@ -626,18 +626,21 @@ def test_luxlint_tune_output_equals_tools_luxlint(tmp_path):
 
 
 def test_luxlint_refuses_unported_tiers(monkeypatch):
-    # The memory tier (--memory) is still refused; the AST, --threads,
-    # --plans, --exchange and --ir tiers run (--ir over a torch fixture:
-    # its rule fires, rc 1, not the usage error).
-    proc = _luxlint(LUXLINT, "--memory")
-    assert proc.returncode == 2
-    assert "A16" in proc.stderr
+    # No tier is refused any more: the AST, --threads, --plans,
+    # --exchange, --ir and --memory tiers run (--ir and --memory over a
+    # torch fixture: its rule fires, rc 1, not the usage error).
     monkeypatch.setenv("LUX_PLATFORM", "cpu")
     fixture = os.path.join(REPO, "tests", "torch_ir_fixtures",
                            "lux104_donation.py")
     proc = _luxlint(LUXLINT, "--ir", fixture)
     assert proc.returncode == 1, proc.stdout + proc.stderr
     assert "LUX104" in proc.stdout
+    fixture = os.path.join(REPO, "tests", "torch_mem_fixtures",
+                           "lux703_overcommit.py")
+    proc = _luxlint(LUXLINT, "--memory", fixture)
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert '"by_rule": {"LUX703": 1}' in proc.stdout
+    assert "not ported" not in proc.stdout + proc.stderr
     for args in ((), ("--threads",), ("lux_tpu_torch",)):
         proc = _luxlint(LUXLINT, *args)
         assert proc.returncode == 0, (args, proc.stdout + proc.stderr)
@@ -654,9 +657,10 @@ def test_luxlint_refuses_unported_tiers(monkeypatch):
         + ["LUX401", "LUX402", "LUX403", "LUX407"]
         + [f"LUX{i}" for i in range(501, 505)]
         + [f"LUX{i}" for i in range(601, 607)]
+        + [f"LUX{i}" for i in range(701, 707)]
         + [f"LUX{i}" for i in range(101, 106)]
         + ["LUX404", "LUX405", "LUX406"])
-    assert "LUX701-706" in listed.stdout
+    assert "not ported" not in listed.stdout
 
 
 # -- probe scoring --------------------------------------------------------
